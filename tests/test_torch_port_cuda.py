@@ -29,6 +29,7 @@ from vipformer_tpu_torch.ops.cuda import knn as kknn
 from vipformer_tpu_torch.ops.cuda import stem as kstem
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+SERVING_KERNELS = ("fps", "knn", "stem", "attn_kv_ln", "attn_small")
 
 # (batch, points, groups, group size, width, heads)
 SHAPES = [(3, 2048, 64, 32, 384, 6), (2, 1000, 128, 16, 256, 4), (1, 512, 32, 32, 128, 2)]
@@ -84,12 +85,12 @@ def test_kernels_match_twins(dev, shape, dt):
 @pytest.mark.cuda
 def test_model_on_card_matches_cpu(dev):
     """A small classifier on the card (f32) against the same weights on the
-    CPU: equal logits within 1e-4, every kernel launched."""
+    CPU: equal logits within 1e-4, every serving kernel (K1-K5) launched."""
     kw = dict(num_latents=32, num_latent_channels=128, group_size=16,
               num_cross_attention_heads=2, num_self_attention_layers=2,
               num_self_attention_heads=2, mlp_widen_factor=2, num_obj_classes=7,
               dtype=torch.float32)
-    cpu = CrossFormerPCFT(**kw)
+    cpu = CrossFormerPCFT(**kw, device="cpu")
     card = CrossFormerPCFT(**kw, device=dev)
     card.load_state_dict(cpu.state_dict(), strict=True)
     pts = torch.from_numpy(np.random.default_rng(1).standard_normal((4, 512, 3)).astype(
@@ -98,5 +99,170 @@ def test_model_on_card_matches_cpu(dev):
     with torch.inference_mode():
         want, _ = cpu(pts)
         got, _ = card(pts.to(dev))
-    assert all(n > 0 for n in kcuda.launch_counts().values()), kcuda.launch_counts()
+    counts = kcuda.launch_counts()
+    assert all(counts[k] > 0 for k in SERVING_KERNELS), counts
     _assert_close(got.cpu(), want, torch.float32)
+
+
+# ---------------------------------------------------------------- K7-K10
+# Kernel against twin on the card, forward and backward given the same
+# saved tensors, at ragged and odd shapes: token counts that are not a
+# multiple of the 64-row tiles, B=1, a single query, odd group sizes.
+# Tolerances as above for outputs; gradients (longer sums) within 1e-4
+# (f32) and 5e-2 (bf16) of max(1, max |twin|).
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+
+
+def _assert_grad_close(got, want, dt):
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= GRAD_TOL[dt] * max(1.0, want.float().abs().max().item()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,g,m,h", [(1, 144, 144, 4), (2, 100, 70, 2), (1, 1, 5, 1)])
+def test_flash_train_kernel_matches_twin(dev, b, g, m, h, dt, rate):
+    from vipformer_tpu_torch.ops.cuda import flash_train as kf
+
+    rng = np.random.default_rng(1)
+    d = 64 * h
+    q, k, v, do = (_t(rng, (b, n, d), dev, dt) for n in (g, m, m, g))
+    seed = torch.tensor([77], dtype=torch.int32, device=dev)
+    scale = 64 ** -0.5
+    out_k, lse_k = kf.attention_fwd_kernel(q, k, v, seed, h, scale, rate)
+    out_p, lse_p = kf.attention_fwd_plain(q, k, v, seed, h, scale, rate)
+    _assert_close(out_k, out_p, dt)
+    _assert_close(lse_k, lse_p, torch.float32)
+    delta = kf.attention_delta(do, out_p, h)
+    for got, want in zip(kf.attention_bwd_kernel(q, k, v, do, lse_p, delta, seed, h, scale, rate),
+                         kf.attention_bwd_plain(q, k, v, do, lse_p, delta, seed, h, scale, rate)):
+        _assert_grad_close(got, want, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,g,m,din,h", [(1, 144, 144, 256, 4), (2, 50, 300, 96, 2)])
+def test_flash_train_kv_kernel_matches_twin(dev, b, g, m, din, h, dt):
+    from vipformer_tpu_torch.ops.cuda import flash_train as kf
+
+    rng = np.random.default_rng(2)
+    d = 64 * h
+    args = (_t(rng, (b, g, d), dev, dt), _t(rng, (b, m, din), dev, dt),
+            _t(rng, (din,), dev, scale=0.2) + 1.0, _t(rng, (din,), dev, scale=0.1),
+            _t(rng, (din, d), dev, dt, din ** -0.5), _t(rng, (din, d), dev, dt, din ** -0.5))
+    do = _t(rng, (b, g, d), dev, dt)
+    seed = torch.tensor([5], dtype=torch.int32, device=dev)
+    out_k, _ = kf.attention_kv_fwd_kernel(*args, seed, h, 0.125, 0.1)
+    out_p, lse_p = kf.attention_kv_fwd_plain(*args, seed, h, 0.125, 0.1)
+    _assert_close(out_k, out_p, dt)
+    delta = kf.attention_delta(do, out_p, h)
+    for got, want in zip(kf.attention_kv_bwd_kernel(*args, do, lse_p, delta, seed, h, 0.125, 0.1),
+                         kf.attention_kv_bwd_plain(*args, do, lse_p, delta, seed, h, 0.125, 0.1)):
+        _assert_grad_close(got, want, dt)
+
+
+@pytest.mark.cuda
+def test_dropout_mask_kernel_matches_twin(dev):
+    from vipformer_tpu_torch.ops.cuda import flash_train as kf
+
+    seed = torch.tensor([123456], dtype=torch.int32, device=dev)
+    assert torch.equal(kf.dropout_mask_kernel(seed, 6, 70, 130, 0.1),
+                       kf.keep_mask_plain(seed, 6, 70, 130, 0.1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,g,s,d", [(1, 8, 32, 256), (2, 5, 7, 64)])
+def test_g2e_train_kernel_matches_twin(dev, b, g, s, d, dt):
+    from vipformer_tpu_torch.ops.cuda import g2e_train as kg
+
+    rng = np.random.default_rng(3)
+    wb = [init_weights(Group2Emb(3, d), 0).to(dev)]
+    m = wb[0]
+    wb = [m.Dense_0.weight.t(), m.Dense_0.bias, _t(rng, (64,), dev, scale=0.2) + 1.0,
+          _t(rng, (64,), dev, scale=0.1), m.Dense_1.weight.t(), m.Dense_1.bias,
+          m.Dense_2.weight.t(), m.Dense_2.bias, _t(rng, (256,), dev, scale=0.2) + 1.0,
+          _t(rng, (256,), dev, scale=0.1), m.Dense_3.weight.t(), m.Dense_3.bias]
+    wb = [w.detach().float() for w in wb]
+    x0 = _t(rng, (b * g * s, 3), dev, dt)
+    got = kg.g2e_fwd_kernel(x0, wb, s)
+    want = kg.g2e_fwd_plain(x0, wb, s)
+    _assert_close(got[0], want[0], dt)  # out
+    _assert_close(got[1], want[1], dt)  # h3p
+    _assert_close(got[3], want[3], torch.float32)  # statistics
+    dy = _t(rng, (b * g, d), dev, dt)
+    _, h3p, amax, stats = want
+    dx_k, gr_k = kg.g2e_bwd_kernel(x0, wb, h3p, amax, stats, dy, s)
+    dx_p, gr_p = kg.g2e_bwd_plain(x0, wb, h3p, amax, stats, dy, s)
+    _assert_grad_close(dx_k, dx_p, dt)
+    for got_g, want_g in zip(gr_k, gr_p):
+        _assert_grad_close(got_g, want_g, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,gnum,s,n,c", [(1, 4, 8, 50, 3), (3, 16, 32, 700, 6)])
+def test_gather_centered_kernel_matches_twin(dev, b, gnum, s, n, c, dt):
+    from vipformer_tpu_torch.ops.cuda import gather as kg
+
+    rng = np.random.default_rng(4)
+    pts, centers = _t(rng, (b, n, c), dev, dt), _t(rng, (b, gnum, 3), dev)
+    idx = torch.from_numpy(rng.integers(0, n, (b, gnum * s)).astype(np.int32)).to(dev)
+    assert torch.equal(kg.gather_centered_kernel(pts, centers, idx, s),
+                       kg.gather_centered_plain(pts, centers, idx, s))
+    grad = _t(rng, (b, gnum * s, c), dev, dt)
+    for got, want in zip(kg.scatter_centered_kernel(grad, idx, n, gnum, s),
+                         kg.scatter_centered_plain(grad, idx, n, gnum, s)):
+        _assert_grad_close(got, want, torch.float32)
+
+
+@pytest.mark.cuda
+def test_pretrain_step_on_card_matches_cpu(dev):
+    """A small f32 pretrain step (dropout 0, FPS from index 0; 300 points,
+    a token count off the 64-row tiles) on the card against the same step
+    on the CPU, held as chip_smoke.py holds the flagship's: the IMID step's
+    loss within 1e-4 and every gradient leaf within 1e-3 of max(1, max|cpu|);
+    the image branch's backbone features within 1e-4 and its gradients
+    below the head, under one fixed cotangent, within 1e-3; Group2Emb's
+    leaves, behind its final max pool (near-ties may route a group's
+    gradient to another row), within 2e-2. K1, K2, K7-K9 forward and
+    backward and K10's forward launched on the card."""
+    from vipformer_tpu_torch.config import Config, decode_arch_name
+    from vipformer_tpu_torch.models.factory import build_img_model, build_pc_model
+    from vipformer_tpu_torch.train.trainer import create_state, make_pretrain_step
+
+    cfg = Config(**decode_arch_name("E1CL2SL-H2D128-L32-MR2"), group_size=16,
+                 num_pt_points=300, img_height=36, img_width=36, patch_size=12,
+                 compute_dtype="float32", atten_drop=0.0, mlp_drop=0.0, max_dpr=0.0,
+                 modality="imc-only")
+    rng = np.random.default_rng(5)
+    b = 3
+    batch = {"pc_t1": rng.standard_normal((b, 300, 3)).astype(np.float32),
+             "pc_t2": rng.standard_normal((b, 300, 3)).astype(np.float32)}
+    imgs = torch.from_numpy(rng.standard_normal((b, 36, 36, 3)).astype(np.float32))
+    cot = torch.from_numpy(rng.standard_normal((b, 256)).astype(np.float32))
+    got = {}
+    for d in ("cpu", dev):
+        kcuda.reset_launch_counts()
+        pc, img = build_pc_model(cfg, device=d), build_img_model(cfg, device=d)
+        _, metrics = make_pretrain_step(cfg, pc)(create_state(cfg, {"pc": pc}), batch, 1e-3)
+        img.train()
+        _, feats = img(imgs.to(d))
+        (feats * cot.to(d)).sum().backward()
+        got[str(d)] = (float(metrics["loss"]), feats.detach().cpu(),
+                       {f"{n}.{k}": p.grad.detach().cpu()
+                        for n, m in (("pc", pc), ("img", img))
+                        for k, p in m.named_parameters() if p.grad is not None})
+    counts = kcuda.launch_counts()
+    assert all(counts[k] > 0 for k in ("fps", "knn", "attn_train_kv_fwd", "attn_train_kv_bwd",
+                                       "attn_train_fwd", "attn_train_bwd", "g2e_train_fwd",
+                                       "g2e_train_bwd", "gather_centered_fwd")), counts
+    (loss_c, feats_c, grads_c), (loss_g, feats_g, grads_g) = got["cpu"], got["cuda"]
+    assert abs(loss_g - loss_c) <= 1e-4 * max(1.0, abs(loss_c))
+    assert (feats_g - feats_c).abs().max().item() <= 1e-4 * max(1.0, feats_c.abs().max().item())
+    assert set(grads_g) == set(grads_c)
+    for k, want in grads_c.items():
+        err = (grads_g[k] - want).abs().max().item()
+        tol = 2e-2 if k.startswith("pc.stem.group2emb.") else 1e-3
+        assert err <= tol * max(1.0, want.abs().max().item()), (k, err)

@@ -17,13 +17,13 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from vipformer_tpu.config import Config, decode_arch_name
 from vipformer_tpu.models import crossformer as jcf
 from vipformer_tpu.nn import layers as jl
 from vipformer_tpu.nn import perceiver as jp
 from vipformer_tpu.nn import pointnet as jpn
 from vipformer_tpu.ops import geometry as jgeo
 from vipformer_tpu.ops.pallas import stem as jstem
+from vipformer_tpu_torch.config import Config, decode_arch_name
 from vipformer_tpu_torch.convert import from_jax_variables
 from vipformer_tpu_torch.inference import classifier_predictor
 from vipformer_tpu_torch.models import crossformer as tcf
@@ -137,7 +137,7 @@ def slice_models():
     ):
         jm = jcls(**SMALL, **extra, dtype=jnp.float32)
         v = _variables(rng, jm, jnp.zeros((1, 128, 3)), True)
-        tm = _load(tcls(**SMALL, **extra, dtype=torch.float32), v)
+        tm = _load(tcls(**SMALL, **extra, dtype=torch.float32, device="cpu"), v)
         out[name] = (jm, v, tm)
     return pts, out
 
@@ -204,27 +204,29 @@ def test_predictor_strips_padding(slice_models):
 def test_factory_builds_from_config():
     cfg = Config(**decode_arch_name("E1CL2SL-H4D32-L16-MR2"), group_size=8,
                  num_obj_classes=5, compute_dtype="float32")
-    ft, pc = build_ft_cls(cfg), build_pc_model(cfg)
+    ft, pc = build_ft_cls(cfg, device="cpu"), build_pc_model(cfg, device="cpu")
     assert isinstance(ft, tcf.CrossFormerPCFT) and isinstance(pc, tcf.CrossFormerPC)
     assert len(ft.encoder.sa_layers) == 2 and ft.stem.dtype == torch.float32
     # same seed, same weights
-    a, b = build_ft_cls(cfg).state_dict(), ft.state_dict()
+    a, b = build_ft_cls(cfg, device="cpu").state_dict(), ft.state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_ft_cls(cfg.replace(mp=False))
+        build_ft_cls(cfg.replace(mp=False), device="cpu")
 
 
 def test_chip_smoke_builds_the_configured_flagship(capsys):
-    """chip_smoke.py writes the flagship's model arguments out (it loads
-    nothing of the JAX package); they are what the config decodes, and
-    without a card the script fails before printing a result."""
+    """chip_smoke.py builds its models through the port's factory from the
+    flagship's arch name, decoded by the port's Config as the JAX package
+    decodes it; without a card the script fails before printing a result."""
     import chip_smoke
-    from vipformer_tpu_torch.models.factory import _mp_common
+    from vipformer_tpu.config import Config as JaxConfig
+    from vipformer_tpu.config import decode_arch_name as jax_decode
 
-    cfg = Config(**decode_arch_name(chip_smoke.ARCH), num_obj_classes=chip_smoke.NUM_CLASSES)
-    want = _mp_common(cfg)
-    want.pop("dtype")
-    assert chip_smoke.FLAGSHIP == dict(want, num_obj_classes=cfg.num_obj_classes)
+    cfg = chip_smoke.config()
+    jcfg = JaxConfig(**jax_decode(chip_smoke.ARCH))
+    for key in jax_decode(chip_smoke.ARCH):
+        assert getattr(cfg, key) == getattr(jcfg, key), key
+    assert (cfg.num_latent_channels, cfg.num_sa_layers, cfg.num_pc_latents) == (256, 8, 128)
     assert chip_smoke.main() != 0
     assert '"ok"' not in capsys.readouterr().out
 
@@ -234,16 +236,16 @@ def test_port_imports_no_jax():
     optax out of sys.modules."""
     code = (
         "import sys, torch\n"
-        "from vipformer_tpu.config import Config, decode_arch_name\n"
+        "from vipformer_tpu_torch.config import Config, decode_arch_name\n"
         "from vipformer_tpu_torch.models.factory import build_ft_cls\n"
         "from vipformer_tpu_torch.inference import classifier_predictor\n"
         "import numpy as np\n"
         "cfg = Config(**decode_arch_name('E1CL1SL-H4D32-L16-MR2'), group_size=8,\n"
         "             num_obj_classes=3, compute_dtype='float32')\n"
-        "out = classifier_predictor(build_ft_cls(cfg), max_batch=2)(\n"
+        "out = classifier_predictor(build_ft_cls(cfg, device='cpu'), max_batch=2)(\n"
         "    np.zeros((1, 128, 3), np.float32))\n"
         "assert np.isfinite(out['logits']).all()\n"
-        "bad = [m for m in ('jax', 'flax', 'optax') if m in sys.modules]\n"
+        "bad = [m for m in ('jax', 'flax', 'optax', 'vipformer_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )

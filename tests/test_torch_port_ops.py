@@ -133,7 +133,7 @@ def test_stem_twin_matches_pallas(rng):
     idx = knn_pallas(s, jnp.asarray(pts), centers, interpret=True)
     want = group2emb_fused_apply(variables["params"], variables["batch_stats"],
                                  jnp.asarray(pts), centers, idx, jnp.float32, interpret=True)
-    g2e = Group2Emb(3, d)
+    g2e = Group2Emb(3, d).eval()  # the serving stem: running statistics
     g2e.load_state_dict(from_jax_variables(variables), strict=True)
     with torch.no_grad():
         got = kstem.group2emb_fused_apply(

@@ -7,8 +7,9 @@ counterpart; state-dict keys follow the flax parameter paths (see
 `convert.py`).
 
 This package imports torch, numpy and the standard library only: never
-jax, flax or optax. It shares `vipformer_tpu.config` (argparse and
-dataclasses only).
+jax, flax or optax, and nothing of `vipformer_tpu`, not even its modules
+that import no JAX: it keeps its own copies of those it needs (`config.py`,
+`train/schedules.py`, `data/`).
 """
 
 __version__ = "0.1.0"

@@ -6,6 +6,7 @@ map as
   params/.../kernel       -> ....weight (transposed: flax [in, out], torch [out, in])
   params/.../scale        -> ....weight (LayerNorm, BatchNorm)
   params/.../bias         -> ....bias
+  params/.../position_emb -> ....position_emb (the image branch's, as it is)
   batch_stats/.../mean    -> ....running_mean
   batch_stats/.../var     -> ....running_var
 
@@ -21,7 +22,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
-_PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+_PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias",
+                 "position_emb": "position_emb"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -49,3 +51,9 @@ def from_jax_variables(variables: Mapping) -> dict[str, torch.Tensor]:
             key = ".".join(path[:-1] + (names[leaf],))
             out[key] = torch.from_numpy(np.array(arr, copy=True, order="C"))
     return out
+
+
+def grads_from_jax(grads: Mapping) -> dict[str, torch.Tensor]:
+    """A JAX gradient tree over `params` (nested dicts of arrays) -> the
+    same gradients under the port's parameter names and layouts."""
+    return from_jax_variables({"params": grads})

@@ -1,0 +1,77 @@
+"""Deterministic synthetic ShapeNetRender stand-in (the port's own copy of
+the classification-cloud and splat-image parts of
+vipformer_tpu/data/synthetic.py): class-structured parametric clouds and
+an orthographic splat of each as its "render", so the contrastive
+objectives have real signal without the real corpus.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def _primitive(label: int, n: int, rng: np.random.Generator) -> np.ndarray:
+    """A noisy parametric shape whose geometry depends on the label."""
+    kind = label % 4
+    u = rng.uniform(0, 2 * np.pi, n)
+    v = rng.uniform(-1, 1, n)
+    squash = 0.4 + 0.15 * (label // 4)
+    if kind == 0:  # ellipsoid
+        phi = np.arccos(v)
+        pts = np.stack(
+            [np.sin(phi) * np.cos(u), np.sin(phi) * np.sin(u) * squash,
+             np.cos(phi)], -1)
+    elif kind == 1:  # torus
+        r = 0.25 + 0.05 * (label // 4)
+        w = rng.uniform(0, 2 * np.pi, n)
+        pts = np.stack(
+            [(1 - r * np.cos(w)) * np.cos(u),
+             (1 - r * np.cos(w)) * np.sin(u), r * np.sin(w) * (1 + squash)],
+            -1)
+    elif kind == 2:  # box surface
+        face = rng.integers(0, 6, n)
+        a = rng.uniform(-1, 1, n)
+        b = rng.uniform(-1, 1, n)
+        pts = np.zeros((n, 3))
+        s = np.where(face % 2 == 0, 1.0, -1.0)
+        ax = face // 2
+        for d in range(3):
+            sel = ax == d
+            pts[sel, d] = s[sel] * squash * 2
+            pts[sel, (d + 1) % 3] = a[sel]
+            pts[sel, (d + 2) % 3] = b[sel]
+    else:  # cone
+        h = rng.uniform(0, 1, n)
+        pts = np.stack(
+            [(1 - h) * np.cos(u) * squash, (1 - h) * np.sin(u), 2 * h - 1],
+            -1)
+    pts += 0.02 * rng.standard_normal((n, 3))
+    return pts.astype(np.float32)
+
+
+def synthetic_classification(
+    num_samples: int, num_points: int, num_classes: int, seed: int = 0
+) -> tuple[np.ndarray, np.ndarray]:
+    """-> (data [S, N, 3], labels [S])."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, num_classes, num_samples)
+    data = np.stack(
+        [_primitive(int(l), num_points, rng) for l in labels]
+    )
+    return data.astype(np.float32), labels.astype(np.int64)
+
+
+def splat_image(pts: np.ndarray, size: int = 137) -> np.ndarray:
+    """Orthographic splat of a cloud into an RGB uint8 image (a stand-in for
+    the ShapeNetRendering views; depth colors the channel mix)."""
+    img = np.zeros((size, size, 3), dtype=np.float32)
+    xyz = pts[:, :3]
+    lo, hi = xyz.min(0), xyz.max(0)
+    uvz = (xyz - lo) / np.maximum(hi - lo, 1e-6)
+    u = np.clip((uvz[:, 0] * (size - 1)).astype(int), 0, size - 1)
+    v = np.clip((uvz[:, 1] * (size - 1)).astype(int), 0, size - 1)
+    z = uvz[:, 2]
+    img[v, u, 0] = np.maximum(img[v, u, 0], 1 - z)
+    img[v, u, 1] = np.maximum(img[v, u, 1], z)
+    img[v, u, 2] = 0.5
+    return (img * 255).astype(np.uint8)

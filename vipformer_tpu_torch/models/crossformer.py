@@ -1,11 +1,16 @@
-"""CrossFormer models, eval forward (counterpart of
-vipformer_tpu/models/crossformer.py: the point-cloud pretraining branch and
-the classification finetune model).
+"""CrossFormer models (counterpart of vipformer_tpu/models/crossformer.py:
+the point-cloud and image pretraining branches and the classification
+finetune model).
 
-Every model takes `device` and `dtype` (the compute dtype; parameters stay
-f32 as in the flax tree) and a `seed` for its random init, drawn with a
-`torch.Generator`. Eval only: dropout and DropPath are identities, and FPS
-starts at index 0 (the JAX models without an `fps` rng).
+Every model takes `device` (the card by default; the CPU only when asked)
+and `dtype` (the compute dtype; parameters stay f32 as in the flax tree)
+and a `seed` for its random init, drawn with a `torch.Generator`. Models
+are built in eval mode: dropout and DropPath are identities and FPS starts
+at index 0 (the JAX models without an `fps` rng). After `model.train()`
+the forward is the JAX `deterministic=False` one: batch-statistics
+BatchNorm, the training kernels K7-K10, and dropout, DropPath and FPS's
+random start drawn from the `generator` argument (FPS starts at 0 when it
+is None, and a nonzero dropout rate then raises).
 """
 
 from __future__ import annotations
@@ -13,7 +18,14 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from vipformer_tpu_torch.nn.layers import BatchNorm, CrossAttentionLayer, Dense, SelfAttentionLayer
+from vipformer_tpu_torch.nn.adapters import ImagePatchify, _PatchDense
+from vipformer_tpu_torch.nn.layers import (
+    BatchNorm,
+    CrossAttentionLayer,
+    Dense,
+    SelfAttentionLayer,
+    dpr_schedule,
+)
 from vipformer_tpu_torch.nn.perceiver import LatentFeatsHead, pool_latents
 from vipformer_tpu_torch.nn.pointnet import Group2Emb, PointCloudInputAdapter, PositionEmb
 from vipformer_tpu_torch.ops.cuda.stem import fused_stem_supported, group2emb_fused_apply
@@ -28,35 +40,42 @@ class MPEncoder(nn.Module):
     """Modal-prior encoder: cross-attention(s), then the self-attention
     stack with the position embedding re-added before every layer; returns
     the final latents. (The per-layer taps of the segmentation models come
-    with their slice.)"""
+    with their slice.) Train mode: attention dropout `atten_drop`, residual
+    dropout `mlp_drop` (also after the self-attention, the mp family's
+    rule), DropPath linspace 0 -> `max_dpr` over the self-attention layers
+    and 0 in the cross-attention layers."""
 
     def __init__(self, num_latent_channels: int, num_cross_attention_layers: int = 1,
                  num_cross_attention_heads: int = 4, num_self_attention_layers: int = 6,
-                 num_self_attention_heads: int = 4, widening_factor: int = 1, dtype=None):
+                 num_self_attention_heads: int = 4, widening_factor: int = 1, dtype=None,
+                 max_dpr: float = 0.0, atten_drop: float = 0.0, mlp_drop: float = 0.0):
         super().__init__()
         if num_cross_attention_layers <= 0:
             raise ValueError("num_cross_attention_layers must be > 0")
         d = num_latent_channels
         self.num_cross_attention_layers = num_cross_attention_layers
+        drops = dict(atten_drop=atten_drop, mlp_drop=mlp_drop)
         self.cross_attn_n = CrossAttentionLayer(d, num_cross_attention_heads, widening_factor,
-                                                dtype)
+                                                dtype, **drops)
         if num_cross_attention_layers > 1:
             self.cross_attn_1 = CrossAttentionLayer(d, num_cross_attention_heads,
-                                                    widening_factor, dtype)
+                                                    widening_factor, dtype, **drops)
         self.sa_layers = []
+        dprs = dpr_schedule(max_dpr, num_self_attention_layers)
         for i in range(num_self_attention_layers):
-            layer = SelfAttentionLayer(d, num_self_attention_heads, widening_factor, dtype)
+            layer = SelfAttentionLayer(d, num_self_attention_heads, widening_factor, dtype,
+                                       drop_path_rate=dprs[i], post_attn_drop=mlp_drop, **drops)
             self.add_module(f"sa_{i}", layer)  # flax name: encoder/sa_{i}
             self.sa_layers.append(layer)
 
-    def forward(self, group_embs, pos_embs, pts_embs):
+    def forward(self, group_embs, pos_embs, pts_embs, generator=None):
         # a single cross-attention layer is shared (one entry in the tree)
         first = self.cross_attn_n if self.num_cross_attention_layers == 1 else self.cross_attn_1
-        x = first(group_embs + pos_embs, pts_embs)
+        x = first(group_embs + pos_embs, pts_embs, generator)
         for i, sa_layer in enumerate(self.sa_layers):
             if i + 1 < self.num_cross_attention_layers:
-                x = self.cross_attn_n(x + pos_embs, pts_embs)
-            x = sa_layer(x + pos_embs)
+                x = self.cross_attn_n(x + pos_embs, pts_embs, generator)
+            x = sa_layer(x + pos_embs, generator)
         return x
 
 
@@ -79,19 +98,21 @@ class _PointPatchStem(nn.Module):
         self.group2emb = Group2Emb(3, d, dtype)
         self.position_emb = PositionEmb(3, d, dtype)
 
-    def forward(self, pts):
+    def forward(self, pts, generator=None):
         dt = self.dtype or pts.dtype
         pts_embs = self.input_adapter(pts.to(dt))
-        if fused_stem_supported(self.num_latents, self.group_size, pts.shape[1], True,
-                                self.patch_compat):
+        if fused_stem_supported(self.num_latents, self.group_size, pts.shape[1],
+                                not self.training, self.patch_compat):
             # eval fast path: FPS (K1) banks the centers, kNN (K2), then the
             # gather + Group2Emb chain (K3) with no [B, G, S, C] tensor
             _, centers = farthest_point_sample_with_centers(pts, self.num_latents)
             idx = knn(self.group_size, pts[..., :3], centers[..., :3])
             group_embs = group2emb_fused_apply(self.group2emb, pts, centers, idx, dt)
         else:
+            # train mode: FPS (K1, random start from `generator`), kNN (K2),
+            # the centered gather (K10) and train-mode Group2Emb (K9)
             neighbors, centers = divide_patches(
-                pts, self.num_latents, self.group_size,
+                pts, self.num_latents, self.group_size, generator,
                 neighbor_dtype=dt, compat=self.patch_compat,
             )
             group_embs = self.group2emb(neighbors)
@@ -101,41 +122,48 @@ class _PointPatchStem(nn.Module):
 
 def init_weights(model: nn.Module, seed: int) -> nn.Module:
     """Deterministic random init from `seed` (torch-default Linear bounds;
-    norms at identity, BatchNorm statistics at mean 0 / var 1)."""
+    norms at identity, BatchNorm statistics at mean 0 / var 1, the image
+    position embedding standard normal)."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for mod in model.modules():
-            if isinstance(mod, Dense):
+            if isinstance(mod, (Dense, _PatchDense)):
                 bound = mod.weight.shape[1] ** -0.5
                 for p in (mod.weight, mod.bias):
                     if p is not None:
                         p.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=gen))
+            elif isinstance(mod, ImagePatchify):
+                mod.position_emb.copy_(torch.randn(mod.position_emb.shape, generator=gen))
     return model
+
+
+def _finish(model: nn.Module, device, seed: int) -> None:
+    """Random init from `seed`, then onto `device`, in eval mode."""
+    init_weights(model, seed)
+    model.to(device)
+    model.eval()
 
 
 class _PointModel(nn.Module):
     """Stem + MPEncoder + max||mean pooling: the common body of
-    CrossFormerPC and CrossFormerPCFT (eval; the random init from `seed`
-    happens in the subclass once its head exists)."""
+    CrossFormerPC and CrossFormerPCFT (the random init from `seed` happens
+    in the subclass once its head exists)."""
 
     def __init__(self, num_latents, num_latent_channels, group_size, patch_compat,
                  num_cross_attention_layers, num_cross_attention_heads,
-                 num_self_attention_layers, num_self_attention_heads, mlp_widen_factor, dtype):
+                 num_self_attention_layers, num_self_attention_heads, mlp_widen_factor, dtype,
+                 max_dpr, atten_drop, mlp_drop):
         super().__init__()
         self.stem = _PointPatchStem(num_latents, num_latent_channels, group_size,
                                     patch_compat=patch_compat, dtype=dtype)
         self.encoder = MPEncoder(
             num_latent_channels, num_cross_attention_layers, num_cross_attention_heads,
-            num_self_attention_layers, num_self_attention_heads, mlp_widen_factor, dtype)
+            num_self_attention_layers, num_self_attention_heads, mlp_widen_factor, dtype,
+            max_dpr, atten_drop, mlp_drop)
 
-    def _finish(self, device, seed):
-        init_weights(self, seed)
-        self.to(device)
-        self.eval()
-
-    def backbone(self, pts):
-        pts_embs, group_embs, pos_embs, _ = self.stem(pts)
-        return pool_latents(self.encoder(group_embs, pos_embs, pts_embs))
+    def backbone(self, pts, generator=None):
+        pts_embs, group_embs, pos_embs, _ = self.stem(pts, generator)
+        return pool_latents(self.encoder(group_embs, pos_embs, pts_embs, generator))
 
 
 class CrossFormerPC(_PointModel):
@@ -146,16 +174,17 @@ class CrossFormerPC(_PointModel):
                  group_size: int = 32, patch_compat: bool = False,
                  num_cross_attention_layers: int = 1, num_cross_attention_heads: int = 6,
                  num_self_attention_layers: int = 6, num_self_attention_heads: int = 6,
-                 mlp_widen_factor: int = 4, dtype=None, device="cpu", seed: int = 0):
+                 mlp_widen_factor: int = 4, max_dpr: float = 0.0, atten_drop: float = 0.1,
+                 mlp_drop: float = 0.5, dtype=None, device="cuda", seed: int = 0):
         super().__init__(num_latents, num_latent_channels, group_size, patch_compat,
                          num_cross_attention_layers, num_cross_attention_heads,
                          num_self_attention_layers, num_self_attention_heads,
-                         mlp_widen_factor, dtype)
+                         mlp_widen_factor, dtype, max_dpr, atten_drop, mlp_drop)
         self.latent_head = LatentFeatsHead(num_latent_channels, dtype)
-        self._finish(device, seed)
+        _finish(self, device, seed)
 
-    def forward(self, pts):
-        backbone_feats = self.backbone(pts)
+    def forward(self, pts, generator=None):
+        backbone_feats = self.backbone(pts, generator)
         return self.latent_head(backbone_feats), backbone_feats
 
 
@@ -186,15 +215,47 @@ class CrossFormerPCFT(_PointModel):
                  group_size: int = 32, patch_compat: bool = False,
                  num_cross_attention_layers: int = 1, num_cross_attention_heads: int = 6,
                  num_self_attention_layers: int = 6, num_self_attention_heads: int = 6,
-                 mlp_widen_factor: int = 4, num_obj_classes: int = 40, dtype=None,
-                 device="cpu", seed: int = 0):
+                 mlp_widen_factor: int = 4, num_obj_classes: int = 40, max_dpr: float = 0.0,
+                 atten_drop: float = 0.1, mlp_drop: float = 0.5, dtype=None, device="cuda",
+                 seed: int = 0):
         super().__init__(num_latents, num_latent_channels, group_size, patch_compat,
                          num_cross_attention_layers, num_cross_attention_heads,
                          num_self_attention_layers, num_self_attention_heads,
-                         mlp_widen_factor, dtype)
+                         mlp_widen_factor, dtype, max_dpr, atten_drop, mlp_drop)
         self.finetune_head = FinetuneHead(num_latent_channels, num_obj_classes, dtype)
-        self._finish(device, seed)
+        _finish(self, device, seed)
 
-    def forward(self, pts):
-        backbone_feats = self.backbone(pts)
+    def forward(self, pts, generator=None):
+        backbone_feats = self.backbone(pts, generator)
         return self.finetune_head(backbone_feats), backbone_feats
+
+
+class CrossFormerImg(nn.Module):
+    """Image pretraining branch: imgs [B, H, W, 3] -> (projected_feats
+    [B, D], backbone_feats [B, 2D]). ViT patchify + learned position
+    embedding; the patch embeddings are both the queries and the kv tokens
+    of the same MPEncoder."""
+
+    def __init__(self, img_height: int = 144, img_width: int = 144, patch_size: int = 12,
+                 num_latent_channels: int = 384, num_cross_attention_layers: int = 1,
+                 num_cross_attention_heads: int = 6, num_self_attention_layers: int = 6,
+                 num_self_attention_heads: int = 6, mlp_widen_factor: int = 4,
+                 max_dpr: float = 0.0, atten_drop: float = 0.1, mlp_drop: float = 0.5,
+                 dtype=None, device="cuda", seed: int = 0):
+        super().__init__()
+        self.dtype = dtype
+        self.patch2emb = ImagePatchify(img_height, img_width, patch_size, num_latent_channels,
+                                       dtype=dtype)
+        self.encoder = MPEncoder(
+            num_latent_channels, num_cross_attention_layers, num_cross_attention_heads,
+            num_self_attention_layers, num_self_attention_heads, mlp_widen_factor, dtype,
+            max_dpr, atten_drop, mlp_drop)
+        self.latent_head = LatentFeatsHead(num_latent_channels, dtype)
+        _finish(self, device, seed)
+
+    def forward(self, imgs, generator=None):
+        dt = self.dtype or imgs.dtype
+        patch_embs, pos_embs = self.patch2emb(imgs.to(dt))
+        x_latent = self.encoder(patch_embs, pos_embs, patch_embs, generator)
+        backbone_feats = pool_latents(x_latent)
+        return self.latent_head(backbone_feats), backbone_feats

@@ -1,34 +1,45 @@
 """Model factory (counterpart of vipformer_tpu/models/factory.py), `mp`
-branch only: the CrossFormer models of the port's first slice.
+branch only: the CrossFormer models of the port's slices so far.
 
-Builders take the shared `vipformer_tpu.config.Config` and return an
-initialised model (random weights from `seed`) on `device`, in eval mode.
+The build functions take the port's own `vipformer_tpu_torch.config.Config` and
+return an initialised model (random weights from `seed`) on `device` (the
+card unless the caller asks for the CPU), in eval mode; `model.train()`
+switches it to the training forward.
 """
 
 from __future__ import annotations
 
 import torch
 
-from vipformer_tpu.config import Config
-from vipformer_tpu_torch.models.crossformer import CrossFormerPC, CrossFormerPCFT
+from vipformer_tpu_torch.config import Config
+from vipformer_tpu_torch.models.crossformer import CrossFormerImg, CrossFormerPC, CrossFormerPCFT
 
 
 def compute_dtype(cfg: Config) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.compute_dtype]
 
 
-def _mp_common(cfg: Config) -> dict:
+def _encoder_common(cfg: Config) -> dict:
     return dict(
-        num_latents=cfg.num_pc_latents,
         num_latent_channels=cfg.num_latent_channels,
-        group_size=cfg.group_size,
-        patch_compat=cfg.patch_compat,
         num_cross_attention_layers=cfg.num_ca_layers,
         num_cross_attention_heads=cfg.num_ca_heads,
         num_self_attention_layers=cfg.num_sa_layers,
         num_self_attention_heads=cfg.num_sa_heads,
         mlp_widen_factor=cfg.mlp_widen_factor,
+        max_dpr=cfg.max_dpr,
+        atten_drop=cfg.atten_drop,
+        mlp_drop=cfg.mlp_drop,
         dtype=compute_dtype(cfg),
+    )
+
+
+def _mp_common(cfg: Config) -> dict:
+    return dict(
+        num_latents=cfg.num_pc_latents,
+        group_size=cfg.group_size,
+        patch_compat=cfg.patch_compat,
+        **_encoder_common(cfg),
     )
 
 
@@ -40,14 +51,22 @@ def _require_mp(cfg: Config) -> None:
         )
 
 
-def build_pc_model(cfg: Config, device="cpu", seed: int | None = None) -> CrossFormerPC:
+def build_pc_model(cfg: Config, device="cuda", seed: int | None = None) -> CrossFormerPC:
     """Pretraining point branch."""
     _require_mp(cfg)
     return CrossFormerPC(**_mp_common(cfg), device=device,
                          seed=cfg.seed if seed is None else seed)
 
 
-def build_ft_cls(cfg: Config, device="cpu", seed: int | None = None) -> CrossFormerPCFT:
+def build_img_model(cfg: Config, device="cuda", seed: int | None = None) -> CrossFormerImg:
+    """Pretraining image branch (same encoder widths as the point branch)."""
+    _require_mp(cfg)
+    return CrossFormerImg(img_height=cfg.img_height, img_width=cfg.img_width,
+                          patch_size=cfg.patch_size, **_encoder_common(cfg), device=device,
+                          seed=cfg.seed + 10 if seed is None else seed)
+
+
+def build_ft_cls(cfg: Config, device="cuda", seed: int | None = None) -> CrossFormerPCFT:
     """Classification finetune model."""
     _require_mp(cfg)
     return CrossFormerPCFT(**_mp_common(cfg), num_obj_classes=cfg.num_obj_classes,

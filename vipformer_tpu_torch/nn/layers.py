@@ -1,16 +1,22 @@
-"""Core NN building blocks, eval mode (counterpart of vipformer_tpu/nn/layers.py).
+"""Core NN building blocks (counterpart of vipformer_tpu/nn/layers.py).
 
 Parameters are f32, as in the flax tree; every module takes the compute
 dtype (`dtype`, None = promote the input with f32) and casts at use.
 Attribute names follow the flax auto-names (`Dense_0`, `LayerNorm_0`,
 `CrossAttention_0`, ...), so state-dict keys are the flax paths with `/`
-replaced by `.` (see convert.py). Dropout and DropPath are identities in
-eval and are not modelled.
+replaced by `.` (see convert.py).
 
-The eval kernels are wired where the JAX package wires its Pallas ones:
-the cross-attention's kv-LN-fused kernel K4 in `CrossAttention`
-(layers.py:652-692 of the JAX package), the small-M self-attention kernel
-K5 in `MultiHeadAttention` (layers.py:539-555).
+Train mode is the module's `training` flag (`model.train()`), the JAX
+package's `deterministic=False`. Its randomness (attention dropout,
+residual dropout, DropPath) draws from the `generator` argument that the
+attention layers take; a nonzero rate without a generator raises.
+
+The kernels are wired where the JAX package wires its Pallas ones: in
+eval, the cross-attention's kv-LN-fused kernel K4 in `CrossAttention`
+(layers.py:652-692 of the JAX package) and the small-M self-attention
+kernel K5 in `MultiHeadAttention` (layers.py:539-555); in train mode, the
+kv-folded training kernel K7 in `CrossAttention` (layers.py:605-650) and
+the training flash kernel K8 in `MultiHeadAttention` (layers.py:487-511).
 """
 
 from __future__ import annotations
@@ -22,7 +28,10 @@ from torch import nn
 
 from vipformer_tpu_torch.ops.attention import dot_product_attention
 from vipformer_tpu_torch.ops.cuda import attention as kattn
+from vipformer_tpu_torch.ops.cuda import flash_train as kflash
 from vipformer_tpu_torch.ops.cuda.stem import BN_EPS
+
+BN_MOMENTUM = 0.9  # flax's; torch momentum 0.1
 
 
 def promote_dtype(x: torch.Tensor, dtype) -> torch.dtype:
@@ -78,9 +87,38 @@ class LayerNorm(nn.Module):
         return kattn.layer_norm_f32(x, self.weight, self.bias, promote_dtype(x, self.dtype))
 
 
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+    """flax nn.Dropout in train mode: keep with probability 1 - rate,
+    kept values divided by 1 - rate."""
+    if rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout needs a torch.Generator")
+    keep = 1.0 - rate
+    u = torch.rand(x.shape, generator=generator, device=generator.device).to(x.device)
+    return torch.where(u < keep, x / keep, torch.zeros_like(x))
+
+
+def drop_path(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+    """Per-sample stochastic depth (timm DropPath): one keep draw per row
+    of the leading axis."""
+    if rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("DropPath needs a torch.Generator")
+    keep = 1.0 - rate
+    shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+    u = torch.rand(shape, generator=generator, device=generator.device).to(x.device)
+    return torch.where(u < keep, x / keep, torch.zeros_like(x))
+
+
 class BatchNorm(nn.Module):
-    """Eval BatchNorm with running statistics (flax `_normalize`):
-    (x - mean) * (rsqrt(var + eps) * scale) + bias in f32, then cast."""
+    """BatchNorm with flax's math (`_compute_stats` / `_normalize`):
+    (x - mean) * (rsqrt(var + eps) * scale) + bias in f32, then cast. Eval
+    uses the running statistics; train mode the f32 batch statistics over
+    every axis but the last, with the fast variance max(0, E[x^2] - E[x]^2),
+    and updates the running ones with momentum 0.9 and the BIASED batch
+    variance (flax's rule, not torch.nn.BatchNorm1d's unbiased one)."""
 
     def __init__(self, features: int, dtype=None):
         super().__init__()
@@ -91,9 +129,24 @@ class BatchNorm(nn.Module):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + BN_EPS) * self.weight
-        y = (x.float() - self.running_mean) * mul + self.bias
+        xf = x.float()
+        if self.training:
+            axes = tuple(range(x.ndim - 1))
+            mean = xf.mean(dim=axes)
+            var = torch.clamp_min((xf * xf).mean(dim=axes) - mean * mean, 0.0)
+            self.update_running(mean, var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        y = (xf - mean) * mul + self.bias
         return y.to(promote_dtype(x, self.dtype))
+
+    @torch.no_grad()
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """ra = 0.9 * ra + 0.1 * batch statistic (flax's update)."""
+        m = BN_MOMENTUM
+        self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1 - m) * var)
 
 
 class MLP(nn.Module):
@@ -112,22 +165,30 @@ class MLP(nn.Module):
 class MultiHeadAttention(nn.Module):
     """Multi-head attention with q/k/v/output widths equal to the query's
     (the mp family; the Perceiver family's decoupled widths come with its
-    slice)."""
+    slice). `dropout` is the post-softmax attention dropout of train mode."""
 
-    def __init__(self, d: int, num_heads: int, dtype=None):
+    def __init__(self, d: int, num_heads: int, dtype=None, dropout: float = 0.0):
         super().__init__()
         if d % num_heads:
             raise ValueError("channels must be divisible by num_heads")
         self.num_heads = num_heads
+        self.dropout = dropout
         self.scale = (d // num_heads) ** -0.5
         self.q_proj = Dense(d, d, use_bias=False, dtype=dtype)
         self.k_proj = Dense(d, d, use_bias=False, dtype=dtype)
         self.v_proj = Dense(d, d, use_bias=False, dtype=dtype)
         self.o_proj = Dense(d, d, dtype=dtype)
 
-    def forward(self, x_q, x_kv):
+    def forward(self, x_q, x_kv, generator=None):
         h = self.num_heads
         q, k, v = self.q_proj(x_q), self.k_proj(x_kv), self.v_proj(x_kv)
+        if self.training:
+            # training flash attention with in-kernel dropout (K8): the
+            # scores and the mask never exist in memory; the backward
+            # regenerates the mask from the seed
+            seed = kflash.draw_seed(generator, self.dropout, q.device)
+            o = kflash.flash_attention_train(q, k, v, seed, h, self.scale, self.dropout)
+            return self.o_proj(o)
         if x_kv.shape[1] < 512 and x_q.shape[1] <= 512:
             # small-M eval attention (K5); large M belongs to the streamed
             # packed kernel (JAX attention.py:848), not ported yet
@@ -143,20 +204,29 @@ class MultiHeadAttention(nn.Module):
 
 
 class CrossAttention(nn.Module):
-    """Pre-LN cross-attention (separate q / kv norms). Eval runs K4: the kv
-    LayerNorm and the k/v projections inside the attention kernel; the
-    q/o projections are the Dense modules."""
+    """Pre-LN cross-attention (separate q / kv norms). The kv LayerNorm and
+    the k/v projections run inside the attention kernel: K4 in eval, K7
+    (with dropout, and a backward into x, the LN and the weights) in train
+    mode; the q/o projections are the Dense modules."""
 
-    def __init__(self, d: int, num_heads: int, dtype=None):
+    def __init__(self, d: int, num_heads: int, dtype=None, dropout: float = 0.0):
         super().__init__()
         self.q_norm = LayerNorm(d, dtype)
         self.kv_norm = LayerNorm(d, dtype)
-        self.attention = MultiHeadAttention(d, num_heads, dtype)
+        self.attention = MultiHeadAttention(d, num_heads, dtype, dropout)
 
-    def forward(self, x_q, x_kv):
+    def forward(self, x_q, x_kv, generator=None):
         att = self.attention
         q = att.q_proj(self.q_norm(x_q))
         dt = q.dtype
+        if self.training:
+            seed = kflash.draw_seed(generator, att.dropout, q.device)
+            o = kflash.flash_attention_train_kv(
+                q, x_kv.to(dt), self.kv_norm.weight, self.kv_norm.bias,
+                att.k_proj.kernel(dt), att.v_proj.kernel(dt), seed,
+                att.num_heads, att.scale, att.dropout,
+            )
+            return att.o_proj(o)
         o = kattn.fused_attention_packed_kv_ln(
             q, x_kv.to(dt), self.kv_norm.weight, self.kv_norm.bias,
             att.k_proj.kernel(dt), att.v_proj.kernel(dt),
@@ -168,40 +238,64 @@ class CrossAttention(nn.Module):
 class SelfAttention(nn.Module):
     """Pre-LN self-attention."""
 
-    def __init__(self, d: int, num_heads: int, dtype=None):
+    def __init__(self, d: int, num_heads: int, dtype=None, dropout: float = 0.0):
         super().__init__()
         self.norm = LayerNorm(d, dtype)
-        self.attention = MultiHeadAttention(d, num_heads, dtype)
+        self.attention = MultiHeadAttention(d, num_heads, dtype, dropout)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         xn = self.norm(x)
-        return self.attention(xn, xn)
+        return self.attention(xn, xn, generator)
 
 
-class CrossAttentionLayer(nn.Module):
-    """Residual(cross-attn) + Residual(MLP)."""
+class _ResidualLayer(nn.Module):
+    """residual = drop_path(dropout(f(x)) + x), DropPath wrapping the sum
+    (JAX layers.py:799-806, 842-846); identities in eval."""
 
-    def __init__(self, d: int, num_heads: int, widening_factor: int = 1, dtype=None):
+    def _residual(self, y, x, rate, generator):
+        if not self.training:
+            return y + x
+        y = dropout(y, rate, generator)
+        return drop_path(y + x, self.drop_path_rate, generator)
+
+
+class CrossAttentionLayer(_ResidualLayer):
+    """Residual(cross-attn) + Residual(MLP). Train mode: attention dropout
+    `atten_drop` inside the kernel and on the attention output, `mlp_drop`
+    on the MLP output, DropPath `drop_path_rate` on both sums."""
+
+    def __init__(self, d: int, num_heads: int, widening_factor: int = 1, dtype=None,
+                 atten_drop: float = 0.0, mlp_drop: float = 0.0, drop_path_rate: float = 0.0):
         super().__init__()
-        self.CrossAttention_0 = CrossAttention(d, num_heads, dtype)
+        self.CrossAttention_0 = CrossAttention(d, num_heads, dtype, atten_drop)
         self.MLP_0 = MLP(d, widening_factor, dtype)
+        self.atten_drop, self.mlp_drop = atten_drop, mlp_drop
+        self.drop_path_rate = drop_path_rate
 
-    def forward(self, x_q, x_kv):
-        x = self.CrossAttention_0(x_q, x_kv) + x_q
-        return self.MLP_0(x) + x
+    def forward(self, x_q, x_kv, generator=None):
+        x = self._residual(self.CrossAttention_0(x_q, x_kv, generator), x_q, self.atten_drop,
+                           generator)
+        return self._residual(self.MLP_0(x), x, self.mlp_drop, generator)
 
 
-class SelfAttentionLayer(nn.Module):
-    """Residual(self-attn) + Residual(MLP)."""
+class SelfAttentionLayer(_ResidualLayer):
+    """Residual(self-attn) + Residual(MLP). `post_attn_drop` is the
+    dropout on the attention output (the mp family passes mlp_drop,
+    JAX layers.py:812-815); None means atten_drop."""
 
-    def __init__(self, d: int, num_heads: int, widening_factor: int = 1, dtype=None):
+    def __init__(self, d: int, num_heads: int, widening_factor: int = 1, dtype=None,
+                 atten_drop: float = 0.0, mlp_drop: float = 0.0, drop_path_rate: float = 0.0,
+                 post_attn_drop: float | None = None):
         super().__init__()
-        self.SelfAttention_0 = SelfAttention(d, num_heads, dtype)
+        self.SelfAttention_0 = SelfAttention(d, num_heads, dtype, atten_drop)
         self.MLP_0 = MLP(d, widening_factor, dtype)
+        self.post_attn_drop = atten_drop if post_attn_drop is None else post_attn_drop
+        self.mlp_drop = mlp_drop
+        self.drop_path_rate = drop_path_rate
 
-    def forward(self, x):
-        x = self.SelfAttention_0(x) + x
-        return self.MLP_0(x) + x
+    def forward(self, x, generator=None):
+        x = self._residual(self.SelfAttention_0(x, generator), x, self.post_attn_drop, generator)
+        return self._residual(self.MLP_0(x), x, self.mlp_drop, generator)
 
 
 def dpr_schedule(max_dpr: float, num_layers: int) -> list[float]:

@@ -1,4 +1,4 @@
-"""Patch-embedding blocks, eval mode (counterpart of vipformer_tpu/nn/pointnet.py).
+"""Patch-embedding blocks (counterpart of vipformer_tpu/nn/pointnet.py).
 
 Channel-last layouts as in the JAX package: every 1x1 Conv1d of the
 reference is a Dense over the last axis.
@@ -10,15 +10,19 @@ import torch
 from torch import nn
 
 from vipformer_tpu_torch.nn.layers import BatchNorm, Dense, LayerNorm, gelu_exact
+from vipformer_tpu_torch.ops.cuda.g2e_train import g2e_train_apply
 
 
 class Group2Emb(nn.Module):
     """Point-BERT style mini-PointNet: local patch [B, G, S, C] -> [B, G, D].
 
     Dense 3->64, BN, ReLU, Dense 64->128, group max, concat[global, local],
-    Dense 256->256, BN, ReLU, Dense 256->D, group max. This is the unfused
-    eval path (the `patch_compat` stem); the default stem runs the fused
-    kernel K3 on the same weights (ops/cuda/stem.py)."""
+    Dense 256->256, BN, ReLU, Dense 256->D, group max. In eval this is the
+    unfused path (the `patch_compat` stem); the default eval stem runs the
+    fused kernel K3 on the same weights (ops/cuda/stem.py). Train mode runs
+    K9 (ops/cuda/g2e_train.py) with batch-statistics BatchNorm and applies
+    the running-statistics update with the kernel's batch statistics
+    outside it, as JAX pointnet.py:74-108 does."""
 
     def __init__(self, in_channels: int, dim_model: int, dtype=None):
         super().__init__()
@@ -31,6 +35,8 @@ class Group2Emb(nn.Module):
         self.dtype = dtype
 
     def forward(self, point_groups: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return self._fused_train(point_groups)
         x = torch.relu(self.BatchNorm_0(self.Dense_0(point_groups)))
         x = self.Dense_1(x)  # [B, G, S, 128]
         global_feat = x.amax(dim=2, keepdim=True)  # [B, G, 1, 128]
@@ -44,6 +50,19 @@ class Group2Emb(nn.Module):
         x = (global_feat @ w[:c]) + ((x @ w[c:]) + self.Dense_2.bias.to(dt))
         x = torch.relu(self.BatchNorm_1(x))
         return self.Dense_3(x).amax(dim=2)  # [B, G, D]
+
+    def _fused_train(self, point_groups: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype or point_groups.dtype
+        bn0, bn1 = self.BatchNorm_0, self.BatchNorm_1
+        wb = (self.Dense_0.weight.t(), self.Dense_0.bias, bn0.weight, bn0.bias,
+              self.Dense_1.weight.t(), self.Dense_1.bias, self.Dense_2.weight.t(),
+              self.Dense_2.bias, bn1.weight, bn1.bias, self.Dense_3.weight.t(),
+              self.Dense_3.bias)
+        out, (mu0, var0, mu1, var1) = g2e_train_apply(point_groups.to(dt), wb,
+                                                      point_groups.shape[2])
+        bn0.update_running(mu0, var0)
+        bn1.update_running(mu1, var1)
+        return out
 
 
 class PositionEmb(nn.Module):

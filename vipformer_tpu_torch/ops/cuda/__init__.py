@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels (counterpart of ops/pallas).
 
 All `csrc/*.cu` sources compile with `nvcc` into ONE shared library with a
-plain C interface, loaded with ctypes. The build runs at the first launch
-of any kernel, never at import, into `_build/` inside this package (listed
+plain C interface, loaded with ctypes: one `nvcc -c` per source, all
+started together, then one link. The build runs at the first launch of
+any kernel, never at import, into `_build/` inside this package (listed
 in .gitignore), keyed by a hash of the sources and the flags, so a changed
 source rebuilds and an unchanged one loads the cached library.
 
@@ -29,12 +30,13 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 ]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_uint
 # C signature of every entry point: argument types in order (pointers and
 # the stream as void*, sizes as int, scalars as float); all return int.
 SIGNATURES = {
@@ -46,6 +48,26 @@ SIGNATURES = {
     "attn_kv_ln_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     "attn_small_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "attn_small_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # K7 / K8: (..., scale, keep probability, dropout threshold, dropout on, stream)
+    "attn_train_fwd_f32": [_P] * 6 + [_I] * 4 + [_F, _F, _U, _I, _P],
+    "attn_train_fwd_bf16": [_P] * 6 + [_I] * 4 + [_F, _F, _U, _I, _P],
+    "attn_train_bwd_f32": [_P] * 10 + [_I] * 4 + [_F, _F, _U, _I, _P],
+    "attn_train_bwd_bf16": [_P] * 10 + [_I] * 4 + [_F, _F, _U, _I, _P],
+    "attn_train_kv_fwd_f32": [_P] * 12 + [_I] * 5 + [_F, _F, _U, _I, _P],
+    "attn_train_kv_fwd_bf16": [_P] * 12 + [_I] * 5 + [_F, _F, _U, _I, _P],
+    "attn_train_kv_bwd_f32": [_P] * 23 + [_I] * 7 + [_F, _F, _U, _I, _P],
+    "attn_train_kv_bwd_bf16": [_P] * 23 + [_I] * 7 + [_F, _F, _U, _I, _P],
+    "dropout_mask_u8": [_P, _I, _I, _I, _U, _P, _P],
+    # K9
+    "g2e_fwd_f32": [_P] * 21 + [_I] * 5 + [_P],
+    "g2e_fwd_bf16": [_P] * 21 + [_I] * 5 + [_P],
+    "g2e_bwd_f32": [_P] * 38 + [_I] * 6 + [_P],
+    "g2e_bwd_bf16": [_P] * 38 + [_I] * 6 + [_P],
+    # K10
+    "gather_centered_f32": [_P] * 4 + [_I] * 6 + [_P],
+    "gather_centered_bf16": [_P] * 4 + [_I] * 6 + [_P],
+    "scatter_centered_f32": [_P] * 4 + [_I] * 6 + [_P],
+    "scatter_centered_bf16": [_P] * 4 + [_I] * 6 + [_P],
 }
 
 _lib = None
@@ -67,24 +89,42 @@ def sources() -> list[str]:
 
 def build() -> str:
     """Compile the kernels (if the hashed library is not there) and return
-    the library's path."""
+    the library's path: one `nvcc -c` per source, started together, then
+    one link."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in sources():
         with open(path, "rb") as f:
             h.update(os.path.basename(path).encode() + f.read())
     os.makedirs(BUILD_DIR, exist_ok=True)
-    out = os.path.join(BUILD_DIR, f"libvipformer_kernels_{h.hexdigest()[:16]}.so")
-    if not os.path.exists(out):
-        tmp = f"{out}.{os.getpid()}.tmp"
-        cu = [p for p in sources() if p.endswith(".cu")]
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                f"{res.stdout}\n{res.stderr}"
-            )
-        os.replace(tmp, out)
+    tag = h.hexdigest()[:16]
+    out = os.path.join(BUILD_DIR, f"libvipformer_kernels_{tag}.so")
+    if os.path.exists(out):
+        return out
+    nvcc = _nvcc()
+    stem = os.path.join(BUILD_DIR, f"{tag}.{os.getpid()}")
+    objs, procs = [], []
+    for src in (p for p in sources() if p.endswith(".cu")):
+        obj = f"{stem}.{os.path.basename(src)}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for cmd, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            failed.append(f"{' '.join(cmd)}\n{log}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    tmp = f"{stem}.so"
+    cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode:
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{' '.join(cmd)}\n"
+                           f"{res.stdout}\n{res.stderr}")
+    os.replace(tmp, out)
+    for obj in objs:
+        os.remove(obj)
     return out
 
 
@@ -133,24 +173,33 @@ def require(t: torch.Tensor, name: str, dtype, shape=None) -> None:
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
 
 
-def launch_counts() -> dict[str, int]:
-    """Launches of every kernel wrapper since the last reset, by kernel."""
-    from vipformer_tpu_torch.ops.cuda import attention, fps, knn, stem
+def _counters() -> dict[str, "LaunchCounter"]:
+    from vipformer_tpu_torch.ops.cuda import attention, flash_train, fps, g2e_train, gather, knn, stem
 
     return {
-        "fps": fps.LAUNCHES.n,
-        "knn": knn.LAUNCHES.n,
-        "stem": stem.LAUNCHES.n,
-        "attn_kv_ln": attention.KV_LN_LAUNCHES.n,
-        "attn_small": attention.SMALL_LAUNCHES.n,
+        "fps": fps.LAUNCHES,
+        "knn": knn.LAUNCHES,
+        "stem": stem.LAUNCHES,
+        "attn_kv_ln": attention.KV_LN_LAUNCHES,
+        "attn_small": attention.SMALL_LAUNCHES,
+        "attn_train_kv_fwd": flash_train.KV_FWD_LAUNCHES,
+        "attn_train_kv_bwd": flash_train.KV_BWD_LAUNCHES,
+        "attn_train_fwd": flash_train.FWD_LAUNCHES,
+        "attn_train_bwd": flash_train.BWD_LAUNCHES,
+        "g2e_train_fwd": g2e_train.FWD_LAUNCHES,
+        "g2e_train_bwd": g2e_train.BWD_LAUNCHES,
+        "gather_centered_fwd": gather.FWD_LAUNCHES,
+        "gather_centered_bwd": gather.BWD_LAUNCHES,
     }
 
 
-def reset_launch_counts() -> None:
-    from vipformer_tpu_torch.ops.cuda import attention, fps, knn, stem
+def launch_counts() -> dict[str, int]:
+    """Launches of every kernel wrapper since the last reset, by kernel."""
+    return {name: c.n for name, c in _counters().items()}
 
-    for c in (fps.LAUNCHES, knn.LAUNCHES, stem.LAUNCHES,
-              attention.KV_LN_LAUNCHES, attention.SMALL_LAUNCHES):
+
+def reset_launch_counts() -> None:
+    for c in _counters().values():
         c.n = 0
 
 

@@ -1,0 +1,384 @@
+"""K8 and K7: training attention with in-kernel dropout, forward and
+backward (counterpart of ops/pallas/flash_train.py).
+
+* `flash_attention_train` (K8): packed q [B, G, H*dh], k/v [B, M, H*dh].
+* `flash_attention_train_kv` (K7): the same with the kv LayerNorm and the
+  bias-free k/v projections folded in: q [B, G, H*dh], raw x [B, M, Din],
+  LN scale/bias f32 [Din], wk/wv [Din, H*dh]; gradients flow to all six.
+
+Each is a `torch.autograd.Function` whose forward and backward launch
+`csrc/flash_train.cu` on CUDA tensors and run the plain twins below on CPU
+tensors. Semantics are torch's softmax -> dropout -> @V with the softmax
+denominator over the undropped p; the forward keeps only the per-row
+logsumexp, the backward recomputes p and regenerates the dropout mask.
+
+Dropout: the keep bit of (cloud b, head h, query g, key m) is a pure
+function of (seed, b*H + h, g, m) through a 32-bit integer hash, and kept
+values are scaled by 1/(1-rate). `keep_mask_plain` computes the same bits
+with int64 tensor ops, so the kernel and the twin drop the same elements.
+The seed is an int32 tensor [1] on the operands' device, so drawing it
+from a generator needs no host synchronisation.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from vipformer_tpu_torch.ops import cuda
+
+FWD_LAUNCHES = cuda.LaunchCounter()
+BWD_LAUNCHES = cuda.LaunchCounter()
+KV_FWD_LAUNCHES = cuda.LaunchCounter()
+KV_BWD_LAUNCHES = cuda.LaunchCounter()
+KERNEL_HEAD_DIM = 64  # head width the CUDA kernels are built for
+LN_EPS = 1e-5
+WGRAD_SPLITS = 64  # token-axis splits of K7's weight-gradient product
+COLSUM_BLOCKS = 256  # row blocks of the column-sum partials
+_M32 = 0xFFFFFFFF
+_MIX = 0x045D9F3B
+
+
+def dropout_threshold(rate: float) -> int:
+    """keep = bits >= threshold, bits uniform over [0, 2^32)."""
+    return min(int(round(rate * 2.0**32)), _M32)
+
+
+def keep_scale(rate: float) -> float:
+    """1 - rate as the f32 value the kernels divide by."""
+    return float(np.float32(1.0 - rate))
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """The kernels' 32-bit hash on int64 tensors holding uint32 values
+    (products stay below 2^59, so nothing overflows)."""
+    x = x ^ (x >> 16)
+    x = (x * _MIX) & _M32
+    x = x ^ (x >> 16)
+    x = (x * _MIX) & _M32
+    return x ^ (x >> 16)
+
+
+def keep_mask_plain(seed: torch.Tensor, bh: int, g: int, m: int, rate: float) -> torch.Tensor:
+    """bool [bh, g, m]: keep bit of (b*H + h, query row, key column)."""
+    dev = seed.device
+    s = _mix32(seed.to(torch.int64).reshape(1) & _M32)
+    k1 = _mix32((torch.arange(bh, device=dev) + s) & _M32)  # [bh]
+    rk = _mix32((torch.arange(g, device=dev)[None, :] + k1[:, None]) & _M32)  # [bh, g]
+    bits = _mix32((torch.arange(m, device=dev)[None, None, :] + rk[..., None]) & _M32)
+    return bits >= dropout_threshold(rate)
+
+
+def _heads(x: torch.Tensor, h: int) -> torch.Tensor:
+    """[B, N, H*dh] -> [B, H, N, dh] in f32."""
+    b, n, d = x.shape
+    return x.view(b, n, h, d // h).transpose(1, 2).float()
+
+
+def _merge(x: torch.Tensor) -> torch.Tensor:
+    """[B, H, N, dh] -> [B, N, H*dh]."""
+    b, h, n, dh = x.shape
+    return x.transpose(1, 2).reshape(b, n, h * dh)
+
+
+def _dropped(p, seed, rate):
+    """p [B, H, G, M] with the dropout mask applied and kept values / (1-rate)."""
+    if rate == 0.0:
+        return p
+    b, h, g, m = p.shape
+    keep = keep_mask_plain(seed, b * h, g, m, rate).view(b, h, g, m)
+    return torch.where(keep, p / keep_scale(rate), torch.zeros_like(p))
+
+
+def attention_fwd_plain(q, k, v, seed, num_heads: int, scale: float, rate: float):
+    """-> (out [B, G, H*dh] in v's dtype, lse f32 [B, H, G])."""
+    dt = v.dtype
+    s = (_heads(q, num_heads) @ _heads(k, num_heads).transpose(-1, -2)) * scale
+    mx = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - mx)
+    l = p.sum(dim=-1, keepdim=True)
+    lse = (mx + torch.log(l)).squeeze(-1)
+    pd = _dropped(p, seed, rate).to(dt).float()
+    o = (pd @ _heads(v, num_heads)) / l
+    return _merge(o).to(dt), lse
+
+
+def attention_delta(dout: torch.Tensor, out: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """delta = rowsum(dO * O) per head, f32 [B, H, G] (computed outside the
+    kernels, as the JAX package computes it outside its Pallas call)."""
+    b, g, d = out.shape
+    prod = dout.float() * out.float()
+    return prod.view(b, g, num_heads, d // num_heads).sum(-1).transpose(1, 2).contiguous()
+
+
+def attention_bwd_plain(q, k, v, dout, lse, delta, seed, num_heads: int, scale: float,
+                        rate: float, kv_dtype=None):
+    """-> (dq in q's dtype, dk, dv in `kv_dtype` (default k's dtype))."""
+    h = num_heads
+    qh, kh, vh, doh = _heads(q, h), _heads(k, h), _heads(v, h), _heads(dout, h)
+    s = (qh @ kh.transpose(-1, -2)) * scale
+    p = torch.exp(s - lse[..., None])
+    pd = _dropped(p, seed, rate)
+    dv = pd.transpose(-1, -2) @ doh
+    dpd = doh @ vh.transpose(-1, -2)
+    ds = (pd * dpd - p * delta[..., None]) * scale
+    dq = ds @ kh
+    dk = ds.transpose(-1, -2) @ qh
+    kv_dtype = kv_dtype or k.dtype
+    return _merge(dq).to(q.dtype), _merge(dk).to(kv_dtype), _merge(dv).to(kv_dtype)
+
+
+def ln_kv_plain(x, ln_w, ln_b):
+    """K7's LayerNorm of the raw tokens: (xhat, rstd, xhat * w + b), f32."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    mu2 = (xf * xf).mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(torch.clamp_min(mu2 - mu * mu, 0.0) + LN_EPS)
+    xhat = (xf - mu) * rstd
+    return xhat, rstd, xhat * ln_w.float() + ln_b.float()
+
+
+def kv_project_plain(x, ln_w, ln_b, wk, wv):
+    """k, v = LN(x) rounded to x's dtype, projected, rounded again."""
+    dt = x.dtype
+    xn = ln_kv_plain(x, ln_w, ln_b)[2].to(dt).float()
+    return (xn @ wk.float()).to(dt), (xn @ wv.float()).to(dt)
+
+
+def attention_kv_fwd_plain(q, x, ln_w, ln_b, wk, wv, seed, num_heads: int, scale: float,
+                           rate: float):
+    k, v = kv_project_plain(x, ln_w, ln_b, wk, wv)
+    return attention_fwd_plain(q, k, v, seed, num_heads, scale, rate)
+
+
+def attention_kv_bwd_plain(q, x, ln_w, ln_b, wk, wv, dout, lse, delta, seed, num_heads: int,
+                           scale: float, rate: float):
+    """-> (dq, dx, dln_w, dln_b, dwk, dwv); dwk/dwv in the weights' dtype."""
+    k, v = kv_project_plain(x, ln_w, ln_b, wk, wv)
+    dq, dk, dv = attention_bwd_plain(q, k, v, dout, lse, delta, seed, num_heads, scale, rate,
+                                     kv_dtype=torch.float32)
+    xhat, rstd, xn = ln_kv_plain(x, ln_w, ln_b)
+    dxn = dk @ wk.float().t() + dv @ wv.float().t()
+    din = x.shape[-1]
+    dln_w = (dxn * xhat).reshape(-1, din).sum(0)
+    dln_b = dxn.reshape(-1, din).sum(0)
+    dxhat = dxn * ln_w.float()
+    m1 = dxhat.mean(dim=-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(dim=-1, keepdim=True)
+    dx = (rstd * (dxhat - m1 - xhat * m2)).to(x.dtype)
+    xn2 = xn.reshape(-1, din)
+    dwk = (xn2.t() @ dk.reshape(-1, dk.shape[-1])).to(wk.dtype)
+    dwv = (xn2.t() @ dv.reshape(-1, dv.shape[-1])).to(wv.dtype)
+    return dq, dx, dln_w, dln_b, dwk, dwv
+
+
+# ------------------------------------------------------------ kernels
+
+
+def _check_heads(d: int, num_heads: int) -> None:
+    if d != num_heads * KERNEL_HEAD_DIM:
+        raise ValueError(f"training attention kernels need dh={KERNEL_HEAD_DIM}; "
+                         f"got D={d}, H={num_heads}")
+
+
+def _dropout_args(rate: float) -> tuple:
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
+    return keep_scale(rate), dropout_threshold(rate), int(rate > 0.0)
+
+
+def _seed(seed: torch.Tensor, dev) -> torch.Tensor:
+    seed = seed.to(device=dev, dtype=torch.int32).reshape(1).contiguous()
+    cuda.require(seed, "seed", torch.int32, (1,))
+    return seed
+
+
+def attention_fwd_kernel(q, k, v, seed, num_heads: int, scale: float, rate: float):
+    b, g, d = q.shape
+    m = k.shape[1]
+    dt = q.dtype
+    _check_heads(d, num_heads)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    for name, t, shape in (("q", q, (b, g, d)), ("k", k, (b, m, d)), ("v", v, (b, m, d))):
+        cuda.require(t, name, dt, shape)
+    seed = _seed(seed, q.device)
+    out = torch.empty((b, g, d), dtype=dt, device=q.device)
+    lse = torch.empty((b, num_heads, g), dtype=torch.float32, device=q.device)
+    fn = cuda.entry_point("attn_train_fwd", dt)
+    FWD_LAUNCHES.n += 1
+    cuda.check(getattr(cuda.lib(), fn)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), seed.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), b, g, m, num_heads, float(scale), *_dropout_args(rate),
+        cuda.stream_ptr()), fn)
+    return out, lse
+
+
+def attention_bwd_kernel(q, k, v, dout, lse, delta, seed, num_heads: int, scale: float,
+                         rate: float):
+    b, g, d = q.shape
+    m = k.shape[1]
+    dt = q.dtype
+    _check_heads(d, num_heads)
+    dout = dout.contiguous()
+    cuda.require(dout, "dout", dt, (b, g, d))
+    cuda.require(lse, "lse", torch.float32, (b, num_heads, g))
+    cuda.require(delta, "delta", torch.float32, (b, num_heads, g))
+    seed = _seed(seed, q.device)
+    dq = torch.empty_like(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fn = cuda.entry_point("attn_train_bwd", dt)
+    BWD_LAUNCHES.n += 1
+    cuda.check(getattr(cuda.lib(), fn)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), seed.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, g, m, num_heads, float(scale), *_dropout_args(rate), cuda.stream_ptr()), fn)
+    return dq, dk, dv
+
+
+def _kv_operands(q, x, ln_w, ln_b, wk, wv, num_heads):
+    b, g, d = q.shape
+    m, din = x.shape[1], x.shape[2]
+    dt = q.dtype
+    _check_heads(d, num_heads)
+    q, x, wk, wv = q.contiguous(), x.contiguous(), wk.contiguous(), wv.contiguous()
+    ln_w, ln_b = ln_w.float().contiguous(), ln_b.float().contiguous()
+    for name, t, shape in (("q", q, (b, g, d)), ("x", x, (b, m, din)), ("wk", wk, (din, d)),
+                           ("wv", wv, (din, d))):
+        cuda.require(t, name, dt, shape)
+    cuda.require(ln_w, "ln_w", torch.float32, (din,))
+    cuda.require(ln_b, "ln_b", torch.float32, (din,))
+    return q, x, ln_w, ln_b, wk, wv
+
+
+def attention_kv_fwd_kernel(q, x, ln_w, ln_b, wk, wv, seed, num_heads: int, scale: float,
+                            rate: float):
+    q, x, ln_w, ln_b, wk, wv = _kv_operands(q, x, ln_w, ln_b, wk, wv, num_heads)
+    b, g, d = q.shape
+    m, din = x.shape[1], x.shape[2]
+    dt, dev = q.dtype, q.device
+    seed = _seed(seed, dev)
+    out = torch.empty((b, g, d), dtype=dt, device=dev)
+    lse = torch.empty((b, num_heads, g), dtype=torch.float32, device=dev)
+    kbuf = torch.empty((b, m, d), dtype=dt, device=dev)
+    vbuf = torch.empty_like(kbuf)
+    rowstats = torch.empty((b * m, 2), dtype=torch.float32, device=dev)
+    fn = cuda.entry_point("attn_train_kv_fwd", dt)
+    KV_FWD_LAUNCHES.n += 1
+    cuda.check(getattr(cuda.lib(), fn)(
+        q.data_ptr(), x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), wk.data_ptr(),
+        wv.data_ptr(), seed.data_ptr(), out.data_ptr(), lse.data_ptr(), kbuf.data_ptr(),
+        vbuf.data_ptr(), rowstats.data_ptr(), b, g, m, din, num_heads, float(scale),
+        *_dropout_args(rate), cuda.stream_ptr()), fn)
+    return out, lse
+
+
+def attention_kv_bwd_kernel(q, x, ln_w, ln_b, wk, wv, dout, lse, delta, seed, num_heads: int,
+                            scale: float, rate: float):
+    q, x, ln_w, ln_b, wk, wv = _kv_operands(q, x, ln_w, ln_b, wk, wv, num_heads)
+    b, g, d = q.shape
+    m, din = x.shape[1], x.shape[2]
+    dt, dev = q.dtype, q.device
+    dout = dout.contiguous()
+    cuda.require(dout, "dout", dt, (b, g, d))
+    cuda.require(lse, "lse", torch.float32, (b, num_heads, g))
+    cuda.require(delta, "delta", torch.float32, (b, num_heads, g))
+    seed = _seed(seed, dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dq, dx = torch.empty_like(q), torch.empty_like(x)
+    dw = torch.empty((din, 2 * d), **f32)
+    dln_w, dln_b = torch.empty((din,), **f32), torch.empty((din,), **f32)
+    kbuf = torch.empty((b, m, d), dtype=dt, device=dev)
+    vbuf = torch.empty_like(kbuf)
+    rowstats = torch.empty((b * m, 2), **f32)
+    dk32, dv32 = torch.empty((b, m, d), **f32), torch.empty((b, m, d), **f32)
+    dxn = torch.empty((b, m, din), **f32)
+    part = torch.empty((COLSUM_BLOCKS, 2, din), **f32)
+    wpart = torch.empty((WGRAD_SPLITS, din, 2 * d), **f32)
+    fn = cuda.entry_point("attn_train_kv_bwd", dt)
+    KV_BWD_LAUNCHES.n += 1
+    cuda.check(getattr(cuda.lib(), fn)(
+        q.data_ptr(), x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), wk.data_ptr(),
+        wv.data_ptr(), seed.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), dx.data_ptr(), dw.data_ptr(), dln_w.data_ptr(), dln_b.data_ptr(),
+        kbuf.data_ptr(), vbuf.data_ptr(), rowstats.data_ptr(), dk32.data_ptr(),
+        dv32.data_ptr(), dxn.data_ptr(), part.data_ptr(), wpart.data_ptr(),
+        b, g, m, din, num_heads, WGRAD_SPLITS, COLSUM_BLOCKS, float(scale),
+        *_dropout_args(rate), cuda.stream_ptr()), fn)
+    return dq, dx, dln_w, dln_b, dw[:, :d].to(wk.dtype), dw[:, d:].to(wv.dtype)
+
+
+def dropout_mask_kernel(seed: torch.Tensor, bh: int, g: int, m: int, rate: float):
+    """The kernels' keep bits as bool [bh, g, m] (for checking the twin)."""
+    seed = _seed(seed, seed.device)
+    out = torch.empty((bh, g, m), dtype=torch.uint8, device=seed.device)
+    cuda.check(cuda.lib().dropout_mask_u8(seed.data_ptr(), bh, g, m, dropout_threshold(rate),
+                                          out.data_ptr(), cuda.stream_ptr()), "dropout_mask_u8")
+    return out.bool()
+
+
+# ------------------------------------------------------------ autograd
+
+
+class _FlashTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, seed, num_heads, scale, rate):
+        fwd = attention_fwd_kernel if q.is_cuda else attention_fwd_plain
+        out, lse = fwd(q, k, v, seed, num_heads, scale, rate)
+        ctx.save_for_backward(q, k, v, out, lse, seed)
+        ctx.cfg = (num_heads, scale, rate)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, seed = ctx.saved_tensors
+        num_heads, scale, rate = ctx.cfg
+        delta = attention_delta(dout, out, num_heads)
+        bwd = attention_bwd_kernel if q.is_cuda else attention_bwd_plain
+        dq, dk, dv = bwd(q, k, v, dout, lse, delta, seed, num_heads, scale, rate)
+        return dq, dk, dv, None, None, None, None
+
+
+class _FlashTrainKV(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, x, ln_w, ln_b, wk, wv, seed, num_heads, scale, rate):
+        fwd = attention_kv_fwd_kernel if q.is_cuda else attention_kv_fwd_plain
+        out, lse = fwd(q, x, ln_w, ln_b, wk, wv, seed, num_heads, scale, rate)
+        ctx.save_for_backward(q, x, ln_w, ln_b, wk, wv, out, lse, seed)
+        ctx.cfg = (num_heads, scale, rate)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, x, ln_w, ln_b, wk, wv, out, lse, seed = ctx.saved_tensors
+        num_heads, scale, rate = ctx.cfg
+        delta = attention_delta(dout, out, num_heads)
+        bwd = attention_kv_bwd_kernel if q.is_cuda else attention_kv_bwd_plain
+        dq, dx, dln_w, dln_b, dwk, dwv = bwd(q, x, ln_w, ln_b, wk, wv, dout, lse, delta, seed,
+                                             num_heads, scale, rate)
+        return (dq, dx, dln_w.to(ln_w.dtype), dln_b.to(ln_b.dtype), dwk, dwv,
+                None, None, None, None)
+
+
+def flash_attention_train(q, k, v, seed, num_heads: int, scale: float, rate: float):
+    """Differentiable training attention with dropout `rate` (K8)."""
+    return _FlashTrain.apply(q, k, v, seed, num_heads, scale, rate)
+
+
+def flash_attention_train_kv(q, x_kv, ln_w, ln_b, wk, wv, seed, num_heads: int, scale: float,
+                             rate: float):
+    """Training cross-attention with the kv LN and k/v projections folded
+    in (K7); gradients flow to q, x_kv, ln_w, ln_b, wk and wv."""
+    return _FlashTrainKV.apply(q, x_kv, ln_w, ln_b, wk, wv, seed, num_heads, scale, rate)
+
+
+def draw_seed(generator: torch.Generator | None, rate: float, device) -> torch.Tensor:
+    """The dropout seed, an int32 tensor [1] on `device`, drawn from
+    `generator` (on the generator's device, so no host synchronisation);
+    zero when the rate is 0. A nonzero rate needs a generator."""
+    if rate == 0.0:
+        return torch.zeros((1,), dtype=torch.int32, device=device)
+    if generator is None:
+        raise ValueError("dropout needs a torch.Generator")
+    seed = torch.randint(0, 2**31 - 1, (1,), dtype=torch.int32, generator=generator,
+                         device=generator.device)
+    return seed.to(device)

@@ -1,0 +1,108 @@
+"""K10: the patch gather with centering, forward and backward (counterpart
+of `gather_rows_centered_pallas` in ops/pallas/gather.py).
+
+`gather_rows_centered(points, centers, idx, group_size)`: points [B, N, C],
+centers [B, G, >=3], idx int [B, G*S] -> [B, G*S, C] = points[idx] minus
+the xyz of the owning group's center (r // S) on channels 0..2; the
+center is rounded to the points' dtype first and the difference is taken
+in f32 and rounded once. Extra channels ride along uncentered.
+
+A `torch.autograd.Function` launches `csrc/gather.cu` on CUDA tensors and
+runs the plain twins below on CPU tensors. The backward scatter-adds the
+gradient into the points (several groups may pick one point) and sums it,
+negated, over each group's rows into its center.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from vipformer_tpu_torch.ops import cuda
+
+FWD_LAUNCHES = cuda.LaunchCounter()
+BWD_LAUNCHES = cuda.LaunchCounter()
+
+
+def _group_ids(k: int, group_size: int, device) -> torch.Tensor:
+    return torch.arange(k, device=device) // group_size
+
+
+def gather_centered_plain(points, centers, idx, group_size: int):
+    b, _, c = points.shape
+    k = idx.shape[1]
+    dt = points.dtype
+    nb = torch.gather(points, 1, idx.long()[..., None].expand(-1, -1, c)).float()
+    cz = centers[..., :3].to(dt).float()[:, _group_ids(k, group_size, points.device)]
+    return torch.cat([nb[..., :3] - cz, nb[..., 3:]], dim=-1).to(dt)
+
+
+def scatter_centered_plain(g, idx, n: int, gnum: int, group_size: int):
+    """-> (d_points f32 [B, N, C], d_centers f32 [B, G, 3] rounded to g's dtype)."""
+    b, k, c = g.shape
+    gf = g.float()
+    dp = torch.zeros((b, n, c), dtype=torch.float32, device=g.device)
+    dp.scatter_add_(1, idx.long()[..., None].expand(-1, -1, c), gf)
+    dc = -gf[..., :3].reshape(b, gnum, group_size, 3).sum(2)
+    return dp, dc.to(g.dtype).float()
+
+
+def gather_centered_kernel(points, centers, idx, group_size: int):
+    b, n, c = points.shape
+    gnum, k = centers.shape[1], idx.shape[1]
+    dt = points.dtype
+    if k != gnum * group_size:
+        raise ValueError(f"idx has {k} rows, expected G*S = {gnum * group_size}")
+    points = points.contiguous()
+    cz = centers[..., :3].float().contiguous()
+    idx = idx.to(torch.int32).contiguous()
+    cuda.require(points, "points", dt, (b, n, c))
+    cuda.require(cz, "centers", torch.float32, (b, gnum, 3))
+    cuda.require(idx, "idx", torch.int32, (b, k))
+    out = torch.empty((b, k, c), dtype=dt, device=points.device)
+    fn = cuda.entry_point("gather_centered", dt)
+    FWD_LAUNCHES.n += 1
+    cuda.check(getattr(cuda.lib(), fn)(
+        points.data_ptr(), cz.data_ptr(), idx.data_ptr(), out.data_ptr(),
+        b, n, c, gnum, k, group_size, cuda.stream_ptr()), fn)
+    return out
+
+
+def scatter_centered_kernel(g, idx, n: int, gnum: int, group_size: int):
+    b, k, c = g.shape
+    dt = g.dtype
+    g = g.contiguous()
+    idx = idx.to(torch.int32).contiguous()
+    cuda.require(g, "grad", dt, (b, k, c))
+    cuda.require(idx, "idx", torch.int32, (b, k))
+    dp = torch.zeros((b, n, c), dtype=torch.float32, device=g.device)
+    dc = torch.empty((b, gnum, 3), dtype=torch.float32, device=g.device)
+    fn = cuda.entry_point("scatter_centered", dt)
+    BWD_LAUNCHES.n += 1
+    cuda.check(getattr(cuda.lib(), fn)(
+        g.data_ptr(), idx.data_ptr(), dp.data_ptr(), dc.data_ptr(),
+        b, n, c, gnum, k, group_size, cuda.stream_ptr()), fn)
+    return dp, dc
+
+
+class _GatherCentered(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, points, centers, idx, group_size):
+        fwd = gather_centered_kernel if points.is_cuda else gather_centered_plain
+        ctx.save_for_backward(idx)
+        ctx.meta = (points.shape[1], points.dtype, centers.shape, centers.dtype, group_size)
+        return fwd(points, centers, idx, group_size)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        n, p_dtype, c_shape, c_dtype, group_size = ctx.meta
+        bwd = scatter_centered_kernel if grad.is_cuda else scatter_centered_plain
+        dp, dc = bwd(grad.to(p_dtype), idx, n, c_shape[1], group_size)
+        if c_shape[-1] > 3:
+            dc = torch.cat([dc, dc.new_zeros(*c_shape[:-1], c_shape[-1] - 3)], dim=-1)
+        return dp.to(p_dtype), dc.to(c_dtype), None, None
+
+
+def gather_rows_centered(points, centers, idx, group_size: int):
+    """points[idx] minus the owning group's center xyz (see module doc)."""
+    return _GatherCentered.apply(points, centers, idx, group_size)

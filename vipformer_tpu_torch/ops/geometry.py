@@ -13,6 +13,7 @@ import torch
 
 from vipformer_tpu_torch.ops.cuda import fps as _fps
 from vipformer_tpu_torch.ops.cuda import knn as _knn
+from vipformer_tpu_torch.ops.cuda.gather import gather_rows_centered
 
 
 def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
@@ -93,19 +94,19 @@ def divide_patches(points, num_groups: int, group_size: int,
 
     Returns (neighbors [B, G, S, C], centers [B, G, C]). The default
     subtracts each center from the xyz channels of its neighbours (the
-    reference's documented intent); `compat=True` reproduces the
-    reference's actual slice, which subtracts the centers (all channels)
-    from the first three neighbours of each group (geometry.py:295-349 of
-    the JAX package)."""
+    reference's documented intent) in one gather kernel, K10
+    (ops/cuda/gather.py); `compat=True` reproduces the reference's actual
+    slice, which subtracts the centers (all channels) from the first three
+    neighbours of each group, with the plain gather (geometry.py:295-349 of
+    the JAX package). `generator` draws FPS's random start per cloud."""
     centers = fps(points, num_groups, generator)
     idx = knn(group_size, points[..., :3], centers[..., :3])
     src = points.to(neighbor_dtype) if neighbor_dtype is not None else points
+    if not compat:
+        b = src.shape[0]
+        flat = gather_rows_centered(src, centers, idx.reshape(b, -1), group_size)
+        return flat.view(b, num_groups, group_size, src.shape[-1]), centers
     neighbors = index_points(src, idx)  # [B, G, S, C]
     c = centers.to(neighbors.dtype)
-    if compat:
-        head = neighbors[:, :, :3, :] - c[:, :, None, :]
-        neighbors = torch.cat([head, neighbors[:, :, 3:, :]], dim=2)
-    else:
-        delta = neighbors[..., :3] - c[..., None, :3]
-        neighbors = torch.cat([delta, neighbors[..., 3:]], dim=-1)
-    return neighbors, centers
+    head = neighbors[:, :, :3, :] - c[:, :, None, :]
+    return torch.cat([head, neighbors[:, :, 3:, :]], dim=2), centers
