@@ -33,7 +33,29 @@ goes on):
      and every gradient leaf below its head under a fixed cotangent, and
      the IMID step's loss and every gradient leaf;
   8. the bf16 step time at B=48 (CUDA events over 5 steps after warm-up)
-     and where it goes (kernel sums from torch.profiler).
+     and where it goes (kernel sums from torch.profiler);
+  9. hold the finetune kernels against their twins: K11 (Dense weight
+     gradients) at the ft_cls step's 42,240 rows and each of its five
+     (Cin, Cout), and at an odd row count, in f32 and bf16, beside cuBLAS
+     plus a column sum; K6 (self-attention with the pre-LN and q/k/v
+     folded in) at [330, 128, 256] and [64, 128, 256], in f32 and bf16,
+     beside the route it replaces (LayerNorm, three cuBLAS projections,
+     K5);
+ 10. ft_cls path: three `make_cls_step` steps at the script's B=330 in
+     bf16 on synthetic ModelNet40 (scripts/finetune/ft-E1CL8SL-H4D256-
+     L128-MR2.sh, dropout as it sets it): the loss and parameters stay
+     finite, every parameter moves, K1, K2, K7-K9 forward and backward,
+     K10 forward and K11 (54 launches per step) launched; then one
+     `make_cls_eval` at B=330 (the test split padded): K1-K4 launched, K6
+     8 times per forward, K5 not at all;
+ 11. the card's f32 ft_cls path against the plain path on the CPU (full
+     width, dropout 0, FPS from index 0, K11 and K6 forced on both sides):
+     at B=2 the eval logits, the train-mode backbone features and every
+     gradient leaf below the head under a fixed cotangent; at B=8 (the
+     head's BatchNorms over 2 rows are ill-conditioned) the step's loss and
+     every gradient leaf;
+ 12. the bf16 ft_cls step time at B=330 and where it goes, and the eval
+     forward at B=64 and B=330 with and without K6.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 results (time, twin's time, bound, launches on the main path), and last
@@ -59,6 +81,15 @@ BATCHES = (32, 64)  # serving batches
 REQUESTS = (1, 5, 32, 64)
 PRETRAIN_BATCH = 48  # clouds per view: 96 point clouds per step
 STEPS = 3  # pretrain steps on the main path
+FT_BATCH = 330  # ft_cls --batch_size and --test_batch_size
+FT_STEPS = 3  # ft_cls steps on the main path
+# K11's sites in one ft_cls step at B=330 (42,240 latent rows): (Cin, Cout)
+# -> launches per step. PositionEmb 3->128 and 128->256; the CA layer's
+# q_proj and o_proj and the 8 SA layers' q/k/v/o_proj (256->256); the MLPs
+# of those 9 layers (256->512, 512->256). The adapter (337,920 rows) and
+# the head (330 rows) lie outside the window, Group2Emb runs in K9.
+DENSE_SITES = {(3, 128): 1, (128, 256): 1, (256, 256): 2 + 4 * 8, (256, 512): 9, (512, 256): 9}
+DENSE_ODD_ROWS = 16411
 TIMED_STEPS = 5
 # Kernel vs plain twin, as max|kernel - plain| / max(1, max|plain|):
 # f32 differs only by summation order (K = 64..1024 terms);
@@ -122,11 +153,18 @@ KERNELS = {
     "gather_centered": ("vipformer_tpu_torch/csrc/gather.cu",
                         "vipformer_tpu/ops/pallas/gather.py:358 gather_rows_centered_pallas "
                         "(VJP :390)", "pretrain"),
+    "attn_small_qkv_ln": ("vipformer_tpu_torch/csrc/attention.cu",
+                          "vipformer_tpu/ops/pallas/attention.py:716 "
+                          "fused_attention_packed_small_qkv_ln", "ft_cls eval"),
+    "dense_grads": ("vipformer_tpu_torch/csrc/dense.cu",
+                    "vipformer_tpu/ops/pallas/dense.py:76 dense_grads_pallas", "ft_cls"),
 }
 SERVING_KERNELS = ("fps", "knn", "stem", "attn_kv_ln", "attn_small")
 # the launch counters of the pretrain path (K10's backward never runs there)
 PRETRAIN_COUNTERS = ("fps", "knn", "attn_train_kv_fwd", "attn_train_kv_bwd", "attn_train_fwd",
                      "attn_train_bwd", "g2e_train_fwd", "g2e_train_bwd", "gather_centered_fwd")
+FT_COUNTERS = PRETRAIN_COUNTERS + ("dense_grads",)
+FT_EVAL_COUNTERS = ("fps", "knn", "stem", "attn_kv_ln", "attn_small_qkv_ln")
 
 
 class SmokeFailure(Exception):
@@ -203,6 +241,24 @@ class Recorder:
         lib = f" library_ms={library_ms:.4f}" if library_ms is not None else ""
         print(f"  {name:18s} {shape:34s} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"bound_ms={bnd['bound_ms']:.4f} ({bnd['bound_by']}){lib}")
+
+
+def sdpa_bwd_ms(q, k, v, do, h, scale, rate) -> float:
+    """SDPA on the head-split views, forward and backward under
+    torch.autograd.grad (with its own dropout draw at `rate`)."""
+    import torch.nn.functional as F
+
+    def split(t):
+        return t.view(t.shape[0], t.shape[1], h, -1).transpose(1, 2)
+
+    qkv = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    doh = split(do)
+
+    def run():
+        out = F.scaled_dot_product_attention(*map(split, qkv), dropout_p=rate, scale=scale)
+        return torch.autograd.grad(out, qkv, doh)
+
+    return cuda_ms(run)
 
 
 def sdpa_ms(q, k, v, h, scale, rate) -> float:
@@ -462,7 +518,7 @@ def check_training_kernels(rec: Recorder) -> None:
                            cuda_ms(lambda: kf.attention_bwd_kernel(*bwd_args)),
                            cuda_ms(lambda: kf.attention_bwd_plain(*bwd_args)),
                            bound(nbytes(q, k, v, do, lse_p, delta, *grads), 2.5 * ops, dt_name),
-                           shape=shape)
+                           sdpa_bwd_ms(q, k, v, do, h, scale, rate), shape=shape)
 
     # K7 at the point branch's cross-attention (128 latents over 2048
     # points) and the image branch's (144 patches over themselves)
@@ -731,34 +787,356 @@ def time_pretrain_step(batches) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run(2)
         torch.cuda.synchronize()
+    print_breakdown(prof, 2, ms, "a pretrain step")
+
+
+# ------------------------------------------------------------ ft_cls
+
+
+def ft_config(**over):
+    """The flagship classification finetune configuration (scripts/finetune/
+    ft-E1CL8SL-H4D256-L128-MR2.sh: B=330, 1024 points, AdamW 1e-3 with
+    coswarm, atten_drop 0.1, mlp_drop 0.5, max_dpr 0), as the port's Config.
+    Synthetic ModelNet40 and random weights from the seed stand in for the
+    dataset and the pretrain checkpoint."""
+    kw = dict(num_ft_points=NUM_POINTS, num_test_points=NUM_POINTS, batch_size=FT_BATCH,
+              test_batch_size=FT_BATCH, scheduler="coswarm", step_size=100, max_lr=1e-3,
+              min_lr=0.0, warm_epochs=5, gamma=0.6, ft_dataset="ModelNet40",
+              num_obj_classes=40, modality="imc-only")
+    kw.update(over)
+    return config(**kw)
+
+
+def check_ft_cls_kernels(rec: Recorder, route_ms: dict) -> None:
+    from vipformer_tpu_torch.ops.cuda import attention as kattn
+    from vipformer_tpu_torch.ops.cuda import dense as kdense
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 4)
+    d, h, g = 256, 4, 128
+    scale = (d // h) ** -0.5
+    rows = FT_BATCH * g
+
+    def t(shape, dt=torch.float32, scale_=1.0):
+        return torch.from_numpy(
+            (rng.standard_normal(shape) * scale_).astype(np.float32)).to(dev, dt)
+
+    print(f"finetune kernels K11 and K6 against their twins (ft_cls shapes, B={FT_BATCH}):")
+    # K11: every (Cin, Cout) of the step at its rows, and an odd row count
+    cases = [(rows, ci, co) for ci, co in DENSE_SITES] + [
+        (DENSE_ODD_ROWS, 3, 128), (DENSE_ODD_ROWS, 256, 256)]
+    per_step = 0.0
+    for r, ci, co in cases:
+        for dt_name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            x, dy = t((r, ci), dt), t((r, co), dt)
+            dw_k, db_k = kdense.dense_grads(x, dy)
+            dw_p, db_p = kdense.dense_grads_plain(x, dy)
+            what = f"R={r} {ci}->{co} {dt_name}"
+            rec.check("dense_grads", what + " dW", *rel_err(dw_k, dw_p), GRAD_TOL[dt_name])
+            rec.check("dense_grads", what + " db", *rel_err(db_k, db_p), GRAD_TOL[dt_name])
+            if dt_name != "bfloat16" or r != rows:
+                continue
+            ms = cuda_ms(lambda: kdense.dense_grads(x, dy))
+            per_step += ms * DENSE_SITES[(ci, co)]
+            bnd = bound(nbytes(x, dy, dw_k, db_k), 2 * r * ci * co + r * co, dt_name)
+            args = (ms, cuda_ms(lambda: kdense.dense_grads_plain(x, dy)), bnd,
+                    cuda_ms(lambda: (x.t() @ dy, dy.sum(0))))
+            shape = f"x[{r},{ci}] dy[{r},{co}] bf16"
+            if (ci, co) == (256, 256):  # the step's most frequent site
+                rec.timing("dense_grads", *args, shape=shape)
+            else:
+                print(f"  {'dense_grads':18s} {shape:34s} kernel_ms={ms:.4f} plain_ms={args[1]:.4f} "
+                      f"bound_ms={bnd['bound_ms']:.4f} ({bnd['bound_by']}) library_ms={args[3]:.4f}")
+    rec.r["dense_grads"]["ms_per_step"] = per_step
+    print(f"  K11 per ft_cls step (54 launches at the sites' shapes): {per_step:.4f} ms")
+
+    # K6 at the eval batch and the serving batch; the route it replaces is
+    # the plain LayerNorm, three cuBLAS projections and K5
+    def replaced(x, lw, lb, wq, wk, wv):
+        xn = kattn.layer_norm_f32(x, lw, lb, x.dtype)
+        return kattn.fused_attention_packed_small(xn @ wq, xn @ wk, xn @ wv, num_heads=h,
+                                                  scale=scale)
+
+    with torch.inference_mode():
+        for b in (FT_BATCH, 64):
+            for dt_name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+                args = (t((b, g, d), dt), t((d,), scale_=0.2) + 1.0, t((d,), scale_=0.1),
+                        t((d, d), dt, d ** -0.5), t((d, d), dt, d ** -0.5),
+                        t((d, d), dt, d ** -0.5))
+                out_k = kattn.fused_attention_packed_small_qkv_ln(*args, num_heads=h, scale=scale)
+                out_p = kattn.attention_small_qkv_ln_plain(*args, h, scale)
+                rec.check("attn_small_qkv_ln", f"B={b} {dt_name}", *rel_err(out_k, out_p),
+                          KERNEL_TOL[dt_name])
+                if dt_name != "bfloat16":
+                    continue
+                ms = cuda_ms(lambda: kattn.fused_attention_packed_small_qkv_ln(
+                    *args, num_heads=h, scale=scale))
+                route = cuda_ms(lambda: replaced(*args))
+                route_ms[b] = (ms, route)
+                if b == FT_BATCH:
+                    ops = 2 * b * g * d * 3 * d + 4 * b * g * g * d
+                    rec.timing("attn_small_qkv_ln", ms,
+                               cuda_ms(lambda: kattn.attention_small_qkv_ln_plain(*args, h, scale)),
+                               bound(nbytes(*args, out_k), ops, dt_name), route,
+                               shape=f"x[{b},{g},{d}] H={h} bf16")
+                print(f"  K6 vs the route it replaces (LN + 3 cuBLAS + K5), B={b} bf16: "
+                      f"{ms:.4f} ms vs {route:.4f} ms")
+
+
+def ft_batches(cfg, split: str):
+    """The synthetic ModelNet40 split in batches of B (host numpy): the
+    train split shuffled, whole batches; the test split in order, the last
+    batch padded (its mask returned beside it)."""
+    from vipformer_tpu_torch.data.datasets import ModelNet40SVM
+    from vipformer_tpu_torch.data.pipeline import Loader, collate_cls, pad_batch
+
+    ds = ModelNet40SVM(split, cfg.num_ft_points)
+    if split == "train":
+        return list(Loader(ds, cfg.batch_size, collate_cls, shuffle=True, seed=cfg.seed,
+                           drop_last=True))
+    return [pad_batch(b, cfg.test_batch_size)
+            for b in Loader(ds, cfg.test_batch_size, collate_cls)]
+
+
+def drive_ft_cls_path(counts_out: dict, eval_counts_out: dict, batches, test_batches) -> None:
+    from vipformer_tpu_torch.models.factory import build_ft_cls
+    from vipformer_tpu_torch.ops import cuda as kcuda
+    from vipformer_tpu_torch.train.trainer import create_state, make_cls_eval, make_cls_step
+
+    cfg = ft_config()
+    model = build_ft_cls(cfg, device="cuda")
+    state = create_state(cfg, {"pc": model})
+    step = make_cls_step(cfg, model)
+    before = [p.detach().clone() for p in state.parameters()]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    kcuda.reset_launch_counts()
+    metrics = []
+    for i in range(FT_STEPS):
+        state, m = step(state, batches[i % len(batches)], cfg.lr, gen)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    counts = kcuda.launch_counts()
+    counts_out.update(counts)
+    print(f"ft_cls path launches over {FT_STEPS} steps at B={FT_BATCH}:", json.dumps(counts))
+    for name in FT_COUNTERS:
+        expect(counts[name] > 0, f"{name} was not launched on the ft_cls path")
+    per_step = sum(DENSE_SITES.values())
+    expect(counts["dense_grads"] == per_step * FT_STEPS,
+           f"K11 launched {counts['dense_grads']} times, expected {per_step} per step")
+    expect(counts["attn_small_qkv_ln"] == 0, "K6 launched in a train step")
+    for i, m in enumerate(metrics):
+        vals = {k: float(v) for k, v in m.items()}
+        print(f"  step {i}: " + " ".join(f"{k}={v:.5f}" for k, v in vals.items()))
+        expect(all(np.isfinite(v) for v in vals.values()), f"ft_cls step {i}: non-finite metric")
+    after = list(state.parameters())
+    expect(all(bool(torch.isfinite(p).all()) for p in after), "non-finite parameters")
+    moved = sum(not torch.equal(a, b) for a, b in zip(after, before))
+    print(f"  {moved} of {len(after)} parameter tensors moved; all finite")
+    expect(moved == len(after), "some parameters did not change")
+
+    eval_step = make_cls_eval(model)
+    batch, mask = test_batches[0]
+    kcuda.reset_launch_counts()
+    pred = eval_step(batch["points"])
+    torch.cuda.synchronize()
+    counts = kcuda.launch_counts()
+    eval_counts_out.update(counts)
+    print(f"ft_cls eval launches, one forward at B={FT_BATCH}:", json.dumps(counts))
+    for name in FT_EVAL_COUNTERS:
+        expect(counts[name] > 0, f"{name} was not launched on the ft_cls eval")
+    expect(counts["attn_small_qkv_ln"] == cfg.num_sa_layers,
+           f"K6 launched {counts['attn_small_qkv_ln']} times, expected {cfg.num_sa_layers}")
+    expect(counts["attn_small"] == 0, "K5 launched at B=330 although K6's gate holds")
+    expect(tuple(pred.shape) == (FT_BATCH,), f"predictions of shape {tuple(pred.shape)}")
+    pred = pred.cpu().numpy()
+    expect(bool(((pred >= 0) & (pred < cfg.num_obj_classes)).all()), "labels out of range")
+    acc = float((pred[mask] == batch["labels"][mask]).mean())
+    print(f"  eval: {int(mask.sum())} test clouds (+{int((~mask).sum())} padding), "
+          f"accuracy after {FT_STEPS} steps {acc:.4f}")
+
+
+def compare_ft_cls_with_cpu(batch, step_batch) -> None:
+    """The card's f32 ft_cls path against the plain path on the CPU: same
+    weights, dropout 0, FPS from index 0, K11 and K6 forced on both sides
+    (the CPU runs their twins), held as the pretrain step is
+    (compare_step_with_cpu):
+
+    * on `batch` (B=2): the eval logits (through K6 on the card) within
+      STEP_TOL; below the head, where K11 runs, the train-mode backbone
+      features and the gradient of every leaf under one fixed cotangent on
+      them, within STEP_TOL (Group2Emb's leaves, behind its max pool,
+      STEP_G2E_TOL);
+    * on `step_batch` (B=8): the step's loss within STEP_TOL and every
+      gradient leaf within STEP_HEAD_TOL (Group2Emb's STEP_G2E_TOL). The
+      step runs through the finetune head's three batch-statistics
+      BatchNorms; over 2 rows each normalises a channel to about +-1
+      whatever its input, so the gradient that reaches the backbone comes
+      from the few channels whose two rows nearly coincide, and differs in
+      its leading digit between any two summation orders (measured: 0.56
+      relative, with the loss at 5e-4). Over 8 rows the BatchNorms are
+      well conditioned."""
+    from vipformer_tpu_torch.models.factory import build_ft_cls
+    from vipformer_tpu_torch.ops.cuda import attention as kattn
+    from vipformer_tpu_torch.ops.cuda import dense as kdense
+    from vipformer_tpu_torch.train.trainer import create_state, make_cls_step
+
+    cfg = ft_config(compute_dtype="float32", atten_drop=0.0, mlp_drop=0.0)
+    pts = torch.from_numpy(batch["points"])
+    step_b = len(step_batch["points"])
+    cot = torch.from_numpy(np.random.default_rng(SEED + 5).standard_normal(
+        (len(pts), 2 * cfg.num_latent_channels)).astype(np.float32))
+
+    def grads_of(model):
+        return {k: p.grad.detach().cpu() for k, p in model.named_parameters()
+                if p.grad is not None}
+
+    got: dict = {}
+    saved = kdense.USE_DENSE_GRAD, kattn.USE_SA_QKV_LN
+    kdense.USE_DENSE_GRAD, kattn.USE_SA_QKV_LN = True, True
+    try:
+        for dev in ("cpu", "cuda"):
+            model = build_ft_cls(cfg, device=dev)
+            with torch.inference_mode():
+                logits, _ = model(pts.to(dev))
+            model.train()
+            _, feats = model(pts.to(dev))
+            (feats * cot.to(dev)).sum().backward()
+            below_head = grads_of(model)
+            model = build_ft_cls(cfg, device=dev)
+            _, metrics = make_cls_step(cfg, model)(create_state(cfg, {"pc": model}), step_batch,
+                                                   cfg.lr)
+            got[dev] = dict(logits=logits.cpu(), feats=feats.detach().cpu(), below_head=below_head,
+                            loss=float(metrics["loss"]), step=grads_of(model))
+    finally:
+        kdense.USE_DENSE_GRAD, kattn.USE_SA_QKV_LN = saved
+    cpu, card = got["cpu"], got["cuda"]
+    print(f"card f32 vs CPU plain path, ft_cls (B={len(pts)}, full width, K6 and K11 forced):")
+    for what, label in (("logits", "eval logits"), ("feats", "train-mode backbone features")):
+        err, rel = rel_err(card[what], cpu[what])
+        print(f"  {label}: max_abs_err={err:.3e} rel={rel:.3e} (bound {STEP_TOL:.0e})")
+        expect(rel <= STEP_TOL, f"ft_cls {label} off the CPU path")
+    err = abs(card["loss"] - cpu["loss"])
+    print(f"  step loss (B={step_b}): card {card['loss']:.6f} cpu {cpu['loss']:.6f} (abs err "
+          f"{err:.3e}, bound {STEP_TOL:.0e} relative)")
+    expect(err <= STEP_TOL * max(1.0, abs(cpu["loss"])), "ft_cls step loss off the CPU step")
+    for what, tol in (("below_head", STEP_TOL), ("step", STEP_HEAD_TOL)):
+        expect(set(card[what]) == set(cpu[what]), f"{what}: gradient leaves differ")
+        bounds = {k: STEP_G2E_TOL if k.startswith("stem.group2emb.") else tol for k in cpu[what]}
+        errs = sorted((rel_err(card[what][k], w)[1] / bounds[k], k)
+                      for k, w in cpu[what].items())
+        print(f"  {what}: {len(errs)} gradient leaves, bound {tol:.0e} (Group2Emb "
+              f"{STEP_G2E_TOL:.0e}); worst error / bound "
+              + ", ".join(f"{e:.3f} ({k})" for e, k in errs[:-4:-1]))
+        expect(errs[-1][0] <= 1.0, f"ft_cls {what} gradient {errs[-1][1]} off the CPU step")
+
+
+def time_ft_cls(batches, test_batches, route_ms: dict) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    from vipformer_tpu_torch.models.factory import build_ft_cls
+    from vipformer_tpu_torch.ops.cuda import attention as kattn
+    from vipformer_tpu_torch.train.trainer import create_state, make_cls_eval, make_cls_step
+
+    cfg = ft_config()
+    model = build_ft_cls(cfg, device="cuda")
+    state = create_state(cfg, {"pc": model})
+    step = make_cls_step(cfg, model)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def run(n):
+        for i in range(n):
+            step(state, batches[i % len(batches)], cfg.lr, gen)
+
+    run(2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    run(TIMED_STEPS)
+    end.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    ms = start.elapsed_time(end) / TIMED_STEPS
+    print(f"ft_cls step bf16 B={FT_BATCH}: {ms:.3f} ms/step (CUDA events; host clock "
+          f"{wall:.3f} ms), {1000.0 * FT_BATCH / ms:.1f} clouds/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run(2)
+        torch.cuda.synchronize()
+    print_breakdown(prof, 2, ms, "an ft_cls step")
+
+    eval_step = make_cls_eval(model)
+    points = {b: torch.from_numpy(test_batches[0][0]["points"][:b]).cuda() for b in (64, FT_BATCH)}
+    saved = kattn.USE_SA_QKV_LN
+    try:
+        for b in (64, FT_BATCH):
+            times = {}
+            for label, flag in (("K6", True), ("LN + 3 cuBLAS + K5", False)):
+                kattn.USE_SA_QKV_LN = flag
+                times[label] = cuda_ms(lambda: eval_step(points[b]), iters=10)
+            kattn.USE_SA_QKV_LN = None
+            auto = cuda_ms(lambda: eval_step(points[b]), iters=10)
+            k6, k5 = route_ms[b]
+            print(f"ft_cls eval forward bf16 B={b}: auto gate {auto:.3f} ms "
+                  f"({1000.0 * b / auto:.0f} clouds/s); with K6 forced {times['K6']:.3f} ms, "
+                  f"with LN + 3 cuBLAS + K5 {times['LN + 3 cuBLAS + K5']:.3f} ms "
+                  f"(one SA layer's kernels: K6 {k6:.4f} ms, the replaced route {k5:.4f} ms)")
+    finally:
+        kattn.USE_SA_QKV_LN = saved
+
+
+# the hand-written kernels by name: those of csrc/*.cu in the vpt*
+# namespaces, and those in anonymous namespaces
+OUR_KERNELS = ("vpt", "fps_kernel", "knn_kernel", "stem_kernel", "attn_kv_ln_kernel",
+               "attn_combine_kernel", "attn_small_kernel", "attn_small_qkv_ln_kernel")
+
+
+def ours_kernel(name: str) -> bool:
+    return any(w in name for w in OUR_KERNELS)
+
+
+def print_breakdown(prof, steps: int, ms: float, what: str) -> None:
+    """Device time per step by kernel from a torch.profiler run over `steps`
+    steps: totals of the hand-written kernels, library GEMMs and the rest,
+    and the largest kernels."""
+    # device events only; a user annotation (torch.optim's "Optimizer.step#...")
+    # reports the time of the kernels inside it again
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    per_step = {e.key: e.self_device_time_total / 1e3 / 2 for e in kernels}
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith("Optimizer.")]
+    per_step = {e.key: e.self_device_time_total / 1e3 / steps for e in kernels}
     busy = sum(per_step.values())
-    ours = sum(v for k, v in per_step.items() if "vpt" in k)
+    ours = sum(v for k, v in per_step.items() if ours_kernel(k))
     gemm = sum(v for k, v in per_step.items()
-               if "vpt" not in k and any(w in k.lower() for w in ("gemm", "nvjet", "cutlass")))
-    print(f"where a step goes (torch.profiler over 2 steps, device time per step): kernels "
+               if not ours_kernel(k) and any(w in k.lower() for w in ("gemm", "nvjet", "cutlass")))
+    print(f"where {what} goes (torch.profiler over {steps} steps, device time per step): kernels "
           f"{busy:.3f} ms of the {ms:.3f} ms step ({100.0 * busy / ms:.1f}% busy): "
           f"hand-written {ours:.3f} ms, library GEMMs {gemm:.3f} ms, other PyTorch kernels "
           f"{busy - ours - gemm:.3f} ms; launches per step "
-          f"{sum(e.count for e in kernels) / 2:.0f}; top kernels:")
-    counts = {e.key: e.count / 2 for e in kernels}
+          f"{sum(e.count for e in kernels) / steps:.0f}; top kernels:")
+    counts = {e.key: e.count / steps for e in kernels}
     for k, v in sorted(per_step.items(), key=lambda kv: -kv[1])[:12]:
         print(f"  {v:9.3f} ms/step {counts[k]:6.0f}/step  {k[:110]}")
 
 
-def kernel_line(rec: Recorder, serve_counts: dict, pretrain_counts: dict) -> list:
+def kernel_line(rec: Recorder, counts: dict) -> list:
+    """The per-kernel entries; `counts` maps each path to the launch counts
+    of its run."""
     out = []
     for name, (src, rep, path) in KERNELS.items():
         entry = {"name": name, "route": "cuda", "source": src, "replaces": rep, "path": path}
-        if path == "serve":
-            entry.update(launches=serve_counts[name], **rec.r[name])
-        else:
+        if path == "pretrain":
             fwd, bwd = rec.r[f"{name}_fwd"], rec.r[f"{name}_bwd"]
-            entry.update(launches=pretrain_counts[f"{name}_fwd"], **fwd)
-            entry["launches_per_step"] = pretrain_counts[f"{name}_fwd"] / STEPS
-            entry["backward"] = dict(launches=pretrain_counts[f"{name}_bwd"], **bwd)
+            entry.update(launches=counts[path][f"{name}_fwd"], **fwd)
+            entry["launches_per_step"] = counts[path][f"{name}_fwd"] / STEPS
+            entry["backward"] = dict(launches=counts[path][f"{name}_bwd"], **bwd)
+        else:
+            entry.update(launches=counts[path][name], **rec.r[name])
+            if path == "ft_cls":
+                entry["launches_per_step"] = counts[path][name] / FT_STEPS
         out.append(entry)
     return out
 
@@ -797,6 +1175,19 @@ def main() -> int:
         small = {k: v[:2] for k, v in batches[0].items()}
         compare_step_with_cpu(small)
         time_pretrain_step(batches)
+        del batches
+        torch.cuda.empty_cache()
+        route_ms: dict = {}
+        check_ft_cls_kernels(rec, route_ms)
+        torch.cuda.empty_cache()
+        cfg = ft_config()
+        ft_train, ft_test = ft_batches(cfg, "train"), ft_batches(cfg, "test")
+        ft_counts: dict = {}
+        ft_eval_counts: dict = {}
+        drive_ft_cls_path(ft_counts, ft_eval_counts, ft_train, ft_test)
+        compare_ft_cls_with_cpu({k: v[:2] for k, v in ft_train[0].items()},
+                                {k: v[:8] for k, v in ft_train[0].items()})
+        time_ft_cls(ft_train, ft_test, route_ms)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -811,7 +1202,9 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi)
-    print(json.dumps({"kernels": kernel_line(rec, serve_counts, pretrain_counts)}))
+    counts = {"serve": serve_counts, "pretrain": pretrain_counts, "ft_cls": ft_counts,
+              "ft_cls eval": ft_eval_counts}
+    print(json.dumps({"kernels": kernel_line(rec, counts)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -12,7 +12,7 @@ more points, a token count that is not a multiple of the kernels' chunk,
 and smaller groups.
 
 Tolerances: FPS and kNN indices exactly equal (both sides use the same
-f32 difference-of-squares keys); K3-K5 within 2e-5 (f32) and 2e-2 (bf16)
+f32 difference-of-squares keys); K3-K6 within 2e-5 (f32) and 2e-2 (bf16)
 of max(1, max |twin|), as in chip_smoke.py.
 """
 
@@ -265,4 +265,86 @@ def test_pretrain_step_on_card_matches_cpu(dev):
     for k, want in grads_c.items():
         err = (grads_g[k] - want).abs().max().item()
         tol = 2e-2 if k.startswith("pc.stem.group2emb.") else 1e-3
+        assert err <= tol * max(1.0, want.abs().max().item()), (k, err)
+
+
+# ---------------------------------------------------------------- K11, K6
+# K11 at row counts off its 16-row steps and at Cin = 3 (PositionEmb's
+# first Dense), gradient tolerances as above; K6 at a batch that is not a
+# multiple of anything the kernel tiles and at G = 144 (more rows than one
+# attention batch of 128, and a projection tile only partly filled).
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r,cin,cout", [(16411, 3, 128), (1, 3, 5), (777, 130, 70),
+                                        (42240, 3, 128)])
+def test_dense_grads_kernel_matches_twin(dev, r, cin, cout, dt):
+    from vipformer_tpu_torch.ops.cuda import dense as kdense
+
+    rng = np.random.default_rng(6)
+    x, dy = _t(rng, (r, cin), dev, dt), _t(rng, (r, cout), dev, dt)
+    for got, want in zip(kdense.dense_grads(x, dy), kdense.dense_grads_plain(x, dy)):
+        assert got.dtype == torch.float32
+        _assert_grad_close(got, want, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,g,din,h", [(130, 128, 256, 4), (3, 144, 256, 4), (2, 37, 128, 2)])
+def test_attention_small_qkv_ln_kernel_matches_twin(dev, b, g, din, h, dt):
+    rng = np.random.default_rng(7)
+    d = 64 * h
+    args = (_t(rng, (b, g, din), dev, dt), _t(rng, (din,), dev, scale=0.2) + 1.0,
+            _t(rng, (din,), dev, scale=0.1), _t(rng, (din, d), dev, dt, din ** -0.5),
+            _t(rng, (din, d), dev, dt, din ** -0.5), _t(rng, (din, d), dev, dt, din ** -0.5))
+    scale = 64 ** -0.5
+    with torch.inference_mode():
+        _assert_close(kattn.fused_attention_packed_small_qkv_ln(*args, num_heads=h, scale=scale),
+                      kattn.attention_small_qkv_ln_plain(*args, h, scale), dt)
+
+
+@pytest.mark.cuda
+def test_cls_step_on_card_matches_cpu(dev):
+    """A small f32 ft_cls step (dropout 0, FPS from index 0, K11 and K6
+    forced; 8 clouds of 32 latents, so the latent Denses' 256 rows have the
+    feasible row block that forcing K11 still needs) on the card against
+    the same step on the CPU: the eval logits through K6 within 1e-4, the
+    loss within 1e-4 and every gradient leaf within 1e-3 of max(1,
+    max|cpu|) (the head's BatchNorm over 8 rows); Group2Emb's leaves,
+    behind its max pool, within 2e-2. K11 and K6 launched on the card."""
+    from vipformer_tpu_torch.config import Config, decode_arch_name
+    from vipformer_tpu_torch.models.factory import build_ft_cls
+    from vipformer_tpu_torch.ops.cuda import dense as kdense
+    from vipformer_tpu_torch.train.trainer import create_state, make_cls_step
+
+    cfg = Config(**decode_arch_name("E1CL2SL-H2D128-L32-MR2"), group_size=16,
+                 num_ft_points=300, num_obj_classes=7, compute_dtype="float32",
+                 atten_drop=0.0, mlp_drop=0.0, max_dpr=0.0)
+    rng = np.random.default_rng(8)
+    batch = {"points": rng.standard_normal((8, 300, 3)).astype(np.float32),
+             "labels": rng.integers(0, 7, 8)}
+    saved = kdense.USE_DENSE_GRAD, kattn.USE_SA_QKV_LN
+    kdense.USE_DENSE_GRAD, kattn.USE_SA_QKV_LN = True, True
+    got = {}
+    try:
+        for d in ("cpu", dev):
+            kcuda.reset_launch_counts()
+            model = build_ft_cls(cfg, device=d)
+            with torch.inference_mode():
+                logits, _ = model(torch.from_numpy(batch["points"]).to(d))
+            _, metrics = make_cls_step(cfg, model)(create_state(cfg, {"pc": model}), batch, 1e-3)
+            got[str(d)] = (logits.cpu(), float(metrics["loss"]),
+                           {k: p.grad.detach().cpu() for k, p in model.named_parameters()})
+    finally:
+        kdense.USE_DENSE_GRAD, kattn.USE_SA_QKV_LN = saved
+    counts = kcuda.launch_counts()
+    assert counts["dense_grads"] > 0 and counts["attn_small_qkv_ln"] == 2, counts
+    (logits_c, loss_c, grads_c), (logits_g, loss_g, grads_g) = got["cpu"], got["cuda"]
+    _assert_grad_close(logits_g, logits_c, torch.float32)
+    assert abs(loss_g - loss_c) <= 1e-4 * max(1.0, abs(loss_c))
+    assert set(grads_g) == set(grads_c)
+    for k, want in grads_c.items():
+        err = (grads_g[k] - want).abs().max().item()
+        tol = 2e-2 if k.startswith("stem.group2emb.") else 1e-3
         assert err <= tol * max(1.0, want.abs().max().item()), (k, err)

@@ -196,9 +196,11 @@ def test_builders_default_to_the_card():
 
 
 def test_port_and_chip_smoke_import_no_jax():
-    """Importing every module of vipformer_tpu_torch, and chip_smoke.py as
-    a module, loads nothing of jax, flax, optax or vipformer_tpu (run in a
-    subprocess: this process has them loaded already)."""
+    """Importing every module of vipformer_tpu_torch (the ft_cls slice's
+    cli.ft_cls, ops.cuda.dense and losses.classification among them), and
+    chip_smoke.py as a module, loads nothing of jax, flax, optax or
+    vipformer_tpu (run in a subprocess: this process has them loaded
+    already)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import vipformer_tpu_torch\n"
@@ -211,6 +213,9 @@ def test_port_and_chip_smoke_import_no_jax():
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'vipformer_tpu'))\n"
         "assert not bad, bad\n"
         "assert len(names) >= 20, names\n"
+        "for name in ('cli.ft_cls', 'cli.common', 'ops.cuda.dense', 'losses.classification',\n"
+        "             'train.meters'):\n"
+        "    assert 'vipformer_tpu_torch.' + name in names, name\n"
         "print('ok', len(names))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "VIPFORMER_PLATFORM"}

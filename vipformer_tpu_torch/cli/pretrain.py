@@ -22,14 +22,11 @@ runs.
 from __future__ import annotations
 
 import argparse
-import dataclasses
-import datetime
-import json
-import os
 import time
 
 import torch
 
+from vipformer_tpu_torch.cli.common import Run
 from vipformer_tpu_torch.config import Config, add_config_args, config_from_namespace
 from vipformer_tpu_torch.data.datasets import ShapeNetRender
 from vipformer_tpu_torch.data.pipeline import Loader, collate_pretrain
@@ -37,32 +34,6 @@ from vipformer_tpu_torch.models.factory import build_img_model, build_pc_model
 from vipformer_tpu_torch.train.checkpoint import save_checkpoint
 from vipformer_tpu_torch.train.schedules import Schedule
 from vipformer_tpu_torch.train.trainer import create_state, make_pretrain_step
-
-
-class Run:
-    """The run directory, a log file beside stdout, and metrics.jsonl."""
-
-    def __init__(self, cfg: Config):
-        self.root = os.path.join(cfg.run_dir, cfg.proj_name, cfg.exp_name)
-        os.makedirs(os.path.join(self.root, "models"), exist_ok=True)
-        stamp = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
-        self.log_path = os.path.join(self.root, f"{stamp}.log") if cfg.log_to_file else None
-        with open(os.path.join(self.root, "config.json"), "w") as f:
-            json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)
-
-    def model_path(self, name: str) -> str:
-        return os.path.join(self.root, "models", name + ".ckpt")
-
-    def write(self, msg: str) -> None:
-        line = f"{datetime.datetime.now():%Y-%m-%d %H:%M:%S} {msg}"
-        print(line, flush=True)
-        if self.log_path:
-            with open(self.log_path, "a") as f:
-                f.write(line + "\n")
-
-    def metrics(self, step: int, **kv) -> None:
-        with open(os.path.join(self.root, "metrics.jsonl"), "a") as f:
-            f.write(json.dumps({"step": step, **kv}) + "\n")
 
 
 def main(cfg: Config, device: str = "cuda") -> dict:

@@ -18,6 +18,11 @@
 // projection pass) is later work.
 // Bound on the H100, K5: shared-memory bandwidth of two 128x128x64 f32
 // products per (cloud, head); q/k/v are read once, the output written once.
+// K6 replaces attention.py:fused_attention_packed_small_qkv_ln (kernel
+// :666-712): K5 with the pre-LN and the q/k/v projections folded in, so
+// the raw tokens are read and only the attention output is written. On the
+// card its work is arithmetic (2 x G x Din x 3D + 4 x G x G x D per cloud,
+// 22 GFLOP at B = 330), run here on CUDA cores in f32.
 //
 // Design, K4: the Pallas kernel carried the online-softmax state across a
 // sequential grid axis; blocks on Hopper carry nothing between them, so
@@ -46,7 +51,6 @@ namespace {
 constexpr int DH = 64;       // head width supported by these kernels
 constexpr int LDH = DH + 1;  // padded shared-memory row stride
 constexpr int MC = 32;       // kv tokens per chunk (K4)
-constexpr float LN_EPS = 1e-5f;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -143,7 +147,7 @@ attn_kv_ln_kernel(const T* __restrict__ q, const T* __restrict__ x,
       s2 = warp_sum(s2);
       const float mu = s1 / din, mu2 = s2 / din;
       const float var = fmaxf(0.f, mu2 - mu * mu);
-      const float rs = rsqrtf(var + LN_EPS);
+      const float rs = rsqrtf(var + vpt::LN_EPS);
       for (int c = lane; c < din; c += 32) {
         const float v = vpt::to_f32(xr[c]);
         xsT[c * LDC + r] = vpt::round_to<T>((v - mu) * (rs * ln_w[c]) + ln_b[c]);
@@ -376,6 +380,186 @@ __global__ void attn_small_kernel(const T* __restrict__ q, const T* __restrict__
   }
 }
 
+// ---------------------------------------------------- K6 (SA, pre-LN + q/k/v)
+// One block per (cloud, head), 256 threads, three phases:
+//  (a) LayerNorm statistics of the cloud's G raw rows (one warp per row);
+//  (b) this head's q, k and v columns, [G, 64] each: tiles of 64 rows, Din
+//      streamed 16 columns at a time; each step stages the normalised rows
+//      (LN applied while loading, rounded to T) once for all three
+//      products and one 16 x 64 slice of each weight, and a thread keeps
+//      4 rows x 4 columns of each of q, k and v in registers. The products
+//      are rounded to T and kept in shared memory (f32);
+//  (c) K5's attention on them: two threads per query row, rows in batches
+//      of 128, the f32 scores of a batch in the space the staging used.
+// Shared memory: q/k/v [G][65] + LN statistics + max(staging, scores of
+// min(G, 128) rows), 163 KB at G = 128, the same in f32 and bf16; G <= 178.
+constexpr int K6_THREADS = 256;
+constexpr int K6_ROWS = 64;  // rows per projection tile
+constexpr int K6_KC = 16;    // Din columns per staging step
+constexpr int K6_LDS = 64 + 4;
+constexpr int K6_BATCH = K6_THREADS / 2;  // query rows per attention batch
+
+__host__ __device__ inline size_t k6_work_offset(int g) {  // floats, 16-byte aligned
+  return ((size_t)g * (3 * LDH + 2) + 3) / 4 * 4;
+}
+__host__ __device__ inline size_t k6_work_floats(int g) {
+  const size_t staging = (size_t)4 * K6_KC * K6_LDS;
+  const size_t scores = (size_t)(g < K6_BATCH ? g : K6_BATCH) * (g + 1);
+  return staging > scores ? staging : scores;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(K6_THREADS)
+attn_small_qkv_ln_kernel(const T* __restrict__ x, const float* __restrict__ ln_w,
+                         const float* __restrict__ ln_b, const T* __restrict__ wq,
+                         const T* __restrict__ wk, const T* __restrict__ wv, T* __restrict__ out,
+                         int g, int din, int h, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                  // [G, LDH]
+  float* ks = qs + (size_t)g * LDH;  // [G, LDH]
+  float* vs = ks + (size_t)g * LDH;  // [G, LDH]
+  float* mus = vs + (size_t)g * LDH;  // [G] row means
+  float* rss = mus + g;              // [G] row 1/std
+  float* work = smem + k6_work_offset(g);
+  float* As = work;                  // [KC][LDS] normalised rows, transposed
+  float* Bs = As + K6_KC * K6_LDS;   // [3][KC][LDS] weight slices of q, k, v
+
+  const int b = blockIdx.y, head = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int d = h * DH;
+  const T* xb = x + (size_t)b * g * din;
+
+  // (a) row statistics: f32 fast variance max(0, E[x^2] - E[x]^2)
+  for (int r = warp; r < g; r += K6_THREADS / 32) {
+    const T* xr = xb + (size_t)r * din;
+    float s1 = 0.f, s2 = 0.f;
+    for (int c = lane; c < din; c += 32) {
+      const float v = vpt::to_f32(xr[c]);
+      s1 += v;
+      s2 += v * v;
+    }
+    s1 = warp_sum(s1);
+    s2 = warp_sum(s2);
+    if (lane == 0) {
+      const float mu = s1 / din, mu2 = s2 / din;
+      mus[r] = mu;
+      rss[r] = rsqrtf(fmaxf(0.f, mu2 - mu * mu) + vpt::LN_EPS);
+    }
+  }
+  __syncthreads();
+
+  // (b) q, k, v = LN(x) @ w[:, head cols], f32-accumulated, rounded to T
+  const int tx = tid % 16, ty = tid / 16;
+  float* const dsts[3] = {qs, ks, vs};
+  for (int r0 = 0; r0 < g; r0 += K6_ROWS) {
+    float acc[3][4][4];
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[p][i][j] = 0.f;
+    for (int k0 = 0; k0 < din; k0 += K6_KC) {
+#pragma unroll
+      for (int it = 0; it < K6_ROWS * K6_KC / K6_THREADS; ++it) {
+        const int e = tid + it * K6_THREADS;
+        const int r = e / K6_KC, kk = e % K6_KC;  // neighbouring threads: neighbouring columns
+        const int row = r0 + r, col = k0 + kk;
+        float v = 0.f;
+        if (row < g && col < din) {
+          const float xv = vpt::to_f32(xb[(size_t)row * din + col]);
+          v = vpt::round_to<T>((xv - mus[row]) * (rss[row] * ln_w[col]) + ln_b[col]);
+        }
+        As[kk * K6_LDS + r] = v;
+      }
+#pragma unroll
+      for (int it = 0; it < 3 * K6_KC * DH / K6_THREADS; ++it) {
+        const int e = tid + it * K6_THREADS;
+        const int p = e / (K6_KC * DH), rem = e % (K6_KC * DH);
+        const int kk = rem / DH, c = rem % DH;
+        const int col = k0 + kk;
+        const T* w = p == 0 ? wq : (p == 1 ? wk : wv);
+        Bs[(p * K6_KC + kk) * K6_LDS + c] =
+            col < din ? vpt::to_f32(w[(size_t)col * d + head * DH + c]) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int kk = 0; kk < K6_KC; ++kk) {
+        const float4 av = ld4(As + kk * K6_LDS + ty * 4);
+        const float ar[4] = {av.x, av.y, av.z, av.w};
+#pragma unroll
+        for (int p = 0; p < 3; ++p) {
+          const float4 bv = ld4(Bs + (p * K6_KC + kk) * K6_LDS + tx * 4);
+          const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[p][i][j] = fmaf(ar[i], br[j], acc[p][i][j]);
+        }
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = r0 + ty * 4 + i;
+        if (row >= g) continue;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          dsts[p][row * LDH + tx * 4 + j] = vpt::round_to<T>(acc[p][i][j]);
+      }
+  }
+  __syncthreads();  // q/k/v complete; the staging space becomes the scores
+
+  // (c) softmax(q k^T * scale) v, normalised before PV, p rounded to T
+  const int half = tid & 1;
+  float* pr = work + (size_t)(tid >> 1) * (g + 1);
+  for (int base = 0; base < g; base += K6_BATCH) {
+    const int row = base + (tid >> 1);
+    const bool has_row = row < g;
+    float rmax = -CUDART_INF_F;
+    if (has_row) {
+      for (int j = half; j < g; j += 2) {
+        float s = 0.f;
+#pragma unroll 16
+        for (int c = 0; c < DH; ++c) s = fmaf(qs[row * LDH + c], ks[j * LDH + c], s);
+        s *= scale;
+        pr[j] = s;
+        rmax = fmaxf(rmax, s);
+      }
+    }
+    rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 1));
+    float rsum = 0.f;
+    if (has_row) {
+      for (int j = half; j < g; j += 2) {
+        const float e = expf(pr[j] - rmax);
+        pr[j] = e;
+        rsum += e;
+      }
+    }
+    rsum += __shfl_xor_sync(0xffffffffu, rsum, 1);
+    if (has_row) {
+      for (int j = half; j < g; j += 2) pr[j] = vpt::round_to<T>(pr[j] / rsum);
+    }
+    __syncwarp();  // the pair of a row sits in one warp and reads only that row
+    if (has_row) {
+      float acc[DH / 2];
+#pragma unroll
+      for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+      for (int j = 0; j < g; ++j) {
+        const float p = pr[j];
+#pragma unroll
+        for (int i = 0; i < DH / 2; ++i) acc[i] = fmaf(p, vs[j * LDH + 2 * i + half], acc[i]);
+      }
+      T* o = out + ((size_t)b * g + row) * d + head * DH;
+#pragma unroll
+      for (int i = 0; i < DH / 2; ++i) o[2 * i + half] = vpt::from_f32<T>(acc[i]);
+    }
+    __syncwarp();  // the next batch overwrites this row's scores
+  }
+}
+
 int threads_for(int g) {
   int t = (2 * g + 127) / 128 * 128;  // two threads per query row
   return t < 128 ? 128 : t;
@@ -421,7 +605,40 @@ int launch_small(const void* q, const void* k, const void* v, void* out, int b, 
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_small_qkv_ln(const void* x, const void* ln_w, const void* ln_b, const void* wq,
+                        const void* wk, const void* wv, void* out, int b, int g, int din, int h,
+                        float scale, cudaStream_t stream) {
+  if (b < 1 || g < 1 || din < 1 || h < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * (k6_work_offset(g) + k6_work_floats(g));
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  cudaFuncSetAttribute(attn_small_qkv_ln_kernel<T>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  dim3 grid(h, b);
+  attn_small_qkv_ln_kernel<T><<<grid, K6_THREADS, smem, stream>>>(
+      (const T*)x, (const float*)ln_w, (const float*)ln_b, (const T*)wq, (const T*)wk,
+      (const T*)wv, (T*)out, g, din, h, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// K6: x [B, G, Din] raw tokens, ln_w/ln_b f32 [Din], wq/wk/wv [Din, H*64]
+// -> out [B, G, H*64] = attention(LN(x) wq, LN(x) wk, LN(x) wv). G <= 178
+// (the shared-memory bound above).
+extern "C" int attn_small_qkv_ln_f32(const void* x, const void* ln_w, const void* ln_b,
+                                     const void* wq, const void* wk, const void* wv, void* out,
+                                     int b, int g, int din, int h, float scale, void* stream) {
+  return launch_small_qkv_ln<float>(x, ln_w, ln_b, wq, wk, wv, out, b, g, din, h, scale,
+                                    (cudaStream_t)stream);
+}
+
+extern "C" int attn_small_qkv_ln_bf16(const void* x, const void* ln_w, const void* ln_b,
+                                      const void* wq, const void* wk, const void* wv, void* out,
+                                      int b, int g, int din, int h, float scale, void* stream) {
+  return launch_small_qkv_ln<__nv_bfloat16>(x, ln_w, ln_b, wq, wk, wv, out, b, g, din, h, scale,
+                                            (cudaStream_t)stream);
+}
 
 // q [B, G, H*64], x [B, M, Din] raw tokens, ln_w/ln_b f32 [Din],
 // wk/wv [Din, H*64] -> out [B, G, H*64].

@@ -11,6 +11,10 @@
 
 namespace vpt {
 
+// LayerNorm epsilon of every kernel that normalises (K4, K6, K7); equal to
+// LN_EPS in ops/cuda/__init__.py.
+constexpr float LN_EPS = 1e-5f;
+
 // Load one element of the storage type as f32.
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }

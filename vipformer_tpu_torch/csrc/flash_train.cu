@@ -55,7 +55,6 @@ constexpr int BT = 64;       // rows per tile (queries or kv tokens)
 constexpr int LD = BT + 4;   // padded shared-memory row stride (floats)
 constexpr int THREADS = 256;
 constexpr int TILE = DH * LD;  // floats per [64][68] tile
-constexpr float LN_EPS = 1e-5f;
 
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   x ^= x >> 16;
@@ -414,7 +413,7 @@ __global__ void ln_stats_kernel(const T* __restrict__ x, int R, int Din,
     ss += __shfl_xor_sync(0xffffffffu, ss, off);
   }
   const float mu = s / Din, var = fmaxf(0.f, ss / Din - mu * mu);
-  if (lane == 0) stats[r] = make_float2(mu, rsqrtf(var + LN_EPS));
+  if (lane == 0) stats[r] = make_float2(mu, rsqrtf(var + vpt::LN_EPS));
 }
 
 // xhat = (x - mean) * rstd and the normalised token xhat * w + b (f32).

@@ -1,9 +1,12 @@
-"""The pretraining dataset, synthetic only (counterpart of
-`ShapeNetRender` in vipformer_tpu/data/datasets.py; reading the real
-ShapeNet clouds and renderings comes with a later slice).
+"""Datasets, synthetic only (counterpart of vipformer_tpu/data/datasets.py;
+the readers of the real ShapeNet clouds and renderings and of the HDF5
+classification sets come with a later slice).
 
-Each sample: two independently augmented views of one cloud and one
-augmented image of it (reference data.py:92-118).
+* `ShapeNetRender` (pretraining): two independently augmented views of one
+  cloud and one augmented image of it (reference data.py:92-118).
+* `ModelNet40SVM`, `ScanObjectNNSVM` (classification finetune): the JAX
+  package's synthetic stand-ins of the same sizes and seeds
+  (datasets.py:37-97), 2048-point clouds cut to `num_points`.
 """
 
 from __future__ import annotations
@@ -36,3 +39,39 @@ class ShapeNetRender:
         t1 = augment.pretrain_transform(raw, rng)
         t2 = augment.pretrain_transform(raw, rng)
         return t1, t2, im
+
+
+class _SyntheticClassification:
+    """A classification split: (points [num_points, 3] f32, label) per
+    sample, no augmentation (the JAX readers' `get`)."""
+
+    num_classes: int
+    sizes: dict  # partition -> (samples, data seed)
+
+    def __init__(self, partition: str = "train", num_points: int = 1024):
+        n, seed = self.sizes[partition]
+        self.data, self.label = synthetic.synthetic_classification(n, 2048, self.num_classes,
+                                                                   seed=seed)
+        self.num_points = num_points
+
+    def __len__(self) -> int:
+        return len(self.data)
+
+    def get(self, i: int, rng=None):
+        return self.data[i][:self.num_points].astype(np.float32), int(self.label[i])
+
+
+class ModelNet40SVM(_SyntheticClassification):
+    """ModelNet40's synthetic stand-in: 800 train / 200 test clouds of 40
+    classes (data seeds 0 and 1)."""
+
+    num_classes = 40
+    sizes = {"train": (800, 0), "test": (200, 1)}
+
+
+class ScanObjectNNSVM(_SyntheticClassification):
+    """ScanObjectNN's synthetic stand-in: 600 train / 150 test clouds of 15
+    classes (data seeds 2 and 3)."""
+
+    num_classes = 15
+    sizes = {"train": (600, 2), "test": (150, 3)}

@@ -1,7 +1,8 @@
-"""Host-side input pipeline (the port's own copy of the `Loader` and
-`collate_pretrain` parts of vipformer_tpu/data/pipeline.py): epoch-seeded
-shuffling, a thread pool over the dataset's `get`, and fixed-shape numpy
-batches (`drop_last` when shuffling)."""
+"""Host-side input pipeline (the port's own copy of the `Loader`,
+`collate_pretrain`, `collate_cls` and `pad_batch` parts of
+vipformer_tpu/data/pipeline.py): epoch-seeded shuffling, a thread pool over
+the dataset's `get`, and fixed-shape numpy batches (`drop_last` when
+shuffling, a padded last batch in evaluation)."""
 
 from __future__ import annotations
 
@@ -64,3 +65,22 @@ def collate_pretrain(samples):
     t2 = np.stack([s[1] for s in samples])
     imgs = np.stack([s[2] for s in samples])
     return {"pc_t1": t1, "pc_t2": t2, "imgs": imgs}
+
+
+def collate_cls(samples):
+    pts = np.stack([s[0] for s in samples])
+    labels = np.asarray([s[1] for s in samples], dtype=np.int64)
+    return {"points": pts, "labels": labels}
+
+
+def pad_batch(batch: dict, batch_size: int) -> tuple[dict, np.ndarray]:
+    """Pad a trailing partial batch up to `batch_size` by repeating its last
+    sample; returns (padded batch, valid mask [batch_size]), so every
+    evaluation batch has one shape and the metrics skip the padding."""
+    n = len(next(iter(batch.values())))
+    mask = np.zeros(batch_size, dtype=bool)
+    mask[:n] = True
+    if n == batch_size:
+        return batch, mask
+    return {k: np.concatenate([v, np.repeat(v[-1:], batch_size - n, axis=0)], axis=0)
+            for k, v in batch.items()}, mask

@@ -13,10 +13,14 @@ attention layers take; a nonzero rate without a generator raises.
 
 The kernels are wired where the JAX package wires its Pallas ones: in
 eval, the cross-attention's kv-LN-fused kernel K4 in `CrossAttention`
-(layers.py:652-692 of the JAX package) and the small-M self-attention
-kernel K5 in `MultiHeadAttention` (layers.py:539-555); in train mode, the
-kv-folded training kernel K7 in `CrossAttention` (layers.py:605-650) and
-the training flash kernel K8 in `MultiHeadAttention` (layers.py:487-511).
+(layers.py:652-692 of the JAX package), the LN+qkv-folded self-attention
+kernel K6 in `SelfAttention` where its gate holds (layers.py:725-758), and
+else the small-M self-attention kernel K5 in `MultiHeadAttention`
+(layers.py:539-555); in train mode, the kv-folded training kernel K7 in
+`CrossAttention` (layers.py:605-650), the training flash kernel K8 in
+`MultiHeadAttention` (layers.py:487-511), and the Dense weight-gradient
+kernel K11 in every `Dense` whose rows fall in its window
+(layers.py:171-180).
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from torch import nn
 
 from vipformer_tpu_torch.ops.attention import dot_product_attention
 from vipformer_tpu_torch.ops.cuda import attention as kattn
+from vipformer_tpu_torch.ops.cuda import dense as kdense
 from vipformer_tpu_torch.ops.cuda import flash_train as kflash
 from vipformer_tpu_torch.ops.cuda.stem import BN_EPS
 
@@ -49,7 +54,9 @@ def gelu_exact(x: torch.Tensor) -> torch.Tensor:
 class Dense(nn.Module):
     """Linear layer: the product in the compute dtype (f32-accumulated,
     rounded on emit), cast, THEN the bias added in the compute dtype.
-    Not `F.linear`, whose fused bias rounds once instead of twice."""
+    Not `F.linear`, whose fused bias rounds once instead of twice. In train
+    mode, where K11's gate holds for its row count, the same math runs as
+    `dense_apply`, whose backward takes dW and db from K11."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True, dtype=None):
         super().__init__()
@@ -67,10 +74,14 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = promote_dtype(x, self.dtype)
-        y = x.to(dt) @ self.kernel(dt)
-        if self.bias is not None:
-            y = y + self.bias.to(dt)
-        return y
+        x, w = x.to(dt), self.kernel(dt)
+        b = self.bias.to(dt) if self.bias is not None else None
+        if (self.training and torch.is_grad_enabled()
+                and kdense.dense_grad_enabled(x.numel() // x.shape[-1], w.shape[0], w.shape[1],
+                                              x.element_size(), x.is_cuda)):
+            return kdense.dense_apply(x, w, b)
+        y = x @ w
+        return y + b if b is not None else y
 
 
 class LayerNorm(nn.Module):
@@ -236,7 +247,9 @@ class CrossAttention(nn.Module):
 
 
 class SelfAttention(nn.Module):
-    """Pre-LN self-attention."""
+    """Pre-LN self-attention. In eval, where K6's gate holds, the pre-LN
+    and the q/k/v projections run inside K6 and only o_proj stays a Dense
+    (JAX layers.py:725-758)."""
 
     def __init__(self, d: int, num_heads: int, dtype=None, dropout: float = 0.0):
         super().__init__()
@@ -244,8 +257,19 @@ class SelfAttention(nn.Module):
         self.attention = MultiHeadAttention(d, num_heads, dtype, dropout)
 
     def forward(self, x, generator=None):
+        att = self.attention
+        b, g, din = x.shape
+        d = att.q_proj.weight.shape[0]
+        if kattn.packed_small_qkv_ln_enabled(att.num_heads, d, d, b, g, din, self.training,
+                                             x.is_cuda):
+            dt = promote_dtype(x, self.norm.dtype)
+            o = kattn.fused_attention_packed_small_qkv_ln(
+                x.to(dt), self.norm.weight, self.norm.bias, att.q_proj.kernel(dt),
+                att.k_proj.kernel(dt), att.v_proj.kernel(dt), num_heads=att.num_heads,
+                scale=att.scale)
+            return att.o_proj(o)
         xn = self.norm(x)
-        return self.attention(xn, xn, generator)
+        return att(xn, xn, generator)
 
 
 class _ResidualLayer(nn.Module):

@@ -33,6 +33,11 @@ NVCC_FLAGS = [
     "-Xcompiler", "-fPIC",
 ]
 
+# LayerNorm epsilon of every LayerNorm in the port: the plain layers and
+# twins use this one, the kernels vpt::LN_EPS in csrc/common.cuh (a test
+# holds the two equal); the JAX package hard-codes 1e-5 in each place.
+LN_EPS = 1e-5
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -68,6 +73,12 @@ SIGNATURES = {
     "gather_centered_bf16": [_P] * 4 + [_I] * 6 + [_P],
     "scatter_centered_f32": [_P] * 4 + [_I] * 6 + [_P],
     "scatter_centered_bf16": [_P] * 4 + [_I] * 6 + [_P],
+    # K11
+    "dense_grads_f32": [_P] * 6 + [_I] * 4 + [_P],
+    "dense_grads_bf16": [_P] * 6 + [_I] * 4 + [_P],
+    # K6
+    "attn_small_qkv_ln_f32": [_P] * 7 + [_I] * 4 + [_F, _P],
+    "attn_small_qkv_ln_bf16": [_P] * 7 + [_I] * 4 + [_F, _P],
 }
 
 _lib = None
@@ -174,7 +185,8 @@ def require(t: torch.Tensor, name: str, dtype, shape=None) -> None:
 
 
 def _counters() -> dict[str, "LaunchCounter"]:
-    from vipformer_tpu_torch.ops.cuda import attention, flash_train, fps, g2e_train, gather, knn, stem
+    from vipformer_tpu_torch.ops.cuda import (attention, dense, flash_train, fps, g2e_train, gather,
+                                              knn, stem)
 
     return {
         "fps": fps.LAUNCHES,
@@ -182,6 +194,7 @@ def _counters() -> dict[str, "LaunchCounter"]:
         "stem": stem.LAUNCHES,
         "attn_kv_ln": attention.KV_LN_LAUNCHES,
         "attn_small": attention.SMALL_LAUNCHES,
+        "attn_small_qkv_ln": attention.SMALL_QKV_LN_LAUNCHES,
         "attn_train_kv_fwd": flash_train.KV_FWD_LAUNCHES,
         "attn_train_kv_bwd": flash_train.KV_BWD_LAUNCHES,
         "attn_train_fwd": flash_train.FWD_LAUNCHES,
@@ -190,6 +203,7 @@ def _counters() -> dict[str, "LaunchCounter"]:
         "g2e_train_bwd": g2e_train.BWD_LAUNCHES,
         "gather_centered_fwd": gather.FWD_LAUNCHES,
         "gather_centered_bwd": gather.BWD_LAUNCHES,
+        "dense_grads": dense.LAUNCHES,
     }
 
 

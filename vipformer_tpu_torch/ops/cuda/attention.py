@@ -1,4 +1,4 @@
-"""K4 and K5: eval attention on packed [B, tokens, H*dh] layouts
+"""K4, K5 and K6: eval attention on packed [B, tokens, H*dh] layouts
 (counterpart of ops/pallas/attention.py).
 
 * `fused_attention_packed_kv_ln` (K4, the cross-attention): the kv
@@ -6,6 +6,10 @@
   online over kv chunks, and the output is divided by l after PV.
 * `fused_attention_packed_small` (K5, the self-attention): the whole score
   block at once, softmax normalised before PV.
+* `fused_attention_packed_small_qkv_ln` (K6): K5 with the self-attention's
+  pre-LN and its q/k/v projections folded in; raw tokens in, o_proj's
+  input out. `packed_small_qkv_ln_enabled` is the port's copy of the JAX
+  gate (attention.py:789-823).
 
 Each launches `csrc/attention.cu` on CUDA tensors and runs its plain twin
 on CPU tensors. Numerics follow the Pallas kernels: f32 logits, `p` cast
@@ -20,7 +24,7 @@ from vipformer_tpu_torch.ops import cuda
 
 KV_LN_LAUNCHES = cuda.LaunchCounter()
 SMALL_LAUNCHES = cuda.LaunchCounter()
-LN_EPS = 1e-5
+SMALL_QKV_LN_LAUNCHES = cuda.LaunchCounter()
 KERNEL_HEAD_DIM = 64  # head width the CUDA kernels are built for
 KV_CHUNK = 2048  # the Pallas kernel's kv chunk cap (attention.py:144)
 KV_Q_TILE = 128  # query rows per K4 block
@@ -49,12 +53,12 @@ def _kv_chunk_for(m: int, cap: int = KV_CHUNK) -> int:
 
 
 def layer_norm_f32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dt) -> torch.Tensor:
-    """nn.layers.LayerNorm's math: f32 fast-variance stats, eps 1e-5."""
+    """nn.layers.LayerNorm's math: f32 fast-variance stats, eps cuda.LN_EPS."""
     xf = x.float()
     mu = xf.mean(dim=-1, keepdim=True)
     mu2 = (xf * xf).mean(dim=-1, keepdim=True)
     var = torch.clamp_min(mu2 - mu * mu, 0.0)
-    return ((xf - mu) * (torch.rsqrt(var + LN_EPS) * w) + b).to(dt)
+    return ((xf - mu) * (torch.rsqrt(var + cuda.LN_EPS) * w) + b).to(dt)
 
 
 def attention_kv_ln_plain(q, x_kv, ln_w, ln_b, wk, wv, num_heads: int, scale: float):
@@ -168,5 +172,80 @@ def fused_attention_packed_small(q, k, v, *, num_heads: int, scale: float) -> to
     cuda.check(getattr(cuda.lib(), fn)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         b, g, m, num_heads, float(scale), cuda.stream_ptr(),
+    ), fn)
+    return out
+
+
+# ------------------------------------------------------------------ K6
+# K6 gate: None = auto (on the card at batch >= SA_QKV_LN_MIN_BATCH, the
+# JAX package's TPU threshold, kept until the card's numbers set its own:
+# PERF.md); True / False force, as the JAX package's USE_SA_QKV_LN.
+USE_SA_QKV_LN: bool | None = None
+SA_QKV_LN_MIN_BATCH = 128
+K6_ROWS_PER_BATCH = 128  # query rows of one attention batch in the kernel
+K6_STAGING_FLOATS = 4 * 16 * 68  # the normalised-row and weight slices
+
+
+def qkv_ln_smem_bytes(g: int) -> int:
+    """K6's shared memory at G rows: q/k/v [G, 65] f32, the LN statistics,
+    then the larger of the staging slices and one batch's scores."""
+    head = -(-g * (3 * (KERNEL_HEAD_DIM + 1) + 2) // 4) * 4
+    return 4 * (head + max(K6_STAGING_FLOATS, min(g, K6_ROWS_PER_BATCH) * (g + 1)))
+
+
+def packed_small_qkv_ln_enabled(num_heads: int, qk_ch: int, v_ch: int, b: int, g: int,
+                                d_in: int, training: bool, on_card: bool) -> bool:
+    """Whether a SelfAttention runs K6: the JAX gate's conditions (eval, no
+    pad mask, equal q/k/v widths divisible by the heads, G <= 512, Din a
+    multiple of 128 and <= 1024; auto only on the card and at
+    b >= SA_QKV_LN_MIN_BATCH), with the kernel's shared memory in place of
+    the TPU's VMEM budget."""
+    if USE_SA_QKV_LN is not None:
+        if not USE_SA_QKV_LN:
+            return False
+    elif not on_card or b < SA_QKV_LN_MIN_BATCH:
+        return False
+    if training or qk_ch != v_ch or qk_ch % num_heads or g > 512:
+        return False
+    return d_in % 128 == 0 and d_in <= 1024 and qkv_ln_smem_bytes(g) <= SMALL_SMEM_BYTES
+
+
+def attention_small_qkv_ln_plain(x, ln_w, ln_b, wq, wk, wv, num_heads: int, scale: float):
+    """x raw [B, G, Din], ln_w/ln_b f32 [Din], wq/wk/wv [Din, H*dh] ->
+    [B, G, H*dh] in x's dtype: LN, three projections each rounded to the
+    compute dtype, then K5's attention."""
+    dt = x.dtype
+    xn = layer_norm_f32(x, ln_w, ln_b, dt).float()
+    q, k, v = ((xn @ w.float()).to(dt) for w in (wq, wk, wv))
+    return attention_small_plain(q, k, v, num_heads, scale)
+
+
+def fused_attention_packed_small_qkv_ln(x, ln_w, ln_b, wq, wk, wv, *, num_heads: int,
+                                        scale: float) -> torch.Tensor:
+    """Eval self-attention with the pre-LN and the q/k/v projections folded
+    in (K6). Shapes as `attention_small_qkv_ln_plain`."""
+    if not x.is_cuda:
+        return attention_small_qkv_ln_plain(x, ln_w, ln_b, wq, wk, wv, num_heads, scale)
+    b, g, din = x.shape
+    d = wq.shape[1]
+    dt = x.dtype
+    fn = cuda.entry_point("attn_small_qkv_ln", dt)
+    if d != num_heads * KERNEL_HEAD_DIM or qkv_ln_smem_bytes(g) > SMALL_SMEM_BYTES:
+        raise ValueError(
+            f"attn_small_qkv_ln kernel needs dh={KERNEL_HEAD_DIM} and its tiles in shared "
+            f"memory (G <= 178); got D={d}, H={num_heads}, G={g}")
+    x, wq, wk, wv = x.contiguous(), wq.contiguous(), wk.contiguous(), wv.contiguous()
+    ln_w = ln_w.float().contiguous()
+    ln_b = ln_b.float().contiguous()
+    cuda.require(x, "x", dt, (b, g, din))
+    cuda.require(ln_w, "ln_w", torch.float32, (din,))
+    cuda.require(ln_b, "ln_b", torch.float32, (din,))
+    for name, w in (("wq", wq), ("wk", wk), ("wv", wv)):
+        cuda.require(w, name, dt, (din, d))
+    out = torch.empty((b, g, d), dtype=dt, device=x.device)
+    SMALL_QKV_LN_LAUNCHES.n += 1
+    cuda.check(getattr(cuda.lib(), fn)(
+        x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), wq.data_ptr(), wk.data_ptr(),
+        wv.data_ptr(), out.data_ptr(), b, g, din, num_heads, float(scale), cuda.stream_ptr(),
     ), fn)
     return out

@@ -32,7 +32,6 @@ BWD_LAUNCHES = cuda.LaunchCounter()
 KV_FWD_LAUNCHES = cuda.LaunchCounter()
 KV_BWD_LAUNCHES = cuda.LaunchCounter()
 KERNEL_HEAD_DIM = 64  # head width the CUDA kernels are built for
-LN_EPS = 1e-5
 WGRAD_SPLITS = 64  # token-axis splits of K7's weight-gradient product
 COLSUM_BLOCKS = 256  # row blocks of the column-sum partials
 _M32 = 0xFFFFFFFF
@@ -133,7 +132,7 @@ def ln_kv_plain(x, ln_w, ln_b):
     xf = x.float()
     mu = xf.mean(dim=-1, keepdim=True)
     mu2 = (xf * xf).mean(dim=-1, keepdim=True)
-    rstd = torch.rsqrt(torch.clamp_min(mu2 - mu * mu, 0.0) + LN_EPS)
+    rstd = torch.rsqrt(torch.clamp_min(mu2 - mu * mu, 0.0) + cuda.LN_EPS)
     xhat = (xf - mu) * rstd
     return xhat, rstd, xhat * ln_w.float() + ln_b.float()
 

@@ -1,6 +1,9 @@
 """Checkpoints: a state dict per branch plus a JSON sidecar of metadata
 (counterpart of vipformer_tpu/train/checkpoint.py, which snapshots flax
-pytrees). The write is atomic (temporary file, then os.replace)."""
+pytrees). The write is atomic (temporary file, then os.replace).
+`restore_backbone` is the explicit backbone restore of the finetune entry
+points: it reports which tensors came from the checkpoint and which kept
+their fresh init, instead of a silent `load_state_dict(strict=False)`."""
 
 from __future__ import annotations
 
@@ -35,3 +38,47 @@ def load_checkpoint(path: str) -> dict[str, dict[str, torch.Tensor]]:
 def load_metadata(path: str) -> dict:
     with open(path + ".json") as f:
         return json.load(f)
+
+
+def branch_state(ckpt: dict, name: str = "pc") -> dict[str, torch.Tensor]:
+    """The state dict of one branch of a loaded checkpoint: `name` in a
+    checkpoint of several branches, else its single module's."""
+    if name in ckpt:
+        return ckpt[name]
+    if "model" in ckpt:
+        return ckpt["model"]
+    raise KeyError(f"checkpoint has no {name!r} or 'model' entry: {sorted(ckpt)}")
+
+
+def restore_backbone(model: nn.Module, pretrained: dict[str, torch.Tensor],
+                     submodules=("stem", "encoder"), log=None) -> str:
+    """Copy the tensors of the named top-level submodules from a pretrain
+    state dict into `model`, key by key (JAX checkpoint.py:113-147): keys
+    present in both with equal shapes are taken; the model's other tensors
+    keep their fresh init (the finetune head, layers deeper than the
+    pretrain); a shape mismatch is kept fresh and reported. Returns (and
+    hands `log`) the message "backbone restore: N tensors from checkpoint;
+    fresh init for [...]"; N counts parameters and BatchNorm statistics."""
+    state = model.state_dict()
+    have = {k.split(".", 1)[0] for k in pretrained}
+    new, restored, fresh, mismatched = dict(state), [], [], []
+    for key, value in state.items():
+        top = key.split(".", 1)[0]
+        if top not in submodules or top not in have:
+            if top not in fresh:
+                fresh.append(top)
+        elif key not in pretrained:
+            fresh.append(key)
+        elif tuple(pretrained[key].shape) != tuple(value.shape):
+            mismatched.append(f"{key}: ckpt{tuple(pretrained[key].shape)} != "
+                              f"model{tuple(value.shape)}")
+        else:
+            new[key] = pretrained[key]
+            restored.append(key)
+    model.load_state_dict(new, strict=True)
+    msg = f"backbone restore: {len(restored)} tensors from checkpoint; fresh init for {fresh}"
+    if mismatched:
+        msg += f"; SHAPE MISMATCH (kept fresh): {mismatched}"
+    if log is not None:
+        log(msg)
+    return msg

@@ -1,12 +1,16 @@
-"""The pretrain train step and its state (counterpart of
-vipformer_tpu/train/trainer.py: `create_state`, `make_pretrain_step`).
+"""Train and eval steps and their state (counterpart of
+vipformer_tpu/train/trainer.py: `create_state`, `make_pretrain_step`,
+`make_feats_fn`, `make_cls_step`, `make_cls_eval`).
 
-One optimizer spans both branches, as in the reference (pretrain.py:106).
-The step runs both point views concatenated through the point branch, the
-images through the image branch, IMID + cmid_weight * CMID (NT-Xent,
-temperature 0.1), one backward and one optimizer update; the BatchNorm
-running statistics update inside the train-mode forward. The state is
-updated in place and returned, so a loop reads like the JAX one.
+One optimizer spans every model of the state, as in the reference
+(pretrain.py:106). A train step runs the train-mode forward (the BatchNorm
+running statistics update inside it), the loss, one backward and one
+optimizer update. The pretrain step runs both point views concatenated
+through the point branch, the images through the image branch, and IMID +
+cmid_weight * CMID (NT-Xent, temperature 0.1); the classification step
+runs label-smoothed cross-entropy (0.2) on the finetune model's logits.
+The state is updated in place and returned, so a loop reads like the JAX
+one.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import torch
 from torch import nn
 
 from vipformer_tpu_torch.config import Config
+from vipformer_tpu_torch.losses.classification import smoothed_cross_entropy
 from vipformer_tpu_torch.losses.contrastive import nt_xent_grouped
 from vipformer_tpu_torch.train.optim import build_optimizer, clip_grad_global_norm, set_learning_rate
 
@@ -81,6 +86,14 @@ def make_pretrain_step(cfg: Config, pc_model: nn.Module, img_model: nn.Module | 
         total = loss_imid + cfg.cmid_weight * loss_cmid
         return total, {"loss": total, "loss_imid": loss_imid, "loss_cmid": loss_cmid}
 
+    return _make_step(cfg, models, loss_fn)
+
+
+def _make_step(cfg: Config, models: list[nn.Module], loss_fn):
+    """step(state, batch, lr, generator=None) -> (state, metrics) around
+    loss_fn(batch, generator) -> (loss, metrics): train mode, the lr, one
+    backward, the optional global-norm clip, one optimizer update."""
+
     def step(state: TrainState, batch, lr: float, generator: torch.Generator | None = None):
         for m in models:
             m.train()
@@ -96,3 +109,48 @@ def make_pretrain_step(cfg: Config, pc_model: nn.Module, img_model: nn.Module | 
         return state, {k: v.detach() for k, v in metrics.items()}
 
     return step
+
+
+def make_cls_step(cfg: Config, model: nn.Module):
+    """Returns step(state, batch, lr, generator=None) -> (state, metrics)
+    for the classification finetune (reference ft_cls.py:151-213).
+
+    batch: {"points": [B, N, 3], "labels": [B] int} as numpy arrays or
+    tensors; `state` from `create_state(cfg, {"pc": model})`. Metrics (the
+    label-smoothed loss and the argmax accuracy) stay on the device."""
+    device = next(model.parameters()).device
+
+    def loss_fn(batch, generator):
+        labels = torch.as_tensor(batch["labels"], device=device, dtype=torch.int64)
+        logits, _ = model(_on(batch["points"], device), generator)
+        loss = smoothed_cross_entropy(logits, labels, 0.2)
+        acc = (logits.argmax(-1) == labels).float().mean()
+        return loss, {"loss": loss, "acc": acc}
+
+    return _make_step(cfg, [model], loss_fn)
+
+
+def make_cls_eval(model: nn.Module):
+    """Returns eval_step(points [B, N, 3]) -> predicted labels [B] (int64,
+    on the model's device): the eval-mode forward's argmax."""
+    device = next(model.parameters()).device
+
+    def eval_step(points):
+        model.eval()
+        with torch.inference_mode():
+            logits, _ = model(_on(points, device))
+        return logits.argmax(-1)
+
+    return eval_step
+
+
+def make_feats_fn(model: nn.Module):
+    """Returns feats(points [B, N, 3]) -> backbone features [B, 2D] (eval)."""
+    device = next(model.parameters()).device
+
+    def feats(points):
+        model.eval()
+        with torch.inference_mode():
+            return model(_on(points, device))[1]
+
+    return feats
