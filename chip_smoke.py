@@ -55,11 +55,35 @@ goes on):
      head's BatchNorms over 2 rows are ill-conditioned) the step's loss and
      every gradient leaf;
  12. the bf16 ft_cls step time at B=330 and where it goes, and the eval
-     forward at B=64 and B=330 with and without K6.
+     forward at B=64 and B=330 with and without K6;
+ 13. hold K12 (the row gather of `index_points` and its scatter-add
+     backward) against its twin at the compat stem's [96, 1024, 3] x 4096
+     neighbour gather, at an odd K and at C=128, in f32 and bf16 (the
+     gather equal, the scatter within GRAD_TOL), timed beside torch.gather
+     and index_add_;
+ 14. hold the earlier kernels against their twins once at part
+     segmentation's widths (D=384, 6 heads): K3, K4, K5, K7 and K8 forward
+     and backward, K9 at D=384, and K11 at its five partseg sites (98,304
+     rows), in f32 and bf16;
+ 15. partseg path (scripts/finetune/ft-partseg.sh: H6D384, 12 SA layers
+     tapped at 2/6/10, B=96) on synthetic ShapeNetPart in bf16: three
+     `make_partseg_step` steps with patch_compat off (K1, K2, K7-K9
+     forward and backward, K10 forward, K11 exactly PARTSEG_DENSE_SITES
+     per step, K12 never; losses and parameters finite, every parameter
+     moved), one step with patch_compat on (K12 once, K10 never); then
+     `make_partseg_eval` at B=96 with patch_compat off (K3 and K4 once, K5
+     12 times) and on (K12 once, K3 never);
+ 16. the card's f32 partseg path against the plain path on the CPU (full
+     width, dropout and DropPath 0, FPS from index 0, K11 forced on both
+     sides), both patch_compat settings: the eval logits at B=2 and the
+     step's loss and every gradient leaf at B=8;
+ 17. the bf16 partseg step time at B=96 and where it goes, and the eval
+     forward at B=96 with patch_compat off and on.
 
-Prints the card's name and power limit, one JSON line of per-kernel
-results (time, twin's time, bound, launches on the main path), and last
-the line {"ok": true, "device": {...}}. Imports nothing of JAX and nothing
+Prints the script's total seconds, the card's name and power limit, one
+JSON line of per-kernel results (time, twin's time, bound, launches on the
+main path and on every path that ran the kernel), and last the line
+{"ok": true, "device": {...}}. Imports nothing of JAX and nothing
 of the JAX package (vipformer_tpu).
 """
 
@@ -91,6 +115,19 @@ FT_STEPS = 3  # ft_cls steps on the main path
 DENSE_SITES = {(3, 128): 1, (128, 256): 1, (256, 256): 2 + 4 * 8, (256, 512): 9, (512, 256): 9}
 DENSE_ODD_ROWS = 16411
 TIMED_STEPS = 5
+PARTSEG_BATCH = 96  # ft-partseg.sh --batch_size and --test_batch_size
+PARTSEG_STEPS = 3  # partseg steps on the main path (patch_compat off)
+# K11's sites in one partseg step at B=96 (98,304 point rows): (Cin, Cout)
+# -> launches per step, as the JAX gate (dense.py:127-186) gives them: the
+# input adapter's 3->64 and 64->384, SegHead's 1024->512 (its per-point
+# segment; the 96-row global segment stays plain), 512->256 and 256->50.
+# The latent Denses (12,288 rows), LabelConv (96 rows) and FeaturePropagation
+# (Cout 1536 and Cin 1536 over the width limit) lie outside; Group2Emb runs
+# in K9. tests/test_torch_partseg_kernels.py holds this list against the
+# JAX gate.
+PARTSEG_DENSE_SITES = {(3, 64): 1, (64, 384): 1, (1024, 512): 1, (512, 256): 1, (256, 50): 1}
+# K12 beside the compat stem's gather: a K off 128-row tiles, and C=128
+GATHER_CASES = ((8, 1024, 128, 1000), (3, 300, 5, 77))
 # Kernel vs plain twin, as max|kernel - plain| / max(1, max|plain|):
 # f32 differs only by summation order (K = 64..1024 terms);
 # bf16 may flip an intermediate rounding by one bf16 ulp (2^-8).
@@ -123,6 +160,10 @@ MODEL_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 # group's gradient to different places: within 2e-2 (which also covers
 # its exactly-zero bias gradients, see ZERO_GRADS).
 STEP_TOL, STEP_HEAD_TOL, STEP_G2E_TOL = 1e-4, 1e-2, 2e-2
+# The partseg step (B=8) passes every gradient through LabelConv's and
+# SegHead's batch-statistics BatchNorms (over 8 clouds and 8,192 points):
+# every leaf within STEP_HEAD_TOL, Group2Emb's within STEP_G2E_TOL; the
+# eval logits (B=2, running statistics) within STEP_TOL.
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): device memory rate, and the
 # rate for each operand type (bf16 on the tensor cores, f32 outside them).
 HBM_BYTES_PER_S = 3.35e12
@@ -158,6 +199,9 @@ KERNELS = {
                           "fused_attention_packed_small_qkv_ln", "ft_cls eval"),
     "dense_grads": ("vipformer_tpu_torch/csrc/dense.cu",
                     "vipformer_tpu/ops/pallas/dense.py:76 dense_grads_pallas", "ft_cls"),
+    "gather_rows": ("vipformer_tpu_torch/csrc/gather.cu",
+                    "vipformer_tpu/ops/pallas/gather.py:180 gather_rows_pallas "
+                    "(fwd :119, VJP :196)", "ft_partseg compat"),
 }
 SERVING_KERNELS = ("fps", "knn", "stem", "attn_kv_ln", "attn_small")
 # the launch counters of the pretrain path (K10's backward never runs there)
@@ -165,6 +209,8 @@ PRETRAIN_COUNTERS = ("fps", "knn", "attn_train_kv_fwd", "attn_train_kv_bwd", "at
                      "attn_train_bwd", "g2e_train_fwd", "g2e_train_bwd", "gather_centered_fwd")
 FT_COUNTERS = PRETRAIN_COUNTERS + ("dense_grads",)
 FT_EVAL_COUNTERS = ("fps", "knn", "stem", "attn_kv_ln", "attn_small_qkv_ln")
+PARTSEG_COUNTERS = FT_COUNTERS
+PARTSEG_EVAL_COUNTERS = ("fps", "knn", "stem", "attn_kv_ln", "attn_small")
 
 
 class SmokeFailure(Exception):
@@ -201,6 +247,22 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time of the kernels one fn() launches (torch.profiler, summed
+    over `iters` calls, per call): where the host's cost per call exceeds
+    the kernel's, cuda_ms measures the host and this the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / iters
 
 
 def rel_err(got, ref) -> tuple[float, float]:
@@ -1087,6 +1149,429 @@ def time_ft_cls(batches, test_batches, route_ms: dict) -> None:
         kattn.USE_SA_QKV_LN = saved
 
 
+# ------------------------------------------------------- K12, partseg
+
+
+def check_gather_rows(rec: Recorder) -> None:
+    """K12 against its twin: the compat stem's neighbour gather (FPS
+    centers and kNN indices of random clouds, [96, 1024, 3] x 4096) in f32
+    and bf16, then GATHER_CASES; the gather equal, the scatter's f32 sums
+    within GRAD_TOL["float32"] (atomics add in another order)."""
+    from vipformer_tpu_torch.ops.cuda import fps as kfps
+    from vipformer_tpu_torch.ops.cuda import gather as kgather
+    from vipformer_tpu_torch.ops.cuda import knn as kknn
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 6)
+    b, n, g, s = PARTSEG_BATCH, NUM_POINTS, 128, 32
+    xyz = torch.from_numpy(rng.standard_normal((b, n, 3)).astype(np.float32)).to(dev)
+    _, centers = kfps.fps(xyz, g)
+    stem_idx = kknn.knn(s, xyz, centers).reshape(b, g * s)
+    print(f"K12 (row gather, scatter-add backward) against its twin, compat stem "
+          f"[{b},{n},3] x {g * s} and {GATHER_CASES}:")
+    cases = [(xyz, stem_idx)]
+    for cb, cn, cc, ck in GATHER_CASES:
+        cases.append((torch.from_numpy(rng.standard_normal((cb, cn, cc)).astype(np.float32)).to(dev),
+                      torch.from_numpy(rng.integers(0, cn, (cb, ck)).astype(np.int32)).to(dev)))
+    for pts32, idx in cases:
+        cb, cn, cc = pts32.shape
+        ck = idx.shape[1]
+        for dt_name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            pts = pts32.to(dt)
+            what = f"[{cb},{cn},{cc}] K={ck} {dt_name}"
+            out_k = kgather.gather_rows_kernel(pts, idx)
+            expect(torch.equal(out_k, kgather.gather_rows_plain(pts, idx)),
+                   f"K12 gather {what}: differs from the twin")
+            rec.check("gather_rows_fwd", f"{what} (equal)", 0.0, 0.0, 0.0)
+            grad = torch.from_numpy(rng.standard_normal((cb, ck, cc)).astype(np.float32)).to(dev, dt)
+            dp_k = kgather.scatter_rows_kernel(grad, idx, cn)
+            dp_p = kgather.scatter_rows_plain(grad, idx, cn)
+            rec.check("gather_rows_bwd", f"{what} d_points", *rel_err(dp_k, dp_p),
+                      GRAD_TOL["float32"])
+            if pts32 is not xyz or dt_name != "bfloat16":
+                continue
+            shape = f"points[{cb},{cn},{cc}] idx[{cb},{ck}] bf16"
+            idx64 = idx.long()[..., None].expand(-1, -1, cc)
+            flat = (idx.long() + cn * torch.arange(cb, device=dev)[:, None]).reshape(-1)
+            g2d = grad.reshape(-1, cc)
+            fns = {"gather_rows_fwd": (lambda: kgather.gather_rows_kernel(pts, idx),
+                                       lambda: kgather.gather_rows_plain(pts, idx),
+                                       lambda: torch.gather(pts, 1, idx64),
+                                       bound(nbytes(pts, idx, out_k), 0, dt_name)),
+                   "gather_rows_bwd": (lambda: kgather.scatter_rows_kernel(grad, idx, cn),
+                                       lambda: kgather.scatter_rows_plain(grad, idx, cn),
+                                       lambda: torch.zeros((cb * cn, cc), dtype=dt, device=dev)
+                                       .index_add_(0, flat, g2d),
+                                       bound(nbytes(grad, idx, dp_k), grad.numel(), "float32"))}
+            for name, (kern, plain, lib, bnd) in fns.items():
+                # at this size a call costs the host more than the card: the
+                # device times of the three calls stand beside the events'
+                rec.timing(name, cuda_ms(kern), cuda_ms(plain), bnd, cuda_ms(lib), shape=shape)
+                dev_ms = {k: device_ms(f) for k, f in (("ms", kern), ("plain_ms", plain),
+                                                      ("library_ms", lib))}
+                rec.r[name]["device_ms"] = dev_ms
+                print(f"  {name:18s} device time per call: kernel {dev_ms['ms']:.4f} ms, plain "
+                      f"{dev_ms['plain_ms']:.4f} ms, library {dev_ms['library_ms']:.4f} ms")
+
+
+def partseg_config(**over):
+    """scripts/finetune/ft-partseg.sh as the port's Config: H6D384, 12 SA
+    layers, MLP x4, taps 2/6/10, 128 groups of 32 among 1024 points,
+    B=96, AdamW 1e-3 with coswarm (5 warm epochs), max_dpr 0.1, no
+    dropout, gradient clip 10 (the CLI's default), bf16. The synthetic
+    ShapeNetPart and random weights from the seed stand in for the dataset
+    and the pretrain checkpoint."""
+    from vipformer_tpu_torch.config import Config
+
+    kw = dict(num_latent_channels=384, num_ca_heads=6, num_sa_heads=6, num_sa_layers=12,
+              mlp_widen_factor=4, layer_idx=(2, 6, 10), num_pc_latents=128, group_size=32,
+              num_ft_points=NUM_POINTS, num_test_points=NUM_POINTS, batch_size=PARTSEG_BATCH,
+              test_batch_size=PARTSEG_BATCH, optim="adamw", lr=1e-3, scheduler="coswarm",
+              step_size=100, max_lr=1e-3, min_lr=0.0, warm_epochs=5, gamma=0.6, max_dpr=0.1,
+              atten_drop=0.0, mlp_drop=0.0, grad_clip_norm=10.0, compute_dtype="bfloat16",
+              ft_dataset="ShapeNetPart", synthetic_data=True, seed=SEED)
+    kw.update(over)
+    return Config(**kw)
+
+
+def check_partseg_widths(rec: Recorder) -> None:
+    """The earlier kernels once at part segmentation's shapes (D=384, 6
+    heads, B=96, 1024 points), f32 and bf16, against their twins; K11 at
+    its five partseg sites, timed beside cuBLAS plus a column sum."""
+    from vipformer_tpu_torch.models.crossformer import init_weights
+    from vipformer_tpu_torch.nn.pointnet import Group2Emb
+    from vipformer_tpu_torch.ops.cuda import attention as kattn
+    from vipformer_tpu_torch.ops.cuda import dense as kdense
+    from vipformer_tpu_torch.ops.cuda import flash_train as kf
+    from vipformer_tpu_torch.ops.cuda import fps as kfps
+    from vipformer_tpu_torch.ops.cuda import g2e_train as kg
+    from vipformer_tpu_torch.ops.cuda import gather as kgather
+    from vipformer_tpu_torch.ops.cuda import knn as kknn
+    from vipformer_tpu_torch.ops.cuda import stem as kstem
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 7)
+    b, n, g, s, d, h = PARTSEG_BATCH, NUM_POINTS, 128, 32, 384, 6
+    scale = (d // h) ** -0.5
+    seed = torch.tensor([20240613], dtype=torch.int32, device=dev)
+
+    def t(shape, dt=torch.float32, scale_=1.0):
+        return torch.from_numpy(
+            (rng.standard_normal(shape) * scale_).astype(np.float32)).to(dev, dt)
+
+    print(f"earlier kernels against their twins at partseg widths (B={b}, D={d}, H={h}):")
+    xyz = t((b, n, 3))
+    _, centers = kfps.fps(xyz, g)
+    nn_idx = kknn.knn(s, xyz, centers)
+    g2e = init_weights(Group2Emb(3, d), SEED).to(dev).eval()
+    for dt_name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        tol, gtol = KERNEL_TOL[dt_name], GRAD_TOL[dt_name]
+        args = (t((b, g, d), dt), t((b, n, d), dt), t((d,), scale_=0.2) + 1.0,
+                t((d,), scale_=0.1), t((d, d), dt, d ** -0.5), t((d, d), dt, d ** -0.5))
+        qkv = (t((b, g, d), dt), t((b, g, d), dt), t((b, g, d), dt))
+        with torch.inference_mode():
+            ops = kstem.stem_operands(g2e, xyz, centers, nn_idx, dt)  # K3
+            rec.check("stem", f"partseg D={d} {dt_name}",
+                      *rel_err(kstem.stem_kernel(*ops), kstem.stem_plain(*ops)), tol)
+            rec.check("attn_kv_ln", f"partseg D={d} H={h} {dt_name}",  # K4
+                      *rel_err(kattn.fused_attention_packed_kv_ln(*args, num_heads=h, scale=scale),
+                               kattn.attention_kv_ln_plain(*args, h, scale)), tol)
+            rec.check("attn_small", f"partseg D={d} H={h} {dt_name}",  # K5
+                      *rel_err(kattn.fused_attention_packed_small(*qkv, num_heads=h, scale=scale),
+                               kattn.attention_small_plain(*qkv, h, scale)), tol)
+        # K7: the CA of 128 latents over the 1024 point tokens (Din=384)
+        do = t((b, g, d), dt)
+        out_k, _ = kf.attention_kv_fwd_kernel(*args, seed, h, scale, 0.0)
+        out_p, lse_p = kf.attention_kv_fwd_plain(*args, seed, h, scale, 0.0)
+        rec.check("attn_train_kv_fwd", f"partseg D={d} H={h} {dt_name}", *rel_err(out_k, out_p),
+                  tol)
+        bwd_args = (*args, do, lse_p, kf.attention_delta(do, out_p, h), seed, h, scale, 0.0)
+        for gname, gk, gp in zip(("dq", "dx", "dln_w", "dln_b", "dwk", "dwv"),
+                                 kf.attention_kv_bwd_kernel(*bwd_args),
+                                 kf.attention_kv_bwd_plain(*bwd_args)):
+            rec.check("attn_train_kv_bwd", f"partseg {dt_name} {gname}", *rel_err(gk, gp), gtol)
+        del args, bwd_args, out_k, out_p
+        # K8: the SA over the 128 latents, 6 heads
+        out_k, _ = kf.attention_fwd_kernel(*qkv, seed, h, scale, 0.0)
+        out_p, lse_p = kf.attention_fwd_plain(*qkv, seed, h, scale, 0.0)
+        rec.check("attn_train_fwd", f"partseg D={d} H={h} {dt_name}", *rel_err(out_k, out_p), tol)
+        bwd_args = (*qkv, do, lse_p, kf.attention_delta(do, out_p, h), seed, h, scale, 0.0)
+        for gname, gk, gp in zip(("dq", "dk", "dv"), kf.attention_bwd_kernel(*bwd_args),
+                                 kf.attention_bwd_plain(*bwd_args)):
+            rec.check("attn_train_bwd", f"partseg {dt_name} {gname}", *rel_err(gk, gp), gtol)
+        # K9 at D=384 on the stem's patches
+        rows = b * g * s
+        x0 = kgather.gather_centered_kernel(xyz.to(dt), centers, nn_idx.reshape(b, -1),
+                                            s).reshape(rows, 3)
+        wb = [g2e.Dense_0.weight.t(), g2e.Dense_0.bias, t((64,), scale_=0.2) + 1.0,
+              t((64,), scale_=0.1), g2e.Dense_1.weight.t(), g2e.Dense_1.bias,
+              g2e.Dense_2.weight.t(), g2e.Dense_2.bias, t((256,), scale_=0.2) + 1.0,
+              t((256,), scale_=0.1), g2e.Dense_3.weight.t(), g2e.Dense_3.bias]
+        wb = [w.detach().float().contiguous() for w in wb]
+        got, want = kg.g2e_fwd_kernel(x0, wb, s), kg.g2e_fwd_plain(x0, wb, s)
+        rec.check("g2e_train_fwd", f"partseg D={d} {dt_name} out", *rel_err(got[0], want[0]), tol)
+        rec.check("g2e_train_fwd", f"partseg D={d} {dt_name} batch statistics",
+                  *rel_err(got[3], want[3]), STATS_TOL)
+        _, h3p, amax, stats = want
+        bwd_args = (x0, wb, h3p, amax, stats, t((rows // s, d), dt), s)
+        dx_k, gr_k = kg.g2e_bwd_kernel(*bwd_args)
+        dx_p, gr_p = kg.g2e_bwd_plain(*bwd_args)
+        rec.check("g2e_train_bwd", f"partseg D={d} {dt_name} dx0", *rel_err(dx_k, dx_p), gtol)
+        for i, (a, w) in enumerate(zip(gr_k, gr_p)):
+            bnd = GRAD_TOL["float32"] * rows ** 0.5 if i in ZERO_GRADS else gtol
+            rec.check("g2e_train_bwd", f"partseg D={d} {dt_name} grad {i}", *rel_err(a, w), bnd)
+        del got, want, h3p, bwd_args, dx_k, dx_p
+        torch.cuda.empty_cache()
+    # K11 at its partseg sites
+    rows = b * n
+    per_step = 0.0
+    for ci, co in PARTSEG_DENSE_SITES:
+        for dt_name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            x, dy = t((rows, ci), dt), t((rows, co), dt)
+            dw_k, db_k = kdense.dense_grads(x, dy)
+            dw_p, db_p = kdense.dense_grads_plain(x, dy)
+            what = f"partseg R={rows} {ci}->{co} {dt_name}"
+            rec.check("dense_grads", what + " dW", *rel_err(dw_k, dw_p), GRAD_TOL[dt_name])
+            rec.check("dense_grads", what + " db", *rel_err(db_k, db_p), GRAD_TOL[dt_name])
+            if dt_name != "bfloat16":
+                continue
+            ms = cuda_ms(lambda: kdense.dense_grads(x, dy))
+            per_step += ms * PARTSEG_DENSE_SITES[(ci, co)]
+            bnd = bound(nbytes(x, dy, dw_k, db_k), 2 * rows * ci * co + rows * co, dt_name)
+            print(f"  {'dense_grads':18s} x[{rows},{ci}] dy[{rows},{co}] bf16{'':8s} "
+                  f"kernel_ms={ms:.4f} plain_ms={cuda_ms(lambda: kdense.dense_grads_plain(x, dy)):.4f} "
+                  f"bound_ms={bnd['bound_ms']:.4f} ({bnd['bound_by']}) "
+                  f"library_ms={cuda_ms(lambda: (x.t() @ dy, dy.sum(0))):.4f}")
+    rec.r["dense_grads"]["ms_per_partseg_step"] = per_step
+    print(f"  K11 per partseg step ({sum(PARTSEG_DENSE_SITES.values())} launches): "
+          f"{per_step:.4f} ms")
+
+
+def partseg_batches(cfg, split: str):
+    """The synthetic ShapeNetPart split in batches of B (host numpy): the
+    trainval split shuffled, whole batches; the test split in order, the
+    last batch padded (its mask beside it)."""
+    from vipformer_tpu_torch.data.datasets import ShapeNetPart
+    from vipformer_tpu_torch.data.pipeline import Loader, collate_partseg, pad_batch
+
+    ds = ShapeNetPart(split, cfg.num_ft_points)
+    if split == "trainval":
+        return list(Loader(ds, cfg.batch_size, collate_partseg, shuffle=True, seed=cfg.seed,
+                           drop_last=True, num_workers=8))
+    return [pad_batch(b, cfg.test_batch_size)
+            for b in Loader(ds, cfg.test_batch_size, collate_partseg)]
+
+
+def _counted(what: str, fn) -> dict:
+    """Run fn() with every launch count at 0 before and read after."""
+    from vipformer_tpu_torch.ops import cuda as kcuda
+
+    kcuda.reset_launch_counts()
+    fn()
+    torch.cuda.synchronize()
+    counts = kcuda.launch_counts()
+    print(f"{what} launches:", json.dumps(counts))
+    return counts
+
+
+def drive_partseg_path(counts_out: dict, batches, test_batches) -> None:
+    """Three bf16 partseg steps (patch_compat off), one with patch_compat
+    on, and one eval forward at B=96 in each mode; each run's launch
+    counts into counts_out under its name."""
+    from vipformer_tpu_torch.models.factory import build_ft_partseg
+    from vipformer_tpu_torch.train.trainer import create_state, make_partseg_eval, make_partseg_step
+
+    per_step = sum(PARTSEG_DENSE_SITES.values())
+    for compat in (False, True):
+        cfg = partseg_config(patch_compat=compat)
+        model = build_ft_partseg(cfg, device="cuda")
+        state = create_state(cfg, {"pc": model})
+        step = make_partseg_step(cfg, model)
+        before = [p.detach().clone() for p in state.parameters()]
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        nsteps = 1 if compat else PARTSEG_STEPS
+        metrics = []
+        name = "ft_partseg compat" if compat else "ft_partseg"
+        counts = _counted(f"{name}: {nsteps} step(s) at B={PARTSEG_BATCH}", lambda: metrics.extend(
+            step(state, batches[i % len(batches)], cfg.lr, gen)[1] for i in range(nsteps)))
+        counts_out[name] = counts
+        for c in PARTSEG_COUNTERS:
+            if c == "gather_centered_fwd" and compat:
+                continue
+            expect(counts[c] > 0, f"{c} was not launched on the {name} path")
+        expect(counts["dense_grads"] == per_step * nsteps,
+               f"{name}: K11 launched {counts['dense_grads']} times, expected {per_step} per step")
+        if compat:
+            expect(counts["gather_rows_fwd"] == 1, f"{name}: K12 launched "
+                   f"{counts['gather_rows_fwd']} times, expected once")
+            expect(counts["gather_centered_fwd"] == 0, f"{name}: K10 launched with compat")
+        else:
+            expect(counts["gather_rows_fwd"] == 0, f"{name}: K12 launched with compat off")
+        expect(counts["gather_rows_bwd"] == 0 and counts["attn_small_qkv_ln"] == 0,
+               f"{name}: a kernel off the path launched")
+        for i, m in enumerate(metrics):
+            vals = {k: float(v) for k, v in m.items()}
+            print(f"  step {i}: " + " ".join(f"{k}={v:.5f}" for k, v in vals.items()))
+            expect(all(np.isfinite(v) for v in vals.values()), f"{name} step {i}: non-finite")
+        after = list(state.parameters())
+        expect(all(bool(torch.isfinite(p).all()) for p in after), "non-finite parameters")
+        # the SA layers after the last tap get zero gradients: AdamW only
+        # decays them, which leaves their zero-initialised LayerNorm biases
+        # at zero; every other tensor moves
+        unreached = tuple(f"encoder.sa_{i}." for i in range(max(cfg.layer_idx),
+                                                             cfg.num_sa_layers))
+        names = [k for k, _ in model.named_parameters()]
+        still = [k for k, a, b in zip(names, after, before) if torch.equal(a, b)]
+        print(f"  {len(after) - len(still)} of {len(after)} parameter tensors moved, all "
+              f"finite; unmoved: {still}")
+        expect(all(k.startswith(unreached) and not b.any()
+                   for k, b in zip(names, before) if k in still),
+               "a parameter the step should move did not change")
+        del before, state
+
+        eval_step = make_partseg_eval(model)
+        batch, mask = test_batches[0]
+        out = {}
+        name = "ft_partseg eval compat" if compat else "ft_partseg eval"
+        counts = _counted(f"{name}: one forward at B={PARTSEG_BATCH}", lambda: out.update(
+            zip(("logits", "refined"), eval_step(batch["points"], batch["obj_labels"]))))
+        counts_out[name] = counts
+        for c in PARTSEG_EVAL_COUNTERS:
+            if c == "stem" and compat:
+                continue
+            expect(counts[c] > 0, f"{c} was not launched on the {name}")
+        expect(counts["attn_small"] == cfg.num_sa_layers,
+               f"{name}: K5 launched {counts['attn_small']} times, expected {cfg.num_sa_layers}")
+        expect(counts["attn_kv_ln"] == 1, f"{name}: K4 launched {counts['attn_kv_ln']} times")
+        if compat:
+            expect(counts["gather_rows_fwd"] == 1 and counts["stem"] == 0,
+                   f"{name}: K12 {counts['gather_rows_fwd']} and K3 {counts['stem']} launches")
+        else:
+            expect(counts["stem"] == 1 and counts["gather_rows_fwd"] == 0,
+                   f"{name}: K3 {counts['stem']} and K12 {counts['gather_rows_fwd']} launches")
+        logits, refined = out["logits"], out["refined"].cpu().numpy()
+        expect(tuple(logits.shape) == (PARTSEG_BATCH, NUM_POINTS, cfg.num_part_classes),
+               f"logits of shape {tuple(logits.shape)}")
+        expect(bool(torch.isfinite(logits).all()), "non-finite partseg logits")
+        from vipformer_tpu_torch.evaluation.iou import PartSegMetrics
+        from vipformer_tpu_torch.train.trainer import category_part_mask
+
+        allowed = category_part_mask()[batch["obj_labels"]]  # [B, 50]
+        expect(bool(np.take_along_axis(allowed, refined, axis=1).all()),
+               "a refined prediction outside its category's parts")
+        metrics = PartSegMetrics()
+        metrics.update(refined, batch["seg"], batch["obj_labels"], valid=mask)
+        res = metrics.results()
+        print(f"  eval: {int(mask.sum())} test clouds (+{int((~mask).sum())} padding): "
+              + " ".join(f"{k}={v:.4f}" for k, v in res.items()))
+        del model, eval_step
+        torch.cuda.empty_cache()
+
+
+def compare_partseg_with_cpu(eval_batch, step_batch) -> None:
+    """The card's f32 partseg path against the plain path on the CPU at full
+    width: same weights, dropout, DropPath and the head's dropout 0, FPS
+    from index 0, K11 forced on both sides (the CPU runs its twin; at B=8
+    the rows lie below the auto window), for both patch_compat settings:
+    the eval logits on `eval_batch` (B=2) within STEP_TOL; the step's loss
+    on `step_batch` (B=8) within STEP_TOL and every gradient leaf within
+    STEP_HEAD_TOL (Group2Emb's STEP_G2E_TOL)."""
+    from vipformer_tpu_torch.models.factory import build_ft_partseg
+    from vipformer_tpu_torch.ops.cuda import dense as kdense
+    from vipformer_tpu_torch.train.trainer import create_state, make_partseg_eval, make_partseg_step
+
+    saved = kdense.USE_DENSE_GRAD
+    kdense.USE_DENSE_GRAD = True
+    try:
+        for compat in (False, True):
+            cfg = partseg_config(compute_dtype="float32", max_dpr=0.0, patch_compat=compat)
+            got: dict = {}
+            for dev in ("cpu", "cuda"):
+                model = build_ft_partseg(cfg, device=dev)
+                model.seg_head.drop = 0.0
+                logits, _ = make_partseg_eval(model)(eval_batch["points"],
+                                                     eval_batch["obj_labels"])
+                step_grads = {}
+                for k, p in model.named_parameters():  # the gradients before the clip
+                    p.register_hook(lambda g, k=k: step_grads.__setitem__(k, g.detach().cpu()))
+                _, metrics = make_partseg_step(cfg, model)(create_state(cfg, {"pc": model}),
+                                                           step_batch, cfg.lr)
+                got[dev] = dict(logits=logits.cpu(), loss=float(metrics["loss"]),
+                                step=step_grads)
+                del model
+            cpu, card = got["cpu"], got["cuda"]
+            print(f"card f32 vs CPU plain path, partseg (patch_compat {compat}, full width, "
+                  f"K11 forced):")
+            err, rel = rel_err(card["logits"], cpu["logits"])
+            print(f"  eval logits (B={len(eval_batch['points'])}): max_abs_err={err:.3e} "
+                  f"rel={rel:.3e} (bound {STEP_TOL:.0e})")
+            expect(rel <= STEP_TOL, f"partseg eval logits off the CPU path (compat {compat})")
+            err = abs(card["loss"] - cpu["loss"])
+            print(f"  step loss (B={len(step_batch['points'])}): card {card['loss']:.6f} cpu "
+                  f"{cpu['loss']:.6f} (abs err {err:.3e}, bound {STEP_TOL:.0e} relative)")
+            expect(err <= STEP_TOL * max(1.0, abs(cpu["loss"])), "partseg step loss off the CPU")
+            expect(set(card["step"]) == set(cpu["step"]), "partseg gradient leaves differ")
+            bounds = {k: STEP_G2E_TOL if k.startswith("stem.group2emb.") else STEP_HEAD_TOL
+                      for k in cpu["step"]}
+            errs = sorted((rel_err(card["step"][k], w)[1] / bounds[k], k)
+                          for k, w in cpu["step"].items())
+            print(f"  step: {len(errs)} gradient leaves, bound {STEP_HEAD_TOL:.0e} (Group2Emb "
+                  f"{STEP_G2E_TOL:.0e}); worst error / bound "
+                  + ", ".join(f"{e:.3f} ({k})" for e, k in errs[:-4:-1]))
+            expect(errs[-1][0] <= 1.0, f"partseg gradient {errs[-1][1]} off the CPU step")
+    finally:
+        kdense.USE_DENSE_GRAD = saved
+
+
+def time_partseg(batches, test_batches) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    from vipformer_tpu_torch.models.factory import build_ft_partseg
+    from vipformer_tpu_torch.train.trainer import create_state, make_partseg_eval, make_partseg_step
+
+    cfg = partseg_config()
+    model = build_ft_partseg(cfg, device="cuda")
+    state = create_state(cfg, {"pc": model})
+    step = make_partseg_step(cfg, model)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def run(n):
+        for i in range(n):
+            step(state, batches[i % len(batches)], cfg.lr, gen)
+
+    run(2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    run(TIMED_STEPS)
+    end.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    ms = start.elapsed_time(end) / TIMED_STEPS
+    print(f"partseg step bf16 B={PARTSEG_BATCH}: {ms:.3f} ms/step (CUDA events; host clock "
+          f"{wall:.3f} ms), {1000.0 * PARTSEG_BATCH / ms:.1f} clouds/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run(2)
+        torch.cuda.synchronize()
+    print_breakdown(prof, 2, ms, "a partseg step")
+    points = torch.from_numpy(test_batches[0][0]["points"]).cuda()
+    obj = torch.from_numpy(test_batches[0][0]["obj_labels"]).cuda()
+    for compat in (False, True):
+        model.stem.patch_compat = compat
+        eval_step = make_partseg_eval(model)
+        ms = cuda_ms(lambda: eval_step(points, obj), iters=10)
+        print(f"partseg eval forward bf16 B={PARTSEG_BATCH} patch_compat {compat}: {ms:.3f} ms "
+              f"({1000.0 * PARTSEG_BATCH / ms:.0f} clouds/s)")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                eval_step(points, obj)
+            torch.cuda.synchronize()
+        print_breakdown(prof, 2, ms, f"a partseg eval forward (patch_compat {compat})")
+
+
 # the hand-written kernels by name: those of csrc/*.cu in the vpt*
 # namespaces, and those in anonymous namespaces
 OUR_KERNELS = ("vpt", "fps_kernel", "knn_kernel", "stem_kernel", "attn_kv_ln_kernel",
@@ -1124,19 +1609,23 @@ def print_breakdown(prof, steps: int, ms: float, what: str) -> None:
 
 def kernel_line(rec: Recorder, counts: dict) -> list:
     """The per-kernel entries; `counts` maps each path to the launch counts
-    of its run."""
+    of its run. `launches` counts the kernel's own path (the forward where
+    it has a backward); `launches_by_path` every path that ran it."""
     out = []
     for name, (src, rep, path) in KERNELS.items():
         entry = {"name": name, "route": "cuda", "source": src, "replaces": rep, "path": path}
-        if path == "pretrain":
+        paired = f"{name}_fwd" in rec.r
+        counter = f"{name}_fwd" if paired else name
+        if paired:
             fwd, bwd = rec.r[f"{name}_fwd"], rec.r[f"{name}_bwd"]
-            entry.update(launches=counts[path][f"{name}_fwd"], **fwd)
-            entry["launches_per_step"] = counts[path][f"{name}_fwd"] / STEPS
+            entry.update(launches=counts[path][counter], **fwd)
             entry["backward"] = dict(launches=counts[path][f"{name}_bwd"], **bwd)
         else:
             entry.update(launches=counts[path][name], **rec.r[name])
-            if path == "ft_cls":
-                entry["launches_per_step"] = counts[path][name] / FT_STEPS
+        steps = {"pretrain": STEPS, "ft_cls": FT_STEPS}.get(path)
+        if steps:
+            entry["launches_per_step"] = counts[path][counter] / steps
+        entry["launches_by_path"] = {p: c[counter] for p, c in counts.items() if c.get(counter)}
         out.append(entry)
     return out
 
@@ -1153,6 +1642,7 @@ def main() -> int:
         return 2
     from vipformer_tpu_torch.ops import cuda as kcuda
 
+    t_start = time.perf_counter()
     try:
         t0 = time.perf_counter()
         kcuda.lib()
@@ -1188,6 +1678,18 @@ def main() -> int:
         compare_ft_cls_with_cpu({k: v[:2] for k, v in ft_train[0].items()},
                                 {k: v[:8] for k, v in ft_train[0].items()})
         time_ft_cls(ft_train, ft_test, route_ms)
+        del ft_train, ft_test
+        torch.cuda.empty_cache()
+        check_gather_rows(rec)
+        check_partseg_widths(rec)
+        torch.cuda.empty_cache()
+        cfg = partseg_config()
+        ps_train, ps_test = partseg_batches(cfg, "trainval"), partseg_batches(cfg, "test")
+        partseg_counts: dict = {}
+        drive_partseg_path(partseg_counts, ps_train, ps_test)
+        compare_partseg_with_cpu({k: v[:2] for k, v in ps_test[0][0].items()},
+                                 {k: v[:8] for k, v in ps_train[0].items()})
+        time_partseg(ps_train, ps_test)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -1203,7 +1705,8 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(smi)
     counts = {"serve": serve_counts, "pretrain": pretrain_counts, "ft_cls": ft_counts,
-              "ft_cls eval": ft_eval_counts}
+              "ft_cls eval": ft_eval_counts, **partseg_counts}
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernel_line(rec, counts)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

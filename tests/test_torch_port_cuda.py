@@ -348,3 +348,79 @@ def test_cls_step_on_card_matches_cpu(dev):
         err = (grads_g[k] - want).abs().max().item()
         tol = 2e-2 if k.startswith("stem.group2emb.") else 1e-3
         assert err <= tol * max(1.0, want.abs().max().item()), (k, err)
+
+
+# -------------------------------------------------------------- K12, partseg
+# K12 at the compat stem's shape, at a K off 128-row tiles with C=128, and
+# at one row; the gather equal to the twin, the scatter's f32 sums within
+# 1e-4 (atomics add in another order); a small partseg step on the card
+# against the CPU with patch_compat on, so K12 runs on the card's path.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,c,k", [(2, 1024, 3, 4096), (3, 300, 128, 1000), (1, 5, 7, 1)])
+def test_gather_rows_kernel_matches_twin(dev, b, n, c, k, dt):
+    from vipformer_tpu_torch.ops.cuda import gather as kg
+
+    rng = np.random.default_rng(9)
+    pts = _t(rng, (b, n, c), dev, dt)
+    idx = torch.from_numpy(rng.integers(0, n, (b, k)).astype(np.int32)).to(dev)
+    assert torch.equal(kg.gather_rows_kernel(pts, idx), kg.gather_rows_plain(pts, idx))
+    grad = _t(rng, (b, k, c), dev, dt)
+    _assert_grad_close(kg.scatter_rows_kernel(grad, idx, n), kg.scatter_rows_plain(grad, idx, n),
+                       torch.float32)
+    kcuda.reset_launch_counts()
+    leaf = pts.clone().requires_grad_()
+    kg.gather_rows(leaf, idx).backward(grad)
+    counts = kcuda.launch_counts()
+    assert counts["gather_rows_fwd"] == counts["gather_rows_bwd"] == 1, counts
+    assert leaf.grad.dtype == dt
+    _assert_grad_close(leaf.grad, kg.scatter_rows_plain(grad, idx, n).to(dt), dt)
+
+
+@pytest.mark.cuda
+def test_partseg_step_on_card_matches_cpu(dev):
+    """A small f32 partseg step with patch_compat on (dropout, DropPath and
+    the head's dropout 0, FPS from index 0, K11 forced; 8 clouds of 300
+    points, 32 groups of 16) on the card against the same step on the CPU:
+    the eval logits within 1e-4, the loss within 1e-4 and every gradient
+    leaf within 1e-3 of max(1, max|cpu|); Group2Emb's leaves within 2e-2.
+    K12 launched on the card (the compat stem's gather, 512 rows)."""
+    from vipformer_tpu_torch.config import Config, decode_arch_name
+    from vipformer_tpu_torch.models.factory import build_ft_partseg
+    from vipformer_tpu_torch.ops.cuda import dense as kdense
+    from vipformer_tpu_torch.train.trainer import create_state, make_partseg_eval, make_partseg_step
+
+    cfg = Config(**decode_arch_name("E1CL2SL-H2D128-L32-MR2"), group_size=16,
+                 num_ft_points=300, layer_idx=(1, 2), compute_dtype="float32", atten_drop=0.0,
+                 mlp_drop=0.0, max_dpr=0.0, patch_compat=True, grad_clip_norm=10.0)
+    rng = np.random.default_rng(10)
+    batch = {"points": rng.standard_normal((8, 300, 3)).astype(np.float32),
+             "obj_labels": rng.integers(0, 16, 8), "seg": rng.integers(0, 50, (8, 300))}
+    saved = kdense.USE_DENSE_GRAD
+    kdense.USE_DENSE_GRAD = True
+    got = {}
+    try:
+        for d in ("cpu", dev):
+            kcuda.reset_launch_counts()
+            model = build_ft_partseg(cfg, device=d)
+            model.seg_head.drop = 0.0
+            logits, _ = make_partseg_eval(model)(batch["points"], batch["obj_labels"])
+            grads = {}
+            for k, p in model.named_parameters():
+                p.register_hook(lambda g, k=k: grads.__setitem__(k, g.detach().cpu()))
+            _, metrics = make_partseg_step(cfg, model)(create_state(cfg, {"pc": model}), batch,
+                                                       1e-3)
+            got[str(d)] = (logits.cpu(), float(metrics["loss"]), grads)
+    finally:
+        kdense.USE_DENSE_GRAD = saved
+    assert kcuda.launch_counts()["gather_rows_fwd"] == 2  # the eval and the step
+    (logits_c, loss_c, grads_c), (logits_g, loss_g, grads_g) = got["cpu"], got["cuda"]
+    _assert_grad_close(logits_g, logits_c, torch.float32)
+    assert abs(loss_g - loss_c) <= 1e-4 * max(1.0, abs(loss_c))
+    assert set(grads_g) == set(grads_c)
+    for k, want in grads_c.items():
+        err = (grads_g[k] - want).abs().max().item()
+        tol = 2e-2 if k.startswith("stem.group2emb.") else 1e-3
+        assert err <= tol * max(1.0, want.abs().max().item()), (k, err)

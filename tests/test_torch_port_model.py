@@ -232,10 +232,14 @@ def test_chip_smoke_builds_the_configured_flagship(capsys):
 
 
 def test_port_imports_no_jax():
-    """`import vipformer_tpu_torch` plus a CPU forward leaves jax, flax and
-    optax out of sys.modules."""
+    """Importing every module of `vipformer_tpu_torch` and chip_smoke.py,
+    plus a CPU forward, leaves jax, flax, optax and vipformer_tpu out of
+    sys.modules."""
     code = (
-        "import sys, torch\n"
+        "import importlib, pkgutil, sys, torch\n"
+        "import vipformer_tpu_torch, chip_smoke\n"
+        "for m in pkgutil.walk_packages(vipformer_tpu_torch.__path__, 'vipformer_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
         "from vipformer_tpu_torch.config import Config, decode_arch_name\n"
         "from vipformer_tpu_torch.models.factory import build_ft_cls\n"
         "from vipformer_tpu_torch.inference import classifier_predictor\n"

@@ -1,6 +1,7 @@
-"""Shared CLI plumbing (counterpart of vipformer_tpu/cli/common.py:setup):
-the run directory, its log and its metrics stream. The port runs on one
-card, so there is no mesh and the batch needs no rounding."""
+"""Shared CLI plumbing (counterpart of vipformer_tpu/cli/common.py: `setup`
+and `warn_patch_compat`): the run directory, its log and its metrics
+stream, and the stem-mode check of a restored checkpoint. The port runs on
+one card, so there is no mesh and the batch needs no rounding."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ import json
 import os
 
 from vipformer_tpu_torch.config import Config
+from vipformer_tpu_torch.train.checkpoint import load_metadata
 
 
 class Run:
@@ -37,3 +39,18 @@ class Run:
     def metrics(self, step: int, **kv) -> None:
         with open(os.path.join(self.root, "metrics.jsonl"), "a") as f:
             f.write(json.dumps({"step": step, **kv}) + "\n")
+
+
+def warn_patch_compat(ckpt_path: str, cfg: Config, log) -> None:
+    """Log a WARNING when the checkpoint's recorded `patch_compat` (its JSON
+    sidecar; the pretrain CLI and converted reference checkpoints record
+    it) differs from the config's: a stem run in the other mode than it was
+    trained in silently loses accuracy (JAX cli/common.py:54-74)."""
+    try:
+        want = load_metadata(ckpt_path).get("patch_compat")
+    except (OSError, ValueError):
+        return
+    if want is not None and bool(want) != cfg.patch_compat:
+        log(f"WARNING: checkpoint {ckpt_path} was trained with patch_compat={want} but config "
+            f"has patch_compat={cfg.patch_compat}; pass --patch_compat "
+            f"{str(bool(want)).lower()} to match its stem (see ops/geometry.py:divide_patches)")

@@ -84,7 +84,8 @@ def main(cfg: Config, device: str = "cuda") -> dict:
         if epoch_loss < best_loss:
             best_loss, best_epoch = epoch_loss, epoch
             meta = {"epoch": epoch, "pretrain_loss": epoch_loss, "kind": "pretrain",
-                    "gate": "lowest mean epoch loss (the SVM probe is not ported)"}
+                    "gate": "lowest mean epoch loss (the SVM probe is not ported)",
+                    "patch_compat": cfg.patch_compat}
             for name, m in models.items():
                 save_checkpoint(run.model_path(f"{name}_model_best"), m, meta)
         run.write(f"epoch {epoch}: loss {epoch_loss:.4f} (best {best_loss:.4f}@{best_epoch}) "

@@ -20,6 +20,27 @@
 // per added term, far below the bf16 rounding of the result; the wrapper
 // rounds to the points' dtype). d_centers is a plain sum over each
 // group's S rows, negated, one thread per (group, channel): deterministic.
+//
+// K12: the plain row gather and its scatter-add backward.
+//
+// Replaces vipformer_tpu/ops/pallas/gather.py:gather_rows_pallas (:180;
+// forward _gather_kernel :56 via _gather_impl :119, VJP _gather_bwd :196
+// with _scatter_kernel :87 via _scatter_impl :142): out[b, k] =
+// points[b, idx[b, k]] for any K (the Pallas wrapper pads K to 128), the
+// table [B, N, C <= 128] in f32 or bf16. The TPU built a one-hot matrix
+// for its matrix unit and contracted it at HIGHEST precision to copy rows
+// bit for bit; here a row is copied with plain loads, so the output IS the
+// table's values. One thread per output element: neighbouring threads
+// write neighbouring addresses, and the reads of one row (C values) are
+// contiguous.
+//
+// Bound on the H100: bytes (B*K*(C*2 + 1) elements moved, no arithmetic).
+//
+// Backward: d_points[b, idx[b, k]] += g[b, k], with f32 atomicAdd into a
+// zeroed f32 buffer, one thread per element of g; the wrapper rounds the
+// f32 sums once to the table's dtype (the Pallas kernel rounded the bf16
+// table's sums per grid block, gather.py:98). The sum's order, and so its
+// last f32 bits, vary from run to run.
 #include "common.cuh"
 
 namespace vpt_gather {
@@ -93,6 +114,49 @@ int scatter_centered(const void* g, const void* idx, void* dpoints, void* dcente
   return cudaGetLastError();
 }
 
+// 32-bit index arithmetic (the wrapper bounds B*K*C below 2^31): 64-bit
+// division by C and K would cost more than the copy.
+template <typename T>
+__global__ void gather_rows_kernel(const T* __restrict__ points, const int* __restrict__ idx,
+                                   T* __restrict__ out, int N, int C, int K, int total) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int row = i / C;  // b * K + k
+  out[i] = points[((size_t)(row / K) * N + idx[row]) * C + (i - row * C)];
+}
+
+template <typename T>
+__global__ void scatter_rows_kernel(const T* __restrict__ g, const int* __restrict__ idx,
+                                    float* __restrict__ dpoints, int N, int C, int K,
+                                    int total) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int row = i / C;
+  atomicAdd(dpoints + ((size_t)(row / K) * N + idx[row]) * C + (i - row * C), to_f32(g[i]));
+}
+
+template <typename T>
+int gather_rows(const void* points, const void* idx, void* out, int B, int N, int C, int K,
+                void* stream) {
+  const int total = B * K * C;
+  if (total == 0) return cudaSuccess;
+  gather_rows_kernel<T><<<(total + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(points), static_cast<const int*>(idx), static_cast<T*>(out), N, C,
+      K, total);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int scatter_rows(const void* g, const void* idx, void* dpoints, int B, int N, int C, int K,
+                 void* stream) {
+  const int total = B * K * C;
+  if (total == 0) return cudaSuccess;
+  scatter_rows_kernel<T><<<(total + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(g), static_cast<const int*>(idx), static_cast<float*>(dpoints), N,
+      C, K, total);
+  return cudaGetLastError();
+}
+
 }  // namespace vpt_gather
 
 using namespace vpt_gather;
@@ -117,4 +181,20 @@ extern "C" int scatter_centered_bf16(const void* grad, const void* idx, void* dp
                                      void* stream) {
   return scatter_centered<__nv_bfloat16>(grad, idx, dpoints, dcenters, b, n, c, g, k, s,
                                          stream);
+}
+extern "C" int gather_rows_f32(const void* points, const void* idx, void* out, int b, int n,
+                               int c, int k, void* stream) {
+  return gather_rows<float>(points, idx, out, b, n, c, k, stream);
+}
+extern "C" int gather_rows_bf16(const void* points, const void* idx, void* out, int b, int n,
+                                int c, int k, void* stream) {
+  return gather_rows<__nv_bfloat16>(points, idx, out, b, n, c, k, stream);
+}
+extern "C" int scatter_rows_f32(const void* grad, const void* idx, void* dpoints, int b, int n,
+                                int c, int k, void* stream) {
+  return scatter_rows<float>(grad, idx, dpoints, b, n, c, k, stream);
+}
+extern "C" int scatter_rows_bf16(const void* grad, const void* idx, void* dpoints, int b,
+                                 int n, int c, int k, void* stream) {
+  return scatter_rows<__nv_bfloat16>(grad, idx, dpoints, b, n, c, k, stream);
 }

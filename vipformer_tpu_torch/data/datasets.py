@@ -7,6 +7,8 @@ classification sets come with a later slice).
 * `ModelNet40SVM`, `ScanObjectNNSVM` (classification finetune): the JAX
   package's synthetic stand-ins of the same sizes and seeds
   (datasets.py:37-97), 2048-point clouds cut to `num_points`.
+* `ShapeNetPart` (part segmentation): the JAX package's synthetic stand-in
+  (datasets.py:177-240), 400 trainval / 120 test clouds, data seeds 4 / 5.
 """
 
 from __future__ import annotations
@@ -75,3 +77,45 @@ class ScanObjectNNSVM(_SyntheticClassification):
 
     num_classes = 15
     sizes = {"train": (600, 2), "test": (150, 3)}
+
+
+class ShapeNetPart:
+    """ShapeNetPart's synthetic stand-in: (points [num_points, 3] f32, object
+    label, part ids [num_points]) per sample. `class_choice` keeps one
+    category; the trainval split shuffles each sample's point order with
+    the sample's generator (reference shapenet_part.py:100-104)."""
+
+    CAT2ID = {
+        "airplane": 0, "bag": 1, "cap": 2, "car": 3, "chair": 4, "earphone": 5, "guitar": 6,
+        "knife": 7, "lamp": 8, "laptop": 9, "motor": 10, "mug": 11, "pistol": 12,
+        "rocket": 13, "skateboard": 14, "table": 15,
+    }
+    sizes = {"trainval": (400, 4), "test": (120, 5)}
+
+    def __init__(self, partition: str = "trainval", num_points: int = 1024,
+                 class_choice: str | None = None):
+        n, seed = self.sizes["trainval" if partition == "trainval" else "test"]
+        self.data, self.label, self.seg = synthetic.synthetic_partseg(n, 2048, seed=seed)
+        self.partition = partition
+        self.num_points = num_points
+        self.class_choice = class_choice.lower() if class_choice else None
+        if self.class_choice is not None:
+            cid = self.CAT2ID[self.class_choice]
+            sel = (self.label == cid).reshape(-1)
+            self.data, self.label, self.seg = self.data[sel], self.label[sel], self.seg[sel]
+            self.seg_num_all = synthetic.SEG_NUM[cid]
+            self.seg_start_index = synthetic.INDEX_START[cid]
+        else:
+            self.seg_num_all = 50
+            self.seg_start_index = 0
+
+    def __len__(self) -> int:
+        return len(self.data)
+
+    def get(self, i: int, rng: np.random.Generator | None = None):
+        pts = self.data[i][:self.num_points]
+        seg = self.seg[i][:self.num_points]
+        if self.partition == "trainval" and rng is not None:
+            order = rng.permutation(len(pts))
+            pts, seg = pts[order], seg[order]
+        return pts.astype(np.float32), int(self.label[i].reshape(-1)[0]), seg.astype(np.int64)

@@ -1,8 +1,8 @@
-"""Deterministic synthetic ShapeNetRender stand-in (the port's own copy of
-the classification-cloud and splat-image parts of
-vipformer_tpu/data/synthetic.py): class-structured parametric clouds and
-an orthographic splat of each as its "render", so the contrastive
-objectives have real signal without the real corpus.
+"""Deterministic synthetic stand-ins (the port's own copy of the
+classification-cloud, part-segmentation and splat-image parts of
+vipformer_tpu/data/synthetic.py): class-structured parametric clouds, an
+orthographic splat of each as its "render", and height-banded part labels,
+so the objectives have real signal without the real corpora.
 """
 
 from __future__ import annotations
@@ -59,6 +59,27 @@ def synthetic_classification(
         [_primitive(int(l), num_points, rng) for l in labels]
     )
     return data.astype(np.float32), labels.astype(np.int64)
+
+
+# ShapeNetPart category metadata (reference datasets/shapenet_part.py:77-78)
+SEG_NUM = (4, 2, 2, 4, 4, 3, 3, 2, 4, 2, 6, 2, 3, 3, 3, 3)
+INDEX_START = (0, 4, 6, 8, 12, 16, 19, 22, 24, 28, 30, 36, 38, 41, 44, 47)
+
+
+def synthetic_partseg(num_samples: int, num_points: int,
+                      seed: int = 0) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """-> (data [S, N, 3], obj_label [S, 1], seg [S, N]): part ids from the
+    category's own range, banded by height so they are learnable."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, 16, num_samples)
+    data = np.stack([_primitive(int(l), num_points, rng) for l in labels])
+    segs = np.zeros((num_samples, num_points), dtype=np.int64)
+    for i, l in enumerate(labels):
+        k = SEG_NUM[l]
+        z = data[i, :, 2]
+        bands = np.clip(((z - z.min()) / max(np.ptp(z), 1e-6) * k).astype(int), 0, k - 1)
+        segs[i] = INDEX_START[l] + bands
+    return data.astype(np.float32), labels.astype(np.int64)[:, None], segs
 
 
 def splat_image(pts: np.ndarray, size: int = 137) -> np.ndarray:

@@ -1,6 +1,6 @@
 """CrossFormer models (counterpart of vipformer_tpu/models/crossformer.py:
-the point-cloud and image pretraining branches and the classification
-finetune model).
+the point-cloud and image pretraining branches, the classification
+finetune model and the part-segmentation model).
 
 Every model takes `device` (the card by default; the CPU only when asked)
 and `dtype` (the compute dtype; parameters stay f32 as in the flax tree)
@@ -23,11 +23,18 @@ from vipformer_tpu_torch.nn.layers import (
     BatchNorm,
     CrossAttentionLayer,
     Dense,
+    LayerNorm,
     SelfAttentionLayer,
     dpr_schedule,
+    dropout,
 )
 from vipformer_tpu_torch.nn.perceiver import LatentFeatsHead, pool_latents
-from vipformer_tpu_torch.nn.pointnet import Group2Emb, PointCloudInputAdapter, PositionEmb
+from vipformer_tpu_torch.nn.pointnet import (
+    FeaturePropagation,
+    Group2Emb,
+    PointCloudInputAdapter,
+    PositionEmb,
+)
 from vipformer_tpu_torch.ops.cuda.stem import fused_stem_supported, group2emb_fused_apply
 from vipformer_tpu_torch.ops.geometry import (
     divide_patches,
@@ -38,22 +45,26 @@ from vipformer_tpu_torch.ops.geometry import (
 
 class MPEncoder(nn.Module):
     """Modal-prior encoder: cross-attention(s), then the self-attention
-    stack with the position embedding re-added before every layer; returns
-    the final latents. (The per-layer taps of the segmentation models come
-    with their slice.) Train mode: attention dropout `atten_drop`, residual
-    dropout `mlp_drop` (also after the self-attention, the mp family's
-    rule), DropPath linspace 0 -> `max_dpr` over the self-attention layers
-    and 0 in the cross-attention layers."""
+    stack with the position embedding re-added before every layer. With
+    `modal_prior=True` it returns the final latents; else the tuple of the
+    latents after the self-attention layers numbered (1-based) in
+    `layer_idx` (JAX crossformer.py:111-133). Train mode: attention
+    dropout `atten_drop`, residual dropout `mlp_drop` (also after the
+    self-attention, the mp family's rule), DropPath linspace 0 -> `max_dpr`
+    over the self-attention layers and 0 in the cross-attention layers."""
 
     def __init__(self, num_latent_channels: int, num_cross_attention_layers: int = 1,
                  num_cross_attention_heads: int = 4, num_self_attention_layers: int = 6,
                  num_self_attention_heads: int = 4, widening_factor: int = 1, dtype=None,
-                 max_dpr: float = 0.0, atten_drop: float = 0.0, mlp_drop: float = 0.0):
+                 max_dpr: float = 0.0, atten_drop: float = 0.0, mlp_drop: float = 0.0,
+                 modal_prior: bool = True, layer_idx: tuple[int, ...] = ()):
         super().__init__()
         if num_cross_attention_layers <= 0:
             raise ValueError("num_cross_attention_layers must be > 0")
         d = num_latent_channels
         self.num_cross_attention_layers = num_cross_attention_layers
+        self.modal_prior = modal_prior
+        self.layer_idx = tuple(layer_idx)
         drops = dict(atten_drop=atten_drop, mlp_drop=mlp_drop)
         self.cross_attn_n = CrossAttentionLayer(d, num_cross_attention_heads, widening_factor,
                                                 dtype, **drops)
@@ -72,11 +83,14 @@ class MPEncoder(nn.Module):
         # a single cross-attention layer is shared (one entry in the tree)
         first = self.cross_attn_n if self.num_cross_attention_layers == 1 else self.cross_attn_1
         x = first(group_embs + pos_embs, pts_embs, generator)
+        feats = []
         for i, sa_layer in enumerate(self.sa_layers):
             if i + 1 < self.num_cross_attention_layers:
                 x = self.cross_attn_n(x + pos_embs, pts_embs, generator)
             x = sa_layer(x + pos_embs, generator)
-        return x
+            if i + 1 in self.layer_idx:
+                feats.append(x)
+        return x if self.modal_prior else tuple(feats)
 
 
 class _PointPatchStem(nn.Module):
@@ -110,7 +124,9 @@ class _PointPatchStem(nn.Module):
             group_embs = group2emb_fused_apply(self.group2emb, pts, centers, idx, dt)
         else:
             # train mode: FPS (K1, random start from `generator`), kNN (K2),
-            # the centered gather (K10) and train-mode Group2Emb (K9)
+            # the centered gather (K10; with patch_compat the row gather K12
+            # and the reference's slice) and train-mode Group2Emb (K9); in
+            # eval only the compat stem comes here (K12, unfused Group2Emb)
             neighbors, centers = divide_patches(
                 pts, self.num_latents, self.group_size, generator,
                 neighbor_dtype=dt, compat=self.patch_compat,
@@ -228,6 +244,91 @@ class CrossFormerPCFT(_PointModel):
     def forward(self, pts, generator=None):
         backbone_feats = self.backbone(pts, generator)
         return self.finetune_head(backbone_feats), backbone_feats
+
+
+class LabelConv(nn.Module):
+    """One-hot object-label conditioning: Dense(64, no bias) -> BatchNorm ->
+    LeakyReLU(0.2) (JAX crossformer.py:381-391)."""
+
+    def __init__(self, num_obj_classes: int = 16, dtype=None):
+        super().__init__()
+        self.Dense_0 = Dense(num_obj_classes, 64, use_bias=False, dtype=dtype)
+        self.BatchNorm_0 = BatchNorm(64, dtype)
+
+    def forward(self, onehot):
+        return torch.nn.functional.leaky_relu(self.BatchNorm_0(self.Dense_0(onehot)), 0.2)
+
+
+class SegHead(nn.Module):
+    """Dense decode head: Dense 512 -> BN -> ReLU -> Dropout(`drop`, 0.5 as
+    the reference) -> Dense 256 -> BN -> ReLU -> Dense(classes) (JAX
+    crossformer.py:394-419). `x` may be a tuple of channel segments (the
+    implicit-concat Dense): the seg model passes (per-point features
+    [B, N, Dp], global features [B, 1, Dg]), so the global segment is
+    multiplied once per cloud."""
+
+    def __init__(self, in_features: int, num_classes: int, dtype=None, drop: float = 0.5):
+        super().__init__()
+        self.Dense_0 = Dense(in_features, 512, dtype=dtype)
+        self.BatchNorm_0 = BatchNorm(512, dtype)
+        self.Dense_1 = Dense(512, 256, dtype=dtype)
+        self.BatchNorm_1 = BatchNorm(256, dtype)
+        self.Dense_2 = Dense(256, num_classes, dtype=dtype)
+        self.drop = drop
+
+    def forward(self, x, generator=None):
+        x = torch.relu(self.BatchNorm_0(self.Dense_0(x)))
+        if self.training:
+            x = dropout(x, self.drop, generator)
+        x = torch.relu(self.BatchNorm_1(self.Dense_1(x)))
+        return self.Dense_2(x)
+
+
+class CrossFormerPartSeg(nn.Module):
+    """Part segmentation model (JAX crossformer.py:422-493): pts [B, N, 3],
+    cls_onehot [B, 16] -> logits [B, N, num_part_classes].
+
+    The encoder's latents after the `layer_idx` self-attention layers go
+    through one shared LayerNorm (`norm`) and are concatenated ([B, G,
+    kD]); their max and mean over the groups and the label embedding form
+    the global feature [B, 1, Dg], which stays un-broadcast (a segment of
+    the head's first Dense); the 3-NN feature propagation lifts the group
+    features to every point with the xyz as skip features, and the head
+    classifies each point. The head's dropout rate is `seg_head.drop`
+    (0.5, the reference's; the comparisons with the CPU set it to 0)."""
+
+    def __init__(self, num_latents: int = 128, num_latent_channels: int = 384,
+                 group_size: int = 32, patch_compat: bool = False,
+                 num_cross_attention_layers: int = 1, num_cross_attention_heads: int = 6,
+                 num_self_attention_layers: int = 12, num_self_attention_heads: int = 6,
+                 mlp_widen_factor: int = 4, max_dpr: float = 0.1, atten_drop: float = 0.0,
+                 mlp_drop: float = 0.0, layer_idx: tuple[int, ...] = (2, 6, 10),
+                 num_part_classes: int = 50, dtype=None, device="cuda", seed: int = 0):
+        super().__init__()
+        if not layer_idx:
+            raise ValueError("partseg needs layer_idx taps")
+        d, k = num_latent_channels, len(layer_idx)
+        self.stem = _PointPatchStem(num_latents, d, group_size, patch_compat=patch_compat,
+                                    dtype=dtype)
+        self.encoder = MPEncoder(
+            d, num_cross_attention_layers, num_cross_attention_heads, num_self_attention_layers,
+            num_self_attention_heads, mlp_widen_factor, dtype, max_dpr, atten_drop, mlp_drop,
+            modal_prior=False, layer_idx=layer_idx)
+        self.norm = LayerNorm(d, dtype)
+        self.label_conv = LabelConv(16, dtype)  # ShapeNetPart's 16 object categories
+        self.propagation = FeaturePropagation(3, k * d, (mlp_widen_factor * d, 1024), dtype)
+        self.seg_head = SegHead(1024 + 2 * k * d + 64, num_part_classes, dtype)
+        _finish(self, device, seed)
+
+    def forward(self, pts, cls_onehot, generator=None):
+        pts_embs, group_embs, pos_embs, centers = self.stem(pts, generator)
+        feats = self.encoder(group_embs, pos_embs, pts_embs, generator)
+        x = torch.cat([self.norm(f) for f in feats], dim=-1)  # [B, G, kD]
+        label_feat = self.label_conv(cls_onehot.to(x.dtype))
+        global_feat = torch.cat([x.amax(dim=1), x.mean(dim=1), label_feat], dim=-1)[:, None, :]
+        xyz = pts[..., :3]
+        f0 = self.propagation(xyz, centers[..., :3], xyz.to(x.dtype), x)
+        return self.seg_head((f0, global_feat.to(f0.dtype)), generator)
 
 
 class CrossFormerImg(nn.Module):

@@ -1,5 +1,6 @@
 """Model factory (counterpart of vipformer_tpu/models/factory.py), `mp`
-branch only: the CrossFormer models of the port's slices so far.
+branch only: the CrossFormer models of the port's slices so far
+(pretraining, classification finetune, part segmentation).
 
 The build functions take the port's own `vipformer_tpu_torch.config.Config` and
 return an initialised model (random weights from `seed`) on `device` (the
@@ -12,7 +13,12 @@ from __future__ import annotations
 import torch
 
 from vipformer_tpu_torch.config import Config
-from vipformer_tpu_torch.models.crossformer import CrossFormerImg, CrossFormerPC, CrossFormerPCFT
+from vipformer_tpu_torch.models.crossformer import (
+    CrossFormerImg,
+    CrossFormerPartSeg,
+    CrossFormerPC,
+    CrossFormerPCFT,
+)
 
 
 def compute_dtype(cfg: Config) -> torch.dtype:
@@ -71,3 +77,12 @@ def build_ft_cls(cfg: Config, device="cuda", seed: int | None = None) -> CrossFo
     _require_mp(cfg)
     return CrossFormerPCFT(**_mp_common(cfg), num_obj_classes=cfg.num_obj_classes,
                            device=device, seed=cfg.seed if seed is None else seed)
+
+
+def build_ft_partseg(cfg: Config, device="cuda", seed: int | None = None) -> CrossFormerPartSeg:
+    """Part-segmentation model (JAX factory.py:146-156): taps `layer_idx`,
+    (2, 6, 10) when the config gives none."""
+    _require_mp(cfg)
+    return CrossFormerPartSeg(**_mp_common(cfg), layer_idx=tuple(cfg.layer_idx or (2, 6, 10)),
+                              num_part_classes=cfg.num_part_classes, device=device,
+                              seed=cfg.seed if seed is None else seed)

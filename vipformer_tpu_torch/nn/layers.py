@@ -56,7 +56,17 @@ class Dense(nn.Module):
     rounded on emit), cast, THEN the bias added in the compute dtype.
     Not `F.linear`, whose fused bias rounds once instead of twice. In train
     mode, where K11's gate holds for its row count, the same math runs as
-    `dense_apply`, whose backward takes dW and db from K11."""
+    `dense_apply`, whose backward takes dW and db from K11.
+
+    A tuple input is an implicit channel concat (JAX layers.py:60-155): the
+    parameters are those of a Dense over the concatenation, the forward is
+    one product per segment, summed in order. A segment may be an
+    `(array, post_fn)` pair, `post_fn` applied to that segment's product
+    (a linear operator hoisted through the layer). The bias rides the
+    post-free segment with the most rows (else is added to the sum), and
+    each segment takes K11 on its own row count; segments broadcast
+    against each other, so a [B, 1, C] segment is multiplied once per
+    cloud."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True, dtype=None):
         super().__init__()
@@ -72,16 +82,36 @@ class Dense(nn.Module):
         """The weight as the flax kernel [in, out] in dtype `dt`."""
         return self.weight.to(dt).t()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = promote_dtype(x, self.dtype)
-        x, w = x.to(dt), self.kernel(dt)
-        b = self.bias.to(dt) if self.bias is not None else None
+    def _product(self, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None):
         if (self.training and torch.is_grad_enabled()
                 and kdense.dense_grad_enabled(x.numel() // x.shape[-1], w.shape[0], w.shape[1],
                                               x.element_size(), x.is_cuda)):
             return kdense.dense_apply(x, w, b)
         y = x @ w
         return y + b if b is not None else y
+
+    def forward(self, x) -> torch.Tensor:
+        segs = [s if isinstance(s, tuple) else (s, None)
+                for s in (x if isinstance(x, (tuple, list)) else (x,))]
+        dt = self.dtype
+        if dt is None:
+            dt = torch.float32
+            for s, _ in segs:
+                dt = torch.promote_types(dt, s.dtype)
+        w = self.kernel(dt)
+        bias = self.bias.to(dt) if self.bias is not None else None
+        free = [i for i, (_, post) in enumerate(segs) if post is None]
+        bias_seg = max(free, key=lambda i: segs[i][0].numel() // segs[i][0].shape[-1],
+                       default=None)
+        y, off = None, 0
+        for i, (s, post) in enumerate(segs):
+            c = s.shape[-1]
+            part = self._product(s.to(dt), w[off:off + c], bias if i == bias_seg else None)
+            if post is not None:
+                part = post(part)
+            y = part if y is None else y + part
+            off += c
+        return y + bias if bias is not None and bias_seg is None else y
 
 
 class LayerNorm(nn.Module):

@@ -1,4 +1,5 @@
-"""Patch-embedding blocks (counterpart of vipformer_tpu/nn/pointnet.py).
+"""Patch-embedding and dense-decode blocks (counterpart of
+vipformer_tpu/nn/pointnet.py).
 
 Channel-last layouts as in the JAX package: every 1x1 Conv1d of the
 reference is a Dense over the last axis.
@@ -11,6 +12,7 @@ from torch import nn
 
 from vipformer_tpu_torch.nn.layers import BatchNorm, Dense, LayerNorm, gelu_exact
 from vipformer_tpu_torch.ops.cuda.g2e_train import g2e_train_apply
+from vipformer_tpu_torch.ops.geometry import three_nn_weights
 
 
 class Group2Emb(nn.Module):
@@ -40,15 +42,9 @@ class Group2Emb(nn.Module):
         x = torch.relu(self.BatchNorm_0(self.Dense_0(point_groups)))
         x = self.Dense_1(x)  # [B, G, S, 128]
         global_feat = x.amax(dim=2, keepdim=True)  # [B, G, 1, 128]
-        # implicit-concat Dense (JAX nn.layers.Dense on a tuple): one
-        # product per segment, each emitted in the compute dtype, the bias
-        # riding the local segment, then the sum — cat[global, local] @ W
-        # without the [B, G, S, 256] broadcast concat
-        dt = x.dtype
-        w = self.Dense_2.kernel(dt)  # [256, 256]
-        c = global_feat.shape[-1]
-        x = (global_feat @ w[:c]) + ((x @ w[c:]) + self.Dense_2.bias.to(dt))
-        x = torch.relu(self.BatchNorm_1(x))
+        # implicit-concat Dense: cat[global, local] @ W without the
+        # [B, G, S, 256] broadcast concat
+        x = torch.relu(self.BatchNorm_1(self.Dense_2((global_feat, x))))
         return self.Dense_3(x).amax(dim=2)  # [B, G, D]
 
     def _fused_train(self, point_groups: torch.Tensor) -> torch.Tensor:
@@ -75,6 +71,40 @@ class PositionEmb(nn.Module):
 
     def forward(self, centers: torch.Tensor) -> torch.Tensor:
         return self.Dense_1(gelu_exact(self.Dense_0(centers)))
+
+
+class FeaturePropagation(nn.Module):
+    """Inverse-distance 3-NN upsampling + per-point Dense/BN/ReLU stack
+    (JAX pointnet.py:128-180). The first Dense is hoisted through the
+    interpolation, which is linear in the features: its source segment is
+    multiplied on the S source rows and then interpolated to the N points
+    (a post-fn segment of the implicit-concat Dense), so the [B, N, Ds]
+    interpolated features never exist. The parameters are those of Dense
+    over concat([skip, interpolated])."""
+
+    def __init__(self, in_dst: int, in_src: int, mlp, dtype=None):
+        super().__init__()
+        widths = [in_dst + in_src] + list(mlp)
+        for i, (cin, cout) in enumerate(zip(widths[:-1], widths[1:])):
+            setattr(self, f"Dense_{i}", Dense(cin, cout, dtype=dtype))
+            setattr(self, f"BatchNorm_{i}", BatchNorm(cout, dtype))
+        self.depth = len(mlp)
+
+    def forward(self, xyz_dst, xyz_src, feats_dst, feats_src):
+        """xyz_dst [B, N, 3], xyz_src [B, S, 3], feats_dst [B, N, Dd] (the
+        skip features) or None, feats_src [B, S, Ds] -> [B, N, mlp[-1]]."""
+        wmat = three_nn_weights(xyz_dst, xyz_src)  # [B, N, S] f32
+
+        def interp(h):  # the weights cast to the product's dtype, as JAX :161
+            return wmat.to(h.dtype) @ h
+
+        if feats_dst is not None:
+            x = (feats_dst, (feats_src.to(feats_dst.dtype), interp))
+        else:
+            x = ((feats_src, interp),)
+        for i in range(self.depth):
+            x = torch.relu(getattr(self, f"BatchNorm_{i}")(getattr(self, f"Dense_{i}")(x)))
+        return x
 
 
 class PointCloudInputAdapter(nn.Module):

@@ -73,6 +73,11 @@ SIGNATURES = {
     "gather_centered_bf16": [_P] * 4 + [_I] * 6 + [_P],
     "scatter_centered_f32": [_P] * 4 + [_I] * 6 + [_P],
     "scatter_centered_bf16": [_P] * 4 + [_I] * 6 + [_P],
+    # K12
+    "gather_rows_f32": [_P] * 3 + [_I] * 4 + [_P],
+    "gather_rows_bf16": [_P] * 3 + [_I] * 4 + [_P],
+    "scatter_rows_f32": [_P] * 3 + [_I] * 4 + [_P],
+    "scatter_rows_bf16": [_P] * 3 + [_I] * 4 + [_P],
     # K11
     "dense_grads_f32": [_P] * 6 + [_I] * 4 + [_P],
     "dense_grads_bf16": [_P] * 6 + [_I] * 4 + [_P],
@@ -203,6 +208,8 @@ def _counters() -> dict[str, "LaunchCounter"]:
         "g2e_train_bwd": g2e_train.BWD_LAUNCHES,
         "gather_centered_fwd": gather.FWD_LAUNCHES,
         "gather_centered_bwd": gather.BWD_LAUNCHES,
+        "gather_rows_fwd": gather.ROWS_FWD_LAUNCHES,
+        "gather_rows_bwd": gather.ROWS_BWD_LAUNCHES,
         "dense_grads": dense.LAUNCHES,
     }
 

@@ -11,6 +11,15 @@ A `torch.autograd.Function` launches `csrc/gather.cu` on CUDA tensors and
 runs the plain twins below on CPU tensors. The backward scatter-adds the
 gradient into the points (several groups may pick one point) and sums it,
 negated, over each group's rows into its center.
+
+K12: the plain row gather (counterpart of `gather_rows_pallas`,
+ops/pallas/gather.py:180).
+
+`gather_rows(points, idx)`: points [B, N, C <= 128], idx int [B, K] ->
+[B, K, C] = points[b, idx[b, k]], a copy (bit-exact, any K). Its backward
+scatter-adds the gradient into an f32 table, rounded once to the points'
+dtype. `row_gather_enabled` is the port's copy of the JAX package's gate
+(`mxu_gather_enabled`, gather.py:434-444), which `index_points` consults.
 """
 
 from __future__ import annotations
@@ -21,6 +30,12 @@ from vipformer_tpu_torch.ops import cuda
 
 FWD_LAUNCHES = cuda.LaunchCounter()
 BWD_LAUNCHES = cuda.LaunchCounter()
+ROWS_FWD_LAUNCHES = cuda.LaunchCounter()
+ROWS_BWD_LAUNCHES = cuda.LaunchCounter()
+MAX_ROW_CHANNELS = 128  # the Pallas kernel's table row: one tile of lanes
+# None = auto (on the card where the JAX gate's shape conditions hold); a
+# bool forces it, as the JAX package's USE_MXU_GATHER (gather.py:38)
+USE_ROW_GATHER: bool | None = None
 
 
 def _group_ids(k: int, group_size: int, device) -> torch.Tensor:
@@ -106,3 +121,88 @@ class _GatherCentered(torch.autograd.Function):
 def gather_rows_centered(points, centers, idx, group_size: int):
     """points[idx] minus the owning group's center xyz (see module doc)."""
     return _GatherCentered.apply(points, centers, idx, group_size)
+
+
+# ------------------------------------------------------------------ K12
+
+
+def row_gather_enabled(c: int, n: int, flat_k: int, on_card: bool) -> bool:
+    """Whether `index_points` gathers a [B, N, C] table at K = flat_k rows
+    through K12: forced by USE_ROW_GATHER, else on the card where the JAX
+    gate holds (C <= 128, N >= 128, K >= 512; its TPU-backend check is the
+    port's `on_card`)."""
+    if USE_ROW_GATHER is not None:
+        return USE_ROW_GATHER
+    return on_card and c <= MAX_ROW_CHANNELS and n >= 128 and flat_k >= 512
+
+
+def gather_rows_plain(points, idx):
+    """points [B, N, C], idx int [B, K] -> [B, K, C]."""
+    c = points.shape[-1]
+    return torch.gather(points, 1, idx.long()[..., None].expand(-1, -1, c))
+
+
+def scatter_rows_plain(g, idx, n: int):
+    """g [B, K, C], idx int [B, K] -> d_points f32 [B, N, C]: each row of g
+    added into row idx[b, k], in f32."""
+    b, _, c = g.shape
+    dp = torch.zeros((b, n, c), dtype=torch.float32, device=g.device)
+    return dp.scatter_add_(1, idx.long()[..., None].expand(-1, -1, c), g.float())
+
+
+def _rows_operands(t, idx, name: str):
+    b, c = t.shape[0], t.shape[2]
+    if c > MAX_ROW_CHANNELS:
+        raise ValueError(f"row gather kernel takes C <= {MAX_ROW_CHANNELS} channels, got {c}")
+    if b * idx.shape[1] * c >= 2**31:
+        raise ValueError("row gather kernel indexes B*K*C elements with 32-bit integers")
+    t = t.contiguous()
+    idx = idx.to(torch.int32).contiguous()
+    cuda.require(t, name, t.dtype)
+    cuda.require(idx, "idx", torch.int32, (b, idx.shape[1]))
+    return t, idx
+
+
+def gather_rows_kernel(points, idx):
+    points, idx = _rows_operands(points, idx, "points")
+    b, n, c = points.shape
+    k = idx.shape[1]
+    dt = points.dtype
+    fn = cuda.entry_point("gather_rows", dt)
+    out = torch.empty((b, k, c), dtype=dt, device=points.device)
+    ROWS_FWD_LAUNCHES.n += 1
+    cuda.check(getattr(cuda.lib(), fn)(
+        points.data_ptr(), idx.data_ptr(), out.data_ptr(), b, n, c, k, cuda.stream_ptr()), fn)
+    return out
+
+
+def scatter_rows_kernel(g, idx, n: int):
+    g, idx = _rows_operands(g, idx, "grad")
+    b, k, c = g.shape
+    fn = cuda.entry_point("scatter_rows", g.dtype)
+    dp = torch.zeros((b, n, c), dtype=torch.float32, device=g.device)
+    ROWS_BWD_LAUNCHES.n += 1
+    cuda.check(getattr(cuda.lib(), fn)(
+        g.data_ptr(), idx.data_ptr(), dp.data_ptr(), b, n, c, k, cuda.stream_ptr()), fn)
+    return dp
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, points, idx):
+        ctx.save_for_backward(idx)
+        ctx.meta = (points.shape[1], points.dtype)
+        return (gather_rows_kernel if points.is_cuda else gather_rows_plain)(points, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        n, dt = ctx.meta
+        bwd = scatter_rows_kernel if grad.is_cuda else scatter_rows_plain
+        return bwd(grad.to(dt), idx, n).to(dt), None
+
+
+def gather_rows(points, idx):
+    """points[b, idx[b, k]] (see module doc): K12 on CUDA tensors, the plain
+    twin on CPU tensors; differentiable in the points."""
+    return _GatherRows.apply(points, idx)

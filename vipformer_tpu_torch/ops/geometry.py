@@ -1,8 +1,9 @@
 """Point-cloud geometry (counterpart of vipformer_tpu/ops/geometry.py).
 
 FPS and kNN go through the K1/K2 wrappers (`ops/cuda/fps.py`,
-`ops/cuda/knn.py`): their CUDA kernels on a CUDA tensor, their plain twins
-on a CPU tensor. Selection always reads f32 coordinates, whatever the
+`ops/cuda/knn.py`), and large row gathers through K12
+(`ops/cuda/gather.py`): their CUDA kernels on a CUDA tensor, their plain
+twins on a CPU tensor. Selection always reads f32 coordinates, whatever the
 compute dtype. No TF32 anywhere: a reduced-precision distance flips kNN
 sets at the k boundary.
 """
@@ -12,8 +13,8 @@ from __future__ import annotations
 import torch
 
 from vipformer_tpu_torch.ops.cuda import fps as _fps
+from vipformer_tpu_torch.ops.cuda import gather as _gather
 from vipformer_tpu_torch.ops.cuda import knn as _knn
-from vipformer_tpu_torch.ops.cuda.gather import gather_rows_centered
 
 
 def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
@@ -29,10 +30,18 @@ def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
 
 
 def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Batched gather: points [B, N, C], idx [B, ...] -> [B, ..., C]."""
-    b, c = points.shape[0], points.shape[-1]
-    flat = idx.reshape(b, -1).long()
-    out = torch.gather(points, 1, flat[..., None].expand(-1, -1, c))
+    """Batched gather: points [B, N, C], idx [B, ...] -> [B, ..., C].
+
+    Where the JAX package's gate sends the gather to its Pallas kernel
+    (geometry.py:57-80: C <= 128, N >= 128, K >= 512 on its accelerator),
+    the port gathers through K12 (`ops/cuda/gather.py:row_gather_enabled`);
+    the `patch_compat` stem's neighbour gather is one such."""
+    b, n, c = points.shape
+    flat = idx.reshape(b, -1)
+    if _gather.row_gather_enabled(c, n, flat.shape[1], points.is_cuda):
+        out = _gather.gather_rows(points, flat)
+    else:
+        out = torch.gather(points, 1, flat.long()[..., None].expand(-1, -1, c))
     return out.reshape(*idx.shape, c)
 
 
@@ -97,16 +106,47 @@ def divide_patches(points, num_groups: int, group_size: int,
     reference's documented intent) in one gather kernel, K10
     (ops/cuda/gather.py); `compat=True` reproduces the reference's actual
     slice, which subtracts the centers (all channels) from the first three
-    neighbours of each group, with the plain gather (geometry.py:295-349 of
-    the JAX package). `generator` draws FPS's random start per cloud."""
+    neighbours of each group, after the row gather of `index_points` (K12
+    on the card; geometry.py:295-349 of the JAX package). `generator`
+    draws FPS's random start per cloud."""
     centers = fps(points, num_groups, generator)
     idx = knn(group_size, points[..., :3], centers[..., :3])
     src = points.to(neighbor_dtype) if neighbor_dtype is not None else points
     if not compat:
         b = src.shape[0]
-        flat = gather_rows_centered(src, centers, idx.reshape(b, -1), group_size)
+        flat = _gather.gather_rows_centered(src, centers, idx.reshape(b, -1), group_size)
         return flat.view(b, num_groups, group_size, src.shape[-1]), centers
-    neighbors = index_points(src, idx)  # [B, G, S, C]
+    neighbors = index_points(src, idx)  # [B, G, S, C], K12 on the card
     c = centers.to(neighbors.dtype)
     head = neighbors[:, :, :3, :] - c[:, :, None, :]
     return torch.cat([head, neighbors[:, :, 3:, :]], dim=2), centers
+
+
+def three_nn_weights(xyz_dst: torch.Tensor, xyz_src: torch.Tensor,
+                     eps: float = 1e-8) -> torch.Tensor:
+    """Row-stochastic inverse-distance 3-NN weights [B, N, S] (JAX
+    geometry.py:381-420): of each destination point's squared distances to
+    the S sources (full f32, `square_distance`), three passes each take the
+    first minimum (argmin's first index on ties), add 1 / (d + eps) at its
+    column and mask it with inf; the rows are divided by their sums."""
+    d = square_distance(xyz_dst, xyz_src)  # [B, N, S]
+    cols = torch.arange(d.shape[-1], device=d.device)
+    w_unnorm = torch.zeros_like(d)
+    w_sum = torch.zeros_like(d[..., :1])
+    for _ in range(3):
+        i = torch.argmin(d, dim=-1, keepdim=True)  # first index on ties
+        v = torch.gather(d, -1, i)
+        onehot = cols == i
+        w_k = 1.0 / (v + eps)
+        w_unnorm = w_unnorm + onehot * w_k
+        w_sum = w_sum + w_k
+        d = torch.where(onehot, torch.inf, d)
+    return w_unnorm / w_sum
+
+
+def three_nn_interpolate(xyz_dst: torch.Tensor, xyz_src: torch.Tensor, feats_src: torch.Tensor,
+                         eps: float = 1e-8) -> torch.Tensor:
+    """Inverse-distance 3-NN interpolation of feats_src [B, S, D] at the
+    S sources to the N destinations: [B, N, D], one batched product with the
+    weights in the features' dtype."""
+    return three_nn_weights(xyz_dst, xyz_src, eps).to(feats_src.dtype) @ feats_src

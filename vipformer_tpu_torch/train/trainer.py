@@ -1,6 +1,7 @@
 """Train and eval steps and their state (counterpart of
 vipformer_tpu/train/trainer.py: `create_state`, `make_pretrain_step`,
-`make_feats_fn`, `make_cls_step`, `make_cls_eval`).
+`make_feats_fn`, `make_cls_step`, `make_cls_eval`, `make_partseg_step`,
+`make_partseg_eval`, `refine_partseg_pred`).
 
 One optimizer spans every model of the state, as in the reference
 (pretrain.py:106). A train step runs the train-mode forward (the BatchNorm
@@ -8,7 +9,8 @@ running statistics update inside it), the loss, one backward and one
 optimizer update. The pretrain step runs both point views concatenated
 through the point branch, the images through the image branch, and IMID +
 cmid_weight * CMID (NT-Xent, temperature 0.1); the classification step
-runs label-smoothed cross-entropy (0.2) on the finetune model's logits.
+runs label-smoothed cross-entropy (0.2) on the finetune model's logits,
+the part-segmentation step the same over every point's logits (B*N rows).
 The state is updated in place and returned, so a loop reads like the JAX
 one.
 """
@@ -17,13 +19,35 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 from torch import nn
 
 from vipformer_tpu_torch.config import Config
+from vipformer_tpu_torch.data.synthetic import INDEX_START, SEG_NUM
 from vipformer_tpu_torch.losses.classification import smoothed_cross_entropy
 from vipformer_tpu_torch.losses.contrastive import nt_xent_grouped
 from vipformer_tpu_torch.train.optim import build_optimizer, clip_grad_global_norm, set_learning_rate
+
+
+NUM_OBJ_CLASSES = 16  # ShapeNetPart's categories
+
+
+def category_part_mask() -> np.ndarray:
+    """[16, 50] bool: which part ids belong to each object category."""
+    mask = np.zeros((NUM_OBJ_CLASSES, 50), dtype=bool)
+    for c in range(NUM_OBJ_CLASSES):
+        mask[c, INDEX_START[c]:INDEX_START[c] + SEG_NUM[c]] = True
+    return mask
+
+
+def refine_partseg_pred(logits: torch.Tensor, obj_labels: torch.Tensor) -> torch.Tensor:
+    """Category-masked prediction (JAX trainer.py:49-63): the argmax of
+    logits [B, N, 50] over the parts of each sample's object category, the
+    others set to the f32 minimum -> int64 [B, N]."""
+    mask = torch.as_tensor(category_part_mask(), device=logits.device)[obj_labels.long()]
+    neg = torch.finfo(torch.float32).min
+    return torch.where(mask[:, None, :], logits.float(), neg).argmax(-1)
 
 
 @dataclass
@@ -92,7 +116,8 @@ def make_pretrain_step(cfg: Config, pc_model: nn.Module, img_model: nn.Module | 
 def _make_step(cfg: Config, models: list[nn.Module], loss_fn):
     """step(state, batch, lr, generator=None) -> (state, metrics) around
     loss_fn(batch, generator) -> (loss, metrics): train mode, the lr, one
-    backward, the optional global-norm clip, one optimizer update."""
+    backward, the optional global-norm clip, one optimizer update of every
+    parameter of the state."""
 
     def step(state: TrainState, batch, lr: float, generator: torch.Generator | None = None):
         for m in models:
@@ -102,6 +127,13 @@ def _make_step(cfg: Config, models: list[nn.Module], loss_fn):
         opt.zero_grad(set_to_none=True)
         total, metrics = loss_fn(batch, generator)
         total.backward()
+        for p in state.parameters():
+            # a parameter the loss does not reach (partseg's layers after
+            # the last tap) gets a zero gradient, as optax's does in the
+            # JAX step: AdamW still decays it, where torch.optim would skip
+            # a parameter whose gradient is None
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         if cfg.grad_clip_norm is not None:
             clip_grad_global_norm(state.parameters(), cfg.grad_clip_norm)
         opt.step()
@@ -140,6 +172,47 @@ def make_cls_eval(model: nn.Module):
         with torch.inference_mode():
             logits, _ = model(_on(points, device))
         return logits.argmax(-1)
+
+    return eval_step
+
+
+def make_partseg_step(cfg: Config, model: nn.Module):
+    """Returns step(state, batch, lr, generator=None) -> (state, metrics)
+    for the part-segmentation finetune (JAX trainer.py:249-272, reference
+    ft_partseg.py:135-247): label-smoothed cross-entropy (0.2) over the B*N
+    point rows, and the point accuracy of the category-refined argmax.
+
+    batch: {"points": [B, N, 3], "obj_labels": [B] int, "seg": [B, N] int}
+    as numpy arrays or tensors; `state` from `create_state(cfg, {"pc":
+    model})`; `cfg.grad_clip_norm` (the CLI sets 10) clips the global
+    gradient norm."""
+    device = next(model.parameters()).device
+
+    def loss_fn(batch, generator):
+        obj = torch.as_tensor(batch["obj_labels"], device=device, dtype=torch.int64)
+        seg = torch.as_tensor(batch["seg"], device=device, dtype=torch.int64)
+        onehot = torch.nn.functional.one_hot(obj, NUM_OBJ_CLASSES).float()
+        logits = model(_on(batch["points"], device), onehot, generator)
+        loss = smoothed_cross_entropy(logits.reshape(-1, logits.shape[-1]), seg.reshape(-1), 0.2)
+        acc = (refine_partseg_pred(logits.detach(), obj) == seg).float().mean()
+        return loss, {"loss": loss, "acc": acc}
+
+    return _make_step(cfg, [model], loss_fn)
+
+
+def make_partseg_eval(model: nn.Module):
+    """Returns eval_step(points [B, N, 3], obj_labels [B]) -> (logits
+    [B, N, parts], refined predictions int64 [B, N]) on the model's device
+    (JAX trainer.py:275-290)."""
+    device = next(model.parameters()).device
+
+    def eval_step(points, obj_labels):
+        model.eval()
+        obj = torch.as_tensor(obj_labels, device=device, dtype=torch.int64)
+        with torch.inference_mode():
+            onehot = torch.nn.functional.one_hot(obj, NUM_OBJ_CLASSES).float()
+            logits = model(_on(points, device), onehot)
+        return logits, refine_partseg_pred(logits, obj)
 
     return eval_step
 
