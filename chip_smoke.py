@@ -78,7 +78,31 @@ goes on):
      sides), both patch_compat settings: the eval logits at B=2 and the
      step's loss and every gradient leaf at B=8;
  17. the bf16 partseg step time at B=96 and where it goes, and the eval
-     forward at B=96 with patch_compat off and on.
+     forward at B=96 with patch_compat off and on;
+ 18. the Perceiver family (--mp false, the flagship scripts' widths):
+     hold K13 (streamed packed attention) at the Fourier cross-attention's
+     [48, 128, 256] x [48, 20736, 256], at M = 1000 and at one query, and
+     K15 (k/v projections folded in) at [64, 512, 256] and at Din = 384,
+     against their twins in f32 and bf16, timed (K13 beside SDPA); K8
+     forward and backward at M = 20,736 with dropout, and K5-K8 at the
+     decoder's single query;
+ 19. Perceiver pretrain path: three `make_pretrain_step` steps of both
+     branches at B=48 in bf16 (144x144 images as 20,736 Fourier tokens of
+     261 channels): finite, every parameter moved, exactly K7 once and K8
+     13 times (the image cross-attention among them) per step, forward and
+     backward, and no other kernel;
+ 20. Perceiver ft_cls path: three `make_cls_step` steps at B=330 (K7 2, K8
+     8 and K11 40 times per step, nothing else), then one `make_cls_eval`
+     at B=330 (K4 once, K6 8 times, K5 once);
+ 21. the Perceiver feature forwards through `make_feats_fn`: the image
+     branch at B=48 (K13 once, K5 6 times) and the point branch at 512
+     latents, B=64 (K4 once, K15 6 times);
+ 22. the card's f32 Perceiver paths against the plain path on the CPU:
+     both branches' features (128 and 512 latents) and the ft_cls eval
+     logits (B=2), each branch's gradients below its head (B=2), the
+     pretrain and ft_cls steps' losses and gradients (B=8);
+ 23. the bf16 Perceiver pretrain and ft_cls step times, the ft_cls eval
+     and both feature forwards, each with its profiler breakdown.
 
 Prints the script's total seconds, the card's name and power limit, one
 JSON line of per-kernel results (time, twin's time, bound, launches on the
@@ -126,12 +150,26 @@ PARTSEG_STEPS = 3  # partseg steps on the main path (patch_compat off)
 # in K9. tests/test_torch_partseg_kernels.py holds this list against the
 # JAX gate.
 PARTSEG_DENSE_SITES = {(3, 64): 1, (64, 384): 1, (1024, 512): 1, (512, 256): 1, (256, 50): 1}
+# The Perceiver family (--mp false): the point branch at 512 latents (the
+# K15 path) runs its feature forward at this batch; K11's launches per
+# Perceiver ft_cls step at B=330 (42,240 latent rows): the encoder
+# cross-attention's q_proj, o_proj and MLP (4) and the 6 SA layers'
+# q/k/v/o_proj and MLP (36); the adapter's 337,920 rows and the decoder's
+# 330 lie outside the window.
+PERCEIVER_FEATS_BATCH = 64
+PERCEIVER_WIDE_LATENTS = 512
+PERCEIVER_DENSE_PER_STEP = 40
 # K12 beside the compat stem's gather: a K off 128-row tiles, and C=128
 GATHER_CASES = ((8, 1024, 128, 1000), (3, 300, 5, 77))
 # Kernel vs plain twin, as max|kernel - plain| / max(1, max|plain|):
 # f32 differs only by summation order (K = 64..1024 terms);
 # bf16 may flip an intermediate rounding by one bf16 ulp (2^-8).
 KERNEL_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# The Perceiver shapes hold kernel against twin relative to the twin's own
+# max|ref| (rel_err floor 0), at the same tolerances: at M = 20,736 K13's
+# and K8's outputs are ~0.01 and K8's dk/dv ~1e-3, where max(1, .) would
+# make the bounds absolute and let a kernel off by 30% pass.
+OWN_SCALE = 0.0
 # Gradients are longer sums (up to 393,216 rows for K9's weight grads,
 # split into partials on the card, one torch reduction in the twin);
 # bf16 gradients also flip one bf16 rounding of an intermediate.
@@ -202,6 +240,12 @@ KERNELS = {
     "gather_rows": ("vipformer_tpu_torch/csrc/gather.cu",
                     "vipformer_tpu/ops/pallas/gather.py:180 gather_rows_pallas "
                     "(fwd :119, VJP :196)", "ft_partseg compat"),
+    "attn_packed": ("vipformer_tpu_torch/csrc/attention.cu",
+                    "vipformer_tpu/ops/pallas/attention.py:212 fused_attention_packed",
+                    "perceiver feats img"),
+    "attn_packed_kv": ("vipformer_tpu_torch/csrc/attention.cu",
+                       "vipformer_tpu/ops/pallas/attention.py:325 fused_attention_packed_kv",
+                       "perceiver feats pc512"),
 }
 SERVING_KERNELS = ("fps", "knn", "stem", "attn_kv_ln", "attn_small")
 # the launch counters of the pretrain path (K10's backward never runs there)
@@ -249,26 +293,38 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20) -> float:
-    """Device time of the kernels one fn() launches (torch.profiler, summed
-    over `iters` calls, per call): where the host's cost per call exceeds
-    the kernel's, cuda_ms measures the host and this the card."""
-    from torch.profiler import ProfilerActivity, profile
-
+def device_ms(fn, iters: int = 20) -> float | None:
+    """Device time per fn() call where the host's cost per call exceeds the
+    kernels' (there cuda_ms measures the host): CUDA events around `iters`
+    calls queued behind a spin kernel, so the card runs them back to back.
+    The spin is lengthened until it outlasts the host's queueing; None if
+    the host cannot queue ahead of the card (a call that synchronises)."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    cycles = 1 << 22
+    while cycles <= 1 << 32:
+        ev[0].record()
+        torch.cuda._sleep(cycles)
+        ev[1].record()
+        t0 = time.perf_counter()
         for _ in range(iters):
             fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / iters
+        if ev[0].elapsed_time(ev[1]) > 1.5 * host_ms + 0.1:
+            return ev[1].elapsed_time(ev[2]) / iters
+        cycles *= 4
+    return None
 
 
-def rel_err(got, ref) -> tuple[float, float]:
-    """(max abs error, max abs error / max(1, max |ref|)) in f32."""
+def rel_err(got, ref, floor: float = 1.0) -> tuple[float, float]:
+    """(max abs error, max abs error / max(floor, max |ref|)) in f32.
+    floor=0 holds the error against the reference's own scale (OWN_SCALE)."""
     err = (got.float() - ref.float()).abs().max().item()
-    return err, err / max(1.0, ref.float().abs().max().item())
+    scale = max(floor, ref.float().abs().max().item())
+    return err, (err / scale if scale > 0 else float(err > 0))
 
 
 def bound(nbytes: float, ops: float, dt: str) -> dict:
@@ -334,6 +390,79 @@ def sdpa_ms(q, k, v, h, scale, rate) -> float:
     qh, kh, vh = split(q), split(k), split(v)
     return cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, dropout_p=rate,
                                                           scale=scale))
+
+
+def grads_of(models: dict) -> dict:
+    """Every parameter's gradient on the host, keyed "<model>.<name>"."""
+    return {f"{n}.{k}": p.grad.detach().cpu() for n, m in models.items()
+            for k, p in m.named_parameters() if p.grad is not None}
+
+
+def _counted(what: str, fn) -> dict:
+    """Run fn() with every launch count at 0 before and read after."""
+    from vipformer_tpu_torch.ops import cuda as kcuda
+
+    kcuda.reset_launch_counts()
+    fn()
+    torch.cuda.synchronize()
+    counts = kcuda.launch_counts()
+    print(f"{what} launches:", json.dumps(counts))
+    return counts
+
+
+def _expect_counts(name: str, counts: dict, want: dict) -> None:
+    """Every counter named in `want` launched exactly that often; every
+    other counter not at all."""
+    for c, n in counts.items():
+        expect(n == want.get(c, 0), f"{name}: {c} launched {n} times, expected {want.get(c, 0)}")
+
+
+def _expect_launched(name: str, counts: dict, counters) -> None:
+    for c in counters:
+        expect(counts[c] > 0, f"{c} was not launched on the {name} path")
+
+
+def _moved_and_finite(name: str, model, state, before, metrics, may_stay=None) -> None:
+    """The steps' metrics and the parameters finite, and every parameter
+    moved, but those for which may_stay(name, value before) holds."""
+    for i, m in enumerate(metrics):
+        vals = {k: float(v) for k, v in m.items()}
+        print(f"  step {i}: " + " ".join(f"{k}={v:.5f}" for k, v in vals.items()))
+        expect(all(np.isfinite(v) for v in vals.values()), f"{name} step {i}: non-finite metric")
+    after = list(state.parameters())
+    expect(all(bool(torch.isfinite(p).all()) for p in after), f"{name}: non-finite parameters")
+    names = [k for k, _ in model.named_parameters()] if model is not None else range(len(after))
+    still = [(k, b) for k, a, b in zip(names, after, before) if torch.equal(a, b)]
+    print(f"  {len(after) - len(still)} of {len(after)} parameter tensors moved, all finite"
+          + (f"; unmoved: {[k for k, _ in still]}" if still else ""))
+    expect(all(may_stay is not None and may_stay(k, b) for k, b in still),
+           f"{name}: a parameter the step should move did not change")
+
+
+def _timed_steps(run, what: str, samples: int) -> float:
+    """ms per step of run(n) (CUDA events over TIMED_STEPS after 2 warm-up
+    steps; host clock beside), peak memory, and the profiler breakdown."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run(2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    run(TIMED_STEPS)
+    end.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    ms = start.elapsed_time(end) / TIMED_STEPS
+    print(f"{what}: {ms:.3f} ms (CUDA events; host clock {wall:.3f} ms), "
+          f"{1000.0 * samples / ms:.1f} samples/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run(2)
+        torch.cuda.synchronize()
+    print_breakdown(prof, 2, ms, what)
+    return ms
 
 
 def check_serving_kernels(rec: Recorder) -> None:
@@ -454,7 +583,6 @@ def serving_model(dt: str, device):
 
 def drive_serving_path(counts_out: dict) -> None:
     from vipformer_tpu_torch.inference import classifier_predictor
-    from vipformer_tpu_torch.ops import cuda as kcuda
     from vipformer_tpu_torch.ops import geometry
 
     cfg = config()
@@ -463,14 +591,10 @@ def drive_serving_path(counts_out: dict) -> None:
     predictor = classifier_predictor(model, max_batch=64)
     requests = [rng.standard_normal((n, NUM_POINTS, 3)).astype(np.float32) for n in REQUESTS]
 
-    kcuda.reset_launch_counts()
-    outs = [predictor(r) for r in requests]
-    torch.cuda.synchronize()
-    counts = kcuda.launch_counts()
+    outs = []
+    counts = _counted("serving path", lambda: outs.extend(predictor(r) for r in requests))
     counts_out.update(counts)
-    print("serving path launches:", json.dumps(counts))
-    for name in SERVING_KERNELS:
-        expect(counts[name] > 0, f"kernel {name} was not launched on the serving path")
+    _expect_launched("serving", counts, SERVING_KERNELS)
     for req, out in zip(requests, outs):
         expect(out["logits"].shape == (len(req), cfg.num_obj_classes), "logits shape")
         expect(out["backbone_feats"].shape == (len(req), 2 * cfg.num_latent_channels),
@@ -720,7 +844,6 @@ def pretrain_models(cfg, device):
 
 
 def drive_pretrain_path(counts_out: dict, batches) -> None:
-    from vipformer_tpu_torch.ops import cuda as kcuda
     from vipformer_tpu_torch.train.trainer import create_state, make_pretrain_step
 
     cfg = config()
@@ -729,27 +852,12 @@ def drive_pretrain_path(counts_out: dict, batches) -> None:
     step = make_pretrain_step(cfg, models["pc"], models["img"])
     before = [p.detach().clone() for p in state.parameters()]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-
-    kcuda.reset_launch_counts()
-    losses = []
-    for i in range(STEPS):
-        state, metrics = step(state, batches[i % len(batches)], cfg.lr, gen)
-        losses.append(metrics)
-    torch.cuda.synchronize()
-    counts = kcuda.launch_counts()
+    metrics = []
+    counts = _counted(f"pretrain path: {STEPS} steps", lambda: metrics.extend(
+        step(state, batches[i % len(batches)], cfg.lr, gen)[1] for i in range(STEPS)))
     counts_out.update(counts)
-    print("pretrain path launches over", STEPS, "steps:", json.dumps(counts))
-    for name in PRETRAIN_COUNTERS:
-        expect(counts[name] > 0, f"{name} was not launched on the pretrain path")
-    for i, m in enumerate(losses):
-        vals = {k: float(v) for k, v in m.items()}
-        print(f"  step {i}: " + " ".join(f"{k}={v:.5f}" for k, v in vals.items()))
-        expect(all(np.isfinite(v) for v in vals.values()), f"step {i}: non-finite loss")
-    after = list(state.parameters())
-    expect(all(bool(torch.isfinite(p).all()) for p in after), "non-finite parameters")
-    moved = sum(not torch.equal(a, b) for a, b in zip(after, before))
-    print(f"  {moved} of {len(after)} parameter tensors moved; all finite")
-    expect(moved == len(after), "some parameters did not change")
+    _expect_launched("pretrain", counts, PRETRAIN_COUNTERS)
+    _moved_and_finite("pretrain", None, state, before, metrics)
 
 
 def compare_step_with_cpu(batch) -> None:
@@ -772,10 +880,6 @@ def compare_step_with_cpu(batch) -> None:
     inputs = {"pc": torch.from_numpy(pts), "img": torch.from_numpy(batch["imgs"])}
     cots = {k: torch.from_numpy(rng.standard_normal(
         (len(x), 2 * cfg.num_latent_channels)).astype(np.float32)) for k, x in inputs.items()}
-
-    def grads_of(models):
-        return {f"{name}.{k}": p.grad.detach().cpu() for name, m in models.items()
-                for k, p in m.named_parameters() if p.grad is not None}
 
     got: dict = {}
     for dev in ("cpu", "cuda"):
@@ -828,28 +932,8 @@ def time_pretrain_step(batches) -> None:
         for i in range(n):
             step(state, batches[i % len(batches)], cfg.lr, gen)
 
-    run(2)
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    run(TIMED_STEPS)
-    end.record()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
-    ms = start.elapsed_time(end) / TIMED_STEPS
-    clouds = 2 * PRETRAIN_BATCH
-    print(f"pretrain step bf16 B={PRETRAIN_BATCH} ({clouds} clouds + {PRETRAIN_BATCH} images): "
-          f"{ms:.3f} ms/step (CUDA events; host clock {wall:.3f} ms), "
-          f"{1000.0 * clouds / ms:.1f} clouds/s, peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run(2)
-        torch.cuda.synchronize()
-    print_breakdown(prof, 2, ms, "a pretrain step")
+    _timed_steps(run, f"pretrain step bf16 B={PRETRAIN_BATCH} ({2 * PRETRAIN_BATCH} clouds + "
+                 f"{PRETRAIN_BATCH} images; samples = clouds)", 2 * PRETRAIN_BATCH)
 
 
 # ------------------------------------------------------------ ft_cls
@@ -962,7 +1046,6 @@ def ft_batches(cfg, split: str):
 
 def drive_ft_cls_path(counts_out: dict, eval_counts_out: dict, batches, test_batches) -> None:
     from vipformer_tpu_torch.models.factory import build_ft_cls
-    from vipformer_tpu_torch.ops import cuda as kcuda
     from vipformer_tpu_torch.train.trainer import create_state, make_cls_eval, make_cls_step
 
     cfg = ft_config()
@@ -971,42 +1054,25 @@ def drive_ft_cls_path(counts_out: dict, eval_counts_out: dict, batches, test_bat
     step = make_cls_step(cfg, model)
     before = [p.detach().clone() for p in state.parameters()]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-
-    kcuda.reset_launch_counts()
     metrics = []
-    for i in range(FT_STEPS):
-        state, m = step(state, batches[i % len(batches)], cfg.lr, gen)
-        metrics.append(m)
-    torch.cuda.synchronize()
-    counts = kcuda.launch_counts()
+    counts = _counted(f"ft_cls path: {FT_STEPS} steps at B={FT_BATCH}", lambda: metrics.extend(
+        step(state, batches[i % len(batches)], cfg.lr, gen)[1] for i in range(FT_STEPS)))
     counts_out.update(counts)
-    print(f"ft_cls path launches over {FT_STEPS} steps at B={FT_BATCH}:", json.dumps(counts))
-    for name in FT_COUNTERS:
-        expect(counts[name] > 0, f"{name} was not launched on the ft_cls path")
+    _expect_launched("ft_cls", counts, FT_COUNTERS)
     per_step = sum(DENSE_SITES.values())
     expect(counts["dense_grads"] == per_step * FT_STEPS,
            f"K11 launched {counts['dense_grads']} times, expected {per_step} per step")
     expect(counts["attn_small_qkv_ln"] == 0, "K6 launched in a train step")
-    for i, m in enumerate(metrics):
-        vals = {k: float(v) for k, v in m.items()}
-        print(f"  step {i}: " + " ".join(f"{k}={v:.5f}" for k, v in vals.items()))
-        expect(all(np.isfinite(v) for v in vals.values()), f"ft_cls step {i}: non-finite metric")
-    after = list(state.parameters())
-    expect(all(bool(torch.isfinite(p).all()) for p in after), "non-finite parameters")
-    moved = sum(not torch.equal(a, b) for a, b in zip(after, before))
-    print(f"  {moved} of {len(after)} parameter tensors moved; all finite")
-    expect(moved == len(after), "some parameters did not change")
+    _moved_and_finite("ft_cls", None, state, before, metrics)
 
     eval_step = make_cls_eval(model)
     batch, mask = test_batches[0]
-    kcuda.reset_launch_counts()
-    pred = eval_step(batch["points"])
-    torch.cuda.synchronize()
-    counts = kcuda.launch_counts()
+    out = {}
+    counts = _counted(f"ft_cls eval: one forward at B={FT_BATCH}",
+                      lambda: out.update(pred=eval_step(batch["points"])))
+    pred = out["pred"]
     eval_counts_out.update(counts)
-    print(f"ft_cls eval launches, one forward at B={FT_BATCH}:", json.dumps(counts))
-    for name in FT_EVAL_COUNTERS:
-        expect(counts[name] > 0, f"{name} was not launched on the ft_cls eval")
+    _expect_launched("ft_cls eval", counts, FT_EVAL_COUNTERS)
     expect(counts["attn_small_qkv_ln"] == cfg.num_sa_layers,
            f"K6 launched {counts['attn_small_qkv_ln']} times, expected {cfg.num_sa_layers}")
     expect(counts["attn_small"] == 0, "K5 launched at B=330 although K6's gate holds")
@@ -1049,10 +1115,6 @@ def compare_ft_cls_with_cpu(batch, step_batch) -> None:
     cot = torch.from_numpy(np.random.default_rng(SEED + 5).standard_normal(
         (len(pts), 2 * cfg.num_latent_channels)).astype(np.float32))
 
-    def grads_of(model):
-        return {k: p.grad.detach().cpu() for k, p in model.named_parameters()
-                if p.grad is not None}
-
     got: dict = {}
     saved = kdense.USE_DENSE_GRAD, kattn.USE_SA_QKV_LN
     kdense.USE_DENSE_GRAD, kattn.USE_SA_QKV_LN = True, True
@@ -1064,12 +1126,12 @@ def compare_ft_cls_with_cpu(batch, step_batch) -> None:
             model.train()
             _, feats = model(pts.to(dev))
             (feats * cot.to(dev)).sum().backward()
-            below_head = grads_of(model)
+            below_head = grads_of({"pc": model})
             model = build_ft_cls(cfg, device=dev)
             _, metrics = make_cls_step(cfg, model)(create_state(cfg, {"pc": model}), step_batch,
                                                    cfg.lr)
             got[dev] = dict(logits=logits.cpu(), feats=feats.detach().cpu(), below_head=below_head,
-                            loss=float(metrics["loss"]), step=grads_of(model))
+                            loss=float(metrics["loss"]), step=grads_of({"pc": model}))
     finally:
         kdense.USE_DENSE_GRAD, kattn.USE_SA_QKV_LN = saved
     cpu, card = got["cpu"], got["cuda"]
@@ -1084,7 +1146,8 @@ def compare_ft_cls_with_cpu(batch, step_batch) -> None:
     expect(err <= STEP_TOL * max(1.0, abs(cpu["loss"])), "ft_cls step loss off the CPU step")
     for what, tol in (("below_head", STEP_TOL), ("step", STEP_HEAD_TOL)):
         expect(set(card[what]) == set(cpu[what]), f"{what}: gradient leaves differ")
-        bounds = {k: STEP_G2E_TOL if k.startswith("stem.group2emb.") else tol for k in cpu[what]}
+        bounds = {k: STEP_G2E_TOL if k.startswith("pc.stem.group2emb.") else tol
+                  for k in cpu[what]}
         errs = sorted((rel_err(card[what][k], w)[1] / bounds[k], k)
                       for k, w in cpu[what].items())
         print(f"  {what}: {len(errs)} gradient leaves, bound {tol:.0e} (Group2Emb "
@@ -1094,8 +1157,6 @@ def compare_ft_cls_with_cpu(batch, step_batch) -> None:
 
 
 def time_ft_cls(batches, test_batches, route_ms: dict) -> None:
-    from torch.profiler import ProfilerActivity, profile
-
     from vipformer_tpu_torch.models.factory import build_ft_cls
     from vipformer_tpu_torch.ops.cuda import attention as kattn
     from vipformer_tpu_torch.train.trainer import create_state, make_cls_eval, make_cls_step
@@ -1110,24 +1171,7 @@ def time_ft_cls(batches, test_batches, route_ms: dict) -> None:
         for i in range(n):
             step(state, batches[i % len(batches)], cfg.lr, gen)
 
-    run(2)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    run(TIMED_STEPS)
-    end.record()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
-    ms = start.elapsed_time(end) / TIMED_STEPS
-    print(f"ft_cls step bf16 B={FT_BATCH}: {ms:.3f} ms/step (CUDA events; host clock "
-          f"{wall:.3f} ms), {1000.0 * FT_BATCH / ms:.1f} clouds/s, peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run(2)
-        torch.cuda.synchronize()
-    print_breakdown(prof, 2, ms, "an ft_cls step")
+    _timed_steps(run, f"ft_cls step bf16 B={FT_BATCH}", FT_BATCH)
 
     eval_step = make_cls_eval(model)
     points = {b: torch.from_numpy(test_batches[0][0]["points"][:b]).cuda() for b in (64, FT_BATCH)}
@@ -1210,8 +1254,9 @@ def check_gather_rows(rec: Recorder) -> None:
                 dev_ms = {k: device_ms(f) for k, f in (("ms", kern), ("plain_ms", plain),
                                                       ("library_ms", lib))}
                 rec.r[name]["device_ms"] = dev_ms
-                print(f"  {name:18s} device time per call: kernel {dev_ms['ms']:.4f} ms, plain "
-                      f"{dev_ms['plain_ms']:.4f} ms, library {dev_ms['library_ms']:.4f} ms")
+                print(f"  {name:18s} device time per call (queued behind a spin kernel): "
+                      + ", ".join(f"{k} {v:.4f} ms" if v is not None else f"{k} not measured"
+                                  for k, v in dev_ms.items()))
 
 
 def partseg_config(**over):
@@ -1362,18 +1407,6 @@ def partseg_batches(cfg, split: str):
             for b in Loader(ds, cfg.test_batch_size, collate_partseg)]
 
 
-def _counted(what: str, fn) -> dict:
-    """Run fn() with every launch count at 0 before and read after."""
-    from vipformer_tpu_torch.ops import cuda as kcuda
-
-    kcuda.reset_launch_counts()
-    fn()
-    torch.cuda.synchronize()
-    counts = kcuda.launch_counts()
-    print(f"{what} launches:", json.dumps(counts))
-    return counts
-
-
 def drive_partseg_path(counts_out: dict, batches, test_batches) -> None:
     """Three bf16 partseg steps (patch_compat off), one with patch_compat
     on, and one eval forward at B=96 in each mode; each run's launch
@@ -1395,10 +1428,8 @@ def drive_partseg_path(counts_out: dict, batches, test_batches) -> None:
         counts = _counted(f"{name}: {nsteps} step(s) at B={PARTSEG_BATCH}", lambda: metrics.extend(
             step(state, batches[i % len(batches)], cfg.lr, gen)[1] for i in range(nsteps)))
         counts_out[name] = counts
-        for c in PARTSEG_COUNTERS:
-            if c == "gather_centered_fwd" and compat:
-                continue
-            expect(counts[c] > 0, f"{c} was not launched on the {name} path")
+        _expect_launched(name, counts, [c for c in PARTSEG_COUNTERS
+                                        if not (compat and c == "gather_centered_fwd")])
         expect(counts["dense_grads"] == per_step * nsteps,
                f"{name}: K11 launched {counts['dense_grads']} times, expected {per_step} per step")
         if compat:
@@ -1409,24 +1440,13 @@ def drive_partseg_path(counts_out: dict, batches, test_batches) -> None:
             expect(counts["gather_rows_fwd"] == 0, f"{name}: K12 launched with compat off")
         expect(counts["gather_rows_bwd"] == 0 and counts["attn_small_qkv_ln"] == 0,
                f"{name}: a kernel off the path launched")
-        for i, m in enumerate(metrics):
-            vals = {k: float(v) for k, v in m.items()}
-            print(f"  step {i}: " + " ".join(f"{k}={v:.5f}" for k, v in vals.items()))
-            expect(all(np.isfinite(v) for v in vals.values()), f"{name} step {i}: non-finite")
-        after = list(state.parameters())
-        expect(all(bool(torch.isfinite(p).all()) for p in after), "non-finite parameters")
         # the SA layers after the last tap get zero gradients: AdamW only
         # decays them, which leaves their zero-initialised LayerNorm biases
         # at zero; every other tensor moves
         unreached = tuple(f"encoder.sa_{i}." for i in range(max(cfg.layer_idx),
                                                              cfg.num_sa_layers))
-        names = [k for k, _ in model.named_parameters()]
-        still = [k for k, a, b in zip(names, after, before) if torch.equal(a, b)]
-        print(f"  {len(after) - len(still)} of {len(after)} parameter tensors moved, all "
-              f"finite; unmoved: {still}")
-        expect(all(k.startswith(unreached) and not b.any()
-                   for k, b in zip(names, before) if k in still),
-               "a parameter the step should move did not change")
+        _moved_and_finite(name, model, state, before, metrics,
+                          may_stay=lambda k, b: k.startswith(unreached) and not b.any())
         del before, state
 
         eval_step = make_partseg_eval(model)
@@ -1436,10 +1456,8 @@ def drive_partseg_path(counts_out: dict, batches, test_batches) -> None:
         counts = _counted(f"{name}: one forward at B={PARTSEG_BATCH}", lambda: out.update(
             zip(("logits", "refined"), eval_step(batch["points"], batch["obj_labels"]))))
         counts_out[name] = counts
-        for c in PARTSEG_EVAL_COUNTERS:
-            if c == "stem" and compat:
-                continue
-            expect(counts[c] > 0, f"{c} was not launched on the {name}")
+        _expect_launched(name, counts, [c for c in PARTSEG_EVAL_COUNTERS
+                                        if not (compat and c == "stem")])
         expect(counts["attn_small"] == cfg.num_sa_layers,
                f"{name}: K5 launched {counts['attn_small']} times, expected {cfg.num_sa_layers}")
         expect(counts["attn_kv_ln"] == 1, f"{name}: K4 launched {counts['attn_kv_ln']} times")
@@ -1524,8 +1542,6 @@ def compare_partseg_with_cpu(eval_batch, step_batch) -> None:
 
 
 def time_partseg(batches, test_batches) -> None:
-    from torch.profiler import ProfilerActivity, profile
-
     from vipformer_tpu_torch.models.factory import build_ft_partseg
     from vipformer_tpu_torch.train.trainer import create_state, make_partseg_eval, make_partseg_step
 
@@ -1539,42 +1555,408 @@ def time_partseg(batches, test_batches) -> None:
         for i in range(n):
             step(state, batches[i % len(batches)], cfg.lr, gen)
 
-    run(2)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    run(TIMED_STEPS)
-    end.record()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
-    ms = start.elapsed_time(end) / TIMED_STEPS
-    print(f"partseg step bf16 B={PARTSEG_BATCH}: {ms:.3f} ms/step (CUDA events; host clock "
-          f"{wall:.3f} ms), {1000.0 * PARTSEG_BATCH / ms:.1f} clouds/s, peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run(2)
-        torch.cuda.synchronize()
-    print_breakdown(prof, 2, ms, "a partseg step")
+    _timed_steps(run, f"partseg step bf16 B={PARTSEG_BATCH}", PARTSEG_BATCH)
     points = torch.from_numpy(test_batches[0][0]["points"]).cuda()
     obj = torch.from_numpy(test_batches[0][0]["obj_labels"]).cuda()
     for compat in (False, True):
         model.stem.patch_compat = compat
         eval_step = make_partseg_eval(model)
-        ms = cuda_ms(lambda: eval_step(points, obj), iters=10)
-        print(f"partseg eval forward bf16 B={PARTSEG_BATCH} patch_compat {compat}: {ms:.3f} ms "
-              f"({1000.0 * PARTSEG_BATCH / ms:.0f} clouds/s)")
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(2):
-                eval_step(points, obj)
-            torch.cuda.synchronize()
-        print_breakdown(prof, 2, ms, f"a partseg eval forward (patch_compat {compat})")
+        _timed_steps(lambda n: [eval_step(points, obj) for _ in range(n)],
+                     f"partseg eval forward bf16 B={PARTSEG_BATCH} patch_compat {compat}",
+                     PARTSEG_BATCH)
+
+
+# ---------------------------------------------- Perceiver family (--mp false)
+
+
+def perceiver_config(**over):
+    """The flagship pretrain configuration with `--mp false`: the generic
+    Perceiver family at the script's widths (D=256, 4 CA and SA heads, MLP
+    x2, 128 point and 128 image latents, one SA block of 6 layers, 144x144
+    images with 64 Fourier bands: 20,736 tokens of 261 channels), the
+    batch cut to 48 as for the mp pretrain phases."""
+    return config(**dict(dict(mp=False), **over))
+
+
+def perceiver_ft_config(**over):
+    """ft-E1CL8SL-H4D256-L128-MR2.sh with `--mp false` (B=330, 1024 points,
+    atten_drop 0.1, mlp_drop 0.5): the Perceiver classifier."""
+    return ft_config(**dict(dict(mp=False), **over))
+
+
+def check_perceiver_kernels(rec: Recorder) -> None:
+    """(a) K13 and K15 against their twins on the card, f32 and bf16, each
+    error relative to the twin's own scale (OWN_SCALE), timed with CUDA
+    events (K13 beside SDPA); K8
+    at the Fourier cross-attention's M = 20,736 (forward and backward, with
+    dropout); K5-K8 at the decoder's single query."""
+    from vipformer_tpu_torch.ops.cuda import attention as kattn
+    from vipformer_tpu_torch.ops.cuda import flash_train as kf
+
+    cfg = perceiver_config()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 9)
+    d, h, g = cfg.num_latent_channels, cfg.num_ca_heads, cfg.num_img_latents
+    m_img = cfg.img_height * cfg.img_width
+    b = PRETRAIN_BATCH
+    scale = (d // h) ** -0.5
+    rate = cfg.atten_drop
+    seed = torch.tensor([20240613], dtype=torch.int32, device=dev)
+
+    def t(shape, dt=torch.float32, scale_=1.0):
+        return torch.from_numpy(
+            (rng.standard_normal(shape) * scale_).astype(np.float32)).to(dev, dt)
+
+    print("Perceiver kernels K13 and K15 against their twins:")
+    with torch.inference_mode():
+        # K13: the Fourier cross-attention's shape, an odd M, a single query
+        for bb, gg, mm in ((b, g, m_img), (8, 100, 1000), (16, 1, 4096)):
+            for dt_name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+                q, k, v = t((bb, gg, d), dt), t((bb, mm, d), dt), t((bb, mm, d), dt)
+                out_k = kattn.fused_attention_packed(q, k, v, num_heads=h, scale=scale)
+                out_p = kattn.attention_packed_plain(q, k, v, h, scale)
+                rec.check("attn_packed", f"[{bb},{gg}]x[{bb},{mm}] {dt_name}",
+                          *rel_err(out_k, out_p, OWN_SCALE), KERNEL_TOL[dt_name])
+                if mm == m_img and dt_name == "bfloat16":
+                    fn = lambda: kattn.fused_attention_packed(q, k, v, num_heads=h, scale=scale)  # noqa: E731
+                    rec.timing("attn_packed", cuda_ms(fn, iters=10),
+                               cuda_ms(lambda: kattn.attention_packed_plain(q, k, v, h, scale),
+                                       iters=3, warmup=1),
+                               bound(nbytes(q, k, v, out_k), 4 * bb * gg * mm * d, dt_name),
+                               sdpa_ms(q, k, v, h, scale, 0.0),
+                               shape=f"q[{bb},{gg},{d}] kv[{bb},{mm},{d}] bf16")
+                del q, k, v, out_k, out_p
+        # K15: the self-attention at 512 latents, at Din = 384, and one
+        # query over a token count off the 32-token chunks
+        for bb, gg, mm, din in ((PERCEIVER_FEATS_BATCH, PERCEIVER_WIDE_LATENTS,
+                                 PERCEIVER_WIDE_LATENTS, d),
+                                (8, PERCEIVER_WIDE_LATENTS, PERCEIVER_WIDE_LATENTS, 384),
+                                (4, 1, 700, 384)):
+            for dt_name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+                args = (t((bb, gg, d), dt), t((bb, mm, din), dt),
+                        t((din, d), dt, din ** -0.5), t((din, d), dt, din ** -0.5))
+                out_k = kattn.fused_attention_packed_kv(*args, num_heads=h, scale=scale)
+                out_p = kattn.attention_packed_kv_plain(*args, h, scale)
+                rec.check("attn_packed_kv", f"[{bb},{gg}]x[{bb},{mm},{din}] {dt_name}",
+                          *rel_err(out_k, out_p, OWN_SCALE), KERNEL_TOL[dt_name])
+                if bb == PERCEIVER_FEATS_BATCH and dt_name == "bfloat16":
+                    fn = lambda: kattn.fused_attention_packed_kv(*args, num_heads=h, scale=scale)  # noqa: E731
+                    ops = 2 * bb * mm * din * 2 * d + 4 * bb * gg * mm * d
+                    rec.timing("attn_packed_kv", cuda_ms(fn, iters=10),
+                               cuda_ms(lambda: kattn.attention_packed_kv_plain(*args, h, scale)),
+                               bound(nbytes(*args, out_k), ops, dt_name),
+                               shape=f"q[{bb},{gg},{d}] x[{bb},{mm},{din}] bf16")
+                del args, out_k, out_p
+
+    print("K8 at the Fourier cross-attention (M = 20,736) and K5-K8 at one query:")
+    for dt_name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        q, k, v, do = t((b, g, d), dt), t((b, m_img, d), dt), t((b, m_img, d), dt), t((b, g, d), dt)
+        out_k, lse_k = kf.attention_fwd_kernel(q, k, v, seed, h, scale, rate)
+        out_p, lse_p = kf.attention_fwd_plain(q, k, v, seed, h, scale, rate)
+        what = f"M={m_img} {dt_name} p={rate}"
+        rec.check("attn_train_fwd", what, *rel_err(out_k, out_p, OWN_SCALE),
+                  KERNEL_TOL[dt_name])
+        rec.check("attn_train_fwd", what + " lse", *rel_err(lse_k, lse_p, OWN_SCALE),
+                  KERNEL_TOL["float32"])
+        delta = kf.attention_delta(do, out_p, h)
+        bwd_args = (q, k, v, do, lse_p, delta, seed, h, scale, rate)
+        for gname, gk, gp in zip(("dq", "dk", "dv"), kf.attention_bwd_kernel(*bwd_args),
+                                 kf.attention_bwd_plain(*bwd_args)):
+            rec.check("attn_train_bwd", f"{what} {gname}", *rel_err(gk, gp, OWN_SCALE),
+                      GRAD_TOL[dt_name])
+        if dt_name == "bfloat16":
+            ms_f = cuda_ms(lambda: kf.attention_fwd_kernel(q, k, v, seed, h, scale, rate), iters=5)
+            ms_b = cuda_ms(lambda: kf.attention_bwd_kernel(*bwd_args), iters=5)
+            print(f"  K8 at q[{b},{g},{d}] kv[{b},{m_img},{d}] bf16 p={rate}: forward "
+                  f"{ms_f:.4f} ms, backward {ms_b:.4f} ms; SDPA forward "
+                  f"{sdpa_ms(q, k, v, h, scale, rate):.4f} ms")
+        del q, k, v, do, out_k, out_p, lse_k, lse_p, delta, bwd_args
+        torch.cuda.empty_cache()
+        # the decoder's single query: K7 (cross-attention over the latents)
+        # and K8 (the 1x1 self-attention) in train mode, K5 and K6 in eval
+        bq = FT_BATCH
+        args = (t((bq, 1, d), dt), t((bq, g, d), dt), t((d,), scale_=0.2) + 1.0,
+                t((d,), scale_=0.1), t((d, d), dt, d ** -0.5), t((d, d), dt, d ** -0.5))
+        do = t((bq, 1, d), dt)
+        out_k, _ = kf.attention_kv_fwd_kernel(*args, seed, h, scale, rate)
+        out_p, lse_p = kf.attention_kv_fwd_plain(*args, seed, h, scale, rate)
+        rec.check("attn_train_kv_fwd", f"G=1 M={g} {dt_name}", *rel_err(out_k, out_p, OWN_SCALE),
+                  KERNEL_TOL[dt_name])
+        delta = kf.attention_delta(do, out_p, h)
+        bwd = (*args, do, lse_p, delta, seed, h, scale, rate)
+        for gname, gk, gp in zip(("dq", "dx", "dln_w", "dln_b", "dwk", "dwv"),
+                                 kf.attention_kv_bwd_kernel(*bwd), kf.attention_kv_bwd_plain(*bwd)):
+            rec.check("attn_train_kv_bwd", f"G=1 {dt_name} {gname}", *rel_err(gk, gp, OWN_SCALE),
+                      GRAD_TOL[dt_name])
+        q1, k1, v1, do1 = (t((bq, 1, d), dt) for _ in range(4))
+        out_k, _ = kf.attention_fwd_kernel(q1, k1, v1, seed, h, scale, rate)
+        out_p, lse_p = kf.attention_fwd_plain(q1, k1, v1, seed, h, scale, rate)
+        rec.check("attn_train_fwd", f"1x1 {dt_name}", *rel_err(out_k, out_p, OWN_SCALE),
+                  KERNEL_TOL[dt_name])
+        bwd = (q1, k1, v1, do1, lse_p, kf.attention_delta(do1, out_p, h), seed, h, scale, rate)
+        # over one key the softmax is exactly 1, so dq and dk are exactly 0:
+        # each side is the rounding of a cancelling difference, held within
+        # the bound absolutely (floor 1), as ZERO_GRADS are; dv at own scale
+        for gname, gk, gp in zip(("dq", "dk", "dv"), kf.attention_bwd_kernel(*bwd),
+                                 kf.attention_bwd_plain(*bwd)):
+            floor = OWN_SCALE if gname == "dv" else 1.0
+            rec.check("attn_train_bwd", f"1x1 {dt_name} {gname}", *rel_err(gk, gp, floor),
+                      GRAD_TOL[dt_name])
+        with torch.inference_mode():
+            kv = t((bq, g, d), dt)
+            rec.check("attn_small", f"G=1 M={g} {dt_name}",
+                      *rel_err(kattn.fused_attention_packed_small(q1, kv, kv, num_heads=h,
+                                                                  scale=scale),
+                               kattn.attention_small_plain(q1, kv, kv, h, scale), OWN_SCALE),
+                      KERNEL_TOL[dt_name])
+            six = (q1, args[2], args[3], args[4], args[5], args[4])
+            rec.check("attn_small_qkv_ln", f"G=1 {dt_name}",
+                      *rel_err(kattn.fused_attention_packed_small_qkv_ln(*six, num_heads=h,
+                                                                         scale=scale),
+                               kattn.attention_small_qkv_ln_plain(*six, h, scale), OWN_SCALE),
+                      KERNEL_TOL[dt_name])
+
+
+def drive_perceiver_pretrain(counts_out: dict, batches) -> None:
+    """(b) three bf16 pretrain steps of both Perceiver branches at B=48:
+    per step K7 once (the point cross-attention over 2,048 points), K8 13
+    times (12 self-attention layers and the Fourier cross-attention at
+    M = 20,736) forward and backward, and nothing else."""
+    from vipformer_tpu_torch.train.trainer import create_state, make_pretrain_step
+
+    cfg = perceiver_config()
+    models = pretrain_models(cfg, "cuda")
+    state = create_state(cfg, models)
+    step = make_pretrain_step(cfg, models["pc"], models["img"])
+    before = [p.detach().clone() for p in state.parameters()]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    metrics = []
+    counts = _counted(f"perceiver pretrain: {STEPS} steps at B={PRETRAIN_BATCH}", lambda: metrics.extend(
+        step(state, batches[i % len(batches)], cfg.lr, gen)[1] for i in range(STEPS)))
+    counts_out.update(counts)
+    sa = cfg.num_sa_layers_per_block * cfg.num_sa_blocks
+    per_step = {"attn_train_kv_fwd": 1, "attn_train_kv_bwd": 1,
+                "attn_train_fwd": 2 * sa + 1, "attn_train_bwd": 2 * sa + 1}
+    _expect_counts("perceiver pretrain", counts, {k: v * STEPS for k, v in per_step.items()})
+    _moved_and_finite("perceiver pretrain", None, state, before, metrics)
+
+
+def drive_perceiver_ft_cls(counts_out: dict, eval_counts_out: dict, batches, test_batches) -> None:
+    """(c) three bf16 ft_cls steps of the Perceiver classifier at B=330 (K7
+    at the encoder's and the decoder's single-query cross-attention, K8 at
+    the 6 encoder and 2 decoder 1x1 self-attention layers, K11 at the 40
+    latent Denses), then one eval forward at B=330 (K4 once, K6 at the 6 +
+    2 self-attention layers, K5 once at the decoder's cross-attention)."""
+    from vipformer_tpu_torch.models.factory import build_ft_cls
+    from vipformer_tpu_torch.train.trainer import create_state, make_cls_eval, make_cls_step
+
+    cfg = perceiver_ft_config()
+    model = build_ft_cls(cfg, device="cuda")
+    state = create_state(cfg, {"pc": model})
+    step = make_cls_step(cfg, model)
+    before = [p.detach().clone() for p in state.parameters()]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    metrics = []
+    counts = _counted(f"perceiver ft_cls: {FT_STEPS} steps at B={FT_BATCH}", lambda: metrics.extend(
+        step(state, batches[i % len(batches)], cfg.lr, gen)[1] for i in range(FT_STEPS)))
+    counts_out.update(counts)
+    sa = cfg.num_sa_layers_per_block * cfg.num_sa_blocks
+    per_step = {"attn_train_kv_fwd": 2, "attn_train_kv_bwd": 2, "attn_train_fwd": sa + 2,
+                "attn_train_bwd": sa + 2, "dense_grads": PERCEIVER_DENSE_PER_STEP}
+    _expect_counts("perceiver ft_cls", counts, {k: v * FT_STEPS for k, v in per_step.items()})
+    _moved_and_finite("perceiver ft_cls", None, state, before, metrics)
+
+    eval_step = make_cls_eval(model)
+    batch, mask = test_batches[0]
+    out = {}
+    counts = _counted(f"perceiver ft_cls eval: one forward at B={FT_BATCH}",
+                      lambda: out.update(pred=eval_step(batch["points"])))
+    eval_counts_out.update(counts)
+    _expect_counts("perceiver ft_cls eval", counts,
+                   {"attn_kv_ln": 1, "attn_small_qkv_ln": sa + 2, "attn_small": 1})
+    pred = out["pred"].cpu().numpy()
+    expect(pred.shape == (FT_BATCH,), f"predictions of shape {pred.shape}")
+    expect(bool(((pred >= 0) & (pred < cfg.num_obj_classes)).all()), "labels out of range")
+    print(f"  eval: {int(mask.sum())} test clouds (+{int((~mask).sum())} padding), accuracy "
+          f"after {FT_STEPS} steps {float((pred[mask] == batch['labels'][mask]).mean()):.4f}")
+
+
+def drive_perceiver_feats(counts_out: dict, batches) -> None:
+    """(d) make_feats_fn on the Fourier image branch at B=48 (K13 once at
+    the cross-attention over 20,736 tokens, K5 at the 6 self-attention
+    layers) and on the point branch at 512 latents, B=64 (K4 once, K15 at
+    the 6 self-attention layers)."""
+    from vipformer_tpu_torch.models.factory import build_img_model, build_pc_model
+    from vipformer_tpu_torch.train.trainer import make_feats_fn
+
+    cfg = perceiver_config()
+    sa = cfg.num_sa_layers_per_block * cfg.num_sa_blocks
+    imgs = batches[0]["imgs"]
+    pts = np.concatenate([b["pc_t1"] for b in batches])[:PERCEIVER_FEATS_BATCH]
+    runs = (("perceiver feats img", build_img_model(cfg, device="cuda"), imgs,
+             {"attn_packed": 1, "attn_small": sa}),
+            ("perceiver feats pc512",
+             build_pc_model(perceiver_config(num_pc_latents=PERCEIVER_WIDE_LATENTS),
+                            device="cuda"), pts, {"attn_kv_ln": 1, "attn_packed_kv": sa}))
+    for name, model, x, want in runs:
+        feats_fn = make_feats_fn(model)
+        out = {}
+        counts = _counted(f"{name}: one forward at B={len(x)}", lambda: out.update(f=feats_fn(x)))
+        counts_out[name] = counts
+        _expect_counts(name, counts, want)
+        f = out["f"]
+        expect(tuple(f.shape) == (len(x), 2 * cfg.num_latent_channels), f"{name}: {f.shape}")
+        expect(bool(torch.isfinite(f).all()), f"{name}: non-finite features")
+        print(f"  {name}: features {tuple(f.shape)} finite, mean |f| {f.float().abs().mean():.4f}")
+
+
+def compare_perceiver_with_cpu(pre_batch, ft_batch) -> None:
+    """(e) the card's f32 Perceiver paths against the plain path on the CPU
+    at full width, same weights, dropout 0; K11 and K6 forced on both
+    sides in the ft_cls comparisons (the CPU runs their twins):
+
+    * the eval features of the point branch (128 and 512 latents: K4 with
+      K5 or K15 on the card) and of the Fourier image branch (K13, K5) and
+      the ft_cls eval logits, B=2, within STEP_TOL;
+    * each branch below its head (B=2): the train-mode backbone features
+      and every gradient leaf under one fixed cotangent on them, within
+      STEP_TOL (the image branch through K8 at M = 20,736);
+    * the pretrain step at B=8 (each cloud and image with its own offset,
+      so the heads' batch-statistics BatchNorms are well conditioned) and
+      the ft_cls step at B=8: the losses within STEP_TOL, every gradient
+      leaf within STEP_HEAD_TOL."""
+    from vipformer_tpu_torch.models.factory import build_ft_cls, build_img_model, build_pc_model
+    from vipformer_tpu_torch.ops.cuda import attention as kattn
+    from vipformer_tpu_torch.ops.cuda import dense as kdense
+    from vipformer_tpu_torch.train.trainer import (
+        create_state,
+        make_cls_step,
+        make_feats_fn,
+        make_pretrain_step,
+    )
+
+    f32 = dict(compute_dtype="float32", atten_drop=0.0, mlp_drop=0.0)
+    cfg = perceiver_config(**f32)
+    wide = perceiver_config(num_pc_latents=PERCEIVER_WIDE_LATENTS, **f32)
+    ft_cfg = perceiver_ft_config(**f32)
+    rng = np.random.default_rng(SEED + 11)
+    two = {"pc": pre_batch["pc_t1"][:2], "img": pre_batch["imgs"][:2]}
+    cots = {k: torch.from_numpy(rng.standard_normal((2, 2 * cfg.num_latent_channels))
+                                .astype(np.float32)) for k in two}
+    step_batch = {k: v[:8].copy() for k, v in pre_batch.items()}
+    for k in ("pc_t1", "pc_t2"):
+        step_batch[k] += rng.standard_normal((8, 1, 3)).astype(np.float32)
+    step_batch["imgs"] += 0.5 * rng.standard_normal((8, 1, 1, 3)).astype(np.float32)
+
+    got: dict = {}
+    for dev in ("cpu", "cuda"):
+        r: dict = {}
+        models = {"pc": build_pc_model(cfg, device=dev), "img": build_img_model(cfg, device=dev)}
+        r["feats pc"] = make_feats_fn(models["pc"])(two["pc"]).cpu()
+        r["feats img"] = make_feats_fn(models["img"])(two["img"]).cpu()
+        r["feats pc512"] = make_feats_fn(build_pc_model(wide, device=dev))(two["pc"]).cpu()
+        for name, m in models.items():
+            m.train()
+            _, f = m(torch.from_numpy(two[name]).to(dev))
+            (f * cots[name].to(dev)).sum().backward()
+            r[f"train feats {name}"] = f.detach().cpu()
+        r["below_head"] = grads_of(models)
+        models = {"pc": build_pc_model(cfg, device=dev), "img": build_img_model(cfg, device=dev)}
+        _, metrics = make_pretrain_step(cfg, models["pc"], models["img"])(
+            create_state(cfg, models), step_batch, cfg.lr)
+        r["pretrain losses"] = {k: float(v) for k, v in metrics.items()}
+        r["pretrain step"] = grads_of(models)
+        saved = kdense.USE_DENSE_GRAD, kattn.USE_SA_QKV_LN
+        kdense.USE_DENSE_GRAD, kattn.USE_SA_QKV_LN = True, True
+        try:
+            model = build_ft_cls(ft_cfg, device=dev)
+            with torch.inference_mode():
+                r["ft logits"] = model(torch.from_numpy(ft_batch["points"][:2]).to(dev))[0].cpu()
+            _, metrics = make_cls_step(ft_cfg, model)(create_state(ft_cfg, {"pc": model}),
+                                                      {k: v[:8] for k, v in ft_batch.items()},
+                                                      ft_cfg.lr)
+            r["ft_cls losses"] = {"loss": float(metrics["loss"])}
+            r["ft_cls step"] = grads_of({"pc": model})
+        finally:
+            kdense.USE_DENSE_GRAD, kattn.USE_SA_QKV_LN = saved
+        got[dev] = r
+    cpu, card = got["cpu"], got["cuda"]
+    print("card f32 vs CPU plain path, Perceiver (full width, dropout 0):")
+    for what in ("feats pc", "feats img", "feats pc512", "train feats pc", "train feats img",
+                 "ft logits"):
+        err, rel = rel_err(card[what], cpu[what])
+        print(f"  {what} (B=2): max_abs_err={err:.3e} rel={rel:.3e} (bound {STEP_TOL:.0e})")
+        expect(rel <= STEP_TOL, f"Perceiver {what} off the CPU path")
+    for what in ("pretrain losses", "ft_cls losses"):
+        for k, v in cpu[what].items():
+            err = abs(card[what][k] - v)
+            print(f"  {what} {k} (B=8): card {card[what][k]:.6f} cpu {v:.6f} (abs err {err:.3e}, "
+                  f"bound {STEP_TOL:.0e} relative)")
+            expect(err <= STEP_TOL * max(1.0, abs(v)), f"Perceiver {what} {k} off the CPU step")
+    for what, tol in (("below_head", STEP_TOL), ("pretrain step", STEP_HEAD_TOL),
+                      ("ft_cls step", STEP_HEAD_TOL)):
+        expect(set(card[what]) == set(cpu[what]), f"Perceiver {what}: gradient leaves differ")
+        errs = sorted((rel_err(card[what][k], w)[1] / tol, k) for k, w in cpu[what].items())
+        print(f"  {what}: {len(errs)} gradient leaves, bound {tol:.0e}; worst error / bound "
+              + ", ".join(f"{e:.3f} ({k})" for e, k in errs[:-4:-1]))
+        expect(errs[-1][0] <= 1.0, f"Perceiver {what} gradient {errs[-1][1]} off the CPU step")
+
+
+def time_perceiver(pre_batches, ft_train, ft_test) -> None:
+    """(f) the bf16 Perceiver pretrain step (B=48), ft_cls step and eval
+    (B=330), and both feature forwards, each with its profiler breakdown."""
+    from vipformer_tpu_torch.models.factory import build_ft_cls, build_img_model, build_pc_model
+    from vipformer_tpu_torch.train.trainer import (
+        create_state,
+        make_cls_eval,
+        make_cls_step,
+        make_feats_fn,
+        make_pretrain_step,
+    )
+
+    cfg = perceiver_config()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    models = pretrain_models(cfg, "cuda")
+    state = create_state(cfg, models)
+    step = make_pretrain_step(cfg, models["pc"], models["img"])
+
+    def pre(n):
+        for i in range(n):
+            step(state, pre_batches[i % len(pre_batches)], cfg.lr, gen)
+
+    _timed_steps(pre, f"perceiver pretrain step bf16 B={PRETRAIN_BATCH}", 2 * PRETRAIN_BATCH)
+    imgs = torch.from_numpy(pre_batches[0]["imgs"]).cuda()
+    feats_img = make_feats_fn(models["img"])
+    _timed_steps(lambda n: [feats_img(imgs) for _ in range(n)],
+                 f"perceiver image feats forward bf16 B={PRETRAIN_BATCH}", PRETRAIN_BATCH)
+    del models, state, step
+    torch.cuda.empty_cache()
+    pts = torch.from_numpy(np.concatenate([b["pc_t1"] for b in pre_batches])
+                           [:PERCEIVER_FEATS_BATCH]).cuda()
+    feats_wide = make_feats_fn(build_pc_model(
+        perceiver_config(num_pc_latents=PERCEIVER_WIDE_LATENTS), device="cuda"))
+    _timed_steps(lambda n: [feats_wide(pts) for _ in range(n)],
+                 f"perceiver point feats forward, {PERCEIVER_WIDE_LATENTS} latents, bf16 "
+                 f"B={PERCEIVER_FEATS_BATCH}", PERCEIVER_FEATS_BATCH)
+    ft_cfg = perceiver_ft_config()
+    model = build_ft_cls(ft_cfg, device="cuda")
+    state = create_state(ft_cfg, {"pc": model})
+    step = make_cls_step(ft_cfg, model)
+
+    def ft(n):
+        for i in range(n):
+            step(state, ft_train[i % len(ft_train)], ft_cfg.lr, gen)
+
+    _timed_steps(ft, f"perceiver ft_cls step bf16 B={FT_BATCH}", FT_BATCH)
+    eval_step = make_cls_eval(model)
+    test_pts = torch.from_numpy(ft_test[0][0]["points"]).cuda()
+    _timed_steps(lambda n: [eval_step(test_pts) for _ in range(n)],
+                 f"perceiver ft_cls eval forward bf16 B={FT_BATCH}", FT_BATCH)
 
 
 # the hand-written kernels by name: those of csrc/*.cu in the vpt*
 # namespaces, and those in anonymous namespaces
-OUR_KERNELS = ("vpt", "fps_kernel", "knn_kernel", "stem_kernel", "attn_kv_ln_kernel",
+OUR_KERNELS = ("vpt", "fps_kernel", "knn_kernel", "stem_kernel", "attn_flash_kernel",
                "attn_combine_kernel", "attn_small_kernel", "attn_small_qkv_ln_kernel")
 
 
@@ -1690,6 +2072,23 @@ def main() -> int:
         compare_partseg_with_cpu({k: v[:2] for k, v in ps_test[0][0].items()},
                                  {k: v[:8] for k, v in ps_train[0].items()})
         time_partseg(ps_train, ps_test)
+        del ps_train, ps_test
+        torch.cuda.empty_cache()
+        check_perceiver_kernels(rec)
+        torch.cuda.empty_cache()
+        pcfg = perceiver_config()
+        p_batches = pretrain_batches(pcfg, 2, PRETRAIN_BATCH)
+        p_ft_train = ft_batches(perceiver_ft_config(), "train")
+        p_ft_test = ft_batches(perceiver_ft_config(), "test")
+        perceiver_counts: dict = {"perceiver pretrain": {}, "perceiver ft_cls": {},
+                                  "perceiver ft_cls eval": {}}
+        drive_perceiver_pretrain(perceiver_counts["perceiver pretrain"], p_batches)
+        drive_perceiver_ft_cls(perceiver_counts["perceiver ft_cls"],
+                               perceiver_counts["perceiver ft_cls eval"], p_ft_train, p_ft_test)
+        drive_perceiver_feats(perceiver_counts, p_batches)
+        torch.cuda.empty_cache()
+        compare_perceiver_with_cpu(p_batches[0], p_ft_train[0])
+        time_perceiver(p_batches, p_ft_train, p_ft_test)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -1705,7 +2104,7 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(smi)
     counts = {"serve": serve_counts, "pretrain": pretrain_counts, "ft_cls": ft_counts,
-              "ft_cls eval": ft_eval_counts, **partseg_counts}
+              "ft_cls eval": ft_eval_counts, **partseg_counts, **perceiver_counts}
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernel_line(rec, counts)}))
     print(json.dumps({"ok": True, "device": {

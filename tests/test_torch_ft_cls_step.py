@@ -122,6 +122,9 @@ def port(jax_cls, monkeypatch):
     flags restored after the test), and a count of K11's twin calls."""
     monkeypatch.setattr(kdense, "USE_DENSE_GRAD", True)
     monkeypatch.setattr(kattn, "USE_SA_QKV_LN", True)
+    # the attention gates forced as on the JAX side (USE_FUSED_ATTENTION), so
+    # the k/v projections stay inside K7 there and here
+    monkeypatch.setattr(kattn, "USE_FUSED_ATTENTION", True)
     calls = {"dense_grads": 0, "qkv_ln": 0}
     grads, attn = kdense.dense_grads, kattn.fused_attention_packed_small_qkv_ln
 

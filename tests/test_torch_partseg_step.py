@@ -38,6 +38,7 @@ from vipformer_tpu.train import trainer as jtrainer
 from vipformer_tpu_torch import config as tconfig
 from vipformer_tpu_torch.convert import from_jax_variables, grads_from_jax
 from vipformer_tpu_torch.models import factory as tfactory
+from vipformer_tpu_torch.ops.cuda import attention as kattn
 from vipformer_tpu_torch.ops.cuda import dense as kdense
 from vipformer_tpu_torch.ops.cuda import gather as kgather
 from vipformer_tpu_torch.train.trainer import create_state, make_partseg_eval, make_partseg_step
@@ -125,6 +126,9 @@ def port(jax_partseg, monkeypatch):
     forced, the head's dropout off, and counts of the K11 and K12 twins."""
     monkeypatch.setattr(kdense, "USE_DENSE_GRAD", True)
     monkeypatch.setattr(kgather, "USE_ROW_GATHER", True)
+    # the attention gates forced as on the JAX side (USE_FUSED_ATTENTION), so
+    # the k/v projections stay inside K7 there and here
+    monkeypatch.setattr(kattn, "USE_FUSED_ATTENTION", True)
     calls = {"dense_grads": 0, "gather_rows": 0}
 
     def count(mod, name, key):

@@ -424,3 +424,72 @@ def test_partseg_step_on_card_matches_cpu(dev):
         err = (grads_g[k] - want).abs().max().item()
         tol = 2e-2 if k.startswith("stem.group2emb.") else 1e-3
         assert err <= tol * max(1.0, want.abs().max().item()), (k, err)
+
+
+# ------------------------------------------------------------- K13, K15
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,g,m,h", [(2, 128, 2592, 4), (3, 1, 1000, 2), (1, 130, 33, 6)])
+def test_packed_attention_kernels_match_twins(dev, b, g, m, h, dt):
+    """K13 and K15 at token counts off the 32-token chunks, one query, a
+    query count over one 128-row tile, and Din off a multiple of 128."""
+    rng = np.random.default_rng(11)
+    d = 64 * h
+    scale = 64 ** -0.5
+    q, k, v = _t(rng, (b, g, d), dev, dt), _t(rng, (b, m, d), dev, dt), _t(rng, (b, m, d), dev, dt)
+    with torch.inference_mode():
+        _assert_close(kattn.fused_attention_packed(q, k, v, num_heads=h, scale=scale),
+                      kattn.attention_packed_plain(q, k, v, h, scale), dt)
+        for din in (d, 96):
+            args = (q, _t(rng, (b, m, din), dev, dt), _t(rng, (din, d), dev, dt, din ** -0.5),
+                    _t(rng, (din, d), dev, dt, din ** -0.5))
+            _assert_close(kattn.fused_attention_packed_kv(*args, num_heads=h, scale=scale),
+                          kattn.attention_packed_kv_plain(*args, h, scale), dt)
+
+
+@pytest.mark.cuda
+def test_perceiver_feats_on_card_match_cpu(dev):
+    """Small f32 Perceiver feature models on the card against the same
+    weights on the CPU: the Fourier image branch (576 tokens: K13) and a
+    point branch at 512 latents (K4, then K15 in its self-attention),
+    features within 2e-5."""
+    from vipformer_tpu_torch.models.perceiver_models import PerceiverFeatsModel
+
+    kw = dict(num_latent_channels=128, num_cross_attention_heads=2,
+              num_cross_attention_qk_channels=128, num_self_attention_heads=2,
+              num_self_attention_layers_per_block=2, cross_attention_widening_factor=2,
+              self_attention_widening_factor=2, dtype=torch.float32)
+    rng = np.random.default_rng(12)
+    cases = (("image", dict(num_latents=64, image_shape=(24, 24, 3), num_frequency_bands=4),
+              rng.standard_normal((3, 24, 24, 3)), "attn_packed"),
+             ("pointcloud", dict(num_latents=512), rng.standard_normal((3, 600, 3)),
+              "attn_packed_kv"))
+    for adapter, extra, x, kernel in cases:
+        cpu = PerceiverFeatsModel(adapter, **kw, **extra, device="cpu")
+        card = PerceiverFeatsModel(adapter, **kw, **extra, device=dev)
+        card.load_state_dict(cpu.state_dict(), strict=True)
+        x = torch.from_numpy(x.astype(np.float32))
+        kcuda.reset_launch_counts()
+        with torch.inference_mode():
+            want = cpu(x)[1]
+            got = card(x.to(dev))[1]
+        assert kcuda.launch_counts()[kernel] > 0, (adapter, kcuda.launch_counts())
+        _assert_close(got.cpu(), want, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("train", [False, True])
+def test_attention_at_another_head_width_raises_on_the_card(dev, train):
+    """A site the JAX gates give a kernel runs one on the card, or fails:
+    at dh = 32 (D=128, 4 heads), which no kernel is built for, the layer
+    raises instead of running the plain attention (eval over 1,024 tokens:
+    K15's gate; train: K8's)."""
+    from vipformer_tpu_torch.nn.layers import MultiHeadAttention
+
+    rng = np.random.default_rng(13)
+    mha = MultiHeadAttention(128, 4).to(dev).train(train)
+    x_q, x_kv = _t(rng, (2, 64, 128), dev), _t(rng, (2, 1024, 128), dev)
+    with pytest.raises(NotImplementedError, match="dh=64"):
+        mha(x_q, x_kv)

@@ -27,7 +27,13 @@ from vipformer_tpu_torch.config import Config, decode_arch_name
 from vipformer_tpu_torch.convert import from_jax_variables
 from vipformer_tpu_torch.inference import classifier_predictor
 from vipformer_tpu_torch.models import crossformer as tcf
-from vipformer_tpu_torch.models.factory import build_ft_cls, build_pc_model
+from vipformer_tpu_torch.models import perceiver_models as tpm
+from vipformer_tpu_torch.models.factory import (
+    build_ft_cls,
+    build_ft_partseg,
+    build_img_model,
+    build_pc_model,
+)
 from vipformer_tpu_torch.nn import layers as tl
 from vipformer_tpu_torch.nn import perceiver as tp
 from vipformer_tpu_torch.nn import pointnet as tpn
@@ -210,8 +216,18 @@ def test_factory_builds_from_config():
     # same seed, same weights
     a, b = build_ft_cls(cfg, device="cpu").state_dict(), ft.state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_ft_cls(cfg.replace(mp=False), device="cpu")
+    # the generic Perceiver family: all three non-mp builders, seeded as the
+    # mp ones; part segmentation stays mp-only, as in the JAX package
+    pm = cfg.replace(mp=False, num_sa_layers_per_block=1, img_height=8, img_width=8)
+    for build, kind in ((build_pc_model, tpm.PerceiverFeatsModel),
+                        (build_img_model, tpm.PerceiverFeatsModel),
+                        (build_ft_cls, tpm.PerceiverClassifier)):
+        a, b = build(pm, device="cpu"), build(pm, device="cpu")
+        assert isinstance(a, kind), build
+        sa, sb = a.state_dict(), b.state_dict()
+        assert sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa), build
+    with pytest.raises(NotImplementedError, match="mp family"):
+        build_ft_partseg(pm, device="cpu")
 
 
 def test_chip_smoke_builds_the_configured_flagship(capsys):

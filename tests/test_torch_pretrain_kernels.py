@@ -238,7 +238,7 @@ def test_training_wrappers_validate_operands():
                  "g2e_fwd", "g2e_bwd", "gather_centered", "scatter_centered"):
         for dt in (torch.float32, torch.bfloat16):
             assert kcuda.entry_point(base, dt) in kcuda.SIGNATURES
-    with pytest.raises(ValueError, match="dh=64"):
+    with pytest.raises(NotImplementedError, match="dh=64"):
         kflash._check_heads(96, 2)
     with pytest.raises(ValueError, match=r"\[0, 1\)"):
         kflash._dropout_args(1.0)

@@ -9,8 +9,10 @@ vipformer_tpu/cli/ft_cls.py), on the card by default.
         [--resume true --pc_model_file <run>/models/pc_model_best.ckpt] [--device cpu]
 
 The flags are the JAX package's (`vipformer_tpu_torch.config`), plus
-`--device`. With `--resume true` the backbone (stem and encoder) comes from
-the pretrain checkpoint that `cli.pretrain` writes (`train/checkpoint.py:
+`--device`; `--mp false` finetunes the Perceiver classifier (output-query
+decoder). With `--resume true` the backbone (stem and encoder, as the JAX
+CLI lists them: a Perceiver's encoder, its input adapter stays fresh)
+comes from the pretrain checkpoint that `cli.pretrain` writes (`train/checkpoint.py:
 restore_backbone` logs what it took and what stayed fresh). Each epoch runs
 `make_cls_step` over the shuffled synthetic training split at the epoch's
 learning rate, evaluates the test split at `test_batch_size` (the last

@@ -8,7 +8,9 @@ vipformer_tpu/cli/pretrain.py), on the card by default.
         --mlp_drop 0.5 [--device cpu]
 
 The flags are the JAX package's (`vipformer_tpu_torch.config`), plus
-`--device`. Each epoch runs `make_pretrain_step` over the shuffled
+`--device`; `--mp false` trains the generic Perceiver family (the point
+branch over the per-point adapter, the image branch over the Fourier pixel
+adapter, `--num_frequency_bands`). Each epoch runs `make_pretrain_step` over the shuffled
 synthetic ShapeNetRender set, writes `<run_dir>/<proj_name>/<exp_name>/
 metrics.jsonl` (one JSON line per epoch) beside a log file and the
 resolved `config.json`, and saves `models/pc_model_best.ckpt` and

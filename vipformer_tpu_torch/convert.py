@@ -7,6 +7,8 @@ map as
   params/.../scale        -> ....weight (LayerNorm, BatchNorm)
   params/.../bias         -> ....bias
   params/.../position_emb -> ....position_emb (the image branch's, as it is)
+  params/.../latent       -> ....latent (the Perceiver encoder's, as it is)
+  params/.../output_query -> ....output_query (the Perceiver classifier's)
   batch_stats/.../mean    -> ....running_mean
   batch_stats/.../var     -> ....running_var
 
@@ -23,7 +25,8 @@ import numpy as np
 import torch
 
 _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias",
-                 "position_emb": "position_emb"}
+                 "position_emb": "position_emb", "latent": "latent",
+                 "output_query": "output_query"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 
 

@@ -18,6 +18,14 @@
 // projection pass) is later work.
 // Bound on the H100, K5: shared-memory bandwidth of two 128x128x64 f32
 // products per (cloud, head); q/k/v are read once, the output written once.
+// K13 replaces attention.py:fused_attention_packed (:212, kernel
+// _packed_kernel :156): flash attention on q/k/v already projected, the
+// online softmax streamed over M chunks (the Fourier image cross-attention,
+// M = 20,736 tokens at 144x144). K15 replaces
+// attention.py:fused_attention_packed_kv (:325, kernel _packed_kv_kernel
+// :266): K13 with the bias-free k/v projections folded in, each chunk of
+// raw tokens projected right before use (the self-attention at 512
+// latents, where K6's tiles do not fit).
 // K6 replaces attention.py:fused_attention_packed_small_qkv_ln (kernel
 // :666-712): K5 with the pre-LN and the q/k/v projections folded in, so
 // the raw tokens are read and only the attention output is written. On the
@@ -36,6 +44,15 @@
 // query rows x 4 tokens, PV 4 rows x 8 columns; a thread keeps the same 4
 // query rows throughout, so its rows' running max and sum stay in
 // registers and the row reductions are shuffles within 8 lanes.
+// Bound on the H100, K13: device memory. It reads k and v once per block
+// of 128 query rows (G <= 128 at its site: once), 1.02 GB at B = 48,
+// M = 20,736, against 2 x G x M x D MACs of f32 CUDA-core work; the
+// per-head column slices of a token are 128-byte rows, so the loads stay
+// coalesced. K15: the projection arithmetic, as K4's, redone by each of the
+// G/128 query tiles (4 at G = 512).
+// Design, K13 and K15: K4's kernel with the kv source as a template mode
+// (LN + projection, projection only, or k/v read directly), so the three
+// share the tiles, the split over blocks and the merge pass.
 // Design, K5: one block per (cloud, head), two threads per query row, each
 // holding half of the row's dh accumulators (columns interleaved to spread
 // shared-memory banks; rows padded to dh+1 floats for the same reason).
@@ -58,7 +75,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// ---------------------------------------------------------------- K4 (CA)
+// ------------------------------------- K4, K13, K15 (online softmax over kv chunks)
 // Layout of the block's shared memory (f32, row strides padded by 4 to keep
 // float4 alignment while spreading banks):
 //   xsT [din][MC+4]  normalised chunk, transposed (token fastest)
@@ -86,15 +103,35 @@ __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
+// Where a chunk's k and v come from: KV_LN (K4) LayerNorms the raw tokens
+// x and projects them with wk / wv; KV_PROJ (K15) projects x as it is;
+// KV_DIRECT (K13) reads k and v [B, M, H*64] straight from device memory.
+enum KvMode { KV_LN = 0, KV_PROJ = 1, KV_DIRECT = 2 };
+
 template <typename T>
+struct KvSource {
+  const T* x;                      // [B, M, Din] raw tokens (KV_LN, KV_PROJ)
+  const float* ln_w;               // [Din] f32 (KV_LN)
+  const float* ln_b;
+  const T* wk;                     // [Din, H*64] (KV_LN, KV_PROJ)
+  const T* wv;
+  const T* k;                      // [B, M, H*64] (KV_DIRECT)
+  const T* v;
+  int din;                         // 0 for KV_DIRECT
+};
+
+// The kv source arrives as separate __restrict__ parameters (not the
+// struct), so the weight and token loads keep the read-only data path.
+template <typename T, int MODE>
 __global__ void __launch_bounds__(K4_THREADS)
-attn_kv_ln_kernel(const T* __restrict__ q, const T* __restrict__ x,
+attn_flash_kernel(const T* __restrict__ q, const T* __restrict__ x,
                   const float* __restrict__ ln_w, const float* __restrict__ ln_b,
-                  const T* __restrict__ wk, const T* __restrict__ wv, T* __restrict__ out,
+                  const T* __restrict__ wk, const T* __restrict__ wv,
+                  const T* __restrict__ kin, const T* __restrict__ vin, T* __restrict__ out,
                   float* __restrict__ part_acc, float* __restrict__ part_ml, int g, int m,
                   int din, int h, int nsplit, int cps, float scale) {
   extern __shared__ __align__(16) float smem[];
-  float* xsT = smem;
+  float* xsT = smem;  // absent (din = 0) in KV_DIRECT
   float* kT = xsT + (size_t)din * LDC;
   float* vs = kT + DH * LDC;
   float* qT = vs + MC * LDV;
@@ -107,7 +144,7 @@ attn_kv_ln_kernel(const T* __restrict__ q, const T* __restrict__ x,
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = K4_THREADS / 32;
   const int d = h * DH;
-  const T* xb = x + (size_t)b * m * din;
+  const T* xb = MODE == KV_DIRECT ? nullptr : x + (size_t)b * m * din;
 
   for (int e = tid; e < QT * DH; e += K4_THREADS) {
     const int r = e / DH, c = e - r * DH;
@@ -130,33 +167,60 @@ attn_kv_ln_kernel(const T* __restrict__ q, const T* __restrict__ x,
   }
 
   for (int m0 = m_begin; m0 < m_end; m0 += MC) {
-    // (a) LayerNorm of the raw chunk, one warp per token
-    for (int r = warp; r < MC; r += nwarps) {
-      if (m0 + r >= m_end) {
-        for (int c = lane; c < din; c += 32) xsT[c * LDC + r] = 0.f;
-        continue;
+    if constexpr (MODE == KV_DIRECT) {
+      // (a') this head's k and v columns of the chunk, straight from memory;
+      // the barrier keeps them from overwriting what (d) of the previous
+      // chunk still reads
+      __syncthreads();
+      for (int e = tid; e < MC * DH; e += K4_THREADS) {
+        const int r = e / DH, c = e - r * DH;
+        float kv = 0.f, vv = 0.f;
+        if (m0 + r < m_end) {
+          const size_t off = ((size_t)b * m + m0 + r) * d + head * DH + c;
+          kv = vpt::to_f32(kin[off]);
+          vv = vpt::to_f32(vin[off]);
+        }
+        kT[c * LDC + r] = kv;
+        vs[r * LDV + c] = vv;
       }
-      const T* xr = xb + (size_t)(m0 + r) * din;
-      float s1 = 0.f, s2 = 0.f;
-      for (int c = lane; c < din; c += 32) {
-        const float v = vpt::to_f32(xr[c]);
-        s1 += v;
-        s2 += v * v;
+      __syncthreads();
+    } else {
+      if constexpr (MODE == KV_PROJ) {
+        // (a) the raw chunk as it is, transposed
+        for (int e = tid; e < MC * din; e += K4_THREADS) {
+          const int r = e / din, c = e - r * din;
+          xsT[c * LDC + r] =
+              (m0 + r < m_end) ? vpt::to_f32(xb[(size_t)(m0 + r) * din + c]) : 0.f;
+        }
+      } else {
+        // (a) LayerNorm of the raw chunk, one warp per token
+        for (int r = warp; r < MC; r += nwarps) {
+          if (m0 + r >= m_end) {
+            for (int c = lane; c < din; c += 32) xsT[c * LDC + r] = 0.f;
+            continue;
+          }
+          const T* xr = xb + (size_t)(m0 + r) * din;
+          float s1 = 0.f, s2 = 0.f;
+          for (int c = lane; c < din; c += 32) {
+            const float v = vpt::to_f32(xr[c]);
+            s1 += v;
+            s2 += v * v;
+          }
+          s1 = warp_sum(s1);
+          s2 = warp_sum(s2);
+          const float mu = s1 / din, mu2 = s2 / din;
+          const float var = fmaxf(0.f, mu2 - mu * mu);
+          const float rs = rsqrtf(var + vpt::LN_EPS);
+          for (int c = lane; c < din; c += 32) {
+            const float v = vpt::to_f32(xr[c]);
+            xsT[c * LDC + r] = vpt::round_to<T>((v - mu) * (rs * ln_w[c]) + ln_b[c]);
+          }
+        }
       }
-      s1 = warp_sum(s1);
-      s2 = warp_sum(s2);
-      const float mu = s1 / din, mu2 = s2 / din;
-      const float var = fmaxf(0.f, mu2 - mu * mu);
-      const float rs = rsqrtf(var + vpt::LN_EPS);
-      for (int c = lane; c < din; c += 32) {
-        const float v = vpt::to_f32(xr[c]);
-        xsT[c * LDC + r] = vpt::round_to<T>((v - mu) * (rs * ln_w[c]) + ln_b[c]);
-      }
-    }
-    __syncthreads();
-    // (b) k and v of the chunk for this head: [MC rows] x [2*DH cols]; a
-    //     thread owns 4 tokens x 4 columns (lanes 0-15 k, 16-31 v)
-    {
+      __syncthreads();
+      // (b) k and v of the chunk for this head: [MC rows] x [2*DH cols]; a
+      //     thread owns 4 tokens x 4 columns (lanes 0-15 k, 16-31 v), each
+      //     rounded to T as the Dense it replaces emits it
       const int cg = tid & 31, r0 = 4 * (tid >> 5);
       const int sel = cg >> 4, c0 = 4 * (cg & 15);
       const T* w = (sel ? wv : wk) + head * DH + c0;
@@ -189,8 +253,8 @@ attn_kv_ln_kernel(const T* __restrict__ q, const T* __restrict__ x,
               vpt::round_to<T>(a[i][0]), vpt::round_to<T>(a[i][1]),
               vpt::round_to<T>(a[i][2]), vpt::round_to<T>(a[i][3]));
       }
+      __syncthreads();
     }
-    __syncthreads();
     // (c) logits of rows rq0.. x tokens 4*sub.., online softmax update
     float corr[4];
     {
@@ -261,8 +325,9 @@ attn_kv_ln_kernel(const T* __restrict__ q, const T* __restrict__ x,
           for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(pr[i], vr[c], acc[i][c]);
       }
     }
-    // the next chunk's LayerNorm writes only xsT, which (d) does not read;
-    // its projection writes kT/vs after the barrier that follows the LN
+    // the next chunk's LayerNorm (or copy) writes only xsT, which (d) does
+    // not read; its projection writes kT/vs after the barrier that follows
+    // it (KV_DIRECT has its own barrier in front of its loads)
   }
   const int c0 = 8 * sub;
 #pragma unroll
@@ -565,23 +630,28 @@ int threads_for(int g) {
   return t < 128 ? 128 : t;
 }
 
-template <typename T>
-int launch_kv_ln(const void* q, const void* x, const void* ln_w, const void* ln_b, const void* wk,
-                 const void* wv, void* out, void* part_acc, void* part_ml, int b, int g, int m,
-                 int din, int h, int nsplit, float scale, cudaStream_t stream) {
+// Launches K4 / K13 / K15 (the kv source by MODE) and, when the chunks
+// are split over blocks, the merge pass.
+template <typename T, int MODE>
+int launch_flash(const void* q, const KvSource<T>& src, void* out, void* part_acc,
+                 void* part_ml, int b, int g, int m, int h, int nsplit, float scale,
+                 cudaStream_t stream) {
   const int nchunks = (m + MC - 1) / MC;
-  if (m < 1 || nsplit < 1 || nsplit > nchunks) return (int)cudaErrorInvalidValue;
+  if (b < 1 || g < 1 || h < 1 || m < 1 || nsplit < 1 || nsplit > nchunks)
+    return (int)cudaErrorInvalidValue;
+  if ((MODE == KV_DIRECT) != (src.din == 0)) return (int)cudaErrorInvalidValue;
   const int cps = (nchunks + nsplit - 1) / nsplit;  // chunks per split
   if ((nsplit - 1) * cps >= nchunks) return (int)cudaErrorInvalidValue;  // no empty split
-  const size_t smem = sizeof(float) * ((size_t)din * LDC + DH * LDC + MC * LDV + DH * LDQ +
-                                       MC * LDQ);
-  cudaFuncSetAttribute(attn_kv_ln_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
+  const size_t smem = sizeof(float) * ((size_t)src.din * LDC + DH * LDC + MC * LDV +
+                                       DH * LDQ + MC * LDQ);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      attn_flash_kernel<T, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
   dim3 grid(h, b, ((g + QT - 1) / QT) * nsplit);
-  attn_kv_ln_kernel<T><<<grid, K4_THREADS, smem, stream>>>(
-      (const T*)q, (const T*)x, (const float*)ln_w, (const float*)ln_b, (const T*)wk,
-      (const T*)wv, (T*)out, (float*)part_acc, (float*)part_ml, g, m, din, h, nsplit, cps,
-      scale);
+  attn_flash_kernel<T, MODE><<<grid, K4_THREADS, smem, stream>>>(
+      (const T*)q, src.x, src.ln_w, src.ln_b, src.wk, src.wv, src.k, src.v, (T*)out,
+      (float*)part_acc, (float*)part_ml, g, m, src.din, h, nsplit, cps, scale);
   if (nsplit > 1) {
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
@@ -589,6 +659,38 @@ int launch_kv_ln(const void* q, const void* x, const void* ln_w, const void* ln_
         (const float*)part_acc, (const float*)part_ml, (T*)out, g, h, nsplit);
   }
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_kv_ln(const void* q, const void* x, const void* ln_w, const void* ln_b, const void* wk,
+                 const void* wv, void* out, void* part_acc, void* part_ml, int b, int g, int m,
+                 int din, int h, int nsplit, float scale, cudaStream_t stream) {
+  if (din < 1) return (int)cudaErrorInvalidValue;
+  const KvSource<T> src{(const T*)x, (const float*)ln_w, (const float*)ln_b, (const T*)wk,
+                        (const T*)wv, nullptr, nullptr, din};
+  return launch_flash<T, KV_LN>(q, src, out, part_acc, part_ml, b, g, m, h, nsplit, scale,
+                                stream);
+}
+
+template <typename T>
+int launch_packed_kv(const void* q, const void* x, const void* wk, const void* wv, void* out,
+                     void* part_acc, void* part_ml, int b, int g, int m, int din, int h,
+                     int nsplit, float scale, cudaStream_t stream) {
+  if (din < 1) return (int)cudaErrorInvalidValue;
+  const KvSource<T> src{(const T*)x, nullptr, nullptr, (const T*)wk, (const T*)wv, nullptr,
+                        nullptr, din};
+  return launch_flash<T, KV_PROJ>(q, src, out, part_acc, part_ml, b, g, m, h, nsplit, scale,
+                                  stream);
+}
+
+template <typename T>
+int launch_packed(const void* q, const void* k, const void* v, void* out, void* part_acc,
+                  void* part_ml, int b, int g, int m, int h, int nsplit, float scale,
+                  cudaStream_t stream) {
+  const KvSource<T> src{nullptr, nullptr, nullptr, nullptr, nullptr, (const T*)k, (const T*)v,
+                        0};
+  return launch_flash<T, KV_DIRECT>(q, src, out, part_acc, part_ml, b, g, m, h, nsplit, scale,
+                                    stream);
 }
 
 template <typename T>
@@ -672,4 +774,37 @@ extern "C" int attn_small_f32(const void* q, const void* k, const void* v, void*
 extern "C" int attn_small_bf16(const void* q, const void* k, const void* v, void* out, int b,
                                int g, int m, int h, float scale, void* stream) {
   return launch_small<__nv_bfloat16>(q, k, v, out, b, g, m, h, scale, (cudaStream_t)stream);
+}
+
+// K13: q [B, G, H*64], k/v [B, M, H*64] -> out [B, G, H*64], any G and M;
+// nsplit, part_acc and part_ml as for K4.
+extern "C" int attn_packed_f32(const void* q, const void* k, const void* v, void* out,
+                               void* part_acc, void* part_ml, int b, int g, int m, int h,
+                               int nsplit, float scale, void* stream) {
+  return launch_packed<float>(q, k, v, out, part_acc, part_ml, b, g, m, h, nsplit, scale,
+                              (cudaStream_t)stream);
+}
+
+extern "C" int attn_packed_bf16(const void* q, const void* k, const void* v, void* out,
+                                void* part_acc, void* part_ml, int b, int g, int m, int h,
+                                int nsplit, float scale, void* stream) {
+  return launch_packed<__nv_bfloat16>(q, k, v, out, part_acc, part_ml, b, g, m, h, nsplit,
+                                      scale, (cudaStream_t)stream);
+}
+
+// K15: q [B, G, H*64], x [B, M, Din] tokens (already normalised by the
+// caller), wk/wv [Din, H*64] -> out [B, G, H*64]; Din <= 1024 (the chunk
+// [Din, 36] f32 stays in shared memory); nsplit as for K4.
+extern "C" int attn_packed_kv_f32(const void* q, const void* x, const void* wk, const void* wv,
+                                  void* out, void* part_acc, void* part_ml, int b, int g, int m,
+                                  int din, int h, int nsplit, float scale, void* stream) {
+  return launch_packed_kv<float>(q, x, wk, wv, out, part_acc, part_ml, b, g, m, din, h, nsplit,
+                                 scale, (cudaStream_t)stream);
+}
+
+extern "C" int attn_packed_kv_bf16(const void* q, const void* x, const void* wk, const void* wv,
+                                   void* out, void* part_acc, void* part_ml, int b, int g, int m,
+                                   int din, int h, int nsplit, float scale, void* stream) {
+  return launch_packed_kv<__nv_bfloat16>(q, x, wk, wv, out, part_acc, part_ml, b, g, m, din, h,
+                                         nsplit, scale, (cudaStream_t)stream);
 }

@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from vipformer_tpu_torch.nn.adapters import ImagePatchify, _PatchDense
+from vipformer_tpu_torch.nn.adapters import ImagePatchify, _PatchDense, latent_init
 from vipformer_tpu_torch.nn.layers import (
     BatchNorm,
     CrossAttentionLayer,
@@ -139,7 +139,8 @@ class _PointPatchStem(nn.Module):
 def init_weights(model: nn.Module, seed: int) -> nn.Module:
     """Deterministic random init from `seed` (torch-default Linear bounds;
     norms at identity, BatchNorm statistics at mean 0 / var 1, the image
-    position embedding standard normal)."""
+    position embedding standard normal, the Perceiver's latents and output
+    queries N(0, 0.02) clamped to +-2)."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for mod in model.modules():
@@ -150,6 +151,9 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
                         p.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=gen))
             elif isinstance(mod, ImagePatchify):
                 mod.position_emb.copy_(torch.randn(mod.position_emb.shape, generator=gen))
+            for name, p in mod.named_parameters(recurse=False):
+                if name in ("latent", "output_query"):  # the Perceiver's learned queries
+                    p.copy_(latent_init(p.shape, gen))
     return model
 
 

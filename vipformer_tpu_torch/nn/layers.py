@@ -11,16 +11,23 @@ package's `deterministic=False`. Its randomness (attention dropout,
 residual dropout, DropPath) draws from the `generator` argument that the
 attention layers take; a nonzero rate without a generator raises.
 
-The kernels are wired where the JAX package wires its Pallas ones: in
-eval, the cross-attention's kv-LN-fused kernel K4 in `CrossAttention`
-(layers.py:652-692 of the JAX package), the LN+qkv-folded self-attention
-kernel K6 in `SelfAttention` where its gate holds (layers.py:725-758), and
-else the small-M self-attention kernel K5 in `MultiHeadAttention`
-(layers.py:539-555); in train mode, the kv-folded training kernel K7 in
-`CrossAttention` (layers.py:605-650), the training flash kernel K8 in
-`MultiHeadAttention` (layers.py:487-511), and the Dense weight-gradient
-kernel K11 in every `Dense` whose rows fall in its window
-(layers.py:171-180).
+The kernels are wired where the JAX package wires its Pallas ones, behind
+the port's copies of its gates (ops/cuda/attention.py, flash_train.py,
+dense.py): in eval, the cross-attention's kv-LN-fused kernel K4 in
+`CrossAttention` (layers.py:652-692 of the JAX package), the LN+qkv-folded
+self-attention kernel K6 in `SelfAttention` (layers.py:725-758), and in
+`MultiHeadAttention` the k/v-folded kernel K15, the streamed packed kernel
+K13 and the small-M kernel K5 (layers.py:451-555); in train mode, the
+kv-folded training kernel K7 in `CrossAttention` (layers.py:605-650), the
+training flash kernel K8 in `MultiHeadAttention` (layers.py:487-511), and
+the Dense weight-gradient kernel K11 in every `Dense` whose rows fall in
+its window (layers.py:171-180). The gates keep the JAX conditions only
+(with each kernel's shared memory in place of the TPU's VMEM), so on the
+card a site the JAX package gives a kernel runs one, or fails where the
+kernel cannot take its shapes; the plain attention runs where no gate
+holds: on the CPU ("auto" means the card, and the flags force the
+kernels' plain twins there), and on the card only where the JAX package
+too runs XLA's attention.
 """
 
 from __future__ import annotations
@@ -204,82 +211,124 @@ class MLP(nn.Module):
 
 
 class MultiHeadAttention(nn.Module):
-    """Multi-head attention with q/k/v/output widths equal to the query's
-    (the mp family; the Perceiver family's decoupled widths come with its
-    slice). `dropout` is the post-softmax attention dropout of train mode."""
+    """Multi-head attention with decoupled widths (JAX layers.py:413-578):
+    q_proj d -> qk, k_proj kv_in -> qk, v_proj kv_in -> v, o_proj v -> out
+    (defaults: qk = d, v = qk, out = d, kv_in = d, on which the mp family
+    runs). `dropout` is the post-softmax attention dropout of train mode.
 
-    def __init__(self, d: int, num_heads: int, dtype=None, dropout: float = 0.0):
+    Routes as the JAX module does, by the port's copies of its gates: in
+    eval the k/v-projection-folded kernel K15, else (after the
+    projections) the training kernel K8 in train mode, the streamed packed
+    kernel K13, the small-M kernel K5, and last the plain attention."""
+
+    def __init__(self, d: int, num_heads: int, dtype=None, dropout: float = 0.0, *,
+                 kv_in: int | None = None, qk_channels: int | None = None,
+                 v_channels: int | None = None, out_channels: int | None = None):
         super().__init__()
-        if d % num_heads:
-            raise ValueError("channels must be divisible by num_heads")
+        qk = qk_channels or d
+        v = v_channels or qk
+        if qk % num_heads or v % num_heads:
+            raise ValueError("qk/v channels must be divisible by num_heads")
+        kv_in = kv_in or d
         self.num_heads = num_heads
+        self.qk_channels, self.v_channels = qk, v
         self.dropout = dropout
-        self.scale = (d // num_heads) ** -0.5
-        self.q_proj = Dense(d, d, use_bias=False, dtype=dtype)
-        self.k_proj = Dense(d, d, use_bias=False, dtype=dtype)
-        self.v_proj = Dense(d, d, use_bias=False, dtype=dtype)
-        self.o_proj = Dense(d, d, dtype=dtype)
+        self.scale = (qk // num_heads) ** -0.5
+        self.q_proj = Dense(d, qk, use_bias=False, dtype=dtype)
+        self.k_proj = Dense(kv_in, qk, use_bias=False, dtype=dtype)
+        self.v_proj = Dense(kv_in, v, use_bias=False, dtype=dtype)
+        self.o_proj = Dense(v, out_channels or d, dtype=dtype)
 
     def forward(self, x_q, x_kv, generator=None):
-        h = self.num_heads
+        h, qk, vc = self.num_heads, self.qk_channels, self.v_channels
+        g, m = x_q.shape[1], x_kv.shape[1]
+        on_card = x_q.is_cuda
+        if kattn.packed_attention_kv_enabled(h, qk, vc, m, x_kv.shape[-1], self.dropout,
+                                             self.training, on_card):
+            # K15: each kv chunk projected inside the kernel, so the
+            # [B, M, H*dh] k and v never exist in memory
+            q = self.q_proj(x_q)
+            dt = q.dtype
+            o = kattn.fused_attention_packed_kv(q, x_kv.to(dt), self.k_proj.kernel(dt),
+                                                self.v_proj.kernel(dt), num_heads=h,
+                                                scale=self.scale)
+            return self.o_proj(o)
         q, k, v = self.q_proj(x_q), self.k_proj(x_kv), self.v_proj(x_kv)
-        if self.training:
+        if kflash.flash_train_enabled(h, qk, vc, self.training, on_card):
             # training flash attention with in-kernel dropout (K8): the
             # scores and the mask never exist in memory; the backward
             # regenerates the mask from the seed
             seed = kflash.draw_seed(generator, self.dropout, q.device)
             o = kflash.flash_attention_train(q, k, v, seed, h, self.scale, self.dropout)
             return self.o_proj(o)
-        if x_kv.shape[1] < 512 and x_q.shape[1] <= 512:
-            # small-M eval attention (K5); large M belongs to the streamed
-            # packed kernel (JAX attention.py:848), not ported yet
-            o = kattn.fused_attention_packed_small(q, k, v, num_heads=h, scale=self.scale)
+        if kattn.packed_attention_enabled(h, qk, vc, m, self.dropout, self.training, on_card):
+            o = kattn.fused_attention_packed(q, k, v, num_heads=h, scale=self.scale)  # K13
+            return self.o_proj(o)
+        if kattn.packed_small_attention_enabled(h, qk, vc, g, m, self.dropout, self.training,
+                                                on_card):
+            o = kattn.fused_attention_packed_small(q, k, v, num_heads=h, scale=self.scale)  # K5
             return self.o_proj(o)
 
         def split(t):  # [B, N, H*C] -> [B, H, N, C]
             return t.view(t.shape[0], t.shape[1], h, -1).transpose(1, 2)
 
-        o = dot_product_attention(split(q), split(k), split(v), scale=self.scale)
+        rate = self.dropout if self.training else 0.0
+        o = dot_product_attention(split(q), split(k), split(v), scale=self.scale,
+                                  dropout_rate=rate, generator=generator)
         b, _, n, c = o.shape
         return self.o_proj(o.transpose(1, 2).reshape(b, n, h * c))
 
 
 class CrossAttention(nn.Module):
-    """Pre-LN cross-attention (separate q / kv norms). The kv LayerNorm and
-    the k/v projections run inside the attention kernel: K4 in eval, K7
-    (with dropout, and a backward into x, the LN and the weights) in train
-    mode; the q/o projections are the Dense modules."""
+    """Pre-LN cross-attention (separate q / kv norms; the kv norm over the
+    tokens' own width `kv_in`). Where the JAX gates hold (layers.py:
+    594-692) the kv LayerNorm and the k/v projections run inside the
+    attention kernel: K7 (with dropout, and a backward into x, the LN and
+    the weights) in train mode, K4 in eval; the q/o projections are the
+    Dense modules. Elsewhere (raw tokens whose width is not a multiple of
+    128, as the Fourier image tokens; M < 512 in eval) both norms run here
+    and the MultiHeadAttention routes the rest."""
 
-    def __init__(self, d: int, num_heads: int, dtype=None, dropout: float = 0.0):
+    def __init__(self, d: int, num_heads: int, dtype=None, dropout: float = 0.0, *,
+                 kv_in: int | None = None, qk_channels: int | None = None):
         super().__init__()
         self.q_norm = LayerNorm(d, dtype)
-        self.kv_norm = LayerNorm(d, dtype)
-        self.attention = MultiHeadAttention(d, num_heads, dtype, dropout)
+        self.kv_norm = LayerNorm(kv_in or d, dtype)
+        self.attention = MultiHeadAttention(d, num_heads, dtype, dropout, kv_in=kv_in,
+                                            qk_channels=qk_channels)
 
     def forward(self, x_q, x_kv, generator=None):
         att = self.attention
-        q = att.q_proj(self.q_norm(x_q))
-        dt = q.dtype
-        if self.training:
+        h, qk, vc = att.num_heads, att.qk_channels, att.v_channels
+        m, din = x_kv.shape[1], x_kv.shape[-1]
+        on_card = x_q.is_cuda
+        if kflash.flash_train_kv_enabled(h, qk, vc, din, self.training, on_card):
+            q = att.q_proj(self.q_norm(x_q))
+            dt = q.dtype
             seed = kflash.draw_seed(generator, att.dropout, q.device)
             o = kflash.flash_attention_train_kv(
                 q, x_kv.to(dt), self.kv_norm.weight, self.kv_norm.bias,
                 att.k_proj.kernel(dt), att.v_proj.kernel(dt), seed,
-                att.num_heads, att.scale, att.dropout,
+                h, att.scale, att.dropout,
             )
             return att.o_proj(o)
-        o = kattn.fused_attention_packed_kv_ln(
-            q, x_kv.to(dt), self.kv_norm.weight, self.kv_norm.bias,
-            att.k_proj.kernel(dt), att.v_proj.kernel(dt),
-            num_heads=att.num_heads, scale=att.scale,
-        )
-        return att.o_proj(o)
+        if kattn.packed_attention_kv_enabled(h, qk, vc, m, din, att.dropout, self.training,
+                                             on_card):
+            q = att.q_proj(self.q_norm(x_q))
+            dt = q.dtype
+            o = kattn.fused_attention_packed_kv_ln(
+                q, x_kv.to(dt), self.kv_norm.weight, self.kv_norm.bias,
+                att.k_proj.kernel(dt), att.v_proj.kernel(dt), num_heads=h, scale=att.scale,
+            )
+            return att.o_proj(o)
+        return att(self.q_norm(x_q), self.kv_norm(x_kv), generator)
 
 
 class SelfAttention(nn.Module):
     """Pre-LN self-attention. In eval, where K6's gate holds, the pre-LN
     and the q/k/v projections run inside K6 and only o_proj stays a Dense
-    (JAX layers.py:725-758)."""
+    (JAX layers.py:725-758); elsewhere the MultiHeadAttention routes (K15
+    at 512 latents, where K6's tiles do not fit)."""
 
     def __init__(self, d: int, num_heads: int, dtype=None, dropout: float = 0.0):
         super().__init__()
@@ -289,9 +338,8 @@ class SelfAttention(nn.Module):
     def forward(self, x, generator=None):
         att = self.attention
         b, g, din = x.shape
-        d = att.q_proj.weight.shape[0]
-        if kattn.packed_small_qkv_ln_enabled(att.num_heads, d, d, b, g, din, self.training,
-                                             x.is_cuda):
+        if kattn.packed_small_qkv_ln_enabled(att.num_heads, att.qk_channels, att.v_channels, b,
+                                             g, din, self.training, x.is_cuda):
             dt = promote_dtype(x, self.norm.dtype)
             o = kattn.fused_attention_packed_small_qkv_ln(
                 x.to(dt), self.norm.weight, self.norm.bias, att.q_proj.kernel(dt),
@@ -319,9 +367,11 @@ class CrossAttentionLayer(_ResidualLayer):
     on the MLP output, DropPath `drop_path_rate` on both sums."""
 
     def __init__(self, d: int, num_heads: int, widening_factor: int = 1, dtype=None,
-                 atten_drop: float = 0.0, mlp_drop: float = 0.0, drop_path_rate: float = 0.0):
+                 atten_drop: float = 0.0, mlp_drop: float = 0.0, drop_path_rate: float = 0.0, *,
+                 kv_in: int | None = None, qk_channels: int | None = None):
         super().__init__()
-        self.CrossAttention_0 = CrossAttention(d, num_heads, dtype, atten_drop)
+        self.CrossAttention_0 = CrossAttention(d, num_heads, dtype, atten_drop, kv_in=kv_in,
+                                               qk_channels=qk_channels)
         self.MLP_0 = MLP(d, widening_factor, dtype)
         self.atten_drop, self.mlp_drop = atten_drop, mlp_drop
         self.drop_path_rate = drop_path_rate
@@ -357,3 +407,24 @@ def dpr_schedule(max_dpr: float, num_layers: int) -> list[float]:
     if num_layers == 1:
         return [0.0]
     return [max_dpr * i / (num_layers - 1) for i in range(num_layers)]
+
+
+class SelfAttentionBlock(nn.Module):
+    """A stack of SelfAttentionLayers (`SelfAttentionLayer_{i}`, the flax
+    names) with the linspace DropPath schedule 0 -> `max_dpr` (JAX
+    layers.py:857-896)."""
+
+    def __init__(self, num_layers: int, d: int, num_heads: int, widening_factor: int = 1,
+                 dtype=None, max_dpr: float = 0.0, atten_drop: float = 0.0,
+                 mlp_drop: float = 0.0, post_attn_drop: float | None = None):
+        super().__init__()
+        self.num_layers = num_layers
+        for i, rate in enumerate(dpr_schedule(max_dpr, num_layers)):
+            self.add_module(f"SelfAttentionLayer_{i}", SelfAttentionLayer(
+                d, num_heads, widening_factor, dtype, atten_drop, mlp_drop, rate,
+                post_attn_drop))
+
+    def forward(self, x, generator=None):
+        for i in range(self.num_layers):
+            x = getattr(self, f"SelfAttentionLayer_{i}")(x, generator)
+        return x

@@ -10,10 +10,20 @@ from __future__ import annotations
 import torch
 
 
-def dot_product_attention(q, k, v, *, scale: float):
+def dot_product_attention(q, k, v, *, scale: float, dropout_rate: float = 0.0,
+                          generator: torch.Generator | None = None):
     """q [B, H, N, Ck], k [B, H, M, Ck], v [B, H, M, Cv] -> [B, H, N, Cv]
-    in v's dtype. Eval only: padding masks and attention dropout come with
-    the slices that use them."""
+    in v's dtype. `dropout_rate` > 0 drops elements of the normalised
+    attention matrix (train mode, JAX ops/attention.py:74-80), kept ones
+    divided by 1 - rate, with the keep draws taken from `generator`.
+    Padding masks come with the slices that use them."""
     logits = (q.float() @ k.float().transpose(-1, -2)) * scale
-    attn = torch.softmax(logits, dim=-1).to(v.dtype)
+    attn = torch.softmax(logits, dim=-1)
+    if dropout_rate > 0.0:
+        if generator is None:
+            raise ValueError("attention dropout needs a torch.Generator")
+        keep = 1.0 - dropout_rate
+        u = torch.rand(attn.shape, generator=generator, device=generator.device)
+        attn = torch.where(u.to(attn.device) < keep, attn / keep, torch.zeros_like(attn))
+    attn = attn.to(v.dtype)
     return (attn.float() @ v.float()).to(v.dtype)

@@ -81,6 +81,12 @@ SIGNATURES = {
     # K11
     "dense_grads_f32": [_P] * 6 + [_I] * 4 + [_P],
     "dense_grads_bf16": [_P] * 6 + [_I] * 4 + [_P],
+    # K13 (q, k, v, out, part_acc, part_ml, b, g, m, h, nsplit, scale, stream)
+    "attn_packed_f32": [_P] * 6 + [_I] * 5 + [_F, _P],
+    "attn_packed_bf16": [_P] * 6 + [_I] * 5 + [_F, _P],
+    # K15 (q, x, wk, wv, out, part_acc, part_ml, b, g, m, din, h, nsplit, scale, stream)
+    "attn_packed_kv_f32": [_P] * 7 + [_I] * 6 + [_F, _P],
+    "attn_packed_kv_bf16": [_P] * 7 + [_I] * 6 + [_F, _P],
     # K6
     "attn_small_qkv_ln_f32": [_P] * 7 + [_I] * 4 + [_F, _P],
     "attn_small_qkv_ln_bf16": [_P] * 7 + [_I] * 4 + [_F, _P],
@@ -200,6 +206,8 @@ def _counters() -> dict[str, "LaunchCounter"]:
         "attn_kv_ln": attention.KV_LN_LAUNCHES,
         "attn_small": attention.SMALL_LAUNCHES,
         "attn_small_qkv_ln": attention.SMALL_QKV_LN_LAUNCHES,
+        "attn_packed": attention.PACKED_LAUNCHES,
+        "attn_packed_kv": attention.PACKED_KV_LAUNCHES,
         "attn_train_kv_fwd": flash_train.KV_FWD_LAUNCHES,
         "attn_train_kv_bwd": flash_train.KV_BWD_LAUNCHES,
         "attn_train_fwd": flash_train.FWD_LAUNCHES,

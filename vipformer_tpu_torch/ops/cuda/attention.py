@@ -1,5 +1,6 @@
-"""K4, K5 and K6: eval attention on packed [B, tokens, H*dh] layouts
-(counterpart of ops/pallas/attention.py).
+"""K4, K5, K6, K13 and K15: eval attention on packed [B, tokens, H*dh]
+layouts (counterpart of ops/pallas/attention.py), and the gates that route
+each attention site to them.
 
 * `fused_attention_packed_kv_ln` (K4, the cross-attention): the kv
   LayerNorm and the k/v projections run inside the kernel, softmax is
@@ -10,6 +11,20 @@
   pre-LN and its q/k/v projections folded in; raw tokens in, o_proj's
   input out. `packed_small_qkv_ln_enabled` is the port's copy of the JAX
   gate (attention.py:789-823).
+* `fused_attention_packed` (K13): flash attention on projected q/k/v,
+  online softmax streamed over kv chunks, any M (the Fourier image
+  cross-attention's 20,736 tokens).
+* `fused_attention_packed_kv` (K15): K13 with the bias-free k/v
+  projections folded in, each kv chunk projected right before use.
+
+The gates are the port's copies of the JAX package's
+(`packed_attention_kv_enabled`, `packed_attention_enabled`,
+`packed_small_attention_enabled`, attention.py:515-576 and 826-855): the
+same structural conditions, with each CUDA kernel's own limits (head width
+64, shared memory) in place of the TPU's VMEM budgets. `USE_FUSED_ATTENTION`
+None means auto, which is on the card only; True / False force, as the
+JAX package's flag of the same name, which also drives the training
+gates of ops/cuda/flash_train.py.
 
 Each launches `csrc/attention.cu` on CUDA tensors and runs its plain twin
 on CPU tensors. Numerics follow the Pallas kernels: f32 logits, `p` cast
@@ -25,6 +40,11 @@ from vipformer_tpu_torch.ops import cuda
 KV_LN_LAUNCHES = cuda.LaunchCounter()
 SMALL_LAUNCHES = cuda.LaunchCounter()
 SMALL_QKV_LN_LAUNCHES = cuda.LaunchCounter()
+PACKED_LAUNCHES = cuda.LaunchCounter()
+PACKED_KV_LAUNCHES = cuda.LaunchCounter()
+# Attention gates: None = auto (on the card, within each kernel's limits);
+# True / False force every attention kernel gate on or off.
+USE_FUSED_ATTENTION: bool | None = None
 KERNEL_HEAD_DIM = 64  # head width the CUDA kernels are built for
 KV_CHUNK = 2048  # the Pallas kernel's kv chunk cap (attention.py:144)
 KV_Q_TILE = 128  # query rows per K4 block
@@ -45,6 +65,16 @@ def _merge(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, n, h * dh)
 
 
+def require_head_width(kernel: str, d: int, num_heads: int) -> None:
+    """The CUDA attention kernels are built for one head width. The gates
+    route by the JAX package's conditions, which have none on it, so at
+    another width the call fails here instead of running plain attention
+    on the card."""
+    if d != num_heads * KERNEL_HEAD_DIM:
+        raise NotImplementedError(f"the {kernel} kernel is built for dh={KERNEL_HEAD_DIM}; "
+                                  f"got D={d}, H={num_heads}")
+
+
 def _kv_chunk_for(m: int, cap: int = KV_CHUNK) -> int:
     """Largest divisor of m that is <= cap (m itself when m <= cap)."""
     if m <= cap:
@@ -61,16 +91,15 @@ def layer_norm_f32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dt) -> tor
     return ((xf - mu) * (torch.rsqrt(var + cuda.LN_EPS) * w) + b).to(dt)
 
 
-def attention_kv_ln_plain(q, x_kv, ln_w, ln_b, wk, wv, num_heads: int, scale: float):
-    """q [B, G, H*dh], x_kv raw [B, M, Din], ln_w/ln_b f32 [Din],
-    wk/wv [Din, H*dh] -> [B, G, H*dh] in q's dtype."""
-    dt = q.dtype
-    xn = layer_norm_f32(x_kv, ln_w, ln_b, dt)
-    k = _heads((xn.float() @ wk.float()).to(dt), num_heads).float()
-    v = _heads((xn.float() @ wv.float()).to(dt), num_heads)
+def _online_attention(q, k, v, num_heads: int, scale: float, dt, kv_chunk: int | None = None):
+    """The Pallas kernels' streamed softmax: q [B, G, H*dh], k f32 and v in
+    dt, both [B, H, M, dh] -> [B, G, H*dh] in dt. Per chunk of
+    `kv_chunk` tokens (default `_kv_chunk_for(M)`): f32 logits, running max
+    and sum, p rounded to dt before an f32-accumulated PV; divided by the
+    sum at the end."""
     qh = _heads(q, num_heads).float()
     m = k.shape[2]
-    mc = _kv_chunk_for(m)
+    mc = kv_chunk or _kv_chunk_for(m)
     m_run = l_run = acc = None
     for j in range(0, m, mc):
         logits = (qh @ k[:, :, j:j + mc].transpose(-1, -2)) * scale  # [B,H,G,Mc]
@@ -87,6 +116,14 @@ def attention_kv_ln_plain(q, x_kv, ln_w, ln_b, wk, wv, num_heads: int, scale: fl
             acc = acc * corr[..., None] + pv
         m_run = m_new
     return _merge((acc / l_run[..., None]).to(dt))
+
+
+def attention_kv_ln_plain(q, x_kv, ln_w, ln_b, wk, wv, num_heads: int, scale: float):
+    """q [B, G, H*dh], x_kv raw [B, M, Din], ln_w/ln_b f32 [Din],
+    wk/wv [Din, H*dh] -> [B, G, H*dh] in q's dtype: the LayerNorm rounded
+    to the compute dtype, then K15's twin."""
+    xn = layer_norm_f32(x_kv, ln_w, ln_b, q.dtype)
+    return attention_packed_kv_plain(q, xn, wk, wv, num_heads, scale)
 
 
 def attention_small_plain(q, k, v, num_heads: int, scale: float):
@@ -109,11 +146,9 @@ def fused_attention_packed_kv_ln(q, x_kv, ln_w, ln_b, wk, wv, *, num_heads: int,
     m, din = x_kv.shape[1], x_kv.shape[2]
     dt = q.dtype
     fn = cuda.entry_point("attn_kv_ln", dt)
-    if d != num_heads * KERNEL_HEAD_DIM or din > KV_MAX_DIN:
-        raise ValueError(
-            f"attn_kv_ln kernel needs dh={KERNEL_HEAD_DIM} and Din <= {KV_MAX_DIN}; "
-            f"got D={d}, H={num_heads}, Din={din}"
-        )
+    require_head_width("attn_kv_ln", d, num_heads)
+    if din > KV_MAX_DIN:
+        raise ValueError(f"attn_kv_ln kernel needs Din <= {KV_MAX_DIN}; got Din={din}")
     q, x_kv, wk, wv = q.contiguous(), x_kv.contiguous(), wk.contiguous(), wv.contiguous()
     ln_w = ln_w.float().contiguous()
     ln_b = ln_b.float().contiguous()
@@ -123,13 +158,8 @@ def fused_attention_packed_kv_ln(q, x_kv, ln_w, ln_b, wk, wv, *, num_heads: int,
     cuda.require(ln_b, "ln_b", torch.float32, (din,))
     cuda.require(wk, "wk", dt, (din, d))
     cuda.require(wv, "wv", dt, (din, d))
-    nsplit = kv_splits(b * num_heads * -(-g // KV_Q_TILE), -(-m // KV_CHUNK_TOKENS),
-                       torch.cuda.get_device_properties(q.device).multi_processor_count)
     out = torch.empty((b, g, d), dtype=dt, device=q.device)
-    part_acc = torch.empty((b, num_heads, nsplit, g, KERNEL_HEAD_DIM) if nsplit > 1 else (1,),
-                           dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((b, num_heads, nsplit, g, 2) if nsplit > 1 else (1,),
-                          dtype=torch.float32, device=q.device)
+    nsplit, part_acc, part_ml = _split_scratch(q, b, g, m, num_heads)
     KV_LN_LAUNCHES.n += 1
     cuda.check(getattr(cuda.lib(), fn)(
         q.data_ptr(), x_kv.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
@@ -141,10 +171,22 @@ def fused_attention_packed_kv_ln(q, x_kv, ln_w, ln_b, wk, wv, *, num_heads: int,
 
 def kv_splits(blocks: int, nchunks: int, sms: int) -> int:
     """How many blocks share one (cloud, head, query tile)'s kv chunks in
-    K4: enough for about two blocks per SM, with no split left empty."""
+    K4, K13 and K15: enough for about two blocks per SM, with no split
+    left empty."""
     want = max(1, min(nchunks, -(-2 * sms // blocks)))
     per = -(-nchunks // want)
     return -(-nchunks // per)
+
+
+def _split_scratch(q: torch.Tensor, b: int, g: int, m: int, h: int):
+    """(nsplit, part_acc, part_ml): the split of the kv chunks over blocks
+    and the f32 scratch of the partial states the merge pass reads."""
+    nsplit = kv_splits(b * h * -(-g // KV_Q_TILE), -(-m // KV_CHUNK_TOKENS),
+                       torch.cuda.get_device_properties(q.device).multi_processor_count)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    part_acc = torch.empty((b, h, nsplit, g, KERNEL_HEAD_DIM) if nsplit > 1 else (1,), **f32)
+    part_ml = torch.empty((b, h, nsplit, g, 2) if nsplit > 1 else (1,), **f32)
+    return nsplit, part_acc, part_ml
 
 
 def fused_attention_packed_small(q, k, v, *, num_heads: int, scale: float) -> torch.Tensor:
@@ -156,13 +198,10 @@ def fused_attention_packed_small(q, k, v, *, num_heads: int, scale: float) -> to
     m = k.shape[1]
     dt = v.dtype
     fn = cuda.entry_point("attn_small", dt)
-    ldh = KERNEL_HEAD_DIM + 1
-    smem = 4 * ((g + 2 * m) * ldh + g * (m + 1))
-    if d != num_heads * KERNEL_HEAD_DIM or g > 512 or smem > SMALL_SMEM_BYTES:
-        raise ValueError(
-            f"attn_small kernel needs dh={KERNEL_HEAD_DIM}, G <= 512 and its f32 tiles "
-            f"in shared memory; got D={d}, H={num_heads}, G={g}, M={m}"
-        )
+    require_head_width("attn_small", d, num_heads)
+    if g > 512 or small_smem_bytes(g, m) > SMALL_SMEM_BYTES:
+        raise ValueError(f"attn_small kernel needs G <= 512 and its f32 tiles in shared "
+                         f"memory; got G={g}, M={m}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     cuda.require(q, "q", dt, (b, g, d))
     cuda.require(k, "k", dt, (b, m, d))
@@ -230,10 +269,10 @@ def fused_attention_packed_small_qkv_ln(x, ln_w, ln_b, wq, wk, wv, *, num_heads:
     d = wq.shape[1]
     dt = x.dtype
     fn = cuda.entry_point("attn_small_qkv_ln", dt)
-    if d != num_heads * KERNEL_HEAD_DIM or qkv_ln_smem_bytes(g) > SMALL_SMEM_BYTES:
-        raise ValueError(
-            f"attn_small_qkv_ln kernel needs dh={KERNEL_HEAD_DIM} and its tiles in shared "
-            f"memory (G <= 178); got D={d}, H={num_heads}, G={g}")
+    require_head_width("attn_small_qkv_ln", d, num_heads)
+    if qkv_ln_smem_bytes(g) > SMALL_SMEM_BYTES:
+        raise ValueError(f"attn_small_qkv_ln kernel needs its tiles in shared memory "
+                         f"(G <= 178); got G={g}")
     x, wq, wk, wv = x.contiguous(), wq.contiguous(), wk.contiguous(), wv.contiguous()
     ln_w = ln_w.float().contiguous()
     ln_b = ln_b.float().contiguous()
@@ -249,3 +288,126 @@ def fused_attention_packed_small_qkv_ln(x, ln_w, ln_b, wq, wk, wv, *, num_heads:
         wv.data_ptr(), out.data_ptr(), b, g, din, num_heads, float(scale), cuda.stream_ptr(),
     ), fn)
     return out
+
+
+# ------------------------------------------------------------ K13, K15
+def attention_packed_plain(q, k, v, num_heads: int, scale: float, kv_chunk: int | None = None):
+    """q [B, G, H*dh], k/v [B, M, H*dh] -> [B, G, H*dh] in v's dtype,
+    streamed over kv chunks as `fused_attention_packed` (JAX
+    attention.py:156-209)."""
+    return _online_attention(q, _heads(k, num_heads).float(), _heads(v, num_heads), num_heads,
+                             scale, v.dtype, kv_chunk)
+
+
+def attention_packed_kv_plain(q, x_kv, wk, wv, num_heads: int, scale: float):
+    """q [B, G, H*dh], x_kv [B, M, Din], wk/wv [Din, H*dh] -> [B, G, H*dh]
+    in q's dtype: k and v f32-accumulated and rounded to the compute dtype
+    (the Dense numerics, JAX attention.py:283-292), then K13's attention."""
+    dt = q.dtype
+    xf = x_kv.float()
+    k = _heads((xf @ wk.float()).to(dt), num_heads).float()
+    v = _heads((xf @ wv.float()).to(dt), num_heads)
+    return _online_attention(q, k, v, num_heads, scale, dt)
+
+
+def fused_attention_packed(q, k, v, *, num_heads: int, scale: float) -> torch.Tensor:
+    """Eval flash attention on packed layouts (K13). Shapes as
+    `attention_packed_plain`; any G and M."""
+    if not q.is_cuda:
+        return attention_packed_plain(q, k, v, num_heads, scale)
+    b, g, d = q.shape
+    m = k.shape[1]
+    dt = v.dtype
+    fn = cuda.entry_point("attn_packed", dt)
+    require_head_width("attn_packed", d, num_heads)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    cuda.require(q, "q", dt, (b, g, d))
+    cuda.require(k, "k", dt, (b, m, d))
+    cuda.require(v, "v", dt, (b, m, d))
+    out = torch.empty((b, g, d), dtype=dt, device=q.device)
+    nsplit, part_acc, part_ml = _split_scratch(q, b, g, m, num_heads)
+    PACKED_LAUNCHES.n += 1
+    cuda.check(getattr(cuda.lib(), fn)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
+        part_ml.data_ptr(), b, g, m, num_heads, nsplit, float(scale), cuda.stream_ptr(),
+    ), fn)
+    return out
+
+
+def fused_attention_packed_kv(q, x_kv, wk, wv, *, num_heads: int, scale: float) -> torch.Tensor:
+    """Eval flash attention with the k/v projections folded in (K15).
+    Shapes as `attention_packed_kv_plain`; Din <= KV_MAX_DIN."""
+    if not q.is_cuda:
+        return attention_packed_kv_plain(q, x_kv, wk, wv, num_heads, scale)
+    b, g, d = q.shape
+    m, din = x_kv.shape[1], x_kv.shape[2]
+    dt = q.dtype
+    fn = cuda.entry_point("attn_packed_kv", dt)
+    require_head_width("attn_packed_kv", d, num_heads)
+    if din > KV_MAX_DIN:
+        raise ValueError(f"attn_packed_kv kernel needs Din <= {KV_MAX_DIN}; got Din={din}")
+    q, x_kv, wk, wv = q.contiguous(), x_kv.contiguous(), wk.contiguous(), wv.contiguous()
+    cuda.require(q, "q", dt, (b, g, d))
+    cuda.require(x_kv, "x_kv", dt, (b, m, din))
+    cuda.require(wk, "wk", dt, (din, d))
+    cuda.require(wv, "wv", dt, (din, d))
+    out = torch.empty((b, g, d), dtype=dt, device=q.device)
+    nsplit, part_acc, part_ml = _split_scratch(q, b, g, m, num_heads)
+    PACKED_KV_LAUNCHES.n += 1
+    cuda.check(getattr(cuda.lib(), fn)(
+        q.data_ptr(), x_kv.data_ptr(), wk.data_ptr(), wv.data_ptr(), out.data_ptr(),
+        part_acc.data_ptr(), part_ml.data_ptr(), b, g, m, din, num_heads, nsplit, float(scale),
+        cuda.stream_ptr(),
+    ), fn)
+    return out
+
+
+# -------------------------------------------------------------- gates
+def small_smem_bytes(g: int, m: int) -> int:
+    """K5's shared memory: q/k/v rows of 65 f32 and the [G, M+1] scores."""
+    return 4 * ((g + 2 * m) * (KERNEL_HEAD_DIM + 1) + g * (m + 1))
+
+
+def packed_attention_enabled(num_heads: int, qk_ch: int, v_ch: int, m: int,
+                             dropout_rate: float, training: bool, on_card: bool) -> bool:
+    """Whether an attention runs K13 (JAX attention.py:546-576): no
+    dropout in train mode, equal q/k and v widths divisible by the heads;
+    auto on the card at M >= 512 whose TPU chunk (`_kv_chunk_for`) is at
+    least 256 tokens. No condition on the head width: the kernel raises at
+    one it is not built for (`require_head_width`)."""
+    if dropout_rate > 0.0 and training:
+        return False
+    if qk_ch != v_ch or qk_ch % num_heads:
+        return False
+    if USE_FUSED_ATTENTION is not None:
+        return USE_FUSED_ATTENTION
+    return on_card and m >= 512 and _kv_chunk_for(m) >= 256
+
+
+def packed_attention_kv_enabled(num_heads: int, qk_ch: int, v_ch: int, m: int, d_in: int,
+                                dropout_rate: float, training: bool, on_card: bool) -> bool:
+    """Whether an eval attention runs with its k/v projections folded in
+    (JAX attention.py:515-543): K4 at a CrossAttention, K15 at a
+    MultiHeadAttention. K13's gate, eval only, and raw tokens Din a
+    multiple of 128 and at most KV_MAX_DIN (the kernels keep a chunk of
+    them in shared memory)."""
+    if training:
+        return False
+    if not packed_attention_enabled(num_heads, qk_ch, v_ch, m, dropout_rate, training, on_card):
+        return False
+    return d_in % 128 == 0 and d_in <= KV_MAX_DIN
+
+
+def packed_small_attention_enabled(num_heads: int, qk_ch: int, v_ch: int, g: int, m: int,
+                                   dropout_rate: float, training: bool, on_card: bool) -> bool:
+    """Whether an eval attention runs K5 (JAX attention.py:826-855): eval,
+    equal q/k and v widths divisible by the heads; auto on the card at
+    M < 512 and G <= 512, with its tiles in shared memory (in place of the
+    TPU's VMEM budget); none on the head width, as for K13."""
+    if training or qk_ch != v_ch or qk_ch % num_heads:
+        return False
+    if USE_FUSED_ATTENTION is not None:
+        return USE_FUSED_ATTENTION
+    if not on_card:
+        return False
+    return m < 512 and g <= 512 and small_smem_bytes(g, m) <= SMALL_SMEM_BYTES

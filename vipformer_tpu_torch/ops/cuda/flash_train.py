@@ -175,9 +175,11 @@ def attention_kv_bwd_plain(q, x, ln_w, ln_b, wk, wv, dout, lse, delta, seed, num
 
 
 def _check_heads(d: int, num_heads: int) -> None:
+    """The kernels are built for one head width; the gates have no
+    condition on it (as JAX's), so another width fails here."""
     if d != num_heads * KERNEL_HEAD_DIM:
-        raise ValueError(f"training attention kernels need dh={KERNEL_HEAD_DIM}; "
-                         f"got D={d}, H={num_heads}")
+        raise NotImplementedError(f"training attention kernels are built for "
+                                  f"dh={KERNEL_HEAD_DIM}; got D={d}, H={num_heads}")
 
 
 def _dropout_args(rate: float) -> tuple:
@@ -381,3 +383,30 @@ def draw_seed(generator: torch.Generator | None, rate: float, device) -> torch.T
     seed = torch.randint(0, 2**31 - 1, (1,), dtype=torch.int32, generator=generator,
                          device=generator.device)
     return seed.to(device)
+
+
+def flash_train_enabled(num_heads: int, qk_ch: int, v_ch: int, training: bool,
+                        on_card: bool) -> bool:
+    """Whether a train-mode attention runs K8 (JAX flash_train.py:1007-1045):
+    train mode, equal q/k and v widths divisible by the heads; the
+    attention gates' flag (`attention.USE_FUSED_ATTENTION`) forces it;
+    auto on the card. The kernel walks any G and M in tiles, so the TPU's
+    VMEM conditions on them have no counterpart here; at a head width the
+    kernel is not built for it raises (`_check_heads`)."""
+    from vipformer_tpu_torch.ops.cuda import attention
+
+    if not training or qk_ch != v_ch or qk_ch % num_heads:
+        return False
+    if attention.USE_FUSED_ATTENTION is not None:
+        return attention.USE_FUSED_ATTENTION
+    return on_card
+
+
+def flash_train_kv_enabled(num_heads: int, qk_ch: int, v_ch: int, d_in: int, training: bool,
+                           on_card: bool) -> bool:
+    """Whether a train-mode CrossAttention runs K7 (JAX flash_train.py:
+    978-1004): raw tokens Din a multiple of 128 and at most 1024, and K8's
+    gate."""
+    if d_in % 128 or d_in > 1024:
+        return False
+    return flash_train_enabled(num_heads, qk_ch, v_ch, training, on_card)

@@ -1,7 +1,9 @@
 """Train and eval steps and their state (counterpart of
 vipformer_tpu/train/trainer.py: `create_state`, `make_pretrain_step`,
 `make_feats_fn`, `make_cls_step`, `make_cls_eval`, `make_partseg_step`,
-`make_partseg_eval`, `refine_partseg_pred`).
+`make_partseg_eval`, `refine_partseg_pred`). The pretrain, classification
+and feature functions take either model family (the mp CrossFormers or the
+generic Perceivers): both return the same tuples.
 
 One optimizer spans every model of the state, as in the reference
 (pretrain.py:106). A train step runs the train-mode forward (the BatchNorm
@@ -218,12 +220,15 @@ def make_partseg_eval(model: nn.Module):
 
 
 def make_feats_fn(model: nn.Module):
-    """Returns feats(points [B, N, 3]) -> backbone features [B, 2D] (eval)."""
+    """Returns feats(x) -> backbone features [B, 2D] of the eval forward:
+    x is a point batch [B, N, 3] for a point model, an image batch
+    [B, H, W, 3] for an image branch (the mp CrossFormerImg or the
+    Perceiver's Fourier branch)."""
     device = next(model.parameters()).device
 
-    def feats(points):
+    def feats(x):
         model.eval()
         with torch.inference_mode():
-            return model(_on(points, device))[1]
+            return model(_on(x, device))[1]
 
     return feats
