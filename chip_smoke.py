@@ -102,7 +102,30 @@ goes on):
      logits (B=2), each branch's gradients below its head (B=2), the
      pretrain and ft_cls steps' losses and gradients (B=8);
  23. the bf16 Perceiver pretrain and ft_cls step times, the ft_cls eval
-     and both feature forwards, each with its profiler breakdown.
+     and both feature forwards, each with its profiler breakdown;
+ 24. hold K18 (train-mode BatchNorm statistics and gradient reduces) at
+     semseg's four decode shapes [131,072, 1536 / 1024 / 512 / 256] and
+     partseg's [98,304, 1536], and K17 (LayerNorm forward and backward) at
+     [4,096, 384], [131,072, 64] and the Fourier tokens' [995,328, 261],
+     against their twins (column sums against their channel's sum of
+     magnitudes, K18's statistics bitwise equal between two runs), timed
+     beside var_mean, native_batch_norm_backward and F.layer_norm;
+ 25. hold the earlier kernels at semantic segmentation's shapes (B=32,
+     4,096 xyz+rgb points, D=384): K1, K2, K10 at C=6, K9 at Cin=6, K7
+     over 4,096 tokens, K8, K11 at its five semseg sites, and the eval's
+     K3 at N=4,096, K4 at M=4,096 and K5;
+ 26. semseg path (scripts/finetune/ft-semseg.sh: H6D384, 12 SA layers
+     tapped at 2/6/10, B=32) on synthetic S3DIS in bf16: three
+     `make_semseg_step` steps with the default flags and three with K17
+     and K18 forced, every launch count exact; one `make_semseg_eval`;
+ 27. one f32 step with K17 and K18 forced against one with the default
+     flags from the same state (B=8), and the card's f32 semseg path
+     against the CPU's (eval logits at B=2, a step at B=8);
+ 28. the bf16 semseg step time with the default flags and forced (in
+     turns), the eval forward, and (phase 17) the partseg step with K18
+     forced against its default;
+ 29. the SVM probe (`fit_svm`, `score`) on the card against the CPU at
+     the synthetic ModelNet40 probe's sizes and at [9,840, 512].
 
 Prints the script's total seconds, the card's name and power limit, one
 JSON line of per-kernel results (time, twin's time, bound, launches on the
@@ -161,6 +184,55 @@ PERCEIVER_WIDE_LATENTS = 512
 PERCEIVER_DENSE_PER_STEP = 40
 # K12 beside the compat stem's gather: a K off 128-row tiles, and C=128
 GATHER_CASES = ((8, 1024, 128, 1000), (3, 300, 5, 77))
+# semantic segmentation (scripts/finetune/ft-semseg.sh): B=32 clouds of
+# 4,096 xyz+rgb points, so the decode runs over 131,072 point rows
+SEMSEG_BATCH = 32
+SEMSEG_POINTS = 4096
+SEMSEG_STEPS = 3
+SEMSEG_ROWS = SEMSEG_BATCH * SEMSEG_POINTS
+# K18 at the semseg decode's four BatchNorms (FeaturePropagation 1536,
+# 1024; SegHead 512, 256) and at partseg's widest (96 x 1024 rows)
+BN_SHAPES = ((SEMSEG_ROWS, 1536), (SEMSEG_ROWS, 1024), (SEMSEG_ROWS, 512), (SEMSEG_ROWS, 256),
+             (PARTSEG_BATCH * NUM_POINTS, 1536))
+# K17 at the semseg latents' LayerNorms (32 x 128 rows of 384), the input
+# adapter's (131,072 point rows of 64) and the Perceiver's Fourier-token
+# LayerNorm (48 x 20,736 rows of 261 channels)
+LN_SHAPES = ((SEMSEG_BATCH * 128, 384, ("float32", "bfloat16")),
+             (SEMSEG_ROWS, 64, ("float32", "bfloat16")),
+             (48 * 144 * 144, 261, ("bfloat16",)))
+LN_TIMED = (SEMSEG_BATCH * 128, 384)  # the JSON line's K17 times: the latents' LayerNorms
+# K11's sites in one semseg step at B=32 (131,072 point rows): the input
+# adapter's 6->64 and 64->384, SegHead's 1024->512 (its per-point segment),
+# 512->256 and 256->13; the latent Denses (4,096 rows), FeaturePropagation
+# (Cout 1536, Cin 1536) and the 32-row global segment lie outside its
+# window, Group2Emb runs in K9
+SEMSEG_DENSE_SITES = {(6, 64): 1, (64, 384): 1, (1024, 512): 1, (512, 256): 1, (256, 13): 1}
+# exact launches per semseg step with the default flags: K1, K2, K10 once
+# (the points need no gradient), K9 forward and backward, K7 (the CA: its
+# kv LayerNorm folded in) forward and backward, K8 forward in the 12 SA
+# layers and backward in the 10 that reach a tap (layers 11 and 12 do not),
+# K11 at its five sites
+SEMSEG_STEP_COUNTS = {"fps": 1, "knn": 1, "gather_centered_fwd": 1, "g2e_train_fwd": 1,
+                      "g2e_train_bwd": 1, "attn_train_kv_fwd": 1, "attn_train_kv_bwd": 1,
+                      "attn_train_fwd": 12, "attn_train_bwd": 10,
+                      "dense_grads": sum(SEMSEG_DENSE_SITES.values())}
+# and with K17 and K18 forced, besides: K18 at the decode's four
+# BatchNorms; K17 forward at the adapter's LayerNorm, the CA's q_norm and
+# MLP LayerNorm, two in each of the 12 SA layers and the shared norm at the
+# 3 taps (30), backward at those that reach the loss (26: not the 4 of
+# layers 11 and 12)
+SEMSEG_FORCED_COUNTS = {"batchnorm_fwd": 4, "batchnorm_bwd": 4, "layernorm_fwd": 30,
+                        "layernorm_bwd": 26}
+# one eval forward at B=32: K1, K2 and K3 (the fused stem; the centers'
+# rgb gathered beside it), K4 over the 4,096 point tokens, K5 in the 12 SA
+# layers (K6's gate wants B >= 128)
+SEMSEG_EVAL_COUNTS = {"fps": 1, "knn": 1, "stem": 1, "attn_kv_ln": 1, "attn_small": 12}
+# the probe's card and CPU fits follow one f32 objective in other summation
+# orders: a prediction may flip only where two classes' scores nearly tie
+PROBE_AGREE = 0.99
+# a column sum of R rows against its channel's sum of magnitudes: f32
+# accumulation in another order (both read the same values, bf16 or f32)
+COLSUM_TOL = 1e-5
 # Kernel vs plain twin, as max|kernel - plain| / max(1, max|plain|):
 # f32 differs only by summation order (K = 64..1024 terms);
 # bf16 may flip an intermediate rounding by one bf16 ulp (2^-8).
@@ -246,6 +318,12 @@ KERNELS = {
     "attn_packed_kv": ("vipformer_tpu_torch/csrc/attention.cu",
                        "vipformer_tpu/ops/pallas/attention.py:325 fused_attention_packed_kv",
                        "perceiver feats pc512"),
+    "layernorm": ("vipformer_tpu_torch/csrc/layernorm.cu",
+                  "vipformer_tpu/ops/pallas/layernorm.py:180 layernorm_apply (fwd _fwd_call :95, "
+                  "bwd _bwd_call :121)", "ft_semseg forced"),
+    "batchnorm": ("vipformer_tpu_torch/csrc/batchnorm.cu",
+                  "vipformer_tpu/ops/pallas/batchnorm.py:178 bn_train_apply (fwd bn_stats_pallas "
+                  ":74, bwd bn_grad_reduces_pallas :111)", "ft_semseg forced"),
 }
 SERVING_KERNELS = ("fps", "knn", "stem", "attn_kv_ln", "attn_small")
 # the launch counters of the pretrain path (K10's backward never runs there)
@@ -1954,6 +2032,556 @@ def time_perceiver(pre_batches, ft_train, ft_test) -> None:
                  f"perceiver ft_cls eval forward bf16 B={FT_BATCH}", FT_BATCH)
 
 
+# ------------------------------------------------------ K17, K18, semseg
+
+
+def _colsum_err(got, want, mag) -> tuple[float, float]:
+    """(max abs error, max over channels of |got - want| / mag): a column
+    sum held against the sum of its terms' magnitudes in that channel,
+    which bounds what any summation order can change."""
+    err = (got.float() - want.float()).abs()
+    return err.max().item(), (err / mag.clamp_min(1e-30)).max().item()
+
+
+def _norm_times(rec: Recorder, name: str, shape: str, times: dict, keep: bool) -> None:
+    """Print (kernel, twin, bound, library) times of the forward and the
+    backward kernel at one shape; `keep` records them for the JSON line."""
+    for k, (ms, plain, bnd, lib) in times.items():
+        if keep:
+            rec.timing(f"{name}_{k}", ms, plain, bnd, lib, shape=shape)
+        else:
+            print(f"  {name + '_' + k:18s} {shape:34s} kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+                  f"bound_ms={bnd['bound_ms']:.4f} ({bnd['bound_by']}) library_ms={lib:.4f}")
+
+
+def check_norm_kernels(rec: Recorder) -> None:
+    """K18's statistics and gradient reduces and K17's forward and backward
+    against their twins on the card, each timed with CUDA events beside
+    its twin, its bound and one PyTorch call (torch.var_mean,
+    native_batch_norm_backward, F.layer_norm forward and backward). Column
+    sums within COLSUM_TOL of their channel's sum of magnitudes; y and dx
+    within KERNEL_TOL of the twin's own max; K18's statistics bitwise equal
+    between two runs."""
+    import torch.nn.functional as F
+
+    from vipformer_tpu_torch.ops import cuda as kcuda
+    from vipformer_tpu_torch.ops.cuda import batchnorm as kbn
+    from vipformer_tpu_torch.ops.cuda import layernorm as kln
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+
+    def t(shape, dt=torch.float32, scale_=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale_ + shift).to(dt)
+
+    print("norm kernels K18 (BatchNorm reductions) and K17 (LayerNorm) against their twins:")
+    for (r, c), label in zip(BN_SHAPES, ("semseg",) * 4 + ("partseg",)):
+        for dt_name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            x, dy = t((r, c), dt, 2.0, 0.5), t((r, c), dt)
+            what = f"{label} [{r},{c}] {dt_name}"
+            s_k, ss_k = kbn.bn_stats(x)
+            s_p, ss_p = kbn.bn_stats_plain(x)
+            s_k2, ss_k2 = kbn.bn_stats(x)
+            expect(torch.equal(s_k, s_k2) and torch.equal(ss_k, ss_k2),
+                   f"K18 statistics differ between two runs at {what}")
+            xf = x.float()
+            rec.check("batchnorm_fwd", what + " sum",
+                      *_colsum_err(s_k, s_p, xf.abs().sum(0)), COLSUM_TOL)
+            rec.check("batchnorm_fwd", what + " sumsq",
+                      *_colsum_err(ss_k, ss_p, (xf * xf).sum(0)), COLSUM_TOL)
+            mean = s_p / r
+            var = torch.clamp_min(ss_p / r - mean * mean, 0.0)
+            rstd = torch.rsqrt(var + 1e-5)
+            ds_k, db_k = kbn.bn_grad_reduces(x, dy, mean, rstd)
+            ds_p, db_p = kbn.bn_grad_reduces_plain(x, dy, mean, rstd)
+            dyf = dy.float()
+            rec.check("batchnorm_bwd", what + " dscale",
+                      *_colsum_err(ds_k, ds_p, (dyf * (xf - mean) * rstd).abs().sum(0)),
+                      COLSUM_TOL)
+            rec.check("batchnorm_bwd", what + " dbias",
+                      *_colsum_err(db_k, db_p, dyf.abs().sum(0)), COLSUM_TOL)
+            del xf, dyf
+            if dt_name == "bfloat16" and label == "semseg":
+                w = torch.ones(c, device=dev)
+                times = dict(
+                    fwd=(cuda_ms(lambda: kbn.bn_stats(x)), cuda_ms(lambda: kbn.bn_stats_plain(x)),
+                         bound(nbytes(x, s_k, ss_k), 3 * r * c, "float32"),
+                         cuda_ms(lambda: torch.var_mean(x, 0, correction=0))),
+                    bwd=(cuda_ms(lambda: kbn.bn_grad_reduces(x, dy, mean, rstd)),
+                         cuda_ms(lambda: kbn.bn_grad_reduces_plain(x, dy, mean, rstd)),
+                         bound(nbytes(x, dy, mean, rstd, ds_k, db_k), 5 * r * c, "float32"),
+                         cuda_ms(lambda: torch.ops.aten.native_batch_norm_backward(
+                             dy, x, w, None, None, mean, rstd, True, 1e-5, [False, True, True]))))
+                _norm_times(rec, "batchnorm", f"[{r},{c}] bf16", times, c == BN_SHAPES[0][1])
+            del x, dy
+        torch.cuda.empty_cache()
+    for r, d, dts in LN_SHAPES:
+        for dt_name in dts:
+            dt = getattr(torch, dt_name)
+            x, dy = t((r, d), dt, 2.0, 0.5), t((r, d), dt)
+            s, b = t((d,), scale_=0.2, shift=1.0), t((d,), scale_=0.1)
+            what = f"[{r},{d}] {dt_name}"
+            y_k, mu_k, rs_k = kln.ln_fwd(x, s, b)
+            y_p, mu_p, rs_p = kln.ln_fwd_plain(x, s, b)
+            rec.check("layernorm_fwd", what + " y", *rel_err(y_k, y_p, OWN_SCALE),
+                      KERNEL_TOL[dt_name])
+            rec.check("layernorm_fwd", what + " mu", *rel_err(mu_k, mu_p, OWN_SCALE),
+                      KERNEL_TOL["float32"])
+            rec.check("layernorm_fwd", what + " rsig", *rel_err(rs_k, rs_p, OWN_SCALE),
+                      KERNEL_TOL["float32"])
+            dx_k, ds_k, db_k = kln.ln_bwd(x, dy, mu_p, rs_p, s)
+            dx_p, ds_p, db_p = kln.ln_bwd_plain(x, dy, mu_p, rs_p, s)
+            rec.check("layernorm_bwd", what + " dx", *rel_err(dx_k, dx_p, OWN_SCALE),
+                      KERNEL_TOL[dt_name])
+            dyf = dy.float()
+            xhat = (x.float() - mu_p[:, None]) * rs_p[:, None]
+            rec.check("layernorm_bwd", what + " dscale",
+                      *_colsum_err(ds_k, ds_p, (dyf * xhat).abs().sum(0)), COLSUM_TOL)
+            rec.check("layernorm_bwd", what + " dbias",
+                      *_colsum_err(db_k, db_p, dyf.abs().sum(0)), COLSUM_TOL)
+            del dyf, xhat
+            if dt_name == "bfloat16":
+                shape = f"[{r},{d}] bf16"
+                ms_f = cuda_ms(lambda: kln.ln_fwd(x, s, b))
+                ms_b = cuda_ms(lambda: kln.ln_bwd(x, dy, mu_p, rs_p, s))
+                # F.layer_norm takes its parameters in the input's dtype
+                sl, bl = s.to(dt), b.to(dt)
+                xg = x.detach().clone().requires_grad_()
+                sg, bg = sl.clone().requires_grad_(), bl.clone().requires_grad_()
+                yl = F.layer_norm(xg, (d,), sg, bg, kcuda.LN_EPS)
+                lib_f = cuda_ms(lambda: F.layer_norm(x, (d,), sl, bl, kcuda.LN_EPS))
+                lib_b = cuda_ms(lambda: torch.autograd.grad(yl, (xg, sg, bg), dy,
+                                                            retain_graph=True))
+                times = dict(
+                    fwd=(ms_f, cuda_ms(lambda: kln.ln_fwd_plain(x, s, b)),
+                         bound(nbytes(x, s, b, y_k, mu_k, rs_k), 7 * r * d, "float32"), lib_f),
+                    bwd=(ms_b, cuda_ms(lambda: kln.ln_bwd_plain(x, dy, mu_p, rs_p, s)),
+                         bound(nbytes(x, dy, mu_p, rs_p, s, dx_k, ds_k, db_k), 12 * r * d,
+                               "float32"), lib_b))
+                _norm_times(rec, "layernorm", shape, times, (r, d) == LN_TIMED)
+                del xg, yl
+            del x, dy, y_k, y_p, dx_k, dx_p
+        torch.cuda.empty_cache()
+
+
+def semseg_config(**over):
+    """scripts/finetune/ft-semseg.sh as the port's Config: H6D384, 12 SA
+    layers, MLP x4, taps 2/6/10, 128 groups of 32 among 4,096 xyz+rgb
+    points, 13 classes, B=32, AdamW 1e-3 with the cosine schedule,
+    max_dpr 0.1, no dropout, bf16. The synthetic S3DIS and random weights
+    from the seed stand in for the blocks and the pretrain checkpoint."""
+    from vipformer_tpu_torch.config import Config
+
+    kw = dict(num_latent_channels=384, num_ca_heads=6, num_sa_heads=6, num_sa_layers=12,
+              mlp_widen_factor=4, layer_idx=(2, 6, 10), num_pc_latents=128, group_size=32,
+              point_channels=6, num_obj_classes=13, num_ft_points=SEMSEG_POINTS,
+              batch_size=SEMSEG_BATCH, test_batch_size=SEMSEG_BATCH, test_area=5,
+              optim="adamw", lr=1e-3, scheduler="cos", max_dpr=0.1, atten_drop=0.0,
+              mlp_drop=0.0, compute_dtype="bfloat16", ft_dataset="S3DIS", synthetic_data=True,
+              seed=SEED)
+    kw.update(over)
+    return Config(**kw)
+
+
+def check_semseg_widths(rec: Recorder) -> None:
+    """The earlier kernels once at semantic segmentation's shapes (B=32
+    clouds of 4,096 xyz+rgb points, D=384, 6 heads), f32 and bf16, against
+    their twins: K1 and K2 at N = 4,096, K10 carrying rgb uncentered, K9 at
+    Cin = 6, K7 over 4,096 point tokens, K8 over the 128 latents, K11 at
+    its five semseg sites (131,072 rows); the eval's K3 at N = 4,096 and
+    C = 6 (the limit of its gate), K4 at M = 4,096 and K5 at B = 32."""
+    from vipformer_tpu_torch.models.crossformer import init_weights
+    from vipformer_tpu_torch.nn.pointnet import Group2Emb
+    from vipformer_tpu_torch.ops.cuda import attention as kattn
+    from vipformer_tpu_torch.ops.cuda import dense as kdense
+    from vipformer_tpu_torch.ops.cuda import flash_train as kf
+    from vipformer_tpu_torch.ops.cuda import fps as kfps
+    from vipformer_tpu_torch.ops.cuda import g2e_train as kg
+    from vipformer_tpu_torch.ops.cuda import gather as kgather
+    from vipformer_tpu_torch.ops.cuda import knn as kknn
+    from vipformer_tpu_torch.ops.cuda import stem as kstem
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 13)
+    b, n, g, s, d, h, c = SEMSEG_BATCH, SEMSEG_POINTS, 128, 32, 384, 6, 6
+    scale = (d // h) ** -0.5
+    seed = torch.tensor([20240613], dtype=torch.int32, device=dev)
+
+    def t(shape, dt=torch.float32, scale_=1.0):
+        return torch.from_numpy(
+            (rng.standard_normal(shape) * scale_).astype(np.float32)).to(dev, dt)
+
+    print(f"earlier kernels against their twins at semseg widths (B={b}, N={n}, C={c}, D={d}):")
+    pts = torch.from_numpy(rng.uniform(0, 1, (b, n, c)).astype(np.float32)).to(dev)
+    start = torch.from_numpy(rng.integers(0, n, b).astype(np.int32)).to(dev)
+    idx_k, cen_k = kfps.fps(pts, g, start)  # K1 over the xyz of 4,096 points
+    idx_p, cen_p = kfps.fps_plain(pts[..., :3].contiguous(), g, start)
+    expect(torch.equal(idx_k, idx_p) and torch.equal(cen_k, cen_p), "K1 at N=4096 differs")
+    rec.check("fps", f"semseg N={n} (equal)", 0.0, 0.0, 0.0)
+    nn_k = kknn.knn(s, pts[..., :3], cen_k)  # K2
+    nn_p = kknn.knn_plain(s, pts[..., :3].contiguous(), cen_k)
+    expect(torch.equal(nn_k, nn_p), "K2 at N=4096 differs")
+    rec.check("knn", f"semseg N={n} K={s} (equal)", 0.0, 0.0, 0.0)
+    centers = torch.gather(pts, 1, idx_k.long()[..., None].expand(-1, -1, c))  # all 6 channels
+    flat = nn_k.reshape(b, -1)
+    g2e = init_weights(Group2Emb(c, d), SEED).to(dev).eval()
+    with torch.no_grad():  # nontrivial eval statistics for K3's folds
+        for bn in (g2e.BatchNorm_0, g2e.BatchNorm_1):
+            bn.running_mean.uniform_(-0.1, 0.1)
+            bn.running_var.uniform_(0.5, 1.5)
+    for dt_name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        tol, gtol = KERNEL_TOL[dt_name], GRAD_TOL[dt_name]
+        # K10: xyz centered, rgb carried as it is
+        out_k = kgather.gather_centered_kernel(pts.to(dt), centers, flat, s)
+        expect(torch.equal(out_k, kgather.gather_centered_plain(pts.to(dt), centers, flat, s)),
+               f"K10 at C={c} {dt_name} differs")
+        rec.check("gather_centered_fwd", f"semseg C={c} {dt_name} (equal)", 0.0, 0.0, 0.0)
+        # K9 at Cin = 6 on those patches
+        rows = b * g * s
+        x0 = out_k.reshape(rows, c)
+        wb = [g2e.Dense_0.weight.t(), g2e.Dense_0.bias, t((64,), scale_=0.2) + 1.0,
+              t((64,), scale_=0.1), g2e.Dense_1.weight.t(), g2e.Dense_1.bias,
+              g2e.Dense_2.weight.t(), g2e.Dense_2.bias, t((256,), scale_=0.2) + 1.0,
+              t((256,), scale_=0.1), g2e.Dense_3.weight.t(), g2e.Dense_3.bias]
+        wb = [w.detach().float().contiguous() for w in wb]
+        got, want = kg.g2e_fwd_kernel(x0, wb, s), kg.g2e_fwd_plain(x0, wb, s)
+        rec.check("g2e_train_fwd", f"semseg Cin={c} {dt_name} out", *rel_err(got[0], want[0]),
+                  tol)
+        rec.check("g2e_train_fwd", f"semseg Cin={c} {dt_name} batch statistics",
+                  *rel_err(got[3], want[3]), STATS_TOL)
+        _, h3p, amax, stats = want
+        bwd_args = (x0, wb, h3p, amax, stats, t((rows // s, d), dt), s)
+        dx_k, gr_k = kg.g2e_bwd_kernel(*bwd_args)
+        dx_p, gr_p = kg.g2e_bwd_plain(*bwd_args)
+        # a second run gives the same bits (its column partials span D = 384)
+        dx_k2, gr_k2 = kg.g2e_bwd_kernel(*bwd_args)
+        expect(torch.equal(dx_k, dx_k2) and all(map(torch.equal, gr_k, gr_k2)),
+               f"K9 backward at D={d} differs between two runs")
+        rec.check("g2e_train_bwd", f"semseg Cin={c} {dt_name} dx0", *rel_err(dx_k, dx_p), gtol)
+        for i, (a, w) in enumerate(zip(gr_k, gr_p)):
+            bnd = GRAD_TOL["float32"] * rows ** 0.5 if i in ZERO_GRADS else gtol
+            rec.check("g2e_train_bwd", f"semseg Cin={c} {dt_name} grad {i}", *rel_err(a, w), bnd)
+        del out_k, x0, got, want, h3p, amax, bwd_args, dx_k, dx_p, gr_k, gr_p, dx_k2, gr_k2
+        # K7: the CA of 128 latents over the 4,096 point tokens (Din=384)
+        args = (t((b, g, d), dt), t((b, n, d), dt), t((d,), scale_=0.2) + 1.0,
+                t((d,), scale_=0.1), t((d, d), dt, d ** -0.5), t((d, d), dt, d ** -0.5))
+        do = t((b, g, d), dt)
+        out_k, _ = kf.attention_kv_fwd_kernel(*args, seed, h, scale, 0.0)
+        out_p, lse_p = kf.attention_kv_fwd_plain(*args, seed, h, scale, 0.0)
+        rec.check("attn_train_kv_fwd", f"semseg M={n} Din={d} {dt_name}", *rel_err(out_k, out_p),
+                  tol)
+        bwd_args = (*args, do, lse_p, kf.attention_delta(do, out_p, h), seed, h, scale, 0.0)
+        for gname, gk, gp in zip(("dq", "dx", "dln_w", "dln_b", "dwk", "dwv"),
+                                 kf.attention_kv_bwd_kernel(*bwd_args),
+                                 kf.attention_kv_bwd_plain(*bwd_args)):
+            rec.check("attn_train_kv_bwd", f"semseg M={n} {dt_name} {gname}", *rel_err(gk, gp),
+                      gtol)
+        with torch.inference_mode():  # K4: the same CA in eval
+            rec.check("attn_kv_ln", f"semseg M={n} Din={d} {dt_name}",
+                      *rel_err(kattn.fused_attention_packed_kv_ln(*args, num_heads=h, scale=scale),
+                               kattn.attention_kv_ln_plain(*args, h, scale)), tol)
+        del args, bwd_args, out_k, out_p
+        # K8 (train) and K5 (eval): the SA over the 128 latents of 32 clouds
+        qkv = (t((b, g, d), dt), t((b, g, d), dt), t((b, g, d), dt))
+        out_k, _ = kf.attention_fwd_kernel(*qkv, seed, h, scale, 0.0)
+        out_p, lse_p = kf.attention_fwd_plain(*qkv, seed, h, scale, 0.0)
+        rec.check("attn_train_fwd", f"semseg B={b} D={d} {dt_name}", *rel_err(out_k, out_p), tol)
+        bwd_args = (*qkv, do, lse_p, kf.attention_delta(do, out_p, h), seed, h, scale, 0.0)
+        for gname, gk, gp in zip(("dq", "dk", "dv"), kf.attention_bwd_kernel(*bwd_args),
+                                 kf.attention_bwd_plain(*bwd_args)):
+            rec.check("attn_train_bwd", f"semseg B={b} {dt_name} {gname}", *rel_err(gk, gp),
+                      gtol)
+        with torch.inference_mode():
+            rec.check("attn_small", f"semseg B={b} D={d} {dt_name}",
+                      *rel_err(kattn.fused_attention_packed_small(*qkv, num_heads=h, scale=scale),
+                               kattn.attention_small_plain(*qkv, h, scale)), tol)
+            # K3: the eval stem over 4,096 xyz+rgb points
+            ops = kstem.stem_operands(g2e, pts, centers, nn_k, dt)
+            rec.check("stem", f"semseg N={n} C={c} {dt_name}",
+                      *rel_err(kstem.stem_kernel(*ops), kstem.stem_plain(*ops)), tol)
+        del qkv, bwd_args, out_k, out_p, ops
+        torch.cuda.empty_cache()
+    # K11 at its semseg sites
+    rows = b * n
+    for ci, co in SEMSEG_DENSE_SITES:
+        for dt_name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            x, dy = t((rows, ci), dt), t((rows, co), dt)
+            dw_k, db_k = kdense.dense_grads(x, dy)
+            dw_p, db_p = kdense.dense_grads_plain(x, dy)
+            what = f"semseg R={rows} {ci}->{co} {dt_name}"
+            rec.check("dense_grads", what + " dW", *rel_err(dw_k, dw_p), GRAD_TOL[dt_name])
+            rec.check("dense_grads", what + " db", *rel_err(db_k, db_p), GRAD_TOL[dt_name])
+            del x, dy
+
+
+def semseg_batches(cfg, split: str):
+    """The synthetic S3DIS split's xyz+rgb in batches of B (host numpy): the
+    train split shuffled, whole batches; the test split in order, the last
+    batch padded (its mask beside it)."""
+    from vipformer_tpu_torch.cli.ft_semseg import _SliceChannels
+    from vipformer_tpu_torch.data.datasets import S3DIS
+    from vipformer_tpu_torch.data.pipeline import Loader, collate_semseg, pad_batch
+
+    ds = _SliceChannels(S3DIS("data", split, cfg.test_area), cfg.point_channels)
+    if split == "train":
+        return list(Loader(ds, cfg.batch_size, collate_semseg, shuffle=True, seed=cfg.seed,
+                           drop_last=True, num_workers=8))
+    return [pad_batch(b, cfg.test_batch_size)
+            for b in Loader(ds, cfg.test_batch_size, collate_semseg)]
+
+
+def _forced_norms(on: bool):
+    """Force K17 and K18 on (on=True) or leave them at their auto default;
+    returns the flags as they were."""
+    from vipformer_tpu_torch.ops.cuda import batchnorm as kbn
+    from vipformer_tpu_torch.ops.cuda import layernorm as kln
+
+    saved = (kbn.USE_BN_TRAIN, kln.USE_LAYERNORM)
+    kbn.USE_BN_TRAIN = kln.USE_LAYERNORM = True if on else None
+    return saved
+
+
+def _restore_norms(saved) -> None:
+    from vipformer_tpu_torch.ops.cuda import batchnorm as kbn
+    from vipformer_tpu_torch.ops.cuda import layernorm as kln
+
+    kbn.USE_BN_TRAIN, kln.USE_LAYERNORM = saved
+
+
+def drive_semseg_path(counts_out: dict, batches, test_batches) -> None:
+    """Three bf16 semseg steps with the default flags and three with K17
+    and K18 forced (each from a fresh model), then one eval forward at
+    B=32; every counter held to its exact count (SEMSEG_STEP_COUNTS,
+    SEMSEG_FORCED_COUNTS, SEMSEG_EVAL_COUNTS)."""
+    from vipformer_tpu_torch.evaluation.iou import semseg_miou
+    from vipformer_tpu_torch.models.factory import build_ft_semseg
+    from vipformer_tpu_torch.train.trainer import create_state, make_semseg_eval, make_semseg_step
+
+    cfg = semseg_config()
+    for forced in (False, True):
+        name = "ft_semseg forced" if forced else "ft_semseg"
+        saved = _forced_norms(forced)
+        try:
+            model = build_ft_semseg(cfg, device="cuda")
+            state = create_state(cfg, {"pc": model})
+            step = make_semseg_step(cfg, model)
+            before = [p.detach().clone() for p in state.parameters()]
+            gen = torch.Generator(device="cuda").manual_seed(SEED)
+            metrics = []
+            counts = _counted(f"{name}: {SEMSEG_STEPS} steps at B={SEMSEG_BATCH}",
+                              lambda: metrics.extend(
+                                  step(state, batches[i % len(batches)], cfg.lr, gen)[1]
+                                  for i in range(SEMSEG_STEPS)))
+        finally:
+            _restore_norms(saved)
+        counts_out[name] = counts
+        want = dict(SEMSEG_STEP_COUNTS, **(SEMSEG_FORCED_COUNTS if forced else {}))
+        _expect_counts(name, counts, {k: v * SEMSEG_STEPS for k, v in want.items()})
+        unreached = tuple(f"encoder.sa_{i}." for i in range(max(cfg.layer_idx),
+                                                             cfg.num_sa_layers))
+        _moved_and_finite(name, model, state, before, metrics,
+                          may_stay=lambda k, b: k.startswith(unreached) and not b.any())
+        del before, state
+    eval_step = make_semseg_eval(model)
+    batch, mask = test_batches[0]
+    out = {}
+    counts = _counted(f"ft_semseg eval: one forward at B={SEMSEG_BATCH}",
+                      lambda: out.update(pred=eval_step(batch["points"])))
+    counts_out["ft_semseg eval"] = counts
+    _expect_counts("ft_semseg eval", counts, SEMSEG_EVAL_COUNTS)
+    pred = out["pred"].cpu().numpy()
+    expect(pred.shape == (SEMSEG_BATCH, SEMSEG_POINTS), f"predictions of shape {pred.shape}")
+    expect(bool(((pred >= 0) & (pred < cfg.num_obj_classes)).all()), "classes out of range")
+    res = semseg_miou(pred[mask], batch["seg"][mask])
+    print(f"  eval: {int(mask.sum())} test blocks (+{int((~mask).sum())} padding): "
+          + " ".join(f"{k}={v:.4f}" for k, v in res.items()))
+    del model, eval_step
+    torch.cuda.empty_cache()
+
+
+def _semseg_step_f32(cfg, init_state, batch, device, forced: bool):
+    """One f32 semseg step from `init_state` (head dropout 0): (loss, every
+    parameter's gradient, the running statistics after it), on the host."""
+    from vipformer_tpu_torch.models.factory import build_ft_semseg
+    from vipformer_tpu_torch.train.trainer import create_state, make_semseg_step
+
+    saved = _forced_norms(forced)
+    try:
+        model = build_ft_semseg(cfg, device=device)
+        model.load_state_dict(init_state)
+        model.seg_head.drop = 0.0
+        grads = {}
+        for k, p in model.named_parameters():
+            p.register_hook(lambda g, k=k: grads.__setitem__(k, g.detach().cpu()))
+        _, metrics = make_semseg_step(cfg, model)(create_state(cfg, {"pc": model}), batch, cfg.lr)
+        stats = {k: v.detach().cpu() for k, v in model.state_dict().items() if "running_" in k}
+        return float(metrics["loss"]), grads, stats
+    finally:
+        _restore_norms(saved)
+
+
+def _worst(name: str, got: dict, want: dict, bounds) -> None:
+    expect(set(got) == set(want), f"{name}: leaves differ")
+    errs = sorted((rel_err(got[k], w)[1] / bounds(k), k) for k, w in want.items())
+    print(f"  {name}: {len(errs)} leaves; worst error / bound "
+          + ", ".join(f"{e:.3f} ({k})" for e, k in errs[:-4:-1]))
+    expect(errs[-1][0] <= 1.0, f"{name}: {errs[-1][1]} off")
+
+
+def compare_semseg_forced(step_batch) -> None:
+    """One f32 step at B=8 with K17 and K18 forced against one with the
+    default flags, on the card, from the same state and batch (head
+    dropout and DropPath 0, FPS from index 0): the loss within 1e-5
+    relative; the gradients that reach no batch-statistics BatchNorm's dx
+    (the head's last Dense and last BatchNorm) within STEP_TOL, every other
+    within STEP_HEAD_TOL; the running statistics within 1e-5."""
+    from vipformer_tpu_torch.models.factory import build_ft_semseg
+
+    cfg = semseg_config(compute_dtype="float32", max_dpr=0.0)
+    init = {k: v.clone() for k, v in build_ft_semseg(cfg, device="cuda").state_dict().items()}
+    base = _semseg_step_f32(cfg, init, step_batch, "cuda", False)
+    forced = _semseg_step_f32(cfg, init, step_batch, "cuda", True)
+    print(f"semseg step, K17 and K18 forced vs default (card, f32, B={len(step_batch['points'])}):")
+    err = abs(forced[0] - base[0])
+    print(f"  loss: forced {forced[0]:.7f} default {base[0]:.7f} (abs err {err:.3e}, bound 1e-05 "
+          "relative)")
+    expect(err <= 1e-5 * abs(base[0]), "forced semseg loss off the default step's")
+    _worst("gradients", forced[1], base[1], lambda k: STEP_TOL if k.startswith(
+        ("seg_head.Dense_2.", "seg_head.BatchNorm_1.")) else STEP_HEAD_TOL)
+    _worst("running statistics", forced[2], base[2], lambda k: 1e-5)
+
+
+def compare_semseg_with_cpu(eval_batch, step_batch) -> None:
+    """The card's f32 semseg path against the plain path on the CPU at full
+    width (same weights, head dropout and DropPath 0, FPS from index 0, K11
+    forced on both sides): the eval logits at B=2 within STEP_TOL; the
+    step's loss at B=8 within STEP_TOL and every gradient leaf within
+    STEP_HEAD_TOL (Group2Emb's STEP_G2E_TOL), as the partseg phase."""
+    from vipformer_tpu_torch.models.factory import build_ft_semseg
+    from vipformer_tpu_torch.ops.cuda import dense as kdense
+
+    cfg = semseg_config(compute_dtype="float32", max_dpr=0.0)
+    saved = kdense.USE_DENSE_GRAD
+    kdense.USE_DENSE_GRAD = True
+    try:
+        init = build_ft_semseg(cfg, device="cpu").state_dict()
+        got = {}
+        for dev in ("cpu", "cuda"):
+            model = build_ft_semseg(cfg, device=dev)
+            model.load_state_dict(init)
+            with torch.inference_mode():
+                logits = model(torch.from_numpy(eval_batch["points"]).to(dev)).cpu()
+            got[dev] = (logits,) + _semseg_step_f32(cfg, init, step_batch, dev, False)
+            del model
+    finally:
+        kdense.USE_DENSE_GRAD = saved
+    cpu, card = got["cpu"], got["cuda"]
+    print("card f32 vs CPU plain path, semseg (full width, K11 forced):")
+    err, rel = rel_err(card[0], cpu[0])
+    print(f"  eval logits (B={len(eval_batch['points'])}): max_abs_err={err:.3e} rel={rel:.3e} "
+          f"(bound {STEP_TOL:.0e})")
+    expect(rel <= STEP_TOL, "semseg eval logits off the CPU path")
+    err = abs(card[1] - cpu[1])
+    print(f"  step loss (B={len(step_batch['points'])}): card {card[1]:.6f} cpu {cpu[1]:.6f} "
+          f"(abs err {err:.3e}, bound {STEP_TOL:.0e} relative)")
+    expect(err <= STEP_TOL * max(1.0, abs(cpu[1])), "semseg step loss off the CPU")
+    _worst("step gradients", card[2], cpu[2],
+           lambda k: STEP_G2E_TOL if k.startswith("stem.group2emb.") else STEP_HEAD_TOL)
+
+
+def time_semseg(batches, test_batches) -> None:
+    """The bf16 semseg step at B=32 with the default flags and with K17 and
+    K18 forced, and the eval forward, each with its profiler breakdown."""
+    from vipformer_tpu_torch.models.factory import build_ft_semseg
+    from vipformer_tpu_torch.train.trainer import create_state, make_semseg_eval, make_semseg_step
+
+    cfg = semseg_config()
+    model = build_ft_semseg(cfg, device="cuda")
+    state = create_state(cfg, {"pc": model})
+    step = make_semseg_step(cfg, model)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def run(n):
+        for i in range(n):
+            step(state, batches[i % len(batches)], cfg.lr, gen)
+
+    for forced in (False, True, True, False):  # in turns: default, forced, forced, default
+        saved = _forced_norms(forced)
+        try:
+            _timed_steps(run, f"semseg step bf16 B={SEMSEG_BATCH} "
+                         f"{'K17+K18 forced' if forced else 'default flags'}", SEMSEG_BATCH)
+        finally:
+            _restore_norms(saved)
+    points = torch.from_numpy(test_batches[0][0]["points"]).cuda()
+    eval_step = make_semseg_eval(model)
+    _timed_steps(lambda n: [eval_step(points) for _ in range(n)],
+                 f"semseg eval forward bf16 B={SEMSEG_BATCH}", SEMSEG_BATCH)
+
+
+def time_partseg_forced_bn(batches) -> None:
+    """The bf16 partseg step at B=96 with K18 forced against its default,
+    in turns (default, forced, forced, default): the site K18 was built
+    for (98,304 decode rows)."""
+    from vipformer_tpu_torch.models.factory import build_ft_partseg
+    from vipformer_tpu_torch.ops.cuda import batchnorm as kbn
+    from vipformer_tpu_torch.train.trainer import create_state, make_partseg_step
+
+    cfg = partseg_config()
+    model = build_ft_partseg(cfg, device="cuda")
+    state = create_state(cfg, {"pc": model})
+    step = make_partseg_step(cfg, model)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def run(n):
+        for i in range(n):
+            step(state, batches[i % len(batches)], cfg.lr, gen)
+
+    for forced in (False, True, True, False):
+        kbn.USE_BN_TRAIN = True if forced else None
+        try:
+            counts = _counted("partseg step, K18 " + ("forced" if forced else "default"),
+                              lambda: run(1))
+            expect(counts["batchnorm_fwd"] == (4 if forced else 0),
+                   f"partseg: K18 launched {counts['batchnorm_fwd']} times")
+            _timed_steps(run, f"partseg step bf16 B={PARTSEG_BATCH} "
+                         f"{'K18 forced' if forced else 'default flags'}", PARTSEG_BATCH)
+        finally:
+            kbn.USE_BN_TRAIN = None
+
+
+def check_probe() -> None:
+    """The SVM probe (`fit_svm`, `score`) on the card against the CPU at the
+    synthetic ModelNet40 probe's sizes ([800, 512] train, [200, 512] test)
+    and at the real ModelNet40's ([9840, 512], [2468, 512]), on clustered
+    random features: the predictions agree on at least PROBE_AGREE of the
+    test rows; the fit timed on the card (host clock around a synchronised
+    fit)."""
+    from vipformer_tpu_torch.evaluation.svm import fit_svm
+
+    rng = np.random.default_rng(SEED + 17)
+    print("SVM probe, card vs CPU:")
+    for n_tr, n_te in ((800, 200), (9840, 2468)):
+        centers = rng.standard_normal((40, 512)).astype(np.float32) * 0.3
+        y = rng.integers(0, 40, n_tr + n_te)
+        x = (centers[y] + rng.standard_normal((n_tr + n_te, 512)).astype(np.float32))
+        xtr, ytr, xte, yte = x[:n_tr], y[:n_tr], x[n_tr:], y[n_tr:]
+        cpu = fit_svm(xtr, ytr, c=1.0)
+        xg = torch.from_numpy(xtr).cuda()
+        fit_svm(xg, ytr, c=1.0)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = fit_svm(xg, ytr, c=1.0)
+        torch.cuda.synchronize()
+        fit_ms = (time.perf_counter() - t0) * 1e3
+        expect(card.w.is_cuda, "the probe did not fit on the card")
+        p_card, p_cpu = card.predict(torch.from_numpy(xte).cuda()), cpu.predict(xte)
+        agree = float((p_card == p_cpu).mean())
+        print(f"  [{n_tr},512] -> [{n_te},512]: fit {fit_ms:.1f} ms on the card (300 Adam "
+              f"steps), test acc card {card.score(xte, yte):.4f} cpu {cpu.score(xte, yte):.4f}, "
+              f"predictions agree on {agree:.4f} of rows (bound {PROBE_AGREE})")
+        expect(agree >= PROBE_AGREE, f"probe predictions agree on only {agree:.4f} of rows")
+
+
 # the hand-written kernels by name: those of csrc/*.cu in the vpt*
 # namespaces, and those in anonymous namespaces
 OUR_KERNELS = ("vpt", "fps_kernel", "knn_kernel", "stem_kernel", "attn_flash_kernel",
@@ -2004,7 +2632,7 @@ def kernel_line(rec: Recorder, counts: dict) -> list:
             entry["backward"] = dict(launches=counts[path][f"{name}_bwd"], **bwd)
         else:
             entry.update(launches=counts[path][name], **rec.r[name])
-        steps = {"pretrain": STEPS, "ft_cls": FT_STEPS}.get(path)
+        steps = {"pretrain": STEPS, "ft_cls": FT_STEPS, "ft_semseg forced": SEMSEG_STEPS}.get(path)
         if steps:
             entry["launches_per_step"] = counts[path][counter] / steps
         entry["launches_by_path"] = {p: c[counter] for p, c in counts.items() if c.get(counter)}
@@ -2072,6 +2700,7 @@ def main() -> int:
         compare_partseg_with_cpu({k: v[:2] for k, v in ps_test[0][0].items()},
                                  {k: v[:8] for k, v in ps_train[0].items()})
         time_partseg(ps_train, ps_test)
+        time_partseg_forced_bn(ps_train)
         del ps_train, ps_test
         torch.cuda.empty_cache()
         check_perceiver_kernels(rec)
@@ -2089,6 +2718,22 @@ def main() -> int:
         torch.cuda.empty_cache()
         compare_perceiver_with_cpu(p_batches[0], p_ft_train[0])
         time_perceiver(p_batches, p_ft_train, p_ft_test)
+        del p_batches, p_ft_train, p_ft_test
+        torch.cuda.empty_cache()
+        check_norm_kernels(rec)
+        check_semseg_widths(rec)
+        torch.cuda.empty_cache()
+        scfg = semseg_config()
+        ss_train, ss_test = semseg_batches(scfg, "train"), semseg_batches(scfg, "test")
+        semseg_counts: dict = {}
+        drive_semseg_path(semseg_counts, ss_train, ss_test)
+        compare_semseg_forced({k: v[:8] for k, v in ss_train[0].items()})
+        compare_semseg_with_cpu({k: v[:2] for k, v in ss_test[0][0].items()},
+                                {k: v[:8] for k, v in ss_train[0].items()})
+        time_semseg(ss_train, ss_test)
+        del ss_train, ss_test
+        torch.cuda.empty_cache()
+        check_probe()
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -2104,7 +2749,8 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(smi)
     counts = {"serve": serve_counts, "pretrain": pretrain_counts, "ft_cls": ft_counts,
-              "ft_cls eval": ft_eval_counts, **partseg_counts, **perceiver_counts}
+              "ft_cls eval": ft_eval_counts, **partseg_counts, **perceiver_counts,
+              **semseg_counts}
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernel_line(rec, counts)}))
     print(json.dumps({"ok": True, "device": {

@@ -328,7 +328,7 @@ def test_non_mp_clis_run_on_the_cpu(tmp_path):
         "--exp_name", "pre"])
     assert not cfg.mp and device == "cpu"
     out = pre_cli.main(cfg, device)
-    assert np.isfinite(out["best_loss"])
+    assert 0.0 < out["best_acc"] <= 1.0  # the SVM probe's, which gates the checkpoint
     ckpt = tmp_path / cfg.proj_name / "pre" / "models" / "pc_model_best.ckpt"
     assert ckpt.exists()
     cfg, device = ft_cli.parse_args(tiny + [

@@ -218,6 +218,39 @@ def test_gather_centered_kernel_matches_twin(dev, b, gnum, s, n, c, dt):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cin", [3, 6])
+def test_g2e_train_kernel_at_segmentation_width(dev, cin):
+    """K9 at D = 384 (partseg, semseg; Cin = 6 is semseg's xyz+rgb), bf16:
+    against its twin, and two backward runs give the same bits. Its db3
+    column partials span D columns, more than the 256 of the BatchNorm
+    sums; a buffer sized for 256 wrote past its end and corrupted other
+    tensors at random."""
+    from vipformer_tpu_torch.ops.cuda import g2e_train as kg
+
+    rng = np.random.default_rng(4)
+    b, g, s, d, dt = 8, 64, 32, 384, torch.bfloat16
+    m = init_weights(Group2Emb(cin, d), 0).to(dev)
+    wb = [m.Dense_0.weight.t(), m.Dense_0.bias, _t(rng, (64,), dev, scale=0.2) + 1.0,
+          _t(rng, (64,), dev, scale=0.1), m.Dense_1.weight.t(), m.Dense_1.bias,
+          m.Dense_2.weight.t(), m.Dense_2.bias, _t(rng, (256,), dev, scale=0.2) + 1.0,
+          _t(rng, (256,), dev, scale=0.1), m.Dense_3.weight.t(), m.Dense_3.bias]
+    wb = [w.detach().float() for w in wb]
+    x0 = _t(rng, (b * g * s, cin), dev, dt)
+    got, want = kg.g2e_fwd_kernel(x0, wb, s), kg.g2e_fwd_plain(x0, wb, s)
+    _assert_close(got[0], want[0], dt)
+    _, h3p, amax, stats = want
+    dy = _t(rng, (b * g, d), dev, dt)
+    dx_k, gr_k = kg.g2e_bwd_kernel(x0, wb, h3p, amax, stats, dy, s)
+    dx_k2, gr_k2 = kg.g2e_bwd_kernel(x0, wb, h3p, amax, stats, dy, s)
+    torch.cuda.synchronize()
+    assert torch.equal(dx_k, dx_k2) and all(map(torch.equal, gr_k, gr_k2))
+    dx_p, gr_p = kg.g2e_bwd_plain(x0, wb, h3p, amax, stats, dy, s)
+    _assert_grad_close(dx_k, dx_p, dt)
+    for got_g, want_g in zip(gr_k, gr_p):
+        _assert_grad_close(got_g, want_g, dt)
+
+
+@pytest.mark.cuda
 def test_pretrain_step_on_card_matches_cpu(dev):
     """A small f32 pretrain step (dropout 0, FPS from index 0; 300 points,
     a token count off the 64-row tiles) on the card against the same step
@@ -493,3 +526,124 @@ def test_attention_at_another_head_width_raises_on_the_card(dev, train):
     x_q, x_kv = _t(rng, (2, 64, 128), dev), _t(rng, (2, 1024, 128), dev)
     with pytest.raises(NotImplementedError, match="dh=64"):
         mha(x_q, x_kv)
+
+
+# ------------------------------------------------------------- K17, K18
+
+
+def _colsum_ok(got, want, mag):
+    """A column sum within 1e-5 of its channel's sum of magnitudes."""
+    assert ((got - want).abs() <= 1e-5 * mag).all(), ((got - want).abs() / mag).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r,c", [(131072, 256), (1000, 77), (7, 3), (513, 1536)])
+def test_batchnorm_reduces_match_twins(dev, r, c, dt):
+    """K18's statistics and gradient reduces at an even and an odd width
+    (the column pairs' scalar path), a ragged row count and one split,
+    against their twins; the statistics bitwise equal between two runs."""
+    from vipformer_tpu_torch.ops.cuda import batchnorm as kbn
+
+    rng = np.random.default_rng(11)
+    x, dy = _t(rng, (r, c), dev, dt, 2.0) + 0.5, _t(rng, (r, c), dev, dt)
+    s, ss = kbn.bn_stats(x)
+    s2, ss2 = kbn.bn_stats(x)
+    assert torch.equal(s, s2) and torch.equal(ss, ss2)
+    ps, pss = kbn.bn_stats_plain(x)
+    xf = x.float()
+    _colsum_ok(s, ps, xf.abs().sum(0))
+    _colsum_ok(ss, pss, (xf * xf).sum(0))
+    mean = ps / r
+    rstd = torch.rsqrt(torch.clamp_min(pss / r - mean * mean, 0.0) + 1e-5)
+    ds, db = kbn.bn_grad_reduces(x, dy, mean, rstd)
+    pds, pdb = kbn.bn_grad_reduces_plain(x, dy, mean, rstd)
+    _colsum_ok(ds, pds, (dy.float() * (xf - mean) * rstd).abs().sum(0))
+    _colsum_ok(db, pdb, dy.float().abs().sum(0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r,d", [(4096, 384), (1000, 261), (3, 33), (256, 2048)])
+def test_layernorm_kernels_match_twins(dev, r, d, dt):
+    """K17's forward (y, mu, rsig) and backward (dx; dscale and dbias as
+    column sums) at the semseg latents' width, the Fourier tokens' odd
+    width, a few rows and a width above a warp's 32 x 32 columns."""
+    from vipformer_tpu_torch.ops.cuda import layernorm as kln
+
+    rng = np.random.default_rng(12)
+    x, dy = _t(rng, (r, d), dev, dt, 2.0) + 0.5, _t(rng, (r, d), dev, dt)
+    s, b = _t(rng, (d,), dev, scale=0.2) + 1.0, _t(rng, (d,), dev, scale=0.1)
+    y, mu, rsig = kln.ln_fwd(x, s, b)
+    py, pmu, prsig = kln.ln_fwd_plain(x, s, b)
+    assert y.dtype == dt
+    for got, want, tol in ((y, py, TOL[dt]), (mu, pmu, 2e-5), (rsig, prsig, 2e-5)):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= tol * want.float().abs().max().item(), err
+    dx, ds, db = kln.ln_bwd(x, dy, pmu, prsig, s)
+    pdx, pds, pdb = kln.ln_bwd_plain(x, dy, pmu, prsig, s)
+    err = (dx.float() - pdx.float()).abs().max().item()
+    assert err <= TOL[dt] * pdx.float().abs().max().item(), err
+    xhat = (x.float() - pmu[:, None]) * prsig[:, None]
+    _colsum_ok(ds, pds, (dy.float() * xhat).abs().sum(0))
+    _colsum_ok(db, pdb, dy.float().abs().sum(0))
+
+
+@pytest.mark.cuda
+def test_semseg_step_forced_on_card_matches_cpu(dev):
+    """A small f32 semseg step with K17 and K18 forced (dropout, DropPath
+    and the head's dropout 0, FPS from index 0; 8 blocks of 512 xyz+rgb
+    points, 32 groups of 16, D=128) on the card against the same step on
+    the CPU (their twins): the eval logits within 1e-4, the loss within
+    1e-4, every gradient leaf within 1e-3 of max(1, max|cpu|) (Group2Emb's
+    2e-2) and the running statistics within 1e-4; K18 ran at the decode's 4
+    BatchNorms and K17 at every LayerNorm, forward and backward."""
+    from vipformer_tpu_torch.config import Config, decode_arch_name
+    from vipformer_tpu_torch.models.factory import build_ft_semseg
+    from vipformer_tpu_torch.ops.cuda import batchnorm as kbn
+    from vipformer_tpu_torch.ops.cuda import layernorm as kln
+    from vipformer_tpu_torch.train.trainer import create_state, make_semseg_step
+
+    cfg = Config(**decode_arch_name("E1CL2SL-H2D128-L32-MR2"), group_size=16, point_channels=6,
+                 num_obj_classes=13, layer_idx=(1, 2), compute_dtype="float32", atten_drop=0.0,
+                 mlp_drop=0.0, max_dpr=0.0)
+    rng = np.random.default_rng(13)
+    batch = {"points": rng.uniform(0, 1, (8, 512, 6)).astype(np.float32),
+             "seg": rng.integers(0, 13, (8, 512))}
+    saved = kbn.USE_BN_TRAIN, kln.USE_LAYERNORM
+    kbn.USE_BN_TRAIN = kln.USE_LAYERNORM = True
+    got = {}
+    try:
+        init = build_ft_semseg(cfg, device="cpu").state_dict()
+        for d in ("cpu", dev):
+            model = build_ft_semseg(cfg, device=d)
+            model.load_state_dict(init)
+            model.seg_head.drop = 0.0
+            with torch.inference_mode():
+                logits = model(torch.from_numpy(batch["points"]).to(d)).cpu()
+            grads = {}
+            for k, p in model.named_parameters():
+                p.register_hook(lambda g, k=k: grads.__setitem__(k, g.detach().cpu()))
+            kcuda.reset_launch_counts()
+            _, metrics = make_semseg_step(cfg, model)(create_state(cfg, {"pc": model}), batch,
+                                                      1e-3)
+            stats = {k: v.cpu() for k, v in model.state_dict().items() if "running_" in k}
+            got[str(d)] = (logits, float(metrics["loss"]), grads, stats)
+    finally:
+        kbn.USE_BN_TRAIN, kln.USE_LAYERNORM = saved
+    counts = kcuda.launch_counts()
+    assert counts["batchnorm_fwd"] == counts["batchnorm_bwd"] == 4
+    # the adapter's, the CA's q_norm and MLP LayerNorm (its kv_norm inside
+    # K7), two in each SA layer, the shared norm at the two taps
+    assert counts["layernorm_fwd"] == counts["layernorm_bwd"] == 1 + 2 + 2 * 2 + 2
+    (logits_c, loss_c, grads_c, stats_c), (logits_g, loss_g, grads_g, stats_g) = \
+        got["cpu"], got["cuda"]
+    _assert_grad_close(logits_g, logits_c, torch.float32)
+    assert abs(loss_g - loss_c) <= 1e-4 * max(1.0, abs(loss_c))
+    assert set(grads_g) == set(grads_c)
+    for k, want in grads_c.items():
+        err = (grads_g[k] - want).abs().max().item()
+        tol = 2e-2 if k.startswith("stem.group2emb.") else 1e-3
+        assert err <= tol * max(1.0, want.abs().max().item()), (k, err)
+    for k, want in stats_c.items():
+        assert (stats_g[k] - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item())

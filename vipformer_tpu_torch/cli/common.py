@@ -1,7 +1,8 @@
-"""Shared CLI plumbing (counterpart of vipformer_tpu/cli/common.py: `setup`
-and `warn_patch_compat`): the run directory, its log and its metrics
-stream, and the stem-mode check of a restored checkpoint. The port runs on
-one card, so there is no mesh and the batch needs no rounding."""
+"""Shared CLI plumbing (counterpart of vipformer_tpu/cli/common.py: `setup`,
+`warn_patch_compat` and `extract_features`): the run directory, its log and
+its metrics stream, the stem-mode check of a restored checkpoint, and the
+batched feature extraction of the SVM probe. The port runs on one card, so
+there is no mesh and the batch needs no rounding."""
 
 from __future__ import annotations
 
@@ -10,7 +11,11 @@ import datetime
 import json
 import os
 
+import numpy as np
+import torch
+
 from vipformer_tpu_torch.config import Config
+from vipformer_tpu_torch.data.pipeline import Loader, collate_cls, pad_batch
 from vipformer_tpu_torch.train.checkpoint import load_metadata
 
 
@@ -54,3 +59,18 @@ def warn_patch_compat(ckpt_path: str, cfg: Config, log) -> None:
         log(f"WARNING: checkpoint {ckpt_path} was trained with patch_compat={want} but config "
             f"has patch_compat={cfg.patch_compat}; pass --patch_compat "
             f"{str(bool(want)).lower()} to match its stem (see ops/geometry.py:divide_patches)")
+
+
+def extract_features(feats_fn, dataset, batch_size: int):
+    """Backbone features of a (points, label) dataset, batch by batch (JAX
+    cli/common.py:106-128; its `collate_points_labels`, :154-157, is the
+    port's `collate_cls`): every batch has `batch_size` samples (the last
+    one padded) and the padding is masked out. -> (features [N, 2D] on the
+    device feats_fn returns them on, labels numpy [N])."""
+    feats, labels = [], []
+    for batch in Loader(dataset, batch_size, collate_cls, shuffle=False):
+        batch, mask = pad_batch(batch, batch_size)
+        out = feats_fn(batch["points"])
+        feats.append(out[torch.as_tensor(mask, device=out.device)])
+        labels.append(batch["labels"][mask])
+    return torch.cat(feats), np.concatenate(labels)

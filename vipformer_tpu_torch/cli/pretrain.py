@@ -10,15 +10,19 @@ vipformer_tpu/cli/pretrain.py), on the card by default.
 The flags are the JAX package's (`vipformer_tpu_torch.config`), plus
 `--device`; `--mp false` trains the generic Perceiver family (the point
 branch over the per-point adapter, the image branch over the Fourier pixel
-adapter, `--num_frequency_bands`). Each epoch runs `make_pretrain_step` over the shuffled
-synthetic ShapeNetRender set, writes `<run_dir>/<proj_name>/<exp_name>/
-metrics.jsonl` (one JSON line per epoch) beside a log file and the
-resolved `config.json`, and saves `models/pc_model_best.ckpt` and
-`models/img_model_best.ckpt` (train/checkpoint.py) on the lowest mean
-epoch loss. Not ported yet, and said so in the log: the per-epoch SVM
-probe that gates "best" in the JAX CLI (it needs evaluation/svm.py), the
-real ShapeNet reader, `--resume`, `--device_augs`, wandb and multi-card
-runs.
+adapter, `--num_frequency_bands`). Each epoch runs `make_pretrain_step`
+over the shuffled synthetic ShapeNetRender set, then the linear SVM probe
+(JAX cli/pretrain.py:183-202): the point branch's eval features of the
+`pt_dataset` probe's train and test splits (synthetic ModelNet40 or
+ScanObjectNN, `num_test_points` points, batches of `test_batch_size`), an
+SVM fitted on the train split (`fit_svm`, C = `svm_coff`) and scored on
+the test split. On a new best test accuracy it saves
+`models/pc_model_best.ckpt` and `models/img_model_best.ckpt`
+(train/checkpoint.py) with {"epoch", "svm_test_acc", "kind"}. Each epoch
+writes one JSON line to `<run_dir>/<proj_name>/<exp_name>/metrics.jsonl`
+(losses, svm_test_acc, svm_best_acc, times) beside a log file and the
+resolved `config.json`. Not ported yet: the real ShapeNet reader,
+`--resume`, `--device_augs`, wandb and multi-card runs.
 """
 
 from __future__ import annotations
@@ -28,14 +32,22 @@ import time
 
 import torch
 
-from vipformer_tpu_torch.cli.common import Run
+from vipformer_tpu_torch.cli.common import Run, extract_features
 from vipformer_tpu_torch.config import Config, add_config_args, config_from_namespace
-from vipformer_tpu_torch.data.datasets import ShapeNetRender
+from vipformer_tpu_torch.data.datasets import ModelNet40SVM, ScanObjectNNSVM, ShapeNetRender
 from vipformer_tpu_torch.data.pipeline import Loader, collate_pretrain
+from vipformer_tpu_torch.evaluation.svm import fit_svm
 from vipformer_tpu_torch.models.factory import build_img_model, build_pc_model
 from vipformer_tpu_torch.train.checkpoint import save_checkpoint
 from vipformer_tpu_torch.train.schedules import Schedule
-from vipformer_tpu_torch.train.trainer import create_state, make_pretrain_step
+from vipformer_tpu_torch.train.trainer import create_state, make_feats_fn, make_pretrain_step
+
+
+def probe_sets(cfg: Config):
+    """The SVM probe's (train, test) splits of `pt_dataset` (JAX
+    cli/pretrain.py:49-55)."""
+    ds_cls = {"ModelNet40": ModelNet40SVM, "ScanObjectNN": ScanObjectNNSVM}[cfg.pt_dataset]
+    return ds_cls("train", cfg.num_test_points), ds_cls("test", cfg.num_test_points)
 
 
 def main(cfg: Config, device: str = "cuda") -> dict:
@@ -51,19 +63,20 @@ def main(cfg: Config, device: str = "cuda") -> dict:
                                synthetic_size=cfg.synthetic_size)
     loader = Loader(train_set, cfg.batch_size, collate_pretrain, shuffle=True, seed=cfg.seed,
                     drop_last=True, num_workers=cfg.num_workers)
+    probe_train, probe_test = probe_sets(cfg)
     models = {"pc": build_pc_model(cfg, device=device)}
     if cfg.modality != "imc-only":
         models["img"] = build_img_model(cfg, device=device)
     state = create_state(cfg, models)
     step = make_pretrain_step(cfg, models["pc"], models.get("img"))
+    feats_fn = make_feats_fn(models["pc"])
     schedule = Schedule(cfg)
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
     run.write(f"pretrain on {device}: {len(train_set)} synthetic samples, {len(loader)} "
-              f"batches of {cfg.batch_size}, modality {cfg.modality}, {cfg.compute_dtype}")
-    run.write("the per-epoch SVM probe is skipped (evaluation/svm.py is not ported yet): "
-              "the best checkpoint is the one of the lowest mean epoch loss")
+              f"batches of {cfg.batch_size}, modality {cfg.modality}, {cfg.compute_dtype}; "
+              f"probe: {cfg.pt_dataset} (synthetic) {len(probe_train)}/{len(probe_test)}")
 
-    best_loss, best_epoch, epoch_loss = float("inf"), -1, None
+    best_acc, best_epoch, epoch_loss = 0.0, -1, None
     for epoch in range(cfg.epochs):
         lr = schedule.lr(epoch, epoch_loss)
         loader.set_epoch(epoch)
@@ -83,19 +96,29 @@ def main(cfg: Config, device: str = "cuda") -> dict:
         means = {k: float(v) / max(n, 1) for k, v in sums.items()}  # waits for the card
         train_time = time.perf_counter() - t0
         epoch_loss = means["loss"]
-        if epoch_loss < best_loss:
-            best_loss, best_epoch = epoch_loss, epoch
-            meta = {"epoch": epoch, "pretrain_loss": epoch_loss, "kind": "pretrain",
-                    "gate": "lowest mean epoch loss (the SVM probe is not ported)",
+
+        # the linear SVM probe: the gate of the best checkpoint
+        t0 = time.perf_counter()
+        tr_feats, tr_labels = extract_features(feats_fn, probe_train, cfg.test_batch_size)
+        te_feats, te_labels = extract_features(feats_fn, probe_test, cfg.test_batch_size)
+        test_acc = fit_svm(tr_feats, tr_labels, c=cfg.svm_coff).score(te_feats, te_labels)
+        test_time = time.perf_counter() - t0
+        if test_acc > best_acc:
+            best_acc, best_epoch = test_acc, epoch
+            run.write(f"new best probe acc {best_acc:.4f} at epoch {epoch}; saving")
+            meta = {"epoch": epoch, "svm_test_acc": test_acc, "kind": "pretrain",
                     "patch_compat": cfg.patch_compat}
             for name, m in models.items():
                 save_checkpoint(run.model_path(f"{name}_model_best"), m, meta)
-        run.write(f"epoch {epoch}: loss {epoch_loss:.4f} (best {best_loss:.4f}@{best_epoch}) "
-                  f"lr {lr:.5f} train {train_time:.1f}s")
+        run.write(f"epoch {epoch}: loss {epoch_loss:.4f} probe acc {test_acc:.4f} (best "
+                  f"{best_acc:.4f}@{best_epoch}) lr {lr:.5f} train {train_time:.1f}s probe "
+                  f"{test_time:.1f}s")
         run.metrics(epoch, lr=lr, pretrain_loss=epoch_loss, imid_loss=means["loss_imid"],
-                    cmid_loss=means["loss_cmid"], train_time=train_time,
+                    cmid_loss=means["loss_cmid"], svm_test_acc=test_acc, svm_best_acc=best_acc,
+                    train_time=train_time, test_time=test_time,
                     clouds_per_s=2 * n * cfg.batch_size / train_time)
-    return {"best_loss": best_loss, "best_epoch": best_epoch}
+    run.write(f"final best probe acc {best_acc:.4f} at epoch {best_epoch}")
+    return {"best_acc": best_acc, "best_epoch": best_epoch}
 
 
 def parse_args(argv=None) -> tuple[Config, str]:

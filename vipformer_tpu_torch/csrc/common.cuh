@@ -11,7 +11,7 @@
 
 namespace vpt {
 
-// LayerNorm epsilon of every kernel that normalises (K4, K6, K7); equal to
+// LayerNorm epsilon of every kernel that normalises (K4, K6, K7, K17); equal to
 // LN_EPS in ops/cuda/__init__.py.
 constexpr float LN_EPS = 1e-5f;
 

@@ -80,7 +80,7 @@ int launch(const float* p, const float* q, int* out, int b, int n, int s, int k,
 }  // namespace
 
 // points f32 [B, N, 3], queries f32 [B, S, 3] -> out int32 [B, S, k].
-// Needs k <= N <= 2048 (keys per lane held in registers).
+// Needs k <= N <= 4096 (keys per lane held in registers: 128 at N = 4096).
 extern "C" int knn_f32(const void* points, const void* queries, void* out, int b, int n, int s,
                        int k, void* stream) {
   int idx_bits = 1;
@@ -93,5 +93,6 @@ extern "C" int knn_f32(const void* points, const void* queries, void* out, int b
   if (n <= 512) return launch<16>(p, q, o, b, n, s, k, idx_bits, st);
   if (n <= 1024) return launch<32>(p, q, o, b, n, s, k, idx_bits, st);
   if (n <= 2048) return launch<64>(p, q, o, b, n, s, k, idx_bits, st);
+  if (n <= 4096) return launch<128>(p, q, o, b, n, s, k, idx_bits, st);  // semseg's blocks
   return (int)cudaErrorInvalidValue;
 }

@@ -1,6 +1,6 @@
 """Datasets, synthetic only (counterpart of vipformer_tpu/data/datasets.py;
 the readers of the real ShapeNet clouds and renderings and of the HDF5
-classification sets come with a later slice).
+classification and segmentation sets come with a later slice).
 
 * `ShapeNetRender` (pretraining): two independently augmented views of one
   cloud and one augmented image of it (reference data.py:92-118).
@@ -9,9 +9,14 @@ classification sets come with a later slice).
   (datasets.py:37-97), 2048-point clouds cut to `num_points`.
 * `ShapeNetPart` (part segmentation): the JAX package's synthetic stand-in
   (datasets.py:177-240), 400 trainval / 120 test clouds, data seeds 4 / 5.
+* `S3DIS` (semantic segmentation): the JAX package's synthetic stand-in
+  (datasets.py:243-285), 200 train / 60 test blocks of 4,096 points x 9
+  channels, data seeds 6 / 8.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -119,3 +124,28 @@ class ShapeNetPart:
             order = rng.permutation(len(pts))
             pts, seg = pts[order], seg[order]
         return pts.astype(np.float32), int(self.label[i].reshape(-1)[0]), seg.astype(np.int64)
+
+
+class S3DIS:
+    """S3DIS's synthetic stand-in: (points [4096, 9] f32, labels [4096]
+    int64) per block, 13 classes. The reader of the real HDF5 blocks with
+    the Area-`test_area` holdout (JAX datasets.py:249-272) is not ported:
+    where the listing exists under `data_dir`, the constructor raises."""
+
+    num_classes = 13
+    sizes = {"train": (200, 6), "test": (60, 8)}
+
+    def __init__(self, data_dir: str = "data", split: str = "train", test_area: int = 5):
+        listing = os.path.join(data_dir, "indoor3d_sem_seg_hdf5_data", "all_files.txt")
+        if os.path.exists(listing):
+            raise NotImplementedError(
+                f"{listing} exists, but the S3DIS HDF5 reader is not ported yet (ROADMAP "
+                "Queue 1, item 18): only the synthetic stand-in runs")
+        n, seed = self.sizes["train" if split == "train" else "test"]
+        self.data, self.label = synthetic.synthetic_semseg(n, 4096, seed=seed)
+
+    def __len__(self) -> int:
+        return len(self.data)
+
+    def get(self, i: int, rng=None):
+        return self.data[i].astype(np.float32), self.label[i].astype(np.int64)

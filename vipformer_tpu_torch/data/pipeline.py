@@ -1,5 +1,6 @@
 """Host-side input pipeline (the port's own copy of the `Loader`,
-`collate_pretrain`, `collate_cls`, `collate_partseg` and `pad_batch` parts of
+`collate_pretrain`, `collate_cls`, `collate_partseg`, `collate_semseg` and
+`pad_batch` parts of
 vipformer_tpu/data/pipeline.py): epoch-seeded shuffling, a thread pool over
 the dataset's `get`, and fixed-shape numpy batches (`drop_last` when
 shuffling, a padded last batch in evaluation)."""
@@ -78,6 +79,12 @@ def collate_partseg(samples):
     labels = np.asarray([s[1] for s in samples], dtype=np.int64)
     seg = np.stack([s[2] for s in samples])
     return {"points": pts, "obj_labels": labels, "seg": seg}
+
+
+def collate_semseg(samples):
+    pts = np.stack([s[0] for s in samples])
+    seg = np.stack([s[1] for s in samples])
+    return {"points": pts, "seg": seg}
 
 
 def pad_batch(batch: dict, batch_size: int) -> tuple[dict, np.ndarray]:

@@ -1,8 +1,9 @@
 """Deterministic synthetic stand-ins (the port's own copy of the
-classification-cloud, part-segmentation and splat-image parts of
-vipformer_tpu/data/synthetic.py): class-structured parametric clouds, an
-orthographic splat of each as its "render", and height-banded part labels,
-so the objectives have real signal without the real corpora.
+classification-cloud, part-segmentation, semantic-segmentation and
+splat-image parts of vipformer_tpu/data/synthetic.py): class-structured
+parametric clouds, an orthographic splat of each as its "render",
+height-banded part labels, and S3DIS-shaped blocks whose class follows the
+height, so the objectives have real signal without the real corpora.
 """
 
 from __future__ import annotations
@@ -80,6 +81,25 @@ def synthetic_partseg(num_samples: int, num_points: int,
         bands = np.clip(((z - z.min()) / max(np.ptp(z), 1e-6) * k).astype(int), 0, k - 1)
         segs[i] = INDEX_START[l] + bands
     return data.astype(np.float32), labels.astype(np.int64)[:, None], segs
+
+
+def synthetic_semseg(num_samples: int, num_points: int = 4096, num_classes: int = 13,
+                     seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """-> (data f32 [S, N, 9], labels int64 [S, N]) shaped like the S3DIS
+    chopped blocks: xyz, an rgb that encodes the class (plus noise), and the
+    normalised position (here xyz again); the class is the height band."""
+    rng = np.random.default_rng(seed)
+    data = np.zeros((num_samples, num_points, 9), dtype=np.float32)
+    labels = np.zeros((num_samples, num_points), dtype=np.int64)
+    for i in range(num_samples):
+        xyz = rng.uniform(0, 1, (num_points, 3))
+        cls = np.clip((xyz[:, 2] * num_classes).astype(int), 0, num_classes - 1)
+        rgb = np.stack([cls / num_classes] * 3, -1) + 0.1 * rng.uniform(size=(num_points, 3))
+        data[i, :, :3] = xyz
+        data[i, :, 3:6] = np.clip(rgb, 0, 1)
+        data[i, :, 6:9] = xyz
+        labels[i] = cls
+    return data, labels
 
 
 def splat_image(pts: np.ndarray, size: int = 137) -> np.ndarray:

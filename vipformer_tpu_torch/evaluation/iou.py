@@ -1,6 +1,6 @@
-"""Part-segmentation metrics (the port's own copy of
-vipformer_tpu/evaluation/iou.py:32-104), in numpy over the refined
-predictions:
+"""Segmentation metrics (the port's own copy of
+vipformer_tpu/evaluation/iou.py:32-120), in numpy. Part segmentation, over
+the refined predictions:
 
 * per-shape part IoU with the empty-union -> IoU = 1 rule (reference
   ft_partseg.py:297-322);
@@ -9,6 +9,9 @@ predictions:
 * mean part accuracy as the reference computes it: per part id the
   predicted count over the true count (ft_partseg.py:290-295, 324);
 * point-level accuracy.
+
+Semantic segmentation (`semseg_miou`): overall point accuracy and the IoU
+averaged over the classes that occur in the predictions or the labels.
 """
 
 from __future__ import annotations
@@ -81,3 +84,16 @@ class PartSegMetrics:
             "mean_part_acc": float(np.mean(part_acc[seen])) if seen.any() else 0.0,
             "point_level_acc": self.correct_points / max(self.total_points, 1),
         }
+
+
+def semseg_miou(pred: np.ndarray, seg: np.ndarray, num_classes: int = 13) -> dict:
+    """Point accuracy and class-mean IoU over all points (JAX iou.py:107-
+    120): a class whose union is empty is left out of the mean."""
+    pred, seg = pred.reshape(-1), seg.reshape(-1)
+    ious = []
+    for c in range(num_classes):
+        p, g = pred == c, seg == c
+        union = np.logical_or(p, g).sum()
+        if union > 0:
+            ious.append(np.logical_and(p, g).sum() / union)
+    return {"point_level_acc": float(np.mean(pred == seg)), "miou": float(np.mean(ious))}

@@ -1,6 +1,6 @@
 """CrossFormer models (counterpart of vipformer_tpu/models/crossformer.py:
 the point-cloud and image pretraining branches, the classification
-finetune model and the part-segmentation model).
+finetune model, and the part- and semantic-segmentation models).
 
 Every model takes `device` (the card by default; the CPU only when asked)
 and `dtype` (the compute dtype; parameters stay f32 as in the flax tree)
@@ -39,6 +39,7 @@ from vipformer_tpu_torch.ops.cuda.stem import fused_stem_supported, group2emb_fu
 from vipformer_tpu_torch.ops.geometry import (
     divide_patches,
     farthest_point_sample_with_centers,
+    index_points,
     knn,
 )
 
@@ -96,21 +97,22 @@ class MPEncoder(nn.Module):
 class _PointPatchStem(nn.Module):
     """Shared point-cloud stem: per-point embeddings + FPS/kNN patches.
 
-    pts [B, N, 3] -> (pts_embs [B, N, D], group_embs [B, G, D],
-    pos_embs [B, G, D], centers [B, G, 3])."""
+    pts [B, N, C] -> (pts_embs [B, N, D], group_embs [B, G, D],
+    pos_embs [B, G, D], centers [B, G, C]); C = `in_channels`, whose first
+    three are xyz (FPS, kNN and the centering read those)."""
 
     def __init__(self, num_latents: int, num_latent_channels: int, group_size: int,
-                 patch_compat: bool = False, dtype=None):
+                 patch_compat: bool = False, dtype=None, in_channels: int = 3):
         super().__init__()
         self.num_latents = num_latents
         self.group_size = group_size
         self.patch_compat = patch_compat
         self.dtype = dtype
         d = num_latent_channels
-        # xyz clouds (the xyz+rgb semseg stem comes with its slice)
-        self.input_adapter = PointCloudInputAdapter(3, d, dtype)
-        self.group2emb = Group2Emb(3, d, dtype)
-        self.position_emb = PositionEmb(3, d, dtype)
+        # every layer takes all `in_channels` (xyz, or semseg's xyz+rgb)
+        self.input_adapter = PointCloudInputAdapter(in_channels, d, dtype)
+        self.group2emb = Group2Emb(in_channels, d, dtype)
+        self.position_emb = PositionEmb(in_channels, d, dtype)
 
     def forward(self, pts, generator=None):
         dt = self.dtype or pts.dtype
@@ -119,7 +121,13 @@ class _PointPatchStem(nn.Module):
                                 not self.training, self.patch_compat):
             # eval fast path: FPS (K1) banks the centers, kNN (K2), then the
             # gather + Group2Emb chain (K3) with no [B, G, S, C] tensor
-            _, centers = farthest_point_sample_with_centers(pts, self.num_latents)
+            fps_idx, centers = farthest_point_sample_with_centers(pts, self.num_latents)
+            if pts.shape[-1] > 3:
+                # the position embedding takes every channel of the centers,
+                # as the unfused path's `fps` gathers them; K1 banks the xyz
+                # only (JAX's fused path stops there and then fails its
+                # 6-channel PositionEmb: ROADMAP Queue 3)
+                centers = index_points(pts, fps_idx)
             idx = knn(self.group_size, pts[..., :3], centers[..., :3])
             group_embs = group2emb_fused_apply(self.group2emb, pts, centers, idx, dt)
         else:
@@ -288,18 +296,56 @@ class SegHead(nn.Module):
         return self.Dense_2(x)
 
 
-class CrossFormerPartSeg(nn.Module):
-    """Part segmentation model (JAX crossformer.py:422-493): pts [B, N, 3],
-    cls_onehot [B, 16] -> logits [B, N, num_part_classes].
+class _SegModel(nn.Module):
+    """The segmentation models' common body (JAX crossformer.py:422-563).
 
     The encoder's latents after the `layer_idx` self-attention layers go
     through one shared LayerNorm (`norm`) and are concatenated ([B, G,
-    kD]); their max and mean over the groups and the label embedding form
-    the global feature [B, 1, Dg], which stays un-broadcast (a segment of
-    the head's first Dense); the 3-NN feature propagation lifts the group
-    features to every point with the xyz as skip features, and the head
-    classifies each point. The head's dropout rate is `seg_head.drop`
-    (0.5, the reference's; the comparisons with the CPU set it to 0)."""
+    kD]); their max and mean over the groups (and, with `label_conv`, the
+    object-label embedding) form the global feature [B, 1, Dg], which stays
+    un-broadcast (a segment of the head's first Dense); the 3-NN feature
+    propagation lifts the group features to every point over the xyz, with
+    the xyz as skip features, and the head classifies each point. The
+    head's dropout rate is `seg_head.drop` (0.5, the reference's; the
+    comparisons with the CPU set it to 0)."""
+
+    def __init__(self, in_channels, num_latents, num_latent_channels, group_size, patch_compat,
+                 num_cross_attention_layers, num_cross_attention_heads,
+                 num_self_attention_layers, num_self_attention_heads, mlp_widen_factor, max_dpr,
+                 atten_drop, mlp_drop, layer_idx, num_classes, dtype, label_conv: bool):
+        super().__init__()
+        if not layer_idx:
+            raise ValueError("segmentation needs layer_idx taps")
+        d, k = num_latent_channels, len(layer_idx)
+        self.stem = _PointPatchStem(num_latents, d, group_size, patch_compat=patch_compat,
+                                    dtype=dtype, in_channels=in_channels)
+        self.encoder = MPEncoder(
+            d, num_cross_attention_layers, num_cross_attention_heads, num_self_attention_layers,
+            num_self_attention_heads, mlp_widen_factor, dtype, max_dpr, atten_drop, mlp_drop,
+            modal_prior=False, layer_idx=layer_idx)
+        self.norm = LayerNorm(d, dtype)
+        if label_conv:
+            self.label_conv = LabelConv(16, dtype)  # ShapeNetPart's 16 object categories
+        self.propagation = FeaturePropagation(3, k * d, (mlp_widen_factor * d, 1024), dtype)
+        self.seg_head = SegHead(1024 + 2 * k * d + (64 if label_conv else 0), num_classes, dtype)
+
+    def _segment(self, pts, cls_onehot, generator):
+        pts_embs, group_embs, pos_embs, centers = self.stem(pts, generator)
+        feats = self.encoder(group_embs, pos_embs, pts_embs, generator)
+        x = torch.cat([self.norm(f) for f in feats], dim=-1)  # [B, G, kD]
+        parts = [x.amax(dim=1), x.mean(dim=1)]
+        if cls_onehot is not None:
+            parts.append(self.label_conv(cls_onehot.to(x.dtype)))
+        global_feat = torch.cat(parts, dim=-1)[:, None, :]
+        xyz = pts[..., :3]
+        f0 = self.propagation(xyz, centers[..., :3], xyz.to(x.dtype), x)
+        return self.seg_head((f0, global_feat.to(f0.dtype)), generator)
+
+
+class CrossFormerPartSeg(_SegModel):
+    """Part segmentation model (JAX crossformer.py:422-493): pts [B, N, 3],
+    cls_onehot [B, 16] -> logits [B, N, num_part_classes], the label
+    embedding (`label_conv`) in the global feature."""
 
     def __init__(self, num_latents: int = 128, num_latent_channels: int = 384,
                  group_size: int = 32, patch_compat: bool = False,
@@ -308,31 +354,40 @@ class CrossFormerPartSeg(nn.Module):
                  mlp_widen_factor: int = 4, max_dpr: float = 0.1, atten_drop: float = 0.0,
                  mlp_drop: float = 0.0, layer_idx: tuple[int, ...] = (2, 6, 10),
                  num_part_classes: int = 50, dtype=None, device="cuda", seed: int = 0):
-        super().__init__()
-        if not layer_idx:
-            raise ValueError("partseg needs layer_idx taps")
-        d, k = num_latent_channels, len(layer_idx)
-        self.stem = _PointPatchStem(num_latents, d, group_size, patch_compat=patch_compat,
-                                    dtype=dtype)
-        self.encoder = MPEncoder(
-            d, num_cross_attention_layers, num_cross_attention_heads, num_self_attention_layers,
-            num_self_attention_heads, mlp_widen_factor, dtype, max_dpr, atten_drop, mlp_drop,
-            modal_prior=False, layer_idx=layer_idx)
-        self.norm = LayerNorm(d, dtype)
-        self.label_conv = LabelConv(16, dtype)  # ShapeNetPart's 16 object categories
-        self.propagation = FeaturePropagation(3, k * d, (mlp_widen_factor * d, 1024), dtype)
-        self.seg_head = SegHead(1024 + 2 * k * d + 64, num_part_classes, dtype)
+        super().__init__(3, num_latents, num_latent_channels, group_size, patch_compat,
+                         num_cross_attention_layers, num_cross_attention_heads,
+                         num_self_attention_layers, num_self_attention_heads, mlp_widen_factor,
+                         max_dpr, atten_drop, mlp_drop, layer_idx, num_part_classes, dtype,
+                         label_conv=True)
         _finish(self, device, seed)
 
     def forward(self, pts, cls_onehot, generator=None):
-        pts_embs, group_embs, pos_embs, centers = self.stem(pts, generator)
-        feats = self.encoder(group_embs, pos_embs, pts_embs, generator)
-        x = torch.cat([self.norm(f) for f in feats], dim=-1)  # [B, G, kD]
-        label_feat = self.label_conv(cls_onehot.to(x.dtype))
-        global_feat = torch.cat([x.amax(dim=1), x.mean(dim=1), label_feat], dim=-1)[:, None, :]
-        xyz = pts[..., :3]
-        f0 = self.propagation(xyz, centers[..., :3], xyz.to(x.dtype), x)
-        return self.seg_head((f0, global_feat.to(f0.dtype)), generator)
+        return self._segment(pts, cls_onehot, generator)
+
+
+class CrossFormerSemSeg(_SegModel):
+    """Semantic segmentation model for S3DIS blocks (JAX crossformer.py:
+    496-563): pts [B, N, point_channels] (xyz + rgb) -> logits [B, N,
+    num_obj_classes]. The stem takes every point channel (the centers keep
+    them for the position embedding); no label conditioning (the
+    reference's unused `label_conv` is left out, as in JAX)."""
+
+    def __init__(self, point_channels: int = 6, num_latents: int = 128,
+                 num_latent_channels: int = 384, group_size: int = 32, patch_compat: bool = False,
+                 num_cross_attention_layers: int = 1, num_cross_attention_heads: int = 6,
+                 num_self_attention_layers: int = 12, num_self_attention_heads: int = 6,
+                 mlp_widen_factor: int = 4, max_dpr: float = 0.1, atten_drop: float = 0.0,
+                 mlp_drop: float = 0.0, layer_idx: tuple[int, ...] = (2, 6, 10),
+                 num_obj_classes: int = 13, dtype=None, device="cuda", seed: int = 0):
+        super().__init__(point_channels, num_latents, num_latent_channels, group_size,
+                         patch_compat, num_cross_attention_layers, num_cross_attention_heads,
+                         num_self_attention_layers, num_self_attention_heads, mlp_widen_factor,
+                         max_dpr, atten_drop, mlp_drop, layer_idx, num_obj_classes, dtype,
+                         label_conv=False)
+        _finish(self, device, seed)
+
+    def forward(self, pts, generator=None):
+        return self._segment(pts, None, generator)
 
 
 class CrossFormerImg(nn.Module):

@@ -1,7 +1,7 @@
 """Model factory (counterpart of vipformer_tpu/models/factory.py): the
-CrossFormer models (`mp`: pretraining, classification finetune, part
-segmentation) and the generic Perceiver family (`mp=False`: pretraining
-and classification finetune; the JAX package has no non-mp part
+CrossFormer models (`mp`: pretraining, classification finetune, part and
+semantic segmentation) and the generic Perceiver family (`mp=False`:
+pretraining and classification finetune; the JAX package has no non-mp
 segmentation).
 
 The build functions take the port's own `vipformer_tpu_torch.config.Config` and
@@ -20,6 +20,7 @@ from vipformer_tpu_torch.models.crossformer import (
     CrossFormerPartSeg,
     CrossFormerPC,
     CrossFormerPCFT,
+    CrossFormerSemSeg,
 )
 from vipformer_tpu_torch.models.perceiver_models import PerceiverClassifier, PerceiverFeatsModel
 
@@ -118,3 +119,14 @@ def build_ft_partseg(cfg: Config, device="cuda", seed: int | None = None) -> Cro
     return CrossFormerPartSeg(**_mp_common(cfg), layer_idx=tuple(cfg.layer_idx or (2, 6, 10)),
                               num_part_classes=cfg.num_part_classes, device=device,
                               seed=cfg.seed if seed is None else seed)
+
+
+def build_ft_semseg(cfg: Config, device="cuda", seed: int | None = None) -> CrossFormerSemSeg:
+    """Semantic-segmentation model (JAX factory.py:159-171): `point_channels`
+    input channels, taps `layer_idx` ((2, 6, 10) when the config gives
+    none), `num_obj_classes` classes; the mp model whatever `mp` says, as
+    in JAX."""
+    return CrossFormerSemSeg(point_channels=cfg.point_channels, **_mp_common(cfg),
+                             layer_idx=tuple(cfg.layer_idx or (2, 6, 10)),
+                             num_obj_classes=cfg.num_obj_classes, device=device,
+                             seed=cfg.seed if seed is None else seed)

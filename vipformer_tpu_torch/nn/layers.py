@@ -21,8 +21,11 @@ K13 and the small-M kernel K5 (layers.py:451-555); in train mode, the
 kv-folded training kernel K7 in `CrossAttention` (layers.py:605-650), the
 training flash kernel K8 in `MultiHeadAttention` (layers.py:487-511), and
 the Dense weight-gradient kernel K11 in every `Dense` whose rows fall in
-its window (layers.py:171-180). The gates keep the JAX conditions only
-(with each kernel's shared memory in place of the TPU's VMEM), so on the
+its window (layers.py:171-180); and, only where their flags force them
+(auto is off, as in JAX), the row LayerNorm K17 in `LayerNorm` and the
+train-mode BatchNorm reductions K18 in `BatchNorm`. The gates keep the
+JAX conditions only (with each kernel's shared memory in place of the
+TPU's VMEM), so on the
 card a site the JAX package gives a kernel runs one, or fails where the
 kernel cannot take its shapes; the plain attention runs where no gate
 holds: on the CPU ("auto" means the card, and the flags force the
@@ -39,8 +42,10 @@ from torch import nn
 
 from vipformer_tpu_torch.ops.attention import dot_product_attention
 from vipformer_tpu_torch.ops.cuda import attention as kattn
+from vipformer_tpu_torch.ops.cuda import batchnorm as kbn
 from vipformer_tpu_torch.ops.cuda import dense as kdense
 from vipformer_tpu_torch.ops.cuda import flash_train as kflash
+from vipformer_tpu_torch.ops.cuda import layernorm as kln
 from vipformer_tpu_torch.ops.cuda.stem import BN_EPS
 
 BN_MOMENTUM = 0.9  # flax's; torch momentum 0.1
@@ -123,7 +128,10 @@ class Dense(nn.Module):
 
 class LayerNorm(nn.Module):
     """flax LayerNorm math: f32 fast variance max(0, E[x^2]-E[x]^2),
-    eps 1e-5, cast to the compute dtype at the end."""
+    eps 1e-5, cast to the compute dtype at the end. Where K17's gate holds
+    (only when `ops.cuda.layernorm.USE_LAYERNORM` forces it, as JAX
+    layers.py:251-259) the same function runs through K17, its output in
+    x's dtype and then cast."""
 
     def __init__(self, features: int, dtype=None):
         super().__init__()
@@ -132,7 +140,10 @@ class LayerNorm(nn.Module):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return kattn.layer_norm_f32(x, self.weight, self.bias, promote_dtype(x, self.dtype))
+        out_dtype = promote_dtype(x, self.dtype)
+        if kln.layernorm_enabled(x.numel() // x.shape[-1], x.shape[-1], x.element_size()):
+            return kln.layernorm_apply(x, self.weight, self.bias).to(out_dtype)
+        return kattn.layer_norm_f32(x, self.weight, self.bias, out_dtype)
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
@@ -166,7 +177,11 @@ class BatchNorm(nn.Module):
     uses the running statistics; train mode the f32 batch statistics over
     every axis but the last, with the fast variance max(0, E[x^2] - E[x]^2),
     and updates the running ones with momentum 0.9 and the BIASED batch
-    variance (flax's rule, not torch.nn.BatchNorm1d's unbiased one)."""
+    variance (flax's rule, not torch.nn.BatchNorm1d's unbiased one).
+    Where K18's gate holds in train mode (only when
+    `ops.cuda.batchnorm.USE_BN_TRAIN` forces it, as JAX layers.py:346-377
+    and :320-325) the statistics and the backward's column sums come from
+    K18 (`bn_train_apply`), its output in x's dtype and then cast."""
 
     def __init__(self, features: int, dtype=None):
         super().__init__()
@@ -177,6 +192,12 @@ class BatchNorm(nn.Module):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out_dtype = promote_dtype(x, self.dtype)
+        if self.training and kbn.bn_train_enabled(x.numel() // x.shape[-1], x.shape[-1],
+                                                  x.element_size()):
+            y, mean, var = kbn.bn_train_apply(x, self.weight, self.bias, BN_EPS)
+            self.update_running(mean.detach(), var.detach())
+            return y.to(out_dtype)
         xf = x.float()
         if self.training:
             axes = tuple(range(x.ndim - 1))
@@ -187,7 +208,7 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + BN_EPS) * self.weight
         y = (xf - mean) * mul + self.bias
-        return y.to(promote_dtype(x, self.dtype))
+        return y.to(out_dtype)
 
     @torch.no_grad()
     def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:

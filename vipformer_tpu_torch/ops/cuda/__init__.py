@@ -90,6 +90,18 @@ SIGNATURES = {
     # K6
     "attn_small_qkv_ln_f32": [_P] * 7 + [_I] * 4 + [_F, _P],
     "attn_small_qkv_ln_bf16": [_P] * 7 + [_I] * 4 + [_F, _P],
+    # K18 (x, sum, sumsq, part, r, c, splits, stream); (x, dy, mean, rstd,
+    # dscale, dbias, part, r, c, splits, stream)
+    "bn_stats_f32": [_P] * 4 + [_I] * 3 + [_P],
+    "bn_stats_bf16": [_P] * 4 + [_I] * 3 + [_P],
+    "bn_grad_reduces_f32": [_P] * 7 + [_I] * 3 + [_P],
+    "bn_grad_reduces_bf16": [_P] * 7 + [_I] * 3 + [_P],
+    # K17 (x, s, b, y, mu, rsig, r, d, stream); (x, dy, mu, rsig, s, dx,
+    # dscale, dbias, part, r, d, splits, stream)
+    "ln_fwd_f32": [_P] * 6 + [_I] * 2 + [_P],
+    "ln_fwd_bf16": [_P] * 6 + [_I] * 2 + [_P],
+    "ln_bwd_f32": [_P] * 9 + [_I] * 3 + [_P],
+    "ln_bwd_bf16": [_P] * 9 + [_I] * 3 + [_P],
 }
 
 _lib = None
@@ -196,8 +208,8 @@ def require(t: torch.Tensor, name: str, dtype, shape=None) -> None:
 
 
 def _counters() -> dict[str, "LaunchCounter"]:
-    from vipformer_tpu_torch.ops.cuda import (attention, dense, flash_train, fps, g2e_train, gather,
-                                              knn, stem)
+    from vipformer_tpu_torch.ops.cuda import (attention, batchnorm, dense, flash_train, fps,
+                                              g2e_train, gather, knn, layernorm, stem)
 
     return {
         "fps": fps.LAUNCHES,
@@ -219,6 +231,10 @@ def _counters() -> dict[str, "LaunchCounter"]:
         "gather_rows_fwd": gather.ROWS_FWD_LAUNCHES,
         "gather_rows_bwd": gather.ROWS_BWD_LAUNCHES,
         "dense_grads": dense.LAUNCHES,
+        "batchnorm_fwd": batchnorm.STATS_LAUNCHES,
+        "batchnorm_bwd": batchnorm.GRAD_LAUNCHES,
+        "layernorm_fwd": layernorm.FWD_LAUNCHES,
+        "layernorm_bwd": layernorm.BWD_LAUNCHES,
     }
 
 

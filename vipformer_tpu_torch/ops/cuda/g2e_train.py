@@ -194,7 +194,9 @@ def g2e_bwd_kernel(x0f, wb, h3p, amax, stats, dy, s: int):
         dh3p=torch.empty((r, C3), dtype=dt, device=dev), dxc=torch.empty((r, C3), **f32),
         dh2=torch.empty((r, C2), dtype=dt, device=dev), dy1=torch.empty((r, C1), **f32),
         dh1p=torch.empty((r, C1), dtype=dt, device=dev),
-        part=torch.empty((COLSUM_BLOCKS, 2, C3), **f32),
+        # column partials of the widest column sum: db3 over D columns
+        # (D = 384 at the segmentation widths), the BatchNorm sums over C3
+        part=torch.empty((COLSUM_BLOCKS, 2, max(C3, d)), **f32),
         wpart=torch.empty((WGRAD_SPLITS, C3 * max(C3, d)), **f32),
     )
     fn = cuda.entry_point("g2e_bwd", dt)

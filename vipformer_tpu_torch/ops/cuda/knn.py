@@ -15,7 +15,7 @@ import torch
 from vipformer_tpu_torch.ops import cuda
 
 LAUNCHES = cuda.LaunchCounter()
-MAX_POINTS = 2048  # keys per lane held in registers (64 x 32 lanes)
+MAX_POINTS = 4096  # keys per lane held in registers (128 x 32 lanes)
 
 
 def idx_bits_for(n: int) -> int:

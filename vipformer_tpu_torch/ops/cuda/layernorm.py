@@ -1,0 +1,151 @@
+"""K17: row LayerNorm, forward and backward (counterpart of
+ops/pallas/layernorm.py).
+
+* `ln_fwd_plain` / `ln_fwd`: x [R, D], scale, bias f32 [D] -> (y [R, D] in
+  x's dtype, mu f32 [R], rsig f32 [R]).
+* `ln_bwd_plain` / `ln_bwd`: (x, dy [R, D], mu, rsig, scale) -> (dx [R, D]
+  in x's dtype, dscale f32 [D], dbias f32 [D]).
+  The kernel entry points launch `csrc/layernorm.cu` on CUDA tensors and
+  run the plain twin on CPU tensors.
+* `layernorm_enabled`: the port's copy of the JAX gate (layernorm.py:149-
+  177): off under auto (measured slower in-model on the JAX package's
+  TPU), and when forced, on where the JAX kernel's row blocking is
+  feasible.
+* `layernorm_apply`: flax LayerNorm's function as a
+  `torch.autograd.Function` over K17 (JAX `layernorm_apply`, :180-262).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from vipformer_tpu_torch.ops import cuda
+
+FWD_LAUNCHES = cuda.LaunchCounter()
+BWD_LAUNCHES = cuda.LaunchCounter()
+# None = auto (off, as in JAX layernorm.py:44,177), a bool forces it
+USE_LAYERNORM: bool | None = None
+_VMEM_BUDGET = 8 * 1024 * 1024  # the JAX kernel's row-block budget (:47)
+BLOCKS_PER_SM = 4  # backward: the wrapper splits the rows until about this many blocks per SM
+
+
+def _pick_block_rows(r: int, d: int, itemsize: int) -> int:
+    """The JAX package's row-block picker (layernorm.py:50-59): the largest
+    power-of-two block in [256, 4096] that divides R and whose in/out
+    blocks and f32 temporaries fit the budget; 0 if none does."""
+    br = 4096
+    while br >= 256:
+        if r % br == 0 and br * d * (4 * itemsize + 12) <= _VMEM_BUDGET:
+            return br
+        br //= 2
+    return 0
+
+
+def layernorm_enabled(rows: int, d: int, itemsize: int) -> bool:
+    """Whether a LayerNorm over `rows` rows of width d takes K17: only when
+    USE_LAYERNORM forces it, and then where the JAX row blocking is
+    feasible."""
+    if USE_LAYERNORM is not None:
+        return USE_LAYERNORM and _pick_block_rows(rows, d, itemsize) > 0
+    return False
+
+
+def ln_fwd_plain(x2d, scale, bias):
+    xf = x2d.float()
+    mu = xf.mean(-1)
+    mu2 = (xf * xf).mean(-1)
+    rsig = torch.rsqrt(torch.clamp_min(mu2 - mu * mu, 0.0) + cuda.LN_EPS)
+    y = (xf - mu[:, None]) * (rsig[:, None] * scale) + bias
+    return y.to(x2d.dtype), mu, rsig
+
+
+def ln_bwd_plain(x2d, dy2d, mu, rsig, scale):
+    xf, dyf = x2d.float(), dy2d.float()
+    xhat = (xf - mu[:, None]) * rsig[:, None]
+    dxhat = dyf * scale
+    m1 = dxhat.mean(-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(-1, keepdim=True)
+    dx = rsig[:, None] * (dxhat - m1 - xhat * m2)
+    return dx.to(x2d.dtype), (dyf * xhat).sum(0), dyf.sum(0)
+
+
+def _f32(t, name, shape):
+    t = t.float().contiguous()
+    cuda.require(t, name, torch.float32, shape)
+    return t
+
+
+def ln_fwd(x2d, scale, bias):
+    """K17's forward kernel on a CUDA tensor, the twin on a CPU tensor."""
+    if not x2d.is_cuda:
+        return ln_fwd_plain(x2d, scale.float(), bias.float())
+    r, d = x2d.shape
+    dt = x2d.dtype
+    fn = cuda.entry_point("ln_fwd", dt)
+    x2d = x2d.contiguous()
+    cuda.require(x2d, "x", dt, (r, d))
+    scale, bias = _f32(scale, "scale", (d,)), _f32(bias, "bias", (d,))
+    y = torch.empty_like(x2d)
+    mu = torch.empty((r,), dtype=torch.float32, device=x2d.device)
+    rsig = torch.empty_like(mu)
+    FWD_LAUNCHES.n += 1
+    cuda.check(getattr(cuda.lib(), fn)(x2d.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                                       y.data_ptr(), mu.data_ptr(), rsig.data_ptr(), r, d,
+                                       cuda.stream_ptr()), fn)
+    return y, mu, rsig
+
+
+def splits_for(r: int, sms: int) -> int:
+    """Row splits of the backward: about BLOCKS_PER_SM blocks per SM, at
+    most one split per 8 rows (one per warp)."""
+    return max(1, min(-(-r // 8), BLOCKS_PER_SM * sms))
+
+
+def ln_bwd(x2d, dy2d, mu, rsig, scale):
+    """K17's backward kernel on CUDA tensors, the twin on CPU tensors; x
+    and dy share the dtype (f32 or bf16)."""
+    if not x2d.is_cuda:
+        return ln_bwd_plain(x2d, dy2d, mu, rsig, scale.float())
+    r, d = x2d.shape
+    dt = x2d.dtype
+    fn = cuda.entry_point("ln_bwd", dt)
+    x2d, dy2d = x2d.contiguous(), dy2d.contiguous()
+    cuda.require(x2d, "x", dt, (r, d))
+    cuda.require(dy2d, "dy", dt, (r, d))
+    mu, rsig = _f32(mu, "mu", (r,)), _f32(rsig, "rsig", (r,))
+    scale = _f32(scale, "scale", (d,))
+    splits = splits_for(r, torch.cuda.get_device_properties(x2d.device).multi_processor_count)
+    dx = torch.empty_like(x2d)
+    f32 = dict(dtype=torch.float32, device=x2d.device)
+    ds, db = torch.empty((d,), **f32), torch.empty((d,), **f32)
+    part = torch.empty((splits, 2, d), **f32)
+    BWD_LAUNCHES.n += 1
+    cuda.check(getattr(cuda.lib(), fn)(x2d.data_ptr(), dy2d.data_ptr(), mu.data_ptr(),
+                                       rsig.data_ptr(), scale.data_ptr(), dx.data_ptr(),
+                                       ds.data_ptr(), db.data_ptr(), part.data_ptr(), r, d,
+                                       splits, cuda.stream_ptr()), fn)
+    return dx, ds, db
+
+
+class _LayerNormApply(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias):
+        d = x.shape[-1]
+        x2 = x.reshape(-1, d)
+        y, mu, rsig = ln_fwd(x2, scale, bias)
+        ctx.save_for_backward(x2, scale, mu, rsig)
+        ctx.shape = x.shape
+        return y.view(x.shape)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, scale, mu, rsig = ctx.saved_tensors
+        # the cotangent in x's dtype, as JAX's VJP casts it (:232)
+        dx, ds, db = ln_bwd(x2, dy.reshape(x2.shape).to(x2.dtype), mu, rsig, scale)
+        return dx.view(ctx.shape), ds.to(scale.dtype), db.to(scale.dtype)
+
+
+def layernorm_apply(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """flax LayerNorm over the last axis of x through K17 -> y in x's
+    dtype; scale, bias [D] f32. Differentiable in all three."""
+    return _LayerNormApply.apply(x, scale, bias)

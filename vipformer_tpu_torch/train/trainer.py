@@ -1,9 +1,10 @@
 """Train and eval steps and their state (counterpart of
 vipformer_tpu/train/trainer.py: `create_state`, `make_pretrain_step`,
 `make_feats_fn`, `make_cls_step`, `make_cls_eval`, `make_partseg_step`,
-`make_partseg_eval`, `refine_partseg_pred`). The pretrain, classification
-and feature functions take either model family (the mp CrossFormers or the
-generic Perceivers): both return the same tuples.
+`make_partseg_eval`, `refine_partseg_pred`, `make_semseg_step`,
+`make_semseg_eval`). The pretrain, classification and feature functions
+take either model family (the mp CrossFormers or the generic Perceivers):
+both return the same tuples.
 
 One optimizer spans every model of the state, as in the reference
 (pretrain.py:106). A train step runs the train-mode forward (the BatchNorm
@@ -12,9 +13,9 @@ optimizer update. The pretrain step runs both point views concatenated
 through the point branch, the images through the image branch, and IMID +
 cmid_weight * CMID (NT-Xent, temperature 0.1); the classification step
 runs label-smoothed cross-entropy (0.2) on the finetune model's logits,
-the part-segmentation step the same over every point's logits (B*N rows).
-The state is updated in place and returned, so a loop reads like the JAX
-one.
+the part- and semantic-segmentation steps the same over every point's
+logits (B*N rows). The state is updated in place and returned, so a loop
+reads like the JAX one.
 """
 
 from __future__ import annotations
@@ -215,6 +216,40 @@ def make_partseg_eval(model: nn.Module):
             onehot = torch.nn.functional.one_hot(obj, NUM_OBJ_CLASSES).float()
             logits = model(_on(points, device), onehot)
         return logits, refine_partseg_pred(logits, obj)
+
+    return eval_step
+
+
+def make_semseg_step(cfg: Config, model: nn.Module):
+    """Returns step(state, batch, lr, generator=None) -> (state, metrics)
+    for the semantic-segmentation finetune (JAX trainer.py:296-316):
+    label-smoothed cross-entropy (0.2) over the B*N point rows, and the
+    point accuracy of the argmax.
+
+    batch: {"points": [B, N, point_channels], "seg": [B, N] int} as numpy
+    arrays or tensors; `state` from `create_state(cfg, {"pc": model})`."""
+    device = next(model.parameters()).device
+
+    def loss_fn(batch, generator):
+        seg = torch.as_tensor(batch["seg"], device=device, dtype=torch.int64)
+        logits = model(_on(batch["points"], device), generator)
+        loss = smoothed_cross_entropy(logits.reshape(-1, logits.shape[-1]), seg.reshape(-1), 0.2)
+        acc = (logits.detach().argmax(-1) == seg).float().mean()
+        return loss, {"loss": loss, "acc": acc}
+
+    return _make_step(cfg, [model], loss_fn)
+
+
+def make_semseg_eval(model: nn.Module):
+    """Returns eval_step(points [B, N, point_channels]) -> predicted
+    classes int64 [B, N] on the model's device: the eval forward's argmax
+    (JAX trainer.py:319-330)."""
+    device = next(model.parameters()).device
+
+    def eval_step(points):
+        model.eval()
+        with torch.inference_mode():
+            return model(_on(points, device)).argmax(-1)
 
     return eval_step
 
