@@ -125,7 +125,28 @@ goes on):
      turns), the eval forward, and (phase 17) the partseg step with K18
      forced against its default;
  29. the SVM probe (`fit_svm`, `score`) on the card against the CPU at
-     the synthetic ModelNet40 probe's sizes and at [9,840, 512].
+     the synthetic ModelNet40 probe's sizes and at [9,840, 512];
+ 30. hold K16 (fused FPS + kNN) against its twin and against K1 followed
+     by K2, bitwise, at the eval CLIs' [160, 1024] (G = 128, K = 32) and
+     semseg's [32, 4,096] xyz+rgb points, from index 0 and random starts,
+     timed beside K1 + K2; and K14 (head-split eval attention) against
+     its twin at dh = 64, dv = 32 and 64, M = 128 and 2,048, f32 and bf16,
+     timed beside SDPA;
+ 31. the evaluation entry points in process at the flagship (B=160, 1024
+     points, bf16, random weights from the seed): `cli.eval_zeroshot` on
+     the synthetic ModelNet40 (complexity, linear, RBF and grid-search
+     probes), `cli.eval_fewshot` on ScanObjectNN at 5-way 10-shot with 20
+     queries and 10 runs, and again with USE_FPS_KNN forced (K16 once per
+     feature batch, K1 / K2 never, the features equal bit for bit), each
+     launch count exact;
+ 32. the eval forward's time at B=160 with K1 + K2 and with K16 (in
+     turns, with the profiler's breakdown), and the zeroshot features at
+     f32, card against CPU (within STEP_TOL, the probes' predictions
+     agreeing on >= PROBE_AGREE of the test rows);
+ 33. under a forced USE_FUSED_ATTENTION, the Perceiver point feature
+     forward with num_cross_attention_v_channels = 128 (K14 once) and a
+     PerceiverEncoder with num_self_attention_v_channels = 128 (K14 at its
+     6 self-attention layers), exact launch counts.
 
 Prints the script's total seconds, the card's name and power limit, one
 JSON line of per-kernel results (time, twin's time, bound, launches on the
@@ -227,6 +248,10 @@ SEMSEG_FORCED_COUNTS = {"batchnorm_fwd": 4, "batchnorm_bwd": 4, "layernorm_fwd":
 # rgb gathered beside it), K4 over the 4,096 point tokens, K5 in the 12 SA
 # layers (K6's gate wants B >= 128)
 SEMSEG_EVAL_COUNTS = {"fps": 1, "knn": 1, "stem": 1, "attn_kv_ln": 1, "attn_small": 12}
+# the evaluation CLIs' feature batch (config.py's --test_batch_size) and the
+# Perceiver's unequal v width of phase 33 (dv = 32 at 4 heads; q/k 256)
+EVAL_BATCH = 160
+HEAD_SPLIT_V = 128
 # the probe's card and CPU fits follow one f32 objective in other summation
 # orders: a prediction may flip only where two classes' scores nearly tie
 PROBE_AGREE = 0.99
@@ -324,6 +349,11 @@ KERNELS = {
     "batchnorm": ("vipformer_tpu_torch/csrc/batchnorm.cu",
                   "vipformer_tpu/ops/pallas/batchnorm.py:178 bn_train_apply (fwd bn_stats_pallas "
                   ":74, bwd bn_grad_reduces_pallas :111)", "ft_semseg forced"),
+    "fps_knn": ("vipformer_tpu_torch/csrc/patchify.cu",
+                "vipformer_tpu/ops/pallas/patchify.py:103 fps_knn_pallas", "eval_fewshot fps_knn"),
+    "attn_head_split": ("vipformer_tpu_torch/csrc/mha.cu",
+                        "vipformer_tpu/ops/pallas/attention.py:71 fused_attention",
+                        "perceiver feats pc v128"),
 }
 SERVING_KERNELS = ("fps", "knn", "stem", "attn_kv_ln", "attn_small")
 # the launch counters of the pretrain path (K10's backward never runs there)
@@ -2582,10 +2612,291 @@ def check_probe() -> None:
         expect(agree >= PROBE_AGREE, f"probe predictions agree on only {agree:.4f} of rows")
 
 
+# ----------------------------------------------------------- evaluation
+def eval_args(exp: str, root: str, *extra) -> list:
+    """The eval CLIs' command line at the flagship (config.py's eval batch
+    B=160, 1024 points, bf16), on the synthetic sets, with no checkpoint
+    in `root`: the CLIs log their warning and evaluate the random init
+    from the seed."""
+    return ["--synthetic_data", "true", "--arch", ARCH, "--num_test_points", str(NUM_POINTS),
+            "--test_batch_size", str(EVAL_BATCH), "--compute_dtype", "bfloat16",
+            "--seed", str(SEED), "--run_dir", root, "--exp_name", exp, *extra]
+
+
+def eval_forward_counts(batches: int, fused: bool) -> dict:
+    """Exact launches of `batches` flagship eval forwards at B=160: the
+    stem's FPS + kNN (K16 with USE_FPS_KNN forced, else K1 and K2), K3, K4,
+    and K6 in the 8 self-attention layers (its gate holds at B >= 128)."""
+    select = {"fps_knn": 1} if fused else {"fps": 1, "knn": 1}
+    per = dict(select, stem=1, attn_kv_ln=1, attn_small_qkv_ln=8)
+    return {k: v * batches for k, v in per.items()}
+
+
+def check_patchify_and_head_split(rec: Recorder) -> None:
+    """(a) K16 against its twin and against K1 followed by K2 on the card,
+    bitwise, at the eval CLIs' [160, 1024] (G = 128, K = 32) and semseg's
+    [32, 4,096] xyz+rgb points, from index 0 and from random starts, timed
+    beside K1 + K2; K14 against its twin at dh = 64, dv = 32 and 64 and
+    M = 128 and 2,048 (the Perceiver's unequal-width sites), f32 and
+    bf16, timed at the point features' cross-attention beside SDPA."""
+    from vipformer_tpu_torch.ops.cuda import attention as kattn
+    from vipformer_tpu_torch.ops.cuda import fps as kfps
+    from vipformer_tpu_torch.ops.cuda import knn as kknn
+    from vipformer_tpu_torch.ops.cuda import patchify as kpatch
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 31)
+    g, k = 128, 32
+    print("K16 (fused FPS + kNN) against its twin and K1 + K2:")
+    for b, n, c in ((EVAL_BATCH, NUM_POINTS, 3), (SEMSEG_BATCH, SEMSEG_POINTS, 6)):
+        pts = torch.from_numpy(rng.uniform(-1, 1, (b, n, c)).astype(np.float32)).to(dev)
+        for start in (None, torch.from_numpy(rng.integers(0, n, b).astype(np.int32)).to(dev)):
+            s0 = torch.zeros(b, dtype=torch.int32, device=dev) if start is None else start
+            cidx, nidx = kpatch.fps_knn(pts, g, k, start)
+            want_c, want_n = kpatch.fps_knn_plain(pts[..., :3].contiguous(), g, k, s0)
+            idx, centers = kfps.fps(pts, g, start)
+            k2 = kknn.knn(k, pts, centers)
+            what = f"[{b},{n},{c}] {'random' if start is not None else 'index 0'} start"
+            expect(torch.equal(cidx, want_c) and torch.equal(nidx, want_n),
+                   f"fps_knn {what}: differs from its twin")
+            expect(torch.equal(cidx, idx) and torch.equal(nidx, k2),
+                   f"fps_knn {what}: differs from K1 + K2")
+            rec.check("fps_knn", f"{what} (equal to twin and K1+K2)", 0.0, 0.0, 0.0)
+        if b == EVAL_BATCH:
+            xyz = pts[..., :3].contiguous()
+            k1k2 = cuda_ms(lambda: kknn.knn(k, xyz, kfps.fps(xyz, g)[1]))
+            rec.timing("fps_knn", cuda_ms(lambda: kpatch.fps_knn(xyz, g, k)),
+                       cuda_ms(lambda: kpatch.fps_knn_plain(xyz, g, k, s0), iters=3, warmup=1),
+                       bound(nbytes(xyz, cidx, nidx), (9 + 8) * b * g * n, "float32"),
+                       shape=f"xyz[{b},{n},3] -> {g} x {k}")
+            rec.r["fps_knn"]["k1_k2_ms"] = k1k2
+            print(f"  K1 + K2 at the same shape: {k1k2:.4f} ms")
+
+    print("K14 (head-split eval attention) against its twin:")
+    b, h = PERCEIVER_FEATS_BATCH, 4
+    with torch.inference_mode():
+        for m in (128, 2048):
+            for dv in (32, 64):
+                for dt_name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+                    q = torch.from_numpy(rng.standard_normal((b, h, g, 64)).astype(
+                        np.float32)).to(dev, dt)
+                    kk = torch.from_numpy(rng.standard_normal((b, h, m, 64)).astype(
+                        np.float32)).to(dev, dt)
+                    v = torch.from_numpy(rng.standard_normal((b, h, m, dv)).astype(
+                        np.float32)).to(dev, dt)
+                    scale = 64 ** -0.5
+                    out = kattn.fused_attention(q, kk, v, scale=scale)
+                    ref = kattn.fused_attention_plain(q, kk, v, scale)
+                    rec.check("attn_head_split", f"M={m} dv={dv} {dt_name}", *rel_err(out, ref),
+                              KERNEL_TOL[dt_name])
+                    if m == 2048 and dv == 32 and dt_name == "bfloat16":
+                        import torch.nn.functional as F
+
+                        ops = 2 * b * h * g * m * (64 + dv)
+                        rec.timing("attn_head_split",
+                                   cuda_ms(lambda: kattn.fused_attention(q, kk, v, scale=scale)),
+                                   cuda_ms(lambda: kattn.fused_attention_plain(q, kk, v, scale)),
+                                   bound(nbytes(q, kk, v, out), ops, dt_name),
+                                   cuda_ms(lambda: F.scaled_dot_product_attention(
+                                       q, kk, v, scale=scale)),
+                                   shape=f"q[{b},{h},{g},64] kv[{m}] dv={dv} {dt_name}")
+
+
+def drive_eval_clis(counts_out: dict, times: dict) -> None:
+    """(b) the evaluation entry points in process, as a user calls them:
+    eval_zeroshot on the synthetic ModelNet40 (complexity, the linear, RBF
+    and grid-search probes on 800 / 200 clouds), eval_fewshot on
+    ScanObjectNN at scripts/fewshot/eval_fewshot-SO.sh's 5-way 10-shot
+    with 20 queries and 10 runs, and eval_fewshot again with USE_FPS_KNN
+    forced: exact launches (K16 once per feature batch and K1 / K2 never),
+    the results in range, and the forced run's features equal to the
+    default run's bit for bit."""
+    import tempfile
+
+    from vipformer_tpu_torch.cli import eval_fewshot, eval_zeroshot
+    from vipformer_tpu_torch.ops.cuda import patchify as kpatch
+
+    with tempfile.TemporaryDirectory() as root:
+        cfg, device = eval_zeroshot.parse_args(eval_args("zs", root, "--pt_dataset",
+                                                         "ModelNet40"))
+        expect(device == "cuda", "the eval CLI does not default to the card")
+        out: dict = {}
+        t0 = time.perf_counter()
+        counts = _counted("eval_zeroshot (ModelNet40, B=160)",
+                          lambda: out.update(eval_zeroshot.main(cfg, device)))
+        times["eval_zeroshot"] = time.perf_counter() - t0
+        counts_out["eval_zeroshot"] = counts
+        _expect_counts("eval_zeroshot", counts, eval_forward_counts(
+            -(-800 // EVAL_BATCH) + -(-200 // EVAL_BATCH), fused=False))
+        expect(set(out) == {"linear_acc", "rbf_acc", "grid_acc", "grid_best", "params",
+                            "flops_per_batch"}, f"eval_zeroshot returned {sorted(out)}")
+        expect(all(0.0 <= out[a] <= 1.0 for a in ("linear_acc", "rbf_acc", "grid_acc")),
+               f"eval_zeroshot accuracies out of range: {out}")
+        expect(out["params"] > 0 and out["flops_per_batch"] > 0, "empty complexity report")
+        print(f"  eval_zeroshot: {json.dumps(out)} in {times['eval_zeroshot']:.1f} s")
+
+        feats: dict = {}
+        extract = eval_fewshot.extract_features
+        for name, flag in (("eval_fewshot", None), ("eval_fewshot fps_knn", True)):
+            cfg, device = eval_fewshot.parse_args(eval_args(
+                name.replace(" ", "_"), root, "--ft_dataset", "ScanObjectNN", "--n_runs", "10",
+                "--k_way", "5", "--n_shot", "10", "--n_query", "20"))
+            saved = kpatch.USE_FPS_KNN
+            kpatch.USE_FPS_KNN = flag
+            eval_fewshot.extract_features = lambda *a, _n=name: feats.setdefault(
+                _n, extract(*a))
+            try:
+                t0 = time.perf_counter()
+                counts = _counted(f"{name} (ScanObjectNN 5w10s, 10 runs, B=160)",
+                                  lambda: out.update(eval_fewshot.main(cfg, device)))
+                times[name] = time.perf_counter() - t0
+            finally:
+                kpatch.USE_FPS_KNN = saved
+                eval_fewshot.extract_features = extract
+            counts_out[name] = counts
+            _expect_counts(name, counts, eval_forward_counts(-(-600 // EVAL_BATCH),
+                                                             fused=flag is True))
+            accs = out["accs"]
+            expect(len(accs) == 10 and all(0.0 <= a <= 100.0 for a in accs),
+                   f"{name}: accuracies {accs}")
+            print(f"  {name}: acc {out['mean']:.2f} +/- {out['std']:.2f} over 10 runs in "
+                  f"{times[name]:.1f} s")
+        (f0, l0), (f1, l1) = feats["eval_fewshot"], feats["eval_fewshot fps_knn"]
+        expect(np.array_equal(l0, l1), "the two few-shot runs read other labels")
+        expect(torch.equal(f0, f1), f"features with K16 differ from K1 + K2's by "
+                                    f"{(f0.float() - f1.float()).abs().max().item():.3e}")
+        print(f"  features {tuple(f0.shape)} {f0.dtype}: K16's route equal to K1 + K2's bit "
+              f"for bit")
+
+
+def time_eval_forward() -> None:
+    """(e) the eval CLIs' feature forward at the flagship, B=160, bf16:
+    the default route (K1 + K2) and K16 forced, in turns (default, forced,
+    forced, default; CUDA events over 10 forwards each), and the
+    profiler's breakdown of each route."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vipformer_tpu_torch.models.factory import build_pc_model
+    from vipformer_tpu_torch.ops.cuda import patchify as kpatch
+    from vipformer_tpu_torch.train.trainer import make_feats_fn
+
+    fn = make_feats_fn(build_pc_model(config(num_test_points=NUM_POINTS), device="cuda"))
+    rng = np.random.default_rng(SEED + 41)
+    pts = torch.from_numpy(rng.uniform(-1, 1, (EVAL_BATCH, NUM_POINTS, 3)).astype(
+        np.float32)).cuda()
+    saved = kpatch.USE_FPS_KNN
+    ms: dict = {None: [], True: []}
+    try:
+        for flag in (None, True, True, None):
+            kpatch.USE_FPS_KNN = flag
+            ms[flag].append(cuda_ms(lambda: fn(pts), iters=10))
+        print(f"eval forward at B={EVAL_BATCH} (bf16, CUDA events, in turns): K1 + K2 "
+              f"{ms[None][0]:.3f} / {ms[None][1]:.3f} ms, K16 {ms[True][0]:.3f} / "
+              f"{ms[True][1]:.3f} ms")
+        for flag, what in ((None, "eval forward (K1 + K2)"), (True, "eval forward (K16)")):
+            kpatch.USE_FPS_KNN = flag
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn(pts)
+                fn(pts)
+                torch.cuda.synchronize()
+            print_breakdown(prof, 2, float(np.mean(ms[flag])), what)
+    finally:
+        kpatch.USE_FPS_KNN = saved
+
+
+def compare_eval_with_cpu() -> None:
+    """(c) the zeroshot protocol at f32, card against CPU, the same weights:
+    the backbone features of the synthetic ModelNet40's 800 / 200 clouds
+    within STEP_TOL of max(1, max|cpu|), and the linear probes fitted on
+    each side's features predicting the same label on >= PROBE_AGREE of
+    the test rows."""
+    from vipformer_tpu_torch.cli.common import extract_features
+    from vipformer_tpu_torch.data.datasets import ModelNet40SVM
+    from vipformer_tpu_torch.evaluation.svm import fit_svm
+    from vipformer_tpu_torch.models.factory import build_pc_model
+    from vipformer_tpu_torch.train.trainer import make_feats_fn
+
+    cfg = config(compute_dtype="float32", num_test_points=NUM_POINTS)
+    splits = [ModelNet40SVM(s, NUM_POINTS) for s in ("train", "test")]
+    feats = {}
+    for d in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        fn = make_feats_fn(build_pc_model(cfg, device=d))
+        feats[d] = [extract_features(fn, ds, EVAL_BATCH) for ds in splits]
+        print(f"  f32 features on {d}: {time.perf_counter() - t0:.1f} s")
+    for (fg, _), (fc, _), split in zip(feats["cuda"], feats["cpu"], ("train", "test")):
+        err, rel = rel_err(fg.cpu(), fc)
+        print(f"  eval features card vs cpu ({split}, f32): max_abs_err={err:.3e} rel={rel:.3e} "
+              f"(bound {STEP_TOL:.0e})")
+        expect(rel <= STEP_TOL, f"eval features ({split}) differ card vs cpu by {rel:.3e}")
+    (tr_g, y_tr), (te_g, y_te) = feats["cuda"]
+    (tr_c, _), (te_c, _) = feats["cpu"]
+    p_card = fit_svm(tr_g, y_tr).predict(te_g)
+    p_cpu = fit_svm(tr_c, y_tr).predict(te_c)
+    agree = float((p_card == p_cpu).mean())
+    print(f"  probe on those features: accuracy card {float((p_card == y_te).mean()):.4f} cpu "
+          f"{float((p_cpu == y_te).mean()):.4f}, predictions agree on {agree:.4f} of rows "
+          f"(bound {PROBE_AGREE})")
+    expect(agree >= PROBE_AGREE, f"eval probe predictions agree on only {agree:.4f} of rows")
+
+
+def drive_perceiver_head_split(counts_out: dict) -> None:
+    """(d) the Perceiver sites whose v width differs from the q/k width,
+    under a forced USE_FUSED_ATTENTION, at the flagship's D=256 with 4
+    heads (dh 64, dv 32): the point feature forward through make_feats_fn
+    with num_cross_attention_v_channels = 128 at B=64 over 2,048 points
+    (K14 once at the cross-attention, K15 at the 6 equal-width self-
+    attention layers), and a PerceiverEncoder with
+    num_self_attention_v_channels = 128 over [64, 2,048, 256] tokens (K4 at
+    its cross-attention, K14 at the 6 self-attention layers); finite
+    outputs, exact launches, and each forward's time (CUDA events)."""
+    from vipformer_tpu_torch.models.factory import _perceiver_common
+    from vipformer_tpu_torch.models.perceiver_models import PerceiverFeatsModel
+    from vipformer_tpu_torch.nn.perceiver import PerceiverEncoder
+    from vipformer_tpu_torch.ops.cuda import attention as kattn
+    from vipformer_tpu_torch.train.trainer import make_feats_fn
+
+    cfg = perceiver_config()
+    common = _perceiver_common(cfg)
+    sa = cfg.num_sa_layers_per_block * cfg.num_sa_blocks
+    rng = np.random.default_rng(SEED + 37)
+    b, n, d = PERCEIVER_FEATS_BATCH, cfg.num_pt_points, cfg.num_latent_channels
+    pts = torch.from_numpy(rng.uniform(-1, 1, (b, n, 3)).astype(np.float32))
+    feats_model = PerceiverFeatsModel("pointcloud", cfg.num_pc_latents, device="cuda",
+                                      seed=SEED, num_cross_attention_v_channels=HEAD_SPLIT_V,
+                                      **common)
+    encoder = PerceiverEncoder(cfg.num_pc_latents, num_input_channels=d,
+                               num_self_attention_v_channels=HEAD_SPLIT_V,
+                               **common).cuda().eval()
+    tokens = torch.from_numpy(rng.standard_normal((b, n, d)).astype(np.float32)).cuda()
+    feats_fn = make_feats_fn(feats_model)
+    runs = (("perceiver feats pc v128", lambda: feats_fn(pts),
+             {"attn_head_split": 1, "attn_packed_kv": sa}),
+            ("perceiver encoder sa v128", lambda: encoder(tokens.to(common["dtype"])),
+             {"attn_kv_ln": 1, "attn_head_split": sa}))
+    saved = kattn.USE_FUSED_ATTENTION
+    kattn.USE_FUSED_ATTENTION = True
+    try:
+        for name, fn, want in runs:
+            out = {}
+            with torch.inference_mode():
+                counts = _counted(f"{name}: one forward at B={b}", lambda: out.update(o=fn()))
+            counts_out[name] = counts
+            _expect_counts(name, counts, want)
+            expect(bool(torch.isfinite(out["o"]).all()), f"{name}: non-finite output")
+            with torch.inference_mode():
+                ms = cuda_ms(fn, iters=10)
+            print(f"  {name}: output {tuple(out['o'].shape)} finite; {ms:.3f} ms a forward "
+                  f"(bf16, CUDA events)")
+    finally:
+        kattn.USE_FUSED_ATTENTION = saved
+
+
 # the hand-written kernels by name: those of csrc/*.cu in the vpt*
 # namespaces, and those in anonymous namespaces
-OUR_KERNELS = ("vpt", "fps_kernel", "knn_kernel", "stem_kernel", "attn_flash_kernel",
-               "attn_combine_kernel", "attn_small_kernel", "attn_small_qkv_ln_kernel")
+OUR_KERNELS = ("vpt", "fps_kernel", "knn_kernel", "fps_knn_kernel", "mha_kernel", "stem_kernel",
+               "attn_flash_kernel", "attn_combine_kernel", "attn_small_kernel",
+               "attn_small_qkv_ln_kernel")
 
 
 def ours_kernel(name: str) -> bool:
@@ -2734,6 +3045,14 @@ def main() -> int:
         del ss_train, ss_test
         torch.cuda.empty_cache()
         check_probe()
+        check_patchify_and_head_split(rec)
+        torch.cuda.empty_cache()
+        eval_counts: dict = {}
+        eval_times: dict = {}
+        drive_eval_clis(eval_counts, eval_times)
+        time_eval_forward()
+        compare_eval_with_cpu()
+        drive_perceiver_head_split(eval_counts)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -2750,7 +3069,7 @@ def main() -> int:
     print(smi)
     counts = {"serve": serve_counts, "pretrain": pretrain_counts, "ft_cls": ft_counts,
               "ft_cls eval": ft_eval_counts, **partseg_counts, **perceiver_counts,
-              **semseg_counts}
+              **semseg_counts, **eval_counts}
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernel_line(rec, counts)}))
     print(json.dumps({"ok": True, "device": {

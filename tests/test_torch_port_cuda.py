@@ -647,3 +647,53 @@ def test_semseg_step_forced_on_card_matches_cpu(dev):
         assert err <= tol * max(1.0, want.abs().max().item()), (k, err)
     for k, want in stats_c.items():
         assert (stats_g[k] - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item())
+
+
+# ---------------------------------------------------------------- K16, K14
+# K16 (fused FPS + kNN) equal to its twin and to K1 + K2 at ragged cloud
+# sizes, G = N and random starts; K14 (head-split attention) within
+# TOL of its twin at ragged G and M, every built width pair, and its
+# refusals (other widths, inputs that need a gradient).
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,g,k", [(3, 1000, 128, 32), (2, 4096, 128, 32), (2, 300, 300, 7),
+                                     (1, 33, 16, 33)])
+def test_fps_knn_kernel_matches_twin_and_k1_k2(dev, b, n, g, k):
+    from vipformer_tpu_torch.ops.cuda import patchify as kpatch
+
+    rng = np.random.default_rng(2)
+    xyz = _t(rng, (b, n, 3), dev)
+    start = torch.from_numpy(rng.integers(0, n, b).astype(np.int32)).to(dev)
+    cidx, nidx = kpatch.fps_knn(xyz, g, k, start)
+    want_c, want_n = kpatch.fps_knn_plain(xyz, g, k, start)
+    assert torch.equal(cidx, want_c) and torch.equal(nidx, want_n)
+    idx, centers = kfps.fps(xyz, g, start)
+    assert torch.equal(cidx, idx) and torch.equal(nidx, kknn.knn(k, xyz, centers))
+    with pytest.raises(ValueError, match="fps_knn kernel"):
+        kpatch.fps_knn(_t(rng, (1, 5000, 3), dev), 16, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh,dv", [(64, 64), (64, 32), (32, 64), (32, 32)])
+@pytest.mark.parametrize("b,h,g,m", [(2, 4, 128, 2048), (3, 2, 100, 77), (1, 3, 1, 5),
+                                     (2, 1, 513, 130)])
+def test_head_split_kernel_matches_twin(dev, b, h, g, m, dh, dv, dt):
+    rng = np.random.default_rng(3)
+    q, k = _t(rng, (b, h, g, dh), dev, dt), _t(rng, (b, h, m, dh), dev, dt)
+    v = _t(rng, (b, h, m, dv), dev, dt)
+    with torch.inference_mode():
+        got = kattn.fused_attention(q, k, v, scale=dh ** -0.5)
+    _assert_close(got, kattn.fused_attention_plain(q, k, v, dh ** -0.5), dt)
+
+
+@pytest.mark.cuda
+def test_head_split_kernel_refuses(dev):
+    rng = np.random.default_rng(4)
+    q, k, v = (_t(rng, (1, 2, 8, w), dev) for w in (48, 48, 64))
+    with pytest.raises(NotImplementedError, match="built for dh, dv"):
+        kattn.fused_attention(q, k, v, scale=0.1)
+    q, k, v = (_t(rng, (1, 2, 8, 64), dev).requires_grad_() for _ in range(3))
+    with pytest.raises(NotImplementedError, match="no backward"):
+        kattn.fused_attention(q, k, v, scale=0.1)

@@ -1,8 +1,9 @@
 """Shared CLI plumbing (counterpart of vipformer_tpu/cli/common.py: `setup`,
 `warn_patch_compat` and `extract_features`): the run directory, its log and
-its metrics stream, the stem-mode check of a restored checkpoint, and the
-batched feature extraction of the SVM probe. The port runs on one card, so
-there is no mesh and the batch needs no rounding."""
+its metrics stream, the stem-mode check of a restored checkpoint, the eval
+CLIs' checkpoint restore, and the batched feature extraction of the SVM
+probes. The port runs on one card, so there is no mesh and the batch
+needs no rounding."""
 
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import torch
 
 from vipformer_tpu_torch.config import Config
 from vipformer_tpu_torch.data.pipeline import Loader, collate_cls, pad_batch
-from vipformer_tpu_torch.train.checkpoint import load_metadata
+from vipformer_tpu_torch.train.checkpoint import branch_state, load_checkpoint, load_metadata
 
 
 class Run:
@@ -59,6 +60,35 @@ def warn_patch_compat(ckpt_path: str, cfg: Config, log) -> None:
         log(f"WARNING: checkpoint {ckpt_path} was trained with patch_compat={want} but config "
             f"has patch_compat={cfg.patch_compat}; pass --patch_compat "
             f"{str(bool(want)).lower()} to match its stem (see ops/geometry.py:divide_patches)")
+
+
+def require_synthetic_single_card(cfg: Config) -> None:
+    """ft_cls and the eval CLIs read the synthetic ModelNet40 /
+    ScanObjectNN stand-ins only and run on one card (the HDF5 readers and
+    multi-card runs are ROADMAP Queue 1 items)."""
+    if not cfg.synthetic_data:
+        raise NotImplementedError("only --synthetic_data true is ported: the HDF5 readers of "
+                                  "ModelNet40 / ScanObjectNN come with a later slice (ROADMAP)")
+    if cfg.num_devices > 1:
+        raise NotImplementedError("multi-card runs are not ported yet (ROADMAP Queue 1, "
+                                  "item 16): the port runs on one card")
+
+
+def restore_eval_model(model, cfg: Config, run: Run) -> str:
+    """The eval CLIs' restore of the whole model (JAX cli/eval_fewshot.py:
+    43-57, eval_zeroshot.py:42-56) from `pc_model_file` (a path, or a name
+    under the run's models/): the point branch of the pretrain CLI's
+    checkpoint (`pc_model_best`), or the single model of an ft_cls one
+    (`model_best`, for `--fewshot_model ft`), loaded strictly. A missing
+    file leaves the random init, with JAX's warning. Returns the path."""
+    path = cfg.pc_model_file if "/" in cfg.pc_model_file else run.model_path(cfg.pc_model_file)
+    warn_patch_compat(path, cfg, run.write)
+    if not os.path.exists(path):
+        run.write(f"WARNING: no checkpoint at {path}; evaluating raw init")
+        return path
+    model.load_state_dict(branch_state(load_checkpoint(path)))
+    run.write(f"loaded pretrained model from {path}")
+    return path
 
 
 def extract_features(feats_fn, dataset, batch_size: int):

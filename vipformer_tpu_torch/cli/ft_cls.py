@@ -33,7 +33,7 @@ import time
 
 import torch
 
-from vipformer_tpu_torch.cli.common import Run
+from vipformer_tpu_torch.cli.common import Run, require_synthetic_single_card
 from vipformer_tpu_torch.config import Config, add_config_args, config_from_namespace
 from vipformer_tpu_torch.data.datasets import ModelNet40SVM, ScanObjectNNSVM
 from vipformer_tpu_torch.data.pipeline import Loader, collate_cls, pad_batch
@@ -67,15 +67,10 @@ def evaluate(eval_step, test_set, batch_size: int) -> float:
 
 
 def _not_ported(cfg: Config) -> None:
-    if not cfg.synthetic_data:
-        raise NotImplementedError("only --synthetic_data true is ported: the HDF5 readers of "
-                                  "ModelNet40 / ScanObjectNN come with a later slice (ROADMAP)")
+    require_synthetic_single_card(cfg)
     for flag in ("resume_training", "dump_feats"):
         if getattr(cfg, flag):
             raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP Queue 1)")
-    if cfg.num_devices > 1:
-        raise NotImplementedError("multi-card runs are not ported yet (ROADMAP Queue 1, "
-                                  "item 16): the port trains on one card")
 
 
 def main(cfg: Config, device: str = "cuda") -> dict:

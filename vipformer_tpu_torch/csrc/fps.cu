@@ -13,21 +13,15 @@
 // step touches no memory except the centroid's 12 bytes (an L1 hit after
 // the first pass). The argmax is (value, index) with the FIRST index on
 // ties (fps.py:63-68): warp shuffles, then one shared-memory pass by warp
-// 0. Distances use vpt::sq_dist3 (no FMA contraction), in the Pallas order.
+// 0 (vpt::block_argmax_first, geometry.cuh, shared with K16). Distances use
+// vpt::sq_dist3 (no FMA contraction), in the Pallas order.
 // One block per cloud leaves SMs idle when B < 132 (32 of 132 busy at
 // B=32); splitting a cloud over a cluster is later work.
-#include "common.cuh"
+#include "geometry.cuh"
 
 namespace {
 
 constexpr int MAX_PPT = 8;  // points per thread held in registers
-
-__device__ __forceinline__ void argmax_pair(float& v, int& i, float ov, int oi) {
-  if (ov > v || (ov == v && oi < i)) {
-    v = ov;
-    i = oi;
-  }
-}
 
 __global__ void fps_kernel(const float* __restrict__ xyz, const int* __restrict__ start,
                            int* __restrict__ idx_out, float* __restrict__ centers_out,
@@ -35,7 +29,6 @@ __global__ void fps_kernel(const float* __restrict__ xyz, const int* __restrict_
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = nt >> 5;
   const float* cloud = xyz + (size_t)b * n * 3;
 
   float px[MAX_PPT], py[MAX_PPT], pz[MAX_PPT], dist[MAX_PPT];
@@ -80,30 +73,7 @@ __global__ void fps_kernel(const float* __restrict__ xyz, const int* __restrict_
         }
       }
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, best, off);
-      const int oi = __shfl_xor_sync(0xffffffffu, best_i, off);
-      argmax_pair(best, best_i, ov, oi);
-    }
-    if (lane == 0) {
-      s_val[warp] = best;
-      s_idx[warp] = best_i;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      float v = lane < nwarps ? s_val[lane] : -1.0f;
-      int i = lane < nwarps ? s_idx[lane] : n;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, i, off);
-        argmax_pair(v, i, ov, oi);
-      }
-      if (lane == 0) s_far = i;
-    }
-    __syncthreads();
-    far = s_far;
+    far = vpt::block_argmax_first(best, best_i, n, s_val, s_idx, &s_far);
   }
 }
 

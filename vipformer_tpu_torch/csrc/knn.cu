@@ -15,8 +15,9 @@
 // idx_bits = bit_length(N-1), d the f32 difference of squares summed over
 // c = 0, 1, 2 without FMA contraction (vpt::sq_dist3, knn.py:43-46); every
 // key is unique, so round r takes min(key > last) with a warp-min and
-// needs no tie handling. Output is nearest first, like the Pallas kernel.
-#include "common.cuh"
+// needs no tie handling (vpt::knn_key, vpt::knn_warp_select: geometry.cuh,
+// shared with K16). Output is nearest first, like the Pallas kernel.
+#include "geometry.cuh"
 
 namespace {
 
@@ -44,25 +45,13 @@ __global__ void knn_kernel(const float* __restrict__ points, const float* __rest
     const int i = lane + 32 * j;
     if (i < n) {
       const float d = vpt::sq_dist3(qx - sp[3 * i], qy - sp[3 * i + 1], qz - sp[3 * i + 2]);
-      keys[j] = (__float_as_int(d) & ~mask) | i;
+      keys[j] = vpt::knn_key(d, i, mask);
     } else {
       keys[j] = 0x7fffffff;
     }
   }
 
-  int* o = out + ((size_t)b * s + q) * k;
-  int thr = -1;  // below every non-negative key
-  for (int r = 0; r < k; ++r) {
-    int m = 0x7fffffff;
-#pragma unroll
-    for (int j = 0; j < KPL; ++j) {
-      if (keys[j] > thr && keys[j] < m) m = keys[j];
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) m = min(m, __shfl_xor_sync(0xffffffffu, m, off));
-    thr = m;
-    if (lane == 0) o[r] = m & mask;
-  }
+  vpt::knn_warp_select<KPL>(keys, k, mask, out + ((size_t)b * s + q) * k);
 }
 
 template <int KPL>
@@ -83,8 +72,7 @@ int launch(const float* p, const float* q, int* out, int b, int n, int s, int k,
 // Needs k <= N <= 4096 (keys per lane held in registers: 128 at N = 4096).
 extern "C" int knn_f32(const void* points, const void* queries, void* out, int b, int n, int s,
                        int k, void* stream) {
-  int idx_bits = 1;
-  while ((1 << idx_bits) < n) ++idx_bits;  // bit_length(n - 1), at least 1
+  const int idx_bits = vpt::knn_idx_bits(n);
   const float* p = (const float*)points;
   const float* q = (const float*)queries;
   int* o = (int*)out;

@@ -36,12 +36,7 @@ from vipformer_tpu_torch.nn.pointnet import (
     PositionEmb,
 )
 from vipformer_tpu_torch.ops.cuda.stem import fused_stem_supported, group2emb_fused_apply
-from vipformer_tpu_torch.ops.geometry import (
-    divide_patches,
-    farthest_point_sample_with_centers,
-    index_points,
-    knn,
-)
+from vipformer_tpu_torch.ops.geometry import divide_patches, fps_knn
 
 
 class MPEncoder(nn.Module):
@@ -119,16 +114,13 @@ class _PointPatchStem(nn.Module):
         pts_embs = self.input_adapter(pts.to(dt))
         if fused_stem_supported(self.num_latents, self.group_size, pts.shape[1],
                                 not self.training, self.patch_compat):
-            # eval fast path: FPS (K1) banks the centers, kNN (K2), then the
-            # gather + Group2Emb chain (K3) with no [B, G, S, C] tensor
-            fps_idx, centers = farthest_point_sample_with_centers(pts, self.num_latents)
-            if pts.shape[-1] > 3:
-                # the position embedding takes every channel of the centers,
-                # as the unfused path's `fps` gathers them; K1 banks the xyz
-                # only (JAX's fused path stops there and then fails its
-                # 6-channel PositionEmb: ROADMAP Queue 3)
-                centers = index_points(pts, fps_idx)
-            idx = knn(self.group_size, pts[..., :3], centers[..., :3])
+            # eval fast path: FPS and kNN (K1 and K2, or K16 where its flag
+            # forces it), then the gather + Group2Emb chain (K3) with no
+            # [B, G, S, C] tensor. The centers keep every channel for the
+            # position embedding, as the unfused path's; JAX's fused path
+            # keeps K1's xyz only and then fails its 6-channel PositionEmb
+            # (ROADMAP Queue 3)
+            _, centers, idx = fps_knn(pts, self.num_latents, self.group_size)
             group_embs = group2emb_fused_apply(self.group2emb, pts, centers, idx, dt)
         else:
             # train mode: FPS (K1, random start from `generator`), kNN (K2),

@@ -57,7 +57,9 @@ class _PerceiverBackbone(nn.Module):
 class PerceiverFeatsModel(_PerceiverBackbone):
     """Input adapter + PerceiverEncoder + pooled contrastive head (JAX
     perceiver_models.py:31-107): points [B, N, 3] or images [B, H, W, 3]
-    -> (projected_feats [B, D], backbone_feats [B, 2D])."""
+    -> (projected_feats [B, D], backbone_feats [B, 2D]). The keyword
+    arguments are the encoder's (JAX's fields, among them
+    `num_cross_attention_v_channels`; no CLI sets that one)."""
 
     def __init__(self, adapter: str, num_latents: int, num_latent_channels: int,
                  image_shape=(224, 224, 3), num_frequency_bands: int = 64, dtype=None,
@@ -78,7 +80,8 @@ class PerceiverClassifier(_PerceiverBackbone):
     [B, 2D]). `decoder="query"` is the output-query PerceiverDecoder (two
     SA layers) read by the `output_adapter`; "pooled" runs the pooled
     latents through the BN/ReLU head 2D -> D -> D/2 -> classes
-    (`decoder_var`)."""
+    (`decoder_var`). The encoder's keyword arguments as
+    PerceiverFeatsModel's."""
 
     def __init__(self, adapter: str, num_latents: int, num_latent_channels: int,
                  num_classes: int, decoder: str = "query", num_output_queries: int = 1,

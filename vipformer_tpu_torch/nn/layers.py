@@ -22,8 +22,11 @@ kv-folded training kernel K7 in `CrossAttention` (layers.py:605-650), the
 training flash kernel K8 in `MultiHeadAttention` (layers.py:487-511), and
 the Dense weight-gradient kernel K11 in every `Dense` whose rows fall in
 its window (layers.py:171-180); and, only where their flags force them
-(auto is off, as in JAX), the row LayerNorm K17 in `LayerNorm` and the
-train-mode BatchNorm reductions K18 in `BatchNorm`. The gates keep the
+(auto is off, as in JAX), the head-split attention K14 in
+`MultiHeadAttention` where no packed kernel takes the site (a v width
+other than the q/k width; ops/attention.py:53-67 of the JAX package),
+the row LayerNorm K17 in `LayerNorm` and the train-mode BatchNorm
+reductions K18 in `BatchNorm`. The gates keep the
 JAX conditions only (with each kernel's shared memory in place of the
 TPU's VMEM), so on the
 card a site the JAX package gives a kernel runs one, or fails where the
@@ -240,7 +243,9 @@ class MultiHeadAttention(nn.Module):
     Routes as the JAX module does, by the port's copies of its gates: in
     eval the k/v-projection-folded kernel K15, else (after the
     projections) the training kernel K8 in train mode, the streamed packed
-    kernel K13, the small-M kernel K5, and last the plain attention."""
+    kernel K13, the small-M kernel K5, and last the head-split attention:
+    K14 where its gate holds (the only kernel that takes v != qk), else the
+    plain attention with its dropout."""
 
     def __init__(self, d: int, num_heads: int, dtype=None, dropout: float = 0.0, *,
                  kv_in: int | None = None, qk_channels: int | None = None,
@@ -293,16 +298,20 @@ class MultiHeadAttention(nn.Module):
         def split(t):  # [B, N, H*C] -> [B, H, N, C]
             return t.view(t.shape[0], t.shape[1], h, -1).transpose(1, 2)
 
-        rate = self.dropout if self.training else 0.0
-        o = dot_product_attention(split(q), split(k), split(v), scale=self.scale,
-                                  dropout_rate=rate, generator=generator)
+        if kattn.fused_attention_enabled(self.dropout, self.training):
+            o = kattn.fused_attention(split(q), split(k), split(v), scale=self.scale)  # K14
+        else:
+            rate = self.dropout if self.training else 0.0
+            o = dot_product_attention(split(q), split(k), split(v), scale=self.scale,
+                                      dropout_rate=rate, generator=generator)
         b, _, n, c = o.shape
         return self.o_proj(o.transpose(1, 2).reshape(b, n, h * c))
 
 
 class CrossAttention(nn.Module):
     """Pre-LN cross-attention (separate q / kv norms; the kv norm over the
-    tokens' own width `kv_in`). Where the JAX gates hold (layers.py:
+    tokens' own width `kv_in`; the q/k, v and output widths as
+    MultiHeadAttention's). Where the JAX gates hold (layers.py:
     594-692) the kv LayerNorm and the k/v projections run inside the
     attention kernel: K7 (with dropout, and a backward into x, the LN and
     the weights) in train mode, K4 in eval; the q/o projections are the
@@ -311,12 +320,14 @@ class CrossAttention(nn.Module):
     and the MultiHeadAttention routes the rest."""
 
     def __init__(self, d: int, num_heads: int, dtype=None, dropout: float = 0.0, *,
-                 kv_in: int | None = None, qk_channels: int | None = None):
+                 kv_in: int | None = None, qk_channels: int | None = None,
+                 v_channels: int | None = None, out_channels: int | None = None):
         super().__init__()
         self.q_norm = LayerNorm(d, dtype)
         self.kv_norm = LayerNorm(kv_in or d, dtype)
         self.attention = MultiHeadAttention(d, num_heads, dtype, dropout, kv_in=kv_in,
-                                            qk_channels=qk_channels)
+                                            qk_channels=qk_channels, v_channels=v_channels,
+                                            out_channels=out_channels)
 
     def forward(self, x_q, x_kv, generator=None):
         att = self.attention
@@ -349,12 +360,15 @@ class SelfAttention(nn.Module):
     """Pre-LN self-attention. In eval, where K6's gate holds, the pre-LN
     and the q/k/v projections run inside K6 and only o_proj stays a Dense
     (JAX layers.py:725-758); elsewhere the MultiHeadAttention routes (K15
-    at 512 latents, where K6's tiles do not fit)."""
+    at 512 latents, where K6's tiles do not fit; K14 at unequal q/k and v
+    widths, which no packed kernel takes)."""
 
-    def __init__(self, d: int, num_heads: int, dtype=None, dropout: float = 0.0):
+    def __init__(self, d: int, num_heads: int, dtype=None, dropout: float = 0.0, *,
+                 qk_channels: int | None = None, v_channels: int | None = None):
         super().__init__()
         self.norm = LayerNorm(d, dtype)
-        self.attention = MultiHeadAttention(d, num_heads, dtype, dropout)
+        self.attention = MultiHeadAttention(d, num_heads, dtype, dropout,
+                                            qk_channels=qk_channels, v_channels=v_channels)
 
     def forward(self, x, generator=None):
         att = self.attention
@@ -385,14 +399,19 @@ class _ResidualLayer(nn.Module):
 class CrossAttentionLayer(_ResidualLayer):
     """Residual(cross-attn) + Residual(MLP). Train mode: attention dropout
     `atten_drop` inside the kernel and on the attention output, `mlp_drop`
-    on the MLP output, DropPath `drop_path_rate` on both sums."""
+    on the MLP output, DropPath `drop_path_rate` on both sums. The
+    residual adds the attention output to the queries, so `out_channels`
+    (JAX num_output_channels) can only be d here."""
 
     def __init__(self, d: int, num_heads: int, widening_factor: int = 1, dtype=None,
                  atten_drop: float = 0.0, mlp_drop: float = 0.0, drop_path_rate: float = 0.0, *,
-                 kv_in: int | None = None, qk_channels: int | None = None):
+                 kv_in: int | None = None, qk_channels: int | None = None,
+                 v_channels: int | None = None, out_channels: int | None = None):
         super().__init__()
+        if out_channels not in (None, d):
+            raise ValueError(f"the residual needs out_channels == d ({d}), got {out_channels}")
         self.CrossAttention_0 = CrossAttention(d, num_heads, dtype, atten_drop, kv_in=kv_in,
-                                               qk_channels=qk_channels)
+                                               qk_channels=qk_channels, v_channels=v_channels)
         self.MLP_0 = MLP(d, widening_factor, dtype)
         self.atten_drop, self.mlp_drop = atten_drop, mlp_drop
         self.drop_path_rate = drop_path_rate
@@ -410,9 +429,11 @@ class SelfAttentionLayer(_ResidualLayer):
 
     def __init__(self, d: int, num_heads: int, widening_factor: int = 1, dtype=None,
                  atten_drop: float = 0.0, mlp_drop: float = 0.0, drop_path_rate: float = 0.0,
-                 post_attn_drop: float | None = None):
+                 post_attn_drop: float | None = None, *, qk_channels: int | None = None,
+                 v_channels: int | None = None):
         super().__init__()
-        self.SelfAttention_0 = SelfAttention(d, num_heads, dtype, atten_drop)
+        self.SelfAttention_0 = SelfAttention(d, num_heads, dtype, atten_drop,
+                                             qk_channels=qk_channels, v_channels=v_channels)
         self.MLP_0 = MLP(d, widening_factor, dtype)
         self.post_attn_drop = atten_drop if post_attn_drop is None else post_attn_drop
         self.mlp_drop = mlp_drop
@@ -437,13 +458,14 @@ class SelfAttentionBlock(nn.Module):
 
     def __init__(self, num_layers: int, d: int, num_heads: int, widening_factor: int = 1,
                  dtype=None, max_dpr: float = 0.0, atten_drop: float = 0.0,
-                 mlp_drop: float = 0.0, post_attn_drop: float | None = None):
+                 mlp_drop: float = 0.0, post_attn_drop: float | None = None, *,
+                 qk_channels: int | None = None, v_channels: int | None = None):
         super().__init__()
         self.num_layers = num_layers
         for i, rate in enumerate(dpr_schedule(max_dpr, num_layers)):
             self.add_module(f"SelfAttentionLayer_{i}", SelfAttentionLayer(
                 d, num_heads, widening_factor, dtype, atten_drop, mlp_drop, rate,
-                post_attn_drop))
+                post_attn_drop, qk_channels=qk_channels, v_channels=v_channels))
 
     def forward(self, x, generator=None):
         for i in range(self.num_layers):

@@ -52,14 +52,20 @@ class PerceiverEncoder(nn.Module):
     its `_n` name, as in the flax tree, so its parameters are in the state
     dict and the optimizer once. Train mode: attention dropout
     `atten_drop` (also on the attention outputs), `mlp_drop` on the MLP
-    outputs, DropPath 0 -> `max_dpr` over each SA block's layers."""
+    outputs, DropPath 0 -> `max_dpr` over each SA block's layers. The
+    `num_*_qk_channels` / `num_*_v_channels` set the attentions' q/k and v
+    widths (default: the query width, and v = qk); a v width other than
+    the q/k width takes the head-split attention (K14 where forced)."""
 
     def __init__(self, num_latents: int, num_latent_channels: int, num_input_channels: int,
                  num_cross_attention_heads: int = 4,
                  num_cross_attention_qk_channels: int | None = None,
+                 num_cross_attention_v_channels: int | None = None,
                  num_cross_attention_layers: int = 1,
                  first_cross_attention_layer_shared: bool = False,
                  cross_attention_widening_factor: int = 1, num_self_attention_heads: int = 4,
+                 num_self_attention_qk_channels: int | None = None,
+                 num_self_attention_v_channels: int | None = None,
                  num_self_attention_layers_per_block: int = 6,
                  num_self_attention_blocks: int = 1,
                  first_self_attention_block_shared: bool = True,
@@ -80,12 +86,15 @@ class PerceiverEncoder(nn.Module):
             return CrossAttentionLayer(
                 d, num_cross_attention_heads, cross_attention_widening_factor, dtype,
                 atten_drop, mlp_drop, kv_in=num_input_channels,
-                qk_channels=num_cross_attention_qk_channels)
+                qk_channels=num_cross_attention_qk_channels,
+                v_channels=num_cross_attention_v_channels)
 
         def self_attn():
             return SelfAttentionBlock(
                 num_self_attention_layers_per_block, d, num_self_attention_heads,
-                self_attention_widening_factor, dtype, max_dpr, atten_drop, mlp_drop)
+                self_attention_widening_factor, dtype, max_dpr, atten_drop, mlp_drop,
+                qk_channels=num_self_attention_qk_channels,
+                v_channels=num_self_attention_v_channels)
 
         self.cross_attn_n = cross_attn()
         self.self_attn_n = self_attn()
@@ -115,12 +124,15 @@ class PerceiverDecoder(nn.Module):
     Cq] cross-attend to the latents [B, N, D] (`cross_attn`), then a
     SelfAttentionBlock without DropPath (`self_attn`). The output adapter
     that makes the queries and reads the result belongs to the model, as
-    in the flax tree."""
+    in the flax tree. The q/k and v widths as PerceiverEncoder's."""
 
     def __init__(self, num_latent_channels: int, num_query_channels: int,
                  num_cross_attention_heads: int = 4,
                  num_cross_attention_qk_channels: int | None = None,
+                 num_cross_attention_v_channels: int | None = None,
                  cross_attention_widening_factor: int = 1, num_self_attention_heads: int = 4,
+                 num_self_attention_qk_channels: int | None = None,
+                 num_self_attention_v_channels: int | None = None,
                  num_self_attention_layers_per_block: int = 2,
                  self_attention_widening_factor: int = 1, atten_drop: float = 0.0,
                  mlp_drop: float = 0.0, dtype=None):
@@ -128,10 +140,12 @@ class PerceiverDecoder(nn.Module):
         self.cross_attn = CrossAttentionLayer(
             num_query_channels, num_cross_attention_heads, cross_attention_widening_factor,
             dtype, atten_drop, mlp_drop, kv_in=num_latent_channels,
-            qk_channels=num_cross_attention_qk_channels)
+            qk_channels=num_cross_attention_qk_channels,
+            v_channels=num_cross_attention_v_channels)
         self.self_attn = SelfAttentionBlock(
             num_self_attention_layers_per_block, num_query_channels, num_self_attention_heads,
-            self_attention_widening_factor, dtype, 0.0, atten_drop, mlp_drop)
+            self_attention_widening_factor, dtype, 0.0, atten_drop, mlp_drop,
+            qk_channels=num_self_attention_qk_channels, v_channels=num_self_attention_v_channels)
 
     def forward(self, query: torch.Tensor, x_latent: torch.Tensor, generator=None):
         return self.self_attn(self.cross_attn(query.to(x_latent.dtype), x_latent, generator),

@@ -15,6 +15,7 @@ would not report it).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -47,6 +48,8 @@ _U = ctypes.c_uint
 SIGNATURES = {
     "fps_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
     "knn_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # K16 (xyz, start, centers_idx, neighbor_idx, b, n, g, k, stream)
+    "fps_knn_f32": [_P] * 4 + [_I] * 4 + [_P],
     "stem_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "stem_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "attn_kv_ln_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
@@ -87,6 +90,9 @@ SIGNATURES = {
     # K15 (q, x, wk, wv, out, part_acc, part_ml, b, g, m, din, h, nsplit, scale, stream)
     "attn_packed_kv_f32": [_P] * 7 + [_I] * 6 + [_F, _P],
     "attn_packed_kv_bf16": [_P] * 7 + [_I] * 6 + [_F, _P],
+    # K14 (q, k, v, out, bh, g, m, dh, dv, scale, stream)
+    "mha_f32": [_P] * 4 + [_I] * 5 + [_F, _P],
+    "mha_bf16": [_P] * 4 + [_I] * 5 + [_F, _P],
     # K6
     "attn_small_qkv_ln_f32": [_P] * 7 + [_I] * 4 + [_F, _P],
     "attn_small_qkv_ln_bf16": [_P] * 7 + [_I] * 4 + [_F, _P],
@@ -209,17 +215,19 @@ def require(t: torch.Tensor, name: str, dtype, shape=None) -> None:
 
 def _counters() -> dict[str, "LaunchCounter"]:
     from vipformer_tpu_torch.ops.cuda import (attention, batchnorm, dense, flash_train, fps,
-                                              g2e_train, gather, knn, layernorm, stem)
+                                              g2e_train, gather, knn, layernorm, patchify, stem)
 
     return {
         "fps": fps.LAUNCHES,
         "knn": knn.LAUNCHES,
+        "fps_knn": patchify.LAUNCHES,
         "stem": stem.LAUNCHES,
         "attn_kv_ln": attention.KV_LN_LAUNCHES,
         "attn_small": attention.SMALL_LAUNCHES,
         "attn_small_qkv_ln": attention.SMALL_QKV_LN_LAUNCHES,
         "attn_packed": attention.PACKED_LAUNCHES,
         "attn_packed_kv": attention.PACKED_KV_LAUNCHES,
+        "attn_head_split": attention.HEAD_SPLIT_LAUNCHES,
         "attn_train_kv_fwd": flash_train.KV_FWD_LAUNCHES,
         "attn_train_kv_bwd": flash_train.KV_BWD_LAUNCHES,
         "attn_train_fwd": flash_train.FWD_LAUNCHES,
@@ -236,6 +244,33 @@ def _counters() -> dict[str, "LaunchCounter"]:
         "layernorm_fwd": layernorm.FWD_LAUNCHES,
         "layernorm_bwd": layernorm.BWD_LAUNCHES,
     }
+
+
+@contextlib.contextmanager
+def plain_reference_mode():
+    """Force every kernel flag to its plain route for the duration, and
+    restore the flags after (counterpart of the JAX package's
+    `ops.pallas.xla_reference_mode`, ops/pallas/__init__.py:53-97): the
+    attention gates (K4-K6, K8, K13-K15), K11, K12, K16, K17 and K18 off.
+    Used to count a forward's products (evaluation/flops.py), which a
+    counter cannot see inside a kernel. The eval stem K3 and FPS, kNN and
+    the centered gather (K1, K2, K10) have no flag: on a CPU or meta
+    tensor their wrappers take the plain twins."""
+    from vipformer_tpu_torch.ops.cuda import (attention, batchnorm, dense, gather, layernorm,
+                                              patchify)
+
+    flags = ((attention, "USE_FUSED_ATTENTION"), (attention, "USE_SA_QKV_LN"),
+             (dense, "USE_DENSE_GRAD"), (gather, "USE_ROW_GATHER"),
+             (patchify, "USE_FPS_KNN"), (layernorm, "USE_LAYERNORM"),
+             (batchnorm, "USE_BN_TRAIN"))
+    saved = [getattr(mod, name) for mod, name in flags]
+    try:
+        for mod, name in flags:
+            setattr(mod, name, False)
+        yield
+    finally:
+        for (mod, name), value in zip(flags, saved):
+            setattr(mod, name, value)
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,6 +1,7 @@
 """K4, K5, K6, K13 and K15: eval attention on packed [B, tokens, H*dh]
-layouts (counterpart of ops/pallas/attention.py), and the gates that route
-each attention site to them.
+layouts, and K14 on the head-split [B, H, tokens, dh] one (counterpart of
+ops/pallas/attention.py), and the gates that route each attention site to
+them.
 
 * `fused_attention_packed_kv_ln` (K4, the cross-attention): the kv
   LayerNorm and the k/v projections run inside the kernel, softmax is
@@ -16,6 +17,12 @@ each attention site to them.
   cross-attention's 20,736 tokens).
 * `fused_attention_packed_kv` (K15): K13 with the bias-free k/v
   projections folded in, each kv chunk projected right before use.
+* `fused_attention` (K14, csrc/mha.cu): head-split q [B, H, G, dh] over
+  k [B, H, M, dh] and v [B, H, M, dv], the whole M per (b, h), softmax
+  normalised before PV; the only kernel that takes dv != dh, so it serves
+  the sites no packed kernel takes. `fused_attention_enabled` is the
+  copy of the JAX gate (attention.py:104-122): auto is off, on the card
+  too, and `USE_FUSED_ATTENTION` forces it.
 
 The gates are the port's copies of the JAX package's
 (`packed_attention_kv_enabled`, `packed_attention_enabled`,
@@ -42,6 +49,7 @@ SMALL_LAUNCHES = cuda.LaunchCounter()
 SMALL_QKV_LN_LAUNCHES = cuda.LaunchCounter()
 PACKED_LAUNCHES = cuda.LaunchCounter()
 PACKED_KV_LAUNCHES = cuda.LaunchCounter()
+HEAD_SPLIT_LAUNCHES = cuda.LaunchCounter()
 # Attention gates: None = auto (on the card, within each kernel's limits);
 # True / False force every attention kernel gate on or off.
 USE_FUSED_ATTENTION: bool | None = None
@@ -360,6 +368,65 @@ def fused_attention_packed_kv(q, x_kv, wk, wv, *, num_heads: int, scale: float) 
         cuda.stream_ptr(),
     ), fn)
     return out
+
+
+# ------------------------------------------------------------------ K14
+HEAD_SPLIT_WIDTHS = (32, 64)  # the head widths dh and dv K14 is built for
+
+
+def fused_attention_plain(q, k, v, scale: float):
+    """q [B, H, G, dh], k [B, H, M, dh], v [B, H, M, dv] -> [B, H, G, dv]
+    in v's dtype, as `_mha_kernel` (JAX attention.py:34-50): f32 logits,
+    p = exp(logits - max) / sum in f32, rounded to v's dtype, then an
+    f32-accumulated PV."""
+    logits = (q.float() @ k.float().transpose(-1, -2)) * scale
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    return (p.to(v.dtype).float() @ v.float()).to(v.dtype)
+
+
+def fused_attention(q, k, v, *, scale: float) -> torch.Tensor:
+    """Head-split eval attention (K14), shapes as `fused_attention_plain`,
+    q, k and v in one dtype. The kernel streams k and v, so it takes any G
+    and M (in place of the TPU's `fused_attention_fits` VMEM budget); it
+    is built for dh and dv in HEAD_SPLIT_WIDTHS, raises at other widths,
+    and has no backward, so it refuses inputs that need a gradient."""
+    if not q.is_cuda:
+        return fused_attention_plain(q, k, v, scale)
+    b, h, g, dh = q.shape
+    m, dv = k.shape[2], v.shape[3]
+    dt = v.dtype
+    fn = cuda.entry_point("mha", dt)
+    if dh not in HEAD_SPLIT_WIDTHS or dv not in HEAD_SPLIT_WIDTHS:
+        raise NotImplementedError(f"the mha kernel is built for dh, dv in {HEAD_SPLIT_WIDTHS}; "
+                                  f"got dh={dh}, dv={dv}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError("the mha kernel is an eval kernel with no backward")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    cuda.require(q, "q", dt, (b, h, g, dh))
+    cuda.require(k, "k", dt, (b, h, m, dh))
+    cuda.require(v, "v", dt, (b, h, m, dv))
+    out = torch.empty((b, h, g, dv), dtype=dt, device=q.device)
+    HEAD_SPLIT_LAUNCHES.n += 1
+    cuda.check(getattr(cuda.lib(), fn)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, g, m, dh, dv,
+        float(scale), cuda.stream_ptr(),
+    ), fn)
+    return out
+
+
+def fused_attention_enabled(dropout_rate: float, training: bool) -> bool:
+    """Whether a head-split attention runs K14: the JAX gate's conditions
+    (attention.py:104-122): no dropout in train mode, then
+    USE_FUSED_ATTENTION where it is forced, else False (its auto policy,
+    measured a tie on the TPU; the port keeps it, on the card too). Its
+    other conditions have no counterpart here: the port runs on one card
+    and its attention sites take no padding mask."""
+    if dropout_rate > 0.0 and training:
+        return False
+    if USE_FUSED_ATTENTION is not None:
+        return USE_FUSED_ATTENTION
+    return False
 
 
 # -------------------------------------------------------------- gates

@@ -1,7 +1,8 @@
 """Point-cloud geometry (counterpart of vipformer_tpu/ops/geometry.py).
 
 FPS and kNN go through the K1/K2 wrappers (`ops/cuda/fps.py`,
-`ops/cuda/knn.py`), and large row gathers through K12
+`ops/cuda/knn.py`), or through the fused K16 (`ops/cuda/patchify.py`)
+where its flag forces it (`fps_knn`), and large row gathers through K12
 (`ops/cuda/gather.py`): their CUDA kernels on a CUDA tensor, their plain
 twins on a CPU tensor. Selection always reads f32 coordinates, whatever the
 compute dtype. No TF32 anywhere: a reduced-precision distance flips kNN
@@ -15,6 +16,7 @@ import torch
 from vipformer_tpu_torch.ops.cuda import fps as _fps
 from vipformer_tpu_torch.ops.cuda import gather as _gather
 from vipformer_tpu_torch.ops.cuda import knn as _knn
+from vipformer_tpu_torch.ops.cuda import patchify as _patchify
 
 
 def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
@@ -96,6 +98,26 @@ def fps(pts, npoint: int, generator: torch.Generator | None = None):
     return index_points(pts, farthest_point_sample(pts, npoint, generator))
 
 
+def fps_knn(points, num_groups: int, group_size: int,
+            generator: torch.Generator | None = None):
+    """FPS centers of points [B, N, C] and the kNN of each -> (centers_idx
+    int32 [B, G], centers [B, G, C] in points' dtype, neighbor_idx int32
+    [B, G, K], nearest first); FPS, kNN and the centering read the xyz.
+
+    K16 runs both in one launch where `ops.cuda.patchify.USE_FPS_KNN`
+    forces it (the JAX package wires its fused kernel nowhere,
+    geometry.py:305-309), else K1 and K2. The indices are the same bits
+    either way, and so are the centers: K1 banks the xyz it read, and
+    `index_points` gathers the same values (all C channels where C > 3)."""
+    start = _start(points, generator)
+    if _patchify.fps_knn_enabled():
+        idx, nbr = _patchify.fps_knn(points, num_groups, group_size, start)
+        return idx, index_points(points, idx), nbr
+    idx, centers = _fps.fps(points, num_groups, start)
+    centers = index_points(points, idx) if points.shape[-1] > 3 else centers.to(points.dtype)
+    return idx, centers, _knn.knn(group_size, points, centers)
+
+
 def divide_patches(points, num_groups: int, group_size: int,
                    generator: torch.Generator | None = None, neighbor_dtype=None,
                    compat: bool = False):
@@ -109,8 +131,7 @@ def divide_patches(points, num_groups: int, group_size: int,
     neighbours of each group, after the row gather of `index_points` (K12
     on the card; geometry.py:295-349 of the JAX package). `generator`
     draws FPS's random start per cloud."""
-    centers = fps(points, num_groups, generator)
-    idx = knn(group_size, points[..., :3], centers[..., :3])
+    _, centers, idx = fps_knn(points, num_groups, group_size, generator)
     src = points.to(neighbor_dtype) if neighbor_dtype is not None else points
     if not compat:
         b = src.shape[0]
