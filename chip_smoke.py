@@ -83,7 +83,9 @@ goes on):
      hold K13 (streamed packed attention) at the Fourier cross-attention's
      [48, 128, 256] x [48, 20736, 256], at M = 1000 and at one query, and
      K15 (k/v projections folded in) at [64, 512, 256] and at Din = 384,
-     against their twins in f32 and bf16, timed (K13 beside SDPA); K8
+     against their twins in f32 and bf16, timed (K13 beside SDPA); K13's
+     bf16 tensor-core route twice, bitwise equal, and at the image shape
+     with its kv split forced to 1 against the planned split; K8
      forward and backward at M = 20,736 with dropout, and K5-K8 at the
      decoder's single query;
  19. Perceiver pretrain path: three `make_pretrain_step` steps of both
@@ -130,8 +132,9 @@ goes on):
      by K2, bitwise, at the eval CLIs' [160, 1024] (G = 128, K = 32) and
      semseg's [32, 4,096] xyz+rgb points, from index 0 and random starts,
      timed beside K1 + K2; and K14 (head-split eval attention) against
-     its twin at dh = 64, dv = 32 and 64, M = 128 and 2,048, f32 and bf16,
-     timed beside SDPA;
+     its twin at dh = 64, dv = 32 and 64, M = 128 and 2,048, f32 (CUDA
+     cores) and bf16 (tensor cores, two launches bitwise equal), timed
+     beside SDPA;
  31. the evaluation entry points in process at the flagship (B=160, 1024
      points, bf16, random weights from the seed): `cli.eval_zeroshot` on
      the synthetic ModelNet40 (complexity, linear, RBF and grid-search
@@ -146,7 +149,8 @@ goes on):
  33. under a forced USE_FUSED_ATTENTION, the Perceiver point feature
      forward with num_cross_attention_v_channels = 128 (K14 once) and a
      PerceiverEncoder with num_self_attention_v_channels = 128 (K14 at its
-     6 self-attention layers), exact launch counts.
+     6 self-attention layers), exact launch counts, each forward timed
+     with its profiler breakdown.
 
 Prints the script's total seconds, the card's name and power limit, one
 JSON line of per-kernel results (time, twin's time, bound, launches on the
@@ -466,7 +470,8 @@ class Recorder:
         e.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, shape=shape, **bnd)
         lib = f" library_ms={library_ms:.4f}" if library_ms is not None else ""
         print(f"  {name:18s} {shape:34s} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"bound_ms={bnd['bound_ms']:.4f} ({bnd['bound_by']}){lib}")
+              f"bound_ms={bnd['bound_ms']:.4f} ({bnd['bound_by']}, "
+              f"{100.0 * bnd['bound_ms'] / ms:.1f}% of it){lib}")
 
 
 def sdpa_bwd_ms(q, k, v, do, h, scale, rate) -> float:
@@ -1695,7 +1700,9 @@ def perceiver_ft_config(**over):
 def check_perceiver_kernels(rec: Recorder) -> None:
     """(a) K13 and K15 against their twins on the card, f32 and bf16, each
     error relative to the twin's own scale (OWN_SCALE), timed with CUDA
-    events (K13 beside SDPA); K8
+    events (K13 beside SDPA); K13's bf16 tensor-core route launched twice
+    bitwise equal, and at the image shape with its kv split forced to 1
+    (no merge pass) against the planned split, timed at each split; K8
     at the Fourier cross-attention's M = 20,736 (forward and backward, with
     dropout); K5-K8 at the decoder's single query."""
     from vipformer_tpu_torch.ops.cuda import attention as kattn
@@ -1725,7 +1732,12 @@ def check_perceiver_kernels(rec: Recorder) -> None:
                 out_p = kattn.attention_packed_plain(q, k, v, h, scale)
                 rec.check("attn_packed", f"[{bb},{gg}]x[{bb},{mm}] {dt_name}",
                           *rel_err(out_k, out_p, OWN_SCALE), KERNEL_TOL[dt_name])
+                if dt_name == "bfloat16":
+                    expect(torch.equal(out_k, kattn.fused_attention_packed(
+                        q, k, v, num_heads=h, scale=scale)),
+                           f"attn_packed [{bb},{gg}]x[{bb},{mm}]: two launches differ")
                 if mm == m_img and dt_name == "bfloat16":
+                    check_packed_splits(rec, q, k, v, h, scale, out_k)
                     fn = lambda: kattn.fused_attention_packed(q, k, v, num_heads=h, scale=scale)  # noqa: E731
                     rec.timing("attn_packed", cuda_ms(fn, iters=10),
                                cuda_ms(lambda: kattn.attention_packed_plain(q, k, v, h, scale),
@@ -1823,6 +1835,30 @@ def check_perceiver_kernels(rec: Recorder) -> None:
                                                                          scale=scale),
                                kattn.attention_small_qkv_ln_plain(*six, h, scale), OWN_SCALE),
                       KERNEL_TOL[dt_name])
+
+
+def check_packed_splits(rec: Recorder, q, k, v, h: int, scale: float, out_k) -> None:
+    """K13's bf16 route at the image shape with its kv split forced to 1
+    (one block walks all of M, no merge pass) against the planned split,
+    within KERNEL_TOL; each split's time, and the bytes the planned
+    split's partial states add (written once, read once by the merge)."""
+    from vipformer_tpu_torch.ops.cuda import attention as kattn
+
+    b, g, _ = q.shape
+    m = k.shape[1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    planned = kattn.packed_splits(v.dtype, b, g, m, h, sms)
+    one = kattn.fused_attention_packed_split(q, k, v, num_heads=h, scale=scale, nsplit=1)
+    rec.check("attn_packed", f"nsplit 1 vs {planned} bfloat16", *rel_err(one, out_k, OWN_SCALE),
+              KERNEL_TOL["bfloat16"])
+    times = {n: cuda_ms(lambda n=n: kattn.fused_attention_packed_split(
+        q, k, v, num_heads=h, scale=scale, nsplit=n), iters=10) for n in (1, 2, 3, 4, 6, 8)}
+    acc, ml = kattn.split_scratch_shapes(b, g, h, planned)
+    part = 2 * 4 * (int(np.prod(acc)) + int(np.prod(ml))) if planned > 1 else 0
+    print(f"  attn_packed bf16 kv split: planned {planned} on {sms} SMs; ms by split "
+          + ", ".join(f"{n}: {t:.4f}" for n, t in times.items())
+          + f"; the planned split's partials move {part / 1e6:.1f} MB "
+          f"({part / HBM_BYTES_PER_S * 1e3:.4f} ms at the memory rate)")
 
 
 def drive_perceiver_pretrain(counts_out: dict, batches) -> None:
@@ -2638,7 +2674,8 @@ def check_patchify_and_head_split(rec: Recorder) -> None:
     [32, 4,096] xyz+rgb points, from index 0 and from random starts, timed
     beside K1 + K2; K14 against its twin at dh = 64, dv = 32 and 64 and
     M = 128 and 2,048 (the Perceiver's unequal-width sites), f32 and
-    bf16, timed at the point features' cross-attention beside SDPA."""
+    bf16 (the tensor-core route launched twice, bitwise equal), timed at
+    the point features' cross-attention beside SDPA."""
     from vipformer_tpu_torch.ops.cuda import attention as kattn
     from vipformer_tpu_torch.ops.cuda import fps as kfps
     from vipformer_tpu_torch.ops.cuda import knn as kknn
@@ -2689,6 +2726,9 @@ def check_patchify_and_head_split(rec: Recorder) -> None:
                     ref = kattn.fused_attention_plain(q, kk, v, scale)
                     rec.check("attn_head_split", f"M={m} dv={dv} {dt_name}", *rel_err(out, ref),
                               KERNEL_TOL[dt_name])
+                    if dt_name == "bfloat16":
+                        expect(torch.equal(out, kattn.fused_attention(q, kk, v, scale=scale)),
+                               f"attn_head_split M={m} dv={dv}: two launches differ")
                     if m == 2048 and dv == 32 and dt_name == "bfloat16":
                         import torch.nn.functional as F
 
@@ -2849,7 +2889,10 @@ def drive_perceiver_head_split(counts_out: dict) -> None:
     attention layers), and a PerceiverEncoder with
     num_self_attention_v_channels = 128 over [64, 2,048, 256] tokens (K4 at
     its cross-attention, K14 at the 6 self-attention layers); finite
-    outputs, exact launches, and each forward's time (CUDA events)."""
+    outputs, exact launches, and each forward's time (CUDA events) with
+    its profiler breakdown."""
+    from torch.profiler import ProfilerActivity, profile
+
     from vipformer_tpu_torch.models.factory import _perceiver_common
     from vipformer_tpu_torch.models.perceiver_models import PerceiverFeatsModel
     from vipformer_tpu_torch.nn.perceiver import PerceiverEncoder
@@ -2886,17 +2929,22 @@ def drive_perceiver_head_split(counts_out: dict) -> None:
             expect(bool(torch.isfinite(out["o"]).all()), f"{name}: non-finite output")
             with torch.inference_mode():
                 ms = cuda_ms(fn, iters=10)
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    fn()
+                    fn()
+                    torch.cuda.synchronize()
             print(f"  {name}: output {tuple(out['o'].shape)} finite; {ms:.3f} ms a forward "
                   f"(bf16, CUDA events)")
+            print_breakdown(prof, 2, ms, name)
     finally:
         kattn.USE_FUSED_ATTENTION = saved
 
 
 # the hand-written kernels by name: those of csrc/*.cu in the vpt*
 # namespaces, and those in anonymous namespaces
-OUR_KERNELS = ("vpt", "fps_kernel", "knn_kernel", "fps_knn_kernel", "mha_kernel", "stem_kernel",
-               "attn_flash_kernel", "attn_combine_kernel", "attn_small_kernel",
-               "attn_small_qkv_ln_kernel")
+OUR_KERNELS = ("vpt", "fps_kernel", "knn_kernel", "fps_knn_kernel", "mha_kernel", "mha_tc_kernel",
+               "stem_kernel", "attn_flash_kernel", "attn_combine_kernel", "attn_packed_tc_kernel",
+               "attn_small_kernel", "attn_small_qkv_ln_kernel")
 
 
 def ours_kernel(name: str) -> bool:

@@ -223,6 +223,51 @@ def test_kv_splits_leave_no_split_empty(batch):
         assert n == 1
 
 
+# (B, G, M, H): K13's Fourier image shape, and token counts no 64-token
+# tile divides
+@pytest.mark.parametrize("b,g,m,h", [(48, 128, 20736, 4), (48, 128, 20735, 4), (8, 100, 1000, 2)])
+def test_tensor_core_split_plan_covers_every_token_once(b, g, m, h):
+    """The bf16 K13's split of its 64-token tiles over blocks on 132 SMs:
+    each split takes the kernel's ceil(tiles / nsplit) tiles in order, so
+    every token is covered once and no split is empty; the blocks fill at
+    least one wave at the kernel's occupancy where M has the tiles for it;
+    the partial states have the
+    merge pass's shapes."""
+    sms, tile = 132, kattn.TC_TILE_TOKENS
+    nsplit = kattn.packed_splits(torch.bfloat16, b, g, m, h, sms)
+    tiles = -(-m // tile)
+    per = -(-tiles // nsplit)  # tiles per split, as csrc/attention.cu computes it
+    covered = np.zeros(m, dtype=np.int64)
+    for split in range(nsplit):
+        lo, hi = split * per * tile, min(m, (split + 1) * per * tile)
+        assert lo < hi, split
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+    units = h * b * -(-g // kattn.TC_Q_TILE)  # (head, cloud, query tile) triples
+    blocks = units * nsplit
+    assert blocks >= sms
+    assert blocks >= min(sms * kattn.TC_BLOCKS_PER_SM, units * tiles)  # a wave, if M allows
+    assert nsplit > 1
+    assert kattn.split_scratch_shapes(b, g, h, nsplit) == ((b, h, nsplit, g, 64),
+                                                           (b, h, nsplit, g, 2))
+    assert kattn.split_scratch_shapes(b, g, h, 1) == ((1,), (1,))
+
+
+def test_attention_dtype_picks_the_kernel():
+    """K13 and K14: bf16 goes to the tensor-core entry points, f32 to the
+    CUDA-core ones, any other dtype raises; no CUDA-core bf16 entry point
+    is left."""
+    for base in ("attn_packed", "mha"):
+        assert kattn._tc_route(base, torch.bfloat16) == f"{base}_tc_bf16"
+        assert kattn._tc_route(base, torch.float32) == f"{base}_f32"
+        for dt in (torch.bfloat16, torch.float32):
+            assert kattn._tc_route(base, dt) in kcuda.SIGNATURES
+        assert f"{base}_bf16" not in kcuda.SIGNATURES
+        for dt in (torch.float16, torch.float64):
+            with pytest.raises(TypeError, match="float32 or bfloat16"):
+                kattn._tc_route(base, dt)
+
+
 def test_wrappers_validate_operands():
     with pytest.raises(ValueError, match="CUDA tensor"):
         kcuda.require(torch.zeros(2), "x", torch.float32)

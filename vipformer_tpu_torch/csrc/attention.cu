@@ -44,14 +44,49 @@
 // query rows x 4 tokens, PV 4 rows x 8 columns; a thread keeps the same 4
 // query rows throughout, so its rows' running max and sum stay in
 // registers and the row reductions are shuffles within 8 lanes.
-// Bound on the H100, K13: device memory. It reads k and v once per block
-// of 128 query rows (G <= 128 at its site: once), 1.02 GB at B = 48,
-// M = 20,736, against 2 x G x M x D MACs of f32 CUDA-core work; the
-// per-head column slices of a token are 128-byte rows, so the loads stay
-// coalesced. K15: the projection arithmetic, as K4's, redone by each of the
-// G/128 query tiles (4 at G = 512).
-// Design, K13 and K15: K4's kernel with the kv source as a template mode
-// (LN + projection, projection only, or k/v read directly), so the three
+// Bound on the H100, K13 (q [48, 128, 256], k/v [48, 20,736, 256], bf16):
+// device memory. k and v are 1.02 GB, read once per block of 128 query
+// rows (G <= 128 at its site: once): 0.306 ms at 3.35 TB/s. The products
+// are 4 x B x G x M x D = 130.5 GFLOP: 0.13 ms on the bf16 tensor cores,
+// but at least 1.95 ms on the f32 CUDA cores (67 TFLOP/s). K15: the
+// projection arithmetic, as K4's, redone by each of the G/128 query tiles
+// (4 at G = 512).
+// The dtype picks K13's kernel (ops/cuda/attention.py `_tc_route`): bf16
+// runs `tc::attn_packed_tc_kernel` below; f32 runs attn_flash_kernel's
+// KV_DIRECT mode, on the CUDA cores, because a tensor-core f32 product is
+// TF32 (about 3 decimal digits), which would break the f32 bound of 2e-5
+// against the twin and the 1e-4 card-vs-CPU checks.
+// Design, K13 bf16: one block of 4 warps per (head, cloud, 128 query
+// rows, kv split), each warp two tiles of 16 query rows (MT = 2: each
+// B fragment read from shared memory serves both, 4% faster than 8 warps
+// of 16 rows, PERF.md), with its q in registers as ldmatrix A fragments.
+// The split's k and v tiles of 64 tokens x this head's 64 columns (each
+// row 128 contiguous bytes at a stride of H x 128 bytes, 8 cp.async of 16
+// bytes) stream through a ring of 3 stages, rows padded to 72 bf16 so
+// that ldmatrix meets no bank conflict, with one barrier a tile and the
+// loads of the next two tiles in flight during a tile's products.
+// s = q.k on mma.sync m16n8k16 (bf16 in, f32 out), then the online
+// softmax of _packed_kernel (JAX attention.py:163-206) in registers: the
+// tile's row max over the quad of lanes that shares a row, corr =
+// exp(m - m_new), p = exp(s - m_new) in f32, l summing the unrounded p,
+// p rounded to bf16 in registers as the A fragments of P.V (v through
+// ldmatrix.trans), acc rescaled by corr and divided by l at the end. The
+// logits are kept in log2 units (s * scale * log2 e), so each exp is one
+// ex2.approx (within 2 ulp); the split states store m in natural units.
+// The tile is the 64 tokens of the JAX test case whose kv_chunk is 64
+// (tests/test_torch_perceiver_kernels.py CASES), the CPU witness of this
+// tile order. Tokens past M get -inf logits and zero-filled k/v rows;
+// query rows past G are neither computed into the output nor written. The
+// kv split (flash decoding) keeps the f32 part_acc / part_ml layout that
+// attn_combine_kernel merges; the planner (ops/cuda/attention.py
+// `packed_splits`) splits the 64-token tiles so that the card holds at
+// least one full wave of blocks, and its last wave is 90% full (4 splits
+// at the image shape: the partial states add 52 MB of writes and reads,
+// 0.016 ms at the memory rate). Per -Xptxas -v on the card (sm_90a): 235
+// registers, no spills, 73,728 bytes of shared memory a block, two
+// blocks to an SM.
+// Design, K15 and K13 f32: K4's kernel with the kv source as a template
+// mode (LN + projection, projection only, or k/v read directly), so they
 // share the tiles, the split over blocks and the merge pass.
 // Design, K5: one block per (cloud, head), two threads per query row, each
 // holding half of the row's dh accumulators (columns interleaved to spread
@@ -59,9 +94,10 @@
 // Numerics follow the Pallas kernels: LN in f32 with the fast variance and
 // eps 1e-5, cast to the compute dtype; k/v = f32-accumulated projections
 // rounded to the compute dtype; logits in f32; p cast to v's dtype before
-// PV; f32 accumulation. Plain CUDA-core FMAs; tensor cores (wgmma) are
-// later work.
+// PV; f32 accumulation. K4, K5, K6, K15 and K13's f32 route run plain
+// CUDA-core FMAs (tensor cores for them are later work).
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -375,6 +411,167 @@ __global__ void attn_combine_kernel(const float* __restrict__ part_acc,
     out[((size_t)b * g + r) * d + col] = vpt::from_f32<T>(a / l);
   }
 }
+
+// ------------------------------------------- K13, bf16, on the tensor cores
+namespace tc {
+
+using vpt::mma::bf16;
+using vpt::mma::KT;
+using vpt::mma::NT;
+constexpr int MT = 2;         // row tiles of 16 a warp
+constexpr int WARPS = 4;
+constexpr int QT = WARPS * MT * 16;  // query rows a block: 128
+constexpr int THREADS = WARPS * 32;
+constexpr int STAGES = 3;     // k/v tiles in flight
+constexpr int LD = DH + 8;    // padded shared row (bf16)
+constexpr size_t SMEM = sizeof(bf16) * (size_t)(QT + 2 * STAGES * KT) * LD;
+
+// One block per (head, cloud, 128 query rows x kv split): the split's
+// 64-token tiles [t_begin, t_end) stream through the ring; with
+// nsplit > 1 the block writes its unnormalised state for
+// attn_combine_kernel, else the output.
+__global__ void __launch_bounds__(THREADS, 2)
+attn_packed_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, bf16* __restrict__ out,
+                      float* __restrict__ part_acc, float* __restrict__ part_ml, int g, int m,
+                      int h, int nsplit, int tps, float scale) {
+  namespace mm = vpt::mma;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [QT][LD]
+  bf16* ks = qs + QT * LD;                       // [STAGES][KT][LD]
+  bf16* vs = ks + STAGES * KT * LD;              // [STAGES][KT][LD]
+  const int b = blockIdx.y, head = blockIdx.x;
+  const int split = blockIdx.z % nsplit, q0 = (blockIdx.z / nsplit) * QT;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nt = (m + KT - 1) / KT;
+  const int t_begin = split * tps, t_end = min(nt, t_begin + tps);
+  const int m_end = min(m, t_end * KT);  // a tile boundary but for the last split
+  const int d = h * DH;
+  const bf16* kb = k + (size_t)b * m * d + head * DH;
+  const bf16* vb = v + (size_t)b * m * d + head * DH;
+  auto load = [&](int t) {
+    const int slot = (t - t_begin) % STAGES;
+    mm::cp_rows<DH, KT, THREADS>(ks + slot * KT * LD, LD, kb, d, t * KT, m_end, tid);
+    mm::cp_rows<DH, KT, THREADS>(vs + slot * KT * LD, LD, vb, d, t * KT, m_end, tid);
+  };
+  // group 0: q and the first tile; then one group a tile
+  mm::cp_rows<DH, QT, THREADS>(qs, LD, q + (size_t)b * g * d + head * DH, d, q0, g, tid);
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (t_begin + st < t_end) load(t_begin + st);
+    mm::cp_async_commit();
+  }
+
+  const int row0 = warp * MT * 16;  // the warp's first row in the block
+  const bool active = q0 + row0 < g;
+  const float c = scale * mm::LOG2E;  // logits (and mx) in log2 units
+  uint32_t qa[MT][DH / 16][4];
+  float mx[MT][2], sum[MT][2], o[MT][DH / 8][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    mx[mt][0] = mx[mt][1] = -CUDART_INF_F;
+    sum[mt][0] = sum[mt][1] = 0.0f;
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n) o[mt][n][0] = o[mt][n][1] = o[mt][n][2] = o[mt][n][3] = 0.0f;
+  }
+  for (int t = t_begin; t < t_end; ++t) {
+    mm::cp_async_wait<STAGES - 2>();  // tile t has landed (this thread's copies)
+    __syncthreads();                  // ... everyone's; and tile t - 1 is consumed
+    if (t + STAGES - 1 < t_end) load(t + STAGES - 1);
+    mm::cp_async_commit();
+    if (!active) continue;
+    if (t == t_begin) mm::warp_a_frags<DH, MT>(qa, qs, LD, row0, lane);
+    const int slot = (t - t_begin) % STAGES;
+    float s[MT][NT][4];
+    mm::warp_scores<DH, MT>(s, qa, ks + slot * KT * LD, LD, lane);
+    // the online softmax of _packed_kernel: m_new, corr = exp(m - m_new),
+    // p = exp(s - m_new) in f32, l = l * corr + sum(p) over the unrounded
+    // p, acc = acc * corr + bf16(p) . v (exp as 2^ of the log2 units)
+    uint32_t pa[MT][KT / 16][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      mm::scale_and_mask(s[mt], c, t * KT, m_end, lane);
+      float tm[2], corr[2], ps[2] = {0.0f, 0.0f};
+      mm::tile_max(s[mt], tm);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float nm = fmaxf(mx[mt][r], tm[r]);
+        corr[r] = mm::exp2_approx(mx[mt][r] - nm);  // 0 on the first tile
+        mx[mt][r] = nm;
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[mt][n][e] = mm::exp2_approx(s[mt][n][e] - mx[mt][e >> 1]);  // p
+          ps[e >> 1] += s[mt][n][e];
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) sum[mt][r] = sum[mt][r] * corr[r] + ps[r];
+#pragma unroll
+      for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[mt][n][e] *= corr[e >> 1];
+      mm::p_frags(pa[mt], s[mt]);
+    }
+    mm::warp_pv<DH, MT>(o, pa, vs + slot * KT * LD, LD, lane);
+  }
+  mm::cp_async_wait<0>();
+  if (!active) return;
+  const int c0 = 2 * (lane & 3);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + row0 + 16 * mt + 8 * r + (lane >> 2);
+      const float l = mm::quad_sum(sum[mt][r]);  // all lanes take part: before the row test
+      if (row >= g) continue;
+      if (nsplit == 1) {
+        bf16* orow = out + ((size_t)b * g + row) * d + head * DH + c0;
+#pragma unroll
+        for (int n = 0; n < DH / 8; ++n)
+          *reinterpret_cast<uint32_t*>(orow + 8 * n) =
+              mm::pack_bf16x2(o[mt][n][2 * r] / l, o[mt][n][2 * r + 1] / l);
+      } else {  // this split's unnormalised state, for attn_combine_kernel
+        const size_t prow = (((size_t)b * h + head) * nsplit + split) * g + row;
+        float* acc = part_acc + prow * DH + c0;
+#pragma unroll
+        for (int n = 0; n < DH / 8; ++n)
+          *reinterpret_cast<float2*>(acc + 8 * n) =
+              make_float2(o[mt][n][2 * r], o[mt][n][2 * r + 1]);
+        if ((lane & 3) == 0) {
+          part_ml[2 * prow] = mx[mt][r] * mm::LN2;  // the merge pass takes natural units
+          part_ml[2 * prow + 1] = l;
+        }
+      }
+    }
+}
+
+int launch_packed(const void* q, const void* k, const void* v, void* out, void* part_acc,
+                  void* part_ml, int b, int g, int m, int h, int nsplit, float scale,
+                  cudaStream_t stream) {
+  const int nt = (m + KT - 1) / KT;
+  if (b < 1 || g < 1 || h < 1 || m < 1 || nsplit < 1 || nsplit > nt)
+    return (int)cudaErrorInvalidValue;
+  const int tps = (nt + nsplit - 1) / nsplit;  // tiles per split
+  if ((nsplit - 1) * tps >= nt) return (int)cudaErrorInvalidValue;  // no empty split
+  const cudaError_t attr = cudaFuncSetAttribute(
+      attn_packed_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  dim3 grid(h, b, ((g + QT - 1) / QT) * nsplit);
+  attn_packed_tc_kernel<<<grid, THREADS, SMEM, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, (float*)part_acc,
+      (float*)part_ml, g, m, h, nsplit, tps, scale);
+  if (nsplit > 1) {
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    attn_combine_kernel<bf16><<<b * g, 256, 0, stream>>>(
+        (const float*)part_acc, (const float*)part_ml, (bf16*)out, g, h, nsplit);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
 
 // ---------------------------------------------------------------- K5 (SA)
 template <typename T>
@@ -785,11 +982,13 @@ extern "C" int attn_packed_f32(const void* q, const void* k, const void* v, void
                               (cudaStream_t)stream);
 }
 
-extern "C" int attn_packed_bf16(const void* q, const void* k, const void* v, void* out,
-                                void* part_acc, void* part_ml, int b, int g, int m, int h,
-                                int nsplit, float scale, void* stream) {
-  return launch_packed<__nv_bfloat16>(q, k, v, out, part_acc, part_ml, b, g, m, h, nsplit,
-                                      scale, (cudaStream_t)stream);
+// bf16 on the tensor cores: nsplit counts splits of the 64-token tiles
+// (pointers 16-byte aligned).
+extern "C" int attn_packed_tc_bf16(const void* q, const void* k, const void* v, void* out,
+                                   void* part_acc, void* part_ml, int b, int g, int m, int h,
+                                   int nsplit, float scale, void* stream) {
+  return tc::launch_packed(q, k, v, out, part_acc, part_ml, b, g, m, h, nsplit, scale,
+                           (cudaStream_t)stream);
 }
 
 // K15: q [B, G, H*64], x [B, M, Din] tokens (already normalised by the

@@ -84,15 +84,16 @@ SIGNATURES = {
     # K11
     "dense_grads_f32": [_P] * 6 + [_I] * 4 + [_P],
     "dense_grads_bf16": [_P] * 6 + [_I] * 4 + [_P],
-    # K13 (q, k, v, out, part_acc, part_ml, b, g, m, h, nsplit, scale, stream)
+    # K13 (q, k, v, out, part_acc, part_ml, b, g, m, h, nsplit, scale, stream):
+    # f32 on the CUDA cores, bf16 on the tensor cores
     "attn_packed_f32": [_P] * 6 + [_I] * 5 + [_F, _P],
-    "attn_packed_bf16": [_P] * 6 + [_I] * 5 + [_F, _P],
+    "attn_packed_tc_bf16": [_P] * 6 + [_I] * 5 + [_F, _P],
     # K15 (q, x, wk, wv, out, part_acc, part_ml, b, g, m, din, h, nsplit, scale, stream)
     "attn_packed_kv_f32": [_P] * 7 + [_I] * 6 + [_F, _P],
     "attn_packed_kv_bf16": [_P] * 7 + [_I] * 6 + [_F, _P],
-    # K14 (q, k, v, out, bh, g, m, dh, dv, scale, stream)
+    # K14 (q, k, v, out, bh, g, m, dh, dv, scale, stream): as K13
     "mha_f32": [_P] * 4 + [_I] * 5 + [_F, _P],
-    "mha_bf16": [_P] * 4 + [_I] * 5 + [_F, _P],
+    "mha_tc_bf16": [_P] * 4 + [_I] * 5 + [_F, _P],
     # K6
     "attn_small_qkv_ln_f32": [_P] * 7 + [_I] * 4 + [_F, _P],
     "attn_small_qkv_ln_bf16": [_P] * 7 + [_I] * 4 + [_F, _P],

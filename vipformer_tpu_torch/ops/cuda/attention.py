@@ -33,9 +33,13 @@ None means auto, which is on the card only; True / False force, as the
 JAX package's flag of the same name, which also drives the training
 gates of ops/cuda/flash_train.py.
 
-Each launches `csrc/attention.cu` on CUDA tensors and runs its plain twin
-on CPU tensors. Numerics follow the Pallas kernels: f32 logits, `p` cast
-to v's dtype before an f32-accumulated PV.
+Each launches `csrc/attention.cu` (K14: `csrc/mha.cu`) on CUDA tensors
+and runs its plain twin on CPU tensors. Numerics follow the Pallas
+kernels: f32 logits, `p` cast to v's dtype before an f32-accumulated PV.
+
+K13 and K14 pick their kernel by dtype (`_tc_route`): bf16 runs on the
+tensor cores (mma.sync, csrc/mma.cuh), f32 on the CUDA cores, since a
+tensor-core f32 product is TF32 and would break the f32 bounds.
 """
 
 from __future__ import annotations
@@ -58,6 +62,10 @@ KV_CHUNK = 2048  # the Pallas kernel's kv chunk cap (attention.py:144)
 KV_Q_TILE = 128  # query rows per K4 block
 KV_CHUNK_TOKENS = 32  # kv tokens per K4 chunk
 KV_MAX_DIN = 1024  # the normalised chunk [Din, 36] f32 stays in shared memory
+TC_Q_TILE = 128  # query rows per block of the tensor-core kernels
+TC_TILE_TOKENS = 64  # kv tokens per tile of the tensor-core K13
+TC_BLOCKS_PER_SM = 2  # tensor-core K13 blocks an SM holds (its __launch_bounds__)
+TC_WAVE_FILL = 0.9  # the least share of its last wave's block slots K13's split fills
 SMALL_SMEM_BYTES = 227 * 1024  # dynamic shared memory a Hopper block can use
 
 
@@ -177,24 +185,81 @@ def fused_attention_packed_kv_ln(q, x_kv, ln_w, ln_b, wk, wv, *, num_heads: int,
     return out
 
 
-def kv_splits(blocks: int, nchunks: int, sms: int) -> int:
+def kv_splits(blocks: int, nchunks: int, sms: int, per_sm: int = 2) -> int:
     """How many blocks share one (cloud, head, query tile)'s kv chunks in
-    K4, K13 and K15: enough for about two blocks per SM, with no split
-    left empty."""
-    want = max(1, min(nchunks, -(-2 * sms // blocks)))
+    K4, K13 and K15: enough for `per_sm` blocks per SM (one full wave),
+    with no split left empty."""
+    want = max(1, min(nchunks, -(-per_sm * sms // blocks)))
     per = -(-nchunks // want)
     return -(-nchunks // per)
 
 
-def _split_scratch(q: torch.Tensor, b: int, g: int, m: int, h: int):
+def packed_splits(dt: torch.dtype, b: int, g: int, m: int, h: int, sms: int) -> int:
+    """K13's split of its kv tiles over blocks on a card of `sms` SMs, in
+    the tiles of the route that dtype `dt` takes. On the CUDA cores (f32),
+    K4's 32-token chunks (`kv_splits`). On the tensor cores (bf16), 64
+    tokens and 128 query rows a block, TC_BLOCKS_PER_SM to an SM: at least
+    one full wave, then more splits (up to 4x) until the last wave's slots
+    are TC_WAVE_FILL full, since a block that starts in a part-empty wave
+    leaves SMs idle while it runs (no split left empty)."""
+    if dt != torch.bfloat16:
+        return kv_splits(b * h * -(-g // KV_Q_TILE), -(-m // KV_CHUNK_TOKENS), sms)
+    units, tiles = b * h * -(-g // TC_Q_TILE), -(-m // TC_TILE_TOKENS)
+    slots = TC_BLOCKS_PER_SM * sms
+    least = kv_splits(units, tiles, sms, TC_BLOCKS_PER_SM)
+    for want in range(least, min(tiles, 4 * least) + 1):
+        n = -(-tiles // -(-tiles // want))  # the splits that ceil(tiles / want) tiles make
+        blocks = units * n
+        if blocks >= TC_WAVE_FILL * slots * -(-blocks // slots):
+            return n
+    return least
+
+
+def split_scratch_shapes(b: int, g: int, h: int, nsplit: int) -> tuple[tuple, tuple]:
+    """Shapes of the f32 partial states (part_acc, part_ml) that the merge
+    pass reads: [B, H, nsplit, G, 64] and [B, H, nsplit, G, 2]; a stub
+    when nothing is split."""
+    if nsplit == 1:
+        return (1,), (1,)
+    return (b, h, nsplit, g, KERNEL_HEAD_DIM), (b, h, nsplit, g, 2)
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _split_scratch(q: torch.Tensor, b: int, g: int, m: int, h: int, nsplit: int | None = None):
     """(nsplit, part_acc, part_ml): the split of the kv chunks over blocks
-    and the f32 scratch of the partial states the merge pass reads."""
-    nsplit = kv_splits(b * h * -(-g // KV_Q_TILE), -(-m // KV_CHUNK_TOKENS),
-                       torch.cuda.get_device_properties(q.device).multi_processor_count)
+    (K4's 32-token chunks unless given) and the f32 scratch of the partial
+    states the merge pass reads."""
+    if nsplit is None:
+        nsplit = kv_splits(b * h * -(-g // KV_Q_TILE), -(-m // KV_CHUNK_TOKENS), _sms(q.device))
     f32 = dict(dtype=torch.float32, device=q.device)
-    part_acc = torch.empty((b, h, nsplit, g, KERNEL_HEAD_DIM) if nsplit > 1 else (1,), **f32)
-    part_ml = torch.empty((b, h, nsplit, g, 2) if nsplit > 1 else (1,), **f32)
-    return nsplit, part_acc, part_ml
+    acc_shape, ml_shape = split_scratch_shapes(b, g, h, nsplit)
+    return nsplit, torch.empty(acc_shape, **f32), torch.empty(ml_shape, **f32)
+
+
+def _tc_route(base: str, dt: torch.dtype) -> str:
+    """The C entry point of K13 (`attn_packed`) or K14 (`mha`) for dtype
+    `dt`: bf16 on the tensor cores, f32 on the CUDA cores (a tensor-core
+    f32 product is TF32, about 3 decimal digits: it would break the 2e-5
+    f32 bound against the twin). Not a fallback: each dtype has one
+    kernel, and any other dtype raises."""
+    if dt == torch.bfloat16:
+        return f"{base}_tc_bf16"
+    if dt == torch.float32:
+        return f"{base}_f32"
+    raise TypeError(f"{base} kernel takes float32 or bfloat16, got {dt}")
+
+
+def _require_aligned(fn: str, **tensors: torch.Tensor) -> None:
+    """The tensor-core kernels load rows with 16-byte cp.async, so each
+    operand must start on a 16-byte boundary (every tensor the port makes
+    does; a view into the middle of a row does not)."""
+    if fn.endswith("_tc_bf16"):
+        for name, t in tensors.items():
+            if t.data_ptr() % 16:
+                raise ValueError(f"{fn}: {name} must start on a 16-byte boundary")
 
 
 def fused_attention_packed_small(q, k, v, *, num_heads: int, scale: float) -> torch.Tensor:
@@ -323,17 +388,29 @@ def fused_attention_packed(q, k, v, *, num_heads: int, scale: float) -> torch.Te
     `attention_packed_plain`; any G and M."""
     if not q.is_cuda:
         return attention_packed_plain(q, k, v, num_heads, scale)
+    nsplit = packed_splits(v.dtype, q.shape[0], q.shape[1], k.shape[1], num_heads,
+                           _sms(q.device))
+    return fused_attention_packed_split(q, k, v, num_heads=num_heads, scale=scale, nsplit=nsplit)
+
+
+def fused_attention_packed_split(q, k, v, *, num_heads: int, scale: float,
+                                 nsplit: int) -> torch.Tensor:
+    """K13 on CUDA tensors with its kv split given: `nsplit` blocks share
+    each (cloud, head, query tile)'s kv tiles, and a merge pass combines
+    their states (none at 1). `fused_attention_packed` passes the
+    planner's split; chip_smoke.py forces 1 to hold the merge."""
     b, g, d = q.shape
     m = k.shape[1]
     dt = v.dtype
-    fn = cuda.entry_point("attn_packed", dt)
+    fn = _tc_route("attn_packed", dt)
     require_head_width("attn_packed", d, num_heads)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     cuda.require(q, "q", dt, (b, g, d))
     cuda.require(k, "k", dt, (b, m, d))
     cuda.require(v, "v", dt, (b, m, d))
+    _require_aligned(fn, q=q, k=k, v=v)
     out = torch.empty((b, g, d), dtype=dt, device=q.device)
-    nsplit, part_acc, part_ml = _split_scratch(q, b, g, m, num_heads)
+    nsplit, part_acc, part_ml = _split_scratch(q, b, g, m, num_heads, nsplit)
     PACKED_LAUNCHES.n += 1
     cuda.check(getattr(cuda.lib(), fn)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
@@ -396,7 +473,7 @@ def fused_attention(q, k, v, *, scale: float) -> torch.Tensor:
     b, h, g, dh = q.shape
     m, dv = k.shape[2], v.shape[3]
     dt = v.dtype
-    fn = cuda.entry_point("mha", dt)
+    fn = _tc_route("mha", dt)
     if dh not in HEAD_SPLIT_WIDTHS or dv not in HEAD_SPLIT_WIDTHS:
         raise NotImplementedError(f"the mha kernel is built for dh, dv in {HEAD_SPLIT_WIDTHS}; "
                                   f"got dh={dh}, dv={dv}")
@@ -406,6 +483,7 @@ def fused_attention(q, k, v, *, scale: float) -> torch.Tensor:
     cuda.require(q, "q", dt, (b, h, g, dh))
     cuda.require(k, "k", dt, (b, h, m, dh))
     cuda.require(v, "v", dt, (b, h, m, dv))
+    _require_aligned(fn, q=q, k=k, v=v)
     out = torch.empty((b, h, g, dv), dtype=dt, device=q.device)
     HEAD_SPLIT_LAUNCHES.n += 1
     cuda.check(getattr(cuda.lib(), fn)(
