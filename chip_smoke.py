@@ -13,7 +13,10 @@ goes on):
   2. turn TF32 off for matmuls and cuDNN;
   3. hold each serving kernel K1-K5 against its plain PyTorch twin on the
      card at the flagship serving shapes (B = 32 and 64; K1/K2 on f32
-     points, K3-K5 in f32 and bf16), and time both with CUDA events;
+     points, K3-K5 in f32 and bf16), and time both with CUDA events; the
+     bf16 K5 (tensor cores) launched again, bitwise equal, and timed on
+     device time (calls queued behind a spin kernel: its wrapper costs the
+     host more than the card) beside SDPA's;
   4. serving path: build the flagship classifier (ARCH, decoded by the
      port's Config, through the port's factory; random weights from a
      seed) in bf16 on the card, serve ragged requests through
@@ -36,8 +39,10 @@ goes on):
      and where it goes (kernel sums from torch.profiler);
   9. hold the finetune kernels against their twins: K11 (Dense weight
      gradients) at the ft_cls step's 42,240 rows and each of its five
-     (Cin, Cout), and at an odd row count, in f32 and bf16, beside cuBLAS
-     plus a column sum; K6 (self-attention with the pre-LN and q/k/v
+     (Cin, Cout), and at an odd row count, in f32 and bf16 (the bf16
+     tensor-core route launched twice, bitwise equal, at 256->256 and
+     Cin = 3), timed on device time beside cuBLAS plus a column sum, and
+     its sum over one step; K6 (self-attention with the pre-LN and q/k/v
      folded in) at [330, 128, 256] and [64, 128, 256], in f32 and bf16,
      beside the route it replaces (LayerNorm, three cuBLAS projections,
      K5);
@@ -64,7 +69,7 @@ goes on):
  14. hold the earlier kernels against their twins once at part
      segmentation's widths (D=384, 6 heads): K3, K4, K5, K7 and K8 forward
      and backward, K9 at D=384, and K11 at its five partseg sites (98,304
-     rows), in f32 and bf16;
+     rows), in f32 and bf16 (bf16 timed on device time);
  15. partseg path (scripts/finetune/ft-partseg.sh: H6D384, 12 SA layers
      tapped at 2/6/10, B=96) on synthetic ShapeNetPart in bf16: three
      `make_partseg_step` steps with patch_compat off (K1, K2, K7-K9
@@ -157,6 +162,16 @@ JSON line of per-kernel results (time, twin's time, bound, launches on the
 main path and on every path that ran the kernel), and last the line
 {"ok": true, "device": {...}}. Imports nothing of JAX and nothing
 of the JAX package (vipformer_tpu).
+
+To compare this checkout with another commit on one card (unpack the other
+with `git archive` into a directory that .gitignore lists):
+
+    python3 chip_smoke.py --ab OTHER_TREE [PAIRS]
+
+times both in turns, PAIRS pairs (10 by default), each sample in its own
+process: the host time of a K5 and a K11 wrapper call (with the card idle
+and busy), the serving forward at B = 32 and 64 and the ft_cls step at
+B = 330, with their kernels' device time.
 """
 
 from __future__ import annotations
@@ -431,6 +446,14 @@ def device_ms(fn, iters: int = 20) -> float | None:
     return None
 
 
+def queued_ms(fn, what: str, iters: int = 20) -> float:
+    """device_ms, which must measure: the kernels of K5 and K11 take less
+    time on the card than their wrappers on the host."""
+    ms = device_ms(fn, iters)
+    expect(ms is not None, f"{what}: the host could not queue ahead of the card")
+    return ms
+
+
 def rel_err(got, ref, floor: float = 1.0) -> tuple[float, float]:
     """(max abs error, max abs error / max(floor, max |ref|)) in f32.
     floor=0 holds the error against the reference's own scale (OWN_SCALE)."""
@@ -492,17 +515,21 @@ def sdpa_bwd_ms(q, k, v, do, h, scale, rate) -> float:
     return cuda_ms(run)
 
 
-def sdpa_ms(q, k, v, h, scale, rate) -> float:
+def sdpa_call(q, k, v, h, scale, rate=0.0):
     """One PyTorch call computing the same attention: SDPA on the
-    head-split views (with its own dropout draw at `rate`)."""
+    head-split views of packed [B, N, H*dh] operands (with its own dropout
+    draw at `rate`)."""
     import torch.nn.functional as F
 
     def split(t):
         return t.view(t.shape[0], t.shape[1], h, -1).transpose(1, 2)
 
-    qh, kh, vh = split(q), split(k), split(v)
-    return cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, dropout_p=rate,
-                                                          scale=scale))
+    return F.scaled_dot_product_attention(split(q), split(k), split(v), dropout_p=rate,
+                                          scale=scale)
+
+
+def sdpa_ms(q, k, v, h, scale, rate) -> float:
+    return cuda_ms(lambda: sdpa_call(q, k, v, h, scale, rate))
 
 
 def grads_of(models: dict) -> dict:
@@ -678,14 +705,32 @@ def check_serving_kernels(rec: Recorder) -> None:
                 out_p = kattn.attention_small_plain(*qkv, h, scale)
                 rec.check("attn_small", f"B={b} {dt_name}", *rel_err(out_k, out_p),
                           KERNEL_TOL[dt_name])
-                if timed(b, dt_name, "attn_small"):
-                    rec.timing("attn_small",
-                               cuda_ms(lambda: kattn.fused_attention_packed_small(
-                                   *qkv, num_heads=h, scale=scale)),
-                               cuda_ms(lambda: kattn.attention_small_plain(*qkv, h, scale)),
-                               bound(nbytes(*qkv, out_k), 4 * b * g * g * d, dt_name),
-                               sdpa_ms(*qkv, h, scale, 0.0),
-                               shape=f"[{b},{g},{d}] H={h} {dt_name}")
+                if dt_name == "bfloat16":
+                    check_small_tiles(rec, qkv, out_k, h, scale, b == max(BATCHES))
+
+
+def check_small_tiles(rec: Recorder, qkv, out_k, h: int, scale: float, keep: bool) -> None:
+    """The bf16 K5 (tensor cores) at the serving shape: launched again,
+    bitwise equal, and timed on device time beside SDPA in the same run
+    (events without the spin beside them); its time goes into the JSON
+    line where `keep`."""
+    from vipformer_tpu_torch.ops.cuda import attention as kattn
+
+    b, g, d = qkv[0].shape
+    run = lambda: kattn.fused_attention_packed_small(*qkv, num_heads=h, scale=scale)  # noqa: E731
+    expect(torch.equal(out_k, run()), f"attn_small B={b}: two launches differ")
+    ms = queued_ms(run, f"attn_small B={b}", iters=50)
+    sdpa = queued_ms(lambda: sdpa_call(*qkv, h, scale), f"SDPA B={b}", iters=50)
+    host, sdpa_host = cuda_ms(run, iters=50), sdpa_ms(*qkv, h, scale, 0.0)
+    print(f"  {'attn_small':18s} B={b} bf16 device time {ms:.4f} ms, SDPA {sdpa:.4f} ms; events "
+          f"without the spin (host-bound): kernel {host:.4f} ms, SDPA {sdpa_host:.4f} ms; two "
+          f"launches bitwise equal")
+    if keep:
+        rec.timing("attn_small", ms,
+                   cuda_ms(lambda: kattn.attention_small_plain(*qkv, h, scale)),
+                   bound(nbytes(*qkv, out_k), 4 * b * g * g * d, "bfloat16"), sdpa,
+                   shape=f"[{b},{g},{d}] H={h} bfloat16")
+        rec.r["attn_small"].update(host_ms=host, library_host_ms=sdpa_host)
 
 
 def serving_model(dt: str, device):
@@ -1095,19 +1140,33 @@ def check_ft_cls_kernels(rec: Recorder, route_ms: dict) -> None:
             rec.check("dense_grads", what + " db", *rel_err(db_k, db_p), GRAD_TOL[dt_name])
             if dt_name != "bfloat16" or r != rows:
                 continue
-            ms = cuda_ms(lambda: kdense.dense_grads(x, dy))
+            if (ci, co) in ((256, 256), (3, 128)):  # the tensor-core route: the same bits again
+                dw2, db2 = kdense.dense_grads(x, dy)
+                expect(torch.equal(dw_k, dw2) and torch.equal(db_k, db2),
+                       f"dense_grads {what}: two launches differ")
+                print(f"  {'dense_grads':18s} {what}: two launches bitwise equal")
+            # device times (queued behind a spin: the wrapper's host cost
+            # exceeds the kernel's), the host-bound event times beside them
+            kernel = lambda: kdense.dense_grads(x, dy)  # noqa: E731
+            library = lambda: (x.t() @ dy, dy.sum(0))  # noqa: E731
+            ms, lib_ms = queued_ms(kernel, what), queued_ms(library, what + " library")
+            host_ms, lib_host_ms = cuda_ms(kernel), cuda_ms(library)
             per_step += ms * DENSE_SITES[(ci, co)]
             bnd = bound(nbytes(x, dy, dw_k, db_k), 2 * r * ci * co + r * co, dt_name)
-            args = (ms, cuda_ms(lambda: kdense.dense_grads_plain(x, dy)), bnd,
-                    cuda_ms(lambda: (x.t() @ dy, dy.sum(0))))
+            args = (ms, cuda_ms(lambda: kdense.dense_grads_plain(x, dy)), bnd, lib_ms)
             shape = f"x[{r},{ci}] dy[{r},{co}] bf16"
             if (ci, co) == (256, 256):  # the step's most frequent site
                 rec.timing("dense_grads", *args, shape=shape)
+                rec.r["dense_grads"].update(host_ms=host_ms, library_host_ms=lib_host_ms)
             else:
                 print(f"  {'dense_grads':18s} {shape:34s} kernel_ms={ms:.4f} plain_ms={args[1]:.4f} "
-                      f"bound_ms={bnd['bound_ms']:.4f} ({bnd['bound_by']}) library_ms={args[3]:.4f}")
+                      f"bound_ms={bnd['bound_ms']:.4f} ({bnd['bound_by']}, "
+                      f"{100.0 * bnd['bound_ms'] / ms:.1f}% of it) library_ms={lib_ms:.4f}")
+            print(f"  {'dense_grads':18s} {shape:34s} device times; events without the spin "
+                  f"(host-bound): kernel {host_ms:.4f} ms, library {lib_host_ms:.4f} ms")
     rec.r["dense_grads"]["ms_per_step"] = per_step
-    print(f"  K11 per ft_cls step (54 launches at the sites' shapes): {per_step:.4f} ms")
+    print(f"  K11 per ft_cls step (54 launches at the sites' shapes, device time): "
+          f"{per_step:.4f} ms")
 
     # K6 at the eval batch and the serving batch; the route it replaces is
     # the plain LayerNorm, three cuBLAS projections and K5
@@ -1493,15 +1552,17 @@ def check_partseg_widths(rec: Recorder) -> None:
             rec.check("dense_grads", what + " db", *rel_err(db_k, db_p), GRAD_TOL[dt_name])
             if dt_name != "bfloat16":
                 continue
-            ms = cuda_ms(lambda: kdense.dense_grads(x, dy))
+            # device times, as at the ft_cls sites
+            ms = queued_ms(lambda: kdense.dense_grads(x, dy), what)
             per_step += ms * PARTSEG_DENSE_SITES[(ci, co)]
             bnd = bound(nbytes(x, dy, dw_k, db_k), 2 * rows * ci * co + rows * co, dt_name)
             print(f"  {'dense_grads':18s} x[{rows},{ci}] dy[{rows},{co}] bf16{'':8s} "
                   f"kernel_ms={ms:.4f} plain_ms={cuda_ms(lambda: kdense.dense_grads_plain(x, dy)):.4f} "
-                  f"bound_ms={bnd['bound_ms']:.4f} ({bnd['bound_by']}) "
-                  f"library_ms={cuda_ms(lambda: (x.t() @ dy, dy.sum(0))):.4f}")
+                  f"bound_ms={bnd['bound_ms']:.4f} ({bnd['bound_by']}, "
+                  f"{100.0 * bnd['bound_ms'] / ms:.1f}% of it) library_ms="
+                  f"{queued_ms(lambda: (x.t() @ dy, dy.sum(0)), what + ' library'):.4f}")
     rec.r["dense_grads"]["ms_per_partseg_step"] = per_step
-    print(f"  K11 per partseg step ({sum(PARTSEG_DENSE_SITES.values())} launches): "
+    print(f"  K11 per partseg step ({sum(PARTSEG_DENSE_SITES.values())} launches, device time): "
           f"{per_step:.4f} ms")
 
 
@@ -2944,7 +3005,8 @@ def drive_perceiver_head_split(counts_out: dict) -> None:
 # namespaces, and those in anonymous namespaces
 OUR_KERNELS = ("vpt", "fps_kernel", "knn_kernel", "fps_knn_kernel", "mha_kernel", "mha_tc_kernel",
                "stem_kernel", "attn_flash_kernel", "attn_combine_kernel", "attn_packed_tc_kernel",
-               "attn_small_kernel", "attn_small_qkv_ln_kernel")
+               "attn_small_kernel", "attn_small_tc_kernel", "attn_small_qkv_ln_kernel",
+               "dense_grads_tc_kernel")
 
 
 def ours_kernel(name: str) -> bool:
@@ -2997,6 +3059,134 @@ def kernel_line(rec: Recorder, counts: dict) -> list:
         entry["launches_by_path"] = {p: c[counter] for p, c in counts.items() if c.get(counter)}
         out.append(entry)
     return out
+
+
+# ------------------------------------------------------------ A/B mode
+AB_ITERS = 20  # serving forwards a sample
+AB_HOST_CALLS = 200  # wrapper calls whose host time is averaged
+
+
+def kernel_sums(fn, n: int, *names: str) -> list[float]:
+    """torch.profiler's device time per fn() over n calls, in ms: of every
+    kernel, then of those whose name holds each of `names`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+          and not getattr(e, "is_user_annotation", False) and not e.key.startswith("Optimizer.")]
+    return [sum(e.self_device_time_total for e in ev if pick in e.key) / 1e3 / n
+            for pick in ("", *names)]
+
+
+def host_us(fn, calls: int = AB_HOST_CALLS, busy: bool = False) -> float:
+    """Host time per fn() call in microseconds, the calls queued, not
+    waited for. With the card idle, a launch may find it idle; with
+    `busy`, the calls queue behind a spin kernel that outlasts them, so
+    each launch only joins a queue (the wrapper's own cost)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    if busy:
+        torch.cuda._sleep(1 << 27)  # about 70 ms at the H100's clock
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / calls
+    torch.cuda.synchronize()
+    return us
+
+
+def time_tree(root: str) -> dict:
+    """One A/B sample of the port in the checkout at `root`, imported from
+    there (its kernels built there): the host time of a K5 and a K11
+    wrapper call (the card idle, and busy), the serving forward at each of
+    BATCHES (events, and its kernels' and K5's device time from
+    torch.profiler) and the ft_cls step (events over TIMED_STEPS steps,
+    and K11's device time a step)."""
+    sys.path.insert(0, root)
+    from vipformer_tpu_torch.models.factory import build_ft_cls
+    from vipformer_tpu_torch.ops import cuda as kcuda
+    from vipformer_tpu_torch.ops.cuda import attention as kattn
+    from vipformer_tpu_torch.ops.cuda import dense as kdense
+    from vipformer_tpu_torch.train.trainer import create_state, make_cls_step
+
+    expect(kcuda.__file__.startswith(root), f"imported {kcuda.__file__}, not the tree at {root}")
+    kcuda.lib()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out: dict = {}
+    bf = dict(dtype=torch.bfloat16, device="cuda")
+    with torch.inference_mode():
+        q, k, v = (torch.randn((64, 128, 256), generator=gen, **bf) for _ in range(3))
+        k5 = lambda: kattn.fused_attention_packed_small(q, k, v, num_heads=4,  # noqa: E731
+                                                        scale=0.125)
+        out["K5 wrapper us"], out["K5 wrapper us, card busy"] = host_us(k5), host_us(k5, busy=True)
+    x, dy = torch.randn((42240, 256), generator=gen, **bf), torch.randn((42240, 256), generator=gen,
+                                                                          **bf)
+    k11 = lambda: kdense.dense_grads(x, dy)  # noqa: E731
+    out["K11 wrapper us"] = host_us(k11, calls=50)
+    out["K11 wrapper us, card busy"] = host_us(k11, calls=50, busy=True)
+    del q, k, v, x, dy
+    model = serving_model("bfloat16", "cuda")
+    with torch.inference_mode():
+        for b in BATCHES:
+            pts = torch.randn((b, NUM_POINTS, 3), device="cuda", generator=gen)
+            out[f"serve B={b} ms"] = cuda_ms(lambda: model(pts), iters=AB_ITERS)
+            busy, k5 = kernel_sums(lambda: model(pts), 4, "attn_small")
+            out[f"serve B={b} kernels ms"], out[f"serve B={b} K5 ms"] = busy, k5
+    del model
+    cfg = ft_config()
+    batches = ft_batches(cfg, "train")[:2]
+    model = build_ft_cls(cfg, device="cuda")
+    state = create_state(cfg, {"pc": model})
+    step = make_cls_step(cfg, model)
+
+    def run(n: int) -> None:
+        for i in range(n):
+            step(state, batches[i % len(batches)], cfg.lr, gen)
+
+    run(2)
+    out["ft_cls step ms"] = cuda_ms(lambda: run(1), iters=TIMED_STEPS, warmup=0)
+    out["ft_cls K11 ms"] = kernel_sums(lambda: run(1), 2, "dense_grads")[1]
+    return out
+
+
+def ab(other: str, pairs: int) -> int:
+    """Time `other` (another checkout) and this one in turns, `pairs` pairs
+    in the order other, this, this, other, other, this, ...: each sample in
+    a process of its own (`--time-tree`), so that each imports its own
+    package. Prints each sample and, per metric, both trees' samples, their
+    medians and this tree's difference in each pair."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    other = os.path.abspath(other)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(f"A/B on {smi}: this tree {here} against {other}, {pairs} pairs")
+    samples: dict = {here: [], other: []}
+    for i in range(pairs):
+        for tree in ((other, here) if i % 2 == 0 else (here, other)):
+            res = subprocess.run([sys.executable, os.path.abspath(__file__), "--time-tree", tree],
+                                 capture_output=True, text=True)
+            lines = [ln for ln in res.stdout.splitlines() if ln.startswith("{")]
+            if res.returncode or not lines:
+                print(f"chip_smoke --ab FAILED on {tree}:\n{res.stdout}\n{res.stderr}",
+                      file=sys.stderr)
+                return 1
+            samples[tree].append(json.loads(lines[-1]))
+            print(f"pair {i} {'this' if tree == here else 'other'}: {lines[-1]}", flush=True)
+    for key in samples[here][0]:
+        mine, theirs = ([s[key] for s in samples[t]] for t in (here, other))
+        diffs = [a - b for a, b in zip(mine, theirs)]
+        print(f"{key}: this median {float(np.median(mine)):.4f}, other median "
+              f"{float(np.median(theirs)):.4f}, this - other by pair "
+              f"{' '.join(f'{d:+.4f}' for d in diffs)} (faster in "
+              f"{sum(d < 0 for d in diffs)} of {len(diffs)})")
+    return 0
 
 
 def main() -> int:
@@ -3127,4 +3317,17 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--time-tree":
+        if not torch.cuda.is_available():
+            sys.exit(2)
+        print(json.dumps(time_tree(os.path.abspath(sys.argv[2]))))
+        sys.exit(0)
+    if len(sys.argv) in (3, 4) and sys.argv[1] == "--ab":
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device", file=sys.stderr)
+            sys.exit(2)
+        sys.exit(ab(sys.argv[2], int(sys.argv[3]) if len(sys.argv) == 4 else 10))
+    if len(sys.argv) > 1:
+        print(__doc__, file=sys.stderr)
+        sys.exit(2)
     sys.exit(main())

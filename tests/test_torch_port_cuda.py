@@ -302,8 +302,9 @@ def test_pretrain_step_on_card_matches_cpu(dev):
 
 
 # ---------------------------------------------------------------- K11, K6
-# K11 at row counts off its 16-row steps and at Cin = 3 (PositionEmb's
-# first Dense), gradient tolerances as above; K6 at a batch that is not a
+# K11 at row counts off its 16- and 32-row steps, at Cin = 3 (PositionEmb's
+# first Dense), Cout = 50 (partseg's head), 1024 -> 512 and R = 100 (f32
+# on the CUDA cores, bf16 on the tensor cores), gradient tolerances as above; K6 at a batch that is not a
 # multiple of anything the kernel tiles and at G = 144 (more rows than one
 # attention batch of 128, and a projection tile only partly filled).
 
@@ -311,7 +312,8 @@ def test_pretrain_step_on_card_matches_cpu(dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("r,cin,cout", [(16411, 3, 128), (1, 3, 5), (777, 130, 70),
-                                        (42240, 3, 128)])
+                                        (42240, 3, 128), (3000, 256, 50), (2048, 1024, 512),
+                                        (100, 64, 64), (16411, 256, 256)])
 def test_dense_grads_kernel_matches_twin(dev, r, cin, cout, dt):
     from vipformer_tpu_torch.ops.cuda import dense as kdense
 
@@ -715,6 +717,67 @@ def test_tensor_core_kernels_repeat_bitwise(dev, kernel):
         assert kattn.packed_splits(dt, 2, 128, m, h, kattn._sms(dev)) > 1
         one = kattn.fused_attention_packed_split(q, k, v, num_heads=h, scale=0.125, nsplit=1)
     _assert_close(one, got, dt, floor=0.0)
+
+
+# K5 at one query (the Perceiver decoder), G off the 16-row warp tiles and
+# the 64-row blocks, M off the 64-key tiles (the scores in registers up to
+# 128 keys, in two passes above: M = 170 is about the most the gate admits
+# at G = 150), partseg's D = 384 at 6 heads, and the largest M the gate
+# admits at G = 16; bf16 runs the tensor-core kernel, f32 the CUDA cores
+SMALL_CASES = [(3, 1, 128, 4), (2, 129, 63, 4), (2, 129, 65, 4), (2, 40, 127, 2),
+               (2, 40, 129, 2), (3, 128, 128, 6), (2, 16, 390, 4), (2, 150, 100, 4),
+               (2, 150, 170, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,g,m,h", SMALL_CASES)
+def test_small_attention_kernel_matches_twin(dev, b, g, m, h, dt):
+    rng = np.random.default_rng(11)
+    q = _t(rng, (b, g, 64 * h), dev, dt)
+    k, v = _t(rng, (b, m, 64 * h), dev, dt), _t(rng, (b, m, 64 * h), dev, dt)
+    assert kattn.packed_small_attention_enabled(h, 64 * h, 64 * h, g, m, 0.0, False, True)
+    with torch.inference_mode():
+        _assert_close(kattn.fused_attention_packed_small(q, k, v, num_heads=h, scale=0.125),
+                      kattn.attention_small_plain(q, k, v, h, 0.125), dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["attn_small", "dense_grads", "dense_grads_cin3"])
+def test_tensor_core_k5_k11_repeat_bitwise(dev, case):
+    """The bf16 tensor-core K5 and K11 give the same bits on a second
+    launch: a fixed order of products, split partials summed in split
+    order, no atomics."""
+    from vipformer_tpu_torch.ops.cuda import dense as kdense
+
+    rng = np.random.default_rng(13)
+    dt = torch.bfloat16
+    if case == "attn_small":
+        q, k, v = (_t(rng, (64, 128, 256), dev, dt) for _ in range(3))
+        with torch.inference_mode():
+            run = lambda: kattn.fused_attention_packed_small(  # noqa: E731
+                q, k, v, num_heads=4, scale=0.125)
+            assert torch.equal(run(), run())
+        return
+    cin = 3 if case == "dense_grads_cin3" else 256
+    x, dy = _t(rng, (42240, cin), dev, dt), _t(rng, (42240, 128), dev, dt)
+    (w1, b1), (w2, b2) = kdense.dense_grads(x, dy), kdense.dense_grads(x, dy)
+    assert torch.equal(w1, w2) and torch.equal(b1, b2)
+
+
+@pytest.mark.cuda
+def test_tensor_core_k5_k11_refuse_misaligned(dev):
+    from vipformer_tpu_torch.ops.cuda import dense as kdense
+
+    rng = np.random.default_rng(14)
+    dt = torch.bfloat16
+    flat = _t(rng, (64 * 256 + 8,), dev, dt)
+    x = flat[1:1 + 64 * 256].view(64, 256)  # storage off a 16-byte boundary
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        kdense.dense_grads(x, _t(rng, (64, 128), dev, dt))
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        kattn.fused_attention_packed_small(x.view(1, 64, 256), x.view(1, 64, 256),
+                                           x.view(1, 64, 256), num_heads=4, scale=0.125)
 
 
 @pytest.mark.cuda

@@ -258,14 +258,14 @@ def test_attention_dtype_picks_the_kernel():
     CUDA-core ones, any other dtype raises; no CUDA-core bf16 entry point
     is left."""
     for base in ("attn_packed", "mha"):
-        assert kattn._tc_route(base, torch.bfloat16) == f"{base}_tc_bf16"
-        assert kattn._tc_route(base, torch.float32) == f"{base}_f32"
+        assert kcuda.tc_route(base, torch.bfloat16) == f"{base}_tc_bf16"
+        assert kcuda.tc_route(base, torch.float32) == f"{base}_f32"
         for dt in (torch.bfloat16, torch.float32):
-            assert kattn._tc_route(base, dt) in kcuda.SIGNATURES
+            assert kcuda.tc_route(base, dt) in kcuda.SIGNATURES
         assert f"{base}_bf16" not in kcuda.SIGNATURES
         for dt in (torch.float16, torch.float64):
             with pytest.raises(TypeError, match="float32 or bfloat16"):
-                kattn._tc_route(base, dt)
+                kcuda.tc_route(base, dt)
 
 
 def test_wrappers_validate_operands():
@@ -273,7 +273,7 @@ def test_wrappers_validate_operands():
         kcuda.require(torch.zeros(2), "x", torch.float32)
     assert kknn.idx_bits_for(1024) == 10 and kknn.idx_bits_for(1025) == 11
     assert kknn.idx_bits_for(1) == 1
-    for base in ("stem", "attn_kv_ln", "attn_small"):
+    for base in ("stem", "attn_kv_ln"):
         for dt in (torch.float32, torch.bfloat16):
             assert kcuda.entry_point(base, dt) in kcuda.SIGNATURES
     with pytest.raises(TypeError, match="float32 or bfloat16"):

@@ -16,8 +16,11 @@
 // columns), and once more per extra block of 128 query rows when G > 128.
 // Removing that factor (one block per cloud over all heads, or a separate
 // projection pass) is later work.
-// Bound on the H100, K5: shared-memory bandwidth of two 128x128x64 f32
-// products per (cloud, head); q/k/v are read once, the output written once.
+// Bound on the H100, K5 (q/k/v [64, 128, 256], H = 4, bf16): device
+// memory. q, k and v are read once and the output written once (16.8 MB,
+// 0.005 ms at 3.35 TB/s); the products are 4 x B x G x M x D = 1.07 GFLOP,
+// 0.001 ms on the bf16 tensor cores but 0.016 ms at least on the f32 CUDA
+// cores. At these sizes a launch's latency, not either bound, sets its time.
 // K13 replaces attention.py:fused_attention_packed (:212, kernel
 // _packed_kernel :156): flash attention on q/k/v already projected, the
 // online softmax streamed over M chunks (the Fourier image cross-attention,
@@ -51,7 +54,7 @@
 // but at least 1.95 ms on the f32 CUDA cores (67 TFLOP/s). K15: the
 // projection arithmetic, as K4's, redone by each of the G/128 query tiles
 // (4 at G = 512).
-// The dtype picks K13's kernel (ops/cuda/attention.py `_tc_route`): bf16
+// The dtype picks K13's kernel (ops/cuda/__init__.py `tc_route`): bf16
 // runs `tc::attn_packed_tc_kernel` below; f32 runs attn_flash_kernel's
 // KV_DIRECT mode, on the CUDA cores, because a tensor-core f32 product is
 // TF32 (about 3 decimal digits), which would break the f32 bound of 2e-5
@@ -88,14 +91,37 @@
 // Design, K15 and K13 f32: K4's kernel with the kv source as a template
 // mode (LN + projection, projection only, or k/v read directly), so they
 // share the tiles, the split over blocks and the merge pass.
-// Design, K5: one block per (cloud, head), two threads per query row, each
-// holding half of the row's dh accumulators (columns interleaved to spread
-// shared-memory banks; rows padded to dh+1 floats for the same reason).
+// The dtype picks K5's kernel too (`tc_route`): bf16 runs
+// `tc::attn_small_tc_kernel`, f32 attn_small_kernel<float> on the CUDA
+// cores, for the same TF32 reason.
+// Design, K5 bf16: K14's numerics (p normalised before P.V) on K13's
+// packed layout and warp-level tiles. One block of 4 warps per (head,
+// cloud, 64 query rows: 16 a warp); the (cloud, head)'s whole k and v
+// (M < 512: 9,216 B a 64-token tile each) are staged once in shared
+// memory by cp_rows as K13 loads them, one cp.async group a tile (q with
+// the first k tile, the other k tiles, then v), so that the scores start
+// on a tile as soon as it lands and device memory is read once per block.
+// Up to M = 128 a warp keeps its 16 x M logits in registers (64 f32 a
+// lane): one warp_scores pass, the exact row max, p = 2^(t - max) and its
+// sum, p / sum rounded to bf16 in registers as P.V's A fragments, and
+// warp_pv: half the score products and exps of two passes, at the main
+// paths' M = 128. Above 128 keys, K14's two passes over shared memory:
+// the running max and sum, then the same scores again, p normalised, P.V.
+// 64 query rows a block was the fastest shape measured at every main
+// path's G = 128 (16 and 32 rows were slower, 128 too); at the main paths'
+// batches it gives at least 256 blocks, more than one for each of 132 SMs.
+// Keys past M get -inf and zero-filled k/v rows; query rows past G are
+// computed from zero rows and not written. Per -Xptxas -v on the card
+// (sm_90a): 119-128 registers, no spills.
+// Design, K5 f32: one block per (cloud, head), two threads per query row,
+// each holding half of the row's dh accumulators (columns interleaved to
+// spread shared-memory banks; rows padded to dh+1 floats for the same
+// reason).
 // Numerics follow the Pallas kernels: LN in f32 with the fast variance and
 // eps 1e-5, cast to the compute dtype; k/v = f32-accumulated projections
 // rounded to the compute dtype; logits in f32; p cast to v's dtype before
-// PV; f32 accumulation. K4, K5, K6, K15 and K13's f32 route run plain
-// CUDA-core FMAs (tensor cores for them are later work).
+// PV; f32 accumulation. K4, K6, K15 and the f32 routes of K5 and K13 run
+// plain CUDA-core FMAs (tensor cores for K4, K6 and K15 are later work).
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -571,6 +597,178 @@ int launch_packed(const void* q, const void* k, const void* v, void* out, void* 
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------- K5, bf16, on the tensor cores
+// One block of SMALL_NW warps per (head, cloud, 64 query rows); a warp
+// owns 16 rows. The (cloud, head)'s whole k and v (M < 512 rows of 64) are
+// staged once in shared memory, one cp.async group a 64-key tile: q with
+// k tile 0, then each k tile, then each v tile, so that the scores start
+// on tile 0 while the rest land. With NTR > 0 (M <= 64 NTR) a warp keeps
+// its 16 x M scores in registers: one pass of warp_scores, the exact row
+// max, p = exp(s - max) and its sum, p / sum rounded to bf16 as P.V's A
+// fragments. With NTR = 0 (any M) K14's two passes: pass 1 the running
+// max and sum over the k tiles, pass 2 the same scores again, p
+// normalised, P.V. Either way p is normalised before P.V, as
+// _packed_small_kernel does, and P.V accumulates in f32.
+constexpr int SMALL_NW = 4;  // warps a block: 64 query rows
+
+constexpr size_t small_smem_bytes(int m) {
+  return sizeof(bf16) * (size_t)(16 * SMALL_NW + 2 * ((m + KT - 1) / KT) * KT) * LD;
+}
+
+template <int NTR>
+__global__ void __launch_bounds__(SMALL_NW * 32, 4)
+attn_small_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ out, int g, int m, int h,
+                     float scale) {
+  namespace mm = vpt::mma;
+  constexpr int ROWS = 16 * SMALL_NW, NTHREADS = 32 * SMALL_NW;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nt = (m + KT - 1) / KT;
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [ROWS][LD]
+  bf16* ks = qs + ROWS * LD;                     // [nt * KT][LD]
+  bf16* vs = ks + nt * KT * LD;                  // [nt * KT][LD]
+  const int head = blockIdx.x, b = blockIdx.y, q0 = blockIdx.z * ROWS;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int d = h * DH;
+  const bf16* kb = k + (size_t)b * m * d + head * DH;
+  const bf16* vb = v + (size_t)b * m * d + head * DH;
+  // groups 0 .. nt - 1: q with k tile 0, then k tiles; nt .. 2 nt - 1: v tiles
+  mm::cp_rows<DH, ROWS, NTHREADS>(qs, LD, q + (size_t)b * g * d + head * DH, d, q0, g, tid);
+  for (int t = 0; t < nt; ++t) {
+    mm::cp_rows<DH, KT, NTHREADS>(ks + t * KT * LD, LD, kb, d, t * KT, m, tid);
+    mm::cp_async_commit();
+  }
+  for (int t = 0; t < nt; ++t) {
+    mm::cp_rows<DH, KT, NTHREADS>(vs + t * KT * LD, LD, vb, d, t * KT, m, tid);
+    mm::cp_async_commit();
+  }
+
+  const bool active = q0 + 16 * warp < g;
+  const float c = scale * mm::LOG2E;  // logits in log2 units
+  uint32_t qa[1][DH / 16][4];
+  float o[1][DH / 8][4];
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n) o[0][n][0] = o[0][n][1] = o[0][n][2] = o[0][n][3] = 0.0f;
+  if constexpr (NTR > 0) {
+    float s[NTR][1][NT][4];  // the warp's 16 x M scores, then p
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int t = 0; t < NTR; ++t) {
+      if (t < nt) {
+        mm::cp_async_wait_n(2 * nt - 1 - t);  // k tile t has landed (this thread's copies)
+        __syncthreads();                      // ... everyone's
+      }
+      if (!active || t >= nt) continue;
+      if (t == 0) mm::warp_a_frags<DH, 1>(qa, qs, LD, 16 * warp, lane);
+      mm::warp_scores<DH, 1>(s[t], qa, ks + t * KT * LD, LD, lane);
+      mm::scale_and_mask(s[t][0], c, t * KT, m, lane);
+      float tm[2];
+      mm::tile_max(s[t][0], tm);
+      mx[0] = fmaxf(mx[0], tm[0]);
+      mx[1] = fmaxf(mx[1], tm[1]);
+    }
+    uint32_t pa[NTR][1][KT / 16][4];
+    if (active) {
+      float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int t = 0; t < NTR; ++t)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {  // 2^-inf = 0 past M (and in a tile past nt)
+            s[t][0][n][e] = t < nt ? mm::exp2_approx(s[t][0][n][e] - mx[e >> 1]) : 0.0f;
+            sum[e >> 1] += s[t][0][n][e];
+          }
+      const float inv[2] = {1.0f / mm::quad_sum(sum[0]), 1.0f / mm::quad_sum(sum[1])};
+#pragma unroll
+      for (int t = 0; t < NTR; ++t) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[t][0][n][e] *= inv[e >> 1];  // p
+        mm::p_frags(pa[t][0], s[t][0]);
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < NTR; ++t) {
+      if (t >= nt) break;
+      mm::cp_async_wait_n(nt - 1 - t);  // v tile t has landed (this thread's copies)
+      __syncthreads();                  // ... everyone's
+      if (active) mm::warp_pv<DH, 1>(o, pa[t], vs + t * KT * LD, LD, lane);
+    }
+  } else {
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F}, sum[2] = {0.0f, 0.0f};
+    for (int t = 0; t < nt; ++t) {  // pass 1: running max, this lane's share of the sum
+      mm::cp_async_wait_n(2 * nt - 1 - t);  // k tile t has landed (this thread's copies)
+      __syncthreads();                      // ... everyone's
+      if (!active) continue;
+      if (t == 0) mm::warp_a_frags<DH, 1>(qa, qs, LD, 16 * warp, lane);
+      float s[1][NT][4];
+      mm::warp_scores<DH, 1>(s, qa, ks + t * KT * LD, LD, lane);
+      mm::scale_and_mask(s[0], c, t * KT, m, lane);
+      float tm[2];
+      mm::tile_max(s[0], tm);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float nm = fmaxf(mx[r], tm[r]);
+        float ps = 0.0f;
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+          ps += mm::exp2_approx(s[0][n][2 * r] - nm) + mm::exp2_approx(s[0][n][2 * r + 1] - nm);
+        sum[r] = sum[r] * mm::exp2_approx(mx[r] - nm) + ps;  // 2^-inf = 0 on the first tile
+        mx[r] = nm;
+      }
+    }
+    float inv[2] = {0.0f, 0.0f};
+    if (active) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) inv[r] = 1.0f / mm::quad_sum(sum[r]);
+    }
+    for (int t = 0; t < nt; ++t) {  // pass 2: the same scores, p normalised, P.V
+      mm::cp_async_wait_n(nt - 1 - t);  // v tile t has landed (this thread's copies)
+      __syncthreads();                  // ... everyone's
+      if (!active) continue;
+      float s[1][NT][4];
+      uint32_t pa[1][KT / 16][4];
+      mm::warp_scores<DH, 1>(s, qa, ks + t * KT * LD, LD, lane);
+      mm::scale_and_mask(s[0], c, t * KT, m, lane);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[0][n][e] = mm::exp2_approx(s[0][n][e] - mx[e >> 1]) * inv[e >> 1];  // p
+      mm::p_frags(pa[0], s[0]);
+      mm::warp_pv<DH, 1>(o, pa, vs + t * KT * LD, LD, lane);
+    }
+  }
+  if (!active) return;
+  bf16* ob = out + (size_t)b * g * d + head * DH + 2 * (lane & 3);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + 16 * warp + 8 * r + (lane >> 2);
+    if (row >= g) continue;
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n)
+      *reinterpret_cast<uint32_t*>(ob + (size_t)row * d + 8 * n) =
+          mm::pack_bf16x2(o[0][n][2 * r], o[0][n][2 * r + 1]);
+  }
+}
+
+// scores in registers up to 128 keys (two 64-key tiles), else two passes
+int launch_small(const void* q, const void* k, const void* v, void* out, int b, int g, int m,
+                 int h, float scale, cudaStream_t stream) {
+  if (b < 1 || g < 1 || h < 1 || m < 1 || m > 512) return (int)cudaErrorInvalidValue;
+  auto kernel = m <= 2 * KT ? attn_small_tc_kernel<2> : attn_small_tc_kernel<0>;
+  const size_t smem = small_smem_bytes(m);
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
+  dim3 grid(h, b, (g + 16 * SMALL_NW - 1) / (16 * SMALL_NW));
+  kernel<<<grid, SMALL_NW * 32, smem, stream>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
+                                                (bf16*)out, g, m, h, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace tc
 
 // ---------------------------------------------------------------- K5 (SA)
@@ -961,16 +1159,18 @@ extern "C" int attn_kv_ln_bf16(const void* q, const void* x, const void* ln_w,
                            nsplit, scale, (cudaStream_t)stream);
 }
 
-// q [B, G, H*64], k/v [B, M, H*64] -> out [B, G, H*64]. G <= 512, and the
-// f32 q/k/v/p tiles must fit shared memory (G = M = 128: 162 KB).
+// K5: q [B, G, H*64], k/v [B, M, H*64] -> out [B, G, H*64]. f32 on the
+// CUDA cores: G <= 512, and the f32 q/k/v/p tiles must fit shared memory
+// (G = M = 128: 162 KB).
 extern "C" int attn_small_f32(const void* q, const void* k, const void* v, void* out, int b, int g,
                               int m, int h, float scale, void* stream) {
   return launch_small<float>(q, k, v, out, b, g, m, h, scale, (cudaStream_t)stream);
 }
 
-extern "C" int attn_small_bf16(const void* q, const void* k, const void* v, void* out, int b,
-                               int g, int m, int h, float scale, void* stream) {
-  return launch_small<__nv_bfloat16>(q, k, v, out, b, g, m, h, scale, (cudaStream_t)stream);
+// bf16 on the tensor cores: M <= 512, any G; pointers 16-byte aligned.
+extern "C" int attn_small_tc_bf16(const void* q, const void* k, const void* v, void* out, int b,
+                                  int g, int m, int h, float scale, void* stream) {
+  return tc::launch_small(q, k, v, out, b, g, m, h, scale, (cudaStream_t)stream);
 }
 
 // K13: q [B, G, H*64], k/v [B, M, H*64] -> out [B, G, H*64], any G and M;

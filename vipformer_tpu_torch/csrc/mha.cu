@@ -8,7 +8,7 @@
 // BEFORE the PV product and rounded to v's dtype, PV accumulated in f32,
 // the output in v's dtype (the Pallas kernel's numerics).
 //
-// The dtype picks the kernel (ops/cuda/attention.py `_tc_route`):
+// The dtype picks the kernel (ops/cuda/__init__.py `tc_route`):
 //
 // * bf16: `mha_tc_kernel`, on the tensor cores (mma.sync m16n8k16 and
 //   ldmatrix from csrc/mma.cuh, cp.async loads).

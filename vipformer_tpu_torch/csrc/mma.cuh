@@ -2,7 +2,9 @@
 // Ampere-style warp-level products (`mma.sync` m16n8k16, bf16 in, f32
 // accumulate), `ldmatrix` fragment loads, and `cp.async` 16-byte copies
 // from device to shared memory, plus the warp-level attention tiles that
-// K13 (attention.cu) and K14 (mha.cu) share.
+// K5 and K13 (attention.cu) and K14 (mha.cu) share, and a warp-level GEMM
+// tile (C += A^T . B, the contraction down the rows of both operands) that
+// K11 (dense.cu) runs.
 //
 // Fragment layouts of mma.m16n8k16 (PTX ISA, "Matrix Fragments for
 // mma.m16n8k16"), with lane = 4 * grp + tig:
@@ -48,6 +50,21 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// The same for a count known only at run time; above 7 it waits for 7
+// (stricter, so still safe).
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    default: cp_async_wait<7>(); break;
+  }
+}
+
 // Four 8x8 b16 matrices from shared memory; lanes 8i..8i+7 give the row
 // addresses of matrix i, and r[i] holds this lane's pair of matrix i.
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
@@ -84,11 +101,12 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 
 // Rows [r0, r0 + R) of a row-major bf16 matrix (W values a row, rows
 // `stride` elements apart) -> shared rows of `ld` elements, as 16-byte
-// cp.async issued by THREADS threads; rows at or past `rows` are
-// zero-filled, never read (their source stays at row 0, which exists).
+// cp.async issued by THREADS threads; rows at or past `rows`, and the
+// 8-column chunks at or past `cols` (a multiple of 8), are zero-filled,
+// never read (their source stays at `src`, which exists).
 template <int W, int R, int THREADS>
 __device__ __forceinline__ void cp_rows(bf16* dst, int ld, const bf16* src, size_t stride,
-                                        int r0, int rows, int tid) {
+                                        int r0, int rows, int tid, int cols = W) {
   constexpr int CPR = W / 8;  // 16-byte chunks a row
   constexpr int N = R * CPR;
 #pragma unroll
@@ -96,8 +114,8 @@ __device__ __forceinline__ void cp_rows(bf16* dst, int ld, const bf16* src, size
     const int c = tid + i * THREADS;
     if (N % THREADS != 0 && c >= N) break;
     const int r = c / CPR, cc = c - r * CPR;
-    const bool valid = r0 + r < rows;
-    cp_async16(dst + r * ld + cc * 8, src + (valid ? (size_t)(r0 + r) * stride : 0) + cc * 8,
+    const bool valid = r0 + r < rows && cc * 8 < cols;
+    cp_async16(dst + r * ld + cc * 8, src + (valid ? (size_t)(r0 + r) * stride + cc * 8 : 0),
                valid);
   }
 }
@@ -235,6 +253,55 @@ __device__ __forceinline__ void warp_pv(float (&o)[MT][DV / 8][4],
         mma_bf16(o[mt][2 * dp + 1], pa[mt][kk], b[2], b[3]);
       }
     }
+}
+
+// ------------------------------------------------ warp-level GEMM
+// C += A^T . B for one warp, the contraction down the rows of both
+// operands (a weight gradient x^T . dy): A is a [k x 16 MI] tile and B a
+// [k x 8 NI] tile, both row-major bf16 in shared memory, rows `lda` and
+// `ldb` elements apart (padded to width + 8 so that ldmatrix meets no
+// bank conflict), k a multiple of 16. c[i][j] is the f32 accumulator of
+// rows 16i.. and columns 8j.. of C [16 MI x 8 NI]. Both operands come
+// through ldmatrix.trans: the A tile, transposed on the way, is the
+// row-major [m x k] A fragment; the B tile is the "col" B fragment, as
+// warp_pv reads v. With SUMB, cs[j] += ones . B too, so that every row of
+// cs holds B's column sums over the k rows (a bias gradient from the
+// fragments already loaded). The k steps run in order: the same inputs
+// give the same bits.
+template <int MI, int NI, bool SUMB>
+__device__ __forceinline__ void warp_atb(float (&c)[MI][NI][4], float (&cs)[NI][4],
+                                         const bf16* a, int lda, const bf16* b, int ldb, int k,
+                                         int lane) {
+  static_assert(NI % 2 == 0, "B fragments come in pairs of n8 tiles");
+  constexpr uint32_t ONES = 0x3f803f80u;  // two bf16 1.0
+  const uint32_t ones[4] = {ONES, ONES, ONES, ONES};
+  for (int k0 = 0; k0 < k; k0 += 16) {
+    uint32_t af[MI][4], bf[NI / 2][4];
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+      // matrices: (k 0-7, m 0-7), (k 0-7, m 8-15), (k 8-15, m 0-7), (k 8-15, m 8-15)
+      ldmatrix_x4_trans(af[i], a + (k0 + (lane & 7) + (lane >> 4) * 8) * lda + 16 * i +
+                                   ((lane >> 3) & 1) * 8);
+#pragma unroll
+    for (int j = 0; j < NI / 2; ++j)
+      // matrices: (k 0-7, n 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15)
+      ldmatrix_x4_trans(bf[j], b + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ldb + 16 * j +
+                                   (lane >> 4) * 8);
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NI / 2; ++j) {
+        mma_bf16(c[i][2 * j], af[i], bf[j][0], bf[j][1]);
+        mma_bf16(c[i][2 * j + 1], af[i], bf[j][2], bf[j][3]);
+      }
+    if (SUMB) {
+#pragma unroll
+      for (int j = 0; j < NI / 2; ++j) {
+        mma_bf16(cs[2 * j], ones, bf[j][0], bf[j][1]);
+        mma_bf16(cs[2 * j + 1], ones, bf[j][2], bf[j][3]);
+      }
+    }
+  }
 }
 
 }  // namespace mma

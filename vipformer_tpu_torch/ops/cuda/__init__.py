@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import glob
 import hashlib
 import os
@@ -54,8 +55,10 @@ SIGNATURES = {
     "stem_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "attn_kv_ln_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     "attn_kv_ln_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
-    "attn_small_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    "attn_small_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # K5 (q, k, v, out, b, g, m, h, scale, stream): f32 on the CUDA cores,
+    # bf16 on the tensor cores
+    "attn_small_f32": [_P] * 4 + [_I] * 4 + [_F, _P],
+    "attn_small_tc_bf16": [_P] * 4 + [_I] * 4 + [_F, _P],
     # K7 / K8: (..., scale, keep probability, dropout threshold, dropout on, stream)
     "attn_train_fwd_f32": [_P] * 6 + [_I] * 4 + [_F, _F, _U, _I, _P],
     "attn_train_fwd_bf16": [_P] * 6 + [_I] * 4 + [_F, _F, _U, _I, _P],
@@ -81,9 +84,9 @@ SIGNATURES = {
     "gather_rows_bf16": [_P] * 3 + [_I] * 4 + [_P],
     "scatter_rows_f32": [_P] * 3 + [_I] * 4 + [_P],
     "scatter_rows_bf16": [_P] * 3 + [_I] * 4 + [_P],
-    # K11
+    # K11 (x, dy, dw, db, wpart, bpart, r, cin, cout, splits, stream): as K5
     "dense_grads_f32": [_P] * 6 + [_I] * 4 + [_P],
-    "dense_grads_bf16": [_P] * 6 + [_I] * 4 + [_P],
+    "dense_grads_tc_bf16": [_P] * 6 + [_I] * 4 + [_P],
     # K13 (q, k, v, out, part_acc, part_ml, b, g, m, h, nsplit, scale, stream):
     # f32 on the CUDA cores, bf16 on the tensor cores
     "attn_packed_f32": [_P] * 6 + [_I] * 5 + [_F, _P],
@@ -189,6 +192,38 @@ def entry_point(base: str, dt: torch.dtype) -> str:
     if suffix is None:
         raise TypeError(f"{base} kernel takes float32 or bfloat16, got {dt}")
     return f"{base}_{suffix}"
+
+
+def tc_route(base: str, dt: torch.dtype) -> str:
+    """The C entry point of a kernel with a tensor-core route (K5
+    `attn_small`, K11 `dense_grads`, K13 `attn_packed`, K14 `mha`) for
+    dtype `dt`: bf16 on the tensor cores, f32 on the CUDA cores (a
+    tensor-core f32 product is TF32, about 3 decimal digits: it would break
+    the f32 bounds against the twins). Not a fallback: each dtype has one
+    kernel, and any other dtype raises."""
+    if dt == torch.bfloat16:
+        return f"{base}_tc_bf16"
+    if dt == torch.float32:
+        return f"{base}_f32"
+    raise TypeError(f"{base} kernel takes float32 or bfloat16, got {dt}")
+
+
+def require_aligned(fn: str, **ptrs: int) -> None:
+    """The tensor-core kernels load rows with 16-byte cp.async, so each
+    operand they copy so must start on a 16-byte boundary: `ptrs` maps
+    each one's name to its data pointer (every tensor the port makes is
+    aligned; a view into the middle of a row may not be)."""
+    if fn.endswith("_tc_bf16"):
+        for name, ptr in ptrs.items():
+            if ptr % 16:
+                raise ValueError(f"{fn}: {name} must start on a 16-byte boundary")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """SMs of CUDA device `index` (asked once: the query costs microseconds
+    of host time at every launch)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(err: int, name: str) -> None:

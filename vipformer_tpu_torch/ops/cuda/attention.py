@@ -6,8 +6,8 @@ them.
 * `fused_attention_packed_kv_ln` (K4, the cross-attention): the kv
   LayerNorm and the k/v projections run inside the kernel, softmax is
   online over kv chunks, and the output is divided by l after PV.
-* `fused_attention_packed_small` (K5, the self-attention): the whole score
-  block at once, softmax normalised before PV.
+* `fused_attention_packed_small` (K5, the self-attention): the whole key
+  axis of a (cloud, head) at once, softmax normalised before PV.
 * `fused_attention_packed_small_qkv_ln` (K6): K5 with the self-attention's
   pre-LN and its q/k/v projections folded in; raw tokens in, o_proj's
   input out. `packed_small_qkv_ln_enabled` is the port's copy of the JAX
@@ -37,9 +37,12 @@ Each launches `csrc/attention.cu` (K14: `csrc/mha.cu`) on CUDA tensors
 and runs its plain twin on CPU tensors. Numerics follow the Pallas
 kernels: f32 logits, `p` cast to v's dtype before an f32-accumulated PV.
 
-K13 and K14 pick their kernel by dtype (`_tc_route`): bf16 runs on the
-tensor cores (mma.sync, csrc/mma.cuh), f32 on the CUDA cores, since a
-tensor-core f32 product is TF32 and would break the f32 bounds.
+K5, K13 and K14 pick their kernel by dtype (`cuda.tc_route`): bf16 runs
+on the tensor cores (mma.sync, csrc/mma.cuh), f32 on the CUDA cores, since
+a tensor-core f32 product is TF32 and would break the f32 bounds. The bf16
+K5 stages a (cloud, head)'s whole k and v in shared memory for 64 query
+rows a block (its logits in registers up to 128 keys, K14's two passes
+above).
 """
 
 from __future__ import annotations
@@ -225,7 +228,7 @@ def split_scratch_shapes(b: int, g: int, h: int, nsplit: int) -> tuple[tuple, tu
 
 
 def _sms(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+    return cuda.sm_count(torch.device(device).index)
 
 
 def _split_scratch(q: torch.Tensor, b: int, g: int, m: int, h: int, nsplit: int | None = None):
@@ -239,38 +242,16 @@ def _split_scratch(q: torch.Tensor, b: int, g: int, m: int, h: int, nsplit: int 
     return nsplit, torch.empty(acc_shape, **f32), torch.empty(ml_shape, **f32)
 
 
-def _tc_route(base: str, dt: torch.dtype) -> str:
-    """The C entry point of K13 (`attn_packed`) or K14 (`mha`) for dtype
-    `dt`: bf16 on the tensor cores, f32 on the CUDA cores (a tensor-core
-    f32 product is TF32, about 3 decimal digits: it would break the 2e-5
-    f32 bound against the twin). Not a fallback: each dtype has one
-    kernel, and any other dtype raises."""
-    if dt == torch.bfloat16:
-        return f"{base}_tc_bf16"
-    if dt == torch.float32:
-        return f"{base}_f32"
-    raise TypeError(f"{base} kernel takes float32 or bfloat16, got {dt}")
-
-
-def _require_aligned(fn: str, **tensors: torch.Tensor) -> None:
-    """The tensor-core kernels load rows with 16-byte cp.async, so each
-    operand must start on a 16-byte boundary (every tensor the port makes
-    does; a view into the middle of a row does not)."""
-    if fn.endswith("_tc_bf16"):
-        for name, t in tensors.items():
-            if t.data_ptr() % 16:
-                raise ValueError(f"{fn}: {name} must start on a 16-byte boundary")
-
-
 def fused_attention_packed_small(q, k, v, *, num_heads: int, scale: float) -> torch.Tensor:
-    """Eval small-M attention, whole score block per (cloud, head).
-    Shapes as `attention_small_plain`."""
+    """Eval small-M attention, the whole key axis per (cloud, head) (K5).
+    Shapes as `attention_small_plain`. In bf16 a block takes 64 query rows
+    of a (cloud, head); the f32 kernel takes one block per (cloud, head)."""
     if not q.is_cuda:
         return attention_small_plain(q, k, v, num_heads, scale)
     b, g, d = q.shape
     m = k.shape[1]
     dt = v.dtype
-    fn = cuda.entry_point("attn_small", dt)
+    fn = cuda.tc_route("attn_small", dt)
     require_head_width("attn_small", d, num_heads)
     if g > 512 or small_smem_bytes(g, m) > SMALL_SMEM_BYTES:
         raise ValueError(f"attn_small kernel needs G <= 512 and its f32 tiles in shared "
@@ -279,10 +260,12 @@ def fused_attention_packed_small(q, k, v, *, num_heads: int, scale: float) -> to
     cuda.require(q, "q", dt, (b, g, d))
     cuda.require(k, "k", dt, (b, m, d))
     cuda.require(v, "v", dt, (b, m, d))
+    qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
+    cuda.require_aligned(fn, q=qp, k=kp, v=vp)
     out = torch.empty((b, g, d), dtype=dt, device=q.device)
     SMALL_LAUNCHES.n += 1
     cuda.check(getattr(cuda.lib(), fn)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        qp, kp, vp, out.data_ptr(),
         b, g, m, num_heads, float(scale), cuda.stream_ptr(),
     ), fn)
     return out
@@ -402,18 +385,19 @@ def fused_attention_packed_split(q, k, v, *, num_heads: int, scale: float,
     b, g, d = q.shape
     m = k.shape[1]
     dt = v.dtype
-    fn = _tc_route("attn_packed", dt)
+    fn = cuda.tc_route("attn_packed", dt)
     require_head_width("attn_packed", d, num_heads)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     cuda.require(q, "q", dt, (b, g, d))
     cuda.require(k, "k", dt, (b, m, d))
     cuda.require(v, "v", dt, (b, m, d))
-    _require_aligned(fn, q=q, k=k, v=v)
+    qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
+    cuda.require_aligned(fn, q=qp, k=kp, v=vp)
     out = torch.empty((b, g, d), dtype=dt, device=q.device)
     nsplit, part_acc, part_ml = _split_scratch(q, b, g, m, num_heads, nsplit)
     PACKED_LAUNCHES.n += 1
     cuda.check(getattr(cuda.lib(), fn)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
+        qp, kp, vp, out.data_ptr(), part_acc.data_ptr(),
         part_ml.data_ptr(), b, g, m, num_heads, nsplit, float(scale), cuda.stream_ptr(),
     ), fn)
     return out
@@ -473,7 +457,7 @@ def fused_attention(q, k, v, *, scale: float) -> torch.Tensor:
     b, h, g, dh = q.shape
     m, dv = k.shape[2], v.shape[3]
     dt = v.dtype
-    fn = _tc_route("mha", dt)
+    fn = cuda.tc_route("mha", dt)
     if dh not in HEAD_SPLIT_WIDTHS or dv not in HEAD_SPLIT_WIDTHS:
         raise NotImplementedError(f"the mha kernel is built for dh, dv in {HEAD_SPLIT_WIDTHS}; "
                                   f"got dh={dh}, dv={dv}")
@@ -483,11 +467,12 @@ def fused_attention(q, k, v, *, scale: float) -> torch.Tensor:
     cuda.require(q, "q", dt, (b, h, g, dh))
     cuda.require(k, "k", dt, (b, h, m, dh))
     cuda.require(v, "v", dt, (b, h, m, dv))
-    _require_aligned(fn, q=q, k=k, v=v)
+    qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
+    cuda.require_aligned(fn, q=qp, k=kp, v=vp)
     out = torch.empty((b, h, g, dv), dtype=dt, device=q.device)
     HEAD_SPLIT_LAUNCHES.n += 1
     cuda.check(getattr(cuda.lib(), fn)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, g, m, dh, dv,
+        qp, kp, vp, out.data_ptr(), b * h, g, m, dh, dv,
         float(scale), cuda.stream_ptr(),
     ), fn)
     return out
@@ -509,7 +494,9 @@ def fused_attention_enabled(dropout_rate: float, training: bool) -> bool:
 
 # -------------------------------------------------------------- gates
 def small_smem_bytes(g: int, m: int) -> int:
-    """K5's shared memory: q/k/v rows of 65 f32 and the [G, M+1] scores."""
+    """The f32 K5's shared memory: q/k/v rows of 65 f32 and the [G, M+1]
+    scores. The gate holds both routes to it, and the bf16 kernel takes
+    every (G, M) it admits (M < 512)."""
     return 4 * ((g + 2 * m) * (KERNEL_HEAD_DIM + 1) + g * (m + 1))
 
 

@@ -4,7 +4,12 @@ ops/pallas/dense.py).
 * `dense_grads_plain` / `dense_grads`: x [R, Cin], dy [R, Cout] ->
   (dW f32 [Cin, Cout], db f32 [Cout]), f32-accumulated; `dense_grads`
   launches `csrc/dense.cu` on CUDA tensors and runs the plain twin on CPU
-  tensors.
+  tensors. The dtype picks the kernel (`cuda.tc_route`): bf16 runs on the
+  tensor cores (mma.sync tiles of csrc/mma.cuh, 128 x 128 of dW a block,
+  32-row steps through a cp.async ring), f32 on the CUDA cores (64 x 64,
+  16-row steps), since a tensor-core f32 product is TF32 and would break
+  the f32 gradient bound. `plan_splits` / `split_rows` split the rows
+  over blocks for either.
 * `dense_grad_enabled`: the port's copy of the JAX package's gate
   (dense.py:127-186), so both packages route the same Dense layers.
 * `dense_apply`: the Dense product as a `torch.autograd.Function` whose
@@ -26,8 +31,9 @@ USE_DENSE_GRAD: bool | None = None
 # (dense.py:181-186): the window's rows, and Cin, Cout <= 1024
 _VMEM_BUDGET = 8 * 1024 * 1024
 MIN_ROWS, MAX_ROWS, MAX_WIDTH = 16384, 131072, 1024
-ROW_STEP = 16  # rows per staging step of the CUDA kernel
-BLOCKS_PER_SM = 2  # the wrapper splits the rows until about this many blocks per SM
+# each route's kernel: (dW rows, dW columns) a block, rows a step
+TILES = {torch.float32: (64, 64, 16), torch.bfloat16: (128, 128, 32)}
+BLOCKS_PER_SM = 2  # blocks an SM takes in a wave (the bf16 kernel's __launch_bounds__)
 
 
 def _pick_block_rows(r: int, cin: int, cout: int, itemsize: int) -> int:
@@ -61,13 +67,23 @@ def dense_grads_plain(x2d: torch.Tensor, dy2d: torch.Tensor):
     return x2d.float().t() @ dyf, dyf.sum(0)
 
 
-def splits_for(r: int, cin: int, cout: int, sms: int) -> int:
-    """Row splits of the kernel: enough blocks for BLOCKS_PER_SM per SM,
-    whole 16-row steps per split, and no split left empty."""
-    tiles = -(-cin // 64) * -(-cout // 64)
-    want = max(1, min(-(-r // ROW_STEP), -(-BLOCKS_PER_SM * sms // tiles)))
-    per = -(-(-(-r // want)) // ROW_STEP) * ROW_STEP
-    return -(-r // per)
+def plan_splits(r: int, cin: int, cout: int, dt: torch.dtype, sms: int) -> int:
+    """Row splits of dtype `dt`'s kernel on a card of `sms` SMs: as many as
+    one wave of blocks holds (BLOCKS_PER_SM an SM over the dW tiles), so
+    that no block waits for a second wave, at least one, and at most one a
+    row step, so none is empty."""
+    tm, tn, step = TILES[dt]
+    tiles = -(-cin // tm) * -(-cout // tn)
+    return max(1, min(-(-r // step), BLOCKS_PER_SM * sms // tiles))
+
+
+def split_rows(r: int, splits: int, step: int) -> list[tuple[int, int]]:
+    """The rows [begin, end) of each split, as csrc/dense.cu's
+    `split_range` cuts them: whole steps, split s of S taking steps
+    [s n / S, (s + 1) n / S) of the n = ceil(R / step)."""
+    n = -(-r // step)
+    return [(s * n // splits * step, min(r, (s + 1) * n // splits * step))
+            for s in range(splits)]
 
 
 def dense_grads(x2d: torch.Tensor, dy2d: torch.Tensor):
@@ -78,20 +94,28 @@ def dense_grads(x2d: torch.Tensor, dy2d: torch.Tensor):
     r, cin = x2d.shape
     cout = dy2d.shape[1]
     dt = x2d.dtype
-    fn = cuda.entry_point("dense_grads", dt)
+    fn = cuda.tc_route("dense_grads", dt)
     x2d, dy2d = x2d.contiguous(), dy2d.contiguous()
     cuda.require(x2d, "x", dt, (r, cin))
     cuda.require(dy2d, "dy", dt, (r, cout))
-    splits = splits_for(r, cin, cout,
-                        torch.cuda.get_device_properties(x2d.device).multi_processor_count)
+    # the bf16 kernel copies an operand whose width is a multiple of 8 in
+    # 16-byte chunks, any other by plain loads
+    xp, dyp = x2d.data_ptr(), dy2d.data_ptr()
+    if cin % 8 == 0:
+        cuda.require_aligned(fn, x=xp)
+    if cout % 8 == 0:
+        cuda.require_aligned(fn, dy=dyp)
+    splits = plan_splits(r, cin, cout, dt, cuda.sm_count(x2d.device.index))
     f32 = dict(dtype=torch.float32, device=x2d.device)
     dw, db = torch.empty((cin, cout), **f32), torch.empty((cout,), **f32)
-    wpart = torch.empty((splits, cin, cout), **f32)
-    bpart = torch.empty((splits, cout), **f32)
+    # the split partials of dW, then of db, in one scratch allocation
+    part = torch.empty((splits * (cin * cout + cout),), **f32)
+    wpart = part.data_ptr()
+    bpart = wpart + 4 * splits * cin * cout
     LAUNCHES.n += 1
     cuda.check(getattr(cuda.lib(), fn)(
-        x2d.data_ptr(), dy2d.data_ptr(), dw.data_ptr(), db.data_ptr(), wpart.data_ptr(),
-        bpart.data_ptr(), r, cin, cout, splits, cuda.stream_ptr()), fn)
+        xp, dyp, dw.data_ptr(), db.data_ptr(), wpart, bpart, r, cin, cout, splits,
+        cuda.stream_ptr()), fn)
     return dw, db
 
 
