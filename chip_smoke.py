@@ -25,7 +25,11 @@ goes on):
   5. hold each training kernel K7-K10, forward and backward, against its
      twin at the flagship pretrain shapes (f32 and bf16; K7/K8 at dropout
      0 and 0.1 with the same seed, the dropout masks compared exactly),
-     and time both, with K8's forward beside PyTorch's SDPA;
+     and time both; K8's bf16 forward (tensor cores) launched again,
+     bitwise equal, its dropped elements read through its output (v the
+     identity on a 64-key window) equal to the twin's mask bit for bit,
+     and K8 timed on device time beside SDPA's forward and forward +
+     backward, the event times beside;
   6. pretrain path: three steps of `make_pretrain_step` at B=48 in bf16 on
      synthetic ShapeNetRender batches; the loss and parameters stay
      finite, the parameters move, and K1, K2, the forward and backward of
@@ -43,9 +47,11 @@ goes on):
      tensor-core route launched twice, bitwise equal, at 256->256 and
      Cin = 3), timed on device time beside cuBLAS plus a column sum, and
      its sum over one step; K6 (self-attention with the pre-LN and q/k/v
-     folded in) at [330, 128, 256] and [64, 128, 256], in f32 and bf16,
-     beside the route it replaces (LayerNorm, three cuBLAS projections,
-     K5);
+     folded in) at [330, 128, 256] and [64, 128, 256], at one row and at
+     G = 178, Din = 1024, in f32 and bf16 (bf16 on the tensor cores,
+     launched twice, bitwise equal), timed on device time beside the
+     route it replaces (LayerNorm, three cuBLAS projections, K5), the
+     event times beside;
  10. ft_cls path: three `make_cls_step` steps at the script's B=330 in
      bf16 on synthetic ModelNet40 (scripts/finetune/ft-E1CL8SL-H4D256-
      L128-MR2.sh, dropout as it sets it): the loss and parameters stay
@@ -60,7 +66,9 @@ goes on):
      head's BatchNorms over 2 rows are ill-conditioned) the step's loss and
      every gradient leaf;
  12. the bf16 ft_cls step time at B=330 and where it goes, and the eval
-     forward at B=64 and B=330 with and without K6;
+     forward at B=64 and B=330 through the auto gate, with K6 forced and
+     with the route it replaces forced (events, and the kernels' device
+     time from torch.profiler);
  13. hold K12 (the row gather of `index_points` and its scatter-add
      backward) against its twin at the compat stem's [96, 1024, 3] x 4096
      neighbour gather, at an odd K and at C=128, in f32 and bf16 (the
@@ -116,7 +124,8 @@ goes on):
      [4,096, 384], [131,072, 64] and the Fourier tokens' [995,328, 261],
      against their twins (column sums against their channel's sum of
      magnitudes, K18's statistics bitwise equal between two runs), timed
-     beside var_mean, native_batch_norm_backward and F.layer_norm;
+     on device time beside var_mean, native_batch_norm_backward and
+     F.layer_norm forward and backward, the event times beside;
  25. hold the earlier kernels at semantic segmentation's shapes (B=32,
      4,096 xyz+rgb points, D=384): K1, K2, K10 at C=6, K9 at Cin=6, K7
      over 4,096 tokens, K8, K11 at its five semseg sites, and the eval's
@@ -169,9 +178,11 @@ with `git archive` into a directory that .gitignore lists):
     python3 chip_smoke.py --ab OTHER_TREE [PAIRS]
 
 times both in turns, PAIRS pairs (10 by default), each sample in its own
-process: the host time of a K5 and a K11 wrapper call (with the card idle
-and busy), the serving forward at B = 32 and 64 and the ft_cls step at
-B = 330, with their kernels' device time.
+process: the host time of a K5, K6, K8 forward and K11 wrapper call (with
+the card idle and busy; K6's and K8's device time beside), the serving
+forward at B = 32 and 64, the
+ft_cls step and eval forward at B = 330, with their kernels' device
+time, and one eval_zeroshot run (host clock).
 """
 
 from __future__ import annotations
@@ -497,24 +508,6 @@ class Recorder:
               f"{100.0 * bnd['bound_ms'] / ms:.1f}% of it){lib}")
 
 
-def sdpa_bwd_ms(q, k, v, do, h, scale, rate) -> float:
-    """SDPA on the head-split views, forward and backward under
-    torch.autograd.grad (with its own dropout draw at `rate`)."""
-    import torch.nn.functional as F
-
-    def split(t):
-        return t.view(t.shape[0], t.shape[1], h, -1).transpose(1, 2)
-
-    qkv = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-    doh = split(do)
-
-    def run():
-        out = F.scaled_dot_product_attention(*map(split, qkv), dropout_p=rate, scale=scale)
-        return torch.autograd.grad(out, qkv, doh)
-
-    return cuda_ms(run)
-
-
 def sdpa_call(q, k, v, h, scale, rate=0.0):
     """One PyTorch call computing the same attention: SDPA on the
     head-split views of packed [B, N, H*dh] operands (with its own dropout
@@ -530,6 +523,71 @@ def sdpa_call(q, k, v, h, scale, rate=0.0):
 
 def sdpa_ms(q, k, v, h, scale, rate) -> float:
     return cuda_ms(lambda: sdpa_call(q, k, v, h, scale, rate))
+
+
+def sdpa_fwd_bwd(q, k, v, do, h, scale, rate):
+    """One call of SDPA's forward and backward (its own dropout draw at
+    `rate`) on the head-split views, under torch.autograd.grad."""
+    import torch.nn.functional as F
+
+    def split(t):
+        return t.view(t.shape[0], t.shape[1], h, -1).transpose(1, 2)
+
+    qkv = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    doh = split(do)
+
+    def run():
+        out = F.scaled_dot_product_attention(*map(split, qkv), dropout_p=rate, scale=scale)
+        return torch.autograd.grad(out, qkv, doh)
+
+    return run
+
+
+def _device_timing(rec, name: str, shape: str, kernel, library, plain_ms: float, bnd,
+                   keep: bool = True) -> tuple[float, float]:
+    """A kernel's and its library call's device time (queued_ms), printed
+    with the plain twin's event time, the bound and the event times of the
+    kernel and the library call (where a wrapper costs the host more than
+    its kernel costs the card, events measure the host); recorded for the
+    JSON line where `keep`. Returns the two device times."""
+    ms, lib_ms = queued_ms(kernel, name), queued_ms(library, name + " library")
+    host_ms, lib_host_ms = cuda_ms(kernel), cuda_ms(library)
+    if keep:
+        rec.timing(name, ms, plain_ms, bnd, lib_ms, shape=shape)
+        rec.r[name].update(host_ms=host_ms, library_host_ms=lib_host_ms)
+    else:
+        print(f"  {name:18s} {shape:34s} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={bnd['bound_ms']:.4f} ({bnd['bound_by']}) library_ms={lib_ms:.4f}")
+    print(f"  {name:18s} {shape:34s} device times; events without the spin: kernel "
+          f"{host_ms:.4f} ms, library {lib_host_ms:.4f} ms")
+    return ms, lib_ms
+
+
+def check_dropout_through_output(kf, seed, h: int, scale: float, rate: float) -> None:
+    """The bf16 tensor-core K8 forward drops exactly the twin's elements:
+    with v the identity on one 64-key window of M = 128 keys (zero rows
+    elsewhere), output column c of a row is that row's p of key 64 w + c,
+    after dropout: 0 exactly where the key was dropped (an undropped p is
+    at least 2^-20 here, far above bf16's smallest normal). The zero
+    pattern of each window equals keep_mask_plain bit for bit."""
+    b, n, dh = 4, 128, 64
+    dev = seed.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    q, k = (torch.randn((b, n, h * dh), generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    keep = kf.keep_mask_plain(seed, b * h, n, n, rate)
+    for w in range(n // dh):
+        v = torch.zeros((b, n, h, dh), device=dev)
+        v[:, w * dh:(w + 1) * dh] = torch.eye(dh, device=dev)[:, None, :]
+        out, _ = kf.attention_fwd_kernel(q, k, v.reshape(b, n, h * dh).to(torch.bfloat16), seed,
+                                         h, scale, rate)
+        kept = (out.view(b, n, h, dh).transpose(1, 2).reshape(b * h, n, dh) != 0)
+        expect(torch.equal(kept, keep[..., w * dh:(w + 1) * dh]),
+               f"K8 bf16 forward: keys {w * dh}-{(w + 1) * dh - 1} dropped other elements "
+               f"than the twin's mask")
+    print(f"  {'attn_train_fwd':18s} bf16 dropout through the output: the kernel's dropped "
+          f"elements equal the twin's mask bit for bit ([{b * h},{n},{n}], rate {rate}, "
+          f"keep rate {keep.float().mean().item():.5f})")
 
 
 def grads_of(models: dict) -> dict:
@@ -849,20 +907,33 @@ def check_training_kernels(rec: Recorder) -> None:
                                          kf.attention_bwd_plain(*bwd_args)):
                     rec.check("attn_train_bwd", f"{what} {gname}", *rel_err(gk, gp),
                               GRAD_TOL[dt_name])
+            if dt_name == "bfloat16":  # the tensor-core forward: the same bits again
+                out2, lse2 = kf.attention_fwd_kernel(q, k, v, seed, h, scale, rate)
+                expect(torch.equal(out_k, out2) and torch.equal(lse_k, lse2),
+                       f"K8 forward {branch} bf16: two launches differ")
+                print(f"  {'attn_train_fwd':18s} {branch} bf16 p={rate}: two launches bitwise "
+                      f"equal")
             if branch == "point" and dt_name == "bfloat16":
                 shape = f"[{b},{n},{d}] H={h} p={rate} bf16"
                 ops = 4 * b * n * n * d
-                rec.timing("attn_train_fwd",
-                           cuda_ms(lambda: kf.attention_fwd_kernel(q, k, v, seed, h, scale, rate)),
-                           cuda_ms(lambda: kf.attention_fwd_plain(q, k, v, seed, h, scale, rate)),
-                           bound(nbytes(q, k, v, out_k, lse_k), ops, dt_name),
-                           sdpa_ms(q, k, v, h, scale, rate), shape)
+                # device times (queued behind a spin: SDPA's and the bf16
+                # forward's wrappers cost the host more than their kernels
+                # cost the card), the event times beside them
                 grads = kf.attention_bwd_kernel(*bwd_args)
-                rec.timing("attn_train_bwd",
-                           cuda_ms(lambda: kf.attention_bwd_kernel(*bwd_args)),
-                           cuda_ms(lambda: kf.attention_bwd_plain(*bwd_args)),
-                           bound(nbytes(q, k, v, do, lse_p, delta, *grads), 2.5 * ops, dt_name),
-                           sdpa_bwd_ms(q, k, v, do, h, scale, rate), shape=shape)
+                calls = dict(
+                    fwd=(lambda: kf.attention_fwd_kernel(q, k, v, seed, h, scale, rate),
+                         lambda: sdpa_call(q, k, v, h, scale, rate),
+                         lambda: kf.attention_fwd_plain(q, k, v, seed, h, scale, rate),
+                         bound(nbytes(q, k, v, out_k, lse_k), ops, dt_name)),
+                    bwd=(lambda: kf.attention_bwd_kernel(*bwd_args),
+                         sdpa_fwd_bwd(q, k, v, do, h, scale, rate),
+                         lambda: kf.attention_bwd_plain(*bwd_args),
+                         bound(nbytes(q, k, v, do, lse_p, delta, *grads), 2.5 * ops, dt_name)))
+                for way, (kernel, library, plain, bnd) in calls.items():
+                    _device_timing(rec, f"attn_train_{way}", shape, kernel, library,
+                                   cuda_ms(plain), bnd)
+        if branch == "point":
+            check_dropout_through_output(kf, seed, h, scale, rate)
 
     # K7 at the point branch's cross-attention (128 latents over 2048
     # points) and the image branch's (144 patches over themselves)
@@ -1147,23 +1218,13 @@ def check_ft_cls_kernels(rec: Recorder, route_ms: dict) -> None:
                 print(f"  {'dense_grads':18s} {what}: two launches bitwise equal")
             # device times (queued behind a spin: the wrapper's host cost
             # exceeds the kernel's), the host-bound event times beside them
-            kernel = lambda: kdense.dense_grads(x, dy)  # noqa: E731
-            library = lambda: (x.t() @ dy, dy.sum(0))  # noqa: E731
-            ms, lib_ms = queued_ms(kernel, what), queued_ms(library, what + " library")
-            host_ms, lib_host_ms = cuda_ms(kernel), cuda_ms(library)
+            ms, _ = _device_timing(
+                rec, "dense_grads", f"x[{r},{ci}] dy[{r},{co}] bf16",
+                lambda: kdense.dense_grads(x, dy), lambda: (x.t() @ dy, dy.sum(0)),
+                cuda_ms(lambda: kdense.dense_grads_plain(x, dy)),
+                bound(nbytes(x, dy, dw_k, db_k), 2 * r * ci * co + r * co, dt_name),
+                keep=(ci, co) == (256, 256))  # the step's most frequent site
             per_step += ms * DENSE_SITES[(ci, co)]
-            bnd = bound(nbytes(x, dy, dw_k, db_k), 2 * r * ci * co + r * co, dt_name)
-            args = (ms, cuda_ms(lambda: kdense.dense_grads_plain(x, dy)), bnd, lib_ms)
-            shape = f"x[{r},{ci}] dy[{r},{co}] bf16"
-            if (ci, co) == (256, 256):  # the step's most frequent site
-                rec.timing("dense_grads", *args, shape=shape)
-                rec.r["dense_grads"].update(host_ms=host_ms, library_host_ms=lib_host_ms)
-            else:
-                print(f"  {'dense_grads':18s} {shape:34s} kernel_ms={ms:.4f} plain_ms={args[1]:.4f} "
-                      f"bound_ms={bnd['bound_ms']:.4f} ({bnd['bound_by']}, "
-                      f"{100.0 * bnd['bound_ms'] / ms:.1f}% of it) library_ms={lib_ms:.4f}")
-            print(f"  {'dense_grads':18s} {shape:34s} device times; events without the spin "
-                  f"(host-bound): kernel {host_ms:.4f} ms, library {lib_host_ms:.4f} ms")
     rec.r["dense_grads"]["ms_per_step"] = per_step
     print(f"  K11 per ft_cls step (54 launches at the sites' shapes, device time): "
           f"{per_step:.4f} ms")
@@ -1175,30 +1236,44 @@ def check_ft_cls_kernels(rec: Recorder, route_ms: dict) -> None:
         return kattn.fused_attention_packed_small(xn @ wq, xn @ wk, xn @ wv, num_heads=h,
                                                   scale=scale)
 
+    def k6_args(b, gg, din, dt):
+        return (t((b, gg, din), dt), t((din,), scale_=0.2) + 1.0, t((din,), scale_=0.1),
+                t((din, d), dt, din ** -0.5), t((din, d), dt, din ** -0.5),
+                t((din, d), dt, din ** -0.5))
+
     with torch.inference_mode():
+        # the ends of what the gate admits: one row, and G = 178 at Din = 1024
+        # (the bf16 kernel's two-pass mode); both dtypes
+        for b, gg, din in ((FT_BATCH, 1, d), (8, 178, 1024)):
+            for dt_name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+                args = k6_args(b, gg, din, dt)
+                rec.check("attn_small_qkv_ln", f"B={b} G={gg} Din={din} {dt_name}",
+                          *rel_err(kattn.fused_attention_packed_small_qkv_ln(
+                              *args, num_heads=h, scale=scale),
+                              kattn.attention_small_qkv_ln_plain(*args, h, scale)),
+                          KERNEL_TOL[dt_name])
         for b in (FT_BATCH, 64):
             for dt_name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-                args = (t((b, g, d), dt), t((d,), scale_=0.2) + 1.0, t((d,), scale_=0.1),
-                        t((d, d), dt, d ** -0.5), t((d, d), dt, d ** -0.5),
-                        t((d, d), dt, d ** -0.5))
+                args = k6_args(b, g, d, dt)
                 out_k = kattn.fused_attention_packed_small_qkv_ln(*args, num_heads=h, scale=scale)
                 out_p = kattn.attention_small_qkv_ln_plain(*args, h, scale)
                 rec.check("attn_small_qkv_ln", f"B={b} {dt_name}", *rel_err(out_k, out_p),
                           KERNEL_TOL[dt_name])
                 if dt_name != "bfloat16":
                     continue
-                ms = cuda_ms(lambda: kattn.fused_attention_packed_small_qkv_ln(
-                    *args, num_heads=h, scale=scale))
-                route = cuda_ms(lambda: replaced(*args))
-                route_ms[b] = (ms, route)
-                if b == FT_BATCH:
-                    ops = 2 * b * g * d * 3 * d + 4 * b * g * g * d
-                    rec.timing("attn_small_qkv_ln", ms,
-                               cuda_ms(lambda: kattn.attention_small_qkv_ln_plain(*args, h, scale)),
-                               bound(nbytes(*args, out_k), ops, dt_name), route,
-                               shape=f"x[{b},{g},{d}] H={h} bf16")
-                print(f"  K6 vs the route it replaces (LN + 3 cuBLAS + K5), B={b} bf16: "
-                      f"{ms:.4f} ms vs {route:.4f} ms")
+                # the tensor-core route: the same bits again
+                expect(torch.equal(out_k, kattn.fused_attention_packed_small_qkv_ln(
+                    *args, num_heads=h, scale=scale)), f"K6 B={b} bf16: two launches differ")
+                print(f"  {'attn_small_qkv_ln':18s} B={b} bf16: two launches bitwise equal")
+                # device times (queued behind a spin), the event times beside
+                route_ms[b] = _device_timing(
+                    rec, "attn_small_qkv_ln", f"x[{b},{g},{d}] H={h} bf16",
+                    lambda: kattn.fused_attention_packed_small_qkv_ln(*args, num_heads=h,
+                                                                      scale=scale),
+                    lambda: replaced(*args),
+                    cuda_ms(lambda: kattn.attention_small_qkv_ln_plain(*args, h, scale)),
+                    bound(nbytes(*args, out_k), 2 * b * g * d * 3 * d + 4 * b * g * g * d,
+                          dt_name), keep=b == FT_BATCH)
 
 
 def ft_batches(cfg, split: str):
@@ -1350,17 +1425,18 @@ def time_ft_cls(batches, test_batches, route_ms: dict) -> None:
     saved = kattn.USE_SA_QKV_LN
     try:
         for b in (64, FT_BATCH):
-            times = {}
-            for label, flag in (("K6", True), ("LN + 3 cuBLAS + K5", False)):
+            times = {}  # (events, the kernels' device time) of each route
+            for label, flag in (("auto gate", None), ("K6 forced", True),
+                                ("LN + 3 cuBLAS + K5", False)):
                 kattn.USE_SA_QKV_LN = flag
-                times[label] = cuda_ms(lambda: eval_step(points[b]), iters=10)
-            kattn.USE_SA_QKV_LN = None
-            auto = cuda_ms(lambda: eval_step(points[b]), iters=10)
+                run = lambda: eval_step(points[b])  # noqa: E731
+                times[label] = (cuda_ms(run, iters=10), kernel_sums(run, 3)[0])
             k6, k5 = route_ms[b]
-            print(f"ft_cls eval forward bf16 B={b}: auto gate {auto:.3f} ms "
-                  f"({1000.0 * b / auto:.0f} clouds/s); with K6 forced {times['K6']:.3f} ms, "
-                  f"with LN + 3 cuBLAS + K5 {times['LN + 3 cuBLAS + K5']:.3f} ms "
-                  f"(one SA layer's kernels: K6 {k6:.4f} ms, the replaced route {k5:.4f} ms)")
+            auto = times["auto gate"][0]
+            print(f"ft_cls eval forward bf16 B={b} ({1000.0 * b / auto:.0f} clouds/s through "
+                  f"the auto gate), events / kernels' device time (profiler): " + ", ".join(
+                      f"{label} {ev:.3f} / {dev:.3f} ms" for label, (ev, dev) in times.items())
+                  + f" (one SA layer on device: K6 {k6:.4f} ms, the replaced route {k5:.4f} ms)")
     finally:
         kattn.USE_SA_QKV_LN = saved
 
@@ -2170,17 +2246,6 @@ def _colsum_err(got, want, mag) -> tuple[float, float]:
     return err.max().item(), (err / mag.clamp_min(1e-30)).max().item()
 
 
-def _norm_times(rec: Recorder, name: str, shape: str, times: dict, keep: bool) -> None:
-    """Print (kernel, twin, bound, library) times of the forward and the
-    backward kernel at one shape; `keep` records them for the JSON line."""
-    for k, (ms, plain, bnd, lib) in times.items():
-        if keep:
-            rec.timing(f"{name}_{k}", ms, plain, bnd, lib, shape=shape)
-        else:
-            print(f"  {name + '_' + k:18s} {shape:34s} kernel_ms={ms:.4f} plain_ms={plain:.4f} "
-                  f"bound_ms={bnd['bound_ms']:.4f} ({bnd['bound_by']}) library_ms={lib:.4f}")
-
-
 def check_norm_kernels(rec: Recorder) -> None:
     """K18's statistics and gradient reduces and K17's forward and backward
     against their twins on the card, each timed with CUDA events beside
@@ -2230,16 +2295,18 @@ def check_norm_kernels(rec: Recorder) -> None:
             del xf, dyf
             if dt_name == "bfloat16" and label == "semseg":
                 w = torch.ones(c, device=dev)
-                times = dict(
-                    fwd=(cuda_ms(lambda: kbn.bn_stats(x)), cuda_ms(lambda: kbn.bn_stats_plain(x)),
-                         bound(nbytes(x, s_k, ss_k), 3 * r * c, "float32"),
-                         cuda_ms(lambda: torch.var_mean(x, 0, correction=0))),
-                    bwd=(cuda_ms(lambda: kbn.bn_grad_reduces(x, dy, mean, rstd)),
+                calls = dict(
+                    fwd=(lambda: kbn.bn_stats(x), lambda: torch.var_mean(x, 0, correction=0),
+                         cuda_ms(lambda: kbn.bn_stats_plain(x)),
+                         bound(nbytes(x, s_k, ss_k), 3 * r * c, "float32")),
+                    bwd=(lambda: kbn.bn_grad_reduces(x, dy, mean, rstd),
+                         lambda: torch.ops.aten.native_batch_norm_backward(
+                             dy, x, w, None, None, mean, rstd, True, 1e-5, [False, True, True]),
                          cuda_ms(lambda: kbn.bn_grad_reduces_plain(x, dy, mean, rstd)),
-                         bound(nbytes(x, dy, mean, rstd, ds_k, db_k), 5 * r * c, "float32"),
-                         cuda_ms(lambda: torch.ops.aten.native_batch_norm_backward(
-                             dy, x, w, None, None, mean, rstd, True, 1e-5, [False, True, True]))))
-                _norm_times(rec, "batchnorm", f"[{r},{c}] bf16", times, c == BN_SHAPES[0][1])
+                         bound(nbytes(x, dy, mean, rstd, ds_k, db_k), 5 * r * c, "float32")))
+                for way, call in calls.items():
+                    _device_timing(rec, f"batchnorm_{way}", f"[{r},{c}] bf16", *call,
+                                   keep=c == BN_SHAPES[0][1])
             del x, dy
         torch.cuda.empty_cache()
     for r, d, dts in LN_SHAPES:
@@ -2269,23 +2336,24 @@ def check_norm_kernels(rec: Recorder) -> None:
             del dyf, xhat
             if dt_name == "bfloat16":
                 shape = f"[{r},{d}] bf16"
-                ms_f = cuda_ms(lambda: kln.ln_fwd(x, s, b))
-                ms_b = cuda_ms(lambda: kln.ln_bwd(x, dy, mu_p, rs_p, s))
                 # F.layer_norm takes its parameters in the input's dtype
                 sl, bl = s.to(dt), b.to(dt)
                 xg = x.detach().clone().requires_grad_()
                 sg, bg = sl.clone().requires_grad_(), bl.clone().requires_grad_()
                 yl = F.layer_norm(xg, (d,), sg, bg, kcuda.LN_EPS)
-                lib_f = cuda_ms(lambda: F.layer_norm(x, (d,), sl, bl, kcuda.LN_EPS))
-                lib_b = cuda_ms(lambda: torch.autograd.grad(yl, (xg, sg, bg), dy,
-                                                            retain_graph=True))
-                times = dict(
-                    fwd=(ms_f, cuda_ms(lambda: kln.ln_fwd_plain(x, s, b)),
-                         bound(nbytes(x, s, b, y_k, mu_k, rs_k), 7 * r * d, "float32"), lib_f),
-                    bwd=(ms_b, cuda_ms(lambda: kln.ln_bwd_plain(x, dy, mu_p, rs_p, s)),
+                calls = dict(
+                    fwd=(lambda: kln.ln_fwd(x, s, b),
+                         lambda: F.layer_norm(x, (d,), sl, bl, kcuda.LN_EPS),
+                         cuda_ms(lambda: kln.ln_fwd_plain(x, s, b)),
+                         bound(nbytes(x, s, b, y_k, mu_k, rs_k), 7 * r * d, "float32")),
+                    bwd=(lambda: kln.ln_bwd(x, dy, mu_p, rs_p, s),
+                         lambda: torch.autograd.grad(yl, (xg, sg, bg), dy, retain_graph=True),
+                         cuda_ms(lambda: kln.ln_bwd_plain(x, dy, mu_p, rs_p, s)),
                          bound(nbytes(x, dy, mu_p, rs_p, s, dx_k, ds_k, db_k), 12 * r * d,
-                               "float32"), lib_b))
-                _norm_times(rec, "layernorm", shape, times, (r, d) == LN_TIMED)
+                               "float32")))
+                for way, call in calls.items():
+                    _device_timing(rec, f"layernorm_{way}", shape, *call,
+                                   keep=(r, d) == LN_TIMED)
                 del xg, yl
             del x, dy, y_k, y_p, dx_k, dx_p
         torch.cuda.empty_cache()
@@ -3006,7 +3074,7 @@ def drive_perceiver_head_split(counts_out: dict) -> None:
 OUR_KERNELS = ("vpt", "fps_kernel", "knn_kernel", "fps_knn_kernel", "mha_kernel", "mha_tc_kernel",
                "stem_kernel", "attn_flash_kernel", "attn_combine_kernel", "attn_packed_tc_kernel",
                "attn_small_kernel", "attn_small_tc_kernel", "attn_small_qkv_ln_kernel",
-               "dense_grads_tc_kernel")
+               "attn_small_qkv_ln_tc_kernel", "flash_fwd_tc_kernel", "dense_grads_tc_kernel")
 
 
 def ours_kernel(name: str) -> bool:
@@ -3102,17 +3170,20 @@ def host_us(fn, calls: int = AB_HOST_CALLS, busy: bool = False) -> float:
 
 def time_tree(root: str) -> dict:
     """One A/B sample of the port in the checkout at `root`, imported from
-    there (its kernels built there): the host time of a K5 and a K11
-    wrapper call (the card idle, and busy), the serving forward at each of
-    BATCHES (events, and its kernels' and K5's device time from
-    torch.profiler) and the ft_cls step (events over TIMED_STEPS steps,
-    and K11's device time a step)."""
+    there (its kernels built there): the host time of a K5, K6, K8 forward
+    and K11 wrapper call (the card idle, and busy; K6's and K8's device
+    time), the serving forward at
+    each of BATCHES (events, and its kernels' and K5's device time from
+    torch.profiler), the ft_cls step (events over TIMED_STEPS steps, and
+    K11's device time a step), the ft_cls eval forward at B = 330 (events,
+    its kernels' and K6's device time) and one eval_zeroshot run."""
     sys.path.insert(0, root)
     from vipformer_tpu_torch.models.factory import build_ft_cls
     from vipformer_tpu_torch.ops import cuda as kcuda
     from vipformer_tpu_torch.ops.cuda import attention as kattn
     from vipformer_tpu_torch.ops.cuda import dense as kdense
-    from vipformer_tpu_torch.train.trainer import create_state, make_cls_step
+    from vipformer_tpu_torch.ops.cuda import flash_train as kflash
+    from vipformer_tpu_torch.train.trainer import create_state, make_cls_eval, make_cls_step
 
     expect(kcuda.__file__.startswith(root), f"imported {kcuda.__file__}, not the tree at {root}")
     kcuda.lib()
@@ -3126,6 +3197,21 @@ def time_tree(root: str) -> dict:
         k5 = lambda: kattn.fused_attention_packed_small(q, k, v, num_heads=4,  # noqa: E731
                                                         scale=0.125)
         out["K5 wrapper us"], out["K5 wrapper us, card busy"] = host_us(k5), host_us(k5, busy=True)
+        x = torch.randn((FT_BATCH, 128, 256), generator=gen, **bf)
+        ln = [torch.ones(256, device="cuda"), torch.zeros(256, device="cuda")]
+        w = [torch.randn((256, 256), generator=gen, **bf) * 0.0625 for _ in range(3)]
+        k6 = lambda: kattn.fused_attention_packed_small_qkv_ln(  # noqa: E731
+            x, *ln, *w, num_heads=4, scale=0.125)
+        out["K6 wrapper us"] = host_us(k6, calls=50)
+        out["K6 wrapper us, card busy"] = host_us(k6, calls=50, busy=True)
+        out[f"K6 B={FT_BATCH} device ms"] = queued_ms(k6, "K6")
+        seed = torch.tensor([SEED + 1], dtype=torch.int32, device="cuda")
+        qkv = [torch.randn((2 * PRETRAIN_BATCH, 128, 256), generator=gen, **bf) for _ in range(3)]
+        k8 = lambda: kflash.attention_fwd_kernel(*qkv, seed, 4, 0.125, 0.1)  # noqa: E731
+        out["K8 fwd wrapper us"] = host_us(k8)
+        out["K8 fwd wrapper us, card busy"] = host_us(k8, busy=True)
+        out["K8 fwd device ms"] = queued_ms(k8, "K8 forward")
+    del x, ln, w, qkv
     x, dy = torch.randn((42240, 256), generator=gen, **bf), torch.randn((42240, 256), generator=gen,
                                                                           **bf)
     k11 = lambda: kdense.dense_grads(x, dy)  # noqa: E731
@@ -3153,7 +3239,32 @@ def time_tree(root: str) -> dict:
     run(2)
     out["ft_cls step ms"] = cuda_ms(lambda: run(1), iters=TIMED_STEPS, warmup=0)
     out["ft_cls K11 ms"] = kernel_sums(lambda: run(1), 2, "dense_grads")[1]
+    eval_step = make_cls_eval(model)
+    pts = torch.from_numpy(ft_batches(cfg, "test")[0][0]["points"]).cuda()
+    out[f"ft_cls eval B={FT_BATCH} ms"] = cuda_ms(lambda: eval_step(pts), iters=AB_ITERS)
+    out[f"ft_cls eval B={FT_BATCH} kernels ms"], out[f"ft_cls eval B={FT_BATCH} K6 ms"] = \
+        kernel_sums(lambda: eval_step(pts), 4, "attn_small_qkv_ln")
+    del model, state, step, eval_step
+    torch.cuda.empty_cache()
+    out["eval_zeroshot s"] = time_eval_zeroshot()
     return out
+
+
+def time_eval_zeroshot() -> float:
+    """Host seconds of one `cli.eval_zeroshot` run at the flagship (B=160,
+    the synthetic ModelNet40, the probes included), as drive_eval_clis
+    runs it."""
+    import tempfile
+
+    from vipformer_tpu_torch.cli import eval_zeroshot
+
+    with tempfile.TemporaryDirectory() as root:
+        cfg, device = eval_zeroshot.parse_args(eval_args("zs", root, "--pt_dataset",
+                                                         "ModelNet40"))
+        t0 = time.perf_counter()
+        eval_zeroshot.main(cfg, device)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
 
 
 def ab(other: str, pairs: int) -> int:

@@ -121,8 +121,12 @@ def _assert_grad_close(got, want, dt):
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,g,m,h", [(1, 144, 144, 4), (2, 100, 70, 2), (1, 1, 5, 1)])
+@pytest.mark.parametrize("b,g,m,h", [(1, 144, 144, 4), (2, 100, 70, 2), (1, 1, 5, 1),
+                                     (3, 128, 128, 4), (2, 65, 1000, 6), (2, 129, 63, 2)])
 def test_flash_train_kernel_matches_twin(dev, b, g, m, h, dt, rate):
+    """K8 forward and backward; the bf16 forward (tensor cores) also at the
+    pretrain latents' 128, at query counts off its 64-row blocks (65, 129)
+    and key counts off its 64-key tiles (63, 1000)."""
     from vipformer_tpu_torch.ops.cuda import flash_train as kf
 
     rng = np.random.default_rng(1)
@@ -160,6 +164,27 @@ def test_flash_train_kv_kernel_matches_twin(dev, b, g, m, din, h, dt):
     for got, want in zip(kf.attention_kv_bwd_kernel(*args, do, lse_p, delta, seed, h, 0.125, 0.1),
                          kf.attention_kv_bwd_plain(*args, do, lse_p, delta, seed, h, 0.125, 0.1)):
         _assert_grad_close(got, want, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 1])
+def test_flash_train_bf16_forward_drops_the_twins_elements(dev, window):
+    """With v the identity on one 64-key window of 128 keys (zero rows
+    elsewhere), the bf16 K8 forward's output column c is the row's dropped
+    p of key 64 w + c: zero exactly where the twin's mask drops it."""
+    from vipformer_tpu_torch.ops.cuda import flash_train as kf
+
+    rng = np.random.default_rng(3)
+    b, n, h, rate = 2, 128, 3, 0.1
+    q, k = (_t(rng, (b, n, 64 * h), dev, torch.bfloat16) for _ in range(2))
+    v = torch.zeros((b, n, h, 64), device=dev)
+    v[:, 64 * window:64 * window + 64] = torch.eye(64, device=dev)[:, None, :]
+    seed = torch.tensor([99], dtype=torch.int32, device=dev)
+    out, _ = kf.attention_fwd_kernel(q, k, v.view(b, n, 64 * h).to(torch.bfloat16), seed, h,
+                                     0.125, rate)
+    kept = out.view(b, n, h, 64).transpose(1, 2).reshape(b * h, n, 64) != 0
+    keep = kf.keep_mask_plain(seed, b * h, n, n, rate)
+    assert torch.equal(kept, keep[..., 64 * window:64 * window + 64])
 
 
 @pytest.mark.cuda
@@ -326,8 +351,13 @@ def test_dense_grads_kernel_matches_twin(dev, r, cin, cout, dt):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,g,din,h", [(130, 128, 256, 4), (3, 144, 256, 4), (2, 37, 128, 2)])
+@pytest.mark.parametrize("b,g,din,h", [(130, 128, 256, 4), (3, 144, 256, 4), (2, 37, 128, 2),
+                                       (5, 1, 256, 4), (3, 129, 384, 6), (2, 178, 1024, 4),
+                                       (4, 128, 1024, 1), (3, 64, 384, 6)])
 def test_attention_small_qkv_ln_kernel_matches_twin(dev, b, g, din, h, dt):
+    """K6 at the gate's ends (one row; 178 rows at Din = 1024), about the
+    bf16 kernel's 128-row score mode (128, 129), at partseg's D = 384 with 6
+    heads and at one head."""
     rng = np.random.default_rng(7)
     d = 64 * h
     args = (_t(rng, (b, g, din), dev, dt), _t(rng, (din,), dev, scale=0.2) + 1.0,
@@ -695,14 +725,33 @@ def test_head_split_kernel_matches_twin(dev, b, h, g, m, dh, dv, dt):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["attn_packed", "attn_head_split"])
+@pytest.mark.parametrize("kernel", ["attn_packed", "attn_head_split", "attn_small_qkv_ln",
+                                    "attn_train_fwd"])
 def test_tensor_core_kernels_repeat_bitwise(dev, kernel):
-    """The bf16 tensor-core routes of K13 and K14 give the same bits on a
-    second launch (no atomics, a fixed order of products); K13 with its
-    kv split forced to 1 (no merge pass) agrees with the planned split."""
+    """The bf16 tensor-core routes of K13, K14, K6 and K8's forward give
+    the same bits on a second launch (no atomics, a fixed order of
+    products); K13 with its kv split forced to 1 (no merge pass) agrees
+    with the planned split."""
+    from vipformer_tpu_torch.ops.cuda import flash_train as kf
+
     rng = np.random.default_rng(5)
     dt = torch.bfloat16
     with torch.inference_mode():
+        if kernel == "attn_small_qkv_ln":
+            args = (_t(rng, (130, 128, 256), dev, dt), _t(rng, (256,), dev),
+                    _t(rng, (256,), dev), *(_t(rng, (256, 256), dev, dt, 0.0625)
+                                            for _ in range(3)))
+            run = lambda: kattn.fused_attention_packed_small_qkv_ln(  # noqa: E731
+                *args, num_heads=4, scale=0.125)
+            assert torch.equal(run(), run())
+            return
+        if kernel == "attn_train_fwd":
+            q, k, v = (_t(rng, (96, 128, 256), dev, dt) for _ in range(3))
+            seed = torch.tensor([7], dtype=torch.int32, device=dev)
+            (o1, l1), (o2, l2) = (kf.attention_fwd_kernel(q, k, v, seed, 4, 0.125, 0.1)
+                                  for _ in range(2))
+            assert torch.equal(o1, o2) and torch.equal(l1, l2)
+            return
         if kernel == "attn_head_split":
             q, k = _t(rng, (2, 4, 129, 64), dev, dt), _t(rng, (2, 4, 1000, 64), dev, dt)
             v = _t(rng, (2, 4, 1000, 32), dev, dt)
@@ -767,7 +816,10 @@ def test_tensor_core_k5_k11_repeat_bitwise(dev, case):
 
 @pytest.mark.cuda
 def test_tensor_core_k5_k11_refuse_misaligned(dev):
+    """K5, K11, K6 and K8's forward in bf16 (16-byte cp.async) refuse an
+    operand whose storage starts off a 16-byte boundary."""
     from vipformer_tpu_torch.ops.cuda import dense as kdense
+    from vipformer_tpu_torch.ops.cuda import flash_train as kf
 
     rng = np.random.default_rng(14)
     dt = torch.bfloat16
@@ -778,6 +830,18 @@ def test_tensor_core_k5_k11_refuse_misaligned(dev):
     with pytest.raises(ValueError, match="16-byte boundary"):
         kattn.fused_attention_packed_small(x.view(1, 64, 256), x.view(1, 64, 256),
                                            x.view(1, 64, 256), num_heads=4, scale=0.125)
+    w = _t(rng, (256, 256), dev, dt)
+    w_off = _t(rng, (256 * 256 + 8,), dev, dt)[1:1 + 256 * 256].view(256, 256)
+    ln = _t(rng, (256,), dev)
+    ln_off = _t(rng, (260,), dev)[1:257]  # f32, 4 bytes off
+    x1 = _t(rng, (1, 64, 256), dev, dt)
+    for args in ((x.view(1, 64, 256), ln, ln, w, w, w), (x1, ln, ln_off, w, w, w),
+                 (x1, ln, ln, w, w_off, w)):
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            kattn.fused_attention_packed_small_qkv_ln(*args, num_heads=4, scale=0.125)
+    seed = torch.tensor([1], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        kf.attention_fwd_kernel(x.view(1, 64, 256), x1, x1, seed, 4, 0.125, 0.1)
 
 
 @pytest.mark.cuda

@@ -1,14 +1,17 @@
-"""The tensor-core routes of K5 and K11, on the CPU: which entry point each
-dtype reaches, and how the wrappers plan the kernels' grids.
+"""The tensor-core routes of K5, K6, K8's forward and K11, on the CPU:
+which entry point each dtype reaches, and how the wrappers plan the
+kernels' grids.
 
-The bf16 K5 (`tc::attn_small_tc_kernel`) and K11
-(`tc::dense_grads_tc_kernel`) run only on the card, where
-tests/test_torch_port_cuda.py and chip_smoke.py hold them against their
-twins. What decides their launches is Python, and is checked here: the
-route is a pure function of the dtype; K11's split of the rows covers
-every row once with no split empty and fills one wave of 132 SMs (two
-blocks an SM, no second wave) where R has the row steps; K5's shared
-memory fits one block at every (G, M) the gate admits.
+The bf16 K5 (`tc::attn_small_tc_kernel`), K6
+(`tc::attn_small_qkv_ln_tc_kernel`), K8's forward
+(`tc::flash_fwd_tc_kernel`) and K11 (`tc::dense_grads_tc_kernel`) run
+only on the card, where tests/test_torch_port_cuda.py and chip_smoke.py
+hold them against their twins. What decides their launches is Python,
+and is checked here: the route is a pure function of the dtype; K11's
+split of the rows covers every row once with no split empty and fills one
+wave of 132 SMs (two blocks an SM, no second wave) where R has the row
+steps; K5's shared memory fits one block at every (G, M) the gate admits,
+K6's two blocks an SM at every (G, Din) it admits.
 """
 
 import pytest
@@ -27,18 +30,33 @@ def small_tc_smem_bytes(m: int) -> int:
     rows of 64 + 8 bf16."""
     return 2 * (64 + 8) * (64 + 2 * 64 * -(-m // 64))
 
+
+def qkv_tc_smem_bytes(g: int) -> int:
+    """The bf16 K6's shared memory (csrc/attention.cu `qkv_smem_bytes`):
+    f32 mean and 1/std of the block's rows (128 at G <= 128, else 192),
+    then a 3-stage ring of 32-column chunks of x (rows of 32 + 8 bf16) and
+    of [wq|wk|wv] (32 rows of 192 + 8 bf16); Din streams, so it does not
+    enter."""
+    rows = 128 if g <= 128 else 192
+    return 4 * 2 * rows + 2 * 3 * (rows * (32 + 8) + 32 * (192 + 8))
+
+
 # (base, dtype, entry point): bf16 on the tensor cores, f32 on the CUDA cores
 ROUTES = [("dense_grads", torch.bfloat16, "dense_grads_tc_bf16"),
           ("dense_grads", torch.float32, "dense_grads_f32"),
           ("attn_small", torch.bfloat16, "attn_small_tc_bf16"),
-          ("attn_small", torch.float32, "attn_small_f32")]
+          ("attn_small", torch.float32, "attn_small_f32"),
+          ("attn_small_qkv_ln", torch.bfloat16, "attn_small_qkv_ln_tc_bf16"),
+          ("attn_small_qkv_ln", torch.float32, "attn_small_qkv_ln_f32"),
+          ("attn_train_fwd", torch.bfloat16, "attn_train_fwd_tc_bf16"),
+          ("attn_train_fwd", torch.float32, "attn_train_fwd_f32")]
 
 
 @pytest.mark.parametrize("base,dt,want", ROUTES)
 def test_dtype_route_of_dense_grads_and_attn_small(base, dt, want):
-    """K11 and K5: the dtype picks the entry point, which the library
-    declares; the CUDA-core bf16 entry points are gone; any other dtype
-    raises."""
+    """K11, K5, K6 and K8's forward: the dtype picks the entry point, which
+    the library declares; the CUDA-core bf16 entry points are gone; any
+    other dtype raises."""
     assert kcuda.tc_route(base, dt) == want
     assert want in kcuda.SIGNATURES
     assert f"{base}_bf16" not in kcuda.SIGNATURES
@@ -101,3 +119,26 @@ def test_small_attention_gate_admits_only_what_the_tc_kernel_takes(g):
     m = max(mm for mm in range(1, 512)
             if kattn.small_smem_bytes(g, mm) <= kattn.SMALL_SMEM_BYTES)
     assert small_tc_smem_bytes(m) <= kattn.SMALL_SMEM_BYTES
+
+
+# the gate's G from one row to its largest (178, the f32 kernel's shared
+# memory), about the 128 rows of the bf16 kernel's register-score mode
+QKV_GS = (1, 64, 128, 129, 178)
+QKV_DINS = (128, 256, 384, 1024)
+SM_SHARED_BYTES = 228 * 1024  # an H100 SM's shared memory
+BLOCK_RESERVED_BYTES = 1024  # what the card keeps of it for each resident block
+
+
+@pytest.mark.parametrize("din", QKV_DINS)
+@pytest.mark.parametrize("g", QKV_GS)
+def test_qkv_ln_tc_kernel_fits_two_blocks_an_sm(g, din):
+    """At every (G, Din) the K6 gate admits, the bf16 kernel's shared
+    memory lets two blocks share an SM, and at the main paths' G <= 128
+    three; the gate's answer there is yes (on the card, in eval, B >= 128)
+    and at one row more than 178, no."""
+    assert kattn.packed_small_qkv_ln_enabled(4, 256, 256, 330, g, din, False, True)
+    per_block = qkv_tc_smem_bytes(g) + BLOCK_RESERVED_BYTES
+    assert qkv_tc_smem_bytes(g) <= kattn.SMALL_SMEM_BYTES
+    assert (3 if g <= 128 else 2) * per_block <= SM_SHARED_BYTES
+    assert din % kattn.QKV_TC_CHUNK == 0
+    assert not kattn.packed_small_qkv_ln_enabled(4, 256, 256, 330, 179, din, False, True)

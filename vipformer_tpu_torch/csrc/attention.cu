@@ -32,8 +32,10 @@
 // K6 replaces attention.py:fused_attention_packed_small_qkv_ln (kernel
 // :666-712): K5 with the pre-LN and the q/k/v projections folded in, so
 // the raw tokens are read and only the attention output is written. On the
-// card its work is arithmetic (2 x G x Din x 3D + 4 x G x G x D per cloud,
-// 22 GFLOP at B = 330), run here on CUDA cores in f32.
+// card its work is arithmetic: 2 x G x Din x 3D + 4 x G x G x D per cloud,
+// 22 GFLOP at x [330, 128, 256], H = 4: 0.022 ms on the bf16 tensor cores
+// (its bytes, 22 MB in and out, take 0.007 ms at 3.35 TB/s), but 0.33 ms
+// at least on the f32 CUDA cores.
 //
 // Design, K4: the Pallas kernel carried the online-softmax state across a
 // sequential grid axis; blocks on Hopper carry nothing between them, so
@@ -113,6 +115,28 @@
 // Keys past M get -inf and zero-filled k/v rows; query rows past G are
 // computed from zero rows and not written. Per -Xptxas -v on the card
 // (sm_90a): 119-128 registers, no spills.
+// The dtype picks K6's kernel too (`tc_route`): bf16 runs
+// `tc::attn_small_qkv_ln_tc_kernel`, f32 attn_small_qkv_ln_kernel<float>.
+// Design, K6 bf16: one block per (head, cloud), so that the grid has H x B
+// blocks (1,320 at the ft_cls eval's B = 330, ten for each of 132 SMs,
+// two resident) and each block's q, k and v stay on chip from the
+// projection to the attention. The block streams Din in chunks of 32
+// columns through a 3-stage cp.async ring (raw x rows and the head's
+// [32, 64] slices of wq, wk and wv), normalises each landed chunk in place
+// to bf16 with the row statistics it computed while the first chunks
+// landed (x is read once for them and once for the products: H + H
+// reads of each cloud's x, from L2 after the first), and accumulates the
+// head's [G, 192] of q|k|v on mma.sync (8 warps of 32 rows x 96 columns
+// at G <= 128). The chunks stream so that no Din needs all of x on chip
+// (G = 178 rows at Din = 1024 would be 365 KB); q, k and v, rounded to
+// bf16, then take the ring's place, and K5's warp_small_attention runs on
+// them: scores in registers up to 128 keys, two passes above (G <= 192,
+// 12 warps). Rows past G are zero rows: their keys are masked, their
+// queries not written. One block per cloud would compute the statistics
+// once, but gives 330 blocks for 132 SMs (2.5 waves of one block an SM,
+// 1.25 of two) and loops over the heads anyway, since [G, 3D] of f32
+// accumulators do not fit one block's registers: measured on the H100,
+// it took 1.7 times as long at B = 330 (PERF.md).
 // Design, K5 f32: one block per (cloud, head), two threads per query row,
 // each holding half of the row's dh accumulators (columns interleaved to
 // spread shared-memory banks; rows padded to dh+1 floats for the same
@@ -120,8 +144,8 @@
 // Numerics follow the Pallas kernels: LN in f32 with the fast variance and
 // eps 1e-5, cast to the compute dtype; k/v = f32-accumulated projections
 // rounded to the compute dtype; logits in f32; p cast to v's dtype before
-// PV; f32 accumulation. K4, K6, K15 and the f32 routes of K5 and K13 run
-// plain CUDA-core FMAs (tensor cores for K4, K6 and K15 are later work).
+// PV; f32 accumulation. K4, K15 and the f32 routes of K5, K6 and K13 run
+// plain CUDA-core FMAs (tensor cores for K4 and K15 are later work).
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -513,33 +537,12 @@ attn_packed_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // the online softmax of _packed_kernel: m_new, corr = exp(m - m_new),
     // p = exp(s - m_new) in f32, l = l * corr + sum(p) over the unrounded
     // p, acc = acc * corr + bf16(p) . v (exp as 2^ of the log2 units)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) mm::scale_and_mask(s[mt], c, t * KT, m_end, lane);
+    mm::online_softmax_tile<MT, DH>(s, mx, sum, o);
     uint32_t pa[MT][KT / 16][4];
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      mm::scale_and_mask(s[mt], c, t * KT, m_end, lane);
-      float tm[2], corr[2], ps[2] = {0.0f, 0.0f};
-      mm::tile_max(s[mt], tm);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float nm = fmaxf(mx[mt][r], tm[r]);
-        corr[r] = mm::exp2_approx(mx[mt][r] - nm);  // 0 on the first tile
-        mx[mt][r] = nm;
-      }
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[mt][n][e] = mm::exp2_approx(s[mt][n][e] - mx[mt][e >> 1]);  // p
-          ps[e >> 1] += s[mt][n][e];
-        }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) sum[mt][r] = sum[mt][r] * corr[r] + ps[r];
-#pragma unroll
-      for (int n = 0; n < DH / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[mt][n][e] *= corr[e >> 1];
-      mm::p_frags(pa[mt], s[mt]);
-    }
+    for (int mt = 0; mt < MT; ++mt) mm::p_frags(pa[mt], s[mt]);
     mm::warp_pv<DH, MT>(o, pa, vs + slot * KT * LD, LD, lane);
   }
   mm::cp_async_wait<0>();
@@ -597,18 +600,152 @@ int launch_packed(const void* q, const void* k, const void* v, void* out, void* 
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------- K5 and K6's attention phase
+// One warp's attention over a (cloud, head)'s whole key axis in shared
+// memory, with p normalised before P.V, as _packed_small_kernel does:
+// the warp's 16 query rows at qs, nt 64-key tiles of k and v at ks and vs
+// (rows LD apart), keys at or past m masked, c = scale * log2(e) (logits
+// in log2 units); o gets the 16 output rows in f32. With NTR > 0 (m <=
+// 64 NTR) the warp keeps its 16 x m scores in registers: one pass of
+// warp_scores, the exact row max, p = 2^(t - max) and its sum, p / sum
+// rounded to bf16 as P.V's A fragments. With NTR = 0 (any m) K14's two
+// passes: the running max and sum over the k tiles, then the same scores
+// again, p normalised, P.V. With STAGED, k and v are still landing in
+// K5's cp.async groups (q with k tile 0 in group 0, k tile t in group t,
+// v tile t in group nt + t) and each tile is waited for before its first
+// use, behind a barrier: then every thread of the block calls this.
+template <int NTR, bool STAGED>
+__device__ __forceinline__ void warp_small_attention(float (&o)[1][DH / 8][4], const bf16* qs,
+                                                     const bf16* ks, const bf16* vs, int nt,
+                                                     int m, float c, bool active, int lane) {
+  namespace mm = vpt::mma;
+  uint32_t qa[1][DH / 16][4];
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n) o[0][n][0] = o[0][n][1] = o[0][n][2] = o[0][n][3] = 0.0f;
+  if constexpr (NTR > 0) {
+    float s[NTR][1][NT][4];  // the warp's 16 x m scores, then p
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int t = 0; t < NTR; ++t) {
+      if (STAGED && t < nt) {
+        mm::cp_async_wait_n(2 * nt - 1 - t);  // k tile t has landed (this thread's copies)
+        __syncthreads();                      // ... everyone's
+      }
+      if (!active || t >= nt) continue;
+      if (t == 0) mm::warp_a_frags<DH, 1>(qa, qs, LD, 0, lane);
+      mm::warp_scores<DH, 1>(s[t], qa, ks + t * KT * LD, LD, lane);
+      mm::scale_and_mask(s[t][0], c, t * KT, m, lane);
+      float tm[2];
+      mm::tile_max(s[t][0], tm);
+      mx[0] = fmaxf(mx[0], tm[0]);
+      mx[1] = fmaxf(mx[1], tm[1]);
+    }
+    uint32_t pa[NTR][1][KT / 16][4];
+    if (active) {
+      float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int t = 0; t < NTR; ++t)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {  // 2^-inf = 0 past m (and in a tile past nt)
+            s[t][0][n][e] = t < nt ? mm::exp2_approx(s[t][0][n][e] - mx[e >> 1]) : 0.0f;
+            sum[e >> 1] += s[t][0][n][e];
+          }
+      const float inv[2] = {1.0f / mm::quad_sum(sum[0]), 1.0f / mm::quad_sum(sum[1])};
+#pragma unroll
+      for (int t = 0; t < NTR; ++t) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[t][0][n][e] *= inv[e >> 1];  // p
+        mm::p_frags(pa[t][0], s[t][0]);
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < NTR; ++t) {
+      if (t >= nt) break;
+      if (STAGED) {
+        mm::cp_async_wait_n(nt - 1 - t);  // v tile t has landed (this thread's copies)
+        __syncthreads();                  // ... everyone's
+      }
+      if (active) mm::warp_pv<DH, 1>(o, pa[t], vs + t * KT * LD, LD, lane);
+    }
+  } else {
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F}, sum[2] = {0.0f, 0.0f};
+    for (int t = 0; t < nt; ++t) {  // pass 1: running max, this lane's share of the sum
+      if (STAGED) {
+        mm::cp_async_wait_n(2 * nt - 1 - t);  // k tile t has landed (this thread's copies)
+        __syncthreads();                      // ... everyone's
+      }
+      if (!active) continue;
+      if (t == 0) mm::warp_a_frags<DH, 1>(qa, qs, LD, 0, lane);
+      float s[1][NT][4];
+      mm::warp_scores<DH, 1>(s, qa, ks + t * KT * LD, LD, lane);
+      mm::scale_and_mask(s[0], c, t * KT, m, lane);
+      float tm[2];
+      mm::tile_max(s[0], tm);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float nm = fmaxf(mx[r], tm[r]);
+        float ps = 0.0f;
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+          ps += mm::exp2_approx(s[0][n][2 * r] - nm) + mm::exp2_approx(s[0][n][2 * r + 1] - nm);
+        sum[r] = sum[r] * mm::exp2_approx(mx[r] - nm) + ps;  // 2^-inf = 0 on the first tile
+        mx[r] = nm;
+      }
+    }
+    float inv[2] = {0.0f, 0.0f};
+    if (active) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) inv[r] = 1.0f / mm::quad_sum(sum[r]);
+    }
+    for (int t = 0; t < nt; ++t) {  // pass 2: the same scores, p normalised, P.V
+      if (STAGED) {
+        mm::cp_async_wait_n(nt - 1 - t);  // v tile t has landed (this thread's copies)
+        __syncthreads();                  // ... everyone's
+      }
+      if (!active) continue;
+      float s[1][NT][4];
+      uint32_t pa[1][KT / 16][4];
+      mm::warp_scores<DH, 1>(s, qa, ks + t * KT * LD, LD, lane);
+      mm::scale_and_mask(s[0], c, t * KT, m, lane);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[0][n][e] = mm::exp2_approx(s[0][n][e] - mx[e >> 1]) * inv[e >> 1];  // p
+      mm::p_frags(pa[0], s[0]);
+      mm::warp_pv<DH, 1>(o, pa, vs + t * KT * LD, LD, lane);
+    }
+  }
+}
+
+// The warp's 16 output rows from row0 of a (cloud, head) with g rows: o
+// rounded to bf16 into ob (the cloud's first row at its head's columns,
+// rows d apart); rows at or past g are not written.
+__device__ __forceinline__ void store_rows(bf16* ob, const float (&o)[1][DH / 8][4], int row0,
+                                           int g, int d, int lane) {
+  ob += 2 * (lane & 3);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r + (lane >> 2);
+    if (row >= g) continue;
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n)
+      *reinterpret_cast<uint32_t*>(ob + (size_t)row * d + 8 * n) =
+          vpt::mma::pack_bf16x2(o[0][n][2 * r], o[0][n][2 * r + 1]);
+  }
+}
+
 // ------------------------------------------- K5, bf16, on the tensor cores
 // One block of SMALL_NW warps per (head, cloud, 64 query rows); a warp
 // owns 16 rows. The (cloud, head)'s whole k and v (M < 512 rows of 64) are
 // staged once in shared memory, one cp.async group a 64-key tile: q with
 // k tile 0, then each k tile, then each v tile, so that the scores start
-// on tile 0 while the rest land. With NTR > 0 (M <= 64 NTR) a warp keeps
-// its 16 x M scores in registers: one pass of warp_scores, the exact row
-// max, p = exp(s - max) and its sum, p / sum rounded to bf16 as P.V's A
-// fragments. With NTR = 0 (any M) K14's two passes: pass 1 the running
-// max and sum over the k tiles, pass 2 the same scores again, p
-// normalised, P.V. Either way p is normalised before P.V, as
-// _packed_small_kernel does, and P.V accumulates in f32.
+// on tile 0 while the rest land; warp_small_attention then keeps the
+// scores in registers up to 128 keys (NTR = 2), else takes two passes.
 constexpr int SMALL_NW = 4;  // warps a block: 64 query rows
 
 constexpr size_t small_smem_bytes(int m) {
@@ -642,116 +779,12 @@ attn_small_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     mm::cp_rows<DH, KT, NTHREADS>(vs + t * KT * LD, LD, vb, d, t * KT, m, tid);
     mm::cp_async_commit();
   }
-
   const bool active = q0 + 16 * warp < g;
-  const float c = scale * mm::LOG2E;  // logits in log2 units
-  uint32_t qa[1][DH / 16][4];
   float o[1][DH / 8][4];
-#pragma unroll
-  for (int n = 0; n < DH / 8; ++n) o[0][n][0] = o[0][n][1] = o[0][n][2] = o[0][n][3] = 0.0f;
-  if constexpr (NTR > 0) {
-    float s[NTR][1][NT][4];  // the warp's 16 x M scores, then p
-    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
-#pragma unroll
-    for (int t = 0; t < NTR; ++t) {
-      if (t < nt) {
-        mm::cp_async_wait_n(2 * nt - 1 - t);  // k tile t has landed (this thread's copies)
-        __syncthreads();                      // ... everyone's
-      }
-      if (!active || t >= nt) continue;
-      if (t == 0) mm::warp_a_frags<DH, 1>(qa, qs, LD, 16 * warp, lane);
-      mm::warp_scores<DH, 1>(s[t], qa, ks + t * KT * LD, LD, lane);
-      mm::scale_and_mask(s[t][0], c, t * KT, m, lane);
-      float tm[2];
-      mm::tile_max(s[t][0], tm);
-      mx[0] = fmaxf(mx[0], tm[0]);
-      mx[1] = fmaxf(mx[1], tm[1]);
-    }
-    uint32_t pa[NTR][1][KT / 16][4];
-    if (active) {
-      float sum[2] = {0.0f, 0.0f};
-#pragma unroll
-      for (int t = 0; t < NTR; ++t)
-#pragma unroll
-        for (int n = 0; n < NT; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {  // 2^-inf = 0 past M (and in a tile past nt)
-            s[t][0][n][e] = t < nt ? mm::exp2_approx(s[t][0][n][e] - mx[e >> 1]) : 0.0f;
-            sum[e >> 1] += s[t][0][n][e];
-          }
-      const float inv[2] = {1.0f / mm::quad_sum(sum[0]), 1.0f / mm::quad_sum(sum[1])};
-#pragma unroll
-      for (int t = 0; t < NTR; ++t) {
-#pragma unroll
-        for (int n = 0; n < NT; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[t][0][n][e] *= inv[e >> 1];  // p
-        mm::p_frags(pa[t][0], s[t][0]);
-      }
-    }
-#pragma unroll
-    for (int t = 0; t < NTR; ++t) {
-      if (t >= nt) break;
-      mm::cp_async_wait_n(nt - 1 - t);  // v tile t has landed (this thread's copies)
-      __syncthreads();                  // ... everyone's
-      if (active) mm::warp_pv<DH, 1>(o, pa[t], vs + t * KT * LD, LD, lane);
-    }
-  } else {
-    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F}, sum[2] = {0.0f, 0.0f};
-    for (int t = 0; t < nt; ++t) {  // pass 1: running max, this lane's share of the sum
-      mm::cp_async_wait_n(2 * nt - 1 - t);  // k tile t has landed (this thread's copies)
-      __syncthreads();                      // ... everyone's
-      if (!active) continue;
-      if (t == 0) mm::warp_a_frags<DH, 1>(qa, qs, LD, 16 * warp, lane);
-      float s[1][NT][4];
-      mm::warp_scores<DH, 1>(s, qa, ks + t * KT * LD, LD, lane);
-      mm::scale_and_mask(s[0], c, t * KT, m, lane);
-      float tm[2];
-      mm::tile_max(s[0], tm);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float nm = fmaxf(mx[r], tm[r]);
-        float ps = 0.0f;
-#pragma unroll
-        for (int n = 0; n < NT; ++n)
-          ps += mm::exp2_approx(s[0][n][2 * r] - nm) + mm::exp2_approx(s[0][n][2 * r + 1] - nm);
-        sum[r] = sum[r] * mm::exp2_approx(mx[r] - nm) + ps;  // 2^-inf = 0 on the first tile
-        mx[r] = nm;
-      }
-    }
-    float inv[2] = {0.0f, 0.0f};
-    if (active) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) inv[r] = 1.0f / mm::quad_sum(sum[r]);
-    }
-    for (int t = 0; t < nt; ++t) {  // pass 2: the same scores, p normalised, P.V
-      mm::cp_async_wait_n(nt - 1 - t);  // v tile t has landed (this thread's copies)
-      __syncthreads();                  // ... everyone's
-      if (!active) continue;
-      float s[1][NT][4];
-      uint32_t pa[1][KT / 16][4];
-      mm::warp_scores<DH, 1>(s, qa, ks + t * KT * LD, LD, lane);
-      mm::scale_and_mask(s[0], c, t * KT, m, lane);
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[0][n][e] = mm::exp2_approx(s[0][n][e] - mx[e >> 1]) * inv[e >> 1];  // p
-      mm::p_frags(pa[0], s[0]);
-      mm::warp_pv<DH, 1>(o, pa, vs + t * KT * LD, LD, lane);
-    }
-  }
-  if (!active) return;
-  bf16* ob = out + (size_t)b * g * d + head * DH + 2 * (lane & 3);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + 16 * warp + 8 * r + (lane >> 2);
-    if (row >= g) continue;
-#pragma unroll
-    for (int n = 0; n < DH / 8; ++n)
-      *reinterpret_cast<uint32_t*>(ob + (size_t)row * d + 8 * n) =
-          mm::pack_bf16x2(o[0][n][2 * r], o[0][n][2 * r + 1]);
-  }
+  warp_small_attention<NTR, true>(o, qs + 16 * warp * LD, ks, vs, nt, m, scale * mm::LOG2E,
+                                  active, lane);
+  if (active)
+    store_rows(out + (size_t)b * g * d + head * DH, o, q0 + 16 * warp, g, d, lane);
 }
 
 // scores in registers up to 128 keys (two 64-key tiles), else two passes
@@ -766,6 +799,199 @@ int launch_small(const void* q, const void* k, const void* v, void* out, int b, 
   dim3 grid(h, b, (g + 16 * SMALL_NW - 1) / (16 * SMALL_NW));
   kernel<<<grid, SMALL_NW * 32, smem, stream>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
                                                 (bf16*)out, g, m, h, scale);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------- K6, bf16, on the tensor cores
+// One block per (head, cloud), the whole cloud's G rows in one block: 128
+// rows (8 warps) with the scores in registers (G <= 128, NTR = 2), 192
+// rows (12 warps) with K14's two passes (G <= 192, NTR = 0). Three phases:
+//  (a) while the first chunks land, the LayerNorm statistics of the G raw
+//      rows, one warp a row, eight rows of a warp at once (16-byte loads,
+//      eight in flight a lane): f32, the fast variance
+//      max(0, E[x^2] - E[x]^2);
+//  (b) the head's q, k and v columns ([G, 3 x 64] of LN(x) . [wq|wk|wv]):
+//      Din streams in chunks of QKV_KC columns through a ring of
+//      QKV_STAGES, each chunk one cp.async group of the raw x rows (rows
+//      past G zero-filled) and of the three weights' [QKV_KC, 64] slices.
+//      A landed chunk of x is normalised in place to bf16 (a column pair
+//      a thread, so that few registers stay live beside the accumulators),
+//      then warp (rg, ch) accumulates rows 32 rg.. by columns 96 ch.. of
+//      [q|k|v] in f32 on mma.sync (warp_ab: x through ldmatrix, the
+//      weights through ldmatrix.trans), two chunks of loads in flight
+//      behind it;
+//  (c) q, k and v rounded to bf16 into shared memory over the ring, then
+//      warp_small_attention: a warp's 16 query rows against all G keys.
+// Shared memory: 2 x 128 f32 statistics and the ring, 70,144 bytes at
+// G <= 128 (86,016 at G <= 192), whatever Din: at most three blocks an SM
+// (the 128 registers of two blocks of 8 warps set two).
+constexpr int QKV_KC = 32;               // Din columns a chunk: two k16 steps
+constexpr int QKV_STAGES = 3;            // chunks in flight
+constexpr int QKV_LDX = QKV_KC + 8;      // padded row of a chunk of x (bf16)
+constexpr int QKV_LDW = 3 * DH + 8;      // padded row of a chunk of [wq|wk|wv] (bf16)
+constexpr int QKV_STAT_ROWS = 8;         // rows a warp's statistics take at once
+
+// rows a block of the score mode NTR covers: a warp for each 16
+__host__ __device__ constexpr int qkv_rows(int ntr) { return ntr > 0 ? KT * ntr : 3 * KT; }
+__host__ __device__ constexpr int qkv_slot(int rows) {  // bf16 elements
+  return rows * QKV_LDX + QKV_KC * QKV_LDW;
+}
+constexpr size_t qkv_smem_bytes(int rows) {
+  return sizeof(float) * 2 * rows + sizeof(bf16) * (size_t)QKV_STAGES * qkv_slot(rows);
+}
+static_assert(3 * qkv_rows(2) * LD <= QKV_STAGES * qkv_slot(qkv_rows(2)) &&
+                  3 * qkv_rows(0) * LD <= QKV_STAGES * qkv_slot(qkv_rows(0)),
+              "q, k and v fit over the ring");
+
+template <int NTR>
+__global__ void __launch_bounds__(2 * qkv_rows(NTR), NTR > 0 ? 2 : 1)
+attn_small_qkv_ln_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_w,
+                            const float* __restrict__ ln_b, const bf16* __restrict__ wq,
+                            const bf16* __restrict__ wk, const bf16* __restrict__ wv,
+                            bf16* __restrict__ out, int g, int din, int h, float scale) {
+  namespace mm = vpt::mma;
+  constexpr int ROWS = qkv_rows(NTR), NW = ROWS / 16, NTHREADS = 32 * NW;
+  constexpr int SLOT = qkv_slot(ROWS);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* mus = reinterpret_cast<float*>(smem_raw);  // [ROWS] row means
+  float* rss = mus + ROWS;                          // [ROWS] row 1/std
+  bf16* ring = reinterpret_cast<bf16*>(rss + ROWS);  // [STAGES][ROWS x LDX | KC x LDW]
+  const int head = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int d = h * DH, nc = din / QKV_KC;
+  const bf16* xb = x + (size_t)b * g * din;
+  auto load = [&](int c) {  // chunk c: columns k0.. of x and rows k0.. of the weights
+    bf16* xs = ring + (c % QKV_STAGES) * SLOT;
+    bf16* ws = xs + ROWS * QKV_LDX;
+    const size_t k0 = (size_t)c * QKV_KC;
+    mm::cp_rows<QKV_KC, ROWS, NTHREADS>(xs, QKV_LDX, xb + k0, din, 0, g, tid);
+    mm::cp_rows<DH, QKV_KC, NTHREADS>(ws, QKV_LDW, wq + k0 * d + head * DH, d, 0, QKV_KC, tid);
+    mm::cp_rows<DH, QKV_KC, NTHREADS>(ws + DH, QKV_LDW, wk + k0 * d + head * DH, d, 0, QKV_KC,
+                                      tid);
+    mm::cp_rows<DH, QKV_KC, NTHREADS>(ws + 2 * DH, QKV_LDW, wv + k0 * d + head * DH, d, 0,
+                                      QKV_KC, tid);
+  };
+#pragma unroll
+  for (int st = 0; st < QKV_STAGES - 1; ++st) {
+    if (st < nc) load(st);
+    mm::cp_async_commit();
+  }
+
+  // (a) row statistics, f32: mean and max(0, E[x^2] - E[x]^2); a warp
+  // takes QKV_STAT_ROWS of its rows at once, so that as many 16-byte loads
+  // a lane are in flight
+  for (int r0 = warp; r0 < g; r0 += QKV_STAT_ROWS * NW) {
+    float s1[QKV_STAT_ROWS], s2[QKV_STAT_ROWS];
+#pragma unroll
+    for (int i = 0; i < QKV_STAT_ROWS; ++i) s1[i] = s2[i] = 0.f;
+    for (int c8 = lane; c8 < din / 8; c8 += 32) {
+      uint4 u[QKV_STAT_ROWS];
+#pragma unroll
+      for (int i = 0; i < QKV_STAT_ROWS; ++i) {
+        const int r = r0 + i * NW;
+        u[i] = r < g ? *reinterpret_cast<const uint4*>(xb + (size_t)r * din + 8 * c8)
+                     : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int i = 0; i < QKV_STAT_ROWS; ++i) {
+        const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&u[i]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 f = __bfloat1622float2(e[j]);
+          s1[i] += f.x + f.y;
+          s2[i] += f.x * f.x + f.y * f.y;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < QKV_STAT_ROWS; ++i) {
+      const int r = r0 + i * NW;
+      const float t1 = warp_sum(s1[i]), t2 = warp_sum(s2[i]);
+      if (lane == 0 && r < g) {
+        const float mu = t1 / din, mu2 = t2 / din;
+        mus[r] = mu;
+        rss[r] = rsqrtf(fmaxf(0.f, mu2 - mu * mu) + vpt::LN_EPS);
+      }
+    }
+  }
+
+  // (b) [q|k|v] = LN(x) . [wq|wk|wv] of this head, f32 accumulators
+  const int rg = warp >> 1, ch = warp & 1;  // rows 32 rg.., columns 96 ch..
+  const bool busy = 32 * rg < g;
+  const int cp = tid % (QKV_KC / 2);  // the column pair of a chunk this thread normalises
+  float acc[2][12][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 12; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+  for (int c = 0; c < nc; ++c) {
+    mm::cp_async_wait<QKV_STAGES - 2>();  // chunk c has landed (this thread's copies)
+    __syncthreads();  // ... everyone's; chunk c - 1's products are done; the statistics are in
+    if (c + QKV_STAGES - 1 < nc) load(c + QKV_STAGES - 1);
+    mm::cp_async_commit();
+    bf16* xs = ring + (c % QKV_STAGES) * SLOT;
+    {  // LN(x) of the chunk in place, rounded to bf16 (rows past G stay 0);
+       // few registers beside the 96 accumulators: a column pair a thread
+      const int col = c * QKV_KC + 2 * cp;
+      const float2 w = *reinterpret_cast<const float2*>(ln_w + col);
+      const float2 bb = *reinterpret_cast<const float2*>(ln_b + col);
+      for (int r = tid / (QKV_KC / 2); r < g; r += NTHREADS / (QKV_KC / 2)) {
+        uint32_t* e = reinterpret_cast<uint32_t*>(xs + r * QKV_LDX + 2 * cp);
+        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(e));
+        const float mu = mus[r], rs = rss[r];
+        // (x - mu) * (rs * w) + b, each step rounded as the plain twin's
+        *e = mm::pack_bf16x2(__fadd_rn(__fmul_rn(f.x - mu, __fmul_rn(rs, w.x)), bb.x),
+                             __fadd_rn(__fmul_rn(f.y - mu, __fmul_rn(rs, w.y)), bb.y));
+      }
+    }
+    __syncthreads();  // the chunk is normalised
+    if (busy)
+      mm::warp_ab<2, 12>(acc, xs + 32 * rg * QKV_LDX, QKV_LDX, xs + ROWS * QKV_LDX + 96 * ch,
+                         QKV_LDW, QKV_KC, lane);
+  }
+  mm::cp_async_wait<0>();
+  __syncthreads();  // every product is done: the ring becomes q, k and v [3][ROWS][LD]
+
+  // (c) q, k, v rounded to bf16 (rows past G from zero rows: finite), then
+  // the attention of each warp's 16 query rows
+  bf16* qkv = ring;
+#pragma unroll
+  for (int j = 0; j < 12; ++j) {
+    const int col = 96 * ch + 8 * j;  // an n8 tile never straddles q, k and v
+    bf16* dst = qkv + (col / DH) * ROWS * LD + col % DH + 2 * (lane & 3);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<uint32_t*>(dst + (32 * rg + 16 * i + 8 * r + (lane >> 2)) * LD) =
+            mm::pack_bf16x2(acc[i][j][2 * r], acc[i][j][2 * r + 1]);
+  }
+  __syncthreads();
+  const bool active = 16 * warp < g;
+  float o[1][DH / 8][4];
+  warp_small_attention<NTR, false>(o, qkv + 16 * warp * LD, qkv + ROWS * LD,
+                                   qkv + 2 * ROWS * LD, (g + KT - 1) / KT, g,
+                                   scale * mm::LOG2E, active, lane);
+  if (active) store_rows(out + (size_t)b * g * d + head * DH, o, 16 * warp, g, d, lane);
+}
+
+// scores in registers up to 128 rows, else two passes; Din a multiple of
+// QKV_KC
+int launch_small_qkv_ln(const void* x, const void* ln_w, const void* ln_b, const void* wq,
+                        const void* wk, const void* wv, void* out, int b, int g, int din, int h,
+                        float scale, cudaStream_t stream) {
+  if (b < 1 || g < 1 || h < 1 || din < QKV_KC || din % QKV_KC || g > qkv_rows(0))
+    return (int)cudaErrorInvalidValue;
+  const int ntr = g <= qkv_rows(2) ? 2 : 0;
+  auto kernel = ntr ? attn_small_qkv_ln_tc_kernel<2> : attn_small_qkv_ln_tc_kernel<0>;
+  const int rows = qkv_rows(ntr);
+  const size_t smem = qkv_smem_bytes(rows);
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
+  kernel<<<dim3(h, b), 2 * rows, smem, stream>>>(
+      (const bf16*)x, (const float*)ln_w, (const float*)ln_b, (const bf16*)wq, (const bf16*)wk,
+      (const bf16*)wv, (bf16*)out, g, din, h, scale);
   return (int)cudaGetLastError();
 }
 
@@ -841,7 +1067,8 @@ __global__ void attn_small_kernel(const T* __restrict__ q, const T* __restrict__
 }
 
 // ---------------------------------------------------- K6 (SA, pre-LN + q/k/v)
-// One block per (cloud, head), 256 threads, three phases:
+// The f32 route, on the CUDA cores (bf16: tc::attn_small_qkv_ln_tc_kernel
+// above). One block per (cloud, head), 256 threads, three phases:
 //  (a) LayerNorm statistics of the cloud's G raw rows (one warp per row);
 //  (b) this head's q, k and v columns, [G, 64] each: tiles of 64 rows, Din
 //      streamed 16 columns at a time; each step stages the normalised rows
@@ -852,7 +1079,7 @@ __global__ void attn_small_kernel(const T* __restrict__ q, const T* __restrict__
 //  (c) K5's attention on them: two threads per query row, rows in batches
 //      of 128, the f32 scores of a batch in the space the staging used.
 // Shared memory: q/k/v [G][65] + LN statistics + max(staging, scores of
-// min(G, 128) rows), 163 KB at G = 128, the same in f32 and bf16; G <= 178.
+// min(G, 128) rows), 163 KB at G = 128; G <= 178.
 constexpr int K6_THREADS = 256;
 constexpr int K6_ROWS = 64;  // rows per projection tile
 constexpr int K6_KC = 16;    // Din columns per staging step
@@ -1121,8 +1348,8 @@ int launch_small_qkv_ln(const void* x, const void* ln_w, const void* ln_b, const
 }  // namespace
 
 // K6: x [B, G, Din] raw tokens, ln_w/ln_b f32 [Din], wq/wk/wv [Din, H*64]
-// -> out [B, G, H*64] = attention(LN(x) wq, LN(x) wk, LN(x) wv). G <= 178
-// (the shared-memory bound above).
+// -> out [B, G, H*64] = attention(LN(x) wq, LN(x) wk, LN(x) wv). f32 on
+// the CUDA cores: G <= 178 (the shared-memory bound above).
 extern "C" int attn_small_qkv_ln_f32(const void* x, const void* ln_w, const void* ln_b,
                                      const void* wq, const void* wk, const void* wv, void* out,
                                      int b, int g, int din, int h, float scale, void* stream) {
@@ -1130,11 +1357,14 @@ extern "C" int attn_small_qkv_ln_f32(const void* x, const void* ln_w, const void
                                     (cudaStream_t)stream);
 }
 
-extern "C" int attn_small_qkv_ln_bf16(const void* x, const void* ln_w, const void* ln_b,
-                                      const void* wq, const void* wk, const void* wv, void* out,
-                                      int b, int g, int din, int h, float scale, void* stream) {
-  return launch_small_qkv_ln<__nv_bfloat16>(x, ln_w, ln_b, wq, wk, wv, out, b, g, din, h, scale,
-                                            (cudaStream_t)stream);
+// bf16 on the tensor cores: G <= 192, Din a multiple of 32; pointers
+// 16-byte aligned.
+extern "C" int attn_small_qkv_ln_tc_bf16(const void* x, const void* ln_w, const void* ln_b,
+                                         const void* wq, const void* wk, const void* wv,
+                                         void* out, int b, int g, int din, int h, float scale,
+                                         void* stream) {
+  return tc::launch_small_qkv_ln(x, ln_w, ln_b, wq, wk, wv, out, b, g, din, h, scale,
+                                 (cudaStream_t)stream);
 }
 
 // q [B, G, H*64], x [B, M, Din] raw tokens, ln_w/ln_b f32 [Din],

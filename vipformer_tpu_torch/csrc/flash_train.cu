@@ -30,8 +30,17 @@
 // of the scores, dV, dPd, dK in one kernel and scores, dPd, dQ in the
 // other); K7 adds the k/v projection of every kv token (M x Din x 2D MACs,
 // twice: forward and the backward's recompute) and its backward products.
-// Everything runs on CUDA cores in f32 (67 TFLOP/s peak), so the bound
-// that matters here is that rate, not the 989 TFLOP/s of the tensor cores.
+// Everything but K8's bf16 forward runs on CUDA cores in f32 (67 TFLOP/s
+// peak), so the bound that matters there is that rate, not the 989
+// TFLOP/s of the tensor cores. K8's bf16 forward (tc::flash_fwd_tc_kernel)
+// runs its products on the tensor cores; at the pretrain point branch's
+// [96, 128, 256], H = 4, they are 1.6 GFLOP (0.002 ms at 989 TFLOP/s)
+// against 25.4 MB of q, k, v, out and lse (0.0076 ms at 3.35 TB/s), and the
+// dropout hash and the exp of each of its 6.3 M scores run beside them on
+// the CUDA cores. The dtype picks the forward's kernel
+// (ops/cuda/__init__.py `tc_route`): f32 stays on flash_fwd_kernel<float>,
+// since a tensor-core f32 product is TF32; K7's forward and both
+// backwards keep the CUDA-core kernels in both dtypes.
 //
 // Design: one block per (cloud*head, 64 query rows) in the forward and in
 // the dQ pass, one block per (cloud*head, 64 kv rows) in the dK/dV pass,
@@ -44,6 +53,7 @@
 // K7's projections, LN backward and weight gradients run through the SIMT
 // product of train_common.cuh; its weight gradients are split over the
 // token axis into partials summed in a fixed order.
+#include "mma.cuh"
 #include "train_common.cuh"
 
 namespace vpt_flash {
@@ -373,6 +383,132 @@ int flash_fwd(const T* q, const T* k, const T* v, const int* seed, T* out, float
   return cudaGetLastError();
 }
 
+// ------------------------------------------- K8 forward, bf16, on the tensor cores
+// K13's tiles (attention.cu) with K8's dropout and log-sum-exp: one block
+// of TC_WARPS warps per (64 query rows, cloud * head), 16 rows a warp with
+// its q in registers as ldmatrix A fragments; the k and v tiles of 64 keys
+// x this head's 64 columns stream through a 3-stage cp.async ring, one
+// barrier a tile, the next two tiles' loads in flight during a tile's
+// products. s = q.k on mma.sync (bf16 in, f32 out), in log2 units (s *
+// scale * log2 e), then the online softmax of flash_fwd_kernel in
+// registers: the tile's row max over the quad of lanes that shares a row,
+// corr = 2^(m - m_new), p = 2^(t - m_new) in f32, l summing the undropped
+// unrounded p; then the keep bit of each p from the same hash (keep_bit,
+// row_key of the row, the key's column), kept p / (1 - rate) and dropped
+// 0, rounded to bf16 in registers as the A fragments of P.V (v through
+// ldmatrix.trans); acc rescaled by corr, divided by l at the end, and
+// lse = m ln 2 + log l for the backward (f32, natural units, as the
+// CUDA-core kernels keep it). Keys past M get -inf logits and zero-filled
+// k/v rows; query rows past G are computed from zero rows, not written.
+namespace tc {
+
+using vpt::mma::bf16;
+using vpt::mma::KT;
+using vpt::mma::NT;
+constexpr int TC_WARPS = 4;              // 16 query rows a warp
+constexpr int TC_QT = 16 * TC_WARPS;     // query rows a block: 64
+constexpr int TC_THREADS = 32 * TC_WARPS;
+constexpr int TC_STAGES = 3;             // k/v tiles in flight
+constexpr int TC_LD = DH + 8;            // padded shared row (bf16)
+constexpr size_t TC_SMEM = sizeof(bf16) * (size_t)(TC_QT + 2 * TC_STAGES * KT) * TC_LD;
+
+__global__ void __launch_bounds__(TC_THREADS, 3)
+flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const int* __restrict__ seed,
+                    bf16* __restrict__ out, float* __restrict__ lse, int G, int M, int H,
+                    float scale, float keep_p, uint32_t thresh, int drop) {
+  namespace mm = vpt::mma;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [TC_QT][TC_LD]
+  bf16* ks = qs + TC_QT * TC_LD;                 // [TC_STAGES][KT][TC_LD]
+  bf16* vs = ks + TC_STAGES * KT * TC_LD;        // [TC_STAGES][KT][TC_LD]
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, q0 = blockIdx.x * TC_QT;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int D = H * DH, nt = (M + KT - 1) / KT;
+  const bf16* kb = k + (size_t)b * M * D + h * DH;
+  const bf16* vb = v + (size_t)b * M * D + h * DH;
+  auto load = [&](int t) {
+    const int slot = t % TC_STAGES;
+    mm::cp_rows<DH, KT, TC_THREADS>(ks + slot * KT * TC_LD, TC_LD, kb, D, t * KT, M, tid);
+    mm::cp_rows<DH, KT, TC_THREADS>(vs + slot * KT * TC_LD, TC_LD, vb, D, t * KT, M, tid);
+  };
+  // group 0: q and the first tile; then one group a tile
+  mm::cp_rows<DH, TC_QT, TC_THREADS>(qs, TC_LD, q + (size_t)b * G * D + h * DH, D, q0, G, tid);
+#pragma unroll
+  for (int st = 0; st < TC_STAGES - 1; ++st) {
+    if (st < nt) load(st);
+    mm::cp_async_commit();
+  }
+
+  const int row0 = q0 + 16 * warp;  // the warp's first row
+  const bool active = row0 < G;
+  const float c = scale * mm::LOG2E;  // logits (and mx) in log2 units
+  const float inv_keep = 1.0f / keep_p;
+  const uint32_t s0 = drop ? (uint32_t)seed[0] : 0u;
+  uint32_t rk[2];  // the dropout keys of the thread's two rows
+#pragma unroll
+  for (int r = 0; r < 2; ++r) rk[r] = row_key(s0, bh, row0 + 8 * r + (lane >> 2));
+  uint32_t qa[1][DH / 16][4];
+  float mx[1][2] = {{-CUDART_INF_F, -CUDART_INF_F}}, sum[1][2] = {{0.0f, 0.0f}}, o[1][DH / 8][4];
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n) o[0][n][0] = o[0][n][1] = o[0][n][2] = o[0][n][3] = 0.0f;
+  for (int t = 0; t < nt; ++t) {
+    mm::cp_async_wait<TC_STAGES - 2>();  // tile t has landed (this thread's copies)
+    __syncthreads();                     // ... everyone's; and tile t - 1 is consumed
+    if (t + TC_STAGES - 1 < nt) load(t + TC_STAGES - 1);
+    mm::cp_async_commit();
+    if (!active) continue;
+    if (t == 0) mm::warp_a_frags<DH, 1>(qa, qs, TC_LD, 16 * warp, lane);
+    const int slot = t % TC_STAGES;
+    float s[1][NT][4];
+    mm::warp_scores<DH, 1>(s, qa, ks + slot * KT * TC_LD, TC_LD, lane);
+    mm::scale_and_mask(s[0], c, t * KT, M, lane);
+    mm::online_softmax_tile<1, DH>(s, mx, sum, o);  // the sum over the undropped p
+    if (drop) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[0][n][e] = keep_bit(rk[e >> 1], t * KT + 8 * n + 2 * (lane & 3) + (e & 1), thresh)
+                           ? s[0][n][e] * inv_keep
+                           : 0.0f;
+    }
+    uint32_t pa[1][KT / 16][4];
+    mm::p_frags(pa[0], s[0]);
+    mm::warp_pv<DH, 1>(o, pa, vs + slot * KT * TC_LD, TC_LD, lane);
+  }
+  mm::cp_async_wait<0>();
+  if (!active) return;
+  const int c0 = 2 * (lane & 3);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r + (lane >> 2);
+    const float l = mm::quad_sum(sum[0][r]);  // all lanes take part: before the row test
+    if (row >= G) continue;
+    bf16* orow = out + ((size_t)b * G + row) * D + h * DH + c0;
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n)
+      *reinterpret_cast<uint32_t*>(orow + 8 * n) =
+          mm::pack_bf16x2(o[0][n][2 * r] / l, o[0][n][2 * r + 1] / l);
+    if ((lane & 3) == 0) lse[(size_t)bh * G + row] = mx[0][r] * mm::LN2 + logf(l);
+  }
+}
+
+int flash_fwd(const void* q, const void* k, const void* v, const void* seed, void* out,
+              void* lse, int B, int G, int M, int H, float scale, float keep_p, uint32_t thresh,
+              int drop, cudaStream_t st) {
+  if (B < 1 || G < 1 || M < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)TC_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  flash_fwd_tc_kernel<<<dim3((G + TC_QT - 1) / TC_QT, B * H), TC_THREADS, TC_SMEM, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)seed, (bf16*)out,
+      (float*)lse, G, M, H, scale, keep_p, thresh, drop);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
 template <typename T, typename TO>
 int flash_bwd(const T* q, const T* k, const T* v, const T* dout, const float* lse,
               const float* delta, const int* seed, T* dq, TO* dk, TO* dv, int B, int G, int M,
@@ -603,13 +739,12 @@ extern "C" int attn_train_fwd_f32(const void* q, const void* k, const void* v, c
                           static_cast<float*>(out), static_cast<float*>(lse), b, g, m, h, scale,
                           keep_p, thresh, drop, static_cast<cudaStream_t>(stream));
 }
-extern "C" int attn_train_fwd_bf16(const void* q, const void* k, const void* v, const void* seed,
-                                   void* out, void* lse, int b, int g, int m, int h, SEED_ARGS) {
-  using T = __nv_bfloat16;
-  return flash_fwd<T>(static_cast<const T*>(q), static_cast<const T*>(k),
-                      static_cast<const T*>(v), static_cast<const int*>(seed),
-                      static_cast<T*>(out), static_cast<float*>(lse), b, g, m, h, scale, keep_p,
-                      thresh, drop, static_cast<cudaStream_t>(stream));
+// bf16 on the tensor cores (pointers 16-byte aligned)
+extern "C" int attn_train_fwd_tc_bf16(const void* q, const void* k, const void* v,
+                                      const void* seed, void* out, void* lse, int b, int g, int m,
+                                      int h, SEED_ARGS) {
+  return tc::flash_fwd(q, k, v, seed, out, lse, b, g, m, h, scale, keep_p, thresh, drop,
+                       static_cast<cudaStream_t>(stream));
 }
 
 template <typename T>

@@ -2,9 +2,10 @@
 // Ampere-style warp-level products (`mma.sync` m16n8k16, bf16 in, f32
 // accumulate), `ldmatrix` fragment loads, and `cp.async` 16-byte copies
 // from device to shared memory, plus the warp-level attention tiles that
-// K5 and K13 (attention.cu) and K14 (mha.cu) share, and a warp-level GEMM
-// tile (C += A^T . B, the contraction down the rows of both operands) that
-// K11 (dense.cu) runs.
+// K5, K6 and K13 (attention.cu), K8 (flash_train.cu) and K14 (mha.cu)
+// share, and two warp-level GEMM tiles: C += A^T . B (the contraction down
+// the rows of both operands) that K11 (dense.cu) runs, and C += A . B that
+// K6's projections run.
 //
 // Fragment layouts of mma.m16n8k16 (PTX ISA, "Matrix Fragments for
 // mma.m16n8k16"), with lane = 4 * grp + tig:
@@ -220,6 +221,42 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+// One 64-key tile of the online softmax for a warp's MT row tiles: s
+// holds the tile's logits in log2 units (scaled and masked), mx and sum
+// the rows' running max and this lane's share of the running sum, o the
+// P.V accumulators. m_new = max(mx, the tile's max), corr = 2^(mx -
+// m_new), p = 2^(s - m_new) in f32 (back into s), sum = sum * corr + the
+// unrounded p, o *= corr; the caller rounds p into P.V's A fragments.
+template <int MT, int DV>
+__device__ __forceinline__ void online_softmax_tile(float (&s)[MT][NT][4], float (&mx)[MT][2],
+                                                    float (&sum)[MT][2],
+                                                    float (&o)[MT][DV / 8][4]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    float tm[2], corr[2], ps[2] = {0.0f, 0.0f};
+    tile_max(s[mt], tm);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float nm = fmaxf(mx[mt][r], tm[r]);
+      corr[r] = exp2_approx(mx[mt][r] - nm);  // 0 on the first tile
+      mx[mt][r] = nm;
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[mt][n][e] = exp2_approx(s[mt][n][e] - mx[mt][e >> 1]);  // p
+        ps[e >> 1] += s[mt][n][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) sum[mt][r] = sum[mt][r] * corr[r] + ps[r];
+#pragma unroll
+    for (int n = 0; n < DV / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[mt][n][e] *= corr[e >> 1];
+  }
+}
+
 // p of a row tile, rounded to bf16, as the 4 k16 A fragments of P.V.
 __device__ __forceinline__ void p_frags(uint32_t (&pa)[KT / 16][4], const float (&p)[NT][4]) {
 #pragma unroll
@@ -299,6 +336,37 @@ __device__ __forceinline__ void warp_atb(float (&c)[MI][NI][4], float (&cs)[NI][
       for (int j = 0; j < NI / 2; ++j) {
         mma_bf16(cs[2 * j], ones, bf[j][0], bf[j][1]);
         mma_bf16(cs[2 * j + 1], ones, bf[j][2], bf[j][3]);
+      }
+    }
+  }
+}
+
+// C += A . B for one warp: A a [16 MI x k] tile and B a [k x 8 NI] tile,
+// both row-major bf16 in shared memory, rows `lda` and `ldb` elements
+// apart (padded so that ldmatrix meets no bank conflict), k a multiple of
+// 16. A comes through ldmatrix as warp_a_frags reads q, B through
+// ldmatrix.trans as warp_pv reads v; c[i][j] is the f32 accumulator of
+// rows 16i.. and columns 8j.. of C. The k steps run in order: the same
+// inputs give the same bits.
+template <int MI, int NI>
+__device__ __forceinline__ void warp_ab(float (&c)[MI][NI][4], const bf16* a, int lda,
+                                        const bf16* b, int ldb, int k, int lane) {
+  static_assert(NI % 2 == 0, "B fragments come in pairs of n8 tiles");
+  for (int k0 = 0; k0 < k; k0 += 16) {
+    uint32_t af[MI][4];
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+      ldmatrix_x4(af[i], a + (16 * i + (lane & 15)) * lda + k0 + (lane >> 4) * 8);
+#pragma unroll
+    for (int j = 0; j < NI / 2; ++j) {
+      // matrices: (k 0-7, n 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15)
+      uint32_t bf[4];
+      ldmatrix_x4_trans(bf, b + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ldb + 16 * j +
+                                (lane >> 4) * 8);
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        mma_bf16(c[i][2 * j], af[i], bf[0], bf[1]);
+        mma_bf16(c[i][2 * j + 1], af[i], bf[2], bf[3]);
       }
     }
   }

@@ -60,8 +60,9 @@ SIGNATURES = {
     "attn_small_f32": [_P] * 4 + [_I] * 4 + [_F, _P],
     "attn_small_tc_bf16": [_P] * 4 + [_I] * 4 + [_F, _P],
     # K7 / K8: (..., scale, keep probability, dropout threshold, dropout on, stream)
+    # (f32 on the CUDA cores, the bf16 forward on the tensor cores)
     "attn_train_fwd_f32": [_P] * 6 + [_I] * 4 + [_F, _F, _U, _I, _P],
-    "attn_train_fwd_bf16": [_P] * 6 + [_I] * 4 + [_F, _F, _U, _I, _P],
+    "attn_train_fwd_tc_bf16": [_P] * 6 + [_I] * 4 + [_F, _F, _U, _I, _P],
     "attn_train_bwd_f32": [_P] * 10 + [_I] * 4 + [_F, _F, _U, _I, _P],
     "attn_train_bwd_bf16": [_P] * 10 + [_I] * 4 + [_F, _F, _U, _I, _P],
     "attn_train_kv_fwd_f32": [_P] * 12 + [_I] * 5 + [_F, _F, _U, _I, _P],
@@ -97,9 +98,9 @@ SIGNATURES = {
     # K14 (q, k, v, out, bh, g, m, dh, dv, scale, stream): as K13
     "mha_f32": [_P] * 4 + [_I] * 5 + [_F, _P],
     "mha_tc_bf16": [_P] * 4 + [_I] * 5 + [_F, _P],
-    # K6
+    # K6 (x, ln_w, ln_b, wq, wk, wv, out, b, g, din, h, scale, stream): as K5
     "attn_small_qkv_ln_f32": [_P] * 7 + [_I] * 4 + [_F, _P],
-    "attn_small_qkv_ln_bf16": [_P] * 7 + [_I] * 4 + [_F, _P],
+    "attn_small_qkv_ln_tc_bf16": [_P] * 7 + [_I] * 4 + [_F, _P],
     # K18 (x, sum, sumsq, part, r, c, splits, stream); (x, dy, mean, rstd,
     # dscale, dbias, part, r, c, splits, stream)
     "bn_stats_f32": [_P] * 4 + [_I] * 3 + [_P],
@@ -196,7 +197,8 @@ def entry_point(base: str, dt: torch.dtype) -> str:
 
 def tc_route(base: str, dt: torch.dtype) -> str:
     """The C entry point of a kernel with a tensor-core route (K5
-    `attn_small`, K11 `dense_grads`, K13 `attn_packed`, K14 `mha`) for
+    `attn_small`, K6 `attn_small_qkv_ln`, K8's forward `attn_train_fwd`,
+    K11 `dense_grads`, K13 `attn_packed`, K14 `mha`) for
     dtype `dt`: bf16 on the tensor cores, f32 on the CUDA cores (a
     tensor-core f32 product is TF32, about 3 decimal digits: it would break
     the f32 bounds against the twins). Not a fallback: each dtype has one

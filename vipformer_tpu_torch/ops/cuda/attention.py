@@ -37,12 +37,14 @@ Each launches `csrc/attention.cu` (K14: `csrc/mha.cu`) on CUDA tensors
 and runs its plain twin on CPU tensors. Numerics follow the Pallas
 kernels: f32 logits, `p` cast to v's dtype before an f32-accumulated PV.
 
-K5, K13 and K14 pick their kernel by dtype (`cuda.tc_route`): bf16 runs
-on the tensor cores (mma.sync, csrc/mma.cuh), f32 on the CUDA cores, since
-a tensor-core f32 product is TF32 and would break the f32 bounds. The bf16
-K5 stages a (cloud, head)'s whole k and v in shared memory for 64 query
-rows a block (its logits in registers up to 128 keys, K14's two passes
-above).
+K5, K6, K13 and K14 pick their kernel by dtype (`cuda.tc_route`): bf16
+runs on the tensor cores (mma.sync, csrc/mma.cuh), f32 on the CUDA cores,
+since a tensor-core f32 product is TF32 and would break the f32 bounds.
+The bf16 K5 stages a (cloud, head)'s whole k and v in shared memory for
+64 query rows a block (its logits in registers up to 128 keys, K14's two
+passes above); the bf16 K6 projects a (cloud, head)'s q, k and v on chip,
+Din streamed in chunks of QKV_TC_CHUNK columns, then runs K5's attention
+on them.
 """
 
 from __future__ import annotations
@@ -277,13 +279,16 @@ def fused_attention_packed_small(q, k, v, *, num_heads: int, scale: float) -> to
 # PERF.md); True / False force, as the JAX package's USE_SA_QKV_LN.
 USE_SA_QKV_LN: bool | None = None
 SA_QKV_LN_MIN_BATCH = 128
-K6_ROWS_PER_BATCH = 128  # query rows of one attention batch in the kernel
-K6_STAGING_FLOATS = 4 * 16 * 68  # the normalised-row and weight slices
+K6_ROWS_PER_BATCH = 128  # query rows of one attention batch in the f32 kernel
+K6_STAGING_FLOATS = 4 * 16 * 68  # the f32 kernel's normalised-row and weight slices
+QKV_TC_CHUNK = 32  # Din columns a chunk of the bf16 (tensor-core) K6
 
 
 def qkv_ln_smem_bytes(g: int) -> int:
-    """K6's shared memory at G rows: q/k/v [G, 65] f32, the LN statistics,
-    then the larger of the staging slices and one batch's scores."""
+    """The f32 K6's shared memory at G rows: q/k/v [G, 65] f32, the LN
+    statistics, then the larger of the staging slices and one batch's
+    scores. Its G <= 178 is the gate's limit for both dtypes (the bf16
+    kernel streams Din and takes G <= 192 in 86,016 bytes)."""
     head = -(-g * (3 * (KERNEL_HEAD_DIM + 1) + 2) // 4) * 4
     return 4 * (head + max(K6_STAGING_FLOATS, min(g, K6_ROWS_PER_BATCH) * (g + 1)))
 
@@ -324,11 +329,14 @@ def fused_attention_packed_small_qkv_ln(x, ln_w, ln_b, wq, wk, wv, *, num_heads:
     b, g, din = x.shape
     d = wq.shape[1]
     dt = x.dtype
-    fn = cuda.entry_point("attn_small_qkv_ln", dt)
+    fn = cuda.tc_route("attn_small_qkv_ln", dt)
     require_head_width("attn_small_qkv_ln", d, num_heads)
     if qkv_ln_smem_bytes(g) > SMALL_SMEM_BYTES:
         raise ValueError(f"attn_small_qkv_ln kernel needs its tiles in shared memory "
                          f"(G <= 178); got G={g}")
+    if dt == torch.bfloat16 and din % QKV_TC_CHUNK:
+        raise ValueError(f"attn_small_qkv_ln tensor-core kernel needs Din a multiple of "
+                         f"{QKV_TC_CHUNK}; got Din={din}")
     x, wq, wk, wv = x.contiguous(), wq.contiguous(), wk.contiguous(), wv.contiguous()
     ln_w = ln_w.float().contiguous()
     ln_b = ln_b.float().contiguous()
@@ -337,11 +345,13 @@ def fused_attention_packed_small_qkv_ln(x, ln_w, ln_b, wq, wk, wv, *, num_heads:
     cuda.require(ln_b, "ln_b", torch.float32, (din,))
     for name, w in (("wq", wq), ("wk", wk), ("wv", wv)):
         cuda.require(w, name, dt, (din, d))
+    ptrs = dict(x=x.data_ptr(), ln_w=ln_w.data_ptr(), ln_b=ln_b.data_ptr(), wq=wq.data_ptr(),
+                wk=wk.data_ptr(), wv=wv.data_ptr())
+    cuda.require_aligned(fn, **ptrs)
     out = torch.empty((b, g, d), dtype=dt, device=x.device)
     SMALL_QKV_LN_LAUNCHES.n += 1
     cuda.check(getattr(cuda.lib(), fn)(
-        x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), wq.data_ptr(), wk.data_ptr(),
-        wv.data_ptr(), out.data_ptr(), b, g, din, num_heads, float(scale), cuda.stream_ptr(),
+        *ptrs.values(), out.data_ptr(), b, g, din, num_heads, float(scale), cuda.stream_ptr(),
     ), fn)
     return out
 

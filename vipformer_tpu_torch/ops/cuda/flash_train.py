@@ -12,6 +12,10 @@ tensors. Semantics are torch's softmax -> dropout -> @V with the softmax
 denominator over the undropped p; the forward keeps only the per-row
 logsumexp, the backward recomputes p and regenerates the dropout mask.
 
+K8's forward picks its kernel by dtype (`cuda.tc_route`): bf16 runs on
+the tensor cores (mma.sync, csrc/mma.cuh), f32 on the CUDA cores; both
+backwards and K7 run on the CUDA cores.
+
 Dropout: the keep bit of (cloud b, head h, query g, key m) is a pure
 function of (seed, b*H + h, g, m) through a 32-bit integer hash, and kept
 values are scaled by 1/(1-rate). `keep_mask_plain` computes the same bits
@@ -202,13 +206,15 @@ def attention_fwd_kernel(q, k, v, seed, num_heads: int, scale: float, rate: floa
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     for name, t, shape in (("q", q, (b, g, d)), ("k", k, (b, m, d)), ("v", v, (b, m, d))):
         cuda.require(t, name, dt, shape)
+    fn = cuda.tc_route("attn_train_fwd", dt)
+    qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
+    cuda.require_aligned(fn, q=qp, k=kp, v=vp)
     seed = _seed(seed, q.device)
     out = torch.empty((b, g, d), dtype=dt, device=q.device)
     lse = torch.empty((b, num_heads, g), dtype=torch.float32, device=q.device)
-    fn = cuda.entry_point("attn_train_fwd", dt)
     FWD_LAUNCHES.n += 1
     cuda.check(getattr(cuda.lib(), fn)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), seed.data_ptr(), out.data_ptr(),
+        qp, kp, vp, seed.data_ptr(), out.data_ptr(),
         lse.data_ptr(), b, g, m, num_heads, float(scale), *_dropout_args(rate),
         cuda.stream_ptr()), fn)
     return out, lse
