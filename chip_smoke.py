@@ -25,11 +25,14 @@ goes on):
   5. hold each training kernel K7-K10, forward and backward, against its
      twin at the flagship pretrain shapes (f32 and bf16; K7/K8 at dropout
      0 and 0.1 with the same seed, the dropout masks compared exactly),
-     and time both; K8's bf16 forward (tensor cores) launched again,
-     bitwise equal, its dropped elements read through its output (v the
-     identity on a 64-key window) equal to the twin's mask bit for bit,
-     and K8 timed on device time beside SDPA's forward and forward +
-     backward, the event times beside;
+     and time both; K8's bf16 forward and backward (tensor cores)
+     launched again, bitwise equal, the forward's dropped elements read
+     through its output (v the identity on a 64-key window) equal to the
+     twin's mask bit for bit, and K8 timed on device time beside SDPA's
+     forward and forward + backward, the event times beside, its backward
+     also at the ft_cls step's [330, 128, 256]; K7's bf16 backward (its
+     attention through K8's tensor-core backward) with the profiler's
+     share of those attention kernels;
   6. pretrain path: three steps of `make_pretrain_step` at B=48 in bf16 on
      synthetic ShapeNetRender batches; the loss and parameters stay
      finite, the parameters move, and K1, K2, the forward and backward of
@@ -99,8 +102,9 @@ goes on):
      against their twins in f32 and bf16, timed (K13 beside SDPA); K13's
      bf16 tensor-core route twice, bitwise equal, and at the image shape
      with its kv split forced to 1 against the planned split; K8
-     forward and backward at M = 20,736 with dropout, and K5-K8 at the
-     decoder's single query;
+     forward and backward at M = 20,736 with dropout (the bf16 backward
+     launched twice, bitwise equal), and K5-K8 at the decoder's single
+     query;
  19. Perceiver pretrain path: three `make_pretrain_step` steps of both
      branches at B=48 in bf16 (144x144 images as 20,736 Fourier tokens of
      261 channels): finite, every parameter moved, exactly K7 once and K8
@@ -123,7 +127,8 @@ goes on):
      partseg's [98,304, 1536], and K17 (LayerNorm forward and backward) at
      [4,096, 384], [131,072, 64] and the Fourier tokens' [995,328, 261],
      against their twins (column sums against their channel's sum of
-     magnitudes, K18's statistics bitwise equal between two runs), timed
+     magnitudes, K18's statistics and K17's backward bitwise equal between
+     two runs), timed
      on device time beside var_mean, native_batch_norm_backward and
      F.layer_norm forward and backward, the event times beside;
  25. hold the earlier kernels at semantic segmentation's shapes (B=32,
@@ -179,10 +184,12 @@ with `git archive` into a directory that .gitignore lists):
 
 times both in turns, PAIRS pairs (10 by default), each sample in its own
 process: the host time of a K5, K6, K8 forward and K11 wrapper call (with
-the card idle and busy; K6's and K8's device time beside), the serving
-forward at B = 32 and 64, the
+the card idle and busy; K6's and K8's device time beside), K8's backward
+at B = 96 and 330 and K17's backward (device time), K7's backward
+(events), the serving forward at B = 32 and 64, the
 ft_cls step and eval forward at B = 330, with their kernels' device
-time, and one eval_zeroshot run (host clock).
+time, the pretrain step, the semseg step with K17 and K18 forced, and one
+eval_zeroshot run (host clock).
 """
 
 from __future__ import annotations
@@ -858,6 +865,38 @@ def time_forward() -> None:
 # ----------------------------------------------------------- K7-K10
 
 
+def check_bwd_bitwise(kf, bwd_args, what: str) -> None:
+    """The bf16 tensor-core K8 backward gives the same bits on two launches
+    (no atomics: every sum runs in a fixed order)."""
+    first, again = kf.attention_bwd_kernel(*bwd_args), kf.attention_bwd_kernel(*bwd_args)
+    expect(all(torch.equal(a, b) for a, b in zip(first, again)),
+           f"K8 backward {what}: two launches differ")
+    print(f"  {'attn_train_bwd':18s} {what}: two launches bitwise equal")
+
+
+def time_flash_bwd_ft_cls(kf, t, seed, n: int, d: int, h: int, scale: float,
+                          rate: float) -> None:
+    """K8's bf16 backward at the ft_cls step's self-attention, [330, 128,
+    256] (B = FT_BATCH clouds), on device time beside SDPA's forward and
+    backward together, held against its twin first."""
+    b = FT_BATCH
+    q, k, v, do = (t((b, n, d), torch.bfloat16) for _ in range(4))
+    out, lse = kf.attention_fwd_plain(q, k, v, seed, h, scale, rate)
+    bwd_args = (q, k, v, do, lse, kf.attention_delta(do, out, h), seed, h, scale, rate)
+    grads = kf.attention_bwd_kernel(*bwd_args)
+    for gname, gk, gp in zip(("dq", "dk", "dv"), grads, kf.attention_bwd_plain(*bwd_args)):
+        err, rel = rel_err(gk, gp)
+        print(f"  {'attn_train_bwd':18s} ft_cls B={b} bf16 p={rate} {gname:4s} "
+              f"max_abs_err={err:.3e} rel={rel:.3e} (bound {GRAD_TOL['bfloat16']:.0e})")
+        expect(rel <= GRAD_TOL["bfloat16"], f"K8 backward at B={b}: {gname} error {rel:.3e}")
+    _device_timing(None, "attn_train_bwd", f"[{b},{n},{d}] H={h} p={rate} bf16",
+                   lambda: kf.attention_bwd_kernel(*bwd_args),
+                   sdpa_fwd_bwd(q, k, v, do, h, scale, rate),
+                   cuda_ms(lambda: kf.attention_bwd_plain(*bwd_args), iters=5),
+                   bound(nbytes(q, k, v, do, lse, bwd_args[5], *grads), 10 * b * n * n * d,
+                         "bfloat16"), keep=False)
+
+
 def check_training_kernels(rec: Recorder) -> None:
     from vipformer_tpu_torch.models.crossformer import init_weights
     from vipformer_tpu_torch.nn.pointnet import Group2Emb
@@ -907,12 +946,13 @@ def check_training_kernels(rec: Recorder) -> None:
                                          kf.attention_bwd_plain(*bwd_args)):
                     rec.check("attn_train_bwd", f"{what} {gname}", *rel_err(gk, gp),
                               GRAD_TOL[dt_name])
-            if dt_name == "bfloat16":  # the tensor-core forward: the same bits again
+            if dt_name == "bfloat16":  # the tensor-core forward and backward: the same bits again
                 out2, lse2 = kf.attention_fwd_kernel(q, k, v, seed, h, scale, rate)
                 expect(torch.equal(out_k, out2) and torch.equal(lse_k, lse2),
                        f"K8 forward {branch} bf16: two launches differ")
                 print(f"  {'attn_train_fwd':18s} {branch} bf16 p={rate}: two launches bitwise "
                       f"equal")
+                check_bwd_bitwise(kf, bwd_args, f"{branch} bf16 p={rate}")
             if branch == "point" and dt_name == "bfloat16":
                 shape = f"[{b},{n},{d}] H={h} p={rate} bf16"
                 ops = 4 * b * n * n * d
@@ -934,6 +974,7 @@ def check_training_kernels(rec: Recorder) -> None:
                                    cuda_ms(plain), bnd)
         if branch == "point":
             check_dropout_through_output(kf, seed, h, scale, rate)
+            time_flash_bwd_ft_cls(kf, t, seed, n, d, h, scale, rate)
 
     # K7 at the point branch's cross-attention (128 latents over 2048
     # points) and the image branch's (144 patches over themselves)
@@ -980,6 +1021,14 @@ def check_training_kernels(rec: Recorder) -> None:
                            cuda_ms(lambda: kf.attention_kv_bwd_plain(*bwd_args), iters=3),
                            bound(nbytes(*args, do, lse_p, delta, *grads), 3 * proj + 2.5 * attn,
                                  dt_name), shape=shape)
+                # where it goes: the tensor-core attention kernels' share
+                busy, dkdv, dq = kernel_sums(lambda: kf.attention_kv_bwd_kernel(*bwd_args), 3,
+                                             "flash_bwd_kv_tc_kernel", "flash_bwd_dq_tc_kernel")
+                print(f"  {'attn_train_kv_bwd':18s} {shape}: {busy:.4f} ms of kernels a launch "
+                      f"(torch.profiler), of it the attention's kv-row pass {dkdv:.4f} ms and dQ "
+                      f"pass {dq:.4f} ms ({100.0 * (dkdv + dq) / busy:.1f}%)")
+                expect(dkdv > 0 and dq > 0, "K7 bf16 backward: the tensor-core attention "
+                       "backward did not run")
             del args, do, out_k, out_p
 
     # K10 on real patches: FPS centers and kNN neighbourhoods of random clouds
@@ -1922,6 +1971,7 @@ def check_perceiver_kernels(rec: Recorder) -> None:
             rec.check("attn_train_bwd", f"{what} {gname}", *rel_err(gk, gp, OWN_SCALE),
                       GRAD_TOL[dt_name])
         if dt_name == "bfloat16":
+            check_bwd_bitwise(kf, bwd_args, what)
             ms_f = cuda_ms(lambda: kf.attention_fwd_kernel(q, k, v, seed, h, scale, rate), iters=5)
             ms_b = cuda_ms(lambda: kf.attention_bwd_kernel(*bwd_args), iters=5)
             print(f"  K8 at q[{b},{g},{d}] kv[{b},{m_img},{d}] bf16 p={rate}: forward "
@@ -2325,6 +2375,10 @@ def check_norm_kernels(rec: Recorder) -> None:
                       KERNEL_TOL["float32"])
             dx_k, ds_k, db_k = kln.ln_bwd(x, dy, mu_p, rs_p, s)
             dx_p, ds_p, db_p = kln.ln_bwd_plain(x, dy, mu_p, rs_p, s)
+            again = kln.ln_bwd(x, dy, mu_p, rs_p, s)
+            expect(all(torch.equal(a, b) for a, b in zip((dx_k, ds_k, db_k), again)),
+                   f"K17 backward {what}: two runs differ")
+            del again
             rec.check("layernorm_bwd", what + " dx", *rel_err(dx_k, dx_p, OWN_SCALE),
                       KERNEL_TOL[dt_name])
             dyf = dy.float()
@@ -3074,7 +3128,8 @@ def drive_perceiver_head_split(counts_out: dict) -> None:
 OUR_KERNELS = ("vpt", "fps_kernel", "knn_kernel", "fps_knn_kernel", "mha_kernel", "mha_tc_kernel",
                "stem_kernel", "attn_flash_kernel", "attn_combine_kernel", "attn_packed_tc_kernel",
                "attn_small_kernel", "attn_small_tc_kernel", "attn_small_qkv_ln_kernel",
-               "attn_small_qkv_ln_tc_kernel", "flash_fwd_tc_kernel", "dense_grads_tc_kernel")
+               "attn_small_qkv_ln_tc_kernel", "flash_fwd_tc_kernel", "flash_bwd_kv_tc_kernel",
+               "flash_bwd_dq_tc_kernel", "dense_grads_tc_kernel", "ln_bwd_kernel")
 
 
 def ours_kernel(name: str) -> bool:
@@ -3172,18 +3227,25 @@ def time_tree(root: str) -> dict:
     """One A/B sample of the port in the checkout at `root`, imported from
     there (its kernels built there): the host time of a K5, K6, K8 forward
     and K11 wrapper call (the card idle, and busy; K6's and K8's device
-    time), the serving forward at
+    time), K8's backward on device time at B = 96 and 330 ([B, 128, 256]),
+    K7's backward at the pretrain point shape (events), K17's backward at
+    LN_TIMED on device time, the serving forward at
     each of BATCHES (events, and its kernels' and K5's device time from
     torch.profiler), the ft_cls step (events over TIMED_STEPS steps, and
-    K11's device time a step), the ft_cls eval forward at B = 330 (events,
-    its kernels' and K6's device time) and one eval_zeroshot run."""
+    K11's and the attention backward kernels' device time a step), the
+    ft_cls eval forward at B = 330 (events, its kernels' and K6's device
+    time), the pretrain step at B = 48, the semseg step at B = 32 with
+    K17 and K18 forced (events over TIMED_STEPS steps) and one
+    eval_zeroshot run."""
     sys.path.insert(0, root)
-    from vipformer_tpu_torch.models.factory import build_ft_cls
+    from vipformer_tpu_torch.models.factory import build_ft_cls, build_ft_semseg
     from vipformer_tpu_torch.ops import cuda as kcuda
     from vipformer_tpu_torch.ops.cuda import attention as kattn
     from vipformer_tpu_torch.ops.cuda import dense as kdense
     from vipformer_tpu_torch.ops.cuda import flash_train as kflash
-    from vipformer_tpu_torch.train.trainer import create_state, make_cls_eval, make_cls_step
+    from vipformer_tpu_torch.ops.cuda import layernorm as kln
+    from vipformer_tpu_torch.train.trainer import (create_state, make_cls_eval, make_cls_step,
+                                                   make_pretrain_step, make_semseg_step)
 
     expect(kcuda.__file__.startswith(root), f"imported {kcuda.__file__}, not the tree at {root}")
     kcuda.lib()
@@ -3211,7 +3273,31 @@ def time_tree(root: str) -> dict:
         out["K8 fwd wrapper us"] = host_us(k8)
         out["K8 fwd wrapper us, card busy"] = host_us(k8, busy=True)
         out["K8 fwd device ms"] = queued_ms(k8, "K8 forward")
-    del x, ln, w, qkv
+        # K8's backward at the pretrain point shape and at the ft_cls step's
+        for b in (2 * PRETRAIN_BATCH, FT_BATCH):
+            qkv = [torch.randn((b, 128, 256), generator=gen, **bf) for _ in range(4)]
+            o8, lse8 = kflash.attention_fwd_kernel(*qkv[:3], seed, 4, 0.125, 0.1)
+            args = (*qkv, lse8, kflash.attention_delta(qkv[3], o8, 4), seed, 4, 0.125, 0.1)
+            out[f"K8 bwd B={b} device ms"] = queued_ms(
+                lambda: kflash.attention_bwd_kernel(*args), "K8 backward")
+        # K7's backward at the pretrain point branch's cross-attention (events)
+        b = 2 * PRETRAIN_BATCH
+        q7, do7 = (torch.randn((b, 128, 256), generator=gen, **bf) for _ in range(2))
+        x7 = torch.randn((b, 2048, 256), generator=gen, **bf)
+        lnw = [torch.ones(256, device="cuda"), torch.zeros(256, device="cuda")]
+        w7 = [torch.randn((256, 256), generator=gen, **bf) * 0.0625 for _ in range(2)]
+        o7, lse7 = kflash.attention_kv_fwd_kernel(q7, x7, *lnw, *w7, seed, 4, 0.125, 0.1)
+        args = (q7, x7, *lnw, *w7, do7, lse7, kflash.attention_delta(do7, o7, 4), seed, 4, 0.125,
+                0.1)
+        out["K7 bwd ms"] = cuda_ms(lambda: kflash.attention_kv_bwd_kernel(*args), iters=5)
+        # K17's backward at the semseg latents' LayerNorm
+        r, d = LN_TIMED
+        x17, dy17 = (torch.randn((r, d), generator=gen, **bf) for _ in range(2))
+        s17 = torch.ones(d, device="cuda")
+        _, mu17, rs17 = kln.ln_fwd(x17, s17, torch.zeros(d, device="cuda"))
+        out["K17 bwd device ms"] = queued_ms(lambda: kln.ln_bwd(x17, dy17, mu17, rs17, s17),
+                                             "K17 backward")
+    del x, ln, w, qkv, args, x7, x17, dy17
     x, dy = torch.randn((42240, 256), generator=gen, **bf), torch.randn((42240, 256), generator=gen,
                                                                           **bf)
     k11 = lambda: kdense.dense_grads(x, dy)  # noqa: E731
@@ -3238,13 +3324,36 @@ def time_tree(root: str) -> dict:
 
     run(2)
     out["ft_cls step ms"] = cuda_ms(lambda: run(1), iters=TIMED_STEPS, warmup=0)
-    out["ft_cls K11 ms"] = kernel_sums(lambda: run(1), 2, "dense_grads")[1]
+    out["ft_cls K11 ms"], out["ft_cls flash bwd ms"] = kernel_sums(
+        lambda: run(1), 2, "dense_grads", "flash_bwd_")[1:]
     eval_step = make_cls_eval(model)
     pts = torch.from_numpy(ft_batches(cfg, "test")[0][0]["points"]).cuda()
     out[f"ft_cls eval B={FT_BATCH} ms"] = cuda_ms(lambda: eval_step(pts), iters=AB_ITERS)
     out[f"ft_cls eval B={FT_BATCH} kernels ms"], out[f"ft_cls eval B={FT_BATCH} K6 ms"] = \
         kernel_sums(lambda: eval_step(pts), 4, "attn_small_qkv_ln")
     del model, state, step, eval_step
+    torch.cuda.empty_cache()
+    cfg = config()  # the pretrain step at B = 48
+    batches = pretrain_batches(cfg, 2, PRETRAIN_BATCH)
+    models = pretrain_models(cfg, "cuda")
+    state = create_state(cfg, models)
+    step = make_pretrain_step(cfg, models["pc"], models["img"])
+    run(2)
+    out["pretrain step ms"] = cuda_ms(lambda: run(1), iters=TIMED_STEPS, warmup=0)
+    del models, state, step, batches
+    torch.cuda.empty_cache()
+    cfg = semseg_config()  # the semseg step at B = 32 with K17 and K18 forced
+    batches = semseg_batches(cfg, "train")[:2]
+    saved = _forced_norms(True)
+    try:
+        model = build_ft_semseg(cfg, device="cuda")
+        state = create_state(cfg, {"pc": model})
+        step = make_semseg_step(cfg, model)
+        run(2)
+        out["semseg forced step ms"] = cuda_ms(lambda: run(1), iters=TIMED_STEPS, warmup=0)
+    finally:
+        _restore_norms(saved)
+    del model, state, step, batches
     torch.cuda.empty_cache()
     out["eval_zeroshot s"] = time_eval_zeroshot()
     return out

@@ -138,13 +138,16 @@ def test_batchnorm_module_forced_matches_jax(monkeypatch):
         _close(got, want, name=name)
 
 
-def test_layernorm_apply_matches_jax():
+# widths: the earlier 72, the input adapter's 64, the semseg latents' 384
+# and the Fourier tokens' 261 (odd: no vector of two columns divides it)
+@pytest.mark.parametrize("d", [72, 64, 384, 261])
+def test_layernorm_apply_matches_jax(d):
     """K17's twin through the port's autograd function against JAX's
     `layernorm_apply` (forward and backward kernels in interpret mode): y
     and the gradients of x, scale and bias."""
-    shape = (2, 256, 72)
+    shape = (2, 256, d)
     x, cy = _data(shape, 14, 1.5, 0.2), _data(shape, 15)
-    scale, bias = _data((72,), 16, 0.2, 1.0), _data((72,), 17, 0.1)
+    scale, bias = _data((d,), 16, 0.2, 1.0), _data((d,), 17, 0.1)
 
     def jloss(xx, ss, bb):
         y = jln.layernorm_apply(xx, ss, bb)

@@ -122,11 +122,13 @@ def _assert_grad_close(got, want, dt):
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,g,m,h", [(1, 144, 144, 4), (2, 100, 70, 2), (1, 1, 5, 1),
-                                     (3, 128, 128, 4), (2, 65, 1000, 6), (2, 129, 63, 2)])
+                                     (3, 128, 128, 4), (2, 65, 1000, 6), (2, 129, 63, 2),
+                                     (2, 1, 130, 2), (1, 70, 130, 1)])
 def test_flash_train_kernel_matches_twin(dev, b, g, m, h, dt, rate):
-    """K8 forward and backward; the bf16 forward (tensor cores) also at the
-    pretrain latents' 128, at query counts off its 64-row blocks (65, 129)
-    and key counts off its 64-key tiles (63, 1000)."""
+    """K8 forward and backward; the bf16 routes (tensor cores) also at the
+    pretrain latents' 128, at one query (the Perceiver decoder's), at
+    query counts off their 64-row blocks (65, 70, 129) and key counts off
+    their 64-key tiles (63, 130, 1000)."""
     from vipformer_tpu_torch.ops.cuda import flash_train as kf
 
     rng = np.random.default_rng(1)
@@ -146,8 +148,12 @@ def test_flash_train_kernel_matches_twin(dev, b, g, m, h, dt, rate):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,g,m,din,h", [(1, 144, 144, 256, 4), (2, 50, 300, 96, 2)])
+@pytest.mark.parametrize("b,g,m,din,h", [(1, 144, 144, 256, 4), (2, 50, 300, 96, 2),
+                                         (3, 1, 130, 128, 2)])
 def test_flash_train_kv_kernel_matches_twin(dev, b, g, m, din, h, dt):
+    """K7 forward and backward (the bf16 backward's attention on K8's
+    tensor-core backward, with f32 dk / dv), also at one query over a key
+    count off the 64-key tiles."""
     from vipformer_tpu_torch.ops.cuda import flash_train as kf
 
     rng = np.random.default_rng(2)
@@ -600,11 +606,14 @@ def test_batchnorm_reduces_match_twins(dev, r, c, dt):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("r,d", [(4096, 384), (1000, 261), (3, 33), (256, 2048)])
+@pytest.mark.parametrize("r,d", [(4096, 384), (1000, 261), (3, 33), (256, 2048), (5000, 64),
+                                 (300, 1024), (517, 1638)])
 def test_layernorm_kernels_match_twins(dev, r, d, dt):
     """K17's forward (y, mu, rsig) and backward (dx; dscale and dbias as
-    column sums) at the semseg latents' width, the Fourier tokens' odd
-    width, a few rows and a width above a warp's 32 x 32 columns."""
+    column sums, the same bits on a second run) at the semseg latents'
+    width, the Fourier tokens' odd width, the input adapter's 64, a few
+    rows, and widths that share a row between 2 and 4 warps (1024, the
+    JAX gate's widest bf16 1638, 2048)."""
     from vipformer_tpu_torch.ops.cuda import layernorm as kln
 
     rng = np.random.default_rng(12)
@@ -623,6 +632,35 @@ def test_layernorm_kernels_match_twins(dev, r, d, dt):
     xhat = (x.float() - pmu[:, None]) * prsig[:, None]
     _colsum_ok(ds, pds, (dy.float() * xhat).abs().sum(0))
     _colsum_ok(db, pdb, dy.float().abs().sum(0))
+    assert all(torch.equal(a, b) for a, b in zip((dx, ds, db), kln.ln_bwd(x, dy, pmu, prsig, s)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_layernorm_backward_takes_unaligned_rows(dev, dt):
+    """K17's backward on x and dy that start one element past a vector
+    boundary (views into a larger buffer): the wrapper narrows the vectors
+    (`vec_for`); the column sums equal the aligned run's bits (each column
+    sums the same rows in the same order), dx agrees within the tolerance
+    (its row sums add the lanes' columns in another grouping)."""
+    from vipformer_tpu_torch.ops.cuda import layernorm as kln
+
+    rng = np.random.default_rng(13)
+    r, d = 1000, 384
+    x, dy = _t(rng, (r, d), dev, dt), _t(rng, (r, d), dev, dt)
+    s = _t(rng, (d,), dev, scale=0.2) + 1.0
+    _, mu, rsig = kln.ln_fwd_plain(x, s, torch.zeros_like(s))
+    step = 2 // x.element_size() or 1  # one element past the start: 2 or 4 bytes
+    bx, bdy = (torch.empty(r * d + step, dtype=dt, device=dev) for _ in range(2))
+    xo, dyo = bx[step:].view(r, d), bdy[step:].view(r, d)
+    xo.copy_(x)
+    dyo.copy_(dy)
+    assert kln.vec_for(d, x.element_size(), xo.data_ptr()) < kln.vec_for(d, x.element_size(),
+                                                                          x.data_ptr())
+    (dx, ds, db), (want_dx, want_ds, want_db) = (kln.ln_bwd(xo, dyo, mu, rsig, s),
+                                                 kln.ln_bwd(x, dy, mu, rsig, s))
+    assert torch.equal(ds, want_ds) and torch.equal(db, want_db)
+    _assert_close(dx, want_dx, dt, floor=0.0)
 
 
 @pytest.mark.cuda
@@ -726,12 +764,12 @@ def test_head_split_kernel_matches_twin(dev, b, h, g, m, dh, dv, dt):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["attn_packed", "attn_head_split", "attn_small_qkv_ln",
-                                    "attn_train_fwd"])
+                                    "attn_train_fwd", "attn_train_bwd"])
 def test_tensor_core_kernels_repeat_bitwise(dev, kernel):
-    """The bf16 tensor-core routes of K13, K14, K6 and K8's forward give
-    the same bits on a second launch (no atomics, a fixed order of
-    products); K13 with its kv split forced to 1 (no merge pass) agrees
-    with the planned split."""
+    """The bf16 tensor-core routes of K13, K14, K6 and K8's forward and
+    backward give the same bits on a second launch (no atomics, a fixed
+    order of products); K13 with its kv split forced to 1 (no merge pass)
+    agrees with the planned split."""
     from vipformer_tpu_torch.ops.cuda import flash_train as kf
 
     rng = np.random.default_rng(5)
@@ -751,6 +789,15 @@ def test_tensor_core_kernels_repeat_bitwise(dev, kernel):
             (o1, l1), (o2, l2) = (kf.attention_fwd_kernel(q, k, v, seed, 4, 0.125, 0.1)
                                   for _ in range(2))
             assert torch.equal(o1, o2) and torch.equal(l1, l2)
+            return
+        if kernel == "attn_train_bwd":  # at one query over 130 keys, with dropout
+            q, do = _t(rng, (2, 1, 128), dev, dt), _t(rng, (2, 1, 128), dev, dt)
+            k, v = _t(rng, (2, 130, 128), dev, dt), _t(rng, (2, 130, 128), dev, dt)
+            seed = torch.tensor([7], dtype=torch.int32, device=dev)
+            out, lse = kf.attention_fwd_plain(q, k, v, seed, 2, 0.125, 0.1)
+            args = (q, k, v, do, lse, kf.attention_delta(do, out, 2), seed, 2, 0.125, 0.1)
+            first, again = kf.attention_bwd_kernel(*args), kf.attention_bwd_kernel(*args)
+            assert all(torch.equal(a, b) for a, b in zip(first, again))
             return
         if kernel == "attn_head_split":
             q, k = _t(rng, (2, 4, 129, 64), dev, dt), _t(rng, (2, 4, 1000, 64), dev, dt)

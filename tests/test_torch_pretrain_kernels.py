@@ -59,7 +59,10 @@ def _jax_grads(fn, arrays, cot):
     return out, grads
 
 
-@pytest.mark.parametrize("b,g,m,h,d", [(2, 16, 64, 4, 32), (1, 12, 40, 2, 16)])
+# the last two at the kernels' dh = 64: one query (the Perceiver decoder's
+# single query), and G, M off the 64-row tiles
+@pytest.mark.parametrize("b,g,m,h,d", [(2, 16, 64, 4, 32), (1, 12, 40, 2, 16),
+                                       (2, 1, 130, 2, 128), (1, 70, 130, 1, 64)])
 def test_flash_train_twin_matches_pallas(rng, b, g, m, h, d):
     """K8 at dropout 0: output and dq, dk, dv."""
     q, k, v = _f32(rng, b, g, d), _f32(rng, b, m, d), _f32(rng, b, m, d)
@@ -234,12 +237,13 @@ def test_cpu_tensors_never_reach_the_training_kernels(rng):
 
 
 def test_training_wrappers_validate_operands():
-    for base in ("attn_train_bwd", "attn_train_kv_fwd", "attn_train_kv_bwd",
+    for base in ("attn_train_kv_fwd", "attn_train_kv_bwd",
                  "g2e_fwd", "g2e_bwd", "gather_centered", "scatter_centered"):
         for dt in (torch.float32, torch.bfloat16):
             assert kcuda.entry_point(base, dt) in kcuda.SIGNATURES
-    for dt in (torch.float32, torch.bfloat16):  # K8's forward: bf16 on the tensor cores
+    for dt in (torch.float32, torch.bfloat16):  # K8: bf16 on the tensor cores, both ways
         assert kcuda.tc_route("attn_train_fwd", dt) in kcuda.SIGNATURES
+        assert kcuda.tc_route("attn_train_bwd", dt) in kcuda.SIGNATURES
     with pytest.raises(NotImplementedError, match="dh=64"):
         kflash._check_heads(96, 2)
     with pytest.raises(ValueError, match=r"\[0, 1\)"):

@@ -1,6 +1,6 @@
-"""The tensor-core routes of K5, K6, K8's forward and K11, on the CPU:
-which entry point each dtype reaches, and how the wrappers plan the
-kernels' grids.
+"""The tensor-core routes of K5, K6, K8's forward and backward and K11,
+on the CPU: which entry point each dtype reaches, and how the wrappers
+plan the kernels' grids; and the split plan of K17's backward.
 
 The bf16 K5 (`tc::attn_small_tc_kernel`), K6
 (`tc::attn_small_qkv_ln_tc_kernel`), K8's forward
@@ -49,14 +49,16 @@ ROUTES = [("dense_grads", torch.bfloat16, "dense_grads_tc_bf16"),
           ("attn_small_qkv_ln", torch.bfloat16, "attn_small_qkv_ln_tc_bf16"),
           ("attn_small_qkv_ln", torch.float32, "attn_small_qkv_ln_f32"),
           ("attn_train_fwd", torch.bfloat16, "attn_train_fwd_tc_bf16"),
-          ("attn_train_fwd", torch.float32, "attn_train_fwd_f32")]
+          ("attn_train_fwd", torch.float32, "attn_train_fwd_f32"),
+          ("attn_train_bwd", torch.bfloat16, "attn_train_bwd_tc_bf16"),
+          ("attn_train_bwd", torch.float32, "attn_train_bwd_f32")]
 
 
 @pytest.mark.parametrize("base,dt,want", ROUTES)
 def test_dtype_route_of_dense_grads_and_attn_small(base, dt, want):
-    """K11, K5, K6 and K8's forward: the dtype picks the entry point, which
-    the library declares; the CUDA-core bf16 entry points are gone; any
-    other dtype raises."""
+    """K11, K5, K6 and K8's forward and backward: the dtype picks the entry
+    point, which the library declares; the CUDA-core bf16 entry points are
+    gone; any other dtype raises."""
     assert kcuda.tc_route(base, dt) == want
     assert want in kcuda.SIGNATURES
     assert f"{base}_bf16" not in kcuda.SIGNATURES
@@ -142,3 +144,81 @@ def test_qkv_ln_tc_kernel_fits_two_blocks_an_sm(g, din):
     assert (3 if g <= 128 else 2) * per_block <= SM_SHARED_BYTES
     assert din % kattn.QKV_TC_CHUNK == 0
     assert not kattn.packed_small_qkv_ln_enabled(4, 256, 256, 330, 179, din, False, True)
+
+
+def flash_bwd_tc_smem_bytes() -> dict[str, int]:
+    """The bf16 K8 backward's shared memory (csrc/flash_train.cu
+    `bwd_kv_smem`, `TC_BWD_Q_SMEM`), rows of 64 + 8 bf16. The kv-row
+    kernel holds its k and v rows (64 at M > 128; all 128 at M <= 128,
+    where it also keeps dS^T of a query tile) and a 3-stage ring of 64-row
+    q and dO tiles with each query row's lse, delta and dropout key (4
+    bytes each); the dQ pass its 64 q and dO rows and a 3-stage ring of k
+    and v tiles."""
+    row, stages, rows_meta = 2 * (64 + 8), 3, 4 * 3 * 3 * 64
+    return {"kv": row * (2 * 64 + 2 * stages * 64) + rows_meta,
+            "fused": row * (3 * 128 + 2 * stages * 64) + rows_meta,
+            "dq": row * (2 * 64 + 2 * stages * 64)}
+
+
+def test_flash_bwd_tc_kernels_fit_two_blocks_an_sm():
+    """Every kernel of the bf16 K8 backward takes at most half of what a
+    block may use (227 KB), so at least two blocks share an SM (the two
+    4-warp passes three); the fused kernel serves M up to its 8 warps' 128
+    kv rows, and the tiles cover every kv and query row of the shapes the
+    port runs, with the last tile ragged where 64 does not divide (G = 1,
+    M = 130, 144, 2,048, 20,736)."""
+    block_max = 227 * 1024
+    smem = flash_bwd_tc_smem_bytes()
+    for name, n in smem.items():
+        assert n <= block_max // 2
+        assert (2 if name == "fused" else 3) * (n + BLOCK_RESERVED_BYTES) <= SM_SHARED_BYTES
+    assert smem["kv"] == 76032 and smem["fused"] == 112896 and smem["dq"] == 73728
+    for n in (1, 70, 128, 130, 144, 2048, 20736):
+        tiles = -(-n // 64)
+        assert (tiles - 1) * 64 < n <= tiles * 64
+
+
+# (R, D): the LN_SHAPES of chip_smoke.py (semseg latents, the input
+# adapter, the Fourier tokens), a few rows, widths that share a row between
+# warps (up to the JAX gate's widest bf16 1,638 and 2,048), and R below one
+# row a slot of a block
+LN_PLANS = [(4096, 384), (131072, 64), (995328, 261), (3, 33), (256, 2048), (517, 1638),
+            (300, 1024), (1, 7), (20, 600)]
+
+
+@pytest.mark.parametrize("r,d", LN_PLANS)
+def test_layernorm_bwd_split_plan_covers_every_row_once(r, d):
+    """K17's backward on 132 SMs: the splits cut the rows into contiguous
+    slices that cover every row once, none empty, at most one block an
+    SM and no more than the rows fill (a row for each row slot); the groups
+    of the two-level sum cover every split once, about sqrt(splits) each,
+    and the counters fit the wrapper's buffer."""
+    from vipformer_tpu_torch.ops.cuda import layernorm as kln
+
+    per, splits, group = kln.bwd_plan(r, d, SMS)
+    rows = kln.split_rows(r, per)
+    assert len(rows) == splits <= SMS
+    assert rows[0][0] == 0 and rows[-1][1] == r
+    assert all(lo < hi for lo, hi in rows)
+    assert all(hi == lo for (_, hi), (lo, _) in zip(rows, rows[1:]))
+    slots = kln.BWD_WARPS // kln.warps_per_row(d)
+    assert splits <= -(-r // slots)  # no more blocks than the rows fill
+    ngroups = -(-splits // group)
+    assert (group - 1) ** 2 < splits <= group * group
+    assert sorted(i for g in range(ngroups)
+                  for i in range(g * group, min(splits, (g + 1) * group))) == list(range(splits))
+    assert ngroups + 1 <= 256
+    assert d <= kln.LANE_COLS * 32 * kln.warps_per_row(d)
+
+
+@pytest.mark.parametrize("d,itemsize,want", [(384, 2, 8), (384, 4, 4), (64, 2, 2), (64, 4, 2),
+                                             (261, 2, 1), (261, 4, 1), (33, 4, 1), (7, 2, 1),
+                                             (1638, 2, 2), (2048, 4, 4)])
+def test_layernorm_bwd_vector_width(d, itemsize, want):
+    """The backward's vector: the widest of at most 16 bytes that divides D
+    and leaves every lane a vector; a pointer off that boundary narrows
+    it."""
+    from vipformer_tpu_torch.ops.cuda import layernorm as kln
+
+    assert kln.vec_for(d, itemsize, 0, 256) == want
+    assert kln.vec_for(d, itemsize, itemsize) == 1

@@ -56,6 +56,11 @@ def main(cfg: Config, device: str = "cuda") -> dict:
                                   "reader comes with a later slice (ROADMAP Queue 1)")
     if cfg.resume:
         raise NotImplementedError("--resume is not ported yet (ROADMAP Queue 1)")
+    if cfg.num_devices > 1:
+        # JAX trains per-device NT-Xent groups (neg_groups = the data axis
+        # size); one card with neg_groups=1 would train another loss
+        raise NotImplementedError("multi-card runs are not ported yet (ROADMAP Queue 1, "
+                                  "item 16): the port runs on one card")
     run = Run(cfg)
     if cfg.wandb:
         run.write("wandb is not ported: metrics.jsonl is the only metrics channel")

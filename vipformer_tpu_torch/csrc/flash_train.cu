@@ -30,29 +30,35 @@
 // of the scores, dV, dPd, dK in one kernel and scores, dPd, dQ in the
 // other); K7 adds the k/v projection of every kv token (M x Din x 2D MACs,
 // twice: forward and the backward's recompute) and its backward products.
-// Everything but K8's bf16 forward runs on CUDA cores in f32 (67 TFLOP/s
+// The f32 kernels and K7's forward run on CUDA cores in f32 (67 TFLOP/s
 // peak), so the bound that matters there is that rate, not the 989
 // TFLOP/s of the tensor cores. K8's bf16 forward (tc::flash_fwd_tc_kernel)
-// runs its products on the tensor cores; at the pretrain point branch's
-// [96, 128, 256], H = 4, they are 1.6 GFLOP (0.002 ms at 989 TFLOP/s)
-// against 25.4 MB of q, k, v, out and lse (0.0076 ms at 3.35 TB/s), and the
-// dropout hash and the exp of each of its 6.3 M scores run beside them on
-// the CUDA cores. The dtype picks the forward's kernel
-// (ops/cuda/__init__.py `tc_route`): f32 stays on flash_fwd_kernel<float>,
-// since a tensor-core f32 product is TF32; K7's forward and both
-// backwards keep the CUDA-core kernels in both dtypes.
+// and the bf16 backward of K8 and of K7's attention
+// (tc::flash_bwd_kv_tc_kernel, tc::flash_bwd_dq_tc_kernel) run their
+// products on the tensor cores; at the pretrain point branch's [96, 128,
+// 256], H = 4, the forward's are 1.6 GFLOP (0.002 ms at 989 TFLOP/s)
+// against 25.4 MB of q, k, v, out and lse (0.0076 ms at 3.35 TB/s), the
+// backward's 4.0 GFLOP (5 products in one launch, 0.004 ms) against 44 MB of q, k, v, dO,
+// dq, dk and dv (0.0133 ms), and the dropout hash and the exp of each score
+// run beside them on the CUDA cores. The dtype picks the kernels
+// (ops/cuda/__init__.py `tc_route`): f32 stays on the CUDA-core kernels,
+// since a tensor-core f32 product is TF32.
 //
 // Design: one block per (cloud*head, 64 query rows) in the forward and in
 // the dQ pass, one block per (cloud*head, 64 kv rows) in the dK/dV pass,
 // so nothing is carried between blocks: the TPU kernel accumulated dQ
 // across its sequential kv grid axis, here the dQ pass walks the kv tiles
 // itself (at the cost of recomputing the scores once more) and the result
-// is deterministic without atomics. Tiles of 64 x 64 in shared memory as
-// f32 with rows padded to 68 floats; 256 threads, each owning a 4 x 4
-// register tile, so a row's max and sum reduce over 16 lanes by shuffles.
+// is deterministic without atomics. The CUDA-core kernels hold tiles of
+// 64 x 64 in shared memory as f32 with rows padded to 68 floats; 256
+// threads, each owning a 4 x 4 register tile, so a row's max and sum
+// reduce over 16 lanes by shuffles. The tensor-core kernels (namespace tc)
+// keep the same grids with 4 warps of 16 rows a block.
 // K7's projections, LN backward and weight gradients run through the SIMT
 // product of train_common.cuh; its weight gradients are split over the
 // token axis into partials summed in a fixed order.
+#include <type_traits>
+
 #include "mma.cuh"
 #include "train_common.cuh"
 
@@ -507,6 +513,343 @@ int flash_fwd(const void* q, const void* k, const void* v, const void* seed, voi
   return (int)cudaGetLastError();
 }
 
+// ----------------------------------------- K8 backward, bf16, on the tensor cores
+// The CUDA-core backward's math (header :11-16) with every product on
+// mma.sync, bf16 in and f32 out, the operands bf16 in
+// shared memory (rows padded to TC_LD) and the accumulators f32 in
+// registers. p = 2^(s * scale * log2 e - lse * log2 e) from the forward's
+// natural-unit f32 lse, Pd = p * keep / (1 - rate) from the same hash
+// (row_key of the query row, keep_bit of the key column), dS = (Pd * dPd -
+// p * delta) * scale; Pd and dS are rounded to bf16 in registers as the A
+// fragments of the next products, as the forward rounds p for P.V.
+//
+// Kv-row side (flash_bwd_kv_tc_kernel): a warp owns 16 kv rows and
+// computes the transposed tiles S^T = K.Q^T and dPd^T = V.dO^T against each
+// 64-row query tile (its k and v rows as A fragments, the q and dO tiles as
+// B), so that Pd^T and dS^T land in the accumulator layout that is the A
+// fragment of dV += Pd^T.dO and dK += dS^T.Q (dO and q read through
+// ldmatrix.trans). The q and dO tiles, with their rows' lse * log2 e (+inf
+// past G, so p = 0 there), delta and dropout key, stream through a
+// TC_STAGES-deep cp.async ring, one barrier a tile. At M <= 128 (every
+// 128-latent self-attention) one block of 8 warps holds all the kv rows of
+// its cloud and head and also forms dQ = dS.K from dS^T in shared memory:
+// one launch, and S, dPd and the dropout hash computed once. At M > 128 a
+// block of 4 warps takes 64 kv rows, and a second pass
+// (flash_bwd_dq_tc_kernel) gives dQ: one block per (64 query rows, cloud *
+// head), a warp's 16 query rows with q and dO as A fragments in registers,
+// the k and v tiles streaming through the same ring: S, dPd, then dQ +=
+// dS.K (k through ldmatrix.trans); keys past M get p = 0. No block carries
+// anything to another, and every sum runs in a fixed order: no atomics,
+// the same bits on every launch. dk / dv are written in TO: bf16 for K8,
+// f32 for K7's backward, whose projections take them on.
+
+// Shared memory of the kv-row kernel: its k and v rows (and, fused, dS^T
+// of a query tile), a ring of q and dO tiles, and each query row's lse *
+// log2 e, delta (f32) and dropout key (u32).
+template <int WARPS, bool FUSED>
+constexpr size_t bwd_kv_smem() {
+  return sizeof(bf16) * (size_t)((FUSED ? 3 : 2) * 16 * WARPS + 2 * TC_STAGES * TC_QT) * TC_LD +
+         sizeof(float) * 3 * TC_STAGES * TC_QT;
+}
+constexpr int TC_SMALL_WARPS = 8;                  // the fused kernel: all of M <= 128 a block
+constexpr int TC_SMALL_M = 16 * TC_SMALL_WARPS;
+constexpr size_t TC_BWD_KV_SMEM = bwd_kv_smem<TC_WARPS, false>();
+constexpr size_t TC_BWD_SMALL_SMEM = bwd_kv_smem<TC_SMALL_WARPS, true>();
+constexpr size_t TC_BWD_Q_SMEM = sizeof(bf16) * (size_t)(2 * TC_QT + 2 * TC_STAGES * KT) * TC_LD;
+
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = vpt::mma::pack_bf16x2(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+// The kv-row side: one block of WARPS warps per (16 WARPS kv rows, cloud
+// * head), 16 kv rows a warp. Unfused (WARPS = 4) it gives dK and dV, and
+// the dQ pass below gives dQ. FUSED (WARPS = 8, M <= 128: the block holds
+// every kv row of its cloud and head) it also gives dQ: after each query
+// tile the warps put dS^T in shared memory (kv rows past M as 0), and dQ
+// of the tile = dS.K on mma.sync (warp_atb: dS^T and k both down the kv
+// rows), a warp's 16 query rows by 32 columns, written out whole; no
+// second launch, no recompute of S and dPd.
+template <typename TO, int WARPS, bool FUSED>
+__global__ void __launch_bounds__(32 * WARPS, 2)
+flash_bwd_kv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       const int* __restrict__ seed, bf16* __restrict__ dq, TO* __restrict__ dk,
+                       TO* __restrict__ dv, int G, int M, int H, float scale, float keep_p,
+                       uint32_t thresh, int drop) {
+  namespace mm = vpt::mma;
+  constexpr int ROWS = 16 * WARPS, THREADS = 32 * WARPS;
+  // fused, a query tile goes in four parts of 16 rows: a quarter of the
+  // score registers, so that two blocks of 8 warps fit an SM's registers
+  // (128 a thread) without spilling
+  constexpr int PARTS = FUSED ? 4 : 1, N8 = NT / PARTS, QP = TC_QT / PARTS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [ROWS][TC_LD]
+  bf16* vs = ks + ROWS * TC_LD;                  // [ROWS][TC_LD]
+  bf16* qs = vs + ROWS * TC_LD;                  // [TC_STAGES][TC_QT][TC_LD]
+  bf16* dos = qs + TC_STAGES * TC_QT * TC_LD;    // [TC_STAGES][TC_QT][TC_LD]
+  bf16* dst = dos + TC_STAGES * TC_QT * TC_LD;   // FUSED: [ROWS][TC_LD], dS^T of a tile
+  // [TC_STAGES][2][TC_QT]: the query rows' lse * log2 e and delta; then
+  // [TC_STAGES][TC_QT]: their dropout keys
+  float* rowv = reinterpret_cast<float*>(dos + (TC_STAGES * TC_QT + (FUSED ? ROWS : 0)) * TC_LD);
+  uint32_t* rowk = reinterpret_cast<uint32_t*>(rowv + TC_STAGES * 2 * TC_QT);
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, m0 = blockIdx.x * ROWS;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int D = H * DH, nt = (G + TC_QT - 1) / TC_QT;
+  const bf16* qb = q + (size_t)b * G * D + h * DH;
+  const bf16* dob = dout + (size_t)b * G * D + h * DH;
+  const uint32_t bkey = mix32(bh + mix32(drop ? (uint32_t)seed[0] : 0u));  // row_key's inner part
+  auto load = [&](int t) {
+    const int slot = t % TC_STAGES;
+    mm::cp_rows<DH, TC_QT, THREADS>(qs + slot * TC_QT * TC_LD, TC_LD, qb, D, t * TC_QT, G, tid);
+    mm::cp_rows<DH, TC_QT, THREADS>(dos + slot * TC_QT * TC_LD, TC_LD, dob, D, t * TC_QT, G, tid);
+    if (tid < TC_QT) {  // plain stores: read after the barrier of a later tile
+      float* rv = rowv + slot * 2 * TC_QT;
+      const int g = t * TC_QT + tid;
+      rv[tid] = g < G ? lse[(size_t)bh * G + g] * mm::LOG2E : CUDART_INF_F;
+      rv[TC_QT + tid] = g < G ? delta[(size_t)bh * G + g] : 0.0f;
+      rowk[slot * TC_QT + tid] = mix32((uint32_t)g + bkey);  // row_key(seed, bh, g)
+    }
+  };
+  // group 0: the block's k and v rows and the first query tile; then one a tile
+  mm::cp_rows<DH, ROWS, THREADS>(ks, TC_LD, k + (size_t)b * M * D + h * DH, D, m0, M, tid);
+  mm::cp_rows<DH, ROWS, THREADS>(vs, TC_LD, v + (size_t)b * M * D + h * DH, D, m0, M, tid);
+#pragma unroll
+  for (int st = 0; st < TC_STAGES - 1; ++st) {
+    if (st < nt) load(st);
+    mm::cp_async_commit();
+  }
+
+  const int row0 = 16 * warp;  // the warp's kv rows in the block's tile
+  const bool active = m0 + row0 < M;
+  const float c = scale * mm::LOG2E, inv_keep = 1.0f / keep_p;
+  uint32_t mrow[2];  // the kv index of the thread's two accumulator rows
+#pragma unroll
+  for (int r = 0; r < 2; ++r) mrow[r] = m0 + row0 + 8 * r + (lane >> 2);
+  float dka[1][DH / 8][4], dva[1][DH / 8][4];
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[0][n][e] = dva[0][n][e] = 0.0f;
+  for (int t = 0; t < nt; ++t) {
+    mm::cp_async_wait<TC_STAGES - 2>();  // tile t has landed (this thread's copies)
+    __syncthreads();                     // ... everyone's; and tile t - 1 is consumed
+    if (t + TC_STAGES - 1 < nt) load(t + TC_STAGES - 1);
+    mm::cp_async_commit();
+    const int slot = t % TC_STAGES;
+    const bf16* qt = qs + slot * TC_QT * TC_LD;
+    const bf16* dot = dos + slot * TC_QT * TC_LD;
+    if (active) {
+      const float* rv = rowv + slot * 2 * TC_QT;
+      const uint32_t* rk = rowk + slot * TC_QT;
+#pragma unroll 1
+      for (int hf = 0; hf < PARTS; ++hf) {  // the tile's query rows in PARTS parts
+        const bf16* qh = qt + hf * QP * TC_LD;
+        const bf16* doh = dot + hf * QP * TC_LD;
+        uint32_t fa[1][DH / 16][4];
+        float st[1][N8][4], dpt[1][N8][4];  // [kv row][query column]
+        mm::warp_a_frags<DH, 1>(fa, ks, TC_LD, row0, lane);
+        mm::warp_scores<DH, 1, N8>(st, fa, qh, TC_LD, lane);  // S^T = K.Q^T
+        mm::warp_a_frags<DH, 1>(fa, vs, TC_LD, row0, lane);
+        mm::warp_scores<DH, 1, N8>(dpt, fa, doh, TC_LD, lane);  // dPd^T = V.dO^T
+#pragma unroll
+        for (int n = 0; n < N8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = hf * QP + 8 * n + 2 * (lane & 3) + (e & 1);  // the query in the tile
+            const float p = mm::exp2_approx(st[0][n][e] * c - rv[col]);
+            float pd = p;
+            if (drop) pd = keep_bit(rk[col], mrow[e >> 1], thresh) ? p * inv_keep : 0.0f;
+            st[0][n][e] = pd;
+            dpt[0][n][e] = (pd * dpt[0][n][e] - p * rv[TC_QT + col]) * scale;  // dS^T
+          }
+        uint32_t pa[1][N8 / 2][4];
+        mm::p_frags(pa[0], st[0]);
+        mm::warp_pv<DH, 1>(dva, pa, doh, TC_LD, lane);  // dV += Pd^T.dO
+        mm::p_frags(pa[0], dpt[0]);
+        mm::warp_pv<DH, 1>(dka, pa, qh, TC_LD, lane);  // dK += dS^T.Q
+        if (FUSED) {  // dS^T, rounded as dK's product took it, rows past M as 0
+#pragma unroll
+          for (int n = 0; n < N8; ++n)
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+              *reinterpret_cast<uint32_t*>(dst + (row0 + 8 * r + (lane >> 2)) * TC_LD + hf * QP +
+                                           8 * n + 2 * (lane & 3)) =
+                  (int)mrow[r] < M ? mm::pack_bf16x2(dpt[0][n][2 * r], dpt[0][n][2 * r + 1])
+                                   : 0u;
+        }
+      }
+    }
+    if (FUSED) {
+      __syncthreads();  // dS^T of the tile is complete
+      // dQ rows 16 (warp % 4).. of the tile, columns 32 (warp / 4)..: dS.K
+      // over the kv rows (M rounded up to 16: the rows past M are 0 in both)
+      const int qr = 16 * (warp % 4), c0 = 32 * (warp / 4);
+      float dqa[1][4][4], unused[4][4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n) dqa[0][n][0] = dqa[0][n][1] = dqa[0][n][2] = dqa[0][n][3] = 0.0f;
+      mm::warp_atb<1, 4, false>(dqa, unused, dst + qr, TC_LD, ks + c0, TC_LD, (M + 15) & ~15,
+                                lane);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int g = t * TC_QT + qr + 8 * r + (lane >> 2);
+        if (g >= G) continue;
+        bf16* row = dq + ((size_t)b * G + g) * D + h * DH + c0 + 2 * (lane & 3);
+#pragma unroll
+        for (int n = 0; n < 4; ++n) store2(row + 8 * n, dqa[0][n][2 * r], dqa[0][n][2 * r + 1]);
+      }
+    }
+  }
+  mm::cp_async_wait<0>();
+  if (!active) return;
+  const int c0 = 2 * (lane & 3);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if ((int)mrow[r] >= M) continue;
+    const size_t off = ((size_t)b * M + mrow[r]) * D + h * DH + c0;
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n) {
+      store2(dk + off + 8 * n, dka[0][n][2 * r], dka[0][n][2 * r + 1]);
+      store2(dv + off + 8 * n, dva[0][n][2 * r], dva[0][n][2 * r + 1]);
+    }
+  }
+}
+
+// The query-row side, for M > 128: one block per (64 query rows, cloud *
+// head) walks the kv tiles.
+__global__ void __launch_bounds__(TC_THREADS, 2)
+flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       const int* __restrict__ seed, bf16* __restrict__ dq, int G, int M, int H,
+                       float scale, float keep_p, uint32_t thresh, int drop) {
+  namespace mm = vpt::mma;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [TC_QT][TC_LD]
+  bf16* dos = qs + TC_QT * TC_LD;                // [TC_QT][TC_LD]
+  bf16* ks = dos + TC_QT * TC_LD;                // [TC_STAGES][KT][TC_LD]
+  bf16* vs = ks + TC_STAGES * KT * TC_LD;        // [TC_STAGES][KT][TC_LD]
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, q0 = blockIdx.x * TC_QT;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int D = H * DH, nt = (M + KT - 1) / KT;
+  const bf16* kb = k + (size_t)b * M * D + h * DH;
+  const bf16* vb = v + (size_t)b * M * D + h * DH;
+  auto load = [&](int t) {
+    const int slot = t % TC_STAGES;
+    mm::cp_rows<DH, KT, TC_THREADS>(ks + slot * KT * TC_LD, TC_LD, kb, D, t * KT, M, tid);
+    mm::cp_rows<DH, KT, TC_THREADS>(vs + slot * KT * TC_LD, TC_LD, vb, D, t * KT, M, tid);
+  };
+  // group 0: the block's q and dO rows and the first kv tile; then one a tile
+  mm::cp_rows<DH, TC_QT, TC_THREADS>(qs, TC_LD, q + (size_t)b * G * D + h * DH, D, q0, G, tid);
+  mm::cp_rows<DH, TC_QT, TC_THREADS>(dos, TC_LD, dout + (size_t)b * G * D + h * DH, D, q0, G,
+                                     tid);
+#pragma unroll
+  for (int st = 0; st < TC_STAGES - 1; ++st) {
+    if (st < nt) load(st);
+    mm::cp_async_commit();
+  }
+
+  const int row0 = q0 + 16 * warp;  // the warp's first query row
+  const bool active = row0 < G;
+  const float c = scale * mm::LOG2E, inv_keep = 1.0f / keep_p;
+  const uint32_t s0 = drop ? (uint32_t)seed[0] : 0u;
+  float l2[2], dl[2];
+  uint32_t rk[2];  // the thread's two rows: lse * log2 e, delta, dropout key
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int g = row0 + 8 * r + (lane >> 2);
+    l2[r] = g < G ? lse[(size_t)bh * G + g] * mm::LOG2E : 0.0f;
+    dl[r] = g < G ? delta[(size_t)bh * G + g] : 0.0f;
+    rk[r] = row_key(s0, bh, g);
+  }
+  uint32_t qa[1][DH / 16][4], doa[1][DH / 16][4];
+  float dqa[1][DH / 8][4];
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n) dqa[0][n][0] = dqa[0][n][1] = dqa[0][n][2] = dqa[0][n][3] = 0.0f;
+  for (int t = 0; t < nt; ++t) {
+    mm::cp_async_wait<TC_STAGES - 2>();
+    __syncthreads();
+    if (t + TC_STAGES - 1 < nt) load(t + TC_STAGES - 1);
+    mm::cp_async_commit();
+    if (!active) continue;
+    if (t == 0) {
+      mm::warp_a_frags<DH, 1>(qa, qs, TC_LD, 16 * warp, lane);
+      mm::warp_a_frags<DH, 1>(doa, dos, TC_LD, 16 * warp, lane);
+    }
+    const int slot = t % TC_STAGES;
+    const bf16* kt = ks + slot * KT * TC_LD;
+    float s[1][NT][4], dp[1][NT][4];
+    mm::warp_scores<DH, 1>(s, qa, kt, TC_LD, lane);                          // S = Q.K^T
+    mm::warp_scores<DH, 1>(dp, doa, vs + slot * KT * TC_LD, TC_LD, lane);  // dPd = dO.V^T
+    const bool ragged = t * KT + KT > M;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = t * KT + 8 * n + 2 * (lane & 3) + (e & 1);  // the key
+        const int r = e >> 1;
+        const float p = ragged && col >= M ? 0.0f : mm::exp2_approx(s[0][n][e] * c - l2[r]);
+        float pd = p;
+        if (drop) pd = keep_bit(rk[r], col, thresh) ? p * inv_keep : 0.0f;
+        s[0][n][e] = (pd * dp[0][n][e] - p * dl[r]) * scale;  // dS
+      }
+    uint32_t pa[1][KT / 16][4];
+    mm::p_frags(pa[0], s[0]);
+    mm::warp_pv<DH, 1>(dqa, pa, kt, TC_LD, lane);  // dQ += dS.K
+  }
+  mm::cp_async_wait<0>();
+  if (!active) return;
+  const int c0 = 2 * (lane & 3);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int g = row0 + 8 * r + (lane >> 2);
+    if (g >= G) continue;
+    bf16* row = dq + ((size_t)b * G + g) * D + h * DH + c0;
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n) store2(row + 8 * n, dqa[0][n][2 * r], dqa[0][n][2 * r + 1]);
+  }
+}
+
+template <typename TO>
+int flash_bwd(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+              const void* delta, const void* seed, void* dq, TO* dk, TO* dv, int B, int G, int M,
+              int H, float scale, float keep_p, uint32_t thresh, int drop, cudaStream_t st) {
+  if (B < 1 || G < 1 || M < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  const bf16 *q_ = (const bf16*)q, *k_ = (const bf16*)k, *v_ = (const bf16*)v;
+  const bf16* do_ = (const bf16*)dout;
+  const float *lse_ = (const float*)lse, *delta_ = (const float*)delta;
+  const int* seed_ = (const int*)seed;
+  bf16* dq_ = (bf16*)dq;
+  cudaError_t e;
+  if (M <= TC_SMALL_M) {  // one launch: every kv row of a cloud and head in one block
+    auto kern = flash_bwd_kv_tc_kernel<TO, TC_SMALL_WARPS, true>;
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)TC_BWD_SMALL_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<dim3(1, B * H), 32 * TC_SMALL_WARPS, TC_BWD_SMALL_SMEM, st>>>(
+        q_, k_, v_, do_, lse_, delta_, seed_, dq_, dk, dv, G, M, H, scale, keep_p, thresh, drop);
+    return (int)cudaGetLastError();
+  }
+  auto kern = flash_bwd_kv_tc_kernel<TO, TC_WARPS, false>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)TC_BWD_KV_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)TC_BWD_Q_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<dim3((M + KT - 1) / KT, B * H), TC_THREADS, TC_BWD_KV_SMEM, st>>>(
+      q_, k_, v_, do_, lse_, delta_, seed_, dq_, dk, dv, G, M, H, scale, keep_p, thresh, drop);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  flash_bwd_dq_tc_kernel<<<dim3((G + TC_QT - 1) / TC_QT, B * H), TC_THREADS, TC_BWD_Q_SMEM,
+                           st>>>(q_, k_, v_, do_, lse_, delta_, seed_, dq_, G, M, H, scale,
+                                 keep_p, thresh, drop);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace tc
 
 template <typename T, typename TO>
@@ -703,11 +1046,16 @@ int attn_train_kv_bwd(const void* q, const void* x, const void* ln_w, const void
   if (e != cudaSuccess) return e;
   float* dk_ = static_cast<float*>(dk32);
   float* dv_ = static_cast<float*>(dv32);
-  e = flash_bwd<T, float>(static_cast<const T*>(q), static_cast<const T*>(kbuf),
-                          static_cast<const T*>(vbuf), static_cast<const T*>(dout),
-                          static_cast<const float*>(lse), static_cast<const float*>(delta),
-                          static_cast<const int*>(seed), static_cast<T*>(dq), dk_, dv_, B, G, M, H,
-                          scale, keep_p, thresh, drop, st);
+  // the attention's backward: bf16 on the tensor cores, f32 on the CUDA cores
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    e = tc::flash_bwd<float>(q, kbuf, vbuf, dout, lse, delta, seed, dq, dk_, dv_, B, G, M, H,
+                             scale, keep_p, thresh, drop, st);
+  else
+    e = flash_bwd<T, float>(static_cast<const T*>(q), static_cast<const T*>(kbuf),
+                            static_cast<const T*>(vbuf), static_cast<const T*>(dout),
+                            static_cast<const float*>(lse), static_cast<const float*>(delta),
+                            static_cast<const int*>(seed), static_cast<T*>(dq), dk_, dv_, B, G, M,
+                            H, scale, keep_p, thresh, drop, st);
   if (e != cudaSuccess) return e;
   // dxn = dk Wk^T + dv Wv^T  [rows, Din] f32
   float* dxn_ = static_cast<float*>(dxn);
@@ -747,29 +1095,25 @@ extern "C" int attn_train_fwd_tc_bf16(const void* q, const void* k, const void* 
                        static_cast<cudaStream_t>(stream));
 }
 
-template <typename T>
-static int attn_train_bwd_t(const void* q, const void* k, const void* v, const void* seed,
-                            const void* dout, const void* lse, const void* delta, void* dq,
-                            void* dk, void* dv, int b, int g, int m, int h, float scale,
-                            float keep_p, unsigned thresh, int drop, void* stream) {
-  return flash_bwd<T, T>(static_cast<const T*>(q), static_cast<const T*>(k),
-                         static_cast<const T*>(v), static_cast<const T*>(dout),
-                         static_cast<const float*>(lse), static_cast<const float*>(delta),
-                         static_cast<const int*>(seed), static_cast<T*>(dq), static_cast<T*>(dk),
-                         static_cast<T*>(dv), b, g, m, h, scale, keep_p, thresh, drop,
-                         static_cast<cudaStream_t>(stream));
-}
 extern "C" int attn_train_bwd_f32(const void* q, const void* k, const void* v, const void* seed,
                                   const void* dout, const void* lse, const void* delta, void* dq,
                                   void* dk, void* dv, int b, int g, int m, int h, SEED_ARGS) {
-  return attn_train_bwd_t<float>(q, k, v, seed, dout, lse, delta, dq, dk, dv, b, g, m, h, scale,
-                                 keep_p, thresh, drop, stream);
+  return flash_bwd<float, float>(static_cast<const float*>(q), static_cast<const float*>(k),
+                                 static_cast<const float*>(v), static_cast<const float*>(dout),
+                                 static_cast<const float*>(lse), static_cast<const float*>(delta),
+                                 static_cast<const int*>(seed), static_cast<float*>(dq),
+                                 static_cast<float*>(dk), static_cast<float*>(dv), b, g, m, h,
+                                 scale, keep_p, thresh, drop, static_cast<cudaStream_t>(stream));
 }
-extern "C" int attn_train_bwd_bf16(const void* q, const void* k, const void* v, const void* seed,
-                                   const void* dout, const void* lse, const void* delta, void* dq,
-                                   void* dk, void* dv, int b, int g, int m, int h, SEED_ARGS) {
-  return attn_train_bwd_t<__nv_bfloat16>(q, k, v, seed, dout, lse, delta, dq, dk, dv, b, g, m, h,
-                                         scale, keep_p, thresh, drop, stream);
+// bf16 on the tensor cores (pointers 16-byte aligned)
+extern "C" int attn_train_bwd_tc_bf16(const void* q, const void* k, const void* v,
+                                      const void* seed, const void* dout, const void* lse,
+                                      const void* delta, void* dq, void* dk, void* dv, int b,
+                                      int g, int m, int h, SEED_ARGS) {
+  return tc::flash_bwd<__nv_bfloat16>(q, k, v, dout, lse, delta, seed, dq,
+                                      static_cast<__nv_bfloat16*>(dk),
+                                      static_cast<__nv_bfloat16*>(dv), b, g, m, h, scale, keep_p,
+                                      thresh, drop, static_cast<cudaStream_t>(stream));
 }
 
 #define KV_FWD_ARGS                                                                         \

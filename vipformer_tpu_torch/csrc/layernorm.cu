@@ -15,16 +15,15 @@
 // Bound on the H100: the bytes (x read, y written; x, dy read, dx
 // written); the arithmetic is a few flops a byte.
 //
-// Design: one warp per row, its lanes on neighbouring columns; the row's
-// sums are reduced across the warp by shuffles, and the row is read a
-// second time (from L1/L2) for the normalised output. The backward's
-// column sums cannot ride a sequential grid on Hopper: a block owns one
-// contiguous slice of the rows, each of its 8 warps adds its rows' dy *
-// xhat and dy into its own f32 slice of shared memory (a lane owns its
-// columns, so no two threads touch one address), the 8 slices are summed
-// in warp order into the block's partial [split][2][D], and a second
-// pass (train_common.cuh sum_parts) sums the splits in split order. No
-// float atomics: the sums are the same bits run to run.
+// Design: the forward takes one warp per row, its lanes on neighbouring
+// columns; the row's sums are reduced across the warp by shuffles, and the
+// row is read a second time (from L1/L2) for the normalised output. The
+// backward reads each row once, into registers (ln_bwd_kernel below): its
+// column sums cannot ride a sequential grid on Hopper, so each block keeps
+// its lanes' column sums in registers, combines them once into a partial,
+// and the last blocks to finish sum the partials in a fixed order (an
+// integer arrival counter, no float atomics, no second launch): the sums
+// are the same bits run to run.
 #include "train_common.cuh"
 
 namespace vpt_ln {
@@ -65,48 +64,199 @@ ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ s, const float*
   }
 }
 
-// Dynamic shared memory: acc[WARPS][2][D] f32.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+// ------------------------------------------------------------ backward
+// One pass: BWD_WARPS warps a block, a block per split of the rows. A warp
+// (or, at D > 512, a group of `wpr` warps) owns one row at a time; its
+// lanes hold fixed columns for the whole run, in chunks of VEC adjacent
+// columns loaded and stored as one vector: chunk c = (j * wpr + w) * 32 +
+// lane of the row, for j < LANE_COLS / VEC. Each row's x and dy are read
+// once into registers; the row sums of dy * scale and dy * scale * xhat
+// reduce by shuffles (and, across the warps of a group, through shared
+// memory behind a named barrier), dx is written from the registers, and
+// the lane's columns' sums of dy * xhat and dy stay in registers across
+// all the rows it sees. At the end the block's row slots combine once
+// through shared memory in slot order into the block's partial [2][D].
+// The partials are summed without a second launch: the last block of
+// each group of `group` splits to arrive (an integer counter, not a float
+// atomic) sums its group's partials in split order, and the last of those
+// sums the group sums in group order into dscale and dbias, then resets
+// the counters to 0 for the next launch. Every sum runs in a fixed order,
+// so the bits are the same run to run.
+constexpr int BWD_WARPS = 16, BWD_THREADS = 32 * BWD_WARPS;
+constexpr int LANE_COLS = 16;  // columns a lane holds: a warp covers 512
+
+template <int BYTES> struct Raw;
+template <> struct Raw<2> { using type = unsigned short; };
+template <> struct Raw<4> { using type = unsigned int; };
+template <> struct Raw<8> { using type = uint2; };
+template <> struct Raw<16> { using type = uint4; };
+
+// VEC adjacent elements as one load / store (p aligned to their size)
+template <typename T, int VEC>
+__device__ __forceinline__ void load_vec(const T* __restrict__ p, float (&out)[VEC]) {
+  using R = typename Raw<VEC * sizeof(T)>::type;
+  const R raw = *reinterpret_cast<const R*>(p);
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) out[i] = vpt::to_f32(e[i]);
+}
+template <typename T, int VEC>
+__device__ __forceinline__ void store_vec(T* __restrict__ p, const float (&v)[VEC]) {
+  using R = typename Raw<VEC * sizeof(T)>::type;
+  R raw;
+  T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) e[i] = vpt::from_f32<T>(v[i]);
+  *reinterpret_cast<R*>(p) = raw;
+}
+
+// Dynamic shared memory: acc[BWD_WARPS / wpr][2][D] f32, then the row
+// sums red[2][BWD_WARPS][2] (double buffered).
+template <typename T, int VEC>
+__global__ void __launch_bounds__(BWD_THREADS)
 ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, const float* __restrict__ mu,
               const float* __restrict__ rsig, const float* __restrict__ s, T* __restrict__ dx,
-              int R, int D, int rows_per_split, float* __restrict__ part) {
-  extern __shared__ float acc[];
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  float* ds = acc + (size_t)warp * 2 * D;
-  float* db = ds + D;
-  for (int c = lane; c < D; c += 32) ds[c] = db[c] = 0.f;
-  const int r0 = blockIdx.x * rows_per_split, r1 = min(R, r0 + rows_per_split);
-  for (int r = r0 + warp; r < r1; r += WARPS) {
-    const size_t off = (size_t)r * D;
-    const float m = mu[r], rs = rsig[r];
-    float m1 = 0.f, m2 = 0.f;
-    for (int c = lane; c < D; c += 32) {
-      const float xh = (vpt::to_f32(x[off + c]) - m) * rs;
-      const float dxh = vpt::to_f32(dy[off + c]) * s[c];
-      m1 += dxh;
-      m2 = fmaf(dxh, xh, m2);
+              int R, int D, int per, int wpr, int group, float* __restrict__ part,
+              int* __restrict__ arrive, float* __restrict__ dscale, float* __restrict__ dbias) {
+  constexpr int NCH = LANE_COLS / VEC;
+  // the lane's scale values stay in registers where the vectors are wide;
+  // with VEC <= 2 (16 loads in flight a row) they come from L1 instead, so
+  // that the 512 threads' 128 registers hold the rest without spilling
+  constexpr bool SC_REGS = VEC >= 4;
+  extern __shared__ float sm[];
+  __shared__ int last;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int slots = BWD_WARPS / wpr, slot = warp / wpr, w = warp % wpr;
+  const int nch = D / VEC;
+  float* acc = sm;
+  float* red = sm + (size_t)slots * 2 * D;
+  float sc[SC_REGS ? NCH : 1][VEC], ds[NCH][VEC], db[NCH][VEC];
+#pragma unroll
+  for (int j = 0; j < NCH; ++j) {
+    const int c = (j * wpr + w) * 32 + lane;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      if (SC_REGS) sc[SC_REGS ? j : 0][i] = c < nch ? s[c * VEC + i] : 0.f;
+      ds[j][i] = db[j][i] = 0.f;
     }
-    m1 = warp_sum(m1) / (float)D;
-    m2 = warp_sum(m2) / (float)D;
-    for (int c = lane; c < D; c += 32) {
-      const float g = vpt::to_f32(dy[off + c]);
-      const float xh = (vpt::to_f32(x[off + c]) - m) * rs;
-      dx[off + c] = vpt::from_f32<T>(rs * (g * s[c] - m1 - xh * m2));
-      ds[c] = fmaf(g, xh, ds[c]);
-      db[c] += g;
+  }
+  auto scale_at = [&](int j, int i) {
+    return SC_REGS ? sc[SC_REGS ? j : 0][i]
+                   : __ldg(s + min((j * wpr + w) * 32 + lane, nch - 1) * VEC + i);
+  };
+  const int r0 = blockIdx.x * per, r1 = min(R, r0 + per);
+  const int iters = (r1 - r0 + slots - 1) / slots;
+  for (int it = 0; it < iters; ++it) {
+    const int r = r0 + it * slots + slot;
+    const bool rv = r < r1;
+    const float m = rv ? mu[r] : 0.f, rs = rv ? rsig[r] : 0.f;
+    const size_t off = (size_t)(rv ? r : 0) * D;
+    float xh[NCH][VEC], g[NCH][VEC];
+#pragma unroll
+    for (int j = 0; j < NCH; ++j) {  // all loads first: they are in flight together
+      const int c = (j * wpr + w) * 32 + lane;
+      if (rv && c < nch) {
+        load_vec<T, VEC>(x + off + c * VEC, xh[j]);
+        load_vec<T, VEC>(dy + off + c * VEC, g[j]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) xh[j][i] = g[j][i] = 0.f;
+      }
+    }
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NCH; ++j) {
+      const bool cv = rv && (j * wpr + w) * 32 + lane < nch;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        xh[j][i] = cv ? (xh[j][i] - m) * rs : 0.f;
+        const float dxh = g[j][i] * scale_at(j, i);
+        s1 += dxh;
+        s2 = fmaf(dxh, xh[j][i], s2);
+        ds[j][i] = fmaf(g[j][i], xh[j][i], ds[j][i]);
+        db[j][i] += g[j][i];
+      }
+    }
+    s1 = warp_sum(s1);
+    s2 = warp_sum(s2);
+    if (wpr > 1) {  // the row's other warps: through shared memory, in warp order
+      float* rd = red + (it & 1) * 2 * BWD_WARPS;
+      if (lane == 0) {
+        rd[2 * warp] = s1;
+        rd[2 * warp + 1] = s2;
+      }
+      asm volatile("bar.sync %0, %1;" ::"r"(1 + slot), "r"(32 * wpr) : "memory");
+      s1 = s2 = 0.f;
+      for (int k = 0; k < wpr; ++k) {
+        s1 += rd[2 * (slot * wpr + k)];
+        s2 += rd[2 * (slot * wpr + k) + 1];
+      }
+    }
+    if (!rv) continue;
+    const float m1 = s1 / (float)D, m2 = s2 / (float)D;
+#pragma unroll
+    for (int j = 0; j < NCH; ++j) {
+      const int c = (j * wpr + w) * 32 + lane;
+      if (c >= nch) continue;
+      float o[VEC];
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) o[i] = rs * (g[j][i] * scale_at(j, i) - m1 - xh[j][i] * m2);
+      store_vec<T, VEC>(dx + off + c * VEC, o);
+    }
+  }
+  // the block's row slots -> its partial [2][D], in slot order
+#pragma unroll
+  for (int j = 0; j < NCH; ++j) {
+    const int c = (j * wpr + w) * 32 + lane;
+    if (c >= nch) continue;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      acc[(size_t)slot * 2 * D + c * VEC + i] = ds[j][i];
+      acc[(size_t)slot * 2 * D + D + c * VEC + i] = db[j][i];
     }
   }
   __syncthreads();
-  float* p = part + (size_t)blockIdx.x * 2 * D;
-  for (int i = threadIdx.x; i < 2 * D; i += THREADS) {
+  float* mine = part + (size_t)blockIdx.x * 2 * D;
+  for (int i = threadIdx.x; i < 2 * D; i += BWD_THREADS) {
     float t = 0.f;
-    for (int w = 0; w < WARPS; ++w) t += acc[(size_t)w * 2 * D + i];
-    p[i] = t;
+    for (int k = 0; k < slots; ++k) t += acc[(size_t)k * 2 * D + i];
+    mine[i] = t;
   }
+  // the last block of the group sums the group's partials, the last of
+  // those the group sums; the others are done
+  const int splits = gridDim.x, ngroups = (splits + group - 1) / group;
+  const int gi = blockIdx.x / group, first = gi * group, members = min(group, splits - first);
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(&arrive[gi], 1) == members - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  float* gsum = part + ((size_t)splits + gi) * 2 * D;
+  for (int i = threadIdx.x; i < 2 * D; i += BWD_THREADS) {
+    float t = 0.f;
+    for (int k = first; k < first + members; ++k) t += __ldcg(part + (size_t)k * 2 * D + i);
+    gsum[i] = t;
+  }
+  if (threadIdx.x == 0) arrive[gi] = 0;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(&arrive[ngroups], 1) == ngroups - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int i = threadIdx.x; i < 2 * D; i += BWD_THREADS) {
+    float t = 0.f;
+    for (int k = 0; k < ngroups; ++k) t += __ldcg(part + ((size_t)splits + k) * 2 * D + i);
+    if (i < D) dscale[i] = t;
+    else dbias[i - D] = t;
+  }
+  if (threadIdx.x == 0) arrive[ngroups] = 0;
 }
 
-inline size_t bwd_smem(int D) { return (size_t)WARPS * 2 * D * sizeof(float); }
+inline size_t bwd_smem(int D, int wpr) {
+  return sizeof(float) * ((size_t)(BWD_WARPS / wpr) * 2 * D + 2 * BWD_WARPS * 2);
+}
 
 template <typename T>
 int launch_fwd(const void* x, const void* s, const void* b, void* y, void* mu, void* rsig, int R,
@@ -117,23 +267,44 @@ int launch_fwd(const void* x, const void* s, const void* b, void* y, void* mu, v
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_bwd(const void* x, const void* dy, const void* mu, const void* rsig, const void* s,
-               void* dx, void* dscale, void* dbias, void* part, int R, int D, int splits,
-               cudaStream_t st) {
-  if (R < 1 || D < 1 || splits < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = bwd_smem(D);
-  cudaError_t err = cudaFuncSetAttribute(ln_bwd_kernel<T>,
+template <typename T, int VEC>
+int launch_bwd_vec(const void* x, const void* dy, const void* mu, const void* rsig, const void* s,
+                   void* dx, void* dscale, void* dbias, void* part, void* arrive, int R, int D,
+                   int per, int group, int wpr, cudaStream_t st) {
+  const size_t smem = bwd_smem(D, wpr);
+  cudaError_t err = cudaFuncSetAttribute(ln_bwd_kernel<T, VEC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int per = (R + splits - 1) / splits;
-  ln_bwd_kernel<T><<<splits, THREADS, smem, st>>>(
+  ln_bwd_kernel<T, VEC><<<(R + per - 1) / per, BWD_THREADS, smem, st>>>(
       (const T*)x, (const T*)dy, (const float*)mu, (const float*)rsig, (const float*)s, (T*)dx,
-      R, D, per, (float*)part);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  vpt::sum_parts(splits, D, (const float*)part, (float*)dscale, (float*)dbias, st);
+      R, D, per, wpr, group, (float*)part, (int*)arrive, (float*)dscale, (float*)dbias);
   return (int)cudaGetLastError();
+}
+
+// The plan comes from the wrapper (ops/cuda/layernorm.py `bwd_plan`): VEC
+// columns a vector (D a multiple of it, x, dy and dx aligned to it), wpr
+// warps a row (D <= 512 wpr), `per` rows a split, `group` splits a group.
+template <typename T>
+int launch_bwd(const void* x, const void* dy, const void* mu, const void* rsig, const void* s,
+               void* dx, void* dscale, void* dbias, void* part, void* arrive, int R, int D,
+               int per, int group, int vec, int wpr, cudaStream_t st) {
+  if (R < 1 || D < 1 || per < 1 || group < 1 || vec < 1 || D % vec ||
+      (wpr != 1 && wpr != 2 && wpr != 4) || D > LANE_COLS * 32 * wpr ||
+      vec * (int)sizeof(T) > 16)
+    return (int)cudaErrorInvalidValue;
+#define LN_BWD_VEC(V)                                                                        \
+  case V:                                                                                    \
+    return launch_bwd_vec<T, (V * sizeof(T) <= 16 ? V : 1)>(x, dy, mu, rsig, s, dx, dscale,   \
+                                                            dbias, part, arrive, R, D, per,  \
+                                                            group, wpr, st);
+  switch (vec) {
+    LN_BWD_VEC(1)
+    LN_BWD_VEC(2)
+    LN_BWD_VEC(4)
+    LN_BWD_VEC(8)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef LN_BWD_VEC
 }
 
 }  // namespace vpt_ln
@@ -152,17 +323,20 @@ extern "C" int ln_fwd_bf16(const void* x, const void* s, const void* b, void* y,
 }
 
 // x, dy [R, D] (T), mu, rsig f32 [R], scale f32 [D] -> dx [R, D] (T),
-// dscale, dbias f32 [D]; part f32 [splits, 2, D] is scratch.
+// dscale, dbias f32 [D]; part f32 [splits + groups, 2, D] is scratch and
+// arrive int32 [groups + 1] counters that are 0 before and after a launch.
 extern "C" int ln_bwd_f32(const void* x, const void* dy, const void* mu, const void* rsig,
-                          const void* s, void* dx, void* dscale, void* dbias, void* part, int r,
-                          int d, int splits, void* stream) {
-  return launch_bwd<float>(x, dy, mu, rsig, s, dx, dscale, dbias, part, r, d, splits,
-                           (cudaStream_t)stream);
+                          const void* s, void* dx, void* dscale, void* dbias, void* part,
+                          void* arrive, int r, int d, int per, int group, int vec, int wpr,
+                          void* stream) {
+  return launch_bwd<float>(x, dy, mu, rsig, s, dx, dscale, dbias, part, arrive, r, d, per, group,
+                           vec, wpr, (cudaStream_t)stream);
 }
 
 extern "C" int ln_bwd_bf16(const void* x, const void* dy, const void* mu, const void* rsig,
-                           const void* s, void* dx, void* dscale, void* dbias, void* part, int r,
-                           int d, int splits, void* stream) {
-  return launch_bwd<__nv_bfloat16>(x, dy, mu, rsig, s, dx, dscale, dbias, part, r, d, splits,
-                                   (cudaStream_t)stream);
+                           const void* s, void* dx, void* dscale, void* dbias, void* part,
+                           void* arrive, int r, int d, int per, int group, int vec, int wpr,
+                           void* stream) {
+  return launch_bwd<__nv_bfloat16>(x, dy, mu, rsig, s, dx, dscale, dbias, part, arrive, r, d, per,
+                                   group, vec, wpr, (cudaStream_t)stream);
 }

@@ -156,22 +156,22 @@ __device__ __forceinline__ void warp_a_frags(uint32_t (&qa)[MT][DH / 16][4], con
                   qs + (row0 + 16 * mt + (lane & 15)) * ld + ks * 16 + (lane >> 4) * 8);
 }
 
-// s = q . k^T of the warp's rows against a key tile [KT x DH]: s[mt][n]
-// is the accumulator of row tile mt and keys 8n..8n+7. A fixed
-// instruction sequence (k steps in order), so the same inputs give the
-// same bits.
-template <int DH, int MT>
-__device__ __forceinline__ void warp_scores(float (&s)[MT][NT][4],
+// s = q . k^T of the warp's rows against a key tile [8 N8 x DH] (N8 = NT:
+// KT keys): s[mt][n] is the accumulator of row tile mt and keys 8n..8n+7.
+// A fixed instruction sequence (k steps in order), so the same inputs give
+// the same bits.
+template <int DH, int MT, int N8 = NT>
+__device__ __forceinline__ void warp_scores(float (&s)[MT][N8][4],
                                             const uint32_t (&qa)[MT][DH / 16][4], const bf16* kt,
                                             int ld, int lane) {
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int n = 0; n < NT; ++n) s[mt][n][0] = s[mt][n][1] = s[mt][n][2] = s[mt][n][3] = 0.0f;
+    for (int n = 0; n < N8; ++n) s[mt][n][0] = s[mt][n][1] = s[mt][n][2] = s[mt][n][3] = 0.0f;
 #pragma unroll
   for (int ks = 0; ks < DH / 16; ++ks)
 #pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
+    for (int np = 0; np < N8 / 2; ++np) {
       // matrices: keys 16np+0..7 at k lo, hi; keys 16np+8..15 at k lo, hi
       uint32_t b[4];
       ldmatrix_x4(b, kt + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * ld + ks * 16 +
@@ -257,10 +257,12 @@ __device__ __forceinline__ void online_softmax_tile(float (&s)[MT][NT][4], float
   }
 }
 
-// p of a row tile, rounded to bf16, as the 4 k16 A fragments of P.V.
-__device__ __forceinline__ void p_frags(uint32_t (&pa)[KT / 16][4], const float (&p)[NT][4]) {
+// p of a row tile over 8 N8 keys, rounded to bf16, as the N8 / 2 k16 A
+// fragments of P.V.
+template <int N8>
+__device__ __forceinline__ void p_frags(uint32_t (&pa)[N8 / 2][4], const float (&p)[N8][4]) {
 #pragma unroll
-  for (int kk = 0; kk < KT / 16; ++kk) {
+  for (int kk = 0; kk < N8 / 2; ++kk) {
     pa[kk][0] = pack_bf16x2(p[2 * kk][0], p[2 * kk][1]);
     pa[kk][1] = pack_bf16x2(p[2 * kk][2], p[2 * kk][3]);
     pa[kk][2] = pack_bf16x2(p[2 * kk + 1][0], p[2 * kk + 1][1]);
@@ -268,15 +270,15 @@ __device__ __forceinline__ void p_frags(uint32_t (&pa)[KT / 16][4], const float 
   }
 }
 
-// o += p . v over a key tile: v [KT x DV] row-major in shared memory,
-// read as B fragments through ldmatrix.trans; o[mt][n] holds row tile mt,
-// columns 8n..8n+7.
-template <int DV, int MT>
+// o += p . v over a key tile: v [16 KK x DV] (KK = KT / 16: KT keys)
+// row-major in shared memory, read as B fragments through ldmatrix.trans;
+// o[mt][n] holds row tile mt, columns 8n..8n+7.
+template <int DV, int MT, int KK = KT / 16>
 __device__ __forceinline__ void warp_pv(float (&o)[MT][DV / 8][4],
-                                        const uint32_t (&pa)[MT][KT / 16][4], const bf16* vt,
+                                        const uint32_t (&pa)[MT][KK][4], const bf16* vt,
                                         int ld, int lane) {
 #pragma unroll
-  for (int kk = 0; kk < KT / 16; ++kk)
+  for (int kk = 0; kk < KK; ++kk)
 #pragma unroll
     for (int dp = 0; dp < DV / 16; ++dp) {
       // matrices: keys 16kk+0..7, 16kk+8..15 at columns 16dp..; the same

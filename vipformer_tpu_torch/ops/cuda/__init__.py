@@ -60,11 +60,11 @@ SIGNATURES = {
     "attn_small_f32": [_P] * 4 + [_I] * 4 + [_F, _P],
     "attn_small_tc_bf16": [_P] * 4 + [_I] * 4 + [_F, _P],
     # K7 / K8: (..., scale, keep probability, dropout threshold, dropout on, stream)
-    # (f32 on the CUDA cores, the bf16 forward on the tensor cores)
+    # (f32 on the CUDA cores, K8's bf16 forward and backward on the tensor cores)
     "attn_train_fwd_f32": [_P] * 6 + [_I] * 4 + [_F, _F, _U, _I, _P],
     "attn_train_fwd_tc_bf16": [_P] * 6 + [_I] * 4 + [_F, _F, _U, _I, _P],
     "attn_train_bwd_f32": [_P] * 10 + [_I] * 4 + [_F, _F, _U, _I, _P],
-    "attn_train_bwd_bf16": [_P] * 10 + [_I] * 4 + [_F, _F, _U, _I, _P],
+    "attn_train_bwd_tc_bf16": [_P] * 10 + [_I] * 4 + [_F, _F, _U, _I, _P],
     "attn_train_kv_fwd_f32": [_P] * 12 + [_I] * 5 + [_F, _F, _U, _I, _P],
     "attn_train_kv_fwd_bf16": [_P] * 12 + [_I] * 5 + [_F, _F, _U, _I, _P],
     "attn_train_kv_bwd_f32": [_P] * 23 + [_I] * 7 + [_F, _F, _U, _I, _P],
@@ -108,11 +108,11 @@ SIGNATURES = {
     "bn_grad_reduces_f32": [_P] * 7 + [_I] * 3 + [_P],
     "bn_grad_reduces_bf16": [_P] * 7 + [_I] * 3 + [_P],
     # K17 (x, s, b, y, mu, rsig, r, d, stream); (x, dy, mu, rsig, s, dx,
-    # dscale, dbias, part, r, d, splits, stream)
+    # dscale, dbias, part, arrive, r, d, per, group, vec, wpr, stream)
     "ln_fwd_f32": [_P] * 6 + [_I] * 2 + [_P],
     "ln_fwd_bf16": [_P] * 6 + [_I] * 2 + [_P],
-    "ln_bwd_f32": [_P] * 9 + [_I] * 3 + [_P],
-    "ln_bwd_bf16": [_P] * 9 + [_I] * 3 + [_P],
+    "ln_bwd_f32": [_P] * 10 + [_I] * 6 + [_P],
+    "ln_bwd_bf16": [_P] * 10 + [_I] * 6 + [_P],
 }
 
 _lib = None
@@ -197,8 +197,9 @@ def entry_point(base: str, dt: torch.dtype) -> str:
 
 def tc_route(base: str, dt: torch.dtype) -> str:
     """The C entry point of a kernel with a tensor-core route (K5
-    `attn_small`, K6 `attn_small_qkv_ln`, K8's forward `attn_train_fwd`,
-    K11 `dense_grads`, K13 `attn_packed`, K14 `mha`) for
+    `attn_small`, K6 `attn_small_qkv_ln`, K8's forward `attn_train_fwd`
+    and backward `attn_train_bwd`, K11 `dense_grads`, K13 `attn_packed`,
+    K14 `mha`) for
     dtype `dt`: bf16 on the tensor cores, f32 on the CUDA cores (a
     tensor-core f32 product is TF32, about 3 decimal digits: it would break
     the f32 bounds against the twins). Not a fallback: each dtype has one

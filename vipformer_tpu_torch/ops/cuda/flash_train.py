@@ -12,9 +12,10 @@ tensors. Semantics are torch's softmax -> dropout -> @V with the softmax
 denominator over the undropped p; the forward keeps only the per-row
 logsumexp, the backward recomputes p and regenerates the dropout mask.
 
-K8's forward picks its kernel by dtype (`cuda.tc_route`): bf16 runs on
-the tensor cores (mma.sync, csrc/mma.cuh), f32 on the CUDA cores; both
-backwards and K7 run on the CUDA cores.
+K8's forward and backward pick their kernels by dtype (`cuda.tc_route`):
+bf16 runs on the tensor cores (mma.sync, csrc/mma.cuh), f32 on the CUDA
+cores. K7's bf16 backward runs its attention through K8's tensor-core
+backward (with f32 dk, dv); the rest of K7 runs on the CUDA cores.
 
 Dropout: the keep bit of (cloud b, head h, query g, key m) is a pure
 function of (seed, b*H + h, g, m) through a 32-bit integer hash, and kept
@@ -230,10 +231,15 @@ def attention_bwd_kernel(q, k, v, dout, lse, delta, seed, num_heads: int, scale:
     cuda.require(dout, "dout", dt, (b, g, d))
     cuda.require(lse, "lse", torch.float32, (b, num_heads, g))
     cuda.require(delta, "delta", torch.float32, (b, num_heads, g))
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    for name, t, shape in (("q", q, (b, g, d)), ("k", k, (b, m, d)), ("v", v, (b, m, d))):
+        cuda.require(t, name, dt, shape)
+    fn = cuda.tc_route("attn_train_bwd", dt)
+    cuda.require_aligned(fn, q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(),
+                         dout=dout.data_ptr())
     seed = _seed(seed, q.device)
     dq = torch.empty_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fn = cuda.entry_point("attn_train_bwd", dt)
     BWD_LAUNCHES.n += 1
     cuda.check(getattr(cuda.lib(), fn)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seed.data_ptr(), dout.data_ptr(),
@@ -302,6 +308,9 @@ def attention_kv_bwd_kernel(q, x, ln_w, ln_b, wk, wv, dout, lse, delta, seed, nu
     part = torch.empty((COLSUM_BLOCKS, 2, din), **f32)
     wpart = torch.empty((WGRAD_SPLITS, din, 2 * d), **f32)
     fn = cuda.entry_point("attn_train_kv_bwd", dt)
+    # the bf16 attention backward inside runs K8's tensor-core kernels
+    cuda.require_aligned(cuda.tc_route("attn_train_bwd", dt), q=q.data_ptr(),
+                         dout=dout.data_ptr())
     KV_BWD_LAUNCHES.n += 1
     cuda.check(getattr(cuda.lib(), fn)(
         q.data_ptr(), x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), wk.data_ptr(),

@@ -17,6 +17,8 @@ ops/pallas/layernorm.py).
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from vipformer_tpu_torch.ops import cuda
@@ -26,7 +28,13 @@ BWD_LAUNCHES = cuda.LaunchCounter()
 # None = auto (off, as in JAX layernorm.py:44,177), a bool forces it
 USE_LAYERNORM: bool | None = None
 _VMEM_BUDGET = 8 * 1024 * 1024  # the JAX kernel's row-block budget (:47)
-BLOCKS_PER_SM = 4  # backward: the wrapper splits the rows until about this many blocks per SM
+# the backward kernel (csrc/layernorm.cu ln_bwd_kernel): warps a block,
+# columns a lane holds in registers (a warp covers 512 of a row), the
+# widest vector a lane loads (bytes)
+BWD_WARPS = 16
+LANE_COLS = 16
+VEC_BYTES = 16
+_arrive: dict = {}  # device -> the backward's int32 arrival counters (0 between launches)
 
 
 def _pick_block_rows(r: int, d: int, itemsize: int) -> int:
@@ -95,10 +103,50 @@ def ln_fwd(x2d, scale, bias):
     return y, mu, rsig
 
 
-def splits_for(r: int, sms: int) -> int:
-    """Row splits of the backward: about BLOCKS_PER_SM blocks per SM, at
-    most one split per 8 rows (one per warp)."""
-    return max(1, min(-(-r // 8), BLOCKS_PER_SM * sms))
+def warps_per_row(d: int) -> int:
+    """Warps that share a row in the backward: 1 to D = 512, else 2 or 4
+    (D <= 2,048; the JAX gate admits D <= 1,638 in bf16, 1,170 in f32)."""
+    wpr = 1
+    while LANE_COLS * 32 * wpr < d:
+        wpr *= 2
+    if wpr > 4:
+        raise NotImplementedError(f"K17's backward takes D <= 2048, got {d}")
+    return wpr
+
+
+def vec_for(d: int, itemsize: int, *ptrs: int) -> int:
+    """Columns a vector in the backward: the widest power of two of at most
+    VEC_BYTES that divides D and every pointer's alignment and leaves at
+    least one vector a lane (D = 384 bf16: 8; D = 64 bf16: 2; D = 261: 1)."""
+    v = VEC_BYTES // itemsize
+    while v > 1 and (d % v or d // v < 32 or any(p % (v * itemsize) for p in ptrs)):
+        v //= 2
+    return v
+
+
+def bwd_plan(r: int, d: int, sms: int) -> tuple[int, int, int]:
+    """(rows a split, splits, splits a group) of the backward: about one
+    block an SM, no more blocks than the rows fill (a row for each of a
+    block's row slots); the partials are summed in groups of about
+    sqrt(splits) (csrc/layernorm.cu)."""
+    slots = BWD_WARPS // warps_per_row(d)
+    per = -(-r // min(sms, -(-r // slots)))
+    splits = -(-r // per)
+    return per, splits, math.isqrt(splits - 1) + 1
+
+
+def split_rows(r: int, per: int) -> list[tuple[int, int]]:
+    """The rows [lo, hi) of each split, as the kernel cuts them."""
+    return [(lo, min(r, lo + per)) for lo in range(0, r, per)]
+
+
+def _arrive_counters(dev) -> torch.Tensor:
+    """The kernel's arrival counters on `dev`: zeroed once, reset to 0 by
+    the kernel's last block (so launches on one stream share them)."""
+    t = _arrive.get(dev)
+    if t is None:
+        t = _arrive[dev] = torch.zeros((256,), dtype=torch.int32, device=dev)
+    return t
 
 
 def ln_bwd(x2d, dy2d, mu, rsig, scale):
@@ -114,16 +162,19 @@ def ln_bwd(x2d, dy2d, mu, rsig, scale):
     cuda.require(dy2d, "dy", dt, (r, d))
     mu, rsig = _f32(mu, "mu", (r,)), _f32(rsig, "rsig", (r,))
     scale = _f32(scale, "scale", (d,))
-    splits = splits_for(r, torch.cuda.get_device_properties(x2d.device).multi_processor_count)
+    dev = x2d.device
+    per, splits, group = bwd_plan(r, d, cuda.sm_count(dev.index or 0))
     dx = torch.empty_like(x2d)
-    f32 = dict(dtype=torch.float32, device=x2d.device)
+    f32 = dict(dtype=torch.float32, device=dev)
     ds, db = torch.empty((d,), **f32), torch.empty((d,), **f32)
-    part = torch.empty((splits, 2, d), **f32)
+    part = torch.empty((splits + -(-splits // group), 2, d), **f32)
+    vec = vec_for(d, x2d.element_size(), x2d.data_ptr(), dy2d.data_ptr(), dx.data_ptr())
     BWD_LAUNCHES.n += 1
     cuda.check(getattr(cuda.lib(), fn)(x2d.data_ptr(), dy2d.data_ptr(), mu.data_ptr(),
                                        rsig.data_ptr(), scale.data_ptr(), dx.data_ptr(),
-                                       ds.data_ptr(), db.data_ptr(), part.data_ptr(), r, d,
-                                       splits, cuda.stream_ptr()), fn)
+                                       ds.data_ptr(), db.data_ptr(), part.data_ptr(),
+                                       _arrive_counters(dev).data_ptr(), r, d, per, group, vec,
+                                       warps_per_row(d), cuda.stream_ptr()), fn)
     return dx, ds, db
 
 
