@@ -9,7 +9,8 @@ the CUDA toolkit:
 Phases (any failed check exits non-zero; no phase catches an error and
 goes on):
   1. build the hand-written kernels (csrc/*.cu -> one .so: one nvcc per
-     source, all started together, sm_90a);
+     source, all started together, sm_90a), and read from torch.profiler
+     that K18's backward is one launch of one kernel in both dtypes;
   2. turn TF32 off for matmuls and cuDNN;
   3. hold each serving kernel K1-K5 against its plain PyTorch twin on the
      card at the flagship serving shapes (B = 32 and 64; K1/K2 on f32
@@ -30,9 +31,14 @@ goes on):
      through its output (v the identity on a 64-key window) equal to the
      twin's mask bit for bit, and K8 timed on device time beside SDPA's
      forward and forward + backward, the event times beside, its backward
-     also at the ft_cls step's [330, 128, 256]; K7's bf16 backward (its
-     attention through K8's tensor-core backward) with the profiler's
-     share of those attention kernels;
+     also at the ft_cls step's [330, 128, 256]; K7's bf16 forward and
+     backward (their LN-folded k|v projection, the backward's attention,
+     dx and dWk|dWv on the tensor cores) launched twice, bitwise equal,
+     the projection alone against `kv_project_plain`, and both timed
+     (events, device time beside) at the pretrain point shape and, with
+     the backward held against its twin, at the ft_cls step's [330, 128]
+     x [330, 1,024], with the profiler's time of each of its kernels and
+     no SIMT `gemm_kernel` among them;
   6. pretrain path: three steps of `make_pretrain_step` at B=48 in bf16 on
      synthetic ShapeNetRender batches; the loss and parameters stay
      finite, the parameters move, and K1, K2, the forward and backward of
@@ -127,10 +133,11 @@ goes on):
      partseg's [98,304, 1536], and K17 (LayerNorm forward and backward) at
      [4,096, 384], [131,072, 64] and the Fourier tokens' [995,328, 261],
      against their twins (column sums against their channel's sum of
-     magnitudes, K18's statistics and K17's backward bitwise equal between
-     two runs), timed
-     on device time beside var_mean, native_batch_norm_backward and
-     F.layer_norm forward and backward, the event times beside;
+     magnitudes, K18's statistics and gradient reduces and K17's backward
+     bitwise equal between two runs), K18 timed at every one of those
+     shapes and K17 at each, on device time beside var_mean,
+     native_batch_norm_backward and F.layer_norm forward and backward, the
+     event times beside;
  25. hold the earlier kernels at semantic segmentation's shapes (B=32,
      4,096 xyz+rgb points, D=384): K1, K2, K10 at C=6, K9 at Cin=6, K7
      over 4,096 tokens, K8, K11 at its five semseg sites, and the eval's
@@ -177,6 +184,11 @@ main path and on every path that ran the kernel), and last the line
 {"ok": true, "device": {...}}. Imports nothing of JAX and nothing
 of the JAX package (vipformer_tpu).
 
+Each kernel's registers, spilled bytes and shared memory, from nvcc's
+`-Xptxas -v` with the build's flags (each source's report kept in DIR):
+
+    python3 chip_smoke.py --ptxas DIR
+
 To compare this checkout with another commit on one card (unpack the other
 with `git archive` into a directory that .gitignore lists):
 
@@ -185,11 +197,13 @@ with `git archive` into a directory that .gitignore lists):
 times both in turns, PAIRS pairs (10 by default), each sample in its own
 process: the host time of a K5, K6, K8 forward and K11 wrapper call (with
 the card idle and busy; K6's and K8's device time beside), K8's backward
-at B = 96 and 330 and K17's backward (device time), K7's backward
-(events), the serving forward at B = 32 and 64, the
-ft_cls step and eval forward at B = 330, with their kernels' device
-time, the pretrain step, the semseg step with K17 and K18 forced, and one
-eval_zeroshot run (host clock).
+at B = 96 and 330, K17's and K18's backward (device time), K7's forward
+and backward at the pretrain point shape (events; the backward's device
+time beside) and its backward at the ft_cls step's (events), the serving
+forward at B = 32 and 64, the ft_cls step and eval forward at B = 330,
+with their kernels' device time, the pretrain step, the partseg step, the
+semseg step with K17 and K18 forced, and one eval_zeroshot run (host
+clock).
 """
 
 from __future__ import annotations
@@ -897,6 +911,85 @@ def time_flash_bwd_ft_cls(kf, t, seed, n: int, d: int, h: int, scale: float,
                          "bfloat16"), keep=False)
 
 
+# K7's bf16 kernels by the names torch.profiler gives them (the projection
+# in the forward and the backward; the attention backward, dx and the
+# weight gradients in the backward), and what no bf16 K7 may launch: the
+# CUDA cores' SIMT product of train_common.cuh
+K7_TC_KERNELS = ("ln_xn_kernel", "kv_proj_tc_kernel", "flash_bwd_kv_tc_kernel",
+                 "flash_bwd_dq_tc_kernel", "dxn_tc_kernel", "dw_tc_kernel")
+SIMT_GEMM = "gemm_kernel"
+
+
+def check_kv_projection(rec: Recorder, kf, args, branch: str) -> None:
+    """K7's bf16 LN-folded k|v projection alone (the kernel its forward and
+    backward launch) against `kv_project_plain`, and launched twice,
+    bitwise equal."""
+    x, lnw, lnb, wk, wv = args[1:]
+    got = kf.kv_project_kernel(x, lnw, lnb, wk, wv)
+    expect(all(torch.equal(a, b) for a, b in zip(got, kf.kv_project_kernel(x, lnw, lnb, wk, wv))),
+           f"K7's projection {branch} bf16: two launches differ")
+    for name, a, b in zip(("k", "v"), got, kf.kv_project_plain(x, lnw, lnb, wk, wv)):
+        rec.check("attn_train_kv_fwd", f"{branch} bf16 projection {name} (twice equal)",
+                  *rel_err(a, b), KERNEL_TOL["bfloat16"])
+
+
+def time_flash_train_kv(rec: Recorder, kf, args, do, out_k, lse_k, lse_p, delta, seed, h: int,
+                        scale: float, rate: float, shape: str, keep: bool) -> None:
+    """K7's bf16 forward and backward timed (events, device time beside)
+    with their twins and bounds, the projection alone on device time
+    beside its route in PyTorch calls (LayerNorm, one cuBLAS product of
+    [wk | wv]), and where the backward goes: its kernels by name from
+    torch.profiler, the CUDA cores' SIMT product not among them. Recorded
+    for the JSON line where `keep`."""
+    import torch.nn.functional as F
+
+    q, x, lnw, lnb, wk, wv = args
+    b, gq, d = q.shape
+    m, din = x.shape[1], x.shape[2]
+    attn = 4 * b * gq * m * d
+    proj = 2 * b * m * din * 2 * d
+    bwd_args = (*args, do, lse_p, delta, seed, h, scale, rate)
+    grads = kf.attention_kv_bwd_kernel(*bwd_args)
+    fwd = lambda: kf.attention_kv_fwd_kernel(*args, seed, h, scale, rate)  # noqa: E731
+    bwd = lambda: kf.attention_kv_bwd_kernel(*bwd_args)  # noqa: E731
+    # the backward recomputes k and v (the forward keeps only the
+    # logsumexp), then dx through the projections and the weight gradients:
+    # three projection-sized products
+    timings = dict(
+        fwd=(cuda_ms(fwd, iters=10), queued_ms(fwd, "K7 forward", iters=10),
+             cuda_ms(lambda: kf.attention_kv_fwd_plain(*args, seed, h, scale, rate), iters=3),
+             bound(nbytes(*args, out_k, lse_k), proj + attn, "bfloat16")),
+        bwd=(cuda_ms(bwd, iters=10), queued_ms(bwd, "K7 backward", iters=10),
+             cuda_ms(lambda: kf.attention_kv_bwd_plain(*bwd_args), iters=3),
+             bound(nbytes(*args, do, lse_p, delta, *grads), 3 * proj + 2.5 * attn, "bfloat16")))
+    for way, (ms, dev_ms, plain_ms, bnd) in timings.items():
+        name = f"attn_train_kv_{way}"
+        if keep:
+            rec.timing(name, ms, plain_ms, bnd, shape=shape)
+            rec.r[name]["device_ms"] = dev_ms
+        else:
+            print(f"  {name:18s} {shape:34s} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"bound_ms={bnd['bound_ms']:.4f} ({bnd['bound_by']})")
+        print(f"  {name:18s} {shape:34s} device time {dev_ms:.4f} ms (events {ms:.4f})")
+    w = torch.cat([wk, wv], 1)
+    pj_ms, pj_lib_ms = queued_ms(lambda: kf.kv_project_kernel(x, lnw, lnb, wk, wv), "K7 proj"), \
+        queued_ms(lambda: F.layer_norm(x, (din,), lnw.to(x.dtype), lnb.to(x.dtype),
+                                       1e-5) @ w, "K7 proj library")
+    pj_bnd = bound(nbytes(x, wk, wv) + 2 * b * m * d * 2, proj, "bfloat16")
+    print(f"  {'kv_project':18s} {shape:34s} device time {pj_ms:.4f} ms, bound "
+          f"{pj_bnd['bound_ms']:.4f} ({pj_bnd['bound_by']}, {100.0 * pj_bnd['bound_ms'] / pj_ms:.1f}"
+          f"% of it), LayerNorm + one cuBLAS product {pj_lib_ms:.4f} ms")
+    sums = kernel_sums(bwd, 3, *K7_TC_KERNELS, SIMT_GEMM)
+    busy, parts, simt = sums[0], dict(zip(K7_TC_KERNELS, sums[1:-1])), sums[-1]
+    print(f"  {'attn_train_kv_bwd':18s} {shape}: {busy:.4f} ms of kernels a launch "
+          f"(torch.profiler): " + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+          + f"; the rest {busy - sum(parts.values()):.4f} (LayerNorm backward, its column sums, "
+          f"the split sums)")
+    expect(simt == 0, f"K7 bf16 backward: the SIMT {SIMT_GEMM} ran ({simt:.4f} ms)")
+    expect(all(parts[k] > 0 for k in K7_TC_KERNELS if k != "flash_bwd_dq_tc_kernel" or m > 128),
+           f"K7 bf16 backward: a tensor-core kernel did not run: {parts}")
+
+
 def check_training_kernels(rec: Recorder) -> None:
     from vipformer_tpu_torch.models.crossformer import init_weights
     from vipformer_tpu_torch.nn.pointnet import Group2Emb
@@ -1003,33 +1096,42 @@ def check_training_kernels(rec: Recorder) -> None:
                                          kf.attention_kv_bwd_plain(*bwd_args)):
                     rec.check("attn_train_kv_bwd", f"{what} {gname}", *rel_err(gk, gp),
                               GRAD_TOL[dt_name])
+            if dt_name == "bfloat16":  # the tensor-core products: the same bits again
+                expect(all(torch.equal(a, b) for a, b in zip(
+                    (out_k, lse_k), kf.attention_kv_fwd_kernel(*args, seed, h, scale, rate))),
+                    f"K7 forward {branch} bf16: two launches differ")
+                first = kf.attention_kv_bwd_kernel(*bwd_args)
+                expect(all(torch.equal(a, b) for a, b in zip(
+                    first, kf.attention_kv_bwd_kernel(*bwd_args))),
+                    f"K7 backward {branch} bf16: two launches differ")
+                print(f"  {'attn_train_kv':18s} {branch} bf16 p={rate}: forward and backward, two "
+                      f"launches each bitwise equal")
+                del first
+                check_kv_projection(rec, kf, args, branch)
             if branch == "point" and dt_name == "bfloat16":
-                shape = f"q[{b},{gq},{d}] x[{b},{m},{d}] H={h} p={rate} bf16"
-                attn = 4 * b * gq * m * d
-                proj = 2 * b * m * d * 2 * d
-                rec.timing("attn_train_kv_fwd",
-                           cuda_ms(lambda: kf.attention_kv_fwd_kernel(*args, seed, h, scale, rate)),
-                           cuda_ms(lambda: kf.attention_kv_fwd_plain(*args, seed, h, scale, rate),
-                                   iters=5),
-                           bound(nbytes(*args, out_k, lse_k), proj + attn, dt_name), shape=shape)
-                grads = kf.attention_kv_bwd_kernel(*bwd_args)
-                # the backward recomputes k and v (the forward keeps only
-                # the logsumexp), then dx through the projections and the
-                # weight gradients: three projection-sized products
-                rec.timing("attn_train_kv_bwd",
-                           cuda_ms(lambda: kf.attention_kv_bwd_kernel(*bwd_args), iters=10),
-                           cuda_ms(lambda: kf.attention_kv_bwd_plain(*bwd_args), iters=3),
-                           bound(nbytes(*args, do, lse_p, delta, *grads), 3 * proj + 2.5 * attn,
-                                 dt_name), shape=shape)
-                # where it goes: the tensor-core attention kernels' share
-                busy, dkdv, dq = kernel_sums(lambda: kf.attention_kv_bwd_kernel(*bwd_args), 3,
-                                             "flash_bwd_kv_tc_kernel", "flash_bwd_dq_tc_kernel")
-                print(f"  {'attn_train_kv_bwd':18s} {shape}: {busy:.4f} ms of kernels a launch "
-                      f"(torch.profiler), of it the attention's kv-row pass {dkdv:.4f} ms and dQ "
-                      f"pass {dq:.4f} ms ({100.0 * (dkdv + dq) / busy:.1f}%)")
-                expect(dkdv > 0 and dq > 0, "K7 bf16 backward: the tensor-core attention "
-                       "backward did not run")
+                time_flash_train_kv(rec, kf, args, do, out_k, lse_k, lse_p, delta, seed, h, scale,
+                                    rate, f"q[{b},{gq},{d}] x[{b},{m},{d}] H={h} p={rate} bf16",
+                                    keep=True)
             del args, do, out_k, out_p
+        if branch == "point":  # K7's bf16 backward at the ft_cls step's [330, 128] x [330, 1024]
+            b, m = FT_BATCH, 1024
+            args = (t((b, g, d), torch.bfloat16), t((b, m, d), torch.bfloat16),
+                    t((d,), scale_=0.2) + 1.0, t((d,), scale_=0.1),
+                    t((d, d), torch.bfloat16, d ** -0.5), t((d, d), torch.bfloat16, d ** -0.5))
+            do = t((b, g, d), torch.bfloat16)
+            out_k, lse_k = kf.attention_kv_fwd_kernel(*args, seed, h, scale, rate)
+            delta = kf.attention_delta(do, out_k, h)
+            bwd_args = (*args, do, lse_k, delta, seed, h, scale, rate)
+            for gname, gk, gp in zip(("dq", "dx", "dln_w", "dln_b", "dwk", "dwv"),
+                                     kf.attention_kv_bwd_kernel(*bwd_args),
+                                     kf.attention_kv_bwd_plain(*bwd_args)):
+                rec.check("attn_train_kv_bwd", f"ft_cls B={b} bf16 p={rate} {gname}",
+                          *rel_err(gk, gp), GRAD_TOL["bfloat16"])
+            time_flash_train_kv(rec, kf, args, do, out_k, lse_k, lse_k, delta, seed, h, scale,
+                                rate, f"q[{b},{g},{d}] x[{b},{m},{d}] H={h} p={rate} bf16",
+                                keep=False)
+            del args, do, out_k, bwd_args
+            torch.cuda.empty_cache()
 
     # K10 on real patches: FPS centers and kNN neighbourhoods of random clouds
     xyz = t((nb, npts, 3))
@@ -2296,6 +2398,28 @@ def _colsum_err(got, want, mag) -> tuple[float, float]:
     return err.max().item(), (err / mag.clamp_min(1e-30)).max().item()
 
 
+def check_one_pass_launches() -> None:
+    """K18's backward is one launch of one kernel (no second pass over its
+    split partials, no sum_parts_kernel) at the semseg decode's widest
+    BatchNorm in both dtypes, read from torch.profiler's trace. Run early:
+    late in the script, right after the Perceiver timings, two traces in a
+    row came back without any device event."""
+    from vipformer_tpu_torch.ops.cuda import batchnorm as kbn
+
+    r, c = BN_SHAPES[0]
+    for dt in (torch.float32, torch.bfloat16):
+        x, dy = (torch.randn((r, c), device="cuda").to(dt) for _ in range(2))
+        mean, rstd = torch.zeros(c, device="cuda"), torch.ones(c, device="cuda")
+        kbn.bn_grad_reduces(x, dy, mean, rstd)  # the first call zeroes the arrival counters
+        launched = device_kernels(lambda: kbn.bn_grad_reduces(x, dy, mean, rstd))
+        expect(len(launched) == 1 and list(launched.values()) == [1]
+               and not any("sum_parts" in k for k in launched),
+               f"K18 backward [{r},{c}] {dt}: not one launch of one kernel: {launched}")
+        print(f"  {'batchnorm_bwd':18s} [{r},{c}] {dt}: one launch a call (torch.profiler): "
+              f"{next(iter(launched))[:60]}")
+        del x, dy
+
+
 def check_norm_kernels(rec: Recorder) -> None:
     """K18's statistics and gradient reduces and K17's forward and backward
     against their twins on the card, each timed with CUDA events beside
@@ -2316,7 +2440,8 @@ def check_norm_kernels(rec: Recorder) -> None:
     def t(shape, dt=torch.float32, scale_=1.0, shift=0.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale_ + shift).to(dt)
 
-    print("norm kernels K18 (BatchNorm reductions) and K17 (LayerNorm) against their twins:")
+    print("norm kernels K18 (BatchNorm reductions) and K17 (LayerNorm) against their twins "
+          "(K18's gradient reduces bitwise equal between two runs):")
     for (r, c), label in zip(BN_SHAPES, ("semseg",) * 4 + ("partseg",)):
         for dt_name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
             x, dy = t((r, c), dt, 2.0, 0.5), t((r, c), dt)
@@ -2336,6 +2461,9 @@ def check_norm_kernels(rec: Recorder) -> None:
             rstd = torch.rsqrt(var + 1e-5)
             ds_k, db_k = kbn.bn_grad_reduces(x, dy, mean, rstd)
             ds_p, db_p = kbn.bn_grad_reduces_plain(x, dy, mean, rstd)
+            ds_k2, db_k2 = kbn.bn_grad_reduces(x, dy, mean, rstd)
+            expect(torch.equal(ds_k, ds_k2) and torch.equal(db_k, db_k2),
+                   f"K18 gradient reduces differ between two runs at {what}")
             dyf = dy.float()
             rec.check("batchnorm_bwd", what + " dscale",
                       *_colsum_err(ds_k, ds_p, (dyf * (xf - mean) * rstd).abs().sum(0)),
@@ -2343,7 +2471,7 @@ def check_norm_kernels(rec: Recorder) -> None:
             rec.check("batchnorm_bwd", what + " dbias",
                       *_colsum_err(db_k, db_p, dyf.abs().sum(0)), COLSUM_TOL)
             del xf, dyf
-            if dt_name == "bfloat16" and label == "semseg":
+            if dt_name == "bfloat16":
                 w = torch.ones(c, device=dev)
                 calls = dict(
                     fwd=(lambda: kbn.bn_stats(x), lambda: torch.var_mean(x, 0, correction=0),
@@ -2355,8 +2483,8 @@ def check_norm_kernels(rec: Recorder) -> None:
                          cuda_ms(lambda: kbn.bn_grad_reduces_plain(x, dy, mean, rstd)),
                          bound(nbytes(x, dy, mean, rstd, ds_k, db_k), 5 * r * c, "float32")))
                 for way, call in calls.items():
-                    _device_timing(rec, f"batchnorm_{way}", f"[{r},{c}] bf16", *call,
-                                   keep=c == BN_SHAPES[0][1])
+                    _device_timing(rec, f"batchnorm_{way}", f"{label} [{r},{c}] bf16", *call,
+                                   keep=(r, c) == BN_SHAPES[0])
             del x, dy
         torch.cuda.empty_cache()
     for r, d, dts in LN_SHAPES:
@@ -3189,20 +3317,35 @@ AB_ITERS = 20  # serving forwards a sample
 AB_HOST_CALLS = 200  # wrapper calls whose host time is averaged
 
 
-def kernel_sums(fn, n: int, *names: str) -> list[float]:
-    """torch.profiler's device time per fn() over n calls, in ms: of every
-    kernel, then of those whose name holds each of `names`."""
+def _device_events(fn, n: int) -> list:
+    """torch.profiler's device kernels over n fn() calls (no user
+    annotations, no optimizer ranges: they report their kernels' time
+    again). The host's activity is traced too: a trace of the card alone
+    came back empty for a call that launches through ctypes only (K18's
+    backward)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages()
-          if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-          and not getattr(e, "is_user_annotation", False) and not e.key.startswith("Optimizer.")]
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False) and not e.key.startswith("Optimizer.")]
+
+
+def kernel_sums(fn, n: int, *names: str) -> list[float]:
+    """torch.profiler's device time per fn() over n calls, in ms: of every
+    kernel, then of those whose name holds each of `names`."""
+    ev = _device_events(fn, n)
     return [sum(e.self_device_time_total for e in ev if pick in e.key) / 1e3 / n
             for pick in ("", *names)]
+
+
+def device_kernels(fn, n: int = 3) -> dict[str, float]:
+    """The kernels an fn() call launches, by name, with their launches a
+    call (over n calls)."""
+    return {e.key: e.count / n for e in _device_events(fn, n)}
 
 
 def host_us(fn, calls: int = AB_HOST_CALLS, busy: bool = False) -> float:
@@ -3228,24 +3371,29 @@ def time_tree(root: str) -> dict:
     there (its kernels built there): the host time of a K5, K6, K8 forward
     and K11 wrapper call (the card idle, and busy; K6's and K8's device
     time), K8's backward on device time at B = 96 and 330 ([B, 128, 256]),
-    K7's backward at the pretrain point shape (events), K17's backward at
-    LN_TIMED on device time, the serving forward at
+    K7's forward and backward at the pretrain point shape (events, the
+    backward's device time) and its backward at the ft_cls step's [330,
+    128] x [330, 1,024] (events), K18's backward at BN_SHAPES[0] and K17's
+    at LN_TIMED on device time, the serving forward at
     each of BATCHES (events, and its kernels' and K5's device time from
     torch.profiler), the ft_cls step (events over TIMED_STEPS steps, and
     K11's and the attention backward kernels' device time a step), the
     ft_cls eval forward at B = 330 (events, its kernels' and K6's device
-    time), the pretrain step at B = 48, the semseg step at B = 32 with
-    K17 and K18 forced (events over TIMED_STEPS steps) and one
-    eval_zeroshot run."""
+    time), the pretrain step at B = 48, the partseg step at B = 96, the
+    semseg step at B = 32 with K17 and K18 forced (events over
+    TIMED_STEPS steps) and one eval_zeroshot run."""
     sys.path.insert(0, root)
-    from vipformer_tpu_torch.models.factory import build_ft_cls, build_ft_semseg
+    from vipformer_tpu_torch.models.factory import (build_ft_cls, build_ft_partseg,
+                                                    build_ft_semseg)
     from vipformer_tpu_torch.ops import cuda as kcuda
     from vipformer_tpu_torch.ops.cuda import attention as kattn
+    from vipformer_tpu_torch.ops.cuda import batchnorm as kbn
     from vipformer_tpu_torch.ops.cuda import dense as kdense
     from vipformer_tpu_torch.ops.cuda import flash_train as kflash
     from vipformer_tpu_torch.ops.cuda import layernorm as kln
     from vipformer_tpu_torch.train.trainer import (create_state, make_cls_eval, make_cls_step,
-                                                   make_pretrain_step, make_semseg_step)
+                                                   make_partseg_step, make_pretrain_step,
+                                                   make_semseg_step)
 
     expect(kcuda.__file__.startswith(root), f"imported {kcuda.__file__}, not the tree at {root}")
     kcuda.lib()
@@ -3289,7 +3437,27 @@ def time_tree(root: str) -> dict:
         o7, lse7 = kflash.attention_kv_fwd_kernel(q7, x7, *lnw, *w7, seed, 4, 0.125, 0.1)
         args = (q7, x7, *lnw, *w7, do7, lse7, kflash.attention_delta(do7, o7, 4), seed, 4, 0.125,
                 0.1)
+        out["K7 fwd ms"] = cuda_ms(
+            lambda: kflash.attention_kv_fwd_kernel(q7, x7, *lnw, *w7, seed, 4, 0.125, 0.1), iters=5)
         out["K7 bwd ms"] = cuda_ms(lambda: kflash.attention_kv_bwd_kernel(*args), iters=5)
+        out["K7 bwd device ms"] = queued_ms(lambda: kflash.attention_kv_bwd_kernel(*args),
+                                            "K7 backward", iters=5)
+        del x7
+        # and at the ft_cls step's [330, 128] x [330, 1,024] (events)
+        q7, do7 = (torch.randn((FT_BATCH, 128, 256), generator=gen, **bf) for _ in range(2))
+        x7 = torch.randn((FT_BATCH, 1024, 256), generator=gen, **bf)
+        o7, lse7 = kflash.attention_kv_fwd_kernel(q7, x7, *lnw, *w7, seed, 4, 0.125, 0.1)
+        args = (q7, x7, *lnw, *w7, do7, lse7, kflash.attention_delta(do7, o7, 4), seed, 4, 0.125,
+                0.1)
+        out[f"K7 bwd B={FT_BATCH} ms"] = cuda_ms(lambda: kflash.attention_kv_bwd_kernel(*args),
+                                                 iters=5)
+        # K18's backward at the semseg decode's widest BatchNorm (device time)
+        r, c = BN_SHAPES[0]
+        x18, dy18 = (torch.randn((r, c), generator=gen, **bf) for _ in range(2))
+        m18, s18 = torch.zeros(c, device="cuda"), torch.ones(c, device="cuda")
+        out["K18 bwd device ms"] = queued_ms(lambda: kbn.bn_grad_reduces(x18, dy18, m18, s18),
+                                             "K18 backward")
+        del x18, dy18
         # K17's backward at the semseg latents' LayerNorm
         r, d = LN_TIMED
         x17, dy17 = (torch.randn((r, d), generator=gen, **bf) for _ in range(2))
@@ -3341,6 +3509,15 @@ def time_tree(root: str) -> dict:
     run(2)
     out["pretrain step ms"] = cuda_ms(lambda: run(1), iters=TIMED_STEPS, warmup=0)
     del models, state, step, batches
+    torch.cuda.empty_cache()
+    cfg = partseg_config()  # the partseg step at B = 96
+    batches = partseg_batches(cfg, "trainval")[:2]
+    model = build_ft_partseg(cfg, device="cuda")
+    state = create_state(cfg, {"pc": model})
+    step = make_partseg_step(cfg, model)
+    run(2)
+    out["partseg step ms"] = cuda_ms(lambda: run(1), iters=TIMED_STEPS, warmup=0)
+    del model, state, step, batches
     torch.cuda.empty_cache()
     cfg = semseg_config()  # the semseg step at B = 32 with K17 and K18 forced
     batches = semseg_batches(cfg, "train")[:2]
@@ -3409,6 +3586,48 @@ def ab(other: str, pairs: int) -> int:
     return 0
 
 
+def ptxas(out_dir: str) -> int:
+    """Compile every csrc/*.cu as the build does, with `-Xptxas -v` (one
+    nvcc per source, all started together), write each source's report to
+    OUT_DIR/ptxas_<source>.txt, and print each kernel's registers, spilled
+    bytes and shared memory."""
+    import re
+
+    from vipformer_tpu_torch.ops import cuda as kcuda
+
+    os.makedirs(out_dir, exist_ok=True)
+    procs = []
+    for src in (p for p in kcuda.sources() if p.endswith(".cu")):
+        cmd = [kcuda._nvcc(), *kcuda.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", os.devnull, src]
+        procs.append((src, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True)))
+    failed = 0
+    for src, proc in procs:
+        log, _ = proc.communicate()
+        name = os.path.splitext(os.path.basename(src))[0]
+        with open(os.path.join(out_dir, f"ptxas_{name}.txt"), "w") as f:
+            f.write(log)
+        if proc.returncode:
+            print(f"ptxas: {name} failed:\n{log[-4000:]}", file=sys.stderr)
+            failed += 1
+            continue
+        kernel = spill = ""
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                kernel = m.group(1)
+                demangled = subprocess.run(["c++filt", kernel], capture_output=True, text=True)
+                kernel = demangled.stdout.strip().split("(")[0] or kernel
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            spill = f"spills {m.group(1)}/{m.group(2)} B" if m else spill
+            m = re.search(r"Used (\d+) registers(.*)", line)
+            if m and kernel:
+                print(f"{name:12s} {m.group(1):>4s} registers, {spill:18s} {kernel[:90]}"
+                      f"{m.group(2).replace(', used', ';')[:50]}")
+                kernel = ""
+    return 1 if failed else 0
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "vipformer_tpu_torch")):
@@ -3429,6 +3648,7 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         rec = Recorder()
+        check_one_pass_launches()
         check_serving_kernels(rec)
         serve_counts: dict = {}
         drive_serving_path(serve_counts)
@@ -3542,6 +3762,9 @@ if __name__ == "__main__":
             sys.exit(2)
         print(json.dumps(time_tree(os.path.abspath(sys.argv[2]))))
         sys.exit(0)
+    if len(sys.argv) == 3 and sys.argv[1] == "--ptxas":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(ptxas(sys.argv[2]))
     if len(sys.argv) in (3, 4) and sys.argv[1] == "--ab":
         if not torch.cuda.is_available():
             print("chip_smoke: no CUDA device", file=sys.stderr)

@@ -237,13 +237,13 @@ def test_cpu_tensors_never_reach_the_training_kernels(rng):
 
 
 def test_training_wrappers_validate_operands():
-    for base in ("attn_train_kv_fwd", "attn_train_kv_bwd",
-                 "g2e_fwd", "g2e_bwd", "gather_centered", "scatter_centered"):
+    for base in ("g2e_fwd", "g2e_bwd", "gather_centered", "scatter_centered"):
         for dt in (torch.float32, torch.bfloat16):
             assert kcuda.entry_point(base, dt) in kcuda.SIGNATURES
-    for dt in (torch.float32, torch.bfloat16):  # K8: bf16 on the tensor cores, both ways
-        assert kcuda.tc_route("attn_train_fwd", dt) in kcuda.SIGNATURES
-        assert kcuda.tc_route("attn_train_bwd", dt) in kcuda.SIGNATURES
+    for dt in (torch.float32, torch.bfloat16):  # K7, K8: bf16 on the tensor cores, both ways
+        for base in ("attn_train_kv_fwd", "attn_train_kv_bwd", "attn_train_fwd",
+                     "attn_train_bwd"):
+            assert kcuda.tc_route(base, dt) in kcuda.SIGNATURES
     with pytest.raises(NotImplementedError, match="dh=64"):
         kflash._check_heads(96, 2)
     with pytest.raises(ValueError, match=r"\[0, 1\)"):

@@ -1,6 +1,7 @@
-"""The tensor-core routes of K5, K6, K8's forward and backward and K11,
-on the CPU: which entry point each dtype reaches, and how the wrappers
-plan the kernels' grids; and the split plan of K17's backward.
+"""The tensor-core routes of K5, K6, K7, K8's forward and backward and
+K11, on the CPU: which entry point each dtype reaches, and how the
+wrappers plan the kernels' grids; and the split plans of K17's and K18's
+one-pass backwards.
 
 The bf16 K5 (`tc::attn_small_tc_kernel`), K6
 (`tc::attn_small_qkv_ln_tc_kernel`), K8's forward
@@ -51,7 +52,11 @@ ROUTES = [("dense_grads", torch.bfloat16, "dense_grads_tc_bf16"),
           ("attn_train_fwd", torch.bfloat16, "attn_train_fwd_tc_bf16"),
           ("attn_train_fwd", torch.float32, "attn_train_fwd_f32"),
           ("attn_train_bwd", torch.bfloat16, "attn_train_bwd_tc_bf16"),
-          ("attn_train_bwd", torch.float32, "attn_train_bwd_f32")]
+          ("attn_train_bwd", torch.float32, "attn_train_bwd_f32"),
+          ("attn_train_kv_fwd", torch.bfloat16, "attn_train_kv_fwd_tc_bf16"),
+          ("attn_train_kv_fwd", torch.float32, "attn_train_kv_fwd_f32"),
+          ("attn_train_kv_bwd", torch.bfloat16, "attn_train_kv_bwd_tc_bf16"),
+          ("attn_train_kv_bwd", torch.float32, "attn_train_kv_bwd_f32")]
 
 
 @pytest.mark.parametrize("base,dt,want", ROUTES)
@@ -222,3 +227,188 @@ def test_layernorm_bwd_vector_width(d, itemsize, want):
 
     assert kln.vec_for(d, itemsize, 0, 256) == want
     assert kln.vec_for(d, itemsize, itemsize) == 1
+
+
+# ----------------------------------------------- K7's bf16 products, K18
+
+
+# K7's token rows (B * M) on the paths chip_smoke.py runs: the pretrain
+# points and partseg (96 x 2,048), the mp image branch (48 x 144), ft_cls
+# at B = 330 (330 x 1,024), semseg (32 x 4,096), the Perceiver decoder's
+# single query over 128 latents (330 x 128); and a ragged few
+K7_ROWS = (196608, 6912, 337920, 131072, 42240, 1000, 1)
+K7_DINS = (128, 256, 384, 1024)
+K7_DS = (256, 384)  # D = H * 64: the flagship's 4 heads, partseg's and semseg's 6
+
+
+def _tiles(n: int, tile: int) -> list[tuple[int, int]]:
+    """The [lo, hi) of each tile of `tile` over n, the last one masked at n."""
+    return [(lo, min(n, lo + tile)) for lo in range(0, n, tile)]
+
+
+def _covers_once(spans, n: int) -> bool:
+    return (spans[0][0] == 0 and spans[-1][1] == n and all(lo < hi for lo, hi in spans)
+            and all(hi == lo for (_, hi), (lo, _) in zip(spans, spans[1:])))
+
+
+@pytest.mark.parametrize("d", K7_DS)
+@pytest.mark.parametrize("din", K7_DINS)
+@pytest.mark.parametrize("rows", K7_ROWS)
+def test_k7_tc_plans_cover_every_row_and_column_once(rows, din, d):
+    """The grids of K7's bf16 products (csrc/flash_train.cu tc), as the
+    launches lay them out: the k|v projection's blocks tile [rows, 2D] and
+    dx's [rows, Din] in 128 x 128 tiles, every row, Din column and 2D
+    column once (2D a whole number of tiles, the last row and Din tiles
+    masked); their contractions (Din, then 2D, in 32-column stages) a whole
+    number of stages; the weight gradients' [Din, 2D] tiles each take the
+    token rows in K11's splits (whole 32-row steps, every row once, none
+    empty, one wave of two blocks an SM on 132 SMs where the rows allow)."""
+    from vipformer_tpu_torch.ops.cuda import flash_train as kf
+
+    tile, step = 128, kf.KV_TC_STEP  # the kernels' output tile (PJ_BM = PJ_BN)
+    assert (2 * d) % tile == 0 and din % step == 0 and (2 * d) % step == 0
+    for n in (rows, din, 2 * d):
+        assert _covers_once(_tiles(n, tile), n)
+    assert sum(hi - lo for lo, hi in _tiles(2 * d, tile)) == 2 * d
+    splits = kf.wgrad_splits(rows, din, d, SMS)
+    spans = kdense.split_rows(rows, splits, step)
+    assert len(spans) == splits and _covers_once(spans, rows)
+    assert all(lo % step == 0 for lo, _ in spans)
+    tiles = len(_tiles(din, tile)) * len(_tiles(2 * d, tile))
+    steps = -(-rows // step)
+    assert splits <= steps
+    if tiles * steps >= kdense.BLOCKS_PER_SM * SMS:
+        assert tiles * splits >= SMS
+    assert tiles * splits <= max(tiles, kdense.BLOCKS_PER_SM * SMS)
+
+
+def k7_tc_smem_bytes() -> dict[str, int]:
+    """The shared memory of K7's bf16 product kernels (csrc/flash_train.cu
+    `PJ_KV_SMEM`, `PJ_DX_SMEM`, `PJ_DW_SMEM`): a 4-stage ring of bf16
+    tiles, rows padded by 8: the projection's 128 rows of 32 xn columns
+    and 32 weight rows of 128 columns; dx's 128 rows of 32 dk|dv columns
+    and 128 weight rows of 32; the weight gradients' 32 token rows of 128
+    xn columns and of 128 dk|dv columns."""
+    stages, ldk, ldn = 4, 32 + 8, 128 + 8
+    return {"kv_proj": 2 * stages * (128 * ldk + 32 * ldn),
+            "dxn": 2 * stages * (128 + 128) * ldk,
+            "dw": 2 * stages * 32 * 2 * ldn}
+
+
+@pytest.mark.parametrize("kernel", ["kv_proj", "dxn", "dw"])
+def test_k7_tc_kernels_fit_two_blocks_an_sm(kernel):
+    """Each of K7's bf16 product kernels takes dynamic shared memory above
+    48 KB (so its launch sets cudaFuncAttributeMaxDynamicSharedMemorySize)
+    and at most half of an SM's, so that two blocks (its launch bounds)
+    share an SM."""
+    n = k7_tc_smem_bytes()[kernel]
+    assert 48 * 1024 < n <= 227 * 1024
+    assert 2 * (n + BLOCK_RESERVED_BYTES) <= SM_SHARED_BYTES
+    assert k7_tc_smem_bytes() == {"kv_proj": 75776, "dxn": 81920, "dw": 69632}
+
+
+def test_k7_projection_alone_takes_bf16_only():
+    """`kv_project_kernel` is the bf16 tensor-core projection's own entry
+    point (chip_smoke.py holds it against `kv_project_plain`): it refuses
+    f32 before it touches the library, and K7's bf16 kernels refuse a Din
+    that is not a whole number of 32-column stages."""
+    from vipformer_tpu_torch.ops.cuda import flash_train as kf
+
+    assert "kv_project_tc_bf16" in kcuda.SIGNATURES
+    x = torch.zeros((1, 4, 128))
+    w = torch.zeros((128, 128))
+    with pytest.raises(TypeError, match="bfloat16"):
+        kf.kv_project_kernel(x, torch.ones(128), torch.zeros(128), w, w)
+    with pytest.raises(NotImplementedError, match="multiple of 32"):
+        kf._check_tc_din(100)
+    assert kcuda._lib is None
+
+
+def test_k7_bf16_operands_stay_within_the_gradient_bound():
+    """Why the card holds K7's bf16 backward to 5e-2 of the f32 twin: the
+    reference runs the three projection products at precision DEFAULT, one
+    bf16 pass (JAX flash_train.py:478-492, :623-650), so the kernels round
+    xn, dk, dv and the weights to bf16 before them. At a small width, on
+    the CPU in f32, rounding those operands moves every gradient by far
+    less than that bound of max(1, max|ref|), but by more than f32's."""
+    from vipformer_tpu_torch.ops.cuda import flash_train as kf
+
+    gen = torch.Generator().manual_seed(7)
+    b, g, m, din, h = 2, 16, 96, 128, 2
+    d = 64 * h
+
+    def t(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen) * scale
+
+    q, x, do = t(b, g, d), t(b, m, din), t(b, g, d)
+    ln_w, ln_b = 1.0 + t(din, scale=0.2), t(din, scale=0.1)
+    wk, wv = t(din, d, scale=din ** -0.5), t(din, d, scale=din ** -0.5)
+    seed = torch.tensor([3], dtype=torch.int32)
+    out, lse = kf.attention_kv_fwd_plain(q, x, ln_w, ln_b, wk, wv, seed, h, 0.125, 0.1)
+    delta = kf.attention_delta(do, out, h)
+    ref = kf.attention_kv_bwd_plain(q, x, ln_w, ln_b, wk, wv, do, lse, delta, seed, h, 0.125, 0.1)
+
+    def r(a):
+        return a.to(torch.bfloat16).float()
+
+    k, v = kf.kv_project_plain(x, ln_w, ln_b, wk, wv)
+    _, dk, dv = kf.attention_bwd_plain(q, k, v, do, lse, delta, seed, h, 0.125, 0.1,
+                                       kv_dtype=torch.float32)
+    xhat, rstd, xn = kf.ln_kv_plain(x, ln_w, ln_b)
+    dxn = r(dk) @ r(wk).t() + r(dv) @ r(wv).t()
+    dxhat = dxn * ln_w
+    dx = rstd * (dxhat - dxhat.mean(-1, keepdim=True)
+                 - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    xn2 = r(xn).reshape(-1, din)
+    got = {"dx": dx, "dln_w": (dxn * xhat).reshape(-1, din).sum(0),
+           "dln_b": dxn.reshape(-1, din).sum(0), "dwk": xn2.t() @ r(dk).reshape(-1, d),
+           "dwv": xn2.t() @ r(dv).reshape(-1, d)}
+    worst = 0.0
+    for name, want in zip(("dx", "dln_w", "dln_b", "dwk", "dwv"), ref[1:]):
+        rel = ((got[name] - want).abs().max() / max(1.0, want.abs().max().item())).item()
+        assert rel <= 5e-2, (name, rel)
+        worst = max(worst, rel)
+    assert worst > 1e-4  # bf16 rounding shows: above the f32 bound
+
+
+# K18's backward rows: the semseg decode's 131,072, partseg's 98,304 and
+# small and ragged counts (below one row a warp of a block, one row)
+BN_ROWS = (131072, 98304, 1000, 513, 17, 16, 7, 1)
+
+
+@pytest.mark.parametrize("r", BN_ROWS)
+def test_batchnorm_bwd_split_plan_covers_every_row_once(r):
+    """K18's one-pass backward on 132 SMs: contiguous row splits cover
+    every row once, none empty, at most one block an SM and no more than
+    the rows fill (a row for each of a block's 16 warps); the groups of
+    the two-level sum cover every split once, about sqrt(splits) each,
+    and the counters fit the wrapper's buffer."""
+    from vipformer_tpu_torch.ops.cuda import batchnorm as kbn
+    from vipformer_tpu_torch.ops.cuda import layernorm as kln
+
+    per, splits, group = kbn.bwd_plan(r, SMS)
+    rows = kln.split_rows(r, per)
+    assert len(rows) == splits <= SMS and _covers_once(rows, r)
+    assert splits <= -(-r // kbn.GRAD_WARPS)
+    ngroups = -(-splits // group)
+    assert (group - 1) ** 2 < splits <= group * group
+    assert sorted(i for g in range(ngroups)
+                  for i in range(g * group, min(splits, (g + 1) * group))) == list(range(splits))
+    assert ngroups + 1 <= kcuda.ARRIVE_COUNTERS
+
+
+@pytest.mark.parametrize("c,itemsize,vec", [(1536, 2, 8), (1024, 2, 8), (512, 2, 8), (256, 2, 8),
+                                            (1536, 4, 4), (256, 4, 4), (13, 2, 1), (100, 4, 2)])
+def test_batchnorm_bwd_vector_and_shared_memory(c, itemsize, vec):
+    """K18's backward loads 16 bytes a lane at the decode's widths (8 bf16
+    or 4 f32 columns), narrower where C does not divide; its static shared
+    memory (the 16 warps' two sums of a 32-vector tile, f32, and the
+    arrival flag) stays under the 48 KB a kernel may take without opting
+    in; both dtypes reach the one-pass entry point (x, dy, mean, rstd,
+    dscale, dbias, part, arrive; r, c, per, group, vec; stream)."""
+    from vipformer_tpu_torch.ops.cuda import batchnorm as kbn
+
+    assert kbn.vec_for(c, itemsize, 0, 256) == vec
+    assert kbn.GRAD_WARPS * 2 * 32 * vec * 4 + 4 <= 48 * 1024
+    for dt in (torch.float32, torch.bfloat16):
+        assert len(kcuda.SIGNATURES[kcuda.entry_point("bn_grad_reduces", dt)]) == 14

@@ -56,15 +56,6 @@
 
 namespace vpt_dense {
 
-// the rows [begin, end) of split `split`: whole steps of `step` rows, split
-// s of S taking steps [s n / S, (s + 1) n / S); ops/cuda/dense.py
-// `split_rows` mirrors it
-__device__ __forceinline__ int2 split_range(int r, int step, int split, int splits) {
-  const long long n = (r + step - 1) / step;
-  const int b = (int)(split * n / splits) * step, e = (int)((split + 1) * n / splits) * step;
-  return make_int2(b, min(r, e));
-}
-
 constexpr int TM = 64, TN = 64, TK = 16, THREADS = 256;
 constexpr int LDA = TM + 4, LDB = TN + 4;
 
@@ -76,7 +67,7 @@ dense_grads_kernel(const T* __restrict__ x, const T* __restrict__ dy, int r, int
   __shared__ __align__(16) float Bs[TK][LDB];  // dy rows: Bs[row][cout]
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int n0 = blockIdx.x * TN, m0 = blockIdx.y * TM, split = blockIdx.z;
-  const int2 rows = split_range(r, TK, split, splits);
+  const int2 rows = vpt::split_range(r, TK, split, splits);
   const int r0 = rows.x, r1 = rows.y;
   const bool with_bias = blockIdx.y == 0;
   float acc[4][4];
@@ -215,7 +206,7 @@ dense_grads_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy, i
   const int m0 = (blockIdx.x / tiles_n) * BM, n0 = (blockIdx.x % tiles_n) * BN;
   const int split = blockIdx.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int2 rows = split_range(r, KR, split, splits);
+  const int2 rows = vpt::split_range(r, KR, split, splits);
   const int t_begin = rows.x / KR, t_end = (rows.y + KR - 1) / KR, r_end = rows.y;
   const bf16* xb = x + m0;
   const bf16* yb = dy + n0;

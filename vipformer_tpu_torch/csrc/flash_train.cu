@@ -30,12 +30,13 @@
 // of the scores, dV, dPd, dK in one kernel and scores, dPd, dQ in the
 // other); K7 adds the k/v projection of every kv token (M x Din x 2D MACs,
 // twice: forward and the backward's recompute) and its backward products.
-// The f32 kernels and K7's forward run on CUDA cores in f32 (67 TFLOP/s
-// peak), so the bound that matters there is that rate, not the 989
-// TFLOP/s of the tensor cores. K8's bf16 forward (tc::flash_fwd_tc_kernel)
-// and the bf16 backward of K8 and of K7's attention
-// (tc::flash_bwd_kv_tc_kernel, tc::flash_bwd_dq_tc_kernel) run their
-// products on the tensor cores; at the pretrain point branch's [96, 128,
+// The f32 kernels and K7's forward attention run on CUDA cores in f32 (67
+// TFLOP/s peak), so the bound that matters there is that rate, not the
+// 989 TFLOP/s of the tensor cores. K8's bf16 forward
+// (tc::flash_fwd_tc_kernel), the bf16 backward of K8 and of K7's attention
+// (tc::flash_bwd_kv_tc_kernel, tc::flash_bwd_dq_tc_kernel) and K7's bf16
+// projections (tc::kv_proj_tc_kernel, tc::dxn_tc_kernel,
+// tc::dw_tc_kernel) run their products on the tensor cores; at the pretrain point branch's [96, 128,
 // 256], H = 4, the forward's are 1.6 GFLOP (0.002 ms at 989 TFLOP/s)
 // against 25.4 MB of q, k, v, out and lse (0.0076 ms at 3.35 TB/s), the
 // backward's 4.0 GFLOP (5 products in one launch, 0.004 ms) against 44 MB of q, k, v, dO,
@@ -54,11 +55,10 @@
 // threads, each owning a 4 x 4 register tile, so a row's max and sum
 // reduce over 16 lanes by shuffles. The tensor-core kernels (namespace tc)
 // keep the same grids with 4 warps of 16 rows a block.
-// K7's projections, LN backward and weight gradients run through the SIMT
-// product of train_common.cuh; its weight gradients are split over the
-// token axis into partials summed in a fixed order.
-#include <type_traits>
-
+// In f32, K7's projections, LN backward and weight gradients run through
+// the SIMT product of train_common.cuh; its weight gradients are split
+// over the token axis into partials summed in a fixed order. In bf16 its
+// products run on the tensor cores (namespace tc, the end of this file).
 #include "mma.cuh"
 #include "train_common.cuh"
 
@@ -540,8 +540,8 @@ int flash_fwd(const void* q, const void* k, const void* v, const void* seed, voi
 // the k and v tiles streaming through the same ring: S, dPd, then dQ +=
 // dS.K (k through ldmatrix.trans); keys past M get p = 0. No block carries
 // anything to another, and every sum runs in a fixed order: no atomics,
-// the same bits on every launch. dk / dv are written in TO: bf16 for K8,
-// f32 for K7's backward, whose projections take them on.
+// the same bits on every launch. dk / dv are written in bf16, for K8 and
+// for K7's backward, whose tensor-core projections take them on.
 
 // Shared memory of the kv-row kernel: its k and v rows (and, fused, dS^T
 // of a query tile), a ring of q and dO tiles, and each query row's lse *
@@ -560,9 +560,6 @@ constexpr size_t TC_BWD_Q_SMEM = sizeof(bf16) * (size_t)(2 * TC_QT + 2 * TC_STAG
 __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<uint32_t*>(p) = vpt::mma::pack_bf16x2(a, b);
 }
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
 
 // The kv-row side: one block of WARPS warps per (16 WARPS kv rows, cloud
 // * head), 16 kv rows a warp. Unfused (WARPS = 4) it gives dK and dV, and
@@ -572,13 +569,13 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 // of the tile = dS.K on mma.sync (warp_atb: dS^T and k both down the kv
 // rows), a warp's 16 query rows by 32 columns, written out whole; no
 // second launch, no recompute of S and dPd.
-template <typename TO, int WARPS, bool FUSED>
+template <int WARPS, bool FUSED>
 __global__ void __launch_bounds__(32 * WARPS, 2)
 flash_bwd_kv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
                        const float* __restrict__ lse, const float* __restrict__ delta,
-                       const int* __restrict__ seed, bf16* __restrict__ dq, TO* __restrict__ dk,
-                       TO* __restrict__ dv, int G, int M, int H, float scale, float keep_p,
+                       const int* __restrict__ seed, bf16* __restrict__ dq, bf16* __restrict__ dk,
+                       bf16* __restrict__ dv, int G, int M, int H, float scale, float keep_p,
                        uint32_t thresh, int drop) {
   namespace mm = vpt::mma;
   constexpr int ROWS = 16 * WARPS, THREADS = 32 * WARPS;
@@ -813,27 +810,28 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <typename TO>
 int flash_bwd(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-              const void* delta, const void* seed, void* dq, TO* dk, TO* dv, int B, int G, int M,
-              int H, float scale, float keep_p, uint32_t thresh, int drop, cudaStream_t st) {
+              const void* delta, const void* seed, void* dq, void* dk, void* dv, int B, int G,
+              int M, int H, float scale, float keep_p, uint32_t thresh, int drop,
+              cudaStream_t st) {
   if (B < 1 || G < 1 || M < 1 || H < 1) return (int)cudaErrorInvalidValue;
   const bf16 *q_ = (const bf16*)q, *k_ = (const bf16*)k, *v_ = (const bf16*)v;
   const bf16* do_ = (const bf16*)dout;
   const float *lse_ = (const float*)lse, *delta_ = (const float*)delta;
   const int* seed_ = (const int*)seed;
-  bf16* dq_ = (bf16*)dq;
+  bf16 *dq_ = (bf16*)dq, *dk_ = (bf16*)dk, *dv_ = (bf16*)dv;
   cudaError_t e;
   if (M <= TC_SMALL_M) {  // one launch: every kv row of a cloud and head in one block
-    auto kern = flash_bwd_kv_tc_kernel<TO, TC_SMALL_WARPS, true>;
+    auto kern = flash_bwd_kv_tc_kernel<TC_SMALL_WARPS, true>;
     e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)TC_BWD_SMALL_SMEM);
     if (e != cudaSuccess) return (int)e;
     kern<<<dim3(1, B * H), 32 * TC_SMALL_WARPS, TC_BWD_SMALL_SMEM, st>>>(
-        q_, k_, v_, do_, lse_, delta_, seed_, dq_, dk, dv, G, M, H, scale, keep_p, thresh, drop);
+        q_, k_, v_, do_, lse_, delta_, seed_, dq_, dk_, dv_, G, M, H, scale, keep_p, thresh,
+        drop);
     return (int)cudaGetLastError();
   }
-  auto kern = flash_bwd_kv_tc_kernel<TO, TC_WARPS, false>;
+  auto kern = flash_bwd_kv_tc_kernel<TC_WARPS, false>;
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)TC_BWD_KV_SMEM);
   if (e != cudaSuccess) return (int)e;
@@ -841,7 +839,7 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* dout, con
                            (int)TC_BWD_Q_SMEM);
   if (e != cudaSuccess) return (int)e;
   kern<<<dim3((M + KT - 1) / KT, B * H), TC_THREADS, TC_BWD_KV_SMEM, st>>>(
-      q_, k_, v_, do_, lse_, delta_, seed_, dq_, dk, dv, G, M, H, scale, keep_p, thresh, drop);
+      q_, k_, v_, do_, lse_, delta_, seed_, dq_, dk_, dv_, G, M, H, scale, keep_p, thresh, drop);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   flash_bwd_dq_tc_kernel<<<dim3((G + TC_QT - 1) / TC_QT, B * H), TC_THREADS, TC_BWD_Q_SMEM,
@@ -1046,16 +1044,11 @@ int attn_train_kv_bwd(const void* q, const void* x, const void* ln_w, const void
   if (e != cudaSuccess) return e;
   float* dk_ = static_cast<float*>(dk32);
   float* dv_ = static_cast<float*>(dv32);
-  // the attention's backward: bf16 on the tensor cores, f32 on the CUDA cores
-  if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    e = tc::flash_bwd<float>(q, kbuf, vbuf, dout, lse, delta, seed, dq, dk_, dv_, B, G, M, H,
-                             scale, keep_p, thresh, drop, st);
-  else
-    e = flash_bwd<T, float>(static_cast<const T*>(q), static_cast<const T*>(kbuf),
-                            static_cast<const T*>(vbuf), static_cast<const T*>(dout),
-                            static_cast<const float*>(lse), static_cast<const float*>(delta),
-                            static_cast<const int*>(seed), static_cast<T*>(dq), dk_, dv_, B, G, M,
-                            H, scale, keep_p, thresh, drop, st);
+  e = flash_bwd<T, float>(static_cast<const T*>(q), static_cast<const T*>(kbuf),
+                          static_cast<const T*>(vbuf), static_cast<const T*>(dout),
+                          static_cast<const float*>(lse), static_cast<const float*>(delta),
+                          static_cast<const int*>(seed), static_cast<T*>(dq), dk_, dv_, B, G, M,
+                          H, scale, keep_p, thresh, drop, st);
   if (e != cudaSuccess) return e;
   // dxn = dk Wk^T + dv Wv^T  [rows, Din] f32
   float* dxn_ = static_cast<float*>(dxn);
@@ -1073,6 +1066,361 @@ int attn_train_kv_bwd(const void* q, const void* x, const void* ln_w, const void
   sum_splits(splits, din * 2 * D, wpart_, static_cast<float*>(dw), st);
   return cudaGetLastError();
 }
+
+// ------------------------------------------- K7, bf16, on the tensor cores
+// The three projection-sized products of K7, which the JAX kernel runs at
+// precision DEFAULT (flash_train.py:478-492 _proj, :623-650): one bf16
+// pass with f32 accumulation, so bf16 operands on mma.sync with f32
+// accumulators are the reference's own arithmetic.
+//  (a) ln_xn_kernel: the kv LayerNorm, one warp a row: f32 statistics with
+//      the fast variance (as ln_stats_kernel), then xn = (x - mu) * rstd *
+//      w + b, each step rounded as the plain twin's, written in bf16 once;
+//  (b) kv_proj_tc_kernel: [k | v] = xn . [wk | wv], rounded to bf16;
+//  (c) dxn_tc_kernel: dxn = [dk | dv] . [wk | wv]^T in f32, from the bf16
+//      dk and dv of the tensor-core attention backward; the weights are
+//      read as they lie ([Din, D] rows, ldmatrix without .trans gives the
+//      B fragments of the transpose);
+//  (d) dw_tc_kernel: [dWk | dWv] = xn^T . [dk | dv] (both down the token
+//      rows, warp_atb), the rows cut into splits whose f32 partials a
+//      second pass sums in split order, as K11 (dense.cu).
+// K7's forward runs (a) and (b), its backward (a) and (b) again (the same
+// kernels on the same inputs: the same bits, so the forward's log-sum-exp
+// fits them), the attention backward, (c), the LayerNorm backward and its
+// column sums on the CUDA cores (ln_bwd_kernel, colsum2), then (d).
+// Bound on the H100: operations. At the pretrain point branch (96 x 2,048
+// tokens, Din = 256, 2D = 512) each product is 51.5 GFLOP, 0.052 ms at
+// 989 TFLOP/s, against 100 MB of x and of xn.
+// Design of (b)-(d): K11's. A block of 8 warps owns a 128 x 128 tile of
+// the output, a warp 64 x 32 of f32 accumulators in registers; the
+// contraction streams through a 4-stage cp.async ring in shared memory (32
+// columns a stage in (b) and (c), 32 token rows in (d)), rows padded by 8
+// bf16 so that ldmatrix meets no bank conflict, one barrier a stage. Every
+// product runs its k steps in a fixed order and no block sums into
+// another's output: the same bits every run. Rows past B*M and columns
+// past Din are zero-filled or masked; Din must be a multiple of 32 and D
+// of 64 (the gate admits Din a multiple of 128, and D = 64 H).
+namespace tc {
+
+constexpr int PJ_BM = 128, PJ_BN = 128;  // a block's output tile
+constexpr int PJ_WM = 64, PJ_WN = 32;    // a warp's
+constexpr int PJ_MI = PJ_WM / 16, PJ_NI = PJ_WN / 8;
+constexpr int PJ_WARPS_N = PJ_BN / PJ_WN;
+constexpr int PJ_THREADS = 32 * (PJ_BM / PJ_WM) * PJ_WARPS_N;  // 256
+constexpr int PJ_KC = 32;      // contraction columns a stage in (b) and (c)
+constexpr int PJ_KR = 32;      // token rows a stage in (d)
+constexpr int PJ_STAGES = 4;   // stages in flight
+constexpr int PJ_LDK = PJ_KC + 8;  // padded row of a [rows][PJ_KC] tile (bf16)
+constexpr int PJ_LDN = PJ_BN + 8;  // padded row of a [k][128] tile (bf16)
+constexpr size_t PJ_KV_SMEM = sizeof(bf16) * PJ_STAGES * (PJ_BM * PJ_LDK + PJ_KC * PJ_LDN);
+constexpr size_t PJ_DX_SMEM = sizeof(bf16) * PJ_STAGES * (PJ_BM + PJ_BN) * PJ_LDK;
+constexpr size_t PJ_DW_SMEM = sizeof(bf16) * PJ_STAGES * PJ_KR * 2 * PJ_LDN;
+constexpr int LN_ROWS = 8;  // rows (warps) a block of ln_xn_kernel
+
+// (a) xn [R, Din] bf16 and stats[r] = (mean, rstd), 8 columns a lane at a
+// time (Din a multiple of 8); the row is read twice (the second time from
+// L1 / L2), as K17's forward does.
+__global__ void __launch_bounds__(32 * LN_ROWS)
+ln_xn_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
+             const float* __restrict__ b, int R, int din, bf16* __restrict__ xn,
+             float2* __restrict__ stats) {
+  const int r = blockIdx.x * LN_ROWS + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (r >= R) return;
+  const bf16* xr = x + (size_t)r * din;
+  float s = 0.f, ss = 0.f;
+  for (int c = 8 * lane; c < din; c += 256) {
+    float v[8];
+    load_vec<bf16, 8>(xr + c, v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      s += v[i];
+      ss += v[i] * v[i];
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+    ss += __shfl_xor_sync(0xffffffffu, ss, off);
+  }
+  const float mu = s / din, rs = rsqrtf(fmaxf(0.f, ss / din - mu * mu) + vpt::LN_EPS);
+  if (lane == 0) stats[r] = make_float2(mu, rs);
+  bf16* out = xn + (size_t)r * din;
+  for (int c = 8 * lane; c < din; c += 256) {
+    float v[8];
+    load_vec<bf16, 8>(xr + c, v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)  // ((x - mu) * rstd) * w + b, each step rounded
+      v[i] = __fadd_rn(__fmul_rn(__fmul_rn(v[i] - mu, rs), w[c + i]), b[c + i]);
+    store_vec<bf16, 8>(out + c, v);
+  }
+}
+
+// Rows [r0, r0 + R) by columns [n0, n0 + W) of [a | b], two row-major [.,
+// D] arrays side by side as one [., 2D] -> shared rows of `ld` elements,
+// 16-byte cp.async chunks (D a multiple of 8, so no chunk straddles a and
+// b); rows at or past `rows` zero-filled, never read.
+template <int W, int R>
+__device__ __forceinline__ void cp_rows_pair(bf16* dst, int ld, const bf16* a, const bf16* b,
+                                             int D, int n0, int r0, int rows, int tid) {
+  constexpr int CPR = W / 8, N = R * CPR;
+  static_assert(N % PJ_THREADS == 0, "whole chunks a thread");
+#pragma unroll
+  for (int i = 0; i < N / PJ_THREADS; ++i) {
+    const int c = tid + i * PJ_THREADS;
+    const int r = c / CPR, cc = c - r * CPR, n = n0 + cc * 8;
+    const bool valid = r0 + r < rows;
+    const bf16* src = n < D ? a + n : b + (n - D);
+    vpt::mma::cp_async16(dst + r * ld + cc * 8, src + (valid ? (size_t)(r0 + r) * D : 0), valid);
+  }
+}
+
+__device__ __forceinline__ void zero_acc(float (&c)[PJ_MI][PJ_NI][4]) {
+#pragma unroll
+  for (int i = 0; i < PJ_MI; ++i)
+#pragma unroll
+    for (int j = 0; j < PJ_NI; ++j) c[i][j][0] = c[i][j][1] = c[i][j][2] = c[i][j][3] = 0.f;
+}
+
+// (b) one block per (128 columns of [k | v], 128 token rows); xn's columns
+// and wk|wv's rows stream in 32-column stages.
+__global__ void __launch_bounds__(PJ_THREADS, 2)
+kv_proj_tc_kernel(const bf16* __restrict__ xn, const bf16* __restrict__ wk,
+                  const bf16* __restrict__ wv, bf16* __restrict__ k, bf16* __restrict__ v,
+                  int rows, int din, int D) {
+  namespace mm = vpt::mma;
+  constexpr int SLOT = PJ_BM * PJ_LDK + PJ_KC * PJ_LDN;  // [BM][LDK] of xn, [KC][LDN] of w
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
+  const int n0 = blockIdx.x * PJ_BN, m0 = blockIdx.y * PJ_BM;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, nc = din / PJ_KC;
+  auto load = [&](int c) {
+    bf16* xs = ring + (c % PJ_STAGES) * SLOT;
+    mm::cp_rows<PJ_KC, PJ_BM, PJ_THREADS>(xs, PJ_LDK, xn + (size_t)c * PJ_KC, din, m0, rows,
+                                          tid);
+    cp_rows_pair<PJ_BN, PJ_KC>(xs + PJ_BM * PJ_LDK, PJ_LDN, wk, wv, D, n0, c * PJ_KC, din, tid);
+  };
+#pragma unroll
+  for (int st = 0; st < PJ_STAGES - 1; ++st) {
+    if (st < nc) load(st);
+    mm::cp_async_commit();
+  }
+  const int wm = warp / PJ_WARPS_N, wn = warp % PJ_WARPS_N;
+  float acc[PJ_MI][PJ_NI][4];
+  zero_acc(acc);
+  for (int c = 0; c < nc; ++c) {
+    mm::cp_async_wait<PJ_STAGES - 2>();  // stage c has landed (this thread's copies)
+    __syncthreads();                     // ... everyone's; and stage c - 1 is consumed
+    if (c + PJ_STAGES - 1 < nc) load(c + PJ_STAGES - 1);
+    mm::cp_async_commit();
+    const bf16* xs = ring + (c % PJ_STAGES) * SLOT;
+    mm::warp_ab<PJ_MI, PJ_NI>(acc, xs + wm * PJ_WM * PJ_LDK, PJ_LDK,
+                              xs + PJ_BM * PJ_LDK + wn * PJ_WN, PJ_LDN, PJ_KC, lane);
+  }
+  mm::cp_async_wait<0>();
+  const int grp = lane >> 2, c0 = 2 * (lane & 3);
+#pragma unroll
+  for (int i = 0; i < PJ_MI; ++i)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int m = m0 + wm * PJ_WM + 16 * i + 8 * hh + grp;
+      if (m >= rows) continue;
+#pragma unroll
+      for (int j = 0; j < PJ_NI; ++j) {
+        const int n = n0 + wn * PJ_WN + 8 * j + c0;
+        bf16* dst = n < D ? k + (size_t)m * D + n : v + (size_t)m * D + (n - D);
+        *reinterpret_cast<uint32_t*>(dst) =
+            mm::pack_bf16x2(acc[i][j][2 * hh], acc[i][j][2 * hh + 1]);
+      }
+    }
+}
+
+// (c) one block per (128 columns of Din, 128 token rows); the 2D columns
+// of [dk | dv] and of [wk | wv] stream in 32-column stages, dk / wk first.
+__global__ void __launch_bounds__(PJ_THREADS, 2)
+dxn_tc_kernel(const bf16* __restrict__ dk, const bf16* __restrict__ dv,
+              const bf16* __restrict__ wk, const bf16* __restrict__ wv, float* __restrict__ dxn,
+              int rows, int din, int D) {
+  namespace mm = vpt::mma;
+  constexpr int SLOT = (PJ_BM + PJ_BN) * PJ_LDK;  // [BM][LDK] of dk|dv, [BN][LDK] of w
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
+  const int c0 = blockIdx.x * PJ_BN, m0 = blockIdx.y * PJ_BM;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, nc = 2 * D / PJ_KC;
+  auto load = [&](int c) {
+    bf16* as = ring + (c % PJ_STAGES) * SLOT;
+    const bool second = c * PJ_KC >= D;  // dv / wv
+    const int j0 = c * PJ_KC - (second ? D : 0);
+    mm::cp_rows<PJ_KC, PJ_BM, PJ_THREADS>(as, PJ_LDK, (second ? dv : dk) + j0, D, m0, rows, tid);
+    mm::cp_rows<PJ_KC, PJ_BN, PJ_THREADS>(as + PJ_BM * PJ_LDK, PJ_LDK, (second ? wv : wk) + j0,
+                                          D, c0, din, tid);
+  };
+#pragma unroll
+  for (int st = 0; st < PJ_STAGES - 1; ++st) {
+    if (st < nc) load(st);
+    mm::cp_async_commit();
+  }
+  const int wm = warp / PJ_WARPS_N, wn = warp % PJ_WARPS_N;
+  float acc[PJ_MI][PJ_NI][4];
+  zero_acc(acc);
+  for (int c = 0; c < nc; ++c) {
+    mm::cp_async_wait<PJ_STAGES - 2>();
+    __syncthreads();
+    if (c + PJ_STAGES - 1 < nc) load(c + PJ_STAGES - 1);
+    mm::cp_async_commit();
+    const bf16* as = ring + (c % PJ_STAGES) * SLOT;
+    mm::warp_abt<PJ_MI, PJ_NI>(acc, as + wm * PJ_WM * PJ_LDK, PJ_LDK,
+                               as + (PJ_BM + wn * PJ_WN) * PJ_LDK, PJ_LDK, PJ_KC, lane);
+  }
+  mm::cp_async_wait<0>();
+  const int grp = lane >> 2, cl = 2 * (lane & 3);
+#pragma unroll
+  for (int i = 0; i < PJ_MI; ++i)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int m = m0 + wm * PJ_WM + 16 * i + 8 * hh + grp;
+      if (m >= rows) continue;
+#pragma unroll
+      for (int j = 0; j < PJ_NI; ++j) {
+        const int c = c0 + wn * PJ_WN + 8 * j + cl;
+        if (c < din)  // din even: the pair is in the row
+          *reinterpret_cast<float2*>(dxn + (size_t)m * din + c) =
+              make_float2(acc[i][j][2 * hh], acc[i][j][2 * hh + 1]);
+      }
+    }
+}
+
+// (d) one block per (128 x 128 tile of [dWk | dWv] ([Din, 2D]), split of
+// the token rows); 32-row stages of xn's and [dk | dv]'s tile columns.
+__global__ void __launch_bounds__(PJ_THREADS, 2)
+dw_tc_kernel(const bf16* __restrict__ xn, const bf16* __restrict__ dk,
+             const bf16* __restrict__ dv, int rows, int din, int D, int splits,
+             float* __restrict__ wpart) {
+  namespace mm = vpt::mma;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // [STAGES][KR][LDN]
+  bf16* ys = xs + PJ_STAGES * PJ_KR * PJ_LDN;     // [STAGES][KR][LDN]
+  const int tiles_n = 2 * D / PJ_BN;
+  const int c0 = (blockIdx.x / tiles_n) * PJ_BM, n0 = (blockIdx.x % tiles_n) * PJ_BN;
+  const int split = blockIdx.y, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int2 range = vpt::split_range(rows, PJ_KR, split, splits);
+  const int t_begin = range.x / PJ_KR, t_end = (range.y + PJ_KR - 1) / PJ_KR, r_end = range.y;
+  auto load = [&](int t) {
+    const int slot = (t - t_begin) % PJ_STAGES;
+    mm::cp_rows<PJ_BM, PJ_KR, PJ_THREADS>(xs + slot * PJ_KR * PJ_LDN, PJ_LDN, xn + c0, din,
+                                          t * PJ_KR, r_end, tid, din - c0);
+    cp_rows_pair<PJ_BN, PJ_KR>(ys + slot * PJ_KR * PJ_LDN, PJ_LDN, dk, dv, D, n0, t * PJ_KR,
+                               r_end, tid);
+  };
+#pragma unroll
+  for (int st = 0; st < PJ_STAGES - 1; ++st) {
+    if (t_begin + st < t_end) load(t_begin + st);
+    mm::cp_async_commit();
+  }
+  const int wm = warp / PJ_WARPS_N, wn = warp % PJ_WARPS_N;
+  float acc[PJ_MI][PJ_NI][4], unused[PJ_NI][4];
+  zero_acc(acc);
+  for (int t = t_begin; t < t_end; ++t) {
+    mm::cp_async_wait<PJ_STAGES - 2>();
+    __syncthreads();
+    if (t + PJ_STAGES - 1 < t_end) load(t + PJ_STAGES - 1);
+    mm::cp_async_commit();
+    const int slot = (t - t_begin) % PJ_STAGES;
+    mm::warp_atb<PJ_MI, PJ_NI, false>(acc, unused, xs + slot * PJ_KR * PJ_LDN + wm * PJ_WM,
+                                      PJ_LDN, ys + slot * PJ_KR * PJ_LDN + wn * PJ_WN, PJ_LDN,
+                                      PJ_KR, lane);
+  }
+  mm::cp_async_wait<0>();
+  float* wp = wpart + (size_t)split * din * 2 * D;
+  const int grp = lane >> 2, cl = 2 * (lane & 3);
+#pragma unroll
+  for (int i = 0; i < PJ_MI; ++i)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int m = c0 + wm * PJ_WM + 16 * i + 8 * hh + grp;
+      if (m >= din) continue;
+#pragma unroll
+      for (int j = 0; j < PJ_NI; ++j)
+        *reinterpret_cast<float2*>(wp + (size_t)m * 2 * D + n0 + wn * PJ_WN + 8 * j + cl) =
+            make_float2(acc[i][j][2 * hh], acc[i][j][2 * hh + 1]);
+    }
+}
+
+// (a) then (b): stats, xn and k, v of rows tokens.
+int kv_project(const void* x, const void* ln_w, const void* ln_b, const void* wk, const void* wv,
+               void* k, void* v, void* xn, void* stats, int rows, int din, int D,
+               cudaStream_t st) {
+  if (rows < 1 || din < PJ_KC || din % PJ_KC || D < DH || D % DH)
+    return (int)cudaErrorInvalidValue;
+  ln_xn_kernel<<<(rows + LN_ROWS - 1) / LN_ROWS, 32 * LN_ROWS, 0, st>>>(
+      (const bf16*)x, (const float*)ln_w, (const float*)ln_b, rows, din, (bf16*)xn,
+      (float2*)stats);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(kv_proj_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)PJ_KV_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  kv_proj_tc_kernel<<<dim3(2 * D / PJ_BN, (rows + PJ_BM - 1) / PJ_BM), PJ_THREADS, PJ_KV_SMEM,
+                      st>>>((const bf16*)xn, (const bf16*)wk, (const bf16*)wv, (bf16*)k,
+                            (bf16*)v, rows, din, D);
+  return (int)cudaGetLastError();
+}
+
+// (a), (b), then the attention on the CUDA cores (flash_fwd<bf16>)
+int attn_train_kv_fwd(const void* q, const void* x, const void* ln_w, const void* ln_b,
+                      const void* wk, const void* wv, const void* seed, void* out, void* lse,
+                      void* kbuf, void* vbuf, void* rowstats, void* xn, int B, int G, int M,
+                      int din, int H, float scale, float keep_p, unsigned thresh, int drop,
+                      cudaStream_t st) {
+  int e = kv_project(x, ln_w, ln_b, wk, wv, kbuf, vbuf, xn, rowstats, B * M, din, H * DH, st);
+  if (e != cudaSuccess) return e;
+  return vpt_flash::flash_fwd<bf16>(static_cast<const bf16*>(q), static_cast<const bf16*>(kbuf),
+                         static_cast<const bf16*>(vbuf), static_cast<const int*>(seed),
+                         static_cast<bf16*>(out), static_cast<float*>(lse), B, G, M, H, scale,
+                         keep_p, thresh, drop, st);
+}
+
+int attn_train_kv_bwd(const void* q, const void* x, const void* ln_w, const void* ln_b,
+                      const void* wk, const void* wv, const void* seed, const void* dout,
+                      const void* lse, const void* delta, void* dq, void* dx, void* dw,
+                      void* dlnw, void* dlnb, void* kbuf, void* vbuf, void* rowstats, void* xn,
+                      void* dk, void* dv, void* dxn, void* part, void* wpart, int B, int G, int M,
+                      int din, int H, int splits, int nblk, float scale, float keep_p,
+                      unsigned thresh, int drop, cudaStream_t st) {
+  const int D = H * DH, rows = B * M;
+  if (splits < 1 || splits > (rows + PJ_KR - 1) / PJ_KR) return (int)cudaErrorInvalidValue;
+  int e = kv_project(x, ln_w, ln_b, wk, wv, kbuf, vbuf, xn, rowstats, rows, din, D, st);
+  if (e != cudaSuccess) return e;
+  e = flash_bwd(q, kbuf, vbuf, dout, lse, delta, seed, dq, dk, dv, B, G, M, H, scale, keep_p,
+                thresh, drop, st);
+  if (e != cudaSuccess) return e;
+  const bf16 *dk_ = (const bf16*)dk, *dv_ = (const bf16*)dv;
+  // dxn = [dk | dv] [wk | wv]^T  [rows, Din] f32
+  cudaError_t err = cudaFuncSetAttribute(dxn_tc_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)PJ_DX_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  float* dxn_ = static_cast<float*>(dxn);
+  dxn_tc_kernel<<<dim3((din + PJ_BN - 1) / PJ_BN, (rows + PJ_BM - 1) / PJ_BM), PJ_THREADS,
+                  PJ_DX_SMEM, st>>>(dk_, dv_, (const bf16*)wk, (const bf16*)wv, dxn_, rows, din,
+                                    D);
+  // dx and the dLN scale / bias column sums, on the CUDA cores
+  LnRow<bf16> ln{static_cast<const bf16*>(x), static_cast<const float2*>(rowstats),
+                 static_cast<const float*>(ln_w), static_cast<const float*>(ln_b), din};
+  ln_bwd_kernel<bf16><<<(rows + 7) / 8, 256, 0, st>>>(ln, dxn_, rows, static_cast<bf16*>(dx));
+  float* part_ = static_cast<float*>(part);
+  colsum2(rows, din, nblk, LnGradCols<bf16>{ln, dxn_}, part_, st);
+  sum_parts(nblk, din, part_, static_cast<float*>(dlnw), static_cast<float*>(dlnb), st);
+  // [dWk | dWv] = xn^T [dk | dv]  ([Din, 2D], f32), split over the tokens
+  err = cudaFuncSetAttribute(dw_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)PJ_DW_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  float* wpart_ = static_cast<float*>(wpart);
+  dw_tc_kernel<<<dim3((din + PJ_BM - 1) / PJ_BM * (2 * D / PJ_BN), splits), PJ_THREADS,
+                 PJ_DW_SMEM, st>>>((const bf16*)xn, dk_, dv_, rows, din, D, splits, wpart_);
+  sum_splits(splits, din * 2 * D, wpart_, static_cast<float*>(dw), st);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
 
 }  // namespace vpt_flash
 
@@ -1110,10 +1458,8 @@ extern "C" int attn_train_bwd_tc_bf16(const void* q, const void* k, const void* 
                                       const void* seed, const void* dout, const void* lse,
                                       const void* delta, void* dq, void* dk, void* dv, int b,
                                       int g, int m, int h, SEED_ARGS) {
-  return tc::flash_bwd<__nv_bfloat16>(q, k, v, dout, lse, delta, seed, dq,
-                                      static_cast<__nv_bfloat16*>(dk),
-                                      static_cast<__nv_bfloat16*>(dv), b, g, m, h, scale, keep_p,
-                                      thresh, drop, static_cast<cudaStream_t>(stream));
+  return tc::flash_bwd(q, k, v, dout, lse, delta, seed, dq, dk, dv, b, g, m, h, scale, keep_p,
+                       thresh, drop, static_cast<cudaStream_t>(stream));
 }
 
 #define KV_FWD_ARGS                                                                         \
@@ -1125,8 +1471,16 @@ extern "C" int attn_train_bwd_tc_bf16(const void* q, const void* k, const void* 
       keep_p, thresh, drop, stream
 
 extern "C" int attn_train_kv_fwd_f32(KV_FWD_ARGS) { return attn_train_kv_fwd<float>(KV_FWD_PASS); }
-extern "C" int attn_train_kv_fwd_bf16(KV_FWD_ARGS) {
-  return attn_train_kv_fwd<__nv_bfloat16>(KV_FWD_PASS);
+// bf16: the projection on the tensor cores, xn [B*M, Din] bf16 scratch
+// (pointers 16-byte aligned)
+extern "C" int attn_train_kv_fwd_tc_bf16(const void* q, const void* x, const void* ln_w,
+                                         const void* ln_b, const void* wk, const void* wv,
+                                         const void* seed, void* out, void* lse, void* kbuf,
+                                         void* vbuf, void* rowstats, void* xn, int b, int g, int m,
+                                         int din, int h, SEED_ARGS) {
+  return tc::attn_train_kv_fwd(q, x, ln_w, ln_b, wk, wv, seed, out, lse, kbuf, vbuf, rowstats, xn,
+                               b, g, m, din, h, scale, keep_p, thresh, drop,
+                               static_cast<cudaStream_t>(stream));
 }
 
 #define KV_BWD_ARGS                                                                         \
@@ -1141,8 +1495,31 @@ extern "C" int attn_train_kv_fwd_bf16(KV_FWD_ARGS) {
       drop, stream
 
 extern "C" int attn_train_kv_bwd_f32(KV_BWD_ARGS) { return attn_train_kv_bwd<float>(KV_BWD_PASS); }
-extern "C" int attn_train_kv_bwd_bf16(KV_BWD_ARGS) {
-  return attn_train_kv_bwd<__nv_bfloat16>(KV_BWD_PASS);
+
+// bf16 on the tensor cores (pointers 16-byte aligned); scratch: k, v [B, M,
+// H*64] and xn [B*M, Din] bf16, rowstats f32 [B*M, 2], dk, dv bf16 [B, M,
+// H*64], dxn f32 [B*M, Din], part f32 [nblk, 2, Din], wpart f32 [splits,
+// Din, 2 H*64]; dw f32 [Din, 2 H*64] is [dWk | dWv]
+extern "C" int attn_train_kv_bwd_tc_bf16(
+    const void* q, const void* x, const void* ln_w, const void* ln_b, const void* wk,
+    const void* wv, const void* seed, const void* dout, const void* lse, const void* delta,
+    void* dq, void* dx, void* dw, void* dlnw, void* dlnb, void* kbuf, void* vbuf, void* rowstats,
+    void* xn, void* dk, void* dv, void* dxn, void* part, void* wpart, int b, int g, int m,
+    int din, int h, int splits, int nblk, SEED_ARGS) {
+  return tc::attn_train_kv_bwd(q, x, ln_w, ln_b, wk, wv, seed, dout, lse, delta, dq, dx, dw, dlnw,
+                               dlnb, kbuf, vbuf, rowstats, xn, dk, dv, dxn, part, wpart, b, g, m,
+                               din, h, splits, nblk, scale, keep_p, thresh, drop,
+                               static_cast<cudaStream_t>(stream));
+}
+
+// K7's LN-folded k|v projection alone (bf16, tensor cores): x [rows, Din],
+// ln_w, ln_b f32 [Din], wk, wv [Din, H*64] -> k, v [rows, H*64]; xn [rows,
+// Din] bf16 and stats f32 [rows, 2] are written too
+extern "C" int kv_project_tc_bf16(const void* x, const void* ln_w, const void* ln_b,
+                                  const void* wk, const void* wv, void* k, void* v, void* xn,
+                                  void* stats, int rows, int din, int h, void* stream) {
+  return tc::kv_project(x, ln_w, ln_b, wk, wv, k, v, xn, stats, rows, din, h * DH,
+                        static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int dropout_mask_u8(const void* seed, int bh, int g, int m, unsigned thresh, void* out,

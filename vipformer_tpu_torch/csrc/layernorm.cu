@@ -85,31 +85,6 @@ ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ s, const float*
 constexpr int BWD_WARPS = 16, BWD_THREADS = 32 * BWD_WARPS;
 constexpr int LANE_COLS = 16;  // columns a lane holds: a warp covers 512
 
-template <int BYTES> struct Raw;
-template <> struct Raw<2> { using type = unsigned short; };
-template <> struct Raw<4> { using type = unsigned int; };
-template <> struct Raw<8> { using type = uint2; };
-template <> struct Raw<16> { using type = uint4; };
-
-// VEC adjacent elements as one load / store (p aligned to their size)
-template <typename T, int VEC>
-__device__ __forceinline__ void load_vec(const T* __restrict__ p, float (&out)[VEC]) {
-  using R = typename Raw<VEC * sizeof(T)>::type;
-  const R raw = *reinterpret_cast<const R*>(p);
-  const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) out[i] = vpt::to_f32(e[i]);
-}
-template <typename T, int VEC>
-__device__ __forceinline__ void store_vec(T* __restrict__ p, const float (&v)[VEC]) {
-  using R = typename Raw<VEC * sizeof(T)>::type;
-  R raw;
-  T* e = reinterpret_cast<T*>(&raw);
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) e[i] = vpt::from_f32<T>(v[i]);
-  *reinterpret_cast<R*>(p) = raw;
-}
-
 // Dynamic shared memory: acc[BWD_WARPS / wpr][2][D] f32, then the row
 // sums red[2][BWD_WARPS][2] (double buffered).
 template <typename T, int VEC>
@@ -124,7 +99,6 @@ ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, const float* __
   // that the 512 threads' 128 registers hold the rest without spilling
   constexpr bool SC_REGS = VEC >= 4;
   extern __shared__ float sm[];
-  __shared__ int last;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int slots = BWD_WARPS / wpr, slot = warp / wpr, w = warp % wpr;
   const int nch = D / VEC;
@@ -156,8 +130,8 @@ ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, const float* __
     for (int j = 0; j < NCH; ++j) {  // all loads first: they are in flight together
       const int c = (j * wpr + w) * 32 + lane;
       if (rv && c < nch) {
-        load_vec<T, VEC>(x + off + c * VEC, xh[j]);
-        load_vec<T, VEC>(dy + off + c * VEC, g[j]);
+        vpt::load_vec<T, VEC>(x + off + c * VEC, xh[j]);
+        vpt::load_vec<T, VEC>(dy + off + c * VEC, g[j]);
       } else {
 #pragma unroll
         for (int i = 0; i < VEC; ++i) xh[j][i] = g[j][i] = 0.f;
@@ -201,7 +175,7 @@ ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, const float* __
       float o[VEC];
 #pragma unroll
       for (int i = 0; i < VEC; ++i) o[i] = rs * (g[j][i] * scale_at(j, i) - m1 - xh[j][i] * m2);
-      store_vec<T, VEC>(dx + off + c * VEC, o);
+      vpt::store_vec<T, VEC>(dx + off + c * VEC, o);
     }
   }
   // the block's row slots -> its partial [2][D], in slot order
@@ -222,36 +196,7 @@ ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, const float* __
     for (int k = 0; k < slots; ++k) t += acc[(size_t)k * 2 * D + i];
     mine[i] = t;
   }
-  // the last block of the group sums the group's partials, the last of
-  // those the group sums; the others are done
-  const int splits = gridDim.x, ngroups = (splits + group - 1) / group;
-  const int gi = blockIdx.x / group, first = gi * group, members = min(group, splits - first);
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(&arrive[gi], 1) == members - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  float* gsum = part + ((size_t)splits + gi) * 2 * D;
-  for (int i = threadIdx.x; i < 2 * D; i += BWD_THREADS) {
-    float t = 0.f;
-    for (int k = first; k < first + members; ++k) t += __ldcg(part + (size_t)k * 2 * D + i);
-    gsum[i] = t;
-  }
-  if (threadIdx.x == 0) arrive[gi] = 0;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(&arrive[ngroups], 1) == ngroups - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  for (int i = threadIdx.x; i < 2 * D; i += BWD_THREADS) {
-    float t = 0.f;
-    for (int k = 0; k < ngroups; ++k) t += __ldcg(part + ((size_t)splits + k) * 2 * D + i);
-    if (i < D) dscale[i] = t;
-    else dbias[i - D] = t;
-  }
-  if (threadIdx.x == 0) arrive[ngroups] = 0;
+  vpt::last_block_sums(part, arrive, group, D, dscale, dbias);
 }
 
 inline size_t bwd_smem(int D, int wpr) {

@@ -3,9 +3,10 @@
 // accumulate), `ldmatrix` fragment loads, and `cp.async` 16-byte copies
 // from device to shared memory, plus the warp-level attention tiles that
 // K5, K6 and K13 (attention.cu), K8 (flash_train.cu) and K14 (mha.cu)
-// share, and two warp-level GEMM tiles: C += A^T . B (the contraction down
-// the rows of both operands) that K11 (dense.cu) runs, and C += A . B that
-// K6's projections run.
+// share, and three warp-level GEMM tiles: C += A^T . B (the contraction
+// down the rows of both operands) that K11 (dense.cu) and K7's weight
+// gradients run, C += A . B that K6's and K7's projections run, and C += A
+// . B^T that K7's dx runs (flash_train.cu).
 //
 // Fragment layouts of mma.m16n8k16 (PTX ISA, "Matrix Fragments for
 // mma.m16n8k16"), with lane = 4 * grp + tig:
@@ -365,6 +366,37 @@ __device__ __forceinline__ void warp_ab(float (&c)[MI][NI][4], const bf16* a, in
       uint32_t bf[4];
       ldmatrix_x4_trans(bf, b + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ldb + 16 * j +
                                 (lane >> 4) * 8);
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        mma_bf16(c[i][2 * j], af[i], bf[0], bf[1]);
+        mma_bf16(c[i][2 * j + 1], af[i], bf[2], bf[3]);
+      }
+    }
+  }
+}
+
+// C += A . B^T for one warp: A a [16 MI x k] tile and B a [8 NI x k] tile
+// (B's rows are C's columns), both row-major bf16 in shared memory, rows
+// `lda` and `ldb` elements apart, k a multiple of 16. Both come through
+// ldmatrix without .trans: a row-major [n x k] tile is the "col" B
+// fragment, as warp_scores reads k. c[i][j] is the f32 accumulator of rows
+// 16i.. and columns 8j.. of C. The k steps run in order: the same inputs
+// give the same bits.
+template <int MI, int NI>
+__device__ __forceinline__ void warp_abt(float (&c)[MI][NI][4], const bf16* a, int lda,
+                                         const bf16* b, int ldb, int k, int lane) {
+  static_assert(NI % 2 == 0, "B fragments come in pairs of n8 tiles");
+  for (int k0 = 0; k0 < k; k0 += 16) {
+    uint32_t af[MI][4];
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+      ldmatrix_x4(af[i], a + (16 * i + (lane & 15)) * lda + k0 + (lane >> 4) * 8);
+#pragma unroll
+    for (int j = 0; j < NI / 2; ++j) {
+      // matrices: (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7), (n 8-15, k 8-15)
+      uint32_t bf[4];
+      ldmatrix_x4(bf, b + (16 * j + (lane & 7) + ((lane >> 4) << 3)) * ldb + k0 +
+                          ((lane >> 3) & 1) * 8);
 #pragma unroll
       for (int i = 0; i < MI; ++i) {
         mma_bf16(c[i][2 * j], af[i], bf[0], bf[1]);

@@ -211,4 +211,86 @@ inline void sum_parts(int nblk, int C, const float* part, float* out0, float* ou
   sum_parts_kernel<<<(2 * C + 255) / 256, 256, 0, st>>>(nblk, C, part, out0, out1);
 }
 
+// The rows [begin, end) of split `split`: whole steps of `step` rows, split
+// s of S taking steps [s n / S, (s + 1) n / S) of the n, so that no split
+// is empty when S <= n (ops/cuda/dense.py `split_rows` mirrors it).
+__device__ __forceinline__ int2 split_range(int r, int step, int split, int splits) {
+  const long long n = (r + step - 1) / step;
+  const int b = (int)(split * n / splits) * step, e = (int)((split + 1) * n / splits) * step;
+  return make_int2(b, min(r, e));
+}
+
+// ------------------------------------------- one-pass column reductions
+// The one-pass backwards (K17's ln_bwd_kernel, K18's grad_kernel) read
+// their rows once, VEC adjacent columns a load, and sum each block's
+// slice of the rows into its partial part[block][2][C]; the partials are
+// then summed without a second launch by last_block_sums.
+
+template <int BYTES> struct Raw;
+template <> struct Raw<2> { using type = unsigned short; };
+template <> struct Raw<4> { using type = unsigned int; };
+template <> struct Raw<8> { using type = uint2; };
+template <> struct Raw<16> { using type = uint4; };
+
+// VEC adjacent elements as one load / store (p aligned to their size)
+template <typename T, int VEC>
+__device__ __forceinline__ void load_vec(const T* __restrict__ p, float (&out)[VEC]) {
+  using R = typename Raw<VEC * sizeof(T)>::type;
+  const R raw = *reinterpret_cast<const R*>(p);
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) out[i] = to_f32(e[i]);
+}
+template <typename T, int VEC>
+__device__ __forceinline__ void store_vec(T* __restrict__ p, const float (&v)[VEC]) {
+  using R = typename Raw<VEC * sizeof(T)>::type;
+  R raw;
+  T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) e[i] = from_f32<T>(v[i]);
+  *reinterpret_cast<R*>(p) = raw;
+}
+
+// Called by every thread of every block after the block wrote its partial
+// part[blockIdx.x][2][C]: the last block of each group of `group` blocks
+// to arrive (an integer counter, not a float atomic) sums its group's
+// partials in block order into part[gridDim.x + group index], and the
+// last of those sums the group sums in group order into out0 (the first
+// C) and out1 (the second C), then resets the counters `arrive` [groups +
+// 1] to 0 for the next launch. Every sum runs in a fixed order, so the
+// bits are the same run to run.
+__device__ __forceinline__ void last_block_sums(float* __restrict__ part, int* __restrict__ arrive,
+                                                int group, int C, float* __restrict__ out0,
+                                                float* __restrict__ out1) {
+  __shared__ int last;
+  const int splits = gridDim.x, ngroups = (splits + group - 1) / group;
+  const int gi = blockIdx.x / group, first = gi * group, members = min(group, splits - first);
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(&arrive[gi], 1) == members - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  float* gsum = part + ((size_t)splits + gi) * 2 * C;
+  for (int i = threadIdx.x; i < 2 * C; i += blockDim.x) {
+    float t = 0.f;
+    for (int k = first; k < first + members; ++k) t += __ldcg(part + (size_t)k * 2 * C + i);
+    gsum[i] = t;
+  }
+  if (threadIdx.x == 0) arrive[gi] = 0;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(&arrive[ngroups], 1) == ngroups - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int i = threadIdx.x; i < 2 * C; i += blockDim.x) {
+    float t = 0.f;
+    for (int k = 0; k < ngroups; ++k) t += __ldcg(part + ((size_t)splits + k) * 2 * C + i);
+    if (i < C) out0[i] = t;
+    else out1[i - C] = t;
+  }
+  if (threadIdx.x == 0) arrive[ngroups] = 0;
+}
+
 }  // namespace vpt

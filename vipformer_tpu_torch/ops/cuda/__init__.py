@@ -39,6 +39,8 @@ NVCC_FLAGS = [
 # twins use this one, the kernels vpt::LN_EPS in csrc/common.cuh (a test
 # holds the two equal); the JAX package hard-codes 1e-5 in each place.
 LN_EPS = 1e-5
+# the one-pass backwards' arrival counters (a group count + 1 of them)
+ARRIVE_COUNTERS = 256
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -65,10 +67,14 @@ SIGNATURES = {
     "attn_train_fwd_tc_bf16": [_P] * 6 + [_I] * 4 + [_F, _F, _U, _I, _P],
     "attn_train_bwd_f32": [_P] * 10 + [_I] * 4 + [_F, _F, _U, _I, _P],
     "attn_train_bwd_tc_bf16": [_P] * 10 + [_I] * 4 + [_F, _F, _U, _I, _P],
+    # K7: f32 on the CUDA cores; bf16 with its products on the tensor cores
+    # (one more scratch pointer each way, xn), and its projection alone
+    # (x, ln_w, ln_b, wk, wv, k, v, xn, stats, rows, din, h, stream)
     "attn_train_kv_fwd_f32": [_P] * 12 + [_I] * 5 + [_F, _F, _U, _I, _P],
-    "attn_train_kv_fwd_bf16": [_P] * 12 + [_I] * 5 + [_F, _F, _U, _I, _P],
+    "attn_train_kv_fwd_tc_bf16": [_P] * 13 + [_I] * 5 + [_F, _F, _U, _I, _P],
     "attn_train_kv_bwd_f32": [_P] * 23 + [_I] * 7 + [_F, _F, _U, _I, _P],
-    "attn_train_kv_bwd_bf16": [_P] * 23 + [_I] * 7 + [_F, _F, _U, _I, _P],
+    "attn_train_kv_bwd_tc_bf16": [_P] * 24 + [_I] * 7 + [_F, _F, _U, _I, _P],
+    "kv_project_tc_bf16": [_P] * 9 + [_I] * 3 + [_P],
     "dropout_mask_u8": [_P, _I, _I, _I, _U, _P, _P],
     # K9
     "g2e_fwd_f32": [_P] * 21 + [_I] * 5 + [_P],
@@ -102,11 +108,11 @@ SIGNATURES = {
     "attn_small_qkv_ln_f32": [_P] * 7 + [_I] * 4 + [_F, _P],
     "attn_small_qkv_ln_tc_bf16": [_P] * 7 + [_I] * 4 + [_F, _P],
     # K18 (x, sum, sumsq, part, r, c, splits, stream); (x, dy, mean, rstd,
-    # dscale, dbias, part, r, c, splits, stream)
+    # dscale, dbias, part, arrive, r, c, per, group, vec, stream)
     "bn_stats_f32": [_P] * 4 + [_I] * 3 + [_P],
     "bn_stats_bf16": [_P] * 4 + [_I] * 3 + [_P],
-    "bn_grad_reduces_f32": [_P] * 7 + [_I] * 3 + [_P],
-    "bn_grad_reduces_bf16": [_P] * 7 + [_I] * 3 + [_P],
+    "bn_grad_reduces_f32": [_P] * 8 + [_I] * 5 + [_P],
+    "bn_grad_reduces_bf16": [_P] * 8 + [_I] * 5 + [_P],
     # K17 (x, s, b, y, mu, rsig, r, d, stream); (x, dy, mu, rsig, s, dx,
     # dscale, dbias, part, arrive, r, d, per, group, vec, wpr, stream)
     "ln_fwd_f32": [_P] * 6 + [_I] * 2 + [_P],
@@ -117,6 +123,7 @@ SIGNATURES = {
 
 _lib = None
 _lock = threading.Lock()
+_arrive: dict = {}  # (kernel, device) -> the one-pass kernels' int32 arrival counters
 
 
 def _nvcc() -> str:
@@ -197,9 +204,10 @@ def entry_point(base: str, dt: torch.dtype) -> str:
 
 def tc_route(base: str, dt: torch.dtype) -> str:
     """The C entry point of a kernel with a tensor-core route (K5
-    `attn_small`, K6 `attn_small_qkv_ln`, K8's forward `attn_train_fwd`
-    and backward `attn_train_bwd`, K11 `dense_grads`, K13 `attn_packed`,
-    K14 `mha`) for
+    `attn_small`, K6 `attn_small_qkv_ln`, K7's forward `attn_train_kv_fwd`
+    and backward `attn_train_kv_bwd`, K8's forward `attn_train_fwd` and
+    backward `attn_train_bwd`, K11 `dense_grads`, K13 `attn_packed`, K14
+    `mha`) for
     dtype `dt`: bf16 on the tensor cores, f32 on the CUDA cores (a
     tensor-core f32 product is TF32, about 3 decimal digits: it would break
     the f32 bounds against the twins). Not a fallback: each dtype has one
@@ -227,6 +235,18 @@ def sm_count(index: int) -> int:
     """SMs of CUDA device `index` (asked once: the query costs microseconds
     of host time at every launch)."""
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def arrive_counters(kernel: str, dev) -> int:
+    """The data pointer of `kernel`'s int32 arrival counters on `dev`
+    (K17's and K18's one-pass backwards: train_common.cuh
+    last_block_sums): zeroed once, and reset to 0 by the kernel's last
+    block, so that its launches on one stream share them."""
+    t = _arrive.get((kernel, dev))
+    if t is None:
+        t = _arrive[(kernel, dev)] = torch.zeros((ARRIVE_COUNTERS,), dtype=torch.int32,
+                                                 device=dev)
+    return t.data_ptr()
 
 
 def check(err: int, name: str) -> None:

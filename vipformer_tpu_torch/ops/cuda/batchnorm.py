@@ -6,7 +6,9 @@ ops/pallas/batchnorm.py).
   f32 [C]) -> (dscale = sum dy * xhat, dbias = sum dy), f32 [C], xhat
   recomputed from the saved statistics.
   The kernel entry points launch `csrc/batchnorm.cu` on CUDA tensors and
-  run the plain twin on CPU tensors.
+  run the plain twin on CPU tensors. The gradient reduces run in one
+  launch (one pass, about one block an SM, the split partials summed by
+  the last blocks to arrive behind integer counters; `bwd_plan`).
 * `bn_train_enabled`: the port's copy of the JAX gate (batchnorm.py:149-
   171): off under auto (the JAX package measured the kernel a net loss on
   its TPU), and when forced, on where the JAX kernel's row blocking is
@@ -19,17 +21,21 @@ ops/pallas/batchnorm.py).
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from vipformer_tpu_torch.ops import cuda
+from vipformer_tpu_torch.ops.cuda.layernorm import vec_for
 
 STATS_LAUNCHES = cuda.LaunchCounter()
 GRAD_LAUNCHES = cuda.LaunchCounter()
 # None = auto (off, as in JAX batchnorm.py:49,171), a bool forces it
 USE_BN_TRAIN: bool | None = None
 _VMEM_BUDGET = 8 * 1024 * 1024  # the JAX kernel's row-block budget (:51)
-BLOCKS_PER_SM = 8  # the wrapper splits the rows until about this many blocks per SM
-COLS_PER_BLOCK = 64  # columns of one block of the CUDA kernel
+BLOCKS_PER_SM = 8  # the statistics kernel's row splits: about this many blocks per SM
+COLS_PER_BLOCK = 64  # columns of one block of the statistics kernel
+GRAD_WARPS = 16  # warps of a block of the gradient kernel, each on its own rows
 
 
 def _pick_block_rows(r: int, c: int, n_inputs: int, itemsize: int) -> int:
@@ -65,8 +71,8 @@ def bn_grad_reduces_plain(x2d, dy2d, mean, rstd):
 
 
 def splits_for(r: int, c: int, sms: int) -> int:
-    """Row splits of the kernels: about BLOCKS_PER_SM blocks per SM over the
-    column tiles, at most one split per 8 rows."""
+    """Row splits of the statistics kernel: about BLOCKS_PER_SM blocks per
+    SM over the column tiles, at most one split per 8 rows."""
     tiles = -(-c // COLS_PER_BLOCK)
     return max(1, min(-(-r // 8), -(-BLOCKS_PER_SM * sms // tiles)))
 
@@ -78,6 +84,16 @@ def _operand(t: torch.Tensor, name: str, dt, shape) -> torch.Tensor:
         t = t.clone()
     cuda.require(t, name, dt, shape)
     return t
+
+
+def bwd_plan(r: int, sms: int) -> tuple[int, int, int]:
+    """(rows a split, splits, splits a group) of the gradient kernel: about
+    one block an SM, no more blocks than the rows fill (a row for each of a
+    block's warps); the partials are summed in groups of about
+    sqrt(splits) (csrc/batchnorm.cu grad_kernel)."""
+    per = -(-r // min(sms, -(-r // GRAD_WARPS)))
+    splits = -(-r // per)
+    return per, splits, math.isqrt(splits - 1) + 1
 
 
 def _scratch(r: int, c: int, device):
@@ -114,11 +130,17 @@ def bn_grad_reduces(x2d, dy2d, mean, rstd):
     dy2d = _operand(dy2d, "dy", dt, (r, c))
     mean = _operand(mean.float(), "mean", torch.float32, (c,))
     rstd = _operand(rstd.float(), "rstd", torch.float32, (c,))
-    splits, ds, db, part = _scratch(r, c, x2d.device)
+    dev = x2d.device
+    per, splits, group = bwd_plan(r, cuda.sm_count(dev.index or 0))
+    f32 = dict(dtype=torch.float32, device=dev)
+    ds, db = torch.empty((c,), **f32), torch.empty((c,), **f32)
+    part = torch.empty((splits + -(-splits // group), 2, c), **f32)
+    vec = vec_for(c, x2d.element_size(), x2d.data_ptr(), dy2d.data_ptr())
     GRAD_LAUNCHES.n += 1
     cuda.check(getattr(cuda.lib(), fn)(x2d.data_ptr(), dy2d.data_ptr(), mean.data_ptr(),
                                        rstd.data_ptr(), ds.data_ptr(), db.data_ptr(),
-                                       part.data_ptr(), r, c, splits, cuda.stream_ptr()), fn)
+                                       part.data_ptr(), cuda.arrive_counters("bn_grad", dev),
+                                       r, c, per, group, vec, cuda.stream_ptr()), fn)
     return ds, db
 
 

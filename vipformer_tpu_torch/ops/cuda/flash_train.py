@@ -12,10 +12,13 @@ tensors. Semantics are torch's softmax -> dropout -> @V with the softmax
 denominator over the undropped p; the forward keeps only the per-row
 logsumexp, the backward recomputes p and regenerates the dropout mask.
 
-K8's forward and backward pick their kernels by dtype (`cuda.tc_route`):
-bf16 runs on the tensor cores (mma.sync, csrc/mma.cuh), f32 on the CUDA
-cores. K7's bf16 backward runs its attention through K8's tensor-core
-backward (with f32 dk, dv); the rest of K7 runs on the CUDA cores.
+K8's forward and backward and K7's forward and backward pick their
+kernels by dtype (`cuda.tc_route`): bf16 runs on the tensor cores
+(mma.sync, csrc/mma.cuh), f32 on the CUDA cores. In bf16, K7's LayerNorm-
+folded k|v projection (`kv_project_kernel` runs it alone), its backward's
+attention (K8's tensor-core backward, bf16 dk, dv), dx through the
+projections and the weight gradients run on the tensor cores; its forward
+attention, the LayerNorm backward and its column sums on the CUDA cores.
 
 Dropout: the keep bit of (cloud b, head h, query g, key m) is a pure
 function of (seed, b*H + h, g, m) through a 32-bit integer hash, and kept
@@ -31,14 +34,18 @@ import numpy as np
 import torch
 
 from vipformer_tpu_torch.ops import cuda
+from vipformer_tpu_torch.ops.cuda import dense
 
 FWD_LAUNCHES = cuda.LaunchCounter()
 BWD_LAUNCHES = cuda.LaunchCounter()
 KV_FWD_LAUNCHES = cuda.LaunchCounter()
 KV_BWD_LAUNCHES = cuda.LaunchCounter()
 KERNEL_HEAD_DIM = 64  # head width the CUDA kernels are built for
-WGRAD_SPLITS = 64  # token-axis splits of K7's weight-gradient product
+WGRAD_SPLITS = 64  # token-axis splits of K7's f32 weight-gradient product
 COLSUM_BLOCKS = 256  # row blocks of the column-sum partials
+# K7's bf16 products (csrc/flash_train.cu tc) take the contraction in
+# stages of 32 columns (Din, 2D) or token rows (dW)
+KV_TC_STEP = 32
 _M32 = 0xFFFFFFFF
 _MIX = 0x045D9F3B
 
@@ -260,7 +267,56 @@ def _kv_operands(q, x, ln_w, ln_b, wk, wv, num_heads):
         cuda.require(t, name, dt, shape)
     cuda.require(ln_w, "ln_w", torch.float32, (din,))
     cuda.require(ln_b, "ln_b", torch.float32, (din,))
+    if dt == torch.bfloat16:
+        _check_tc_din(din)
+        cuda.require_aligned(cuda.tc_route("attn_train_kv_fwd", dt), q=q.data_ptr(),
+                             x=x.data_ptr(), wk=wk.data_ptr(), wv=wv.data_ptr())
     return q, x, ln_w, ln_b, wk, wv
+
+
+def _check_tc_din(din: int) -> None:
+    """The bf16 products stream Din in KV_TC_STEP-column stages (the
+    gate admits multiples of 128)."""
+    if din % KV_TC_STEP:
+        raise NotImplementedError(f"K7's bf16 kernels take Din a multiple of {KV_TC_STEP}, "
+                                  f"got {din}")
+
+
+def wgrad_splits(rows: int, din: int, d: int, sms: int) -> int:
+    """Token-row splits of K7's bf16 weight gradients [Din, 2D]: K11's plan
+    (dense.plan_splits) for its 128 x 128 tiles and 32-row steps."""
+    return dense.plan_splits(rows, din, 2 * d, torch.bfloat16, sms)
+
+
+def kv_project_kernel(x, ln_w, ln_b, wk, wv):
+    """K7's bf16 LN-folded k|v projection alone (csrc/flash_train.cu
+    tc::kv_project, which K7's forward and backward launch): x [B, M, Din]
+    -> k, v [B, M, D] in bf16, on the card, for holding it against
+    `kv_project_plain`. It counts no launch: on the main paths the kernel
+    runs inside K7's forward and backward, which their counters count."""
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"K7's tensor-core projection takes bfloat16, got {x.dtype}")
+    b, m, din = x.shape
+    d = wk.shape[1]
+    x, wk, wv = x.contiguous(), wk.contiguous(), wv.contiguous()
+    ln_w, ln_b = ln_w.float().contiguous(), ln_b.float().contiguous()
+    for name, t, shape in (("x", x, (b, m, din)), ("wk", wk, (din, d)), ("wv", wv, (din, d))):
+        cuda.require(t, name, torch.bfloat16, shape)
+    cuda.require(ln_w, "ln_w", torch.float32, (din,))
+    cuda.require(ln_b, "ln_b", torch.float32, (din,))
+    _check_heads(d, d // KERNEL_HEAD_DIM)
+    _check_tc_din(din)
+    fn = "kv_project_tc_bf16"
+    cuda.require_aligned(fn, x=x.data_ptr(), wk=wk.data_ptr(), wv=wv.data_ptr())
+    dev = x.device
+    k, v = (torch.empty((b, m, d), dtype=torch.bfloat16, device=dev) for _ in range(2))
+    xn = torch.empty((b * m, din), dtype=torch.bfloat16, device=dev)
+    stats = torch.empty((b * m, 2), dtype=torch.float32, device=dev)
+    cuda.check(getattr(cuda.lib(), fn)(
+        x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), wk.data_ptr(), wv.data_ptr(),
+        k.data_ptr(), v.data_ptr(), xn.data_ptr(), stats.data_ptr(), b * m, din,
+        d // KERNEL_HEAD_DIM, cuda.stream_ptr()), fn)
+    return k, v
 
 
 def attention_kv_fwd_kernel(q, x, ln_w, ln_b, wk, wv, seed, num_heads: int, scale: float,
@@ -275,12 +331,15 @@ def attention_kv_fwd_kernel(q, x, ln_w, ln_b, wk, wv, seed, num_heads: int, scal
     kbuf = torch.empty((b, m, d), dtype=dt, device=dev)
     vbuf = torch.empty_like(kbuf)
     rowstats = torch.empty((b * m, 2), dtype=torch.float32, device=dev)
-    fn = cuda.entry_point("attn_train_kv_fwd", dt)
+    # bf16: the normalised tokens, the projection's A operand
+    xn = [torch.empty((b * m, din), dtype=dt, device=dev).data_ptr()] \
+        if dt == torch.bfloat16 else []
+    fn = cuda.tc_route("attn_train_kv_fwd", dt)
     KV_FWD_LAUNCHES.n += 1
     cuda.check(getattr(cuda.lib(), fn)(
         q.data_ptr(), x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), wk.data_ptr(),
         wv.data_ptr(), seed.data_ptr(), out.data_ptr(), lse.data_ptr(), kbuf.data_ptr(),
-        vbuf.data_ptr(), rowstats.data_ptr(), b, g, m, din, num_heads, float(scale),
+        vbuf.data_ptr(), rowstats.data_ptr(), *xn, b, g, m, din, num_heads, float(scale),
         *_dropout_args(rate), cuda.stream_ptr()), fn)
     return out, lse
 
@@ -291,10 +350,13 @@ def attention_kv_bwd_kernel(q, x, ln_w, ln_b, wk, wv, dout, lse, delta, seed, nu
     b, g, d = q.shape
     m, din = x.shape[1], x.shape[2]
     dt, dev = q.dtype, q.device
+    rows = b * m
     dout = dout.contiguous()
     cuda.require(dout, "dout", dt, (b, g, d))
     cuda.require(lse, "lse", torch.float32, (b, num_heads, g))
     cuda.require(delta, "delta", torch.float32, (b, num_heads, g))
+    fn = cuda.tc_route("attn_train_kv_bwd", dt)
+    cuda.require_aligned(fn, dout=dout.data_ptr())
     seed = _seed(seed, dev)
     f32 = dict(dtype=torch.float32, device=dev)
     dq, dx = torch.empty_like(q), torch.empty_like(x)
@@ -302,23 +364,25 @@ def attention_kv_bwd_kernel(q, x, ln_w, ln_b, wk, wv, dout, lse, delta, seed, nu
     dln_w, dln_b = torch.empty((din,), **f32), torch.empty((din,), **f32)
     kbuf = torch.empty((b, m, d), dtype=dt, device=dev)
     vbuf = torch.empty_like(kbuf)
-    rowstats = torch.empty((b * m, 2), **f32)
-    dk32, dv32 = torch.empty((b, m, d), **f32), torch.empty((b, m, d), **f32)
-    dxn = torch.empty((b, m, din), **f32)
+    rowstats = torch.empty((rows, 2), **f32)
+    dxn = torch.empty((rows, din), **f32)
     part = torch.empty((COLSUM_BLOCKS, 2, din), **f32)
-    wpart = torch.empty((WGRAD_SPLITS, din, 2 * d), **f32)
-    fn = cuda.entry_point("attn_train_kv_bwd", dt)
-    # the bf16 attention backward inside runs K8's tensor-core kernels
-    cuda.require_aligned(cuda.tc_route("attn_train_bwd", dt), q=q.data_ptr(),
-                         dout=dout.data_ptr())
+    if dt == torch.bfloat16:  # the tensor-core products: bf16 xn, dk, dv
+        splits = wgrad_splits(rows, din, d, cuda.sm_count(dev.index or 0))
+        scratch = (torch.empty((rows, din), dtype=dt, device=dev), torch.empty_like(kbuf),
+                   torch.empty_like(kbuf), dxn, part,
+                   torch.empty((splits, din, 2 * d), **f32))
+    else:
+        splits = WGRAD_SPLITS
+        scratch = (torch.empty((b, m, d), **f32), torch.empty((b, m, d), **f32), dxn, part,
+                   torch.empty((splits, din, 2 * d), **f32))
     KV_BWD_LAUNCHES.n += 1
     cuda.check(getattr(cuda.lib(), fn)(
         q.data_ptr(), x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), wk.data_ptr(),
         wv.data_ptr(), seed.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), dx.data_ptr(), dw.data_ptr(), dln_w.data_ptr(), dln_b.data_ptr(),
-        kbuf.data_ptr(), vbuf.data_ptr(), rowstats.data_ptr(), dk32.data_ptr(),
-        dv32.data_ptr(), dxn.data_ptr(), part.data_ptr(), wpart.data_ptr(),
-        b, g, m, din, num_heads, WGRAD_SPLITS, COLSUM_BLOCKS, float(scale),
+        kbuf.data_ptr(), vbuf.data_ptr(), rowstats.data_ptr(), *(t.data_ptr() for t in scratch),
+        b, g, m, din, num_heads, splits, COLSUM_BLOCKS, float(scale),
         *_dropout_args(rate), cuda.stream_ptr()), fn)
     return dq, dx, dln_w, dln_b, dw[:, :d].to(wk.dtype), dw[:, d:].to(wv.dtype)
 

@@ -34,7 +34,6 @@ _VMEM_BUDGET = 8 * 1024 * 1024  # the JAX kernel's row-block budget (:47)
 BWD_WARPS = 16
 LANE_COLS = 16
 VEC_BYTES = 16
-_arrive: dict = {}  # device -> the backward's int32 arrival counters (0 between launches)
 
 
 def _pick_block_rows(r: int, d: int, itemsize: int) -> int:
@@ -140,15 +139,6 @@ def split_rows(r: int, per: int) -> list[tuple[int, int]]:
     return [(lo, min(r, lo + per)) for lo in range(0, r, per)]
 
 
-def _arrive_counters(dev) -> torch.Tensor:
-    """The kernel's arrival counters on `dev`: zeroed once, reset to 0 by
-    the kernel's last block (so launches on one stream share them)."""
-    t = _arrive.get(dev)
-    if t is None:
-        t = _arrive[dev] = torch.zeros((256,), dtype=torch.int32, device=dev)
-    return t
-
-
 def ln_bwd(x2d, dy2d, mu, rsig, scale):
     """K17's backward kernel on CUDA tensors, the twin on CPU tensors; x
     and dy share the dtype (f32 or bf16)."""
@@ -173,7 +163,7 @@ def ln_bwd(x2d, dy2d, mu, rsig, scale):
     cuda.check(getattr(cuda.lib(), fn)(x2d.data_ptr(), dy2d.data_ptr(), mu.data_ptr(),
                                        rsig.data_ptr(), scale.data_ptr(), dx.data_ptr(),
                                        ds.data_ptr(), db.data_ptr(), part.data_ptr(),
-                                       _arrive_counters(dev).data_ptr(), r, d, per, group, vec,
+                                       cuda.arrive_counters("ln_bwd", dev), r, d, per, group, vec,
                                        warps_per_row(d), cuda.stream_ptr()), fn)
     return dx, ds, db
 
