@@ -38,7 +38,16 @@ goes on):
      (events, device time beside) at the pretrain point shape and, with
      the backward held against its twin, at the ft_cls step's [330, 128]
      x [330, 1,024], with the profiler's time of each of its kernels and
-     no SIMT `gemm_kernel` among them;
+     no SIMT `gemm_kernel` among them; K9's bf16 forward and backward (the
+     tensor-core passes of csrc/g2e_train.cu tc) launched twice, bitwise
+     equal, the profiler's kernels of each call (their launches, every
+     pass present, no SIMT `gemm_kernel`), what each call allocates (no
+     h4, dh4, dy3 or dxc; no f32 array of R rows), held against the twin
+     also at group sizes 24 and 128, on a tie-heavy input and at output
+     widths 96 and 512 (padded to a multiple of 64; P1 in chunks), timed
+     (events, device time beside) with the twin, the bound and the same
+     function as PyTorch calls (`g2e_library`), also at the ft_cls step's
+     x0 [330, 128, 32, 3];
   6. pretrain path: three steps of `make_pretrain_step` at B=48 in bf16 on
      synthetic ShapeNetRender batches; the loss and parameters stay
      finite, the parameters move, and K1, K2, the forward and backward of
@@ -204,6 +213,17 @@ forward at B = 32 and 64, the ft_cls step and eval forward at B = 330,
 with their kernels' device time, the pretrain step, the partseg step, the
 semseg step with K17 and K18 forced, and one eval_zeroshot run (host
 clock).
+
+The bf16 K9's backward against its twin run in f32 and in f64 between the
+bf16 rounding points, at the card tests' shapes and data (three seeds
+each), and dx0 over ten cotangents at group sizes 24, 32 and 128:
+
+    python3 chip_smoke.py --k9-numerics
+
+prints, for dx0 and each gradient, kernel vs the f32 twin, the f32 twin vs
+the f64 twin and kernel vs the f64 twin (max abs error over max(1, max
+|reference|)) beside the bound; it reads, and fails only if a kernel does
+not build or launch.
 """
 
 from __future__ import annotations
@@ -1191,16 +1211,225 @@ def check_training_kernels(rec: Recorder) -> None:
             tol = GRAD_TOL["float32"] * rows ** 0.5 if i in ZERO_GRADS else GRAD_TOL[dt_name]
             rec.check("g2e_train_bwd", f"{dt_name} grad {i}", *rel_err(a, w), tol)
         if dt_name == "bfloat16":
-            macs = rows * (3 * 64 + 64 * 128 + 256 * 256 + 256 * d)
-            shape = f"x0[{nb},{g},{s},3] ({rows} rows) bf16"
-            rec.timing("g2e_train_fwd", cuda_ms(lambda: kg.g2e_fwd_kernel(x0, wb, s), iters=5),
-                       cuda_ms(lambda: kg.g2e_fwd_plain(x0, wb, s), iters=3),
-                       bound(nbytes(x0, *wb, *got), 2 * macs, dt_name), shape=shape)
-            rec.timing("g2e_train_bwd",
-                       cuda_ms(lambda: kg.g2e_bwd_kernel(*bwd_args), iters=5),
-                       cuda_ms(lambda: kg.g2e_bwd_plain(*bwd_args), iters=3),
-                       bound(nbytes(x0, *wb, h3p, amax, stats, dy, dx_k, *gr_k), 4 * macs,
-                             dt_name), shape=shape)
+            check_g2e_route(kg, x0, wb, s, bwd_args, got, (dx_k, gr_k))
+            time_g2e(rec, kg, x0, wb, s, dy, got, (dx_k, gr_k), f"x0[{nb},{g},{s},3]")
+            del got, want, dx_k, gr_k, dx_p, gr_p, bwd_args, h3p, amax, stats
+            torch.cuda.empty_cache()
+            for gb, gg, gs in K9_GROUPS:
+                check_g2e_bf16(rec, kg, t((gb * gg * gs, 3), dt), wb, gs, d,
+                               f"x0[{gb},{gg},{gs},3]")
+            # tie-heavy: x0 on a grid of 5 values a channel, so that most
+            # groups hold equal rows, whose h2 and h4 rows tie exactly
+            grid = (t((rows, 3)) * 2).round().clamp(-2, 2) / 2
+            dup = (grid.view(rows // s, s, 1, 3) == grid.view(rows // s, 1, s, 3)).all(-1)
+            dup = (dup.sum((1, 2)) > s).float().mean().item()
+            check_g2e_bf16(rec, kg, grid.to(dt), wb, s, d,
+                           f"ties ({100 * dup:.1f}% of groups repeat a row)")
+            for dw in K9_OTHER_WIDTHS:
+                wbw = [w.to(dev) for w in g2e_case(rng, dw, 3, dev)]
+                gb, gg = K9_OTHER_WIDTHS_GROUPS
+                check_g2e_bf16(rec, kg, t((gb * gg * s, 3), dt), wbw, s, dw,
+                               f"D={dw} x0[{gb},{gg},{s},3]")
+            time_g2e_ft_cls(rec, kg, wb, s, d, t)
+
+
+# K9's bf16 kernels by the names torch.profiler gives them: the forward's
+# tensor-core passes, the backward's and its CUDA-core P3, and K11's kernel
+# for dW2 and dW1; what no bf16 K9 may launch is SIMT_GEMM
+K9_FWD_KERNELS = ("fwd_mid_kernel", "fwd_out_kernel")
+K9_BWD_KERNELS = ("bwd_dy3_kernel", "bwd_mid_kernel", "bwd_in_kernel", "dw3_kernel",
+                  "dense_grads_tc_kernel")
+# the other group sizes the bf16 K9 holds in its 128-row tiles (5 groups
+# of 24 in 120 rows; one of 128), as x0 [B, G, S, 3]
+K9_GROUPS = ((96, 128, 24), (24, 128, 128))
+# cotangents over which check_g2e_bf16 reads dx0
+K9_DY_DRAWS = 10
+# output widths the bf16 K9 takes padded with zero columns to a multiple of
+# 64 (96) and, past 384 columns, in P1's chunks (512), at x0 [24, 128, S, 3]
+K9_OTHER_WIDTHS = (96, 512)
+K9_OTHER_WIDTHS_GROUPS = (24, 128)
+# what the bf16 K9 never allocates: the final Dense's output and its
+# gradient, and the backward's f32 intermediates of R rows
+K9_NOT_ALLOCATED = ("h4", "dh4", "dy3", "dxc")
+
+
+def check_g2e_bf16(rec: Recorder, kg, x0, wb, s: int, d: int, what: str) -> None:
+    """K9's bf16 forward and backward against the twin on x0 [R, 3], each
+    launched twice and held bitwise equal (dy drawn from a seed, as every
+    input here). Where a group's two largest h2 in a column lie one bf16
+    rounding apart, the card and the twin may round them to a different
+    maximum, and the tie split then sends that column's gradient to other
+    rows: dx0 and dh2 differ there by far more than a rounding, within the
+    bound."""
+    rows = x0.shape[0]
+    got, again = kg.g2e_fwd_kernel(x0, wb, s), kg.g2e_fwd_kernel(x0, wb, s)
+    want = kg.g2e_fwd_plain(x0, wb, s)
+    expect(all(torch.equal(a, b) for a, b in zip(got, again)),
+           f"K9 bf16 forward {what}: two launches differ")
+    share = (got[2] == want[2]).float().mean().item()
+    rec.check("g2e_train_fwd", f"{what} out (twice equal)", *rel_err(got[0], want[0]),
+              KERNEL_TOL["bfloat16"])
+    rec.check("g2e_train_fwd", f"{what} h3p", *rel_err(got[1], want[1]), KERNEL_TOL["bfloat16"])
+    rec.check("g2e_train_fwd", f"{what} batch statistics", *rel_err(got[3], want[3]), STATS_TOL)
+    print(f"  {'g2e_train_fwd':18s} {what}: argmax equal to the twin's at {100 * share:.3f}% "
+          f"of (group, column)")
+    _, h3p, amax, stats = want
+    # dx0 over K9_DY_DRAWS cotangents (a reading: where a group's two largest
+    # h2 lie one rounding apart, how far its tie split moves depends on dy)
+    errs = []
+    for k in range(K9_DY_DRAWS):
+        dy = torch.from_numpy(np.random.default_rng(SEED + 9 + k).standard_normal(
+            (rows // s, d)).astype(np.float32)).to(x0.device, x0.dtype)
+        errs.append(rel_err(kg.g2e_bwd_kernel(x0, wb, *want[1:], dy, s)[0],
+                            kg.g2e_bwd_plain(x0, wb, *want[1:], dy, s)[0])[1])
+    print(f"  {'g2e_train_bwd':18s} {what}: dx0 rel over {K9_DY_DRAWS} cotangents (dy seeds "
+          f"{SEED + 9}..{SEED + 8 + K9_DY_DRAWS}): " + " ".join(f"{e:.3e}" for e in errs)
+          + f"; at most {max(errs):.3e} (bound {GRAD_TOL['bfloat16']})")
+    dy = torch.from_numpy(np.random.default_rng(SEED + 9).standard_normal(
+        (rows // s, d)).astype(np.float32)).to(x0.device, x0.dtype)
+    args = (x0, wb, h3p, amax, stats, dy, s)
+    (dx_k, gr_k), (dx_k2, gr_k2) = kg.g2e_bwd_kernel(*args), kg.g2e_bwd_kernel(*args)
+    expect(torch.equal(dx_k, dx_k2) and all(map(torch.equal, gr_k, gr_k2)),
+           f"K9 bf16 backward {what}: two launches differ")
+    dx_p, gr_p = kg.g2e_bwd_plain(*args)
+    rec.check("g2e_train_bwd", f"{what} dx0 (twice equal)", *rel_err(dx_k, dx_p),
+              GRAD_TOL["bfloat16"])
+    for i, (a, w) in enumerate(zip(gr_k, gr_p)):
+        tol = GRAD_TOL["float32"] * rows ** 0.5 if i in ZERO_GRADS else GRAD_TOL["bfloat16"]
+        rec.check("g2e_train_bwd", f"{what} grad {i}", *rel_err(a, w), tol)
+    del got, again, want, args, dx_k, gr_k, dx_k2, gr_k2, dx_p, gr_p
+    torch.cuda.empty_cache()
+
+
+def check_g2e_route(kg, x0, wb, s: int, bwd_args, fwd_out, bwd_out) -> None:
+    """The bf16 K9 at the pretrain shape: forward and backward bitwise equal
+    on a second launch; torch.profiler's kernels of each (launches a call,
+    no SIMT_GEMM, every tensor-core pass present); and what each call
+    allocates: the forward its outputs and partial sums only (no h4), the
+    backward its outputs and `bwd_workspace`, which holds none of
+    K9_NOT_ALLOCATED and no f32 array of R rows."""
+    from vipformer_tpu_torch.ops import cuda as kcuda
+
+    rows, d = x0.shape[0], wb[10].shape[1]
+    expect(all(torch.equal(a, b) for a, b in zip(fwd_out, kg.g2e_fwd_kernel(x0, wb, s))),
+           "K9 bf16 forward: two launches differ")
+    again = kg.g2e_bwd_kernel(*bwd_args)
+    expect(torch.equal(bwd_out[0], again[0]) and all(map(torch.equal, bwd_out[1], again[1])),
+           "K9 bf16 backward: two launches differ")
+    print(f"  {'g2e_train':18s} bf16 forward and backward: two launches bitwise equal")
+    for way, fn, names in (("fwd", lambda: kg.g2e_fwd_kernel(x0, wb, s), K9_FWD_KERNELS),
+                           ("bwd", lambda: kg.g2e_bwd_kernel(*bwd_args), K9_BWD_KERNELS)):
+        ks = device_kernels(fn)
+        print(f"  {'g2e_train_' + way:18s} bf16: {sum(ks.values()):.0f} kernel launches a call: "
+              + ", ".join(f"{k.split('(')[0].removeprefix('void ')} {n:.0f}"
+                          for k, n in ks.items()))
+        expect(not any(SIMT_GEMM in k for k in ks), f"K9 bf16 {way}: the SIMT {SIMT_GEMM} ran")
+        expect(all(any(n in k for k in ks) for n in names),
+               f"K9 bf16 {way}: a tensor-core pass did not run: {list(ks)}")
+    work = kg.bwd_workspace(rows, s, x0.shape[1], d, torch.bfloat16, "meta",
+                            kcuda.sm_count(x0.device.index))
+    expect(not set(K9_NOT_ALLOCATED) & set(work), f"K9 bf16 workspace: {list(work)}")
+    for name, w in work.items():
+        expect(not (w.dtype != torch.bfloat16 and w.dim() > 1 and w.shape[0] == rows),
+               f"K9 bf16 workspace: {name} is an array of R rows in {w.dtype}")
+    print(f"  {'g2e_train_bwd':18s} bf16 workspace: " + ", ".join(
+        f"{k} {tuple(w.shape)} {str(w.dtype)[6:]}" for k, w in work.items()))
+    for way, fn, outs, extra in (
+            ("fwd", lambda: kg.g2e_fwd_kernel(x0, wb, s), fwd_out, 0),
+            ("bwd", lambda: kg.g2e_bwd_kernel(*bwd_args), [bwd_out[0], *bwd_out[1]],
+             nbytes(*work.values()))):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        grew = torch.cuda.max_memory_allocated() - base
+        allowed = nbytes(*outs) + extra + (4 << 20)  # + weights in bf16, partial sums
+        print(f"  {'g2e_train_' + way:18s} bf16: a call allocates {grew / 2**20:.1f} MiB "
+              f"(outputs and workspace {allowed / 2**20:.1f} MiB with 4 MiB of weights and "
+              f"partials; an [R, D] bf16 array is {rows * d * 2 / 2**20:.1f} MiB)")
+        expect(grew <= allowed, f"K9 bf16 {way}: a call allocated {grew} bytes, above {allowed}")
+
+
+def g2e_library(kg, x0, wb, s: int, dy):
+    """K9's function as PyTorch calls (timed beside it, never used by the
+    port): bf16 torch.matmul for the four Dense, F.batch_norm in training
+    mode for the two BatchNorms, amax over each group for both max pools;
+    autograd for the backward. Returns the forward and the forward with
+    its backward."""
+    import torch.nn.functional as F
+
+    r = x0.shape[0]
+    w = [t.detach().to(torch.float32 if i in (2, 3, 8, 9) else x0.dtype).requires_grad_()
+         for i, t in enumerate(wb)]
+    x = x0.detach().clone().requires_grad_()
+
+    def fwd():
+        h1 = x @ w[0] + w[1]
+        x1 = F.relu(F.batch_norm(h1, None, None, w[2], w[3], training=True, eps=kg.BN_EPS))
+        h2 = x1 @ w[4] + w[5]
+        gmax = h2.view(r // s, s, -1).amax(1, keepdim=True).expand(-1, s, -1).reshape(r, -1)
+        h3 = torch.cat([gmax, h2], -1) @ w[6] + w[7]
+        x3 = F.relu(F.batch_norm(h3, None, None, w[8], w[9], training=True, eps=kg.BN_EPS))
+        return (x3 @ w[10] + w[11]).view(r // s, s, -1).amax(1)
+
+    return fwd, lambda: torch.autograd.grad(fwd(), [x, *w], dy)
+
+
+def time_g2e(rec: Recorder, kg, x0, wb, s: int, dy, got, grads, shape: str) -> None:
+    """K9's bf16 forward and backward at the pretrain shape for the JSON
+    line (CUDA events; device time beside), with the twin, the bound and
+    the PyTorch route (`g2e_library`: the forward, and the forward with
+    its backward)."""
+    rows, d = x0.shape[0], wb[10].shape[1]
+    macs = rows * (3 * 64 + 64 * 128 + 256 * 256 + 256 * d)
+    _, h3p, amax, stats = got
+    bwd_args = (x0, wb, h3p, amax, stats, dy, s)
+    lib_fwd, lib_fwd_bwd = g2e_library(kg, x0, wb, s, dy)
+    shape = f"{shape} ({rows} rows) bf16"
+    for way, fn, plain, lib, bnd in (
+            ("fwd", lambda: kg.g2e_fwd_kernel(x0, wb, s), lambda: kg.g2e_fwd_plain(x0, wb, s),
+             lib_fwd, bound(nbytes(x0, *wb, *got), 2 * macs, "bfloat16")),
+            ("bwd", lambda: kg.g2e_bwd_kernel(*bwd_args), lambda: kg.g2e_bwd_plain(*bwd_args),
+             lib_fwd_bwd, bound(nbytes(x0, *wb, h3p, amax, stats, dy, grads[0], *grads[1]),
+                                4 * macs, "bfloat16"))):
+        name = f"g2e_train_{way}"
+        rec.timing(name, cuda_ms(fn, iters=5), cuda_ms(plain, iters=3), bnd,
+                   cuda_ms(lib, iters=5), shape=shape)
+        rec.r[name]["library_route"] = ("bf16 torch.matmul x4, F.batch_norm (training) x2, "
+                                        "amax x2" + (", autograd (forward included)"
+                                                     if way == "bwd" else ""))
+        rec.r[name]["device_ms"] = queued_ms(fn, f"K9 {way}", iters=5)
+        print(f"  {name:18s} {shape:34s} device time {rec.r[name]['device_ms']:.4f} ms")
+
+
+def time_g2e_ft_cls(rec: Recorder, kg, wb, s: int, d: int, t) -> None:
+    """K9's bf16 forward and backward at the ft_cls step's x0 [330, 128, 32,
+    3] (1,351,680 rows; events) with their bounds and the PyTorch route."""
+    g = 128
+    rows = FT_BATCH * g * s
+    x0 = t((rows, 3), torch.bfloat16)
+    dy = t((rows // s, d), torch.bfloat16)
+    got = kg.g2e_fwd_kernel(x0, wb, s)
+    _, h3p, amax, stats = got
+    bwd_args = (x0, wb, h3p, amax, stats, dy, s)
+    grads = kg.g2e_bwd_kernel(*bwd_args)
+    macs = rows * (3 * 64 + 64 * 128 + 256 * 256 + 256 * d)
+    lib_fwd, lib_fwd_bwd = g2e_library(kg, x0, wb, s, dy)
+    shape = f"x0[{FT_BATCH},{g},{s},3] ({rows} rows) bf16"
+    for way, fn, lib, bnd in (
+            ("fwd", lambda: kg.g2e_fwd_kernel(x0, wb, s), lib_fwd,
+             bound(nbytes(x0, *wb, *got), 2 * macs, "bfloat16")),
+            ("bwd", lambda: kg.g2e_bwd_kernel(*bwd_args), lib_fwd_bwd,
+             bound(nbytes(x0, *wb, h3p, amax, stats, dy, grads[0], *grads[1]), 4 * macs,
+                   "bfloat16"))):
+        ms, lib_ms = cuda_ms(fn, iters=5), cuda_ms(lib, iters=3)
+        rec.r[f"g2e_train_{way}"]["ft_cls"] = dict(ms=ms, library_ms=lib_ms, shape=shape, **bnd)
+        print(f"  {'g2e_train_' + way:18s} {shape:34s} kernel_ms={ms:.4f} "
+              f"bound_ms={bnd['bound_ms']:.4f} ({bnd['bound_by']}, "
+              f"{100.0 * bnd['bound_ms'] / ms:.1f}% of it) library_ms={lib_ms:.4f}")
+    del x0, dy, got, h3p, amax, stats, bwd_args, grads, lib_fwd, lib_fwd_bwd
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------- pretrain
@@ -3287,6 +3516,37 @@ def print_breakdown(prof, steps: int, ms: float, what: str) -> None:
     counts = {e.key: e.count / steps for e in kernels}
     for k, v in sorted(per_step.items(), key=lambda kv: -kv[1])[:12]:
         print(f"  {v:9.3f} ms/step {counts[k]:6.0f}/step  {k[:110]}")
+    k11 = sum(v for k, v in per_step.items() if K11_KERNEL in k)
+    if k11 > 0:
+        # the bf16 K9's backward runs its dW2 and dW1 on K11's kernel
+        k9_ms, k9_n = kernels_launched_in(prof, K9_BWD_NODE, K11_KERNEL)
+        k9_tc = any(K9_BWD_KERNELS[1] in k for k in per_step)
+        expect(k9_n == (2 * steps if k9_tc else 0),
+               f"{what}: K9's backward launched {k9_n} {K11_KERNEL} over {steps} steps")
+        print(f"  {K11_KERNEL} (K11) {k11:.3f} ms/step: K9's backward's dW2 and dW1 "
+              f"{k9_ms / steps:.3f} ms/step ({k9_n / steps:.0f}/step), K11's own sites "
+              f"{k11 - k9_ms / steps:.3f} ms/step")
+
+
+# the autograd node of K9 (ops/cuda/g2e_train.py _G2ETrain), which launches
+# K9's backward, and K11's tensor-core kernel
+K9_BWD_NODE = "_G2ETrainBackward"
+K11_KERNEL = "dense_grads_tc_kernel"
+
+
+def kernels_launched_in(prof, scope: str, pick: str) -> tuple[float, int]:
+    """(device ms, launches) of the kernels whose name holds `pick` that
+    were launched inside a host event whose name holds `scope`:
+    torch.profiler links each kernel to the innermost host event around its
+    launch."""
+    ms, n = 0.0, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU and scope in e.name:
+            for k in e.kernels:
+                if pick in k.name:
+                    ms += k.duration / 1e3
+                    n += 1
+    return ms, n
 
 
 def kernel_line(rec: Recorder, counts: dict) -> list:
@@ -3317,18 +3577,24 @@ AB_ITERS = 20  # serving forwards a sample
 AB_HOST_CALLS = 200  # wrapper calls whose host time is averaged
 
 
-def _device_events(fn, n: int) -> list:
-    """torch.profiler's device kernels over n fn() calls (no user
-    annotations, no optimizer ranges: they report their kernels' time
-    again). The host's activity is traced too: a trace of the card alone
-    came back empty for a call that launches through ctypes only (K18's
-    backward)."""
+def _profile(fn, n: int):
+    """torch.profiler over n fn() calls. The host's activity is traced too:
+    a trace of the card alone came back empty for a call that launches
+    through ctypes only (K18's backward)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
+    return prof
+
+
+def _device_events(fn, n: int) -> list:
+    """torch.profiler's device kernels over n fn() calls (no user
+    annotations, no optimizer ranges: they report their kernels' time
+    again)."""
+    prof = _profile(fn, n)
     return [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
             and not getattr(e, "is_user_annotation", False) and not e.key.startswith("Optimizer.")]
@@ -3374,7 +3640,8 @@ def time_tree(root: str) -> dict:
     K7's forward and backward at the pretrain point shape (events, the
     backward's device time) and its backward at the ft_cls step's [330,
     128] x [330, 1,024] (events), K18's backward at BN_SHAPES[0] and K17's
-    at LN_TIMED on device time, the serving forward at
+    at LN_TIMED on device time, K9's bf16 forward and backward at the
+    pretrain shape (x0 [96, 128, 32, 3], events), the serving forward at
     each of BATCHES (events, and its kernels' and K5's device time from
     torch.profiler), the ft_cls step (events over TIMED_STEPS steps, and
     K11's and the attention backward kernels' device time a step), the
@@ -3390,6 +3657,7 @@ def time_tree(root: str) -> dict:
     from vipformer_tpu_torch.ops.cuda import batchnorm as kbn
     from vipformer_tpu_torch.ops.cuda import dense as kdense
     from vipformer_tpu_torch.ops.cuda import flash_train as kflash
+    from vipformer_tpu_torch.ops.cuda import g2e_train as kg9
     from vipformer_tpu_torch.ops.cuda import layernorm as kln
     from vipformer_tpu_torch.train.trainer import (create_state, make_cls_eval, make_cls_step,
                                                    make_partseg_step, make_pretrain_step,
@@ -3465,6 +3733,20 @@ def time_tree(root: str) -> dict:
         _, mu17, rs17 = kln.ln_fwd(x17, s17, torch.zeros(d, device="cuda"))
         out["K17 bwd device ms"] = queued_ms(lambda: kln.ln_bwd(x17, dy17, mu17, rs17, s17),
                                              "K17 backward")
+        # K9's bf16 forward and backward at the pretrain shape (events)
+        r9 = 2 * PRETRAIN_BATCH * 128 * 32
+        x9 = torch.randn((r9, 3), generator=gen, **bf)
+        wb9 = [torch.randn(shape, generator=gen, device="cuda") * sc for shape, sc in (
+            ((3, 64), 0.5), ((64,), 0.1), ((64,), 0.2), ((64,), 0.1), ((64, 128), 0.125),
+            ((128,), 0.1), ((256, 256), 0.0625), ((256,), 0.1), ((256,), 0.2), ((256,), 0.1),
+            ((256, 256), 0.0625), ((256,), 0.1))]
+        wb9[2], wb9[8] = wb9[2] + 1.0, wb9[8] + 1.0
+        _, h9, a9, st9 = kg9.g2e_fwd_kernel(x9, wb9, 32)
+        dy9 = torch.randn((r9 // 32, 256), generator=gen, **bf)
+        out["K9 fwd ms"] = cuda_ms(lambda: kg9.g2e_fwd_kernel(x9, wb9, 32), iters=5)
+        out["K9 bwd ms"] = cuda_ms(lambda: kg9.g2e_bwd_kernel(x9, wb9, h9, a9, st9, dy9, 32),
+                                   iters=5)
+        del x9, h9, a9, dy9
     del x, ln, w, qkv, args, x7, x17, dy17
     x, dy = torch.randn((42240, 256), generator=gen, **bf), torch.randn((42240, 256), generator=gen,
                                                                           **bf)
@@ -3492,8 +3774,15 @@ def time_tree(root: str) -> dict:
 
     run(2)
     out["ft_cls step ms"] = cuda_ms(lambda: run(1), iters=TIMED_STEPS, warmup=0)
-    out["ft_cls K11 ms"], out["ft_cls flash bwd ms"] = kernel_sums(
-        lambda: run(1), 2, "dense_grads", "flash_bwd_")[1:]
+    # K11 at its own sites: the bf16 K9's backward runs dW2 and dW1 on K11's kernel
+    prof = _profile(lambda: run(1), 2)
+    k11, flash = (sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA and pick in e.key)
+                  / 1e3 / 2 for pick in (K11_KERNEL, "flash_bwd_"))
+    k9_k11 = kernels_launched_in(prof, K9_BWD_NODE, K11_KERNEL)[0] / 2
+    out["ft_cls K11 ms"], out["ft_cls K9 bwd K11 ms"] = k11 - k9_k11, k9_k11
+    out["ft_cls flash bwd ms"] = flash
+    del prof
     eval_step = make_cls_eval(model)
     pts = torch.from_numpy(ft_batches(cfg, "test")[0][0]["points"]).cuda()
     out[f"ft_cls eval B={FT_BATCH} ms"] = cuda_ms(lambda: eval_step(pts), iters=AB_ITERS)
@@ -3626,6 +3915,111 @@ def ptxas(out_dir: str) -> int:
                       f"{m.group(2).replace(', used', ';')[:50]}")
                 kernel = ""
     return 1 if failed else 0
+
+
+# (case, B, G, S, D, Cin, the seed of the data): the card tests' K9 cases
+# (tests/test_torch_port_cuda.py builds them from these seeds), and two
+# widths the bf16 kernels take padded to a multiple of 64
+K9_NUMERICS_CASES = (
+    ("test_g2e_train_kernel_matches_twin[2-5-7-64]", 2, 5, 7, 64, 3, 3),
+    ("test_g2e_train_kernel_matches_twin[1-8-32-256]", 1, 8, 32, 256, 3, 3),
+    ("test_g2e_train_kernel_at_segmentation_width[3]", 8, 64, 32, 384, 3, 4),
+    ("test_g2e_train_kernel_at_segmentation_width[6]", 8, 64, 32, 384, 6, 4),
+    ("test_g2e_bf16_takes_any_width[96]", 8, 64, 32, 96, 3, 5),
+    ("test_g2e_bf16_takes_any_width[512]", 8, 64, 32, 512, 3, 5))
+K9_GRAD_NAMES = ("dx0", "dW0", "db0", "dgamma0", "dbeta0", "dW1", "db1", "dW2", "db2",
+                 "dgamma1", "dbeta1", "dW3", "db3")
+
+
+def g2e_case(rng, d: int, cin: int, dev):
+    """Group2Emb's 12 f32 parameters as the card tests draw them: the
+    Dense layers from init_weights (seed 0), the BatchNorm scales and
+    shifts from rng."""
+    from vipformer_tpu_torch.models.crossformer import init_weights
+    from vipformer_tpu_torch.nn.pointnet import Group2Emb
+
+    def t(shape, scale):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
+
+    m = init_weights(Group2Emb(cin, d), 0).to(dev)
+    wb = [m.Dense_0.weight.t(), m.Dense_0.bias, t((64,), 0.2) + 1.0, t((64,), 0.1),
+          m.Dense_1.weight.t(), m.Dense_1.bias, m.Dense_2.weight.t(), m.Dense_2.bias,
+          t((256,), 0.2) + 1.0, t((256,), 0.1), m.Dense_3.weight.t(), m.Dense_3.bias]
+    return [w.detach().float().contiguous() for w in wb]
+
+
+def k9_readings(kg, x0, wb, s: int, dy) -> list[tuple[str, float, float, float]]:
+    """(name, kernel vs f32 twin, f32 twin vs f64 twin, kernel vs f64 twin)
+    for dx0 and the 12 gradients of the bf16 backward, each as max abs
+    error over max(1, max |reference|), the forward from the twin."""
+    _, h3p, amax, stats = kg.g2e_fwd_plain(x0, wb, s)
+    args = (x0, wb, h3p, amax, stats, dy, s)
+    dx_k, gr_k = kg.g2e_bwd_kernel(*args)
+    dx_f, gr_f = kg.g2e_bwd_plain(*args)
+    dx_d, gr_d, rss = kg.g2e_bwd_plain(*args, acc=torch.float64, rss=True)
+    out = [(name, rel_err(k, f)[1], rel_err(f, r)[1], rel_err(k, r)[1])
+           for name, k, f, r in zip(K9_GRAD_NAMES, (dx_k, *gr_k), (dx_f, *gr_f),
+                                    (dx_d, *gr_d))]
+    # the exactly-zero gradients against their rounding noise: 2^-8 times
+    # the column's root sum of squares of its rows
+    for i, rs in zip(ZERO_GRADS, rss):
+        noise = rs.clamp_min(1e-30) * 2.0 ** -8
+        col = [((a - b).abs() / noise).max().item()
+               for a, b in ((gr_k[i], gr_f[i]), (gr_f[i], gr_d[i]), (gr_k[i], gr_d[i]))]
+        out.append((K9_GRAD_NAMES[i + 1] + " by rounding noise", *col))
+    return out
+
+
+def k9_numerics() -> int:
+    """The readings of `--k9-numerics` (module docstring)."""
+    from vipformer_tpu_torch.ops import cuda as kcuda
+    from vipformer_tpu_torch.ops.cuda import g2e_train as kg
+
+    kcuda.lib()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    tol = GRAD_TOL["bfloat16"]
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    print(f"K9 bf16 backward: kernel-f32 / f32-f64 / kernel-f64, rel to max(1, max|ref|), "
+          f"bound {tol} ('!' above it); the exactly-zero db0, db1, db2 also by their rounding "
+          f"noise: |error| over 2^-8 sqrt(sum of their rows' squares) by column, bound 1")
+    for case, b, g, s, d, cin, seed in K9_NUMERICS_CASES:
+        for sd in (seed, seed + 100, seed + 200):
+            rng = np.random.default_rng(sd)
+            wb = [w.to(dev) for w in g2e_case(rng, d, cin, dev)]
+            x0 = torch.from_numpy(rng.standard_normal((b * g * s, cin)).astype(np.float32))
+            dy = torch.from_numpy(rng.standard_normal((b * g, d)).astype(np.float32))
+            got = k9_readings(kg, x0.to(dev, bf), wb, s, dy.to(dev, bf))
+            print(f"{case} seed {sd}: " + "; ".join(
+                f"{n} " + " / ".join(
+                    f"{v:.3e}{'!' if v > (1.0 if 'noise' in n else tol) else ''}"
+                    for v in vals) for n, *vals in got), flush=True)
+    # dx0 over ten cotangents at the chip_smoke group sizes, two inputs each
+    for b, g, s in ((96, 128, 24), (96, 128, 32), (24, 128, 128)):
+        rows, worst = b * g * s, [0.0, 0.0, 0.0]
+        for xs in (SEED + 50, SEED + 51):
+            rng = np.random.default_rng(xs)
+            wb = g2e_case(rng, 256, 3, dev)
+            x0 = torch.from_numpy(rng.standard_normal((rows, 3)).astype(np.float32)).to(dev, bf)
+            for ds in range(SEED + 9, SEED + 19):
+                dy = torch.from_numpy(np.random.default_rng(ds).standard_normal(
+                    (rows // s, 256)).astype(np.float32)).to(dev, bf)
+                got = k9_readings(kg, x0, wb, s, dy)
+                _, a, f, k = got[0]
+                worst = [max(w, v) for w, v in zip(worst, (a, f, k))]
+                zero = max(r[1] for r in got if r[0] in ("db0", "db1", "db2"))
+                col = max(r[3] for r in got if "noise" in r[0])
+                print(f"x0[{b},{g},{s},3] x0 seed {xs} dy seed {ds}: dx0 {a:.3e} / {f:.3e} / "
+                      f"{k:.3e}; db0, db1, db2 kernel-f32 at most {zero:.3e} (bound "
+                      f"{GRAD_TOL['float32'] * rows ** 0.5:.3e}), kernel-f64 by rounding noise "
+                      f"{col:.3e}", flush=True)
+                del got, dy
+            del x0, wb
+            torch.cuda.empty_cache()
+        print(f"x0[{b},{g},{s},3]: dx0 at most {worst[0]:.3e} / {worst[1]:.3e} / {worst[2]:.3e} "
+              f"over 20 (input, cotangent) draws, bound {tol}")
+    return 0
 
 
 def main() -> int:
@@ -3770,6 +4164,12 @@ if __name__ == "__main__":
             print("chip_smoke: no CUDA device", file=sys.stderr)
             sys.exit(2)
         sys.exit(ab(sys.argv[2], int(sys.argv[3]) if len(sys.argv) == 4 else 10))
+    if len(sys.argv) == 2 and sys.argv[1] == "--k9-numerics":
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device", file=sys.stderr)
+            sys.exit(2)
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(k9_numerics())
     if len(sys.argv) > 1:
         print(__doc__, file=sys.stderr)
         sys.exit(2)

@@ -118,6 +118,37 @@ def _assert_grad_close(got, want, dt):
     assert err <= GRAD_TOL[dt] * max(1.0, want.float().abs().max().item()), err
 
 
+# K9's exactly-zero gradients (of b0, b1, b2) are column sums of R bf16
+# rows (dh1p, dh2, dh3p) that cancel, so each side's value is the sum of
+# the rows' rounding errors; two implementations whose f32 steps differ in
+# order round a share of the rows the other way (at 16,384 rows the f32 and
+# the f64 twin differ by up to 0.14, above GRAD_TOL's 5e-2; `chip_smoke.py
+# --k9-numerics`). Held instead to the rounding noise of such a sum: one
+# bf16 rounding (2^-8) of each row, adding as a random walk, 2^-8 times
+# the column's root sum of squares of its rows.
+ZERO_GRADS = (1, 5, 7)
+BF16_ROUNDING = 2.0 ** -8
+
+
+def _assert_zero_grad_close(got, want, rss):
+    scale = BF16_ROUNDING * rss.double().clamp_min(1e-30)
+    err = ((got.double() - want.double()).abs() / scale).max().item()
+    assert err <= 1.0, err
+
+
+def _g2e_bwd_reference(kg, *args):
+    """K9's backward twin as the bf16 kernels are held to it: between the
+    bf16 rounding points in f64. The gradients of b0, b1 and b2 are exactly
+    0, so each is a sum of R bf16 roundings that cancel, and which of them
+    round up depends on the last bits of f32 sums (the BatchNorm
+    backward's means): at a few thousand rows the f32 twin's own error in
+    them can exceed GRAD_TOL, the f64 twin's stays far below it. The f32
+    kernels are held to the f32 twin."""
+    x0 = args[0]
+    acc = torch.float64 if x0.dtype == torch.bfloat16 else torch.float32
+    return kg.g2e_bwd_plain(*args, acc=acc)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
@@ -225,7 +256,7 @@ def test_g2e_train_kernel_matches_twin(dev, b, g, s, d, dt):
     dy = _t(rng, (b * g, d), dev, dt)
     _, h3p, amax, stats = want
     dx_k, gr_k = kg.g2e_bwd_kernel(x0, wb, h3p, amax, stats, dy, s)
-    dx_p, gr_p = kg.g2e_bwd_plain(x0, wb, h3p, amax, stats, dy, s)
+    dx_p, gr_p = _g2e_bwd_reference(kg, x0, wb, h3p, amax, stats, dy, s)
     _assert_grad_close(dx_k, dx_p, dt)
     for got_g, want_g in zip(gr_k, gr_p):
         _assert_grad_close(got_g, want_g, dt)
@@ -275,10 +306,102 @@ def test_g2e_train_kernel_at_segmentation_width(dev, cin):
     dx_k2, gr_k2 = kg.g2e_bwd_kernel(x0, wb, h3p, amax, stats, dy, s)
     torch.cuda.synchronize()
     assert torch.equal(dx_k, dx_k2) and all(map(torch.equal, gr_k, gr_k2))
-    dx_p, gr_p = kg.g2e_bwd_plain(x0, wb, h3p, amax, stats, dy, s)
+    dx_p, gr_p = _g2e_bwd_reference(kg, x0, wb, h3p, amax, stats, dy, s)
     _assert_grad_close(dx_k, dx_p, dt)
     for got_g, want_g in zip(gr_k, gr_p):
         _assert_grad_close(got_g, want_g, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [96, 512])
+def test_g2e_bf16_takes_any_width(dev, d):
+    """The bf16 K9 at output widths it takes padded with zero columns to a
+    multiple of 64 (96), and past 384 columns in P1's chunks (512):
+    against its twin, forward and backward (`_g2e_bwd_reference`), and two
+    backward runs give the same bits. The exactly-zero gradients of b0, b1
+    and b2 are held as column sums (`_assert_colsum_close`)."""
+    from vipformer_tpu_torch.ops.cuda import g2e_train as kg
+
+    rng = np.random.default_rng(5)
+    b, g, s, dt = 8, 64, 32, torch.bfloat16
+    m = init_weights(Group2Emb(3, d), 0).to(dev)
+    wb = [m.Dense_0.weight.t(), m.Dense_0.bias, _t(rng, (64,), dev, scale=0.2) + 1.0,
+          _t(rng, (64,), dev, scale=0.1), m.Dense_1.weight.t(), m.Dense_1.bias,
+          m.Dense_2.weight.t(), m.Dense_2.bias, _t(rng, (256,), dev, scale=0.2) + 1.0,
+          _t(rng, (256,), dev, scale=0.1), m.Dense_3.weight.t(), m.Dense_3.bias]
+    wb = [w.detach().float() for w in wb]
+    x0 = _t(rng, (b * g * s, 3), dev, dt)
+    got, want = kg.g2e_fwd_kernel(x0, wb, s), kg.g2e_fwd_plain(x0, wb, s)
+    assert got[0].shape == (b * g, d) and got[2].shape == (b * g, d)
+    _assert_close(got[0], want[0], dt)
+    _assert_close(got[1], want[1], dt)
+    _, h3p, amax, stats = want
+    dy = _t(rng, (b * g, d), dev, dt)
+    dx_k, gr_k = kg.g2e_bwd_kernel(x0, wb, h3p, amax, stats, dy, s)
+    dx_k2, gr_k2 = kg.g2e_bwd_kernel(x0, wb, h3p, amax, stats, dy, s)
+    torch.cuda.synchronize()
+    assert torch.equal(dx_k, dx_k2) and all(map(torch.equal, gr_k, gr_k2))
+    assert gr_k[10].shape == (256, d) and gr_k[11].shape == (d,)
+    dx_p, gr_p, rss = kg.g2e_bwd_plain(x0, wb, h3p, amax, stats, dy, s, acc=torch.float64,
+                                       rss=True)
+    _assert_grad_close(dx_k, dx_p, dt)
+    for i, (got_g, want_g) in enumerate(zip(gr_k, gr_p)):
+        if i in ZERO_GRADS:
+            _assert_zero_grad_close(got_g, want_g, rss[ZERO_GRADS.index(i)])
+        else:
+            _assert_grad_close(got_g, want_g, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,g,s,ties", [(96, 128, 24, False), (24, 128, 128, False),
+                                        (96, 128, 32, True)])
+def test_g2e_bf16_tiles_hold_whole_groups(dev, b, g, s, ties):
+    """The bf16 K9 (tensor-core passes over 128-row tiles of whole groups:
+    5 groups of 24 in 120 rows, one of 128) and, at S = 32, on x0 on a
+    grid of 5 values a channel, whose groups repeat rows (exact ties in h2
+    and h4): against its twin (the backward's in f64 between the bf16
+    rounding points, `_g2e_bwd_reference`), each pass launched twice and
+    bitwise equal; no f32 array of R rows and no h4, dh4, dy3 or dxc in
+    its workspace. The exactly-zero gradients of b0, b1 and b2 are held,
+    as chip_smoke.py holds them, within 1e-4 sqrt(R) of max(1, max |twin|):
+    each side sums R bf16-rounded terms that cancel."""
+    from vipformer_tpu_torch.ops.cuda import g2e_train as kg
+
+    rng = np.random.default_rng(6)
+    d, r = 256, b * g * s
+    m = init_weights(Group2Emb(3, d), 0).to(dev)
+    wb = [m.Dense_0.weight.t(), m.Dense_0.bias, _t(rng, (64,), dev, scale=0.2) + 1.0,
+          _t(rng, (64,), dev, scale=0.1), m.Dense_1.weight.t(), m.Dense_1.bias,
+          m.Dense_2.weight.t(), m.Dense_2.bias, _t(rng, (256,), dev, scale=0.2) + 1.0,
+          _t(rng, (256,), dev, scale=0.1), m.Dense_3.weight.t(), m.Dense_3.bias]
+    wb = [w.detach().float() for w in wb]
+    x0 = _t(rng, (r, 3), dev)
+    if ties:
+        x0 = (x0 * 2).round().clamp(-2, 2) / 2
+    x0 = x0.to(torch.bfloat16)
+    got, again = kg.g2e_fwd_kernel(x0, wb, s), kg.g2e_fwd_kernel(x0, wb, s)
+    assert all(map(torch.equal, got, again))
+    want = kg.g2e_fwd_plain(x0, wb, s)
+    _assert_close(got[0], want[0], torch.bfloat16)
+    _assert_close(got[1], want[1], torch.bfloat16)
+    # batch statistics: f32 sums of R rows in other orders (chip_smoke.py STATS_TOL)
+    assert (got[3] - want[3]).abs().max().item() <= 1e-4 * max(1.0, want[3].abs().max().item())
+    _, h3p, amax, stats = want
+    dy = _t(rng, (r // s, d), dev, torch.bfloat16)
+    args = (x0, wb, h3p, amax, stats, dy, s)
+    (dx_k, gr_k), (dx_k2, gr_k2) = kg.g2e_bwd_kernel(*args), kg.g2e_bwd_kernel(*args)
+    assert torch.equal(dx_k, dx_k2) and all(map(torch.equal, gr_k, gr_k2))
+    dx_p, gr_p = _g2e_bwd_reference(kg, *args)
+    _assert_grad_close(dx_k, dx_p, torch.bfloat16)
+    for i, (got_g, want_g) in enumerate(zip(gr_k, gr_p)):
+        if i in (1, 5, 7):
+            err = (got_g - want_g).abs().max().item()
+            assert err <= 1e-4 * r ** 0.5 * max(1.0, want_g.abs().max().item()), (i, err)
+        else:
+            _assert_grad_close(got_g, want_g, torch.bfloat16)
+    work = kg.bwd_workspace(r, s, 3, d, torch.bfloat16, "meta", kcuda.sm_count(0))
+    assert not {"h4", "dh4", "dy3", "dxc"} & set(work)
+    assert all(t.dtype == torch.bfloat16 or t.shape[0] != r for t in work.values())
 
 
 @pytest.mark.cuda

@@ -1,7 +1,7 @@
-"""The tensor-core routes of K5, K6, K7, K8's forward and backward and
-K11, on the CPU: which entry point each dtype reaches, and how the
-wrappers plan the kernels' grids; and the split plans of K17's and K18's
-one-pass backwards.
+"""The tensor-core routes of K5, K6, K7, K8's and K9's forward and
+backward and K11, on the CPU: which entry point each dtype reaches, and
+how the wrappers plan the kernels' grids; and the split plans of K17's
+and K18's one-pass backwards.
 
 The bf16 K5 (`tc::attn_small_tc_kernel`), K6
 (`tc::attn_small_qkv_ln_tc_kernel`), K8's forward
@@ -56,7 +56,11 @@ ROUTES = [("dense_grads", torch.bfloat16, "dense_grads_tc_bf16"),
           ("attn_train_kv_fwd", torch.bfloat16, "attn_train_kv_fwd_tc_bf16"),
           ("attn_train_kv_fwd", torch.float32, "attn_train_kv_fwd_f32"),
           ("attn_train_kv_bwd", torch.bfloat16, "attn_train_kv_bwd_tc_bf16"),
-          ("attn_train_kv_bwd", torch.float32, "attn_train_kv_bwd_f32")]
+          ("attn_train_kv_bwd", torch.float32, "attn_train_kv_bwd_f32"),
+          ("g2e_fwd", torch.bfloat16, "g2e_fwd_tc_bf16"),
+          ("g2e_fwd", torch.float32, "g2e_fwd_f32"),
+          ("g2e_bwd", torch.bfloat16, "g2e_bwd_tc_bf16"),
+          ("g2e_bwd", torch.float32, "g2e_bwd_f32")]
 
 
 @pytest.mark.parametrize("base,dt,want", ROUTES)
@@ -412,3 +416,271 @@ def test_batchnorm_bwd_vector_and_shared_memory(c, itemsize, vec):
     assert kbn.GRAD_WARPS * 2 * 32 * vec * 4 + 4 <= 48 * 1024
     for dt in (torch.float32, torch.bfloat16):
         assert len(kcuda.SIGNATURES[kcuda.entry_point("bn_grad_reduces", dt)]) == 14
+
+
+# ------------------------------------------------------------------ K9
+
+
+# group sizes about the bf16 tile plan's limits (one group of 128 a tile, 42
+# of 3 in 126 rows, 5 of 24 in 120, one of 100 and 28 rows idle), by group
+# counts: one group, a few, the ragged last tile of many, the pretrain
+# step's 12,288 and the ft_cls step's 42,240 groups
+K9_S = (2, 3, 24, 32, 100, 128)
+K9_GROUPS = (1, 5, 43, 4097, 12288, 42240)
+
+
+def _k9_tile_rows(r: int, s: int) -> list[tuple[int, int]]:
+    """The rows [begin, end) of each bf16 K9 tile, as csrc/g2e_train.cu
+    `tile_at` cuts them from `tile_plan`."""
+    from vipformer_tpu_torch.ops.cuda import g2e_train as kg
+
+    rows, tiles = kg.tile_plan(r, s)
+    return [(t * rows, min(r, (t + 1) * rows)) for t in range(tiles)]
+
+
+@pytest.mark.parametrize("groups", K9_GROUPS)
+@pytest.mark.parametrize("s", K9_S)
+def test_k9_tile_plan_holds_whole_groups(s, groups):
+    """The bf16 K9's row tiles (csrc/g2e_train.cu `tile_at`): at most 128
+    rows, whole groups, every row in one tile and no group across two, the
+    last tile holding what is left."""
+    from vipformer_tpu_torch.ops.cuda import g2e_train as kg
+
+    r = groups * s
+    rows, tiles = kg.tile_plan(r, s)
+    spans = _k9_tile_rows(r, s)
+    assert len(spans) == tiles and _covers_once(spans, r)
+    assert rows <= kg.TILE_ROWS and rows % s == 0 and rows + s > kg.TILE_ROWS
+    assert all(lo % s == 0 and (hi - lo) % s == 0 and hi - lo <= rows for lo, hi in spans)
+    first = {g: lo // rows for g in range(groups) for lo in (g * s,)}
+    last = {g: (g * s + s - 1) // rows for g in range(groups)}
+    assert first == last  # no group straddles two tiles
+
+
+# output widths D: the repo's (256, 384), the bf16 kernels' column slices,
+# and widths they take padded to a multiple of 64 (32, 96, 320, 512, 768)
+K9_WIDTHS = (32, 64, 96, 128, 192, 256, 320, 384, 512, 768)
+
+
+@pytest.mark.parametrize("d", K9_WIDTHS)
+@pytest.mark.parametrize("groups,s", [(12288, 32), (42240, 32), (16384, 24), (3072, 128),
+                                      (5, 7), (1, 128), (400, 32)])
+def test_k9_persistent_grids_take_every_tile_once(groups, s, d):
+    """The persistent grids on 132 SMs, walked as the kernels walk them:
+    F2 and P2's second half take every tile once; F3 every (column slice,
+    tile) once with its slices N wide (a multiple of 64, at most 256,
+    tiling D padded to a multiple of 64), P1 and P2's first half every
+    (half of the 256 columns, tile) once; no grid exceeds one block an SM
+    or the work."""
+    from vipformer_tpu_torch.ops.cuda import g2e_train as kg
+
+    r = groups * s
+    _, tiles = kg.tile_plan(r, s)
+    g = kg.grids(r, s, d, SMS)
+    mid = sorted(t for b in range(g["mid"]) for t in range(b, tiles, g["mid"]))
+    assert mid == list(range(tiles)) and g["mid"] <= SMS
+    dp = kg.tc_width(d)
+    assert dp % 64 == 0 and d <= dp < d + 64
+    n = kg.out_cols(dp)
+    assert n % 64 == 0 and n <= 256 and dp % n == 0
+    for key, slices in (("out", dp // n), ("dy3", 2)):
+        grid = g[key]
+        assert grid % slices == 0 and grid <= max(SMS, slices) and grid <= slices * tiles
+        nb = grid // slices
+        work = sorted((b % slices, t) for b in range(grid) for t in range(b // slices, tiles, nb))
+        assert work == [(c, t) for c in range(slices) for t in range(tiles)]
+
+
+def k9_tc_smem_bytes(d: int) -> dict[str, int]:
+    """The dynamic shared memory of the bf16 K9's kernels (csrc/g2e_train.cu
+    `MID_FWD_SMEM`, `MID_BWD_SMEM`, `out_smem`, `dy3_smem`), bf16 rows
+    padded by 8: F2 holds W2 [256][264], W1 [64][136] and a tile
+    [128][264]; P2's second half also the tile's tie bits [128][4] (u32);
+    F3 W3's column slice [256][N + 8] and a tile; P1 / P2's first half
+    W3's row slice [128][kc + 8] and the dh4 tile [128][kc + 8] of a chunk
+    of kc = min(D, 384) columns (at least the f32 staging [128][132]); D
+    padded to a multiple of 64."""
+    from vipformer_tpu_torch.ops.cuda import g2e_train as kg
+
+    dp = kg.tc_width(d)
+    kc = min(dp, kg.DY3_COLS)
+    tile = 2 * 128 * (256 + 8)
+    mid = 2 * 256 * (256 + 8) + 2 * 64 * (128 + 8) + tile
+    return {"mid_fwd": mid, "mid_bwd": mid + 4 * 128 * 4,
+            "out": 2 * 256 * (kg.out_cols(dp) + 8) + tile,
+            "dy3": 2 * 128 * (kc + 8) + max(2 * 128 * (kc + 8), 4 * 128 * (128 + 4))}
+
+
+def k9_dw3_smem_bytes() -> int:
+    """dW3's static shared memory (csrc/g2e_train.cu `dw3_kernel`): two
+    stages of 32 rows of x3 and of dh4, 128 + 8 bf16 a row, and BN1's
+    scale and shift of its 128 columns (f32)."""
+    return 2 * 2 * 32 * (128 + 8) * 2 + 2 * 128 * 4
+
+
+@pytest.mark.parametrize("d", K9_WIDTHS)
+def test_k9_tc_kernels_fit_an_sm(d):
+    """Each bf16 K9 kernel's shared memory fits a block (227 KB) and one
+    block an SM, as its __launch_bounds__(512, 1) says; above 48 KB it is
+    dynamic (the launches set the attribute). The weight gradient dW3
+    takes static shared memory under 48 KB and two blocks an SM. At the
+    flagship's D = 256: F2 220,160 B, P2's second half 222,208 B, F3
+    202,752 B, P1 135,168 B."""
+    block_max = 227 * 1024
+    smem = k9_tc_smem_bytes(d)
+    for n in smem.values():
+        assert 48 * 1024 < n <= block_max
+        assert n + BLOCK_RESERVED_BYTES <= SM_SHARED_BYTES
+    assert k9_dw3_smem_bytes() <= 48 * 1024
+    assert 2 * (k9_dw3_smem_bytes() + BLOCK_RESERVED_BYTES) <= SM_SHARED_BYTES
+    if d == 256:
+        assert smem == {"mid_fwd": 220160, "mid_bwd": 222208, "out": 202752, "dy3": 135168}
+
+
+def _g2e_operands(r, cin, d, dt):
+    shapes = [(cin, 64), (64,), (64,), (64,), (64, 128), (128,), (256, 256), (256,), (256,),
+              (256,), (256, d), (d,)]
+    return torch.zeros((r, cin), dtype=dt), [torch.zeros(sh) for sh in shapes]
+
+
+@pytest.mark.parametrize("s,d", [(129, 256), (256, 256), (32, 320), (32, 512), (32, 96)])
+def test_k9_bf16_refuses_what_its_tiles_do_not_hold(s, d):
+    """A group of more than 128 rows raises ValueError from `_check`, before
+    any launch (the library is never built); f32 takes it on the CUDA
+    cores. Every D is held: the bf16 kernels take it padded with zero
+    columns to a multiple of 64."""
+    from vipformer_tpu_torch.ops.cuda import g2e_train as kg
+
+    x0, wb = _g2e_operands(2 * s, 3, d, torch.bfloat16)
+    if s > kg.TILE_ROWS:
+        with pytest.raises(ValueError, match="bf16 g2e kernels"):
+            kg._check(x0, wb, s)
+    else:
+        assert kg._check(x0, wb, s) == (2 * s, 3, d) and kg.tc_width(d) % 64 == 0
+    assert kg._check(x0.float(), wb, s) == (2 * s, 3, d)
+    assert kcuda._lib is None
+
+
+@pytest.mark.parametrize("d", (32, 96, 320))
+@pytest.mark.parametrize("s", (3, 32))
+def test_k9_padded_width_changes_no_output(s, d):
+    """The bf16 kernels take the final Dense at D padded with zero columns
+    (`tc_width`), its bias too, and the backward the cotangent and argmax
+    padded (dy 0, argmax 0): on the twins the padded function gives the
+    same out and argmax in its first D columns, the same dx0 and the same
+    gradients, dW3 and db3 in their first D columns and zero past them
+    (the backward's products over D columns may be summed in another order
+    once padded: within f32 sums, and one bf16 rounding of dx0)."""
+    from vipformer_tpu_torch.ops.cuda import g2e_train as kg
+
+    gen = torch.Generator().manual_seed(7)
+    groups, cin = 6, 3
+    r, dp = groups * s, kg.tc_width(d)
+    x0 = torch.randn((r, cin), generator=gen).to(torch.bfloat16)
+    _, wb = _g2e_operands(r, cin, d, torch.float32)
+    wb = [torch.randn(w.shape, generator=gen) * (w.shape[0] ** -0.5 if w.dim() == 2 else 0.1)
+          for w in wb]
+    wb[2], wb[8] = wb[2] + 1.0, wb[8] + 1.0
+    wp = wb[:10] + [kg._pad_cols(wb[10], dp), kg._pad_cols(wb[11], dp)]
+    out, h3p, amax, stats = kg.g2e_fwd_plain(x0, wb, s)
+    outp, h3pp, amaxp, statsp = kg.g2e_fwd_plain(x0, wp, s)
+    assert outp.shape == (groups, dp) and torch.equal(outp[:, :d], out)
+    assert torch.equal(amaxp[:, :d], amax) and torch.equal(h3pp, h3p)
+    assert torch.equal(statsp, stats)
+    dy = torch.randn((groups, d), generator=gen).to(torch.bfloat16)
+    dx0, grads = kg.g2e_bwd_plain(x0, wb, h3p, amax, stats, dy, s)
+    dxp, gradsp = kg.g2e_bwd_plain(x0, wp, h3p, kg._pad_cols(amax, dp), stats,
+                                   kg._pad_cols(dy, dp), s)
+    assert (dxp.float() - dx0.float()).abs().max() <= 2 ** -7 * dx0.float().abs().max()
+    for i, (got, want) in enumerate(zip(gradsp, grads)):
+        if i >= 10:
+            assert not got[..., d:].any(), i
+            got = got[..., :d]
+        assert (got - want).abs().max() <= 1e-5 * max(1.0, want.abs().max().item()), i
+
+
+@pytest.mark.parametrize("r,s,d", [(393216, 32, 256), (1351680, 32, 256), (393216, 32, 384),
+                                   (131072, 32, 384), (294912, 24, 256), (70, 7, 64)])
+def test_k9_bf16_workspace_holds_no_h4_dh4_or_f32_rows(r, s, d):
+    """What the bf16 backward allocates (`bwd_workspace`, built on the meta
+    device): the bf16 operands of the weight gradients (x1, xc, dh3p, dh2)
+    and dy1, no h4, dh4, dy3 or dxc and no f32 or f64 array of R rows; the
+    column partials hold every pass's (P1's and P2's f64 sums over 256
+    and 64 columns, P2's f32 sums of dh2, db3's over D) and the split
+    partials every weight gradient's and P3's. The f32 route keeps its
+    CUDA-core intermediates."""
+    from vipformer_tpu_torch.ops.cuda import g2e_train as kg
+
+    work = kg.bwd_workspace(r, s, 6, d, torch.bfloat16, "meta", SMS)
+    assert list(work) == ["x1", "xc", "dh3p", "dh2", "dy1", "gsum", "part", "wpart"]
+    assert not {"h4", "dh4", "dy3", "dxc"} & set(work)
+    dtypes = {"gsum": torch.float32, "part": torch.float64, "wpart": torch.float32}
+    assert tuple(work["gsum"].shape) == (r // s, 256)
+    for name, t in work.items():
+        assert t.dtype == dtypes.get(name, torch.bfloat16)
+        if t.dtype != torch.bfloat16:
+            assert t.shape[0] != r
+    g = kg.grids(r, s, d, SMS)
+    # P1's and P2's f64 sums (over 256 columns; P2's second half's of
+    # (dy1, dy1 xhat1) over 64, then its f32 sums of dh2), db3's in f32
+    f32_words = 2 * work["part"].numel()
+    assert work["part"].numel() >= g["dy3"] // 2 * 2 * 256
+    assert f32_words >= max(g["mid"] * (2 * 2 * 64 + 128), kg.DB3_BLOCKS * 2 * d)
+    s3, s2, s1 = kg.wgrad_splits(r, d, SMS)
+    assert work["wpart"].numel() >= max(kg.COLSUM_BLOCKS * (6 * 64 + 64), s3 * 256 * d,
+                                        s2 * (256 * 256 + 256), s1 * (64 * 128 + 128))
+    assert {"dh4", "dy3", "dxc"} <= set(kg.bwd_workspace(r, s, 6, d, torch.float32, "meta", SMS))
+
+
+def _tiled_g2e_bwd_mid(x0f, wb, h3p, stats, dh3p, s):
+    """A CPU mirror of P2's second half (csrc/g2e_train.cu
+    `bwd_mid_kernel`), tile by tile: h2 and its group max recomputed in the
+    tile, dxc = dh3p W2^T, each group's sum of dxc[:, :128] over its rows
+    in the tile split among h2's ties, dh2 rounded; -> dh2 [R, 128]."""
+    from vipformer_tpu_torch.ops.cuda import g2e_train as kg
+
+    dt = x0f.dtype
+    out = []
+    for lo, hi in _k9_tile_rows(x0f.shape[0], s):
+        _, _, h2, gmax, _ = kg._recompute(x0f[lo:hi], wb, stats, s)
+        dxc = dh3p[lo:hi].float() @ wb[6].to(dt).float().t()
+        eq = (h2.float() == gmax.float().repeat_interleave(s, 0)).float()
+        share = dxc[:, :128].view(-1, s, 128).sum(1) / eq.view(-1, s, 128).sum(1)
+        out.append((dxc[:, 128:] + share.repeat_interleave(s, 0) * eq).to(dt))
+    return torch.cat(out)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [24, 128, 3])
+def test_k9_tiles_recompute_what_the_twin_computes(s, dt):
+    """The bf16 kernels recompute h2, its group max and the tie split of
+    dxc inside each tile of whole groups (5 groups of 24 in 120 rows, one
+    of 128, 42 of 3), where the twin takes them over all rows at once: the
+    same function, so the tile mirror gives the twin's dh2 (within f32
+    summation order; in bf16 within one rounding of dh2), on an input
+    whose groups tie in h2 (each group's second row repeats its first)."""
+    from vipformer_tpu_torch.ops.cuda import g2e_train as kg
+
+    gen = torch.Generator().manual_seed(5)
+    groups, cin, d = 11, 3, 64
+    r = groups * s
+    x0 = torch.randn((r, cin), generator=gen)
+    x0.view(groups, s, cin)[:, 1] = x0.view(groups, s, cin)[:, 0]  # a repeated row: ties
+    shapes = [(cin, 64), (64,), (64,), (64,), (64, 128), (128,), (256, 256), (256,), (256,),
+              (256,), (256, d), (d,)]
+    wb = [torch.randn(sh, generator=gen) * (sh[0] ** -0.5 if len(sh) == 2 else 0.1)
+          for sh in shapes]
+    wb[2], wb[8] = wb[2] + 1.0, wb[8] + 1.0
+    x0f = x0.to(dt)
+    _, h3p, amax, stats = kg.g2e_fwd_plain(x0f, wb, s)
+    dh3p = torch.randn((r, 256), generator=gen).to(dt)
+    got = _tiled_g2e_bwd_mid(x0f, wb, h3p, stats, dh3p, s)
+    _, _, h2, gmax, _ = kg._recompute(x0f, wb, stats, s)
+    dxc = dh3p.float() @ wb[6].to(dt).float().t()
+    eq = (h2.float() == gmax.float().repeat_interleave(s, 0)).float()
+    assert (eq.view(groups, s, 128).sum(1) > 1).any()  # ties in h2
+    share = dxc[:, :128].view(groups, s, 128).sum(1) / eq.view(groups, s, 128).sum(1)
+    want = (dxc[:, 128:] + share.repeat_interleave(s, 0) * eq).to(dt)
+    err = (got.float() - want.float()).abs().max().item()
+    scale = max(1.0, want.float().abs().max().item())
+    assert err <= (1e-6 if dt == torch.float32 else 2 ** -7) * scale

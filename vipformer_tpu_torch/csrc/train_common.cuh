@@ -13,7 +13,9 @@
 // kernel keeps (a BatchNorm affine and ReLU on a cached activation, a
 // LayerNorm of raw tokens) instead of being stored. Tiles of 64 x 64
 // outputs, 256 threads, 4 x 4 outputs per thread, k steps of 16 staged in
-// shared memory as f32. Plain CUDA-core FMAs; tensor cores are later work.
+// shared memory as f32. Plain CUDA-core FMAs: the SIMT product serves only
+// the f32 paths of K7 and K9; their bf16 products run on the tensor cores
+// (mma.cuh), which would round an f32 operand to TF32.
 #pragma once
 
 #include <stdint.h>
@@ -194,21 +196,25 @@ void colsum2(int R, int C, int nblk, F f, float* part, cudaStream_t st) {
 }
 
 // out0[c] = sum over blocks of part[blk][0][c], out1[c] likewise of
-// part[blk][1][c] (out1 may be null), in block order.
-static __global__ void sum_parts_kernel(int nblk, int C, const float* __restrict__ part,
-                                 float* __restrict__ out0, float* __restrict__ out1) {
+// part[blk][1][c] (out1 may be null), in block order, added in the
+// partials' type P (float, or double where the sums must keep more bits)
+// and rounded to f32 once.
+template <typename P>
+static __global__ void sum_parts_kernel(int nblk, int C, const P* __restrict__ part,
+                                        float* __restrict__ out0, float* __restrict__ out1) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= 2 * C) return;
   const int j = i / C, c = i % C;
   float* out = j == 0 ? out0 : out1;
   if (out == nullptr) return;
-  float s = 0.f;
+  P s = 0;
   for (int k = 0; k < nblk; ++k) s += part[((size_t)k * 2 + j) * C + c];
-  out[c] = s;
+  out[c] = (float)s;
 }
 
-inline void sum_parts(int nblk, int C, const float* part, float* out0, float* out1, cudaStream_t st) {
-  sum_parts_kernel<<<(2 * C + 255) / 256, 256, 0, st>>>(nblk, C, part, out0, out1);
+template <typename P>
+inline void sum_parts(int nblk, int C, const P* part, float* out0, float* out1, cudaStream_t st) {
+  sum_parts_kernel<P><<<(2 * C + 255) / 256, 256, 0, st>>>(nblk, C, part, out0, out1);
 }
 
 // The rows [begin, end) of split `split`: whole steps of `step` rows, split

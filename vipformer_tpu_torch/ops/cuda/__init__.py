@@ -76,11 +76,12 @@ SIGNATURES = {
     "attn_train_kv_bwd_tc_bf16": [_P] * 24 + [_I] * 7 + [_F, _F, _U, _I, _P],
     "kv_project_tc_bf16": [_P] * 9 + [_I] * 3 + [_P],
     "dropout_mask_u8": [_P, _I, _I, _I, _U, _P, _P],
-    # K9
+    # K9: f32 on the CUDA cores; bf16 on the tensor cores, with no h4 or
+    # dh4 scratch and the persistent grids and weight-gradient splits
     "g2e_fwd_f32": [_P] * 21 + [_I] * 5 + [_P],
-    "g2e_fwd_bf16": [_P] * 21 + [_I] * 5 + [_P],
+    "g2e_fwd_tc_bf16": [_P] * 18 + [_I] * 7 + [_P],
     "g2e_bwd_f32": [_P] * 38 + [_I] * 6 + [_P],
-    "g2e_bwd_bf16": [_P] * 38 + [_I] * 6 + [_P],
+    "g2e_bwd_tc_bf16": [_P] * 34 + [_I] * 10 + [_P],
     # K10
     "gather_centered_f32": [_P] * 4 + [_I] * 6 + [_P],
     "gather_centered_bf16": [_P] * 4 + [_I] * 6 + [_P],
@@ -206,8 +207,8 @@ def tc_route(base: str, dt: torch.dtype) -> str:
     """The C entry point of a kernel with a tensor-core route (K5
     `attn_small`, K6 `attn_small_qkv_ln`, K7's forward `attn_train_kv_fwd`
     and backward `attn_train_kv_bwd`, K8's forward `attn_train_fwd` and
-    backward `attn_train_bwd`, K11 `dense_grads`, K13 `attn_packed`, K14
-    `mha`) for
+    backward `attn_train_bwd`, K9's forward `g2e_fwd` and backward
+    `g2e_bwd`, K11 `dense_grads`, K13 `attn_packed`, K14 `mha`) for
     dtype `dt`: bf16 on the tensor cores, f32 on the CUDA cores (a
     tensor-core f32 product is TF32, about 3 decimal digits: it would break
     the f32 bounds against the twins). Not a fallback: each dtype has one

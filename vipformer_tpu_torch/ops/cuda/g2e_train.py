@@ -15,6 +15,14 @@ kernel's numerics (Dense rounded to the compute dtype before its bias,
 f32 BatchNorm statistics of the rounded activations, first-argmax routing
 of the final max pool, equal tie split of the h2 global pool). Between
 forward and backward only h3p, the argmax and the statistics are kept.
+
+The dtype picks the kernels (`cuda.tc_route`): bf16 runs the passes on the
+tensor cores over row tiles of whole groups (`tile_plan`: 128 rows hold
+floor(128 / S) groups, so S <= 128), persistent blocks on `grids`, with no
+h4, dh4 or f32 [R, .] array in device memory (`bwd_workspace`), at any D:
+the final Dense's columns are padded with zeros to a multiple of 64
+(`tc_width`), which changes no output; f32 runs the CUDA-core kernels,
+since a tensor-core f32 product is TF32.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from vipformer_tpu_torch.ops import cuda
+from vipformer_tpu_torch.ops.cuda import dense as kdense
 
 FWD_LAUNCHES = cuda.LaunchCounter()
 BWD_LAUNCHES = cuda.LaunchCounter()
@@ -30,8 +39,101 @@ C1, C2, C3 = 64, 128, 256  # Group2Emb's hidden widths
 MAX_CIN = 16
 WGRAD_SPLITS = 64  # row splits of the weight-gradient products
 COLSUM_BLOCKS = 256  # row blocks of the column-sum partials
+DB3_BLOCKS = 32  # row blocks of the bf16 backward's db3 (column sums of dy over the groups)
 # rows of the statistics table [10, C3]
 MU0, VAR0, RSTD0, A0, SH0, MU1, VAR1, RSTD1, A1, SH1 = range(10)
+# the bf16 kernels' row tile (whole groups), the multiple of 64 they take D
+# in, F3's column slices and P1's chunks of D (csrc/g2e_train.cu)
+TILE_ROWS = 128
+TC_COLS = 64
+OUT_COLS = (256, 192, 128, 64)
+DY3_COLS = 384
+
+
+def tile_plan(r: int, s: int) -> tuple[int, int]:
+    """(rows of a tile, tiles) of the bf16 kernels, as csrc/g2e_train.cu
+    `tile_at` cuts them: floor(128 / S) whole groups a tile, the last tile
+    holding what is left."""
+    rows = TILE_ROWS // s * s
+    return rows, -(-r // rows)
+
+
+def tc_width(d: int) -> int:
+    """The width the bf16 kernels take the final Dense at: D padded with
+    zero columns to a multiple of 64."""
+    return -(-d // TC_COLS) * TC_COLS
+
+
+def out_cols(d: int) -> int:
+    """F3's column slice of the padded width d: the widest of 256, 192,
+    128 and 64 that divides it."""
+    return next(n for n in OUT_COLS if d % n == 0)
+
+
+def _pad_cols(t: torch.Tensor, d: int) -> torch.Tensor:
+    """t with its last dimension padded by zeros to d."""
+    return torch.nn.functional.pad(t, (0, d - t.shape[-1])) if t.shape[-1] != d else t
+
+
+def grids(r: int, s: int, d: int, sms: int) -> dict[str, int]:
+    """The persistent grids of the bf16 kernels on a card of `sms` SMs (one
+    block an SM) at output width d: F2 and P2's second half ("mid") one
+    block a tile up to a wave; F3 ("out") and P1 / P2's first half ("dy3")
+    a whole number of blocks for each column slice (tc_width(d) / N of
+    them, and 2), block b taking slice b % slices and every (grid /
+    slices)-th tile."""
+    _, tiles = tile_plan(r, s)
+    d = tc_width(d)
+    slices = d // out_cols(d)
+    return {"mid": min(tiles, sms),
+            "out": slices * min(tiles, max(1, sms // slices)),
+            "dy3": 2 * min(tiles, max(1, sms // 2))}
+
+
+def wgrad_splits(r: int, d: int, sms: int) -> tuple[int, int, int]:
+    """Row splits of the bf16 weight gradients dW3 [256, tc_width(D)], dW2
+    [256, 256] and dW1 [64, 128]: K11's plan (one wave of 128 x 128
+    tiles)."""
+    return tuple(kdense.plan_splits(r, ci, co, torch.bfloat16, sms)
+                 for ci, co in ((C3, tc_width(d)), (C3, C3), (C1, C2)))
+
+
+def bwd_workspace(r: int, s: int, cin: int, d: int, dt: torch.dtype, dev, sms: int) -> dict:
+    """The backward's scratch, by name, in the order the entry point takes
+    it. bf16: the bf16 operands the weight gradients read (x1, xc, dh3p,
+    dh2) and dy1, each group's sum of dh3p (f32, R / S rows), then the
+    column partials (f64: P1's and P2's sums are f64) and the split
+    partials; no h4, dh4, dy3 or dxc, and nothing in f32 of R rows. f32:
+    the CUDA-core passes' intermediates."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    act = dict(dtype=dt, device=dev)
+    if dt == torch.bfloat16:
+        g = grids(r, s, d, sms)
+        s3, s2, s1 = wgrad_splits(r, d, sms)
+        d = tc_width(d)
+        wsize = max(COLSUM_BLOCKS * (cin * C1 + C1), s3 * (C3 * d + d), s2 * (C3 * C3 + C3),
+                    s1 * (C1 * C2 + C2))
+        return dict(x1=torch.empty((r, C1), **act), xc=torch.empty((r, C3), **act),
+                    dh3p=torch.empty((r, C3), **act), dh2=torch.empty((r, C2), **act),
+                    dy1=torch.empty((r, C1), **act),
+                    # each group's sum of dh3p (P2's first half -> second half)
+                    gsum=torch.empty((r // s, C3), **f32),
+                    # P1's and P2's column partials over 256 columns (f64),
+                    # db3's over D (DB3_BLOCKS blocks)
+                    part=torch.empty((max(g["dy3"] // 2, g["mid"], DB3_BLOCKS), 2, max(C3, d)),
+                                     dtype=torch.float64, device=dev),
+                    wpart=torch.empty((wsize,), **f32))
+    return dict(
+        dh4=torch.empty((r, d), **act), dy3=torch.empty((r, C3), **f32),
+        h2=torch.empty((r, C2), **act), gmax=torch.empty((r // s, C2), **act),
+        dh3p=torch.empty((r, C3), **act), dxc=torch.empty((r, C3), **f32),
+        dh2=torch.empty((r, C2), **act), dy1=torch.empty((r, C1), **f32),
+        dh1p=torch.empty((r, C1), **act),
+        # column partials of the widest column sum: db3 over D columns
+        # (D = 384 at the segmentation widths), the BatchNorm sums over C3
+        part=torch.empty((COLSUM_BLOCKS, 2, max(C3, d)), **f32),
+        wpart=torch.empty((WGRAD_SPLITS, C3 * max(C3, d)), **f32),
+    )
 
 
 def _dense(x, w, b, dt):
@@ -96,8 +198,15 @@ def g2e_fwd_plain(x0f, wb, s: int):
     return out, h3p, amax, stats
 
 
-def g2e_bwd_plain(x0f, wb, h3p, amax, stats, dy, s: int):
-    """-> (dx0 [R, Cin] in the compute dtype, 12 f32 parameter gradients)."""
+def g2e_bwd_plain(x0f, wb, h3p, amax, stats, dy, s: int, acc: torch.dtype = torch.float32,
+                  rss: bool = False):
+    """-> (dx0 [R, Cin] in the compute dtype, 12 f32 parameter gradients).
+    The backward's arithmetic runs in `acc` between the compute dtype's
+    rounding points (f32, as the Pallas kernel; the card tests also take
+    f64, a reference whose own arithmetic error is far below the bounds).
+    With `rss`, also each column's root sum of squares of the rows summed
+    into the exactly-zero gradients of b0, b1 and b2 (dh1p, dh2, dh3p):
+    the scale of the rounding noise the card tests hold those sums to."""
     w0, _, g0, _, w1, _, w2, _, g1, _, w3, _ = wb
     dt = x0f.dtype
     r = x0f.shape[0]
@@ -105,30 +214,35 @@ def g2e_bwd_plain(x0f, wb, h3p, amax, stats, dy, s: int):
     ng, d = dy.shape
     h1p, x1, h2, gmax, xc = _recompute(x0f, wb, stats, s)
     x3 = _affine_relu(h3p, stats[A1], stats[SH1], dt)
+    st = stats.to(acc)
     rows = torch.arange(s, device=dy.device)[None, :, None]
     dh4 = torch.where(rows == amax[:, None, :], dy[:, None, :],
                       torch.zeros((), dtype=dy.dtype, device=dy.device))
-    dh4 = dh4.to(dt).reshape(r, d).float()
-    dw3, db3 = x3.float().t() @ dh4, dh4.sum(0)
-    dy3 = torch.where(x3.float() > 0, dh4 @ w3.to(dt).float().t(), 0.0)
-    xhat3 = (h3p.float() - stats[MU1]) * stats[RSTD1]
+    dh4 = dh4.to(dt).reshape(r, d).to(acc)
+    dw3, db3 = x3.to(acc).t() @ dh4, dh4.sum(0)
+    dy3 = torch.where(x3 > 0, dh4 @ w3.to(dt).to(acc).t(), 0.0)
+    xhat3 = (h3p.to(acc) - st[MU1]) * st[RSTD1]
     s1b, s2b = dy3.sum(0), (dy3 * xhat3).sum(0)
-    dh3p = (g1.float() * stats[RSTD1] * ((dy3 - s1b / n) - xhat3 * (s2b / n))).to(dt).float()
-    dw2, db2 = xc.float().t() @ dh3p, dh3p.sum(0)
-    dxc = dh3p @ w2.to(dt).float().t()
-    eq = (h2.float() == gmax.float().repeat_interleave(s, dim=0)).float()
+    dh3p = (g1.to(acc) * st[RSTD1] * ((dy3 - s1b / n) - xhat3 * (s2b / n))).to(dt).to(acc)
+    dw2, db2 = xc.to(acc).t() @ dh3p, dh3p.sum(0)
+    dxc = dh3p @ w2.to(dt).to(acc).t()
+    eq = (h2 == gmax.repeat_interleave(s, dim=0)).to(acc)
     dgmax = dxc[:, :C2].view(r // s, s, C2).sum(1)
     cnt = eq.view(r // s, s, C2).sum(1)
-    dh2 = (dxc[:, C2:] + (dgmax / cnt).repeat_interleave(s, dim=0) * eq).to(dt).float()
-    dw1, db1 = x1.float().t() @ dh2, dh2.sum(0)
-    dy1 = torch.where(x1.float() > 0, dh2 @ w1.to(dt).float().t(), 0.0)
-    xhat1 = (h1p.float() - stats[MU0, :C1]) * stats[RSTD0, :C1]
+    dh2 = (dxc[:, C2:] + (dgmax / cnt).repeat_interleave(s, dim=0) * eq).to(dt).to(acc)
+    dw1, db1 = x1.to(acc).t() @ dh2, dh2.sum(0)
+    dy1 = torch.where(x1 > 0, dh2 @ w1.to(dt).to(acc).t(), 0.0)
+    xhat1 = (h1p.to(acc) - st[MU0, :C1]) * st[RSTD0, :C1]
     s1a, s2a = dy1.sum(0), (dy1 * xhat1).sum(0)
-    dh1p = (g0.float() * stats[RSTD0, :C1]
-            * ((dy1.to(dt).float() - s1a / n) - xhat1 * (s2a / n))).to(dt).float()
-    dw0, db0 = x0f.float().t() @ dh1p, dh1p.sum(0)
-    dx0 = (dh1p @ w0.to(dt).float().t()).to(dt)
-    return dx0, (dw0, db0, s2a, s1a, dw1, db1, dw2, db2, s2b, s1b, dw3, db3)
+    dh1p = (g0.to(acc) * st[RSTD0, :C1]
+            * ((dy1.to(dt).to(acc) - s1a / n) - xhat1 * (s2a / n))).to(dt).to(acc)
+    dw0, db0 = x0f.to(acc).t() @ dh1p, dh1p.sum(0)
+    dx0 = (dh1p @ w0.to(dt).to(acc).t()).to(dt)
+    grads = (dw0, db0, s2a, s1a, dw1, db1, dw2, db2, s2b, s1b, dw3, db3)
+    if rss:
+        return dx0, tuple(t.float() for t in grads), tuple(
+            t.square().sum(0).sqrt().float() for t in (dh1p, dh2, dh3p))
+    return dx0, tuple(t.float() for t in grads)
 
 
 def _kernel_weights(wb, dt):
@@ -142,6 +256,8 @@ def _kernel_weights(wb, dt):
 
 
 def _check(x0f, wb, s):
+    """(R, Cin, D) of a launch; raises ValueError on what the kernels do
+    not take, before any launch."""
     r, cin = x0f.shape
     d = wb[10].shape[1]
     if s < 1 or r % s:
@@ -149,6 +265,9 @@ def _check(x0f, wb, s):
     if cin > MAX_CIN or tuple(wb[0].shape) != (cin, C1) or tuple(wb[4].shape) != (C1, C2) \
             or tuple(wb[6].shape) != (2 * C2, C3) or wb[10].shape[0] != C3:
         raise ValueError("g2e kernel expects Group2Emb's 64/128/256 widths and Cin <= 16")
+    if x0f.dtype == torch.bfloat16 and s > TILE_ROWS:
+        raise ValueError(f"the bf16 g2e kernels hold whole groups of at most {TILE_ROWS} "
+                         f"rows in a tile, got group size {s}")
     return r, cin, d
 
 
@@ -157,21 +276,33 @@ def g2e_fwd_kernel(x0f, wb, s: int):
     dt, dev = x0f.dtype, x0f.device
     x0f = x0f.contiguous()
     cuda.require(x0f, "x0", dt, (r, cin))
+    fn = cuda.tc_route("g2e_fwd", dt)
     w = _kernel_weights(wb, dt)
-    out = torch.empty((r // s, d), dtype=dt, device=dev)
-    amax = torch.empty((r // s, d), dtype=torch.int32, device=dev)
+    dk = tc_width(d) if dt == torch.bfloat16 else d
+    w[10], w[11] = _pad_cols(w[10], dk), _pad_cols(w[11], dk)
+    out = torch.empty((r // s, dk), dtype=dt, device=dev)
+    amax = torch.empty((r // s, dk), dtype=torch.int32, device=dev)
     h3p = torch.empty((r, C3), dtype=dt, device=dev)
     stats = torch.zeros((10, C3), dtype=torch.float32, device=dev)
-    h2 = torch.empty((r, C2), dtype=dt, device=dev)
-    gmax = torch.empty((r // s, C2), dtype=dt, device=dev)
-    h4 = torch.empty((r, d), dtype=dt, device=dev)
-    part = torch.empty((COLSUM_BLOCKS, 2, C3), dtype=torch.float32, device=dev)
-    fn = cuda.entry_point("g2e_fwd", dt)
+    if dt == torch.bfloat16:
+        g = grids(r, s, d, cuda.sm_count(dev.index))
+        part = torch.empty((max(COLSUM_BLOCKS, g["mid"]), 2, C3), dtype=torch.float32,
+                           device=dev)
+        args = (out, amax, h3p, stats, part)
+        sizes = (r, s, cin, dk, COLSUM_BLOCKS, g["mid"], g["out"])
+    else:
+        h2 = torch.empty((r, C2), dtype=dt, device=dev)
+        gmax = torch.empty((r // s, C2), dtype=dt, device=dev)
+        h4 = torch.empty((r, d), dtype=dt, device=dev)
+        part = torch.empty((COLSUM_BLOCKS, 2, C3), dtype=torch.float32, device=dev)
+        args = (out, amax, h3p, stats, h2, gmax, h4, part)
+        sizes = (r, s, cin, d, COLSUM_BLOCKS)
     FWD_LAUNCHES.n += 1
     cuda.check(getattr(cuda.lib(), fn)(
-        x0f.data_ptr(), *(t.data_ptr() for t in w), out.data_ptr(), amax.data_ptr(),
-        h3p.data_ptr(), stats.data_ptr(), h2.data_ptr(), gmax.data_ptr(), h4.data_ptr(),
-        part.data_ptr(), r, s, cin, d, COLSUM_BLOCKS, cuda.stream_ptr()), fn)
+        x0f.data_ptr(), *(t.data_ptr() for t in w), *(t.data_ptr() for t in args), *sizes,
+        cuda.stream_ptr()), fn)
+    if dk != d:
+        out, amax = out[:, :d].contiguous(), amax[:, :d].contiguous()
     return out, h3p, amax, stats
 
 
@@ -183,30 +314,32 @@ def g2e_bwd_kernel(x0f, wb, h3p, amax, stats, dy, s: int):
     cuda.require(h3p, "h3p", dt, (r, C3))
     cuda.require(amax, "amax", torch.int32, (r // s, d))
     cuda.require(stats, "stats", torch.float32, (10, C3))
+    fn = cuda.tc_route("g2e_bwd", dt)
     w0, b0, g0, _, w1, b1, w2, b2, g1, _, w3, _ = _kernel_weights(wb, dt)
-    f32 = dict(dtype=torch.float32, device=dev)
     dx0 = torch.empty_like(x0f)
-    grads = [torch.empty(tuple(t.shape), **f32) for t in wb]
-    work = dict(
-        dh4=torch.empty((r, d), dtype=dt, device=dev), dy3=torch.empty((r, C3), **f32),
-        h2=torch.empty((r, C2), dtype=dt, device=dev),
-        gmax=torch.empty((r // s, C2), dtype=dt, device=dev),
-        dh3p=torch.empty((r, C3), dtype=dt, device=dev), dxc=torch.empty((r, C3), **f32),
-        dh2=torch.empty((r, C2), dtype=dt, device=dev), dy1=torch.empty((r, C1), **f32),
-        dh1p=torch.empty((r, C1), dtype=dt, device=dev),
-        # column partials of the widest column sum: db3 over D columns
-        # (D = 384 at the segmentation widths), the BatchNorm sums over C3
-        part=torch.empty((COLSUM_BLOCKS, 2, max(C3, d)), **f32),
-        wpart=torch.empty((WGRAD_SPLITS, C3 * max(C3, d)), **f32),
-    )
-    fn = cuda.entry_point("g2e_bwd", dt)
+    dk = tc_width(d) if dt == torch.bfloat16 else d
+    # the padded columns: zero weights, zero dy (their argmax 0 is never used)
+    w3, dy, amax = _pad_cols(w3, dk), _pad_cols(dy, dk), _pad_cols(amax, dk)
+    shapes = [tuple(t.shape) for t in wb[:10]] + [(C3, dk), (dk,)]
+    grads = [torch.empty(sh, dtype=torch.float32, device=dev) for sh in shapes]
+    sms = cuda.sm_count(dev.index)
+    work = bwd_workspace(r, s, cin, d, dt, dev, sms)
+    if dt == torch.bfloat16:
+        # the weight gradients' loaders read h3p, amax and dy 16 bytes at a time
+        cuda.require_aligned(fn, h3p=h3p.data_ptr(), amax=amax.data_ptr(), dy=dy.data_ptr())
+        weights = (w0, b0, g0, w1, b1, w2, g1, w3)
+        g = grids(r, s, d, sms)
+        sizes = (r, s, cin, dk, COLSUM_BLOCKS, g["mid"], g["dy3"], *wgrad_splits(r, d, sms))
+    else:
+        weights = (w0, b0, g0, w1, b1, w2, b2, g1, w3)
+        sizes = (r, s, cin, d, COLSUM_BLOCKS, WGRAD_SPLITS)
     BWD_LAUNCHES.n += 1
     cuda.check(getattr(cuda.lib(), fn)(
-        x0f.data_ptr(), w0.data_ptr(), b0.data_ptr(), g0.data_ptr(), w1.data_ptr(),
-        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), g1.data_ptr(), w3.data_ptr(),
-        h3p.data_ptr(), amax.data_ptr(), stats.data_ptr(), dy.data_ptr(), dx0.data_ptr(),
-        *(t.data_ptr() for t in grads), *(t.data_ptr() for t in work.values()),
-        r, s, cin, d, COLSUM_BLOCKS, WGRAD_SPLITS, cuda.stream_ptr()), fn)
+        x0f.data_ptr(), *(t.data_ptr() for t in weights), h3p.data_ptr(), amax.data_ptr(),
+        stats.data_ptr(), dy.data_ptr(), dx0.data_ptr(), *(t.data_ptr() for t in grads),
+        *(t.data_ptr() for t in work.values()), *sizes, cuda.stream_ptr()), fn)
+    if dk != d:
+        grads[10], grads[11] = grads[10][:, :d].contiguous(), grads[11][:d].contiguous()
     return dx0, tuple(grads)
 
 
