@@ -136,6 +136,24 @@ def _assert_zero_grad_close(got, want, rss):
     assert err <= 1.0, err
 
 
+def _assert_k9_near_ties_and_zeros(kg, args, work, grads):
+    """The bf16 K9's one rule at a near-tie and at zero, as chip_smoke.py
+    `check_k9_ties_and_zeros` holds it: every (group, column) whose tie set
+    h2 == gmax differs between the kernel (its backward's workspace) and
+    the twin is counted and printed, and each must be a true near-tie (the
+    two competing h2 values within one bf16 ulp); the exactly-zero
+    gradients of b0, b1 and b2 within their rounding noise of the f64
+    twin's."""
+    x0, wb, _, _, stats, _, s = args
+    n, ulps = kg.tie_flips(*kg.kernel_h2_pool(work, s), *kg.h2_pool(x0, wb, stats, s), s)
+    print(f"K9 bf16: {n} (group, column) tie sets differ from the twin's; the competing h2 at "
+          f"most {ulps:.3f} bf16 ulp apart")
+    assert ulps <= 1.0, (n, ulps)
+    _, ref, rss = kg.g2e_bwd_plain(*args, acc=torch.float64, rss=True)
+    for i, r in zip(ZERO_GRADS, rss):
+        _assert_zero_grad_close(grads[i], ref[i], r)
+
+
 def _g2e_bwd_reference(kg, *args):
     """K9's backward twin as the bf16 kernels are held to it: between the
     bf16 rounding points in f64. The gradients of b0, b1 and b2 are exactly
@@ -255,11 +273,15 @@ def test_g2e_train_kernel_matches_twin(dev, b, g, s, d, dt):
     _assert_close(got[3], want[3], torch.float32)  # statistics
     dy = _t(rng, (b * g, d), dev, dt)
     _, h3p, amax, stats = want
-    dx_k, gr_k = kg.g2e_bwd_kernel(x0, wb, h3p, amax, stats, dy, s)
-    dx_p, gr_p = _g2e_bwd_reference(kg, x0, wb, h3p, amax, stats, dy, s)
+    args = (x0, wb, h3p, amax, stats, dy, s)
+    work = kg.bwd_workspace(b * g * s, s, 3, d, dt, dev, kcuda.sm_count(0))
+    dx_k, gr_k = kg.g2e_bwd_kernel(*args, work=work)
+    dx_p, gr_p = _g2e_bwd_reference(kg, *args)
     _assert_grad_close(dx_k, dx_p, dt)
     for got_g, want_g in zip(gr_k, gr_p):
         _assert_grad_close(got_g, want_g, dt)
+    if dt == torch.bfloat16:
+        _assert_k9_near_ties_and_zeros(kg, args, work, gr_k)
 
 
 @pytest.mark.cuda
@@ -302,14 +324,17 @@ def test_g2e_train_kernel_at_segmentation_width(dev, cin):
     _assert_close(got[0], want[0], dt)
     _, h3p, amax, stats = want
     dy = _t(rng, (b * g, d), dev, dt)
-    dx_k, gr_k = kg.g2e_bwd_kernel(x0, wb, h3p, amax, stats, dy, s)
-    dx_k2, gr_k2 = kg.g2e_bwd_kernel(x0, wb, h3p, amax, stats, dy, s)
+    args = (x0, wb, h3p, amax, stats, dy, s)
+    work = kg.bwd_workspace(b * g * s, s, cin, d, dt, dev, kcuda.sm_count(0))
+    dx_k, gr_k = kg.g2e_bwd_kernel(*args, work=work)
+    dx_k2, gr_k2 = kg.g2e_bwd_kernel(*args)
     torch.cuda.synchronize()
     assert torch.equal(dx_k, dx_k2) and all(map(torch.equal, gr_k, gr_k2))
-    dx_p, gr_p = _g2e_bwd_reference(kg, x0, wb, h3p, amax, stats, dy, s)
+    dx_p, gr_p = _g2e_bwd_reference(kg, *args)
     _assert_grad_close(dx_k, dx_p, dt)
     for got_g, want_g in zip(gr_k, gr_p):
         _assert_grad_close(got_g, want_g, dt)
+    _assert_k9_near_ties_and_zeros(kg, args, work, gr_k)
 
 
 @pytest.mark.cuda
@@ -319,7 +344,8 @@ def test_g2e_bf16_takes_any_width(dev, d):
     multiple of 64 (96), and past 384 columns in P1's chunks (512):
     against its twin, forward and backward (`_g2e_bwd_reference`), and two
     backward runs give the same bits. The exactly-zero gradients of b0, b1
-    and b2 are held as column sums (`_assert_colsum_close`)."""
+    and b2 are held to their rounding noise (`_assert_zero_grad_close`),
+    and every tie flip to a true near-tie."""
     from vipformer_tpu_torch.ops.cuda import g2e_train as kg
 
     rng = np.random.default_rng(5)
@@ -337,19 +363,21 @@ def test_g2e_bf16_takes_any_width(dev, d):
     _assert_close(got[1], want[1], dt)
     _, h3p, amax, stats = want
     dy = _t(rng, (b * g, d), dev, dt)
-    dx_k, gr_k = kg.g2e_bwd_kernel(x0, wb, h3p, amax, stats, dy, s)
-    dx_k2, gr_k2 = kg.g2e_bwd_kernel(x0, wb, h3p, amax, stats, dy, s)
+    args = (x0, wb, h3p, amax, stats, dy, s)
+    work = kg.bwd_workspace(b * g * s, s, 3, d, dt, dev, kcuda.sm_count(0))
+    dx_k, gr_k = kg.g2e_bwd_kernel(*args, work=work)
+    dx_k2, gr_k2 = kg.g2e_bwd_kernel(*args)
     torch.cuda.synchronize()
     assert torch.equal(dx_k, dx_k2) and all(map(torch.equal, gr_k, gr_k2))
     assert gr_k[10].shape == (256, d) and gr_k[11].shape == (d,)
-    dx_p, gr_p, rss = kg.g2e_bwd_plain(x0, wb, h3p, amax, stats, dy, s, acc=torch.float64,
-                                       rss=True)
+    dx_p, gr_p, rss = kg.g2e_bwd_plain(*args, acc=torch.float64, rss=True)
     _assert_grad_close(dx_k, dx_p, dt)
     for i, (got_g, want_g) in enumerate(zip(gr_k, gr_p)):
         if i in ZERO_GRADS:
             _assert_zero_grad_close(got_g, want_g, rss[ZERO_GRADS.index(i)])
         else:
             _assert_grad_close(got_g, want_g, dt)
+    _assert_k9_near_ties_and_zeros(kg, args, work, gr_k)
 
 
 @pytest.mark.cuda
@@ -363,8 +391,10 @@ def test_g2e_bf16_tiles_hold_whole_groups(dev, b, g, s, ties):
     rounding points, `_g2e_bwd_reference`), each pass launched twice and
     bitwise equal; no f32 array of R rows and no h4, dh4, dy3 or dxc in
     its workspace. The exactly-zero gradients of b0, b1 and b2 are held,
-    as chip_smoke.py holds them, within 1e-4 sqrt(R) of max(1, max |twin|):
-    each side sums R bf16-rounded terms that cancel."""
+    as chip_smoke.py holds them, within 1e-4 sqrt(R) of max(1, max |twin|)
+    (each side sums R bf16-rounded terms that cancel) and to their rounding
+    noise, and every tie flip to a true near-tie
+    (`_assert_k9_near_ties_and_zeros`)."""
     from vipformer_tpu_torch.ops.cuda import g2e_train as kg
 
     rng = np.random.default_rng(6)
@@ -389,7 +419,8 @@ def test_g2e_bf16_tiles_hold_whole_groups(dev, b, g, s, ties):
     _, h3p, amax, stats = want
     dy = _t(rng, (r // s, d), dev, torch.bfloat16)
     args = (x0, wb, h3p, amax, stats, dy, s)
-    (dx_k, gr_k), (dx_k2, gr_k2) = kg.g2e_bwd_kernel(*args), kg.g2e_bwd_kernel(*args)
+    work = kg.bwd_workspace(r, s, 3, d, torch.bfloat16, dev, kcuda.sm_count(0))
+    (dx_k, gr_k), (dx_k2, gr_k2) = kg.g2e_bwd_kernel(*args, work=work), kg.g2e_bwd_kernel(*args)
     assert torch.equal(dx_k, dx_k2) and all(map(torch.equal, gr_k, gr_k2))
     dx_p, gr_p = _g2e_bwd_reference(kg, *args)
     _assert_grad_close(dx_k, dx_p, torch.bfloat16)
@@ -399,6 +430,7 @@ def test_g2e_bf16_tiles_hold_whole_groups(dev, b, g, s, ties):
             assert err <= 1e-4 * r ** 0.5 * max(1.0, want_g.abs().max().item()), (i, err)
         else:
             _assert_grad_close(got_g, want_g, torch.bfloat16)
+    _assert_k9_near_ties_and_zeros(kg, args, work, gr_k)
     work = kg.bwd_workspace(r, s, 3, d, torch.bfloat16, "meta", kcuda.sm_count(0))
     assert not {"h4", "dh4", "dy3", "dxc"} & set(work)
     assert all(t.dtype == torch.bfloat16 or t.shape[0] != r for t in work.values())
@@ -1027,3 +1059,104 @@ def test_head_split_kernel_refuses(dev):
     q = torch.zeros(1 + 2 * 8 * 64, dtype=torch.bfloat16, device=dev)[1:].view(1, 2, 8, 64)
     with pytest.raises(ValueError, match="16-byte boundary"):
         kattn.fused_attention(q, q, q, scale=0.1)
+
+
+# ---------------------------------------------------------------- K3, K4
+# K3 in bf16 (tensor cores) at group sizes the gate admits and tiles of
+# whole groups (16 of 8, 5 of 24 in 120 rows, 4 of 32, 16 of 4 in 64),
+# partseg's and semseg's D = 384 (semseg's xyz+rgb C = 6 at N = 4,096),
+# a width padded to a multiple of 64, and group counts no tile count
+# divides: (B, N, G, S, D, C)
+STEM_TC_CASES = [(2, 1024, 128, 32, 256, 3), (3, 1000, 40, 24, 256, 3),
+                 (2, 700, 128, 16, 256, 3), (1, 300, 24, 8, 384, 3),
+                 (2, 4096, 128, 32, 384, 6), (2, 512, 100, 32, 96, 3), (3, 64, 16, 4, 128, 3)]
+
+
+def _stem_ops(dev, b, n, g, s, d, c, dt, seed=21):
+    rng = np.random.default_rng(seed)
+    pts = _t(rng, (b, n, c), dev)
+    idx, centers = kfps.fps(pts[..., :3].contiguous(), g)
+    nn_idx = kknn.knn(s, pts[..., :3].contiguous(), centers)
+    g2e = init_weights(Group2Emb(c, d), 0).to(dev).eval()
+    with torch.no_grad():  # nontrivial eval BatchNorm statistics
+        for bn in (g2e.BatchNorm_0, g2e.BatchNorm_1):
+            ch = bn.running_mean.shape[0]
+            bn.running_mean.copy_(_t(rng, (ch,), dev, scale=0.1))
+            bn.running_var.copy_(_t(rng, (ch,), dev).abs() + 0.5)
+            bn.weight.copy_(_t(rng, (ch,), dev, scale=0.2) + 1.0)
+            bn.bias.copy_(_t(rng, (ch,), dev, scale=0.1))
+    return kstem.stem_operands(g2e, pts, centers, nn_idx, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,g,s,d,c", STEM_TC_CASES)
+def test_stem_tc_kernel_matches_twin(dev, b, n, g, s, d, c):
+    """The bf16 K3 (two tensor-core passes) against stem_plain within
+    2e-2 of max(1, max |twin|), two launches bitwise equal; the f32 kernel
+    (CUDA cores) within 2e-5 at the same shape."""
+    with torch.inference_mode():
+        for dt in (torch.bfloat16, torch.float32):
+            ops = _stem_ops(dev, b, n, g, s, d, c, dt)
+            got = kstem.stem_kernel(*ops)
+            assert got.shape == (b, g, d)
+            if dt == torch.bfloat16:
+                assert torch.equal(got, kstem.stem_kernel(*ops))
+            _assert_close(got, kstem.stem_plain(*ops), dt)
+
+
+# K4 in bf16 (tensor cores): the serving shape, token counts off the
+# 64-token tiles (63, 65, 777), semseg's 4,096 tokens at Din = 384 and 6
+# heads, more than 128 queries (k and v projected once, then K13; the
+# Perceiver's 512 latents, and Din past and within the tile kernel's
+# 256), one query, Din = 1,024 (the gate's largest) and Din = 96 (a
+# multiple of 8 only): (B, G, M, Din, H)
+KV_LN_TC_CASES = [(2, 128, 1024, 256, 4), (3, 130, 65, 384, 6), (2, 128, 4096, 384, 6),
+                  (1, 1, 63, 128, 2), (2, 200, 777, 1024, 4), (3, 50, 300, 96, 2),
+                  (2, 512, 2048, 256, 4), (1, 300, 63, 96, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,g,m,din,h", KV_LN_TC_CASES)
+def test_attention_kv_ln_tc_kernel_matches_twin(dev, b, g, m, din, h, monkeypatch):
+    """The bf16 K4 (the LayerNorm pass, then one tensor-core block per
+    (head, cloud, kv split), or past 128 queries the projection pass and
+    K13) against attention_kv_ln_plain within 2e-2, two launches bitwise
+    equal; with its kv splits forced to 1 (no merge pass) within 2e-2 of
+    the planned split; the f32 kernel within 2e-5."""
+    rng = np.random.default_rng(23)
+    d = 64 * h
+    with torch.inference_mode():
+        for dt in (torch.bfloat16, torch.float32):
+            args = (_t(rng, (b, g, d), dev, dt), _t(rng, (b, m, din), dev, dt),
+                    _t(rng, (din,), dev, scale=0.2) + 1.0, _t(rng, (din,), dev, scale=0.1),
+                    *(_t(rng, (din, d), dev, dt, din ** -0.5) for _ in range(2)))
+            got = kattn.fused_attention_packed_kv_ln(*args, num_heads=h, scale=0.125)
+            if dt == torch.bfloat16:
+                assert torch.equal(got, kattn.fused_attention_packed_kv_ln(
+                    *args, num_heads=h, scale=0.125))
+                with monkeypatch.context() as mp:
+                    mp.setattr(kattn, "kv_ln_plan", lambda *_: (1, 1))
+                    _assert_close(kattn.fused_attention_packed_kv_ln(
+                        *args, num_heads=h, scale=0.125), got, dt)
+            _assert_close(got, kattn.attention_kv_ln_plain(*args, h, 0.125), dt)
+
+
+@pytest.mark.cuda
+def test_tensor_core_k3_k4_refuse_misaligned(dev):
+    """The bf16 K3 and K4 (16-byte loads and cp.async) refuse an operand
+    whose storage starts off a 16-byte boundary, before any launch."""
+    rng = np.random.default_rng(24)
+    dt = torch.bfloat16
+    ops = list(_stem_ops(dev, 1, 256, 16, 8, 256, 3, dt))
+    t1 = ops[0]
+    ops[0] = _t(rng, (t1.numel() + 8,), dev, dt)[1:1 + t1.numel()].view(t1.shape)
+    kcuda.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        kstem.stem_kernel(*ops)
+    q, x = _t(rng, (1, 8, 256), dev, dt), _t(rng, (1, 64, 256), dev, dt)
+    x_off = _t(rng, (64 * 256 + 8,), dev, dt)[1:1 + 64 * 256].view(1, 64, 256)
+    ln, w = _t(rng, (256,), dev), _t(rng, (256, 256), dev, dt, 0.0625)
+    for args in ((q, x_off, ln, ln, w, w), (q, x, _t(rng, (260,), dev)[1:257], ln, w, w)):
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            kattn.fused_attention_packed_kv_ln(*args, num_heads=4, scale=0.125)
+    assert kcuda.launch_counts()["stem"] == 0 and kcuda.launch_counts()["attn_kv_ln"] == 0

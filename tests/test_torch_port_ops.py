@@ -170,6 +170,33 @@ def test_attention_kv_ln_twin_matches_pallas(rng):
     _close(got.numpy(), want)
 
 
+@pytest.mark.parametrize("dt", [(torch.float32, jnp.float32, 1e-5),
+                                (torch.bfloat16, jnp.bfloat16, 2e-2)])
+def test_attention_kv_ln_twin_in_64_token_tiles_matches_pallas(rng, dt):
+    """The tile-order witness of the bf16 K4: its twin streamed over
+    64-token chunks (the kernel's tiles) against the Pallas kernel run with
+    kv_chunk = 64, over several chunks, at the serving widths (D = 256, 4
+    heads); f32 within 1e-5, bf16 within 2e-2 (one rounding of k, v or p
+    may flip)."""
+    tdt, jdt, tol = dt
+    b, g, m, d, h = 2, 8, 256, 256, 4
+    q, x = _f32(rng, b, g, d), _f32(rng, b, m, d)
+    lw, lb = _f32(rng, d, scale=0.2) + 1.0, _f32(rng, d, scale=0.1)
+    wk, wv = _f32(rng, d, d, scale=d ** -0.5), _f32(rng, d, d, scale=d ** -0.5)
+    scale = (d // h) ** -0.5
+    want = fused_attention_packed_kv_ln(
+        jnp.asarray(q, jdt), jnp.asarray(x, jdt), jnp.asarray(lw), jnp.asarray(lb),
+        jnp.asarray(wk, jdt), jnp.asarray(wv, jdt), num_heads=h, scale=scale, kv_chunk=64,
+        interpret=True)
+    got = kattn.attention_kv_ln_plain(
+        torch.from_numpy(q).to(tdt), torch.from_numpy(x).to(tdt), torch.from_numpy(lw),
+        torch.from_numpy(lb), torch.from_numpy(wk).to(tdt), torch.from_numpy(wv).to(tdt), h,
+        scale, kv_chunk=64)
+    want = np.asarray(jnp.asarray(want, jnp.float32))
+    err = np.abs(got.float().numpy() - want).max()
+    assert err <= tol * max(1.0, np.abs(want).max()), err
+
+
 def test_attention_small_twin_matches_pallas(rng):
     b, g, d, h = 2, 16, 32, 4
     q, k, v = (_f32(rng, b, g, d) for _ in range(3))
@@ -273,8 +300,9 @@ def test_wrappers_validate_operands():
         kcuda.require(torch.zeros(2), "x", torch.float32)
     assert kknn.idx_bits_for(1024) == 10 and kknn.idx_bits_for(1025) == 11
     assert kknn.idx_bits_for(1) == 1
-    for base in ("stem", "attn_kv_ln"):
+    for base in ("stem", "attn_kv_ln"):  # K3, K4: bf16 on the tensor cores
         for dt in (torch.float32, torch.bfloat16):
-            assert kcuda.entry_point(base, dt) in kcuda.SIGNATURES
+            assert kcuda.tc_route(base, dt) in kcuda.SIGNATURES
+        assert f"{base}_bf16" not in kcuda.SIGNATURES
     with pytest.raises(TypeError, match="float32 or bfloat16"):
-        kcuda.entry_point("stem", torch.float16)
+        kcuda.tc_route("stem", torch.float16)

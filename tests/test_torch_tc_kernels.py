@@ -1,7 +1,7 @@
-"""The tensor-core routes of K5, K6, K7, K8's and K9's forward and
-backward and K11, on the CPU: which entry point each dtype reaches, and
-how the wrappers plan the kernels' grids; and the split plans of K17's
-and K18's one-pass backwards.
+"""The tensor-core routes of K3, K4, K5, K6, K7, K8's and K9's forward
+and backward and K11, on the CPU: which entry point each dtype reaches,
+and how the wrappers plan the kernels' grids; and the split plans of
+K17's and K18's one-pass backwards.
 
 The bf16 K5 (`tc::attn_small_tc_kernel`), K6
 (`tc::attn_small_qkv_ln_tc_kernel`), K8's forward
@@ -43,7 +43,11 @@ def qkv_tc_smem_bytes(g: int) -> int:
 
 
 # (base, dtype, entry point): bf16 on the tensor cores, f32 on the CUDA cores
-ROUTES = [("dense_grads", torch.bfloat16, "dense_grads_tc_bf16"),
+ROUTES = [("stem", torch.bfloat16, "stem_tc_bf16"),
+          ("stem", torch.float32, "stem_f32"),
+          ("attn_kv_ln", torch.bfloat16, "attn_kv_ln_tc_bf16"),
+          ("attn_kv_ln", torch.float32, "attn_kv_ln_f32"),
+          ("dense_grads", torch.bfloat16, "dense_grads_tc_bf16"),
           ("dense_grads", torch.float32, "dense_grads_f32"),
           ("attn_small", torch.bfloat16, "attn_small_tc_bf16"),
           ("attn_small", torch.float32, "attn_small_f32"),
@@ -684,3 +688,270 @@ def test_k9_tiles_recompute_what_the_twin_computes(s, dt):
     err = (got.float() - want.float()).abs().max().item()
     scale = max(1.0, want.float().abs().max().item())
     assert err <= (1e-6 if dt == torch.float32 else 2 ** -7) * scale
+
+
+# ------------------------------------------------------------- K3, K4
+# K3's groups (B x G, G = 128): one cloud's worth and fewer, the serving
+# batches (32, 64), the evals (semseg 32, partseg 96, eval_zeroshot 160,
+# ft_cls 330), and counts no tile divides; group sizes the gate admits
+K3_GROUPS = (1, 7, 165, 32 * 128, 64 * 128, 96 * 128, 160 * 128, 330 * 128)
+K3_S = (4, 8, 16, 24, 32)
+K3_WIDTHS = (64, 96, 256, 384, 512)
+
+
+@pytest.mark.parametrize("groups", K3_GROUPS)
+@pytest.mark.parametrize("s", K3_S)
+def test_k3_tile_plan_takes_every_group_once(s, groups):
+    """The bf16 K3's tiles (csrc/stem.cu `tile_at`): at most 16 whole
+    groups and 128 rows a tile, as many as fit; walked as the two
+    persistent passes walk them on 132 SMs, the mid pass takes every
+    group's tile once, the out pass every (column slice, tile) once, at
+    the repo's widths and at widths padded to a multiple of 64."""
+    from vipformer_tpu_torch.ops.cuda import g2e_train as kg
+    from vipformer_tpu_torch.ops.cuda import stem as kstem
+
+    per, tiles = kstem.tile_plan(groups, s)
+    assert per * s <= 128 and per <= 16 and (per == 16 or (per + 1) * s > 128)
+    assert _covers_once([(t * per, min(groups, (t + 1) * per)) for t in range(tiles)], groups)
+    for d in K3_WIDTHS:
+        g = kstem.grids(groups, s, d, SMS)
+        mid = sorted(t for b in range(g["mid"]) for t in range(b, tiles, g["mid"]))
+        assert mid == list(range(tiles)) and g["mid"] <= SMS
+        dp = kg.tc_width(d)
+        slices = dp // kg.out_cols(dp)
+        grid, nb = g["out"], g["out"] // slices
+        assert grid % slices == 0 and grid <= max(SMS, slices)
+        work = sorted((b % slices, t) for b in range(grid) for t in range(b // slices, tiles, nb))
+        assert work == [(c, t) for c in range(slices) for t in range(tiles)]
+
+
+def k3_tc_smem_bytes(d: int) -> dict[str, int]:
+    """The bf16 K3's dynamic shared memory (csrc/stem.cu `MID_SMEM`,
+    `out_smem`), bf16 rows padded by 8: mid holds W2 [64][136], W3
+    [256][264] and a tile [128][264]; out W4's column slice [256][N + 8]
+    (D padded to a multiple of 64) and a tile."""
+    from vipformer_tpu_torch.ops.cuda import g2e_train as kg
+
+    tile = 2 * 128 * (256 + 8)
+    n = kg.out_cols(kg.tc_width(d))
+    return {"mid": 2 * 64 * (128 + 8) + 2 * 256 * (256 + 8) + tile,
+            "out": 2 * 256 * (n + 8) + tile}
+
+
+@pytest.mark.parametrize("d", K3_WIDTHS)
+def test_k3_tc_passes_fit_one_block_an_sm(d):
+    """Each bf16 K3 pass's shared memory fits a block (227 KB) and one
+    block an SM, as its __launch_bounds__(512, 1) says; the wrapper's
+    figures are the kernel's. At D = 256: mid 220,160 B, out 202,752 B; at
+    D = 384 (slices of 192) out 169,984 B."""
+    from vipformer_tpu_torch.ops.cuda import stem as kstem
+
+    smem = kstem.tc_smem(d)
+    assert smem == k3_tc_smem_bytes(d)
+    for n in smem.values():
+        assert 48 * 1024 < n <= 227 * 1024
+        assert n + BLOCK_RESERVED_BYTES <= SM_SHARED_BYTES
+    if d == 256:
+        assert smem == {"mid": 220160, "out": 202752}
+    if d == 384:
+        assert smem["out"] == 169984
+
+
+def _tiled_stem(t1ext, idx, w2, b2, w3, b3, w4, b4, n, g, s):
+    """A CPU mirror of the bf16 K3's two passes (csrc/stem.cu tc), tile by
+    tile over the B*G groups: the neighbour and center rows gathered by
+    index, x1, each group's max, the pooled half gmax W3[:128] once a
+    group seeding the local half x1 W3[128:], then h = x2 W4 and each
+    group's max."""
+    from vipformer_tpu_torch.ops.cuda import stem as kstem
+
+    dt = t1ext.dtype
+    bsz, _, c1 = t1ext.shape
+    table, flat = t1ext.reshape(-1, c1), idx.reshape(-1).long()
+    per, tiles = kstem.tile_plan(bsz * g, s)
+    out = []
+    for t in range(tiles):
+        gg = torch.arange(t * per, min(bsz * g, (t + 1) * per))
+        rows = (gg[:, None] * s + torch.arange(s)).reshape(-1)
+        cloud = gg // g
+        nb = table[(cloud * (n + g)).repeat_interleave(s) + flat[rows]]
+        cen = table[(cloud * (n + g) + n + gg - cloud * g).repeat_interleave(s)]
+        x0 = torch.relu((nb.float() - cen.float()).to(dt))
+        x1 = (x0.float() @ w2.float()).to(dt) + b2
+        gmax = x1.view(-1, s, x1.shape[-1]).amax(1)
+        gpart = gmax.float() @ w3[:128].float()
+        acc = gpart.repeat_interleave(s, 0) + x1.float() @ w3[128:].float()
+        x2 = torch.relu(acc.to(dt) + b3)
+        h = (x2.float() @ w4.float()).to(dt) + b4
+        out.append(h.view(-1, s, h.shape[-1]).amax(1))
+    return torch.cat(out).view(bsz, g, -1)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,g,s,d", [(2, 300, 40, 24, 96), (3, 128, 16, 8, 64),
+                                       (1, 64, 32, 4, 32)])
+def test_k3_tiles_compute_what_the_twin_computes(b, n, g, s, d, dt):
+    """The bf16 K3 gathers each tile's rows by index across clouds, takes
+    the concat product as a pooled half once a group plus a local half,
+    and pads D with zero columns: the tile mirror with W4 and b4 so padded
+    gives the twin's output in its first D columns (within f32 summation
+    order; in bf16 within one rounding), at tiles that cross clouds and
+    groups no tile count divides."""
+    from vipformer_tpu_torch.ops.cuda import g2e_train as kg
+    from vipformer_tpu_torch.ops.cuda import stem as kstem
+
+    gen = torch.Generator().manual_seed(7)
+    t1ext = torch.randn((b, n + g, 64), generator=gen).to(dt)
+    idx = torch.randint(0, n, (b, g * s), generator=gen, dtype=torch.int32)
+    shapes = ((64, 128), (128,), (256, 256), (256,), (256, d), (d,))
+    w2, b2, w3, b3, w4, b4 = (
+        (torch.randn(sh, generator=gen) * (sh[0] ** -0.5 if len(sh) == 2 else 0.1)).to(dt)
+        for sh in shapes)
+    want = kstem.stem_plain(t1ext, idx, w2, b2, w3, b3, w4, b4, n, g, s)
+    dp = kg.tc_width(d)
+    pad = torch.nn.functional.pad
+    got = _tiled_stem(t1ext, idx, w2, b2, w3, b3, pad(w4, (0, dp - d)), pad(b4, (0, dp - d)),
+                      n, g, s)
+    assert got.shape == (b, g, dp)
+    err = (got[..., :d].float() - want.float()).abs().max().item()
+    scale = max(1.0, want.float().abs().max().item())
+    assert err <= (1e-5 if dt == torch.float32 else 2 ** -6) * scale
+
+
+# K4's (B, G, H): the serving batches, the ft_cls eval, partseg's and
+# semseg's six heads, more than one query tile (the Perceiver's 512
+# latents), a single query
+K4_CASES = [(64, 128, 4), (32, 128, 4), (330, 128, 4), (96, 128, 6), (32, 128, 6),
+            (2, 200, 4), (64, 512, 4), (1, 1, 2)]
+
+
+@pytest.mark.parametrize("m", [63, 65, 1024, 4096])
+@pytest.mark.parametrize("b,g,h", K4_CASES)
+def test_k4_tc_plan_covers_every_token_once(b, g, h, m):
+    """The bf16 K4's blocks on 132 SMs as csrc/attention.cu cuts them
+    (`kv_ln_plan`; Din = D = 64 H as on every path): 128 query rows a tile,
+    the kv tokens in 64-token tiles, ceil(tiles / n) of them a split. Up to
+    one query tile, one attention pass of (head, cloud, split) blocks, one
+    an SM at 256 < Din <= 384 (the double-buffered kernel), else two; past
+    it a projection pass of (head, cloud, split) blocks, two an SM, then
+    K13's (head, cloud, query tile, split) blocks. In each pass every
+    (cloud, head, query row, token) lies in one block, no split is empty,
+    and the blocks fill 90% of a wave at their blocks an SM
+    (`TC_WAVE_FILL`) where the tiles allow; where K4's own unsplit blocks
+    fill 90% of two blocks an SM already (serving's B = 64), nothing is
+    split."""
+    din = 64 * h
+    nsplit, psplit = kattn.kv_ln_plan(torch.bfloat16, b, g, m, h, din, SMS)
+    tiles = -(-m // kattn.TC_TILE_TOKENS)
+    nq = -(-g // kattn.TC_Q_TILE)
+    assert _covers_once(_tiles(g, kattn.TC_Q_TILE), g)
+    per_sm = 1 if 256 < din <= 384 else 2
+    assert kattn.kv_ln_blocks_per_sm(din) == per_sm
+    # (splits, query tiles a (head, cloud), blocks an SM, K4's own pass)
+    passes = ([(nsplit, 1, per_sm, True)] if nq == 1 else
+              [(psplit, 1, 2, True), (nsplit, nq, 2, False)])
+    if nq == 1:
+        assert psplit == 1
+    else:
+        assert nsplit == kattn.packed_splits(torch.bfloat16, b, g, m, h, SMS)
+    for n, q_tiles, blocks_an_sm, own in passes:
+        per = -(-tiles // n)
+        spans = [(sp * per * 64, min(m, (sp + 1) * per * 64)) for sp in range(n)]
+        assert _covers_once(spans, m)  # every token in one split, none empty
+        units, slots = h * b * q_tiles, SMS * blocks_an_sm
+        assert units * n >= min(kattn.TC_WAVE_FILL * slots, units * tiles)  # a wave, if M allows
+        assert q_tiles * n < 65536  # the grid's z
+        if own and units >= kattn.TC_WAVE_FILL * SMS * kattn.TC_BLOCKS_PER_SM:
+            assert n == 1
+
+
+@pytest.mark.parametrize("din", [96, 128, 256, 264, 384, 392, 1024])
+def test_k4_tc_kernel_fits_its_blocks_an_sm(din):
+    """The bf16 K4's shared memory fits the blocks an SM its
+    __launch_bounds__ say (`kv_ln_blocks_per_sm`, which the split plan
+    takes): up to Din = 256 the tile kernel, two blocks an SM (this head's
+    [wk|wv] slice resident and a whole 64-token tile of xn: 103,424 B);
+    up to 384 the double-buffered tile kernel, one block an SM (204,800
+    B); past it the stream kernel, two blocks an SM (a k|v tile and a ring
+    of three 64-column Din chunks with the weights' rows: 97,280 B,
+    whatever Din). q's 128 rows are staged over a tile of xn, or over the
+    k|v tile and the ring."""
+    smem = kattn.kv_ln_tc_smem_bytes(din)
+    kv_tile, q_rows = 64 * 136, 128 * 72
+    if din <= 256:
+        assert smem == 2 * (256 * 136 + 64 * 264) == 103424
+        assert q_rows <= 64 * 264 and kv_tile <= 64 * 264  # q, then k|v, over the xn tile
+        blocks = 2
+    elif din <= 384:
+        assert smem == 2 * (384 * 136 + 2 * 64 * 392) == 204800
+        blocks = 1
+    else:
+        ring = 3 * (64 * 72 + 64 * 136)
+        assert smem == 2 * (kv_tile + ring) == 97280
+        assert q_rows <= kv_tile + ring
+        blocks = 2
+    assert kattn.kv_ln_blocks_per_sm(din) == blocks
+    assert smem <= 227 * 1024
+    assert blocks * (smem + BLOCK_RESERVED_BYTES) <= SM_SHARED_BYTES
+
+
+def test_k3_k4_refuse_what_their_kernels_do_not_take():
+    """Before any launch (and before the kernels are built): K3 refuses a
+    group size above 32, other hidden widths and, in bf16, a first layer
+    other than 64 wide; K4 a head width other than 64, Din above 1024
+    and, in bf16, a Din that is not a multiple of 8 (the f32 kernel takes
+    it)."""
+    from vipformer_tpu_torch.ops.cuda import stem as kstem
+
+    def ops(c1=64, c2=128, s=4, dt=torch.bfloat16):
+        z = lambda *sh: torch.zeros(sh, dtype=dt)  # noqa: E731
+        return (z(1, 10, c1), torch.zeros((1, 2 * s), dtype=torch.int32), z(c1, c2), z(c2),
+                z(256, 256), z(256), z(256, 64), z(64), 8, 2, s)
+
+    with pytest.raises(ValueError, match="group sizes"):
+        kstem.stem_kernel(*ops(s=33))
+    with pytest.raises(ValueError, match="hidden widths"):
+        kstem.stem_kernel(*ops(c2=96))
+    with pytest.raises(ValueError, match="first layer"):
+        kstem.stem_kernel(*ops(c1=32))
+    assert kattn.kv_ln_route(torch.bfloat16, 256, 4, 256) == "attn_kv_ln_tc_bf16"
+    assert kattn.kv_ln_route(torch.float32, 256, 4, 100) == "attn_kv_ln_f32"
+    with pytest.raises(ValueError, match="multiple of 8"):
+        kattn.kv_ln_route(torch.bfloat16, 256, 4, 100)
+    for dt in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="Din <= 1024"):
+            kattn.kv_ln_route(dt, 256, 4, 1152)
+        with pytest.raises(NotImplementedError, match="dh=64"):
+            kattn.kv_ln_route(dt, 384, 4, 256)
+    assert kcuda._lib is None
+
+
+@pytest.mark.parametrize("case", ["same", "near_tie", "two_ulps", "kernel_breaks_tie"])
+def test_k9_tie_flip_rule(case):
+    """The bf16 K9's rule at a near-tie (`g2e_train.tie_flips`): a (group,
+    column) whose tie set h2 == gmax differs between the kernel and the
+    twin counts as a flip, and passes only where the two competing h2 lie
+    within one bf16 ulp of the group max: a row one ulp above the twin's
+    tied max (1 ulp), two ulps above (2: fails the rule), or the kernel's
+    row one ulp below a value the twin ties (1 ulp)."""
+    from vipformer_tpu_torch.ops.cuda import g2e_train as kg
+
+    gen = torch.Generator().manual_seed(9)
+    s, groups = 4, 6
+    h2 = torch.randn((groups * s, 128), generator=gen).to(torch.bfloat16)
+    h2.view(groups, s, 128)[2, 1, 5] = h2.view(groups, s, 128)[2, :, 5].max()  # a tie
+    other = h2.clone()
+    v = other.view(groups, s, 128)
+    top = v[2, :, 5].max().float()
+    ulp = 2.0 ** (torch.frexp(top)[1].item() - 8)
+    if case == "near_tie":
+        v[2, 1, 5] = (top + ulp).to(torch.bfloat16)
+    elif case == "two_ulps":
+        v[2, 1, 5] = (top + 2 * ulp).to(torch.bfloat16)
+    elif case == "kernel_breaks_tie":
+        v[2, 1, 5] = (top - ulp).to(torch.bfloat16)
+    gmax_of = lambda h: h.view(groups, s, 128).amax(1)  # noqa: E731
+    n, ulps = kg.tie_flips(other, gmax_of(other), h2, gmax_of(h2), s)
+    want = {"same": (0, 0.0), "near_tie": (1, 1.0), "two_ulps": (1, 2.0),
+            "kernel_breaks_tie": (1, 1.0)}[case]
+    assert (n, ulps) == want

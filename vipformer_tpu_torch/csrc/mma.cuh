@@ -3,10 +3,11 @@
 // accumulate), `ldmatrix` fragment loads, and `cp.async` 16-byte copies
 // from device to shared memory, plus the warp-level attention tiles that
 // K5, K6 and K13 (attention.cu), K8 (flash_train.cu) and K14 (mha.cu)
-// share, and three warp-level GEMM tiles: C += A^T . B (the contraction
+// share, three warp-level GEMM tiles: C += A^T . B (the contraction
 // down the rows of both operands) that K11 (dense.cu) and K7's weight
-// gradients run, C += A . B that K6's and K7's projections run, and C += A
-// . B^T that K7's dx runs (flash_train.cu).
+// gradients run, C += A . B that K4's, K6's and K7's projections run, and
+// C += A . B^T that K7's dx runs (flash_train.cu), and the 16-warp block
+// tile over 128 rows that K3 (stem.cu) and K9 (g2e_train.cu) run.
 //
 // Fragment layouts of mma.m16n8k16 (PTX ISA, "Matrix Fragments for
 // mma.m16n8k16"), with lane = 4 * grp + tig:
@@ -404,6 +405,85 @@ __device__ __forceinline__ void warp_abt(float (&c)[MI][NI][4], const bf16* a, i
       }
     }
   }
+}
+
+
+// ------------------------------------------------ block-level GEMM tile
+// C [128 x N] = A [128 x K] . B on the tensor cores for a block of 16
+// warps, B [K x N] row-major (BT false) or B^T with B [N x K] row-major (BT
+// true), both in shared memory: warp w owns rows 32 (w / 4) .. + 32 and
+// columns (w % 4) N / 4 .. + N / 4 (2 m16 tiles by N / 32 n8 tiles),
+// c[i][j][2h + e] at row 32 (w / 4) + 16 i + 8 h + grp, column (w % 4) N /
+// 4 + 8 j + 2 tig + e. The fragments are warp_ab's (BT false) and
+// warp_abt's (BT true). With RN (K9's passes, g2e_train.cu), each k step's
+// 16 products go into a zeroed accumulator and are added to C on the CUDA
+// cores, rounded to nearest, as an FMA chain adds them: there every
+// product is rounded to bf16 and feeds the batch statistics or a bf16
+// rounding whose column sums are the exactly-zero bias gradients, and
+// summed this way the results came closer to the twin's on the card than
+// with the tensor cores accumulating all k steps (PERF.md, section 6).
+// Without RN (K3's eval stem, stem.cu) the tensor cores accumulate. The k
+// steps run in order: the same inputs give the same bits. With
+// `accumulate`, C keeps what it holds (a product taken in chunks of k adds
+// its k steps in the same order; K3 seeds C with the pooled half of its
+// concat product).
+template <int N, bool BT, bool RN = true>
+__device__ __forceinline__ void block_mma(float (&c)[2][N / 32][4], const bf16* a, int lda,
+                                          const bf16* b, int ldb, int k, int warp, int lane,
+                                          bool accumulate = false) {
+  constexpr int NI = N / 32;
+  static_assert(NI % 2 == 0, "B fragments come in pairs of n8 tiles");
+  if (!accumulate)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < NI; ++j) c[i][j][0] = c[i][j][1] = c[i][j][2] = c[i][j][3] = 0.f;
+  const bf16* aw = a + 32 * (warp >> 2) * lda;
+  const bf16* bw = BT ? b + (warp & 3) * (N / 4) * ldb : b + (warp & 3) * (N / 4);
+#pragma unroll 1  // one k step's fragments live at a time (up to 64 accumulators beside them)
+  for (int k0 = 0; k0 < k; k0 += 16) {
+    uint32_t af[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      ldmatrix_x4(af[i], aw + (16 * i + (lane & 15)) * lda + k0 + (lane >> 4) * 8);
+#pragma unroll
+    for (int j = 0; j < NI / 2; ++j) {
+      uint32_t bf[4];
+      if constexpr (BT)  // (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7), (n 8-15, k 8-15)
+        ldmatrix_x4(bf, bw + (16 * j + (lane & 7) + ((lane >> 4) << 3)) * ldb + k0 +
+                            ((lane >> 3) & 1) * 8);
+      else  // (k 0-7, n 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15)
+        ldmatrix_x4_trans(bf, bw + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ldb + 16 * j +
+                                  (lane >> 4) * 8);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if constexpr (RN) {
+            float t[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_bf16(t, af[i], bf[2 * h], bf[2 * h + 1]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) c[i][2 * j + h][e] += t[e];
+          } else {
+            mma_bf16(c[i][2 * j + h], af[i], bf[2 * h], bf[2 * h + 1]);
+          }
+        }
+    }
+  }
+}
+
+// f(row, col, v0, v1) for each pair of adjacent accumulators (columns col
+// and col + 1) of a warp's block_mma tile.
+template <int N, class F>
+__device__ __forceinline__ void for_pairs(float (&c)[2][N / 32][4], int warp, int lane, F&& f) {
+  const int r0 = 32 * (warp >> 2) + (lane >> 2), c0 = (warp & 3) * (N / 4) + 2 * (lane & 3);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < N / 32; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        f(r0 + 16 * i + 8 * h, c0 + 8 * j, c[i][j][2 * h], c[i][j][2 * h + 1]);
 }
 
 }  // namespace mma

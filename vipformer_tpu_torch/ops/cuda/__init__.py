@@ -53,10 +53,16 @@ SIGNATURES = {
     "knn_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     # K16 (xyz, start, centers_idx, neighbor_idx, b, n, g, k, stream)
     "fps_knn_f32": [_P] * 4 + [_I] * 4 + [_P],
-    "stem_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "stem_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "attn_kv_ln_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
-    "attn_kv_ln_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    # K3 (t1ext, idx, w2, b2, w3, b3, w4, b4, out, b, n, g, s, c1, d, stream):
+    # f32 on the CUDA cores; bf16 on the tensor cores, with the x2 scratch
+    # after out and the two passes' grids after d
+    "stem_f32": [_P] * 9 + [_I] * 6 + [_P],
+    "stem_tc_bf16": [_P] * 10 + [_I] * 8 + [_P],
+    # K4 (q, x, ln_w, ln_b, wk, wv, out, part_acc, part_ml, b, g, m, din, h,
+    # nsplit, scale, stream): as K3, bf16 with the normalised tokens' (xn)
+    # and k|v scratch after part_ml and the projection's split after nsplit
+    "attn_kv_ln_f32": [_P] * 9 + [_I] * 6 + [_F, _P],
+    "attn_kv_ln_tc_bf16": [_P] * 11 + [_I] * 7 + [_F, _P],
     # K5 (q, k, v, out, b, g, m, h, scale, stream): f32 on the CUDA cores,
     # bf16 on the tensor cores
     "attn_small_f32": [_P] * 4 + [_I] * 4 + [_F, _P],
@@ -204,11 +210,12 @@ def entry_point(base: str, dt: torch.dtype) -> str:
 
 
 def tc_route(base: str, dt: torch.dtype) -> str:
-    """The C entry point of a kernel with a tensor-core route (K5
-    `attn_small`, K6 `attn_small_qkv_ln`, K7's forward `attn_train_kv_fwd`
-    and backward `attn_train_kv_bwd`, K8's forward `attn_train_fwd` and
-    backward `attn_train_bwd`, K9's forward `g2e_fwd` and backward
-    `g2e_bwd`, K11 `dense_grads`, K13 `attn_packed`, K14 `mha`) for
+    """The C entry point of a kernel with a tensor-core route (K3 `stem`,
+    K4 `attn_kv_ln`, K5 `attn_small`, K6 `attn_small_qkv_ln`, K7's forward
+    `attn_train_kv_fwd` and backward `attn_train_kv_bwd`, K8's forward
+    `attn_train_fwd` and backward `attn_train_bwd`, K9's forward `g2e_fwd`
+    and backward `g2e_bwd`, K11 `dense_grads`, K13 `attn_packed`, K14
+    `mha`) for
     dtype `dt`: bf16 on the tensor cores, f32 on the CUDA cores (a
     tensor-core f32 product is TF32, about 3 decimal digits: it would break
     the f32 bounds against the twins). Not a fallback: each dtype has one

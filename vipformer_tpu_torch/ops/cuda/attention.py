@@ -37,9 +37,18 @@ Each launches `csrc/attention.cu` (K14: `csrc/mha.cu`) on CUDA tensors
 and runs its plain twin on CPU tensors. Numerics follow the Pallas
 kernels: f32 logits, `p` cast to v's dtype before an f32-accumulated PV.
 
-K5, K6, K13 and K14 pick their kernel by dtype (`cuda.tc_route`): bf16
-runs on the tensor cores (mma.sync, csrc/mma.cuh), f32 on the CUDA cores,
-since a tensor-core f32 product is TF32 and would break the f32 bounds.
+K4, K5, K6, K13 and K14 pick their kernel by dtype (`cuda.tc_route`):
+bf16 runs on the tensor cores (mma.sync, csrc/mma.cuh), f32 on the CUDA
+cores, since a tensor-core f32 product is TF32 and would break the f32
+bounds. The bf16 K4 normalises the kv tokens once in a first pass (xn,
+bf16, written to device memory), then projects each 64-token tile of xn
+onto a head's k|v on chip (up to Din = KV_LN_TC_TILE_DB_DIN a whole tile
+at a time, the head's [wk|wv] columns resident; past it in Din chunks of
+KV_LN_TC_CHUNK with the weights' rows) and runs K13's online softmax on
+the tile. Past one query tile (G > TC_Q_TILE) the same kernels write k
+and v once and K13's kernel attends over them, so that no tile is
+projected once per query tile (`kv_ln_plan` splits the tiles over
+blocks).
 The bf16 K5 stages a (cloud, head)'s whole k and v in shared memory for
 64 query rows a block (its logits in registers up to 128 keys, K14's two
 passes above); the bf16 K6 projects a (cloud, head)'s q, k and v on chip,
@@ -64,13 +73,17 @@ HEAD_SPLIT_LAUNCHES = cuda.LaunchCounter()
 USE_FUSED_ATTENTION: bool | None = None
 KERNEL_HEAD_DIM = 64  # head width the CUDA kernels are built for
 KV_CHUNK = 2048  # the Pallas kernel's kv chunk cap (attention.py:144)
-KV_Q_TILE = 128  # query rows per K4 block
-KV_CHUNK_TOKENS = 32  # kv tokens per K4 chunk
-KV_MAX_DIN = 1024  # the normalised chunk [Din, 36] f32 stays in shared memory
-TC_Q_TILE = 128  # query rows per block of the tensor-core kernels
-TC_TILE_TOKENS = 64  # kv tokens per tile of the tensor-core K13
-TC_BLOCKS_PER_SM = 2  # tensor-core K13 blocks an SM holds (its __launch_bounds__)
-TC_WAVE_FILL = 0.9  # the least share of its last wave's block slots K13's split fills
+KV_Q_TILE = 128  # query rows per block of the CUDA-core K4, K13 and K15
+KV_CHUNK_TOKENS = 32  # kv tokens per chunk of the CUDA-core K4, K13 and K15
+KV_MAX_DIN = 1024  # the CUDA-core kernels keep a normalised chunk [Din, 36] f32 on chip
+TC_Q_TILE = 128  # query rows per block of the tensor-core K4 and K13
+TC_TILE_TOKENS = 64  # kv tokens per tile of the tensor-core K4 and K13
+TC_BLOCKS_PER_SM = 2  # tensor-core K4 and K13 blocks an SM holds (their __launch_bounds__)
+TC_WAVE_FILL = 0.9  # the least share of its last wave's block slots the split fills
+KV_LN_TC_TILE_DIN = 256  # the tensor-core K4 takes whole tiles of xn up to this Din
+KV_LN_TC_TILE_DB_DIN = 384  # ... and up to this one double-buffered, one block an SM
+KV_LN_TC_CHUNK = 64  # Din columns a chunk of the tensor-core K4 past it
+KV_LN_TC_STAGES = 3  # chunks in the ring of the tensor-core K4 past it
 SMALL_SMEM_BYTES = 227 * 1024  # dynamic shared memory a Hopper block can use
 
 
@@ -139,12 +152,15 @@ def _online_attention(q, k, v, num_heads: int, scale: float, dt, kv_chunk: int |
     return _merge((acc / l_run[..., None]).to(dt))
 
 
-def attention_kv_ln_plain(q, x_kv, ln_w, ln_b, wk, wv, num_heads: int, scale: float):
+def attention_kv_ln_plain(q, x_kv, ln_w, ln_b, wk, wv, num_heads: int, scale: float,
+                          kv_chunk: int | None = None):
     """q [B, G, H*dh], x_kv raw [B, M, Din], ln_w/ln_b f32 [Din],
     wk/wv [Din, H*dh] -> [B, G, H*dh] in q's dtype: the LayerNorm rounded
-    to the compute dtype, then K15's twin."""
+    to the compute dtype, then K15's twin, streamed over kv chunks of
+    `kv_chunk` tokens (default as the Pallas kernel's; 64 is the
+    tensor-core kernel's tile order)."""
     xn = layer_norm_f32(x_kv, ln_w, ln_b, q.dtype)
-    return attention_packed_kv_plain(q, xn, wk, wv, num_heads, scale)
+    return attention_packed_kv_plain(q, xn, wk, wv, num_heads, scale, kv_chunk)
 
 
 def attention_small_plain(q, k, v, num_heads: int, scale: float):
@@ -160,16 +176,15 @@ def attention_small_plain(q, k, v, num_heads: int, scale: float):
 def fused_attention_packed_kv_ln(q, x_kv, ln_w, ln_b, wk, wv, *, num_heads: int,
                                  scale: float) -> torch.Tensor:
     """Eval cross-attention with the kv LayerNorm and k/v projections folded
-    in. Shapes as `attention_kv_ln_plain`."""
+    in (K4). Shapes as `attention_kv_ln_plain`; Din <= KV_MAX_DIN, and in
+    bf16 (the tensor cores) a multiple of 8. The kv tokens are split over
+    blocks as `kv_ln_plan` plans them."""
     if not q.is_cuda:
         return attention_kv_ln_plain(q, x_kv, ln_w, ln_b, wk, wv, num_heads, scale)
     b, g, d = q.shape
     m, din = x_kv.shape[1], x_kv.shape[2]
     dt = q.dtype
-    fn = cuda.entry_point("attn_kv_ln", dt)
-    require_head_width("attn_kv_ln", d, num_heads)
-    if din > KV_MAX_DIN:
-        raise ValueError(f"attn_kv_ln kernel needs Din <= {KV_MAX_DIN}; got Din={din}")
+    fn = kv_ln_route(dt, d, num_heads, din)
     q, x_kv, wk, wv = q.contiguous(), x_kv.contiguous(), wk.contiguous(), wv.contiguous()
     ln_w = ln_w.float().contiguous()
     ln_b = ln_b.float().contiguous()
@@ -179,15 +194,95 @@ def fused_attention_packed_kv_ln(q, x_kv, ln_w, ln_b, wk, wv, *, num_heads: int,
     cuda.require(ln_b, "ln_b", torch.float32, (din,))
     cuda.require(wk, "wk", dt, (din, d))
     cuda.require(wv, "wv", dt, (din, d))
+    ptrs = dict(q=q.data_ptr(), x_kv=x_kv.data_ptr(), ln_w=ln_w.data_ptr(),
+                ln_b=ln_b.data_ptr(), wk=wk.data_ptr(), wv=wv.data_ptr())
+    cuda.require_aligned(fn, **ptrs)
     out = torch.empty((b, g, d), dtype=dt, device=q.device)
-    nsplit, part_acc, part_ml = _split_scratch(q, b, g, m, num_heads)
+    nsplit, psplit = kv_ln_plan(dt, b, g, m, num_heads, din, _sms(q.device))
+    nsplit, part_acc, part_ml = _split_scratch(q, b, g, m, num_heads, nsplit)
+    scratch = [part_acc.data_ptr(), part_ml.data_ptr()]
+    splits = [nsplit]
+    if dt == torch.bfloat16:  # the normalised tokens, written once; past a query tile k and v
+        xn = torch.empty((b * m, din), dtype=dt, device=q.device)
+        kv = torch.empty((2, b * m, d) if g > TC_Q_TILE else (1,), dtype=dt, device=q.device)
+        scratch += [xn.data_ptr(), kv.data_ptr()]
+        splits.append(psplit)
     KV_LN_LAUNCHES.n += 1
     cuda.check(getattr(cuda.lib(), fn)(
-        q.data_ptr(), x_kv.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
-        wk.data_ptr(), wv.data_ptr(), out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
-        b, g, m, din, num_heads, nsplit, float(scale), cuda.stream_ptr(),
+        *ptrs.values(), out.data_ptr(), *scratch, b, g, m, din, num_heads, *splits, float(scale),
+        cuda.stream_ptr(),
     ), fn)
     return out
+
+
+def kv_ln_route(dt: torch.dtype, d: int, num_heads: int, din: int) -> str:
+    """K4's entry point for dtype `dt` (`cuda.tc_route`); raises, before
+    any launch, on a width its kernel does not take: a head width other
+    than 64, Din above KV_MAX_DIN, and in bf16 (16-byte rows) a Din that is
+    not a multiple of 8."""
+    fn = cuda.tc_route("attn_kv_ln", dt)
+    require_head_width("attn_kv_ln", d, num_heads)
+    if din > KV_MAX_DIN:
+        raise ValueError(f"attn_kv_ln kernel needs Din <= {KV_MAX_DIN}; got Din={din}")
+    if dt == torch.bfloat16 and din % 8:
+        raise ValueError(f"attn_kv_ln tensor-core kernel needs Din a multiple of 8; got "
+                         f"Din={din}")
+    return fn
+
+
+def kv_ln_tc_smem_bytes(din: int) -> int:
+    """The bf16 K4's shared memory at Din in its attention pass
+    (csrc/attention.cu `kvln_tile_smem`, `KVLN_STREAM_SMEM`): up to
+    KV_LN_TC_TILE_DIN the tile kernel's, two blocks an SM (this head's
+    [wk|wv] slice, 256 rows of 128 + 8 bf16, and a 64-token tile of xn in
+    rows of 256 + 8, then its k|v), up to KV_LN_TC_TILE_DB_DIN the
+    double-buffered tile kernel's, one block an SM (384 rows of the slice,
+    two tiles in rows of 384 + 8), past it the stream kernel's, two blocks
+    an SM (a k|v tile and a ring of KV_LN_TC_STAGES chunks of 64 rows of
+    64 + 8 bf16 of xn and 64 rows of the weights' slice; Din does not
+    enter). q's 128 rows are staged over them until held in registers."""
+    d2, tokens = 2 * KERNEL_HEAD_DIM + 8, TC_TILE_TOKENS
+    for tdin, buffers in ((KV_LN_TC_TILE_DIN, 1), (KV_LN_TC_TILE_DB_DIN, 2)):
+        if din <= tdin:
+            return 2 * (tdin * d2 + buffers * tokens * (tdin + 8))
+    slot = tokens * (KV_LN_TC_CHUNK + 8) + KV_LN_TC_CHUNK * d2
+    return 2 * (tokens * d2 + KV_LN_TC_STAGES * slot)
+
+
+def kv_ln_blocks_per_sm(din: int) -> int:
+    """Blocks an SM of the bf16 K4's attention kernel at Din (their
+    __launch_bounds__): one for the double-buffered tile kernel, else
+    TC_BLOCKS_PER_SM."""
+    return 1 if KV_LN_TC_TILE_DIN < din <= KV_LN_TC_TILE_DB_DIN else TC_BLOCKS_PER_SM
+
+
+def kv_ln_splits(dt: torch.dtype, b: int, g: int, m: int, h: int, sms: int,
+                 per_sm: int = TC_BLOCKS_PER_SM) -> int:
+    """K4's split of its kv tiles over blocks that run `per_sm` to an SM:
+    none where its (head, cloud, query tile) blocks fill TC_WAVE_FILL of
+    TC_BLOCKS_PER_SM x sms slots (the serving B = 64: 256 of 264; a split
+    would add a merge pass, 0.019 ms there). At one block an SM that is two
+    waves: past them a split's merge pass and the weights each more block
+    loads cost more than a part-empty last wave (PERF.md). Else K13's
+    split (`packed_splits`) at `per_sm` blocks an SM."""
+    units = b * h * -(-g // TC_Q_TILE)
+    if dt == torch.bfloat16 and units >= TC_WAVE_FILL * TC_BLOCKS_PER_SM * sms:
+        return 1
+    return packed_splits(dt, b, g, m, h, sms, per_sm)
+
+
+def kv_ln_plan(dt: torch.dtype, b: int, g: int, m: int, h: int, din: int,
+               sms: int) -> tuple[int, int]:
+    """(nsplit, psplit): K4's kv splits of its attention and of its
+    projection pass. Up to one query tile, or in f32, `kv_ln_splits` at
+    the attention kernel's blocks an SM (`kv_ln_blocks_per_sm`) and no
+    projection pass (psplit 1). Past one query tile in bf16 the attention
+    is K13's over k and v written once, split as K13's wrapper splits it
+    (`packed_splits`), and the projection's (head, cloud) blocks, two an
+    SM, as `kv_ln_splits` splits one query tile's."""
+    if dt != torch.bfloat16 or g <= TC_Q_TILE:
+        return kv_ln_splits(dt, b, g, m, h, sms, kv_ln_blocks_per_sm(din)), 1
+    return packed_splits(dt, b, g, m, h, sms), kv_ln_splits(dt, b, 1, m, h, sms)
 
 
 def kv_splits(blocks: int, nchunks: int, sms: int, per_sm: int = 2) -> int:
@@ -199,19 +294,20 @@ def kv_splits(blocks: int, nchunks: int, sms: int, per_sm: int = 2) -> int:
     return -(-nchunks // per)
 
 
-def packed_splits(dt: torch.dtype, b: int, g: int, m: int, h: int, sms: int) -> int:
-    """K13's split of its kv tiles over blocks on a card of `sms` SMs, in
-    the tiles of the route that dtype `dt` takes. On the CUDA cores (f32),
-    K4's 32-token chunks (`kv_splits`). On the tensor cores (bf16), 64
-    tokens and 128 query rows a block, TC_BLOCKS_PER_SM to an SM: at least
+def packed_splits(dt: torch.dtype, b: int, g: int, m: int, h: int, sms: int,
+                  per_sm: int = TC_BLOCKS_PER_SM) -> int:
+    """K13's and K4's split of their kv tiles over blocks on a card of
+    `sms` SMs, in the tiles of the route that dtype `dt` takes. On the CUDA
+    cores (f32), 32-token chunks (`kv_splits`). On the tensor cores (bf16),
+    64 tokens and 128 query rows a block, `per_sm` to an SM: at least
     one full wave, then more splits (up to 4x) until the last wave's slots
     are TC_WAVE_FILL full, since a block that starts in a part-empty wave
     leaves SMs idle while it runs (no split left empty)."""
     if dt != torch.bfloat16:
         return kv_splits(b * h * -(-g // KV_Q_TILE), -(-m // KV_CHUNK_TOKENS), sms)
     units, tiles = b * h * -(-g // TC_Q_TILE), -(-m // TC_TILE_TOKENS)
-    slots = TC_BLOCKS_PER_SM * sms
-    least = kv_splits(units, tiles, sms, TC_BLOCKS_PER_SM)
+    slots = per_sm * sms
+    least = kv_splits(units, tiles, sms, per_sm)
     for want in range(least, min(tiles, 4 * least) + 1):
         n = -(-tiles // -(-tiles // want))  # the splits that ceil(tiles / want) tiles make
         blocks = units * n
@@ -235,8 +331,8 @@ def _sms(device) -> int:
 
 def _split_scratch(q: torch.Tensor, b: int, g: int, m: int, h: int, nsplit: int | None = None):
     """(nsplit, part_acc, part_ml): the split of the kv chunks over blocks
-    (K4's 32-token chunks unless given) and the f32 scratch of the partial
-    states the merge pass reads."""
+    (the CUDA-core kernels' 32-token chunks unless given) and the f32
+    scratch of the partial states the merge pass reads."""
     if nsplit is None:
         nsplit = kv_splits(b * h * -(-g // KV_Q_TILE), -(-m // KV_CHUNK_TOKENS), _sms(q.device))
     f32 = dict(dtype=torch.float32, device=q.device)
@@ -365,15 +461,17 @@ def attention_packed_plain(q, k, v, num_heads: int, scale: float, kv_chunk: int 
                              scale, v.dtype, kv_chunk)
 
 
-def attention_packed_kv_plain(q, x_kv, wk, wv, num_heads: int, scale: float):
+def attention_packed_kv_plain(q, x_kv, wk, wv, num_heads: int, scale: float,
+                              kv_chunk: int | None = None):
     """q [B, G, H*dh], x_kv [B, M, Din], wk/wv [Din, H*dh] -> [B, G, H*dh]
     in q's dtype: k and v f32-accumulated and rounded to the compute dtype
-    (the Dense numerics, JAX attention.py:283-292), then K13's attention."""
+    (the Dense numerics, JAX attention.py:283-292), then K13's attention
+    (over chunks of `kv_chunk` tokens, as `attention_packed_plain`)."""
     dt = q.dtype
     xf = x_kv.float()
     k = _heads((xf @ wk.float()).to(dt), num_heads).float()
     v = _heads((xf @ wv.float()).to(dt), num_heads)
-    return _online_attention(q, k, v, num_heads, scale, dt)
+    return _online_attention(q, k, v, num_heads, scale, dt, kv_chunk)
 
 
 def fused_attention_packed(q, k, v, *, num_heads: int, scale: float) -> torch.Tensor:

@@ -245,6 +245,41 @@ def g2e_bwd_plain(x0f, wb, h3p, amax, stats, dy, s: int, acc: torch.dtype = torc
     return dx0, tuple(t.float() for t in grads)
 
 
+def h2_pool(x0f, wb, stats, s: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The twin's h2 [R, 128] and its group max [R / S, 128] (the global
+    pool whose ties split dxc's gmax half), from x0 and BN0's statistics."""
+    _, _, h2, gmax, _ = _recompute(x0f, wb, stats, s)
+    return h2, gmax
+
+
+def kernel_h2_pool(work: dict, s: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 kernels' h2 and group max, as their backward wrote them to
+    its workspace (xc = [gmax | h2], bf16)."""
+    xc = work["xc"]
+    return xc[:, C2:], xc[::s, :C2]
+
+
+def tie_flips(h2_a, gmax_a, h2_b, gmax_b, s: int) -> tuple[int, float]:
+    """Where two computations of h2 (a kernel's and the twin's) disagree on
+    the tie set h2 == gmax of a (group, column), the backward's tie split
+    sends that column's gradient to other rows. Returns the number of such
+    (group, column) pairs and the largest gap, in bf16 ulps of the group
+    max, between a side's max and its h2 at a row that ties on one side
+    only: at most 1 where a flip is a true near-tie (the two competing h2
+    values one rounding apart); 0.0 when no tie set differs."""
+    r, c = h2_a.shape
+    ha, hb = (h.float().view(r // s, s, c) for h in (h2_a, h2_b))
+    ga, gb = gmax_a.float()[:, None, :], gmax_b.float()[:, None, :]
+    diff = (ha == ga) != (hb == gb)
+    flipped = diff.any(dim=1)
+    if not bool(flipped.any()):
+        return 0, 0.0
+    gap = torch.where(diff, torch.maximum(ga - ha, gb - hb), 0.0).amax(dim=1)
+    _, e = torch.frexp(torch.maximum(ga.abs(), gb.abs())[:, 0, :])
+    ulp = torch.ldexp(torch.ones_like(gap), e - 8)  # bf16: 8 significant bits
+    return int(flipped.sum()), float((gap / ulp)[flipped].max())
+
+
 def _kernel_weights(wb, dt):
     """Weights and biases in the compute dtype, BN scale/shift in f32, all
     contiguous, in chain order."""
@@ -306,7 +341,11 @@ def g2e_fwd_kernel(x0f, wb, s: int):
     return out, h3p, amax, stats
 
 
-def g2e_bwd_kernel(x0f, wb, h3p, amax, stats, dy, s: int):
+def g2e_bwd_kernel(x0f, wb, h3p, amax, stats, dy, s: int, work: dict | None = None):
+    """The backward on CUDA tensors. `work` is the scratch to use, as
+    `bwd_workspace` makes it (made here when None): a caller that passes
+    it can read what the bf16 passes wrote there (x1, xc = [gmax | h2],
+    dh3p, dh2, dy1; `kernel_h2_pool`)."""
     r, cin, d = _check(x0f, wb, s)
     dt, dev = x0f.dtype, x0f.device
     x0f, dy = x0f.contiguous(), dy.contiguous()
@@ -323,7 +362,8 @@ def g2e_bwd_kernel(x0f, wb, h3p, amax, stats, dy, s: int):
     shapes = [tuple(t.shape) for t in wb[:10]] + [(C3, dk), (dk,)]
     grads = [torch.empty(sh, dtype=torch.float32, device=dev) for sh in shapes]
     sms = cuda.sm_count(dev.index)
-    work = bwd_workspace(r, s, cin, d, dt, dev, sms)
+    if work is None:
+        work = bwd_workspace(r, s, cin, d, dt, dev, sms)
     if dt == torch.bfloat16:
         # the weight gradients' loaders read h3p, amax and dy 16 bytes at a time
         cuda.require_aligned(fn, h3p=h3p.data_ptr(), amax=amax.data_ptr(), dy=dy.data_ptr())

@@ -5,6 +5,13 @@ and builds the extended first-layer table `t1ext` in plain PyTorch (as
 stem.py:170-203 does in plain JAX), then runs the gather + mini-PointNet
 chain: `csrc/stem.cu` on a CUDA tensor, the plain twin `stem_plain` on a
 CPU tensor.
+
+The dtype picks the kernel (`cuda.tc_route`): f32 runs the CUDA-core
+kernel (a tensor-core f32 product is TF32); bf16 runs two persistent
+tensor-core passes over 128-row tiles of whole groups (`tile_plan`), on
+the grids `grids` plans, with x2 [B*G*S, 256] written between them, at
+any D: W4 and b4 padded with zero columns to a multiple of 64
+(`g2e_train.tc_width`), which changes no output.
 """
 
 from __future__ import annotations
@@ -12,10 +19,43 @@ from __future__ import annotations
 import torch
 
 from vipformer_tpu_torch.ops import cuda
+from vipformer_tpu_torch.ops.cuda.g2e_train import out_cols, tc_width
 
 LAUNCHES = cuda.LaunchCounter()
 BN_EPS = 1e-5
-MAX_GROUP_SIZE = 32  # row accumulators per thread in the kernel
+MAX_GROUP_SIZE = 32  # row accumulators per thread in the f32 kernel
+C1, C2, C3 = 64, 128, 256  # Group2Emb's hidden widths
+# the bf16 kernels (csrc/stem.cu tc): 128-row tiles of at most 16 whole
+# groups (one m16 tile of the group maxima), shared memory a pass
+TILE_ROWS = 128
+MAX_TILE_GROUPS = 16
+MID_SMEM = 2 * C1 * (C2 + 8) + 2 * C3 * (C3 + 8) + 2 * TILE_ROWS * (C3 + 8)
+
+
+def tile_plan(groups: int, s: int) -> tuple[int, int]:
+    """(groups a tile, tiles) of the bf16 kernels over `groups` groups of S
+    rows, as csrc/stem.cu `tile_at` cuts them: min(floor(128 / S), 16)
+    whole groups a tile, the last tile holding what is left."""
+    per = min(TILE_ROWS // s, MAX_TILE_GROUPS)
+    return per, -(-groups // per)
+
+
+def grids(groups: int, s: int, d: int, sms: int) -> dict[str, int]:
+    """The persistent grids of the bf16 passes on a card of `sms` SMs (one
+    block an SM) at output width d: "mid" one block a tile up to a wave;
+    "out" a whole number of blocks for each column slice of the padded
+    width (block b takes slice b % slices and every (grid / slices)-th
+    tile)."""
+    _, tiles = tile_plan(groups, s)
+    slices = tc_width(d) // out_cols(tc_width(d))
+    return {"mid": min(tiles, sms), "out": slices * min(tiles, max(1, sms // slices))}
+
+
+def tc_smem(d: int) -> dict[str, int]:
+    """Shared memory of each bf16 pass, bytes: mid holds W2, W3 and a tile
+    (rows padded by 8 bf16), out W4's column slice and a tile."""
+    n = out_cols(tc_width(d))
+    return {"mid": MID_SMEM, "out": 2 * C3 * (n + 8) + 2 * TILE_ROWS * (C3 + 8)}
 
 
 def _dense(x, w, b, dt):
@@ -90,28 +130,45 @@ def group2emb_fused_apply(g2e, pts, centers, idx, dtype) -> torch.Tensor:
 
 
 def stem_kernel(t1ext, idx, w2, b2, w3, b3, w4, b4, n: int, g: int, s: int):
-    """Launch csrc/stem.cu; operands as `stem_plain` takes them."""
+    """Launch csrc/stem.cu; operands as `stem_plain` takes them. Raises
+    ValueError, before any launch, on what the kernel of the dtype does not
+    take."""
     bsz, _, c1 = t1ext.shape
     dt = t1ext.dtype
     d = w4.shape[1]
+    fn = cuda.tc_route("stem", dt)
     if not 1 <= s <= MAX_GROUP_SIZE:
         raise ValueError(f"stem kernel takes group sizes 1..{MAX_GROUP_SIZE}, got {s}")
-    if w2.shape[1] != 128 or w3.shape != (256, 256):
+    if w2.shape[1] != C2 or w3.shape != (C3, C3):
         raise ValueError("stem kernel expects Group2Emb's 128/256 hidden widths")
-    fn = cuda.entry_point("stem", dt)
+    if dt == torch.bfloat16 and c1 != C1:
+        raise ValueError(f"the bf16 stem kernel expects Group2Emb's {C1}-wide first layer, "
+                         f"got {c1}")
     cuda.require(t1ext, "t1ext", dt, (bsz, n + g, c1))
     cuda.require(idx, "idx", torch.int32, (bsz, g * s))
-    for name, t, shape in (("w2", w2, (c1, 128)), ("b2", b2, (128,)), ("w3", w3, (256, 256)),
-                           ("b3", b3, (256,)), ("w4", w4, (256, d)), ("b4", b4, (d,))):
+    for name, t, shape in (("w2", w2, (c1, C2)), ("b2", b2, (C2,)), ("w3", w3, (C3, C3)),
+                           ("b3", b3, (C3,)), ("w4", w4, (C3, d)), ("b4", b4, (d,))):
         cuda.require(t, name, dt, shape)
-    out = torch.empty((bsz, g, d), dtype=dt, device=t1ext.device)
+    if dt == torch.bfloat16:
+        dk = tc_width(d)  # the padded columns: zero weights and biases
+        w4 = torch.nn.functional.pad(w4, (0, dk - d)) if dk != d else w4
+        b4 = torch.nn.functional.pad(b4, (0, dk - d)) if dk != d else b4
+        cuda.require_aligned(fn, t1ext=t1ext.data_ptr(), w2=w2.data_ptr(), w3=w3.data_ptr(),
+                             w4=w4.data_ptr())
+        out = torch.empty((bsz, g, dk), dtype=dt, device=t1ext.device)
+        x2 = torch.empty((bsz * g * s, C3), dtype=dt, device=t1ext.device)
+        plan = grids(bsz * g, s, d, cuda.sm_count(t1ext.device.index))
+        extra, sizes = (x2.data_ptr(),), (dk, plan["mid"], plan["out"])
+    else:
+        out = torch.empty((bsz, g, d), dtype=dt, device=t1ext.device)
+        extra, sizes = (), (d,)
     LAUNCHES.n += 1
     cuda.check(getattr(cuda.lib(), fn)(
         t1ext.data_ptr(), idx.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        w3.data_ptr(), b3.data_ptr(), w4.data_ptr(), b4.data_ptr(), out.data_ptr(),
-        bsz, n, g, s, c1, d, cuda.stream_ptr(),
+        w3.data_ptr(), b3.data_ptr(), w4.data_ptr(), b4.data_ptr(), out.data_ptr(), *extra,
+        bsz, n, g, s, c1, *sizes, cuda.stream_ptr(),
     ), fn)
-    return out
+    return out[..., :d].contiguous() if out.shape[-1] != d else out
 
 
 def fused_stem_supported(num_groups: int, group_size: int, n: int,
