@@ -10,7 +10,9 @@ Phases (any failed check exits non-zero; no phase catches an error and
 goes on):
   1. build the hand-written kernels (csrc/*.cu -> one .so: one nvcc per
      source, all started together, sm_90a), and read from torch.profiler
-     that K18's backward is one launch of one kernel in both dtypes;
+     that K18's backward is one launch of one kernel in both dtypes, and
+     that the bf16 K15 at [64, 512] x [64, 512, 256] is one launch of its
+     cluster kernel (no attn_flash_kernel);
   2. turn TF32 off for matmuls and cuDNN;
   3. hold each serving kernel K1-K5 against its plain PyTorch twin on the
      card at the flagship serving shapes (B = 32 and 64; K1/K2 on f32
@@ -22,7 +24,10 @@ goes on):
      F.layer_norm, one cuBLAS product and SDPA; K5: SDPA); then the bf16
      K3 and K4 at the eval paths' batches (B = 330 and 160; K4 also at
      the Perceiver's 128 and 512 latents over 2,048 points) against their
-     twins, twice bitwise equal, timed beside their routes;
+     twins, twice bitwise equal, timed beside their routes; K1 also at
+     200 (one warp), 1,000, 2,048, 4,096 (semseg's B = 32) and 8,192
+     points from random starts on clouds with exact ties, equal to its
+     twin, and timed (device time) at [32, 4,096];
   4. serving path: build the flagship classifier (ARCH, decoded by the
      port's Config, through the port's factory; random weights from a
      seed) in bf16 on the card, serve ragged requests through
@@ -126,8 +131,14 @@ goes on):
  18. the Perceiver family (--mp false, the flagship scripts' widths):
      hold K13 (streamed packed attention) at the Fourier cross-attention's
      [48, 128, 256] x [48, 20736, 256], at M = 1000 and at one query, and
-     K15 (k/v projections folded in) at [64, 512, 256] and at Din = 384,
-     against their twins in f32 and bf16, timed (K13 beside SDPA); K13's
+     K15 (k/v projections folded in) at [64, 512] x [64, 512, 256] (its
+     bf16 cluster kernel), [3, 300] x [3, 300, 256], [8, 512] x [8, 512,
+     384] and, on K4's bf16 passes, [8, 512] x [8, 2,048, 256] and [4, 1] x
+     [4, 700, 384], against their twins in f32 and bf16, timed (K13 beside
+     SDPA; the bf16 K15 twice bitwise equal, on device time beside one
+     cuBLAS product onto [wk|wv] and SDPA, at the main shape also on
+     K4's passes, its profiler kernels (the cluster kernel,
+     no attn_flash_kernel) and no k or v allocated); K13's
      bf16 tensor-core route twice, bitwise equal, and at the image shape
      with its kv split forced to 1 against the planned split; K8
      forward and backward at M = 20,736 with dropout (the bf16 backward
@@ -222,8 +233,10 @@ the card idle and busy; K6's and K8's device time beside), K8's backward
 at B = 96 and 330, K17's and K18's backward (device time), K7's forward
 and backward at the pretrain point shape (events; the backward's device
 time beside) and its backward at the ft_cls step's (events), K3 and K4
-at the serving shape B = 64 (device time; events beside), the serving
-forward at B = 32 and 64, the ft_cls step and eval forward at B = 330,
+at the serving shape B = 64 (device time; events beside), K1 there and
+K15 at [64, 512] x [64, 512, 256] (device time), the serving forward at
+B = 32 and 64, the Perceiver point features at 512 latents (B = 64,
+events), the ft_cls step and eval forward at B = 330,
 with their kernels' device time, the pretrain step, the partseg step, the
 semseg step with K17 and K18 forced, and one eval_zeroshot run (host
 clock).
@@ -778,11 +791,12 @@ def check_serving_kernels(rec: Recorder) -> None:
             expect(torch.equal(idx_k, idx_p), f"fps B={b}: indices differ")
             expect(torch.equal(cen_k, cen_p), f"fps B={b}: centers differ")
             rec.check("fps", f"B={b} float32 (indices equal)", 0.0, 0.0, 0.0)
-            if timed(b, "float32", "fps"):
-                rec.timing("fps", cuda_ms(lambda: kfps.fps(xyz, g)),
+            if timed(b, "float32", "fps"):  # device time, the events beside
+                run = lambda: kfps.fps(xyz, g)  # noqa: E731
+                rec.timing("fps", queued_ms(run, "fps"),
                            cuda_ms(lambda: kfps.fps_plain(xyz, g, start), iters=3, warmup=1),
-                           bound(nbytes(xyz, idx_k, cen_k), 9 * b * g * NUM_POINTS, "float32"),
-                           shape=f"xyz[{b},{NUM_POINTS},3] -> {g}")
+                           fps_bound(xyz, idx_k, cen_k), shape=f"xyz[{b},{NUM_POINTS},3] -> {g}")
+                rec.r["fps"]["host_ms"] = cuda_ms(run)
             # K2 (queries: the FPS centers, as on the main path)
             nn_k = kknn.knn(s, xyz, cen_k)
             nn_p = kknn.knn_plain(s, xyz, cen_k)
@@ -815,6 +829,50 @@ def check_serving_kernels(rec: Recorder) -> None:
                           KERNEL_TOL[dt_name])
                 if dt_name == "bfloat16":
                     check_small_tiles(rec, qkv, out_k, h, scale, b == max(BATCHES))
+
+
+def fps_bound(xyz, idx, centers) -> dict:
+    """K1's bound: its bytes, and each step's nine f32 operations a point
+    (three differences, three squares, two sums and the running min)."""
+    b, n, _ = xyz.shape
+    return bound(nbytes(xyz, idx, centers), 9 * b * idx.shape[1] * n, "float32")
+
+
+# K1 beyond the serving clouds (B, N): one warp a cloud, a ragged count,
+# the Perceiver's and partseg's 2,048 points and the most the kernel
+# takes; then semseg's [32, 4,096], also timed
+FPS_WIDTHS = ((5, 200), (4, 1000), (3, 2048), (2, 8192))
+FPS_TIMED = (SEMSEG_BATCH, SEMSEG_POINTS)
+
+
+def check_fps_widths(rec: Recorder) -> None:
+    """K1 at FPS_WIDTHS and FPS_TIMED from random starts, on clouds with
+    exact ties (every fifth point a copy of the one before it, and the
+    first cloud on a half-unit grid): indices and centers equal to the
+    twin's; at FPS_TIMED on device time (a reading; the JSON line keeps
+    serving's B = 64 from the serving phase)."""
+    from vipformer_tpu_torch.ops.cuda import fps as kfps
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    g = 128
+    print("K1 at more points:")
+    with torch.inference_mode():
+        for b, n in FPS_WIDTHS + (FPS_TIMED,):
+            xyz = torch.randn((b, n, 3), generator=gen, device=dev)
+            xyz[:, 1::5] = xyz[:, 0::5][:, :xyz[:, 1::5].shape[1]]
+            xyz[0] = torch.round(xyz[0] * 2) / 2
+            start = torch.randint(0, n, (b,), generator=gen, device=dev, dtype=torch.int32)
+            want_i, want_c = kfps.fps_plain(xyz, g, start)
+            run = lambda: kfps.fps(xyz, g, start)  # noqa: E731
+            idx, cen = run()
+            expect(torch.equal(idx, want_i) and torch.equal(cen, want_c),
+                   f"fps [{b},{n}]: indices or centers differ from the twin's")
+            rec.check("fps", f"[{b},{n}] float32 (indices equal)", 0.0, 0.0, 0.0)
+            if (b, n) == FPS_TIMED:
+                print(f"  {'fps':18s} xyz[{b},{n},3] -> {g} ({kfps.fps_warps(n)} warps a cloud): "
+                      f"device {queued_ms(run, f'fps [{b},{n}]'):.4f} ms; bound "
+                      f"{fps_bound(xyz, want_i, want_c)['bound_ms']:.4f}")
 
 
 def check_small_tiles(rec: Recorder, qkv, out_k, h: int, scale: float, keep: bool) -> None:
@@ -2434,8 +2492,9 @@ def perceiver_ft_config(**over):
 
 def check_perceiver_kernels(rec: Recorder) -> None:
     """(a) K13 and K15 against their twins on the card, f32 and bf16, each
-    error relative to the twin's own scale (OWN_SCALE), timed with CUDA
-    events (K13 beside SDPA); K13's bf16 tensor-core route launched twice
+    error relative to the twin's own scale (OWN_SCALE), K13 timed with CUDA
+    events beside SDPA, K15 on device time beside its PyTorch route
+    (`check_packed_kv`); K13's bf16 tensor-core route launched twice
     bitwise equal, and at the image shape with its kv split forced to 1
     (no merge pass) against the planned split, timed at each split; K8
     at the Fourier cross-attention's M = 20,736 (forward and backward, with
@@ -2481,27 +2540,7 @@ def check_perceiver_kernels(rec: Recorder) -> None:
                                sdpa_ms(q, k, v, h, scale, 0.0),
                                shape=f"q[{bb},{gg},{d}] kv[{bb},{mm},{d}] bf16")
                 del q, k, v, out_k, out_p
-        # K15: the self-attention at 512 latents, at Din = 384, and one
-        # query over a token count off the 32-token chunks
-        for bb, gg, mm, din in ((PERCEIVER_FEATS_BATCH, PERCEIVER_WIDE_LATENTS,
-                                 PERCEIVER_WIDE_LATENTS, d),
-                                (8, PERCEIVER_WIDE_LATENTS, PERCEIVER_WIDE_LATENTS, 384),
-                                (4, 1, 700, 384)):
-            for dt_name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-                args = (t((bb, gg, d), dt), t((bb, mm, din), dt),
-                        t((din, d), dt, din ** -0.5), t((din, d), dt, din ** -0.5))
-                out_k = kattn.fused_attention_packed_kv(*args, num_heads=h, scale=scale)
-                out_p = kattn.attention_packed_kv_plain(*args, h, scale)
-                rec.check("attn_packed_kv", f"[{bb},{gg}]x[{bb},{mm},{din}] {dt_name}",
-                          *rel_err(out_k, out_p, OWN_SCALE), KERNEL_TOL[dt_name])
-                if bb == PERCEIVER_FEATS_BATCH and dt_name == "bfloat16":
-                    fn = lambda: kattn.fused_attention_packed_kv(*args, num_heads=h, scale=scale)  # noqa: E731
-                    ops = 2 * bb * mm * din * 2 * d + 4 * bb * gg * mm * d
-                    rec.timing("attn_packed_kv", cuda_ms(fn, iters=10),
-                               cuda_ms(lambda: kattn.attention_packed_kv_plain(*args, h, scale)),
-                               bound(nbytes(*args, out_k), ops, dt_name),
-                               shape=f"q[{bb},{gg},{d}] x[{bb},{mm},{din}] bf16")
-                del args, out_k, out_p
+        check_packed_kv(rec, t)
 
     print("K8 at the Fourier cross-attention (M = 20,736) and K5-K8 at one query:")
     for dt_name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
@@ -2571,6 +2610,144 @@ def check_perceiver_kernels(rec: Recorder) -> None:
                                                                          scale=scale),
                                kattn.attention_small_qkv_ln_plain(*six, h, scale), OWN_SCALE),
                       KERNEL_TOL[dt_name])
+
+
+# K15's shapes (B, G, M, Din, H): the point features' self-attention at 512
+# latents (the main path's: the cluster kernel), a ragged 300 (its last
+# block part-full), 512 queries at Din = 384 (the cluster kernel streams
+# Din), then K4's passes: 512 queries over 2,048 tokens (projection, then
+# K13's kernel) and one query over 700 at Din = 384 (the double-buffered
+# attention pass)
+K15_SHAPES = ((PERCEIVER_FEATS_BATCH, PERCEIVER_WIDE_LATENTS, PERCEIVER_WIDE_LATENTS, 256, 4),
+              (3, 300, 300, 256, 4), (8, 512, 512, 384, 6), (8, 512, 2048, 256, 4),
+              (4, 1, 700, 384, 6))
+K15_CLUSTER_KERNEL = "attn_packed_kv_cluster_kernel"
+
+
+def packed_kv_library(args, h: int, scale: float):
+    """K15's function as PyTorch calls (timed beside the kernel, never a
+    path of the port): one bf16 cuBLAS product onto [wk | wv] (F.linear)
+    and SDPA on the head-split views."""
+    import torch.nn.functional as F
+
+    q, x, wk, wv = args
+    d = q.shape[-1]
+    wkv = torch.cat([wk, wv], 1).t().contiguous()
+
+    def run():
+        kv = F.linear(x, wkv)
+        return sdpa_call(q, kv[..., :d], kv[..., d:], h, scale)
+
+    return run
+
+
+def packed_kv_ops(b: int, g: int, m: int, din: int, d: int) -> int:
+    """K15's operations: the k and v projections of every token and the
+    attention's two products."""
+    return 2 * b * m * din * 2 * d + 4 * b * g * m * d
+
+
+def check_packed_kv(rec: Recorder, t) -> None:
+    """K15 against its twin at K15_SHAPES, f32 and bf16, relative to the
+    twin's own scale (OWN_SCALE); the bf16 route launched twice, bitwise
+    equal, with its plan, and timed on device time beside its PyTorch
+    route (`packed_kv_library`), the twin's events and the bound (the JSON
+    line keeps the main path's shape); there also K4's passes, against the
+    planned kernel, torch.profiler's kernels (the cluster kernel, no
+    CUDA-core attn_flash_kernel) and the memory the call allocates (its
+    output only: no k or v)."""
+    from vipformer_tpu_torch.ops.cuda import attention as kattn
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    scale = 64 ** -0.5
+    for i, (b, g, m, din, h) in enumerate(K15_SHAPES):
+        d = 64 * h
+        for dt_name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            args = (t((b, g, d), dt), t((b, m, din), dt), t((din, d), dt, din ** -0.5),
+                    t((din, d), dt, din ** -0.5))
+            run = lambda: kattn.fused_attention_packed_kv(*args, num_heads=h, scale=scale)  # noqa: E731
+            out_k = run()
+            out_p = kattn.attention_packed_kv_plain(*args, h, scale)
+            shape = f"q[{b},{g},{d}] x[{b},{m},{din}] H={h} {dt_name}"
+            rec.check("attn_packed_kv", shape, *rel_err(out_k, out_p, OWN_SCALE),
+                      KERNEL_TOL[dt_name])
+            if dt_name == "bfloat16":
+                expect(torch.equal(out_k, run()), f"attn_packed_kv {shape}: two launches differ")
+                cluster, nsplit, psplit = kattn.packed_kv_plan(dt, b, g, m, h, din, sms)
+                plan = (f"cluster kernel, clusters of {cluster}"
+                        if cluster else f"K4's passes, nsplit {nsplit}, psplit {psplit}")
+                print(f"  {'attn_packed_kv':18s} {shape}: {plan}; two launches bitwise equal")
+                plain_ms = cuda_ms(lambda: kattn.attention_packed_kv_plain(*args, h, scale),
+                                   iters=3, warmup=1)
+                _device_timing(rec, "attn_packed_kv", shape, run,
+                               packed_kv_library(args, h, scale), plain_ms,
+                               bound(nbytes(*args, out_k), packed_kv_ops(b, g, m, din, d), dt_name),
+                               keep=i == 0)
+                if i == 0:
+                    check_packed_kv_main(rec, args, h, scale, out_k)
+            del args, out_k, out_p
+            torch.cuda.empty_cache()
+
+
+def check_packed_kv_main(rec: Recorder, args, h: int, scale: float, out_k) -> None:
+    """At K15's main shape: K4's passes (forced) against the planned
+    kernel within KERNEL_TOL, on device time (a reading); and the device
+    memory one call allocates beyond what was allocated before it: the
+    output (and the stubs of the unused split and k|v scratch), not a k or
+    v tensor. (Its profiler kernels are read at the start of the run,
+    `check_k15_kernels`.)"""
+    from vipformer_tpu_torch.ops.cuda import attention as kattn
+
+    run = lambda: kattn.fused_attention_packed_kv(*args, num_heads=h, scale=scale)  # noqa: E731
+    q, x = args[0], args[1]
+    saved_plan = kattn.packed_kv_plan
+    try:
+        kattn.packed_kv_plan = lambda dt, b, g, m, hh, din, sms: (
+            0, *kattn.kv_ln_plan(dt, b, g, m, hh, din, sms))
+        rec.check("attn_packed_kv", "K4's passes vs the planned",
+                  *rel_err(run(), out_k, OWN_SCALE), KERNEL_TOL["bfloat16"])
+        passes_ms = queued_ms(run, "K15 on K4's passes")
+    finally:
+        kattn.packed_kv_plan = saved_plan
+    print(f"  {'attn_packed_kv':18s} at the main shape, device ms: K4's passes (projection, "
+          f"then K13) {passes_ms:.4f}; planned (the cluster kernel) "
+          f"{rec.r['attn_packed_kv']['ms']:.4f}")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = run()
+    torch.cuda.synchronize()
+    grew = torch.cuda.max_memory_allocated() - before
+    b, m, d = x.shape[0], x.shape[1], q.shape[-1]
+    kv_bytes = 2 * b * m * d * out.element_size()
+    print(f"  {'attn_packed_kv':18s} one call allocates {grew} B (its output {nbytes(out)} B; "
+          f"k and v would be {kv_bytes} B)")
+    expect(grew < nbytes(out) + (1 << 20), f"K15 bf16 allocated {grew} B: more than its output")
+    del out
+
+
+def check_k15_kernels() -> None:
+    """torch.profiler's kernels of one bf16 K15 call at its main shape
+    ([64, 512] x [64, 512, 256]): the cluster kernel once, and neither the
+    CUDA-core attn_flash_kernel nor K4's passes. Run at the start of the
+    script: late in it, traces have come back with no device activity
+    (see check_one_pass_launches)."""
+    from vipformer_tpu_torch.ops.cuda import attention as kattn
+
+    b, g, m, din, h = K15_SHAPES[0]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    q, x = (torch.randn((b, n, c), generator=gen, device="cuda").to(torch.bfloat16)
+            for n, c in ((g, 64 * h), (m, din)))
+    wk, wv = (torch.randn((din, 64 * h), generator=gen, device="cuda").to(torch.bfloat16)
+              * din ** -0.5 for _ in range(2))
+    with torch.inference_mode():
+        kernels = device_kernels(lambda: kattn.fused_attention_packed_kv(
+            q, x, wk, wv, num_heads=h, scale=64 ** -0.5))
+    names = list(kernels)
+    print(f"K15 bf16 at q[{b},{g}] x[{b},{m},{din}], kernels a call: " + ", ".join(
+        f"{k[:90]} {n:.0f}" for k, n in kernels.items()))
+    expect(len(names) == 1 and K15_CLUSTER_KERNEL in names[0] and kernels[names[0]] == 1,
+           f"K15 bf16: not the cluster kernel alone, once: {kernels}")
 
 
 def check_packed_splits(rec: Recorder, q, k, v, h: int, scale: float, out_k) -> None:
@@ -3702,6 +3879,7 @@ def drive_perceiver_head_split(counts_out: dict) -> None:
 # namespaces, and those in anonymous namespaces
 OUR_KERNELS = ("vpt", "fps_kernel", "knn_kernel", "fps_knn_kernel", "mha_kernel", "mha_tc_kernel",
                "stem_kernel", "attn_flash_kernel", "attn_combine_kernel", "attn_packed_tc_kernel",
+               "attn_packed_kv_cluster_kernel",
                "attn_small_kernel", "attn_small_tc_kernel", "attn_small_qkv_ln_kernel",
                "attn_small_qkv_ln_tc_kernel", "flash_fwd_tc_kernel", "flash_bwd_kv_tc_kernel",
                "flash_bwd_dq_tc_kernel", "dense_grads_tc_kernel", "ln_bwd_kernel",
@@ -3869,9 +4047,11 @@ def time_tree(root: str) -> dict:
     128] x [330, 1,024] (events), K18's backward at BN_SHAPES[0] and K17's
     at LN_TIMED on device time, K9's bf16 forward and backward at the
     pretrain shape (x0 [96, 128, 32, 3], events), K3 and K4 at the serving
-    shape B = 64 (device time, events beside), the serving forward at
-    each of BATCHES (events, and its kernels' and K5's device time from
-    torch.profiler), the ft_cls step (events over TIMED_STEPS steps, and
+    shape B = 64 (device time, events beside), K1 there and K15 at the
+    512-latent self-attention [64, 512] x [64, 512, 256] (device time), the
+    serving forward at each of BATCHES (events, and its kernels' and K5's
+    device time from torch.profiler), the Perceiver point feature forward
+    at 512 latents, B = 64 (events), the ft_cls step (events over TIMED_STEPS steps, and
     K11's and the attention backward kernels' device time a step), the
     ft_cls eval forward at B = 330 (events, its kernels' and K6's device
     time), the pretrain step at B = 48, the partseg step at B = 96, the
@@ -3880,7 +4060,7 @@ def time_tree(root: str) -> dict:
     sys.path.insert(0, root)
     from vipformer_tpu_torch.models.crossformer import init_weights
     from vipformer_tpu_torch.models.factory import (build_ft_cls, build_ft_partseg,
-                                                    build_ft_semseg)
+                                                    build_ft_semseg, build_pc_model)
     from vipformer_tpu_torch.nn.pointnet import Group2Emb
     from vipformer_tpu_torch.ops import cuda as kcuda
     from vipformer_tpu_torch.ops.cuda import attention as kattn
@@ -3893,8 +4073,8 @@ def time_tree(root: str) -> dict:
     from vipformer_tpu_torch.ops.cuda import layernorm as kln
     from vipformer_tpu_torch.ops.cuda import stem as kstem
     from vipformer_tpu_torch.train.trainer import (create_state, make_cls_eval, make_cls_step,
-                                                   make_partseg_step, make_pretrain_step,
-                                                   make_semseg_step)
+                                                   make_feats_fn, make_partseg_step,
+                                                   make_pretrain_step, make_semseg_step)
 
     expect(kcuda.__file__.startswith(root), f"imported {kcuda.__file__}, not the tree at {root}")
     kcuda.lib()
@@ -3993,6 +4173,14 @@ def time_tree(root: str) -> dict:
             q4, x4, *ln, w[0], w[1], num_heads=4, scale=0.125)
         out["K4 B=64 device ms"], out["K4 B=64 ms"] = queued_ms(k4, "K4"), cuda_ms(k4)
         del ops3, q4, x4
+        # K1 at the serving shape, and K15 at the point features' 512-latent
+        # self-attention (device time)
+        out["K1 B=64 device ms"] = queued_ms(lambda: kfps.fps(xyz, 128), "K1")
+        q15, x15 = (torch.randn((PERCEIVER_FEATS_BATCH, PERCEIVER_WIDE_LATENTS, 256),
+                                generator=gen, **bf) for _ in range(2))
+        out["K15 device ms"] = queued_ms(lambda: kattn.fused_attention_packed_kv(
+            q15, x15, w[0], w[1], num_heads=4, scale=0.125), "K15")
+        del q15, x15
         # K4 at eval_zeroshot's B = 160, the Perceiver's 512 latents and Din =
         # 384 (device time)
         k4_shapes = ((EVAL_BATCH, 128, NUM_POINTS, 256, 4),) + K4_PERCEIVER_SHAPES[1:]
@@ -4016,6 +4204,14 @@ def time_tree(root: str) -> dict:
             busy, k5 = kernel_sums(lambda: model(pts), 4, "attn_small")
             out[f"serve B={b} kernels ms"], out[f"serve B={b} K5 ms"] = busy, k5
     del model
+    # the Perceiver point features at 512 latents (K4 once, K15 six times)
+    feats = make_feats_fn(build_pc_model(
+        perceiver_config(num_pc_latents=PERCEIVER_WIDE_LATENTS), device="cuda"))
+    pts = torch.randn((PERCEIVER_FEATS_BATCH, perceiver_config().num_pt_points, 3),
+                      generator=gen, device="cuda")
+    with torch.inference_mode():
+        out["perceiver feats pc512 ms"] = cuda_ms(lambda: feats(pts), iters=AB_ITERS)
+    del feats
     cfg = ft_config()
     batches = ft_batches(cfg, "train")[:2]
     model = build_ft_cls(cfg, device="cuda")
@@ -4298,7 +4494,9 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
         rec = Recorder()
         check_one_pass_launches()
+        check_k15_kernels()
         check_serving_kernels(rec)
+        check_fps_widths(rec)
         check_k3_k4_eval_shapes(rec)
         serve_counts: dict = {}
         drive_serving_path(serve_counts)

@@ -1160,3 +1160,81 @@ def test_tensor_core_k3_k4_refuse_misaligned(dev):
         with pytest.raises(ValueError, match="16-byte boundary"):
             kattn.fused_attention_packed_kv_ln(*args, num_heads=4, scale=0.125)
     assert kcuda.launch_counts()["stem"] == 0 and kcuda.launch_counts()["attn_kv_ln"] == 0
+
+
+# ------------------------------------------------------------- K15, K1
+# K15's bf16 shapes (B, G, M, Din, H): the cluster kernel at the Perceiver's
+# 512 latents, a ragged 300, 512 queries at Din = 384, G above M; K4's
+# passes on the raw tokens over 2,048 and 700 tokens (projection, then
+# K13's kernel; at Din = 384 the stream kernel's projection), at one query
+# (the double-buffered attention pass) and at G <= 128 (one pass)
+PACKED_KV_TC_CASES = [(64, 512, 512, 256, 4), (3, 300, 300, 256, 4), (8, 512, 512, 384, 6),
+                      (2, 130, 33, 256, 4), (8, 512, 2048, 256, 4), (8, 512, 700, 384, 6),
+                      (4, 1, 700, 384, 6), (3, 100, 512, 96, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,g,m,din,h", PACKED_KV_TC_CASES)
+def test_packed_kv_tc_kernel_matches_twin(dev, b, g, m, din, h, monkeypatch):
+    """The bf16 K15 (the cluster kernel, or K4's passes on the tokens as
+    they are, as `packed_kv_plan` picks) against attention_packed_kv_plain
+    within 2e-2 of the twin's own scale, two launches bitwise equal; where
+    the plan is the cluster kernel, also on K4's passes (forced), within
+    2e-2 of the planned kernel; the f32 kernel within 2e-5."""
+    rng = np.random.default_rng(25)
+    d = 64 * h
+    with torch.inference_mode():
+        for dt in (torch.bfloat16, torch.float32):
+            args = (_t(rng, (b, g, d), dev, dt), _t(rng, (b, m, din), dev, dt),
+                    *(_t(rng, (din, d), dev, dt, din ** -0.5) for _ in range(2)))
+            got = kattn.fused_attention_packed_kv(*args, num_heads=h, scale=0.125)
+            _assert_close(got, kattn.attention_packed_kv_plain(*args, h, 0.125), dt, floor=0.0)
+            if dt == torch.bfloat16:
+                assert torch.equal(got, kattn.fused_attention_packed_kv(
+                    *args, num_heads=h, scale=0.125))
+                if kattn.packed_kv_plan(dt, b, g, m, h, din, kattn._sms(dev))[0]:
+                    with monkeypatch.context() as mp:
+                        mp.setattr(kattn, "packed_kv_plan", lambda dt, b, g, m, h, din, sms: (
+                            0, *kattn.kv_ln_plan(dt, b, g, m, h, din, sms)))
+                        _assert_close(kattn.fused_attention_packed_kv(
+                            *args, num_heads=h, scale=0.125), got, dt, floor=0.0)
+
+
+@pytest.mark.cuda
+def test_packed_kv_tc_kernel_refuses_misaligned(dev):
+    """The bf16 K15 (16-byte cp.async) refuses an operand whose storage
+    starts off a 16-byte boundary, before any launch."""
+    rng = np.random.default_rng(26)
+    dt = torch.bfloat16
+    q, w = _t(rng, (1, 300, 256), dev, dt), _t(rng, (256, 256), dev, dt, 0.0625)
+    x_off = _t(rng, (300 * 256 + 8,), dev, dt)[1:1 + 300 * 256].view(1, 300, 256)
+    kcuda.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        kattn.fused_attention_packed_kv(q, x_off, w, w, num_heads=4, scale=0.125)
+    assert kcuda.launch_counts()["attn_packed_kv"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [200, 1000, 1024, 2048, 4096, 8192])
+def test_fps_kernel_matches_twin_at_every_width(dev, n):
+    """K1 against fps_plain from random starts, on clouds with exact ties
+    (every fifth point a copy of the one before it; a cloud on a half-unit
+    grid), one warp a cloud at N = 200: indices and centers equal; and,
+    where K16 takes the cloud (N <= 4,096), K16 still equal to its twin
+    and to K1 followed by K2."""
+    from vipformer_tpu_torch.ops.cuda import patchify as kpatch
+
+    gen = torch.Generator(device=dev).manual_seed(n)
+    b, g, k = 3, 128, 32
+    xyz = torch.randn((b, n, 3), generator=gen, device=dev)
+    xyz[:, 1::5] = xyz[:, 0::5][:, :xyz[:, 1::5].shape[1]]
+    xyz[0] = torch.round(xyz[0] * 2) / 2
+    start = torch.randint(0, n, (b,), generator=gen, device=dev, dtype=torch.int32)
+    want_i, want_c = kfps.fps_plain(xyz, g, start)
+    idx, centers = kfps.fps(xyz, g, start)
+    assert torch.equal(idx, want_i) and torch.equal(centers, want_c)
+    if n <= 4096:
+        cidx, nidx = kpatch.fps_knn(xyz, g, k, start)
+        want_ci, want_ni = kpatch.fps_knn_plain(xyz, g, k, start)
+        assert torch.equal(cidx, want_ci) and torch.equal(nidx, want_ni)
+        assert torch.equal(cidx, idx) and torch.equal(nidx, kknn.knn(k, xyz, centers))

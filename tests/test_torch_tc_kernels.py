@@ -64,7 +64,9 @@ ROUTES = [("stem", torch.bfloat16, "stem_tc_bf16"),
           ("g2e_fwd", torch.bfloat16, "g2e_fwd_tc_bf16"),
           ("g2e_fwd", torch.float32, "g2e_fwd_f32"),
           ("g2e_bwd", torch.bfloat16, "g2e_bwd_tc_bf16"),
-          ("g2e_bwd", torch.float32, "g2e_bwd_f32")]
+          ("g2e_bwd", torch.float32, "g2e_bwd_f32"),
+          ("attn_packed_kv", torch.bfloat16, "attn_packed_kv_tc_bf16"),
+          ("attn_packed_kv", torch.float32, "attn_packed_kv_f32")]
 
 
 @pytest.mark.parametrize("base,dt,want", ROUTES)
@@ -914,15 +916,15 @@ def test_k3_k4_refuse_what_their_kernels_do_not_take():
         kstem.stem_kernel(*ops(c2=96))
     with pytest.raises(ValueError, match="first layer"):
         kstem.stem_kernel(*ops(c1=32))
-    assert kattn.kv_ln_route(torch.bfloat16, 256, 4, 256) == "attn_kv_ln_tc_bf16"
-    assert kattn.kv_ln_route(torch.float32, 256, 4, 100) == "attn_kv_ln_f32"
+    assert kattn.kv_route("attn_kv_ln", torch.bfloat16, 256, 4, 256) == "attn_kv_ln_tc_bf16"
+    assert kattn.kv_route("attn_kv_ln", torch.float32, 256, 4, 100) == "attn_kv_ln_f32"
     with pytest.raises(ValueError, match="multiple of 8"):
-        kattn.kv_ln_route(torch.bfloat16, 256, 4, 100)
+        kattn.kv_route("attn_kv_ln", torch.bfloat16, 256, 4, 100)
     for dt in (torch.float32, torch.bfloat16):
         with pytest.raises(ValueError, match="Din <= 1024"):
-            kattn.kv_ln_route(dt, 256, 4, 1152)
+            kattn.kv_route("attn_kv_ln", dt, 256, 4, 1152)
         with pytest.raises(NotImplementedError, match="dh=64"):
-            kattn.kv_ln_route(dt, 384, 4, 256)
+            kattn.kv_route("attn_kv_ln", dt, 384, 4, 256)
     assert kcuda._lib is None
 
 
@@ -955,3 +957,200 @@ def test_k9_tie_flip_rule(case):
     want = {"same": (0, 0.0), "near_tie": (1, 1.0), "two_ulps": (1, 2.0),
             "kernel_breaks_tie": (1, 1.0)}[case]
     assert (n, ulps) == want
+
+
+# ------------------------------------------------------------- K15, K1
+K15_TOKENS = (1, 63, 128, 300, 512, 700, 2048)
+K15_DINS = (128, 256, 384, 1024)
+
+
+@pytest.mark.parametrize("m", K15_TOKENS)
+@pytest.mark.parametrize("g", K15_TOKENS)
+def test_k15_plan_covers_every_row_and_token_once(g, m):
+    """The bf16 K15's plan (`packed_kv_plan`) at every Din the gate admits:
+    past one query tile with G and M at most 512, the cluster kernel, one
+    cluster a (cloud, head) whose blocks (at most 2, none empty) take 256
+    query rows and tokens each, so every query row and every
+    token lies in one block; elsewhere K4's passes, split as `kv_ln_plan`
+    splits K4's (covered by test_k4_tc_plan_covers_every_token_once); in
+    f32 always the CUDA-core kernel."""
+    b, h = 64, 4
+    for din in K15_DINS:
+        c, nsplit, psplit = kattn.packed_kv_plan(torch.bfloat16, b, g, m, h, din, SMS)
+        if g > kattn.TC_Q_TILE and max(g, m) <= kattn.PKV_MAX_TOKENS:
+            rows = kattn.PKV_SLICE
+            assert (c, nsplit, psplit) == (-(-max(g, m) // 256), 1, 1) and rows == 256
+            assert 1 <= c <= kattn.PKV_MAX_TOKENS // rows
+            blocks = [(r * rows, (r + 1) * rows) for r in range(c)]
+            for n in (g, m):
+                spans = [(lo, min(hi, n)) for lo, hi in blocks if lo < n]
+                assert _covers_once(spans, n)
+            assert all(lo < g or lo < m for lo, _ in blocks)  # no block without work
+        else:
+            assert c == 0
+            assert (nsplit, psplit) == kattn.kv_ln_plan(torch.bfloat16, b, g, m, h, din, SMS)
+        assert kattn.packed_kv_plan(torch.float32, b, g, m, h, din, SMS)[0] == 0
+
+
+def test_k15_cluster_kernel_fits_one_block_an_sm():
+    """The cluster kernel's shared memory (`packed_kv_cluster_smem_bytes`):
+    the cloud's k|v, 512 rows of 128 + 8 bf16 (139,264 B), or in its place
+    while the block projects the ring of two Din chunks and q's staging
+    (145,408 B): one block an SM, whatever Din (it streams), and not two
+    (its __launch_bounds__ say one)."""
+    smem = kattn.packed_kv_cluster_smem_bytes()
+    kv_rows = 512 * 136 * 2
+    ring = 2 * (256 * 72 + 64 * 136) * 2
+    assert smem == max(kv_rows, ring + 256 * 72 * 2) == 145408
+    assert smem <= 227 * 1024 and smem + BLOCK_RESERVED_BYTES <= SM_SHARED_BYTES
+    assert 2 * (smem + BLOCK_RESERVED_BYTES) > SM_SHARED_BYTES
+
+
+def test_k15_refuses_what_its_kernels_do_not_take():
+    """Before any launch (and before the kernels are built): K15 refuses a
+    head width other than 64, Din above 1024 and, in bf16, a Din that is
+    not a multiple of 8 (the f32 kernel takes it); the CUDA-core bf16 entry
+    point is gone."""
+    assert kattn.kv_route("attn_packed_kv", torch.bfloat16, 256, 4, 256) == "attn_packed_kv_tc_bf16"
+    assert kattn.kv_route("attn_packed_kv", torch.float32, 256, 4, 100) == "attn_packed_kv_f32"
+    with pytest.raises(ValueError, match="multiple of 8"):
+        kattn.kv_route("attn_packed_kv", torch.bfloat16, 256, 4, 100)
+    for dt in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="Din <= 1024"):
+            kattn.kv_route("attn_packed_kv", dt, 256, 4, 1152)
+        with pytest.raises(NotImplementedError, match="dh=64"):
+            kattn.kv_route("attn_packed_kv", dt, 384, 4, 256)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        kattn.kv_route("attn_packed_kv", torch.float16, 256, 4, 256)
+    assert "attn_packed_kv_bf16" not in kcuda.SIGNATURES
+    assert kcuda._lib is None
+
+
+def _cluster_order_attention(q, x, wk, wv, h: int, scale: float):
+    """A CPU mirror of the cluster kernel: block r projects its 256
+    tokens of x onto k|v (f32 accumulation rounded to the compute dtype),
+    the slices make the cloud's k|v, and block r attends its 256 query
+    rows over the cloud's 64-token tiles in order (K13's online softmax)."""
+    dt = q.dtype
+    b, g, d = q.shape
+    m = x.shape[1]
+    rows = kattn.PKV_SLICE
+    c = kattn.pkv_cluster(g, m)
+    xf = x.float()
+    k = torch.cat([(xf[:, lo:lo + rows] @ wk.float()).to(dt) for lo in range(0, c * rows, rows)], 1)
+    v = torch.cat([(xf[:, lo:lo + rows] @ wv.float()).to(dt) for lo in range(0, c * rows, rows)], 1)
+    kh = kattn._heads(k, h).float()
+    vh = kattn._heads(v, h)
+    outs = [kattn._online_attention(q[:, lo:lo + rows], kh, vh, h, scale, dt, kv_chunk=64)
+            for lo in range(0, c * rows, rows) if lo < g]
+    return torch.cat(outs, 1)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,g,m,din", [(2, 300, 300, 96), (1, 130, 33, 64), (2, 200, 512, 128),
+                                       (1, 512, 77, 64), (1, 512, 512, 64), (1, 257, 256, 32)])
+def test_k15_cluster_order_computes_the_twin(b, g, m, din, dt):
+    """The cluster kernel projects each 256-token slice on its own and
+    attends each block's query rows over the 64-token tiles in order; its
+    CPU mirror equals the twin over 64-token chunks
+    (`attention_packed_kv_plain(..., kv_chunk=64)`), within f32 summation
+    order (one bf16 rounding of the output in bf16), at ragged slices and
+    tiles, G above and below M."""
+    gen = torch.Generator().manual_seed(15)
+    h, d = 2, 128
+    q = torch.randn((b, g, d), generator=gen).to(dt)
+    x = torch.randn((b, m, din), generator=gen).to(dt)
+    wk, wv = ((torch.randn((din, d), generator=gen) * din ** -0.5).to(dt) for _ in "kv")
+    got = _cluster_order_attention(q, x, wk, wv, h, 0.125)
+    want = kattn.attention_packed_kv_plain(q, x, wk, wv, h, 0.125, kv_chunk=64)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    assert err <= (1e-6 if dt == torch.float32 else 2 ** -8) * scale
+
+
+FPS_NS = (1, 37, 256, 1000, 1024, 2048, 4096, 8192)
+
+
+@pytest.mark.parametrize("n", FPS_NS)
+def test_k1_warp_plan_holds_every_point_once(n):
+    """K1's layout (`fps_warps`): lane l of warp w holds points (w PPL + k)
+    32 + l, k < PPL, so every point of the cloud lies in one (warp, lane,
+    k), a lane's points increase with k, every warp holds a point (its
+    winner is real), and the warps fit the block the kernel is built for
+    (MAX_POINTS / PPL threads)."""
+    from vipformer_tpu_torch.ops.cuda import fps as kfps
+
+    ppl = kfps.PPL
+    w = kfps.fps_warps(n)
+    idx = torch.arange(w * ppl * 32).view(w, ppl, 32)
+    held = idx[idx < n]
+    assert torch.equal(held.sort().values, torch.arange(n))
+    assert bool((idx[:, 1:] > idx[:, :-1]).all())
+    assert all(bool((idx[k] < n).any()) for k in range(w))
+    assert 32 * w <= kfps.MAX_POINTS // ppl
+
+
+def _fps_two_redux(xyz, npoint: int, start):
+    """A CPU mirror of K1's step: each lane's best point (the first of its
+    largest running min-distance), the warp's by two reductions (the max
+    of the distances' f32 bits, then the least index among the lanes that
+    hold it), and across warps the largest 64-bit key (bits high, the
+    index's complement low) up to 4 warps, past it the same two
+    reductions; -> the indices."""
+    from vipformer_tpu_torch.ops.cuda import fps as kfps
+
+    b, n, _ = xyz.shape
+    ppl = kfps.PPL
+    w = kfps.fps_warps(n)
+    pos = torch.arange(w * ppl * 32).view(w, ppl, 32)  # (warp, k, lane) -> point
+    valid = pos < n
+    gather = pos.clamp(max=n - 1)
+    dist = torch.where(valid, torch.full((b, w, ppl, 32), 1e10), torch.full((b, w, ppl, 32), -1.0))
+    pts = xyz[:, gather]  # [B, W, PPL, 32, 3]
+    rows = torch.arange(b)
+    far = start.long()
+    out = torch.empty((b, npoint), dtype=torch.int32)
+    none = 2 ** 32 - 1
+    for it in range(npoint):
+        out[:, it] = far.int()
+        c = xyz[rows, far][:, None, None, None, :]
+        dd = pts - c
+        d = dd[..., 0] * dd[..., 0] + dd[..., 1] * dd[..., 1] + dd[..., 2] * dd[..., 2]
+        dist = torch.minimum(dist, torch.where(valid, d, dist))
+        lane_best = dist.amax(2)  # [B, W, 32]
+        first_k = torch.where(dist == lane_best[:, :, None], torch.arange(ppl)[:, None],
+                              ppl).amin(2)
+        has = lane_best >= 0
+        bits = torch.where(has, lane_best.view(torch.int32).long(), 0)
+        idx = torch.where(has, (torch.arange(w)[:, None] * ppl + first_k) * 32
+                          + torch.arange(32), none)
+        wbest = bits.amax(2)  # redux max over the lanes
+        wfirst = torch.where(bits == wbest[..., None], idx, none).amin(2)  # redux min
+        if w <= 4:
+            key = (wbest << 32) | (none - wfirst)
+            far = none - (key.amax(1) & none)
+        else:
+            best = wbest.amax(1)
+            far = torch.where(wbest == best[:, None], wfirst, none).amin(1)
+    return out
+
+
+@pytest.mark.parametrize("n", [200, 256, 1000, 1024, 4096, 8192])
+def test_k1_two_redux_argmax_gives_the_twins_indices(n):
+    """The two-redux argmax over lanes and warps (`_fps_two_redux`: one
+    warp up to 256 points, its keys read in turn up to 4 warps, reduced
+    past them) picks fps_plain's indices bit for bit on
+    clouds with exact ties: every fifth point a copy of the one before it
+    (equal distances at distinct indices), and a cloud on a half-unit grid
+    (many equal distances, exact zeros once it is covered)."""
+    from vipformer_tpu_torch.ops.cuda import fps as kfps
+
+    gen = torch.Generator().manual_seed(1)
+    xyz = torch.randn((2, n, 3), generator=gen)
+    xyz[:, 1::5] = xyz[:, 0::5][:, :xyz[:, 1::5].shape[1]]
+    xyz[1] = torch.round(xyz[1] * 2) / 2
+    start = torch.tensor([0, n - 1], dtype=torch.int32)
+    npoint = 48
+    want, _ = kfps.fps_plain(xyz, npoint, start)
+    assert torch.equal(_fps_two_redux(xyz, npoint, start), want)

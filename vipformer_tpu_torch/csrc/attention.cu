@@ -27,9 +27,12 @@
 // online softmax streamed over M chunks (the Fourier image cross-attention,
 // M = 20,736 tokens at 144x144). K15 replaces
 // attention.py:fused_attention_packed_kv (:325, kernel _packed_kv_kernel
-// :266): K13 with the bias-free k/v projections folded in, each chunk of
-// raw tokens projected right before use (the self-attention at 512
-// latents, where K6's tiles do not fit).
+// :266): K13 with the bias-free k/v projections folded in (the
+// self-attention at 512 latents, where K6's tiles do not fit). In bf16,
+// past 128 queries and up to 512 queries and tokens, a thread-block
+// cluster a (cloud, head) projects each token once and keeps k and v on
+// chip (design at its section below); elsewhere K4's bf16 passes run on
+// the tokens as they are.
 // K6 replaces attention.py:fused_attention_packed_small_qkv_ln (kernel
 // :666-712): K5 with the pre-LN and the q/k/v projections folded in, so
 // the raw tokens are read and only the attention output is written. On the
@@ -65,8 +68,8 @@
 // rows (G <= 128 at its site: once): 0.306 ms at 3.35 TB/s. The products
 // are 4 x B x G x M x D = 130.5 GFLOP: 0.13 ms on the bf16 tensor cores,
 // but at least 1.95 ms on the f32 CUDA cores (67 TFLOP/s). K15: the
-// projection arithmetic, as K4's, redone by each of the G/128 query tiles
-// (4 at G = 512).
+// products, K4's arithmetic (at its section below); its f32 kernel redoes
+// the projection once per 128-row query tile (4 times at G = 512).
 // The dtype picks K13's kernel (ops/cuda/__init__.py `tc_route`): bf16
 // runs `tc::attn_packed_tc_kernel` below; f32 runs attn_flash_kernel's
 // KV_DIRECT mode, on the CUDA cores, because a tensor-core f32 product is
@@ -103,7 +106,9 @@
 // blocks to an SM.
 // Design, K15 and K13 f32: the f32 K4's kernel with the kv source as a
 // template mode (LN + projection, projection only, or k/v read directly),
-// so they share the tiles, the split over blocks and the merge pass.
+// so they share the tiles, the split over blocks and the merge pass. The
+// dtype picks K15's route (`tc_route`): bf16 runs the tensor-core
+// kernels, f32 attn_flash_kernel's KV_PROJ mode.
 // The dtype picks K5's kernel too (`tc_route`): bf16 runs
 // `tc::attn_small_tc_kernel`, f32 attn_small_kernel<float> on the CUDA
 // cores, for the same TF32 reason.
@@ -155,8 +160,8 @@
 // Numerics follow the Pallas kernels: LN in f32 with the fast variance and
 // eps 1e-5, cast to the compute dtype; k/v = f32-accumulated projections
 // rounded to the compute dtype; logits in f32; p cast to v's dtype before
-// PV; f32 accumulation. K15 and the f32 routes of K4, K5, K6 and K13 run
-// plain CUDA-core FMAs (tensor cores for K15 are later work).
+// PV; f32 accumulation. The f32 routes of K4, K5, K6, K13 and K15 run
+// plain CUDA-core FMAs.
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -1424,37 +1429,263 @@ cudaError_t kvln_pass(const void* q, const bf16* xn, const void* wk, const void*
   return cudaGetLastError();
 }
 
-// The LayerNorm pass into xn [B*M, Din]; then up to QT query rows the
-// attention pass in nsplit kv splits (with nsplit > 1 the merge pass),
-// past it the projection pass in psplit kv splits into kv (k, then v:
-// [2, B*M, H*64]) and K13 over them in nsplit kv splits. Din a multiple
-// of 8.
-int launch_kv_ln(const void* q, const void* x, const void* ln_w, const void* ln_b, const void* wk,
-                 const void* wv, void* out, void* part_acc, void* part_ml, void* xn, void* kv,
-                 int b, int g, int m, int din, int h, int nsplit, int psplit, float scale,
-                 cudaStream_t stream) {
+// K4 and K15 in bf16. With `ln` (K4) the LayerNorm pass into xn
+// [B*M, Din] first, and the passes below read xn; without it (K15) they
+// read the tokens x as they are. Then up to QT query rows the attention
+// pass in nsplit kv splits (with nsplit > 1 the merge pass), past it the
+// projection pass in psplit kv splits into kv (k, then v: [2, B*M,
+// H*64]) and K13 over them in nsplit kv splits. Din a multiple of 8.
+int launch_kv(bool ln, const void* q, const void* x, const void* ln_w, const void* ln_b,
+              const void* wk, const void* wv, void* out, void* part_acc, void* part_ml, void* xn,
+              void* kv, int b, int g, int m, int din, int h, int nsplit, int psplit, float scale,
+              cudaStream_t stream) {
   const int nt = (m + KT - 1) / KT;
   if (b < 1 || g < 1 || h < 1 || m < 1 || din < 8 || din % 8 || !kvln_split_ok(nt, nsplit) ||
       (g > QT && !kvln_split_ok(nt, psplit)))
     return (int)cudaErrorInvalidValue;
   const int rows = b * m;
-  ln_xn_kernel<<<(rows + 7) / 8, 256, 0, stream>>>((const bf16*)x, (const float*)ln_w,
-                                                   (const float*)ln_b, (bf16*)xn, rows, din);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const bf16* src = (const bf16*)x;
+  cudaError_t err;
+  if (ln) {
+    ln_xn_kernel<<<(rows + 7) / 8, 256, 0, stream>>>((const bf16*)x, (const float*)ln_w,
+                                                     (const float*)ln_b, (bf16*)xn, rows, din);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    src = (const bf16*)xn;
+  }
   if (g > QT) {
-    err = kvln_pass<false>(q, (const bf16*)xn, wk, wv, kv, nullptr, nullptr, b, g, m, din, h,
-                           psplit, scale, stream);
+    err = kvln_pass<false>(q, src, wk, wv, kv, nullptr, nullptr, b, g, m, din, h, psplit, scale,
+                           stream);
     if (err != cudaSuccess) return (int)err;
     const bf16* k = (const bf16*)kv;
     return launch_packed(q, k, k + (size_t)rows * h * DH, out, part_acc, part_ml, b, g, m, h,
                          nsplit, scale, stream);
   }
-  err = kvln_pass<true>(q, (const bf16*)xn, wk, wv, out, part_acc, part_ml, b, g, m, din, h,
-                        nsplit, scale, stream);
+  err = kvln_pass<true>(q, src, wk, wv, out, part_acc, part_ml, b, g, m, din, h, nsplit, scale,
+                        stream);
   if (err != cudaSuccess || nsplit == 1) return (int)err;
   attn_combine_kernel<bf16><<<b * g, 256, 0, stream>>>(
       (const float*)part_acc, (const float*)part_ml, (bf16*)out, g, h, nsplit);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------- K15, bf16, on the tensor cores
+// The self-attention at the Perceiver's 512 latents: G = M = 512 queries
+// and tokens a cloud, Din = 256. Its k|v for a (cloud, head) is 512 x 128
+// bf16 (128 KB). K4's kernels would either project every tile once per
+// 128-row query tile (4 times here) or write k and v to device memory and
+// read them back once per query tile (K13's kernel). Here a thread-block
+// cluster takes one (cloud, head): c = ceil(max(G, M) / 256) blocks on
+// neighbouring SMs, block r with tokens and query rows [256 r, 256 (r +
+// 1)). It keeps k and v on chip, and each token is projected once per
+// head:
+//   1. block r projects its tokens of the raw x onto the head's k|v on
+//      mma.sync: Din streams in 64-column chunks (the slice's rows of x
+//      and the weights' 64 rows of this head's [wk|wv]) through a ring of
+//      cp.async stages, so any Din up to 1,024 fits; 8 warps of 64 tokens
+//      x 64 columns accumulate in f32 over the chunks;
+//   2. a cluster barrier (arrive.release / wait.acquire): every block is
+//      done with its ring and q's staging, whose place the cloud's k|v
+//      rows take;
+//   3. block r rounds its slice to bf16 (the Dense emit, the twin's) into
+//      its own rows of the cloud's k|v [512, 128] and copies them, 16
+//      bytes at a time through st.shared::cluster, into the same rows of
+//      every other block of the cluster; a second cluster barrier makes
+//      them visible. After it no block touches another's shared memory;
+//   4. each warp attends its 32 query rows (q held as A fragments since
+//      step 1) over the cloud's 64-token tiles in order, all in its own
+//      block's shared memory with no barrier: K13's online softmax (f32
+//      logits, p rounded to bf16 before an f32 P.V, divided by l at the
+//      end).
+// No merge pass runs, and k and v never reach device memory. A block with
+// no query rows (G < M) only projects; one with no tokens (M < G) only
+// attends. The cloud's k|v takes 139,264 B of shared memory, so one block
+// fits an SM: PKV_MT = 2 (K13's two row tiles a warp, each k and v
+// fragment serving both; 8 warps x 32 rows, clusters of 2 at 512 latents)
+// ran faster at the main path's shape than one row tile a warp (8 warps x
+// 16 rows, clusters of 4) and than K4's passes (PERF.md). A first design
+// that kept only the block's own slice and copied each remote tile into a
+// local buffer before its use (a block barrier a tile) was slower than
+// both.
+// Bound on the H100 at [64, 512] x [64, 512, 256], H = 4: the products,
+// 2 x B x M x Din x 2D + 4 x B x G x M x D = 25.8 GFLOP, 0.026 ms on the
+// bf16 tensor cores; x, q and the output move 50 MB (0.015 ms at 3.35
+// TB/s).
+constexpr int PKV_MT = 2;             // row tiles of 16 a warp
+constexpr int PKV_SLICE = KVLN_NW * 16 * PKV_MT;  // tokens and query rows a block: 256
+constexpr int PKV_MAX_TOKENS = 512;   // the cloud's k|v rows on chip: G, M at most
+constexpr int PKV_KC = 64;            // Din columns a chunk of the projection
+constexpr int PKV_LDX = PKV_KC + 8;   // padded row of a chunk of x
+constexpr int PKV_MAX_DIN = 1024;     // Din streams: any multiple of 8 up to this
+constexpr int PKV_STAGES = 2;         // the projection's ring of Din chunks
+// the projection's ring and q's staging share the k|v rows' place
+constexpr int PKV_SLOT = PKV_SLICE * PKV_LDX + PKV_KC * KVLN_LDW;
+constexpr size_t PKV_SMEM =
+    sizeof(bf16) * (size_t)(PKV_MAX_TOKENS * KVLN_LDW > PKV_STAGES * PKV_SLOT + PKV_SLICE * LD
+                                ? PKV_MAX_TOKENS * KVLN_LDW
+                                : PKV_STAGES * PKV_SLOT + PKV_SLICE * LD);
+static_assert(PKV_SMEM <= 232448, "one block an SM");
+static_assert(KVLN_THREADS == 256 && PKV_SLICE == 256,
+              "8 warps: 32 query rows each, a slice's 16-byte pieces 16 a thread a row");
+
+__global__ void __launch_bounds__(KVLN_THREADS, 1)
+attn_packed_kv_cluster_kernel(const bf16* __restrict__ q, const bf16* __restrict__ x,
+                              const bf16* __restrict__ wk, const bf16* __restrict__ wv,
+                              bf16* __restrict__ out, int g, int m, int din, int h, float scale) {
+  namespace mm = vpt::mma;
+  constexpr int MT = PKV_MT, SLICE = PKV_SLICE, STAGES = PKV_STAGES, SLOT = PKV_SLOT;
+  constexpr int NCG = 4 / MT, NI = 4 * MT;  // the projection's column groups and n8 tiles
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // [MAX_TOKENS][LDW]: the cloud's k|v for this head, block r's slice at
+  // rows SLICE r..; while the block projects, its ring of x and weight
+  // chunks and q's staging
+  bf16* kvall = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ring = kvall;                       // [STAGES][SLICE x LDX | KC x LDW]
+  bf16* qstage = kvall + STAGES * SLOT;     // [SLICE][LD]
+  const int rank = (int)mm::cluster_rank(), head = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int d = h * DH, nkc = (din + PKV_KC - 1) / PKV_KC;
+  const int s0 = rank * SLICE;  // the block's first token and first query row
+  const int nt = (m + KT - 1) / KT;  // the cloud's kv tiles
+  const bool projects = s0 < m, attends = s0 < g;
+  const bf16* xb = x + (size_t)b * m * din;
+  auto load = [&](int ch) {  // Din columns k0.. of the slice's rows of x and of the weights' rows
+    const int k0 = ch * PKV_KC;
+    bf16* xs = ring + (ch % STAGES) * SLOT;
+    bf16* ws = xs + SLICE * PKV_LDX;
+    mm::cp_rows<PKV_KC, SLICE, KVLN_THREADS>(xs, PKV_LDX, xb + k0, din, s0, m, tid, din - k0);
+    mm::cp_rows<DH, PKV_KC, KVLN_THREADS>(ws, KVLN_LDW, wk + (size_t)k0 * d + head * DH, d, 0,
+                                          din - k0, tid);
+    mm::cp_rows<DH, PKV_KC, KVLN_THREADS>(ws + DH, KVLN_LDW, wv + (size_t)k0 * d + head * DH, d,
+                                          0, din - k0, tid);
+  };
+  // group 0: q and the first chunk; then one group a chunk
+  mm::cp_rows<DH, SLICE, KVLN_THREADS>(qstage, LD, q + (size_t)b * g * d + head * DH, d, s0, g,
+                                       tid);
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (projects && st < nkc) load(st);
+    mm::cp_async_commit();
+  }
+  const int rg = warp / NCG, cg = warp % NCG;  // tokens 64 rg.., k|v columns 8 NI cg..
+  float acc[4][NI][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < NI; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+  uint32_t qa[MT][DH / 16][4];
+  for (int ch = 0; ch < (projects ? nkc : 1); ++ch) {
+    mm::cp_async_wait<STAGES - 2>();  // chunk ch (and q) landed: this thread's copies
+    __syncthreads();                  // ... everyone's; chunk ch - 1's stage is consumed
+    if (ch == 0)  // q's rows past G are zero rows
+      mm::warp_a_frags<DH, MT>(qa, qstage, LD, 16 * MT * warp, lane);
+    if (projects && ch + STAGES - 1 < nkc) load(ch + STAGES - 1);
+    mm::cp_async_commit();
+    if (!projects) break;
+    const bf16* xs = ring + (ch % STAGES) * SLOT;
+    mm::warp_ab<4, NI>(acc, xs + 64 * rg * PKV_LDX, PKV_LDX, xs + SLICE * PKV_LDX + 8 * NI * cg,
+                       KVLN_LDW, PKV_KC, lane);
+  }
+  mm::cp_async_wait<0>();
+  // every block of the cluster is done with its ring and q: the k|v rows
+  // take their place. The slice, rounded to bf16 (the Dense emit), into
+  // this block's rows, then copied into every other block's same rows.
+  mm::cluster_sync();
+  if (projects) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < NI; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          *reinterpret_cast<uint32_t*>(
+              kvall + (s0 + 64 * rg + 16 * i + 8 * hh + (lane >> 2)) * KVLN_LDW + 8 * NI * cg +
+              8 * j + 2 * (lane & 3)) = mm::pack_bf16x2(acc[i][j][2 * hh], acc[i][j][2 * hh + 1]);
+    __syncthreads();
+    const int nr = (int)gridDim.x;
+#pragma unroll
+    for (int e = 0; e < SLICE / 16; ++e) {  // 16-byte pieces: 16 a row, a thread each
+      const int r = (tid >> 4) + 16 * e, c8 = tid & 15;
+      const int off = (s0 + r) * KVLN_LDW + 8 * c8;
+      const uint4 v = *reinterpret_cast<const uint4*>(kvall + off);
+      const uint32_t addr = mm::smem_addr(kvall + off);
+      for (int other = 1; other < nr; ++other)
+        mm::st_cluster16(mm::cluster_map(addr, (uint32_t)((rank + other) % nr)), v);
+    }
+  }
+  mm::cluster_sync();  // the cloud's k|v is in every block; no block reads another's after this
+  const int row0 = s0 + 16 * MT * warp;
+  if (!attends || row0 >= g) return;
+  const float c = scale * mm::LOG2E;  // logits (and mx) in log2 units
+  float mx[MT][2], sum[MT][2], o[MT][DH / 8][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    mx[mt][0] = mx[mt][1] = -CUDART_INF_F;
+    sum[mt][0] = sum[mt][1] = 0.0f;
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n) o[mt][n][0] = o[mt][n][1] = o[mt][n][2] = o[mt][n][3] = 0.0f;
+  }
+  // K13's online softmax over the cloud's tiles in order (as kvln_attend)
+  for (int t = 0; t < nt; ++t) {
+    const bf16* kv = kvall + t * KT * KVLN_LDW;
+    float s[MT][NT][4];
+    mm::warp_scores<DH, MT>(s, qa, kv, KVLN_LDW, lane);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) mm::scale_and_mask(s[mt], c, t * KT, m, lane);
+    mm::online_softmax_tile<MT, DH>(s, mx, sum, o);
+    uint32_t pa[MT][KT / 16][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) mm::p_frags(pa[mt], s[mt]);
+    mm::warp_pv<DH, MT>(o, pa, kv + DH, KVLN_LDW, lane);
+  }
+  const int c0 = 2 * (lane & 3);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 16 * mt + 8 * r + (lane >> 2);
+      const float l = mm::quad_sum(sum[mt][r]);  // all lanes take part: before the row test
+      if (row >= g) continue;
+      bf16* orow = out + ((size_t)b * g + row) * d + head * DH + c0;
+#pragma unroll
+      for (int n = 0; n < DH / 8; ++n)
+        *reinterpret_cast<uint32_t*>(orow + 8 * n) =
+            mm::pack_bf16x2(o[mt][n][2 * r] / l, o[mt][n][2 * r + 1] / l);
+    }
+}
+
+// One cluster per (cloud, head) of `cluster` = ceil(max(G, M) / 256)
+// blocks of 8 warps x 32 query rows (G and M at most PKV_MAX_TOKENS), Din
+// a multiple of 8 up to PKV_MAX_DIN.
+int launch_packed_kv_cluster(const void* q, const void* x, const void* wk, const void* wv,
+                             void* out, int b, int g, int m, int din, int h, int cluster,
+                             float scale, cudaStream_t stream) {
+  const int tokens = g > m ? g : m;
+  if (b < 1 || g < 1 || h < 1 || m < 1 || din < 8 || din % 8 || din > PKV_MAX_DIN ||
+      tokens > PKV_MAX_TOKENS || cluster != (tokens + PKV_SLICE - 1) / PKV_SLICE || h > 65535 ||
+      b > 65535)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = attn_packed_kv_cluster_kernel;
+  const size_t smem = PKV_SMEM;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, h, b);
+  cfg.blockDim = dim3(KVLN_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute la[1];
+  la[0].id = cudaLaunchAttributeClusterDimension;
+  la[0].val.clusterDim.x = cluster;
+  la[0].val.clusterDim.y = 1;
+  la[0].val.clusterDim.z = 1;
+  cfg.attrs = la;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, (const bf16*)q, (const bf16*)x,
+                                             (const bf16*)wk, (const bf16*)wv, (bf16*)out, g, m,
+                                             din, h, scale);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -1852,8 +2083,8 @@ extern "C" int attn_kv_ln_tc_bf16(const void* q, const void* x, const void* ln_w
                                   void* part_acc, void* part_ml, void* xn, void* kv, int b, int g,
                                   int m, int din, int h, int nsplit, int psplit, float scale,
                                   void* stream) {
-  return tc::launch_kv_ln(q, x, ln_w, ln_b, wk, wv, out, part_acc, part_ml, xn, kv, b, g, m, din,
-                          h, nsplit, psplit, scale, (cudaStream_t)stream);
+  return tc::launch_kv(true, q, x, ln_w, ln_b, wk, wv, out, part_acc, part_ml, xn, kv, b, g, m,
+                       din, h, nsplit, psplit, scale, (cudaStream_t)stream);
 }
 
 // K5: q [B, G, H*64], k/v [B, M, H*64] -> out [B, G, H*64]. f32 on the
@@ -1890,7 +2121,8 @@ extern "C" int attn_packed_tc_bf16(const void* q, const void* k, const void* v, 
 
 // K15: q [B, G, H*64], x [B, M, Din] tokens (already normalised by the
 // caller), wk/wv [Din, H*64] -> out [B, G, H*64]; Din <= 1024 (the chunk
-// [Din, 36] f32 stays in shared memory); nsplit as for K4.
+// [Din, 36] f32 stays in shared memory); nsplit as for K4. f32 on the
+// CUDA cores.
 extern "C" int attn_packed_kv_f32(const void* q, const void* x, const void* wk, const void* wv,
                                   void* out, void* part_acc, void* part_ml, int b, int g, int m,
                                   int din, int h, int nsplit, float scale, void* stream) {
@@ -1898,9 +2130,19 @@ extern "C" int attn_packed_kv_f32(const void* q, const void* x, const void* wk, 
                                  scale, (cudaStream_t)stream);
 }
 
-extern "C" int attn_packed_kv_bf16(const void* q, const void* x, const void* wk, const void* wv,
-                                   void* out, void* part_acc, void* part_ml, int b, int g, int m,
-                                   int din, int h, int nsplit, float scale, void* stream) {
-  return launch_packed_kv<__nv_bfloat16>(q, x, wk, wv, out, part_acc, part_ml, b, g, m, din, h,
-                                         nsplit, scale, (cudaStream_t)stream);
+// bf16 on the tensor cores (pointers 16-byte aligned, Din a multiple of
+// 8): with cluster > 0 the cluster kernel, one cluster a (cloud, head) of
+// that many blocks of 256 tokens and query rows (G, M <= 512; part_acc,
+// part_ml and kv unused); with cluster 0 K4's passes on the tokens as they are (no
+// LayerNorm), with nsplit and psplit as K4's and the k|v scratch kv [2,
+// B*M, H*64] past 128 query rows.
+extern "C" int attn_packed_kv_tc_bf16(const void* q, const void* x, const void* wk, const void* wv,
+                                      void* out, void* part_acc, void* part_ml, void* kv, int b,
+                                      int g, int m, int din, int h, int cluster, int nsplit,
+                                      int psplit, float scale, void* stream) {
+  if (cluster > 0)
+    return tc::launch_packed_kv_cluster(q, x, wk, wv, out, b, g, m, din, h, cluster, scale,
+                                        (cudaStream_t)stream);
+  return tc::launch_kv(false, q, x, nullptr, nullptr, wk, wv, out, part_acc, part_ml, nullptr, kv,
+                       b, g, m, din, h, nsplit, psplit, scale, (cudaStream_t)stream);
 }

@@ -3,55 +3,81 @@
 // Replaces vipformer_tpu/ops/pallas/fps.py:fps_pallas (return_centers=True).
 //
 // Bound on the H100: latency, not bytes or FLOPs. npoint (128) dependent
-// steps, each a block-wide argmax over the cloud's running min-distance,
-// so the time is npoint x (one distance pass + two levels of reduction +
-// two block barriers). The cloud (1024 x 3 f32 = 12 KB) moves once.
+// steps, each a pass over the cloud's running min-distance and an argmax
+// over the cloud, so the time is npoint x one step's latency. The cloud
+// (1024 x 3 f32 = 12 KB) moves once.
 //
 // Design: one block per cloud. The Pallas kernel kept a tile of clouds in
-// VMEM and walked the batch in grid order; here each cloud's xyz and its
-// min-distance live in registers (up to MAX_PPT points per thread), so a
-// step touches no memory except the centroid's 12 bytes (an L1 hit after
-// the first pass). The argmax is (value, index) with the FIRST index on
-// ties (fps.py:63-68): warp shuffles, then one shared-memory pass by warp
-// 0 (vpt::block_argmax_first, geometry.cuh, shared with K16). Distances use
-// vpt::sq_dist3 (no FMA contraction), in the Pallas order.
-// One block per cloud leaves SMs idle when B < 132 (32 of 132 busy at
-// B=32); splitting a cloud over a cluster is later work.
+// VMEM and walked the batch in grid order; here the cloud's xyz and its
+// running min-distance live in registers, PPL points a lane, in W =
+// ceil(N / (32 PPL)) warps. A step:
+//   * the centroid's xyz from a shared-memory copy of the cloud (a
+//     broadcast read; at most 96 KB at 8,192 points);
+//   * each lane's distances (vpt::sq_dist3, no FMA contraction, in the
+//     Pallas order) and fminf into its running min, then its best point by
+//     a tree over its points, which it holds in increasing index, the
+//     larger value winning and the smaller index on a tie;
+//   * the warp's argmax in two redux.sync: the distances are >= 0, so
+//     their f32 bits order as unsigned integers, and __reduce_max_sync
+//     over them gives the maximum; __reduce_min_sync over the indices of
+//     the lanes that hold it gives its first index, exactly as
+//     vpt::argmax_first (ties to the first index, fps.py:63-68);
+//   * with W > 1, each warp's winner goes to a shared slot indexed by the
+//     step's parity as one 64-bit key (the value's bits high, the index's
+//     complement low: the largest key is the largest value at its first
+//     index), ONE barrier, and every warp reduces the W keys itself: up to
+//     4 warps each lane reads all W in turn, past it lane w reads key w and
+//     two more redux.sync reduce them (the parity keeps the next step's
+//     writes off the slots a slow warp still reads). W = 1 has no barrier.
+// The work of a step is about a dozen instructions a point, so a lane's
+// points set its time: PPL is 8 (4 warps at N = 1,024), since one warp of
+// 32 points a lane (no barrier) and 2 warps of 16 measured slower at 1,024
+// and at 4,096 points (PERF.md). Up to 256 points a cloud is one warp.
+// The indices and centers equal fps_plain's and K16's (patchify.cu, which
+// keeps vpt::block_argmax_first) bit for bit.
 #include "geometry.cuh"
 
 namespace {
 
-constexpr int MAX_PPT = 8;  // points per thread held in registers
+constexpr int MAX_POINTS = 8 * 1024;  // ops/cuda/fps.py MAX_POINTS
+constexpr int PPL = 8;                // points a lane: ops/cuda/fps.py PPL
+constexpr int SEQ_WARPS = 4;          // up to this many warps each lane reads every key
+constexpr unsigned FULL = 0xffffffffu;
+constexpr unsigned NONE = 0xffffffffu;  // no candidate: above every index
 
-__global__ void fps_kernel(const float* __restrict__ xyz, const int* __restrict__ start,
-                           int* __restrict__ idx_out, float* __restrict__ centers_out,
-                           int n, int npoint) {
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
+__device__ __forceinline__ unsigned long long key_of(unsigned v, unsigned i) {
+  return ((unsigned long long)v << 32) | (unsigned)~i;
+}
+
+// PPL points a lane, W = blockDim.x / 32 warps; ONE_WARP (W == 1) has no
+// barrier and no shared slots in its step loop.
+template <bool ONE_WARP>
+__global__ void __launch_bounds__(MAX_POINTS / PPL)
+fps_kernel(const float* __restrict__ xyz, const int* __restrict__ start,
+           int* __restrict__ idx_out, float* __restrict__ centers_out, int n, int npoint) {
+  extern __shared__ float s_xyz[];  // the cloud [N, 3]
+  __shared__ unsigned long long s_key[2][MAX_POINTS / PPL / 32];
+  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nw = blockDim.x >> 5;
   const float* cloud = xyz + (size_t)b * n * 3;
+  for (int e = tid; e < 3 * n; e += blockDim.x) s_xyz[e] = cloud[e];
+  __syncthreads();
 
-  float px[MAX_PPT], py[MAX_PPT], pz[MAX_PPT], dist[MAX_PPT];
+  // point k of a lane is (warp PPL + k) 32 + lane: increasing in k
+  float px[PPL], py[PPL], pz[PPL], dist[PPL];
 #pragma unroll
-  for (int k = 0; k < MAX_PPT; ++k) {
-    const int i = tid + k * nt;
-    if (i < n) {
-      px[k] = cloud[3 * i + 0];
-      py[k] = cloud[3 * i + 1];
-      pz[k] = cloud[3 * i + 2];
-    }
-    dist[k] = 1e10f;
+  for (int k = 0; k < PPL; ++k) {
+    const int i = (warp * PPL + k) * 32 + lane;
+    const bool ok = i < n;
+    px[k] = ok ? s_xyz[3 * i + 0] : 0.f;
+    py[k] = ok ? s_xyz[3 * i + 1] : 0.f;
+    pz[k] = ok ? s_xyz[3 * i + 2] : 0.f;
+    dist[k] = ok ? 1e10f : -1.0f;  // -1: no point, below every distance, and fminf keeps it
   }
-
-  __shared__ float s_val[32];
-  __shared__ int s_idx[32];
-  __shared__ int s_far;
 
   int far = start[b];
   for (int it = 0; it < npoint; ++it) {
-    const float cx = __ldg(cloud + 3 * far + 0);
-    const float cy = __ldg(cloud + 3 * far + 1);
-    const float cz = __ldg(cloud + 3 * far + 2);
+    const float cx = s_xyz[3 * far + 0], cy = s_xyz[3 * far + 1], cz = s_xyz[3 * far + 2];
     if (tid == 0) {
       idx_out[(size_t)b * npoint + it] = far;
       float* c = centers_out + ((size_t)b * npoint + it) * 3;
@@ -59,33 +85,65 @@ __global__ void fps_kernel(const float* __restrict__ xyz, const int* __restrict_
       c[1] = cy;
       c[2] = cz;
     }
-    float best = -1.0f;  // every distance is >= 0
-    int best_i = n;
+    float bv[PPL];
+    int bk[PPL];
 #pragma unroll
-    for (int k = 0; k < MAX_PPT; ++k) {
-      const int i = tid + k * nt;
-      if (i < n) {
-        const float d = vpt::sq_dist3(px[k] - cx, py[k] - cy, pz[k] - cz);
-        dist[k] = fminf(dist[k], d);
-        if (dist[k] > best) {  // strict: the smaller index wins a tie
-          best = dist[k];
-          best_i = i;
+    for (int k = 0; k < PPL; ++k) {
+      dist[k] = fminf(dist[k], vpt::sq_dist3(px[k] - cx, py[k] - cy, pz[k] - cz));
+      bv[k] = dist[k];
+      bk[k] = k;
+    }
+    // the lane's best: a tree in which the later (larger-index) half wins
+    // only on a strictly larger value
+#pragma unroll
+    for (int s = 1; s < PPL; s <<= 1)
+#pragma unroll
+      for (int k = 0; k + s < PPL; k += 2 * s)
+        if (bv[k + s] > bv[k]) {
+          bv[k] = bv[k + s];
+          bk[k] = bk[k + s];
         }
+    const bool has = bv[0] >= 0.f;
+    const unsigned v = has ? __float_as_uint(bv[0]) : 0u;
+    const unsigned i = has ? (unsigned)((warp * PPL + bk[0]) * 32 + lane) : NONE;
+    unsigned best = __reduce_max_sync(FULL, v);
+    unsigned first = __reduce_min_sync(FULL, v == best ? i : NONE);
+    if constexpr (!ONE_WARP) {
+      const int slot = it & 1;
+      if (lane == 0) s_key[slot][warp] = key_of(best, first);
+      __syncthreads();
+      if (nw <= SEQ_WARPS) {
+        unsigned long long key = s_key[slot][0];
+        for (int w = 1; w < nw; ++w) {
+          const unsigned long long o = s_key[slot][w];
+          key = o > key ? o : key;
+        }
+        first = ~(unsigned)key;
+      } else {
+        const unsigned long long key = lane < nw ? s_key[slot][lane] : 0ull;
+        const unsigned kv = (unsigned)(key >> 32), ki = ~(unsigned)key;
+        best = __reduce_max_sync(FULL, kv);
+        first = __reduce_min_sync(FULL, kv == best ? ki : NONE);
       }
     }
-    far = vpt::block_argmax_first(best, best_i, n, s_val, s_idx, &s_far);
+    far = (int)first;
   }
 }
 
 }  // namespace
 
 // xyz f32 [B, N, 3] contiguous, start int32 [B] -> idx int32 [B, npoint],
-// centers f32 [B, npoint, 3]. Needs N <= 8 * 1024.
-extern "C" int fps_f32(const void* xyz, const void* start, void* idx, void* centers,
-                       int b, int n, int npoint, void* stream) {
-  int threads = ((n + MAX_PPT - 1) / MAX_PPT + 31) / 32 * 32;
-  threads = threads < 256 ? 256 : threads;
-  fps_kernel<<<b, threads, 0, (cudaStream_t)stream>>>(
+// centers f32 [B, npoint, 3]. N <= 8,192, in ceil(N / (32 PPL)) warps.
+extern "C" int fps_f32(const void* xyz, const void* start, void* idx, void* centers, int b, int n,
+                       int npoint, void* stream) {
+  if (b < 1 || n < 1 || n > MAX_POINTS || npoint < 1) return (int)cudaErrorInvalidValue;
+  const int warps = (n + 32 * PPL - 1) / (32 * PPL);
+  const size_t smem = sizeof(float) * 3 * (size_t)n;
+  auto kernel = warps == 1 ? fps_kernel<true> : fps_kernel<false>;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
+  kernel<<<b, 32 * warps, smem, (cudaStream_t)stream>>>(
       (const float*)xyz, (const int*)start, (int*)idx, (float*)centers, n, npoint);
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
 // Tensor-core building blocks for the bf16 kernels: inline PTX for
 // Ampere-style warp-level products (`mma.sync` m16n8k16, bf16 in, f32
-// accumulate), `ldmatrix` fragment loads, and `cp.async` 16-byte copies
-// from device to shared memory, plus the warp-level attention tiles that
+// accumulate), `ldmatrix` fragment loads, `cp.async` 16-byte copies
+// from device to shared memory, and the thread-block cluster's barrier and
+// shared-memory stores (K15's cluster kernel), plus the warp-level attention tiles that
 // K5, K6 and K13 (attention.cu), K8 (flash_train.cu) and K14 (mha.cu)
 // share, three warp-level GEMM tiles: C += A^T . B (the contraction
 // down the rows of both operands) that K11 (dense.cu) and K7's weight
@@ -121,6 +122,37 @@ __device__ __forceinline__ void cp_rows(bf16* dst, int ld, const bf16* src, size
     cp_async16(dst + r * ld + cc * 8, src + (valid ? (size_t)(r0 + r) * stride + cc * 8 : 0),
                valid);
   }
+}
+
+// ------------------------------------------------ thread-block clusters
+// The blocks of a cluster (sm_90) read each other's shared memory: mapa
+// turns this block's shared address into the same offset in block `rank`
+// of the cluster, and st.shared::cluster writes it.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_map(uint32_t saddr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(saddr), "r"(rank));
+  return r;
+}
+
+// 16 bytes into another block's shared memory (an address from cluster_map).
+__device__ __forceinline__ void st_cluster16(uint32_t addr, uint4 v) {
+  asm volatile("st.shared::cluster.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x),
+               "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// Every thread of every block of the cluster arrives (release: its shared
+// memory writes are made visible) and waits (acquire): also a barrier of
+// the block.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // 2^x by the hardware's approximation (ex2.approx.ftz: within 2 ulp of

@@ -105,9 +105,12 @@ SIGNATURES = {
     # f32 on the CUDA cores, bf16 on the tensor cores
     "attn_packed_f32": [_P] * 6 + [_I] * 5 + [_F, _P],
     "attn_packed_tc_bf16": [_P] * 6 + [_I] * 5 + [_F, _P],
-    # K15 (q, x, wk, wv, out, part_acc, part_ml, b, g, m, din, h, nsplit, scale, stream)
+    # K15 (q, x, wk, wv, out, part_acc, part_ml, b, g, m, din, h, nsplit, scale,
+    # stream): f32 on the CUDA cores; bf16 on the tensor cores, with the
+    # k|v scratch after part_ml, the cluster kernel's blocks a cluster (0:
+    # K4's passes) before nsplit and the projection's split after it
     "attn_packed_kv_f32": [_P] * 7 + [_I] * 6 + [_F, _P],
-    "attn_packed_kv_bf16": [_P] * 7 + [_I] * 6 + [_F, _P],
+    "attn_packed_kv_tc_bf16": [_P] * 8 + [_I] * 8 + [_F, _P],
     # K14 (q, k, v, out, bh, g, m, dh, dv, scale, stream): as K13
     "mha_f32": [_P] * 4 + [_I] * 5 + [_F, _P],
     "mha_tc_bf16": [_P] * 4 + [_I] * 5 + [_F, _P],
@@ -215,7 +218,7 @@ def tc_route(base: str, dt: torch.dtype) -> str:
     `attn_train_kv_fwd` and backward `attn_train_kv_bwd`, K8's forward
     `attn_train_fwd` and backward `attn_train_bwd`, K9's forward `g2e_fwd`
     and backward `g2e_bwd`, K11 `dense_grads`, K13 `attn_packed`, K14
-    `mha`) for
+    `mha`, K15 `attn_packed_kv`) for
     dtype `dt`: bf16 on the tensor cores, f32 on the CUDA cores (a
     tensor-core f32 product is TF32, about 3 decimal digits: it would break
     the f32 bounds against the twins). Not a fallback: each dtype has one

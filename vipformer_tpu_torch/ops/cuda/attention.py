@@ -16,7 +16,7 @@ them.
   online softmax streamed over kv chunks, any M (the Fourier image
   cross-attention's 20,736 tokens).
 * `fused_attention_packed_kv` (K15): K13 with the bias-free k/v
-  projections folded in, each kv chunk projected right before use.
+  projections folded in, each token projected once per head.
 * `fused_attention` (K14, csrc/mha.cu): head-split q [B, H, G, dh] over
   k [B, H, M, dh] and v [B, H, M, dv], the whole M per (b, h), softmax
   normalised before PV; the only kernel that takes dv != dh, so it serves
@@ -37,7 +37,7 @@ Each launches `csrc/attention.cu` (K14: `csrc/mha.cu`) on CUDA tensors
 and runs its plain twin on CPU tensors. Numerics follow the Pallas
 kernels: f32 logits, `p` cast to v's dtype before an f32-accumulated PV.
 
-K4, K5, K6, K13 and K14 pick their kernel by dtype (`cuda.tc_route`):
+K4, K5, K6, K13, K14 and K15 pick their kernel by dtype (`cuda.tc_route`):
 bf16 runs on the tensor cores (mma.sync, csrc/mma.cuh), f32 on the CUDA
 cores, since a tensor-core f32 product is TF32 and would break the f32
 bounds. The bf16 K4 normalises the kv tokens once in a first pass (xn,
@@ -49,6 +49,16 @@ the tile. Past one query tile (G > TC_Q_TILE) the same kernels write k
 and v once and K13's kernel attends over them, so that no tile is
 projected once per query tile (`kv_ln_plan` splits the tiles over
 blocks).
+The bf16 K15 (`packed_kv_plan`) runs, past one query tile (G >
+TC_Q_TILE) and up to PKV_MAX_TOKENS queries and tokens (the Perceiver's
+512 latents), one thread-block cluster a (cloud, head) of
+ceil(max(G, M) / PKV_SLICE) blocks: each projects its PKV_SLICE tokens
+of x onto the head's k|v (Din streamed in chunks), copies them into
+every block's shared memory over the cluster, and attends its PKV_SLICE
+query rows over the whole cloud's k|v there, so that each token is
+projected once per head and k and v never reach device memory. Elsewhere
+K4's bf16 passes run on the tokens as they are (no LayerNorm), split as
+`kv_ln_plan` splits K4's.
 The bf16 K5 stages a (cloud, head)'s whole k and v in shared memory for
 64 query rows a block (its logits in registers up to 128 keys, K14's two
 passes above); the bf16 K6 projects a (cloud, head)'s q, k and v on chip,
@@ -84,6 +94,10 @@ KV_LN_TC_TILE_DIN = 256  # the tensor-core K4 takes whole tiles of xn up to this
 KV_LN_TC_TILE_DB_DIN = 384  # ... and up to this one double-buffered, one block an SM
 KV_LN_TC_CHUNK = 64  # Din columns a chunk of the tensor-core K4 past it
 KV_LN_TC_STAGES = 3  # chunks in the ring of the tensor-core K4 past it
+PKV_SLICE = 256  # the bf16 K15's cluster kernel: tokens and query rows a block (8 warps x 32)
+PKV_MAX_TOKENS = 512  # ... its largest G and M: the cloud's k|v [512, 128] on chip
+PKV_STAGES = 2  # ... the Din chunks in its projection's ring
+PKV_KC = 64  # ... the Din columns a chunk of its projection
 SMALL_SMEM_BYTES = 227 * 1024  # dynamic shared memory a Hopper block can use
 
 
@@ -184,7 +198,7 @@ def fused_attention_packed_kv_ln(q, x_kv, ln_w, ln_b, wk, wv, *, num_heads: int,
     b, g, d = q.shape
     m, din = x_kv.shape[1], x_kv.shape[2]
     dt = q.dtype
-    fn = kv_ln_route(dt, d, num_heads, din)
+    fn = kv_route("attn_kv_ln", dt, d, num_heads, din)
     q, x_kv, wk, wv = q.contiguous(), x_kv.contiguous(), wk.contiguous(), wv.contiguous()
     ln_w = ln_w.float().contiguous()
     ln_b = ln_b.float().contiguous()
@@ -215,18 +229,18 @@ def fused_attention_packed_kv_ln(q, x_kv, ln_w, ln_b, wk, wv, *, num_heads: int,
     return out
 
 
-def kv_ln_route(dt: torch.dtype, d: int, num_heads: int, din: int) -> str:
-    """K4's entry point for dtype `dt` (`cuda.tc_route`); raises, before
-    any launch, on a width its kernel does not take: a head width other
-    than 64, Din above KV_MAX_DIN, and in bf16 (16-byte rows) a Din that is
-    not a multiple of 8."""
-    fn = cuda.tc_route("attn_kv_ln", dt)
-    require_head_width("attn_kv_ln", d, num_heads)
+def kv_route(base: str, dt: torch.dtype, d: int, num_heads: int, din: int) -> str:
+    """The entry point of K4 (`attn_kv_ln`) or K15 (`attn_packed_kv`) for
+    dtype `dt` (`cuda.tc_route`); raises, before any launch, on a width
+    their kernels do not take: a head width other than 64, Din above
+    KV_MAX_DIN, and in bf16 (16-byte rows) a Din that is not a multiple of
+    8."""
+    fn = cuda.tc_route(base, dt)
+    require_head_width(base, d, num_heads)
     if din > KV_MAX_DIN:
-        raise ValueError(f"attn_kv_ln kernel needs Din <= {KV_MAX_DIN}; got Din={din}")
+        raise ValueError(f"{base} kernel needs Din <= {KV_MAX_DIN}; got Din={din}")
     if dt == torch.bfloat16 and din % 8:
-        raise ValueError(f"attn_kv_ln tensor-core kernel needs Din a multiple of 8; got "
-                         f"Din={din}")
+        raise ValueError(f"{base} tensor-core kernel needs Din a multiple of 8; got Din={din}")
     return fn
 
 
@@ -283,6 +297,40 @@ def kv_ln_plan(dt: torch.dtype, b: int, g: int, m: int, h: int, din: int,
     if dt != torch.bfloat16 or g <= TC_Q_TILE:
         return kv_ln_splits(dt, b, g, m, h, sms, kv_ln_blocks_per_sm(din)), 1
     return packed_splits(dt, b, g, m, h, sms), kv_ln_splits(dt, b, 1, m, h, sms)
+
+
+def packed_kv_plan(dt: torch.dtype, b: int, g: int, m: int, h: int, din: int,
+                   sms: int) -> tuple[int, int, int]:
+    """(cluster, nsplit, psplit): K15's kernels. In bf16 past one query
+    tile (G > TC_Q_TILE) with G and M at most PKV_MAX_TOKENS (any Din the
+    route takes), the cluster kernel: one cluster a (cloud, head) of
+    `cluster` = `pkv_cluster(g, m)` blocks, block r projecting tokens and
+    attending query rows [PKV_SLICE r, PKV_SLICE (r + 1)), no split (1,
+    1). Elsewhere (cluster 0) K4's passes on the tokens as they
+    are, split as `kv_ln_plan` splits K4's (up to one query tile one pass
+    that projects and attends, which needs no cluster); in f32 the CUDA-core
+    kernel's 32-token chunks."""
+    if dt == torch.bfloat16 and g > TC_Q_TILE and max(g, m) <= PKV_MAX_TOKENS:
+        return pkv_cluster(g, m), 1, 1
+    return (0, *kv_ln_plan(dt, b, g, m, h, din, sms))
+
+
+def pkv_cluster(g: int, m: int) -> int:
+    """Blocks a cluster of K15's cluster kernel: PKV_SLICE tokens and
+    query rows each."""
+    return -(-max(g, m) // PKV_SLICE)
+
+
+def packed_kv_cluster_smem_bytes() -> int:
+    """The bf16 K15's cluster kernel's shared memory (csrc/attention.cu
+    `PKV_SMEM`): the cloud's k|v (PKV_MAX_TOKENS rows of 128 + 8 bf16) or,
+    while the block projects, in its place the ring of PKV_STAGES Din
+    chunks (the slice's PKV_SLICE rows of PKV_KC + 8 bf16 of x and PKV_KC
+    rows of 128 + 8 of the weights) and q's staging (PKV_SLICE rows of 64
+    + 8), whichever is larger: one block an SM."""
+    d2 = 2 * KERNEL_HEAD_DIM + 8
+    ring = PKV_STAGES * (PKV_SLICE * (PKV_KC + 8) + PKV_KC * d2)
+    return 2 * max(PKV_MAX_TOKENS * d2, ring + PKV_SLICE * (KERNEL_HEAD_DIM + 8))
 
 
 def kv_splits(blocks: int, nchunks: int, sms: int, per_sm: int = 2) -> int:
@@ -513,28 +561,35 @@ def fused_attention_packed_split(q, k, v, *, num_heads: int, scale: float,
 
 def fused_attention_packed_kv(q, x_kv, wk, wv, *, num_heads: int, scale: float) -> torch.Tensor:
     """Eval flash attention with the k/v projections folded in (K15).
-    Shapes as `attention_packed_kv_plain`; Din <= KV_MAX_DIN."""
+    Shapes as `attention_packed_kv_plain`; Din <= KV_MAX_DIN, and in bf16
+    (the tensor cores) a multiple of 8. The kernels are those that
+    `packed_kv_plan` picks."""
     if not q.is_cuda:
         return attention_packed_kv_plain(q, x_kv, wk, wv, num_heads, scale)
     b, g, d = q.shape
     m, din = x_kv.shape[1], x_kv.shape[2]
     dt = q.dtype
-    fn = cuda.entry_point("attn_packed_kv", dt)
-    require_head_width("attn_packed_kv", d, num_heads)
-    if din > KV_MAX_DIN:
-        raise ValueError(f"attn_packed_kv kernel needs Din <= {KV_MAX_DIN}; got Din={din}")
+    fn = kv_route("attn_packed_kv", dt, d, num_heads, din)
     q, x_kv, wk, wv = q.contiguous(), x_kv.contiguous(), wk.contiguous(), wv.contiguous()
     cuda.require(q, "q", dt, (b, g, d))
     cuda.require(x_kv, "x_kv", dt, (b, m, din))
     cuda.require(wk, "wk", dt, (din, d))
     cuda.require(wv, "wv", dt, (din, d))
+    ptrs = dict(q=q.data_ptr(), x_kv=x_kv.data_ptr(), wk=wk.data_ptr(), wv=wv.data_ptr())
+    cuda.require_aligned(fn, **ptrs)
     out = torch.empty((b, g, d), dtype=dt, device=q.device)
-    nsplit, part_acc, part_ml = _split_scratch(q, b, g, m, num_heads)
+    cluster, nsplit, psplit = packed_kv_plan(dt, b, g, m, num_heads, din, _sms(q.device))
+    nsplit, part_acc, part_ml = _split_scratch(q, b, g, m, num_heads, nsplit)
+    scratch = [part_acc.data_ptr(), part_ml.data_ptr()]
+    sizes = [b, g, m, din, num_heads, nsplit]
+    if dt == torch.bfloat16:  # past a query tile on K4's passes, k and v written once
+        kv = torch.empty((2, b * m, d) if not cluster and g > TC_Q_TILE else (1,), dtype=dt,
+                         device=q.device)
+        scratch.append(kv.data_ptr())
+        sizes = [b, g, m, din, num_heads, cluster, nsplit, psplit]
     PACKED_KV_LAUNCHES.n += 1
     cuda.check(getattr(cuda.lib(), fn)(
-        q.data_ptr(), x_kv.data_ptr(), wk.data_ptr(), wv.data_ptr(), out.data_ptr(),
-        part_acc.data_ptr(), part_ml.data_ptr(), b, g, m, din, num_heads, nsplit, float(scale),
-        cuda.stream_ptr(),
+        *ptrs.values(), out.data_ptr(), *scratch, *sizes, float(scale), cuda.stream_ptr(),
     ), fn)
     return out
 

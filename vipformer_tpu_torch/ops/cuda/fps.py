@@ -5,6 +5,12 @@
 (x-cx)^2 + (y-cy)^2 + (z-cz)^2 with separately rounded operations, in the
 Pallas kernel's order, and break argmax ties towards the first index, so
 their indices agree exactly.
+
+The kernel holds a cloud in registers, PPL points a lane, in
+`fps_warps(N)` warps: a step's argmax is two warp reductions (redux.sync)
+and, past one warp, one block barrier. PPL is 8 (4 warps at 1,024
+points): one warp of 32 points a lane, with no barrier, and 2 warps of
+16 measured slower (PERF.md).
 """
 
 from __future__ import annotations
@@ -14,7 +20,14 @@ import torch
 from vipformer_tpu_torch.ops import cuda
 
 LAUNCHES = cuda.LaunchCounter()
-MAX_POINTS = 8 * 1024  # registers per thread x threads per block
+MAX_POINTS = 8 * 1024  # the cloud in shared memory (96 KB), 32 warps of 32 x 8 points
+PPL = 8  # points a lane (csrc/fps.cu PPL)
+
+
+def fps_warps(n: int) -> int:
+    """Warps a cloud of n points takes: lane l of warp w holds points
+    (w PPL + k) 32 + l, k < PPL."""
+    return -(-n // (32 * PPL))
 
 
 def fps_plain(xyz: torch.Tensor, npoint: int, start: torch.Tensor):
