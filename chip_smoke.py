@@ -27,7 +27,14 @@ goes on):
      twins, twice bitwise equal, timed beside their routes; K1 also at
      200 (one warp), 1,000, 2,048, 4,096 (semseg's B = 32) and 8,192
      points from random starts on clouds with exact ties, equal to its
-     twin, and timed (device time) at [32, 4,096];
+     twin, and timed (device time) at [32, 4,096]; K2 equal to its twin in
+     its order (torch.equal), launched twice bitwise equal, at (N, k) from
+     (33, 33) to (4,096, 128), k = 1, 4, 32 and 33 among them, on uniform,
+     tied (duplicated points, a half-unit lattice) and lane-adversarial
+     clouds (one lane's points moved away, which drives its exact-scan
+     path: the count of queries that took it printed, and at least one
+     must), and timed on device time (events beside) at [64, 1,024],
+     [48, 2,048] and [32, 4,096] x 128 queries, k = 32;
   4. serving path: build the flagship classifier (ARCH, decoded by the
      port's Config, through the port's factory; random weights from a
      seed) in bf16 on the card, serve ragged requests through
@@ -190,7 +197,11 @@ goes on):
  30. hold K16 (fused FPS + kNN) against its twin and against K1 followed
      by K2, bitwise, at the eval CLIs' [160, 1024] (G = 128, K = 32) and
      semseg's [32, 4,096] xyz+rgb points, from index 0 and random starts,
-     timed beside K1 + K2; and K14 (head-split eval attention) against
+     and at K2's (N, K) and clouds (G = 128 and, up to 1,024 points, G =
+     N; the count of centers that took the exact scan printed), each
+     launched twice bitwise equal; timed on device time (events beside) at
+     [64, 1,024], [48, 2,048], [32, 4,096] and [160, 1,024], beside K1 +
+     K2 at each; and K14 (head-split eval attention) against
      its twin at dh = 64, dv = 32 and 64, M = 128 and 2,048, f32 (CUDA
      cores) and bf16 (tensor cores, two launches bitwise equal), timed
      beside SDPA;
@@ -218,7 +229,9 @@ main path and on every path that ran the kernel), and last the line
 of the JAX package (vipformer_tpu).
 
 Each kernel's registers, spilled bytes and shared memory, from nvcc's
-`-Xptxas -v` with the build's flags (each source's report kept in DIR):
+`-Xptxas -v` with the build's flags (each source's report kept in DIR),
+and for K1, K2 and K16 each kernel's SASS instruction count, LDS.128
+loads and REDUX reductions (`cuobjdump -sass`):
 
     python3 chip_smoke.py --ptxas DIR
 
@@ -233,8 +246,9 @@ the card idle and busy; K6's and K8's device time beside), K8's backward
 at B = 96 and 330, K17's and K18's backward (device time), K7's forward
 and backward at the pretrain point shape (events; the backward's device
 time beside) and its backward at the ft_cls step's (events), K3 and K4
-at the serving shape B = 64 (device time; events beside), K1 there and
-K15 at [64, 512] x [64, 512, 256] (device time), the serving forward at
+at the serving shape B = 64 (device time; events beside), K1 and K2
+there, K16 at [64, 1,024], [160, 1,024] and [32, 4,096] and K15 at [64,
+512] x [64, 512, 256] (device time), the serving forward at
 B = 32 and 64, the Perceiver point features at 512 latents (B = 64,
 events), the ft_cls step and eval forward at B = 330,
 with their kernels' device time, the pretrain step, the partseg step, the
@@ -797,17 +811,17 @@ def check_serving_kernels(rec: Recorder) -> None:
                            cuda_ms(lambda: kfps.fps_plain(xyz, g, start), iters=3, warmup=1),
                            fps_bound(xyz, idx_k, cen_k), shape=f"xyz[{b},{NUM_POINTS},3] -> {g}")
                 rec.r["fps"]["host_ms"] = cuda_ms(run)
-            # K2 (queries: the FPS centers, as on the main path)
+            # K2 (queries: the FPS centers, as on the main path), in order
             nn_k = kknn.knn(s, xyz, cen_k)
             nn_p = kknn.knn_plain(s, xyz, cen_k)
-            expect(torch.equal(nn_k.sort(-1).values, nn_p.sort(-1).values),
-                   f"knn B={b}: index sets differ")
-            rec.check("knn", f"B={b} float32 (index sets equal)", 0.0, 0.0, 0.0)
-            if timed(b, "float32", "knn"):
-                rec.timing("knn", cuda_ms(lambda: kknn.knn(s, xyz, cen_k)),
+            expect(torch.equal(nn_k, nn_p), f"knn B={b}: indices differ from the twin's")
+            rec.check("knn", f"B={b} float32 (indices equal, in order)", 0.0, 0.0, 0.0)
+            if timed(b, "float32", "knn"):  # device time, the events beside
+                run = lambda: kknn.knn(s, xyz, cen_k)  # noqa: E731
+                rec.timing("knn", queued_ms(run, "knn"),
                            cuda_ms(lambda: kknn.knn_plain(s, xyz, cen_k)),
-                           bound(nbytes(xyz, cen_k, nn_k), 8 * b * g * NUM_POINTS, "float32"),
-                           shape=f"[{b},{NUM_POINTS}] x {g} queries, k={s}")
+                           knn_bound(xyz, cen_k, nn_k), shape=f"[{b},{NUM_POINTS}] x {g} queries, k={s}")
+                rec.r["knn"]["host_ms"] = cuda_ms(run)
             for dt_name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
                 # K3
                 ops = kstem.stem_operands(g2e, xyz, cen_k, nn_k, dt)
@@ -873,6 +887,80 @@ def check_fps_widths(rec: Recorder) -> None:
                 print(f"  {'fps':18s} xyz[{b},{n},3] -> {g} ({kfps.fps_warps(n)} warps a cloud): "
                       f"device {queued_ms(run, f'fps [{b},{n}]'):.4f} ms; bound "
                       f"{fps_bound(xyz, want_i, want_c)['bound_ms']:.4f}")
+
+
+def knn_bound(xyz, queries, out) -> dict:
+    """K2's bound: its bytes, and 8 f32 operations a (query, point) pair
+    (three differences, three squares, two sums)."""
+    b, n, _ = xyz.shape
+    return bound(nbytes(xyz, queries, out), 8 * b * queries.shape[1] * n, "float32")
+
+
+# K2 beyond the serving clouds (N, k): k = N, the validate scripts' (64,
+# 4), a ragged cloud, k = 1, 4 and 33 at the flagship's 1,024 points, the
+# pretrain and semseg clouds and the threshold select's largest k (128);
+# then the main paths' clouds, timed: serving's [64, 1,024], pretrain's
+# [48, 2,048] and semseg's [32, 4,096]
+KNN_SHAPES = ((33, 33), (64, 4), (1000, 32), (1024, 1), (1024, 4), (1024, 33), (2048, 32),
+              (4096, 32), (4096, 128))
+KNN_CLOUDS = ("uniform", "tied", "lane")
+KNN_TIMED = ((max(BATCHES), NUM_POINTS), (PRETRAIN_BATCH, 2048), (SEMSEG_BATCH, SEMSEG_POINTS))
+
+
+def knn_cloud(gen, kind: str, b: int, n: int):
+    """[B, N, 3] f32 on the card: "uniform" in [-1, 1]^3; "tied": every
+    fifth point a copy of the one before it and the first cloud on a
+    half-unit lattice; "lane": uniform with the points of one lane of K2's
+    warps (index = 31 mod 32) moved 8 units away, so that lane's nearest
+    key sets the selection's threshold above nearly every other key."""
+    xyz = torch.rand((b, n, 3), generator=gen, device="cuda") * 2 - 1
+    if kind == "tied":
+        xyz[:, 1::5] = xyz[:, 0::5][:, :xyz[:, 1::5].shape[1]]
+        xyz[0] = torch.round(xyz[0] * 2) / 2
+    elif kind == "lane":
+        xyz[:, 31::32, 0] += 8.0
+    return xyz
+
+
+def check_knn_clouds(rec: Recorder) -> None:
+    """K2 at KNN_SHAPES on each of KNN_CLOUDS (4 clouds, the FPS centers of
+    a random start as queries): equal to its twin in its order, and to a
+    second launch; the count of queries that took the exact scan printed,
+    at least one on the lane-adversarial clouds. Then device time (events
+    beside) at KNN_TIMED, k = 32: a reading, the JSON line keeps serving's
+    B = 64 from the serving phase."""
+    from vipformer_tpu_torch.ops.cuda import fps as kfps
+    from vipformer_tpu_torch.ops.cuda import knn as kknn
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    print("K2 on hard clouds (equal to the twin in order, twice):")
+    scanned = 0
+    with torch.inference_mode():
+        for n, k in KNN_SHAPES:
+            for kind in KNN_CLOUDS:
+                b, g = 4, min(128, n)
+                xyz = knn_cloud(gen, kind, b, n)
+                start = torch.randint(0, n, (b,), generator=gen, device=dev, dtype=torch.int32)
+                cen = kfps.fps(xyz, g, start)[1]
+                over = torch.zeros(1, dtype=torch.int32, device=dev)
+                got = kknn.knn(k, xyz, cen, overflow=over)
+                expect(torch.equal(got, kknn.knn_plain(k, xyz, cen)),
+                       f"knn N={n} k={k} {kind}: differs from the twin")
+                expect(torch.equal(got, kknn.knn(k, xyz, cen)),
+                       f"knn N={n} k={k} {kind}: two launches differ")
+                scanned += over.item() if kind == "lane" else 0
+                print(f"  knn N={n:5d} k={k:3d} {kind:8s}: equal; {over.item()} of {b * g} "
+                      f"queries took the exact scan")
+        expect(scanned > 0, "knn: no query of the lane-adversarial clouds took the exact scan")
+        rec.check("knn", "hard clouds (equal, in order)", 0.0, 0.0, 0.0)
+        for b, n in KNN_TIMED:
+            xyz = knn_cloud(gen, "uniform", b, n)
+            cen = kfps.fps(xyz, 128)[1]
+            run = lambda: kknn.knn(32, xyz, cen)  # noqa: E731
+            print(f"  {'knn':18s} [{b},{n}] x 128 queries, k=32: device "
+                  f"{queued_ms(run, f'knn [{b},{n}]'):.4f} ms, events {cuda_ms(run):.4f} ms; bound "
+                  f"{knn_bound(xyz, cen, run())['bound_ms']:.4f}")
 
 
 def check_small_tiles(rec: Recorder, qkv, out_k, h: int, scale: float, keep: bool) -> None:
@@ -3604,10 +3692,12 @@ def eval_forward_counts(batches: int, fused: bool) -> dict:
 
 
 def check_patchify_and_head_split(rec: Recorder) -> None:
-    """(a) K16 against its twin and against K1 followed by K2 on the card,
-    bitwise, at the eval CLIs' [160, 1024] (G = 128, K = 32) and semseg's
-    [32, 4,096] xyz+rgb points, from index 0 and from random starts, timed
-    beside K1 + K2; K14 against its twin at dh = 64, dv = 32 and 64 and
+    """(a) K16 against its twin, against K1 followed by K2 and against a
+    second launch on the card, bitwise, at the eval CLIs' [160, 1024] (G =
+    128, K = 32) and semseg's [32, 4,096] xyz+rgb points, from index 0 and
+    from random starts, and at K2's KNN_SHAPES and KNN_CLOUDS (3 clouds, G
+    = 128 and, up to 1,024 points, G = N), timed on device time at
+    KNN_TIMED and [160, 1,024] beside K1 + K2; K14 against its twin at dh = 64, dv = 32 and 64 and
     M = 128 and 2,048 (the Perceiver's unequal-width sites), f32 and
     bf16 (the tensor-core route launched twice, bitwise equal), timed at
     the point features' cross-attention beside SDPA."""
@@ -3619,30 +3709,64 @@ def check_patchify_and_head_split(rec: Recorder) -> None:
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED + 31)
     g, k = 128, 32
-    print("K16 (fused FPS + kNN) against its twin and K1 + K2:")
-    for b, n, c in ((EVAL_BATCH, NUM_POINTS, 3), (SEMSEG_BATCH, SEMSEG_POINTS, 6)):
-        pts = torch.from_numpy(rng.uniform(-1, 1, (b, n, c)).astype(np.float32)).to(dev)
-        for start in (None, torch.from_numpy(rng.integers(0, n, b).astype(np.int32)).to(dev)):
-            s0 = torch.zeros(b, dtype=torch.int32, device=dev) if start is None else start
-            cidx, nidx = kpatch.fps_knn(pts, g, k, start)
-            want_c, want_n = kpatch.fps_knn_plain(pts[..., :3].contiguous(), g, k, s0)
-            idx, centers = kfps.fps(pts, g, start)
-            k2 = kknn.knn(k, pts, centers)
-            what = f"[{b},{n},{c}] {'random' if start is not None else 'index 0'} start"
-            expect(torch.equal(cidx, want_c) and torch.equal(nidx, want_n),
-                   f"fps_knn {what}: differs from its twin")
-            expect(torch.equal(cidx, idx) and torch.equal(nidx, k2),
-                   f"fps_knn {what}: differs from K1 + K2")
-            rec.check("fps_knn", f"{what} (equal to twin and K1+K2)", 0.0, 0.0, 0.0)
-        if b == EVAL_BATCH:
-            xyz = pts[..., :3].contiguous()
-            k1k2 = cuda_ms(lambda: kknn.knn(k, xyz, kfps.fps(xyz, g)[1]))
-            rec.timing("fps_knn", cuda_ms(lambda: kpatch.fps_knn(xyz, g, k)),
-                       cuda_ms(lambda: kpatch.fps_knn_plain(xyz, g, k, s0), iters=3, warmup=1),
-                       bound(nbytes(xyz, cidx, nidx), (9 + 8) * b * g * n, "float32"),
-                       shape=f"xyz[{b},{n},3] -> {g} x {k}")
-            rec.r["fps_knn"]["k1_k2_ms"] = k1k2
-            print(f"  K1 + K2 at the same shape: {k1k2:.4f} ms")
+
+    def held(pts, gg, kk, start, what: str) -> int:
+        """K16 on pts against its twin, K1 + K2 and a second launch; the
+        count of centers that took the exact scan."""
+        s0 = torch.zeros(pts.shape[0], dtype=torch.int32, device=dev) if start is None else start
+        over = torch.zeros(1, dtype=torch.int32, device=dev)
+        cidx, nidx = kpatch.fps_knn(pts, gg, kk, start, overflow=over)
+        want_c, want_n = kpatch.fps_knn_plain(pts[..., :3].contiguous(), gg, kk, s0)
+        idx, centers = kfps.fps(pts, gg, start)
+        expect(torch.equal(cidx, want_c) and torch.equal(nidx, want_n),
+               f"fps_knn {what}: differs from its twin")
+        expect(torch.equal(cidx, idx) and torch.equal(nidx, kknn.knn(kk, pts, centers)),
+               f"fps_knn {what}: differs from K1 + K2")
+        again = kpatch.fps_knn(pts, gg, kk, start)
+        expect(torch.equal(cidx, again[0]) and torch.equal(nidx, again[1]),
+               f"fps_knn {what}: two launches differ")
+        return over.item()
+
+    print("K16 (fused FPS + kNN) against its twin, K1 + K2 and a second launch:")
+    with torch.inference_mode():
+        for b, n, c in ((EVAL_BATCH, NUM_POINTS, 3), (SEMSEG_BATCH, SEMSEG_POINTS, 6)):
+            pts = torch.from_numpy(rng.uniform(-1, 1, (b, n, c)).astype(np.float32)).to(dev)
+            for start in (None, torch.from_numpy(rng.integers(0, n, b).astype(np.int32)).to(dev)):
+                what = f"[{b},{n},{c}] {'random' if start is not None else 'index 0'} start"
+                held(pts, g, k, start, what)
+                rec.check("fps_knn", f"{what} (equal to twin and K1+K2)", 0.0, 0.0, 0.0)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+        scanned = 0
+        for n, kk in KNN_SHAPES:
+            for kind in KNN_CLOUDS:
+                for gg in sorted({min(g, n), n if n <= NUM_POINTS else min(g, n)}):
+                    pts = knn_cloud(gen, kind, 3, n)
+                    start = torch.randint(0, n, (3,), generator=gen, device=dev, dtype=torch.int32)
+                    over = held(pts, gg, kk, start, f"N={n} G={gg} K={kk} {kind}")
+                    scanned += over if kind == "lane" else 0
+                    print(f"  fps_knn N={n:5d} G={gg:4d} K={kk:3d} {kind:8s}: equal; {over} of "
+                          f"{3 * gg} centers took the exact scan")
+        expect(scanned > 0, "fps_knn: no center of the lane-adversarial clouds took the exact scan")
+        rec.check("fps_knn", "hard clouds (equal to twin and K1+K2)", 0.0, 0.0, 0.0)
+        # device time (events beside) beside K1 + K2's; the JSON line keeps
+        # the eval CLIs' [160, 1,024]
+        for b, n in KNN_TIMED + ((EVAL_BATCH, NUM_POINTS),):
+            xyz = knn_cloud(gen, "uniform", b, n)
+            run = lambda: kpatch.fps_knn(xyz, g, k)  # noqa: E731
+            cidx, nidx = run()
+            s0 = torch.zeros(b, dtype=torch.int32, device=dev)
+            expect(torch.equal(nidx, kpatch.fps_knn_plain(xyz, g, k, s0)[1]),
+                   f"fps_knn [{b},{n}]: differs from its twin")
+            ms, host = queued_ms(run, f"fps_knn [{b},{n}]"), cuda_ms(run)
+            k1k2 = queued_ms(lambda: kknn.knn(k, xyz, kfps.fps(xyz, g)[1]), "K1 + K2")
+            bnd = bound(nbytes(xyz, cidx, nidx), (9 + 8) * b * g * n, "float32")
+            print(f"  {'fps_knn':18s} xyz[{b},{n},3] -> {g} x {k}: device {ms:.4f} ms, events "
+                  f"{host:.4f} ms; K1 + K2 device {k1k2:.4f} ms; bound {bnd['bound_ms']:.4f}")
+            if b == EVAL_BATCH:
+                rec.timing("fps_knn", ms,
+                           cuda_ms(lambda: kpatch.fps_knn_plain(xyz, g, k, s0), iters=3, warmup=1),
+                           bnd, shape=f"xyz[{b},{n},3] -> {g} x {k}")
+                rec.r["fps_knn"].update(host_ms=host, k1_k2_ms=k1k2)
 
     print("K14 (head-split eval attention) against its twin:")
     b, h = PERCEIVER_FEATS_BATCH, 4
@@ -4037,6 +4161,30 @@ def host_us(fn, calls: int = AB_HOST_CALLS, busy: bool = False) -> float:
     return us
 
 
+def wrapper_us_in(module, name: str, fn, n: int) -> float:
+    """Host time in microseconds a call of `module.<name>` (a kernel's
+    wrapper) over the calls that n fn() calls make, the attribute replaced
+    by a timed wrapper meanwhile."""
+    orig, spent = getattr(module, name), []
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return orig(*args, **kwargs)
+        finally:
+            spent.append(time.perf_counter() - t0)
+
+    setattr(module, name, timed)
+    try:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        setattr(module, name, orig)
+    expect(bool(spent), f"{name} was never called")
+    return sum(spent) * 1e6 / len(spent)
+
+
 def time_tree(root: str) -> dict:
     """One A/B sample of the port in the checkout at `root`, imported from
     there (its kernels built there): the host time of a K5, K6, K8 forward
@@ -4047,16 +4195,21 @@ def time_tree(root: str) -> dict:
     128] x [330, 1,024] (events), K18's backward at BN_SHAPES[0] and K17's
     at LN_TIMED on device time, K9's bf16 forward and backward at the
     pretrain shape (x0 [96, 128, 32, 3], events), K3 and K4 at the serving
-    shape B = 64 (device time, events beside), K1 there and K15 at the
-    512-latent self-attention [64, 512] x [64, 512, 256] (device time), the
+    shape B = 64 (device time, events beside), K1 and K2 there, K2 at
+    semseg's [32, 4,096] (k = 32, k = 200 and the lane-adversarial cloud:
+    device time) and its wrapper's host time there and at [48, 2,048], K16 at [64,
+    1,024], [160, 1,024] and [32, 4,096] and K15 at the 512-latent
+    self-attention [64, 512] x [64, 512, 256] (device time), the
     serving forward at each of BATCHES (events, and its kernels' and K5's
     device time from torch.profiler), the Perceiver point feature forward
     at 512 latents, B = 64 (events), the ft_cls step (events over TIMED_STEPS steps, and
     K11's and the attention backward kernels' device time a step), the
     ft_cls eval forward at B = 330 (events, its kernels' and K6's device
-    time), the pretrain step at B = 48, the partseg step at B = 96, the
-    semseg step at B = 32 with K17 and K18 forced (events over
-    TIMED_STEPS steps) and one eval_zeroshot run."""
+    time), the pretrain step at B = 48 (with its kernels', K1's and K2's
+    device time and the K2 wrapper's host time a call), the partseg step
+    at B = 96, the semseg step at B = 32 with K17 and K18 forced (events
+    over TIMED_STEPS steps; the K2 wrapper's host time) and one
+    eval_zeroshot run."""
     sys.path.insert(0, root)
     from vipformer_tpu_torch.models.crossformer import init_weights
     from vipformer_tpu_torch.models.factory import (build_ft_cls, build_ft_partseg,
@@ -4071,6 +4224,7 @@ def time_tree(root: str) -> dict:
     from vipformer_tpu_torch.ops.cuda import g2e_train as kg9
     from vipformer_tpu_torch.ops.cuda import knn as kknn
     from vipformer_tpu_torch.ops.cuda import layernorm as kln
+    from vipformer_tpu_torch.ops.cuda import patchify as kpatch
     from vipformer_tpu_torch.ops.cuda import stem as kstem
     from vipformer_tpu_torch.train.trainer import (create_state, make_cls_eval, make_cls_step,
                                                    make_feats_fn, make_partseg_step,
@@ -4176,6 +4330,27 @@ def time_tree(root: str) -> dict:
         # K1 at the serving shape, and K15 at the point features' 512-latent
         # self-attention (device time)
         out["K1 B=64 device ms"] = queued_ms(lambda: kfps.fps(xyz, 128), "K1")
+        out["K2 B=64 device ms"] = queued_ms(lambda: kknn.knn(32, xyz, cen), "K2")
+        # K2 at semseg's [32, 4,096]: k = 32, the exact scan past the
+        # threshold select's k (200) and on the lane-adversarial cloud (device
+        # time); its wrapper's host time there and at pretrain's [48, 2,048]
+        for kind, k2 in (("uniform", 32), ("uniform", 200), ("lane", 32)):
+            x2 = knn_cloud(gen, kind, SEMSEG_BATCH, SEMSEG_POINTS)
+            _, c2 = kfps.fps(x2, 128)
+            out[f"K2 {kind} [{SEMSEG_BATCH},{SEMSEG_POINTS}] k={k2} device ms"] = queued_ms(
+                lambda: kknn.knn(k2, x2, c2), "K2")
+        out[f"K2 [{SEMSEG_BATCH},{SEMSEG_POINTS}] wrapper us"] = host_us(
+            lambda: kknn.knn(32, x2, c2))
+        x2 = torch.randn((PRETRAIN_BATCH, 2048, 3), generator=gen, device="cuda")
+        _, c2 = kfps.fps(x2, 128)
+        out[f"K2 [{PRETRAIN_BATCH},2048] wrapper us"] = host_us(lambda: kknn.knn(32, x2, c2))
+        del x2, c2
+        # K16 at the serving batch, the eval CLIs' and semseg's clouds
+        for b16, n16 in ((64, NUM_POINTS), (EVAL_BATCH, NUM_POINTS), (SEMSEG_BATCH, SEMSEG_POINTS)):
+            x16 = torch.randn((b16, n16, 3), generator=gen, device="cuda")
+            out[f"K16 [{b16},{n16}] device ms"] = queued_ms(
+                lambda: kpatch.fps_knn(x16, 128, 32), "K16")
+        del x16
         q15, x15 = (torch.randn((PERCEIVER_FEATS_BATCH, PERCEIVER_WIDE_LATENTS, 256),
                                 generator=gen, **bf) for _ in range(2))
         out["K15 device ms"] = queued_ms(lambda: kattn.fused_attention_packed_kv(
@@ -4247,6 +4422,11 @@ def time_tree(root: str) -> dict:
     step = make_pretrain_step(cfg, models["pc"], models["img"])
     run(2)
     out["pretrain step ms"] = cuda_ms(lambda: run(1), iters=TIMED_STEPS, warmup=0)
+    # inside the step: K2's wrapper's host time a call, and the device time
+    # of the step's kernels, K2's and K1's
+    out["pretrain knn wrapper us"] = wrapper_us_in(kknn, "knn", lambda: run(1), TIMED_STEPS)
+    (out["pretrain step kernels ms"], out["pretrain K2 device ms"],
+     out["pretrain K1 device ms"]) = kernel_sums(lambda: run(1), 2, "knn_kernel", "fps_kernel")
     del models, state, step, batches
     torch.cuda.empty_cache()
     cfg = partseg_config()  # the partseg step at B = 96
@@ -4267,6 +4447,7 @@ def time_tree(root: str) -> dict:
         step = make_semseg_step(cfg, model)
         run(2)
         out["semseg forced step ms"] = cuda_ms(lambda: run(1), iters=TIMED_STEPS, warmup=0)
+        out["semseg knn wrapper us"] = wrapper_us_in(kknn, "knn", lambda: run(1), TIMED_STEPS)
     finally:
         _restore_norms(saved)
     del model, state, step, batches
@@ -4325,11 +4506,38 @@ def ab(other: str, pairs: int) -> int:
     return 0
 
 
+# sources whose kernels --ptxas also reads the SASS of (instruction counts)
+SASS_SOURCES = ("fps", "knn", "patchify")
+
+
+def sass_counts(cubin: str) -> dict[str, tuple[int, int, int]]:
+    """Each kernel of a cubin: (SASS instructions, LDS.128 loads, REDUX
+    warp reductions), from `cuobjdump -sass`, names demangled."""
+    import re
+
+    from vipformer_tpu_torch.ops import cuda as kcuda
+
+    tool = os.path.join(os.path.dirname(kcuda._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", cubin], capture_output=True, text=True,
+                          check=True).stdout
+    out = {}
+    for part in text.split("Function : ")[1:]:
+        name, body = part.split("\n", 1)
+        ins = re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", body)
+        demangled = subprocess.run(["c++filt", name.strip()], capture_output=True, text=True)
+        kernel = demangled.stdout.strip().replace("(anonymous namespace)::", "")
+        kernel = kernel.removeprefix("void ").split("(")[0] or name.strip()
+        out[kernel] = (len(ins), sum("LDS.128" in i for i in ins), sum("REDUX" in i for i in ins))
+    return out
+
+
 def ptxas(out_dir: str) -> int:
     """Compile every csrc/*.cu as the build does, with `-Xptxas -v` (one
     nvcc per source, all started together), write each source's report to
     OUT_DIR/ptxas_<source>.txt, and print each kernel's registers, spilled
-    bytes and shared memory."""
+    bytes and shared memory; for SASS_SOURCES also each kernel's SASS
+    instructions, LDS.128 loads and REDUX reductions (the cubin kept in
+    OUT_DIR)."""
     import re
 
     from vipformer_tpu_torch.ops import cuda as kcuda
@@ -4337,7 +4545,10 @@ def ptxas(out_dir: str) -> int:
     os.makedirs(out_dir, exist_ok=True)
     procs = []
     for src in (p for p in kcuda.sources() if p.endswith(".cu")):
-        cmd = [kcuda._nvcc(), *kcuda.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", os.devnull, src]
+        name = os.path.splitext(os.path.basename(src))[0]
+        out = (["-cubin", "-o", os.path.join(out_dir, f"{name}.cubin")] if name in SASS_SOURCES
+               else ["-c", "-o", os.devnull])
+        cmd = [kcuda._nvcc(), *kcuda.NVCC_FLAGS, "-Xptxas", "-v", *out, src]
         procs.append((src, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True)))
     failed = 0
@@ -4365,6 +4576,11 @@ def ptxas(out_dir: str) -> int:
                 print(f"{name:12s} {m.group(1):>4s} registers, {spill:18s} {kernel[:90]}"
                       f"{m.group(2).replace(', used', ';')[:50]}")
                 kernel = ""
+        if name in SASS_SOURCES:
+            for kernel, (n_ins, lds, redux) in sass_counts(
+                    os.path.join(out_dir, f"{name}.cubin")).items():
+                print(f"{name:12s} SASS {n_ins:6d} instructions, {lds:4d} LDS.128, {redux:4d} "
+                      f"REDUX  {kernel[:90]}")
     return 1 if failed else 0
 
 
@@ -4497,6 +4713,7 @@ def main() -> int:
         check_k15_kernels()
         check_serving_kernels(rec)
         check_fps_widths(rec)
+        check_knn_clouds(rec)
         check_k3_k4_eval_shapes(rec)
         serve_counts: dict = {}
         drive_serving_path(serve_counts)

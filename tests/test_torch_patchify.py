@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from _knn_clouds import hard_cloud
 from vipformer_tpu.ops.pallas.patchify import fps_knn_pallas
 from vipformer_tpu_torch.models.crossformer import CrossFormerPC
 from vipformer_tpu_torch.ops import geometry as tgeo
@@ -24,10 +25,20 @@ from vipformer_tpu_torch.ops.cuda import fps as kfps
 from vipformer_tpu_torch.ops.cuda import knn as kknn
 from vipformer_tpu_torch.ops.cuda import patchify as kpatch
 
-# (B, N, G, K, random start): a power-of-two cloud, a ragged one, G = N,
-# and K = N
-CASES = [(2, 64, 8, 4, False), (3, 100, 16, 8, True), (2, 257, 32, 16, True),
-         (1, 128, 128, 32, False), (2, 40, 8, 40, True)]
+# (B, N, G, K, random start, cloud): a power-of-two cloud, a ragged one,
+# G = N and K = N; then clouds that stress the kNN selection (normal ones
+# keep their ids): "tied", every fifth point a copy of the one before it and
+# the first cloud on a half-unit lattice; "lane", uniform with the points
+# of one lane of K2's warps (index = 31 mod 32) moved 8 units away
+CASES = [pytest.param(2, 64, 8, 4, False, None, id="2-64-8-4-False"),
+         pytest.param(3, 100, 16, 8, True, None, id="3-100-16-8-True"),
+         pytest.param(2, 257, 32, 16, True, None, id="2-257-32-16-True"),
+         pytest.param(1, 128, 128, 32, False, None, id="1-128-128-32-False"),
+         pytest.param(2, 40, 8, 40, True, None, id="2-40-8-40-True"),
+         pytest.param(2, 100, 16, 8, True, "tied", id="tied-2-100-16-8-True"),
+         pytest.param(1, 64, 64, 33, False, "tied", id="tied-1-64-64-33-False"),
+         pytest.param(2, 256, 32, 32, True, "lane", id="lane-2-256-32-32-True"),
+         pytest.param(1, 96, 24, 4, False, "lane", id="lane-1-96-24-4-False")]
 
 
 @pytest.fixture
@@ -38,15 +49,17 @@ def forced():
     kpatch.USE_FPS_KNN = saved
 
 
-def _cloud(rng, b, n, c=3):
-    return rng.standard_normal((b, n, c)).astype(np.float32)
+def _cloud(rng, b, n, c=3, kind=None):
+    if kind is None:
+        return rng.standard_normal((b, n, c)).astype(np.float32)
+    return hard_cloud(rng.uniform(-1, 1, (b, n, c)).astype(np.float32), kind)
 
 
-@pytest.mark.parametrize("b,n,g,k,random_start", CASES)
-def test_fps_knn_twin_matches_pallas(rng, b, n, g, k, random_start):
+@pytest.mark.parametrize("b,n,g,k,random_start,cloud", CASES)
+def test_fps_knn_twin_matches_pallas(rng, b, n, g, k, random_start, cloud):
     """centers_idx [B, G] and neighbor_idx [B, G, K] equal to the Pallas
     kernel's in interpret mode, and to K1's twin followed by K2's."""
-    xyz = _cloud(rng, b, n)
+    xyz = _cloud(rng, b, n, kind=cloud)
     start = rng.integers(0, n, b).astype(np.int32) if random_start else None
     want_c, want_n = fps_knn_pallas(jnp.asarray(xyz), g, k,
                                     None if start is None else jnp.asarray(start),

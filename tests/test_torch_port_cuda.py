@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from _knn_clouds import KNN_CLOUDS, KNN_SHAPES, hard_cloud
 from vipformer_tpu_torch.models.crossformer import CrossFormerPCFT, init_weights
 from vipformer_tpu_torch.nn.pointnet import Group2Emb
 from vipformer_tpu_torch.ops import cuda as kcuda
@@ -80,6 +81,38 @@ def test_kernels_match_twins(dev, shape, dt):
     qkv = [_t(rng, (b, g, d), dev, dt) for _ in range(3)]
     _assert_close(kattn.fused_attention_packed_small(*qkv, num_heads=h, scale=scale),
                   kattn.attention_small_plain(*qkv, h, scale), dt)
+
+
+# ---------------------------------------------------------------- K2
+# K2 equal to its twin in its order (torch.equal) and to a second launch at
+# (N, k) from k = N to the threshold select's largest k (128) and past it
+# (the exact scan: 129, 200), on uniform, tied and lane-adversarial clouds
+# (the queries the FPS centers, as on the main path).
+
+
+def _knn_cloud(gen, kind, b, n, dev):
+    """A [B, N, 3] f32 cloud of `kind` (tests/_knn_clouds.py) on `dev`."""
+    return hard_cloud(torch.rand((b, n, 3), generator=gen, device=dev) * 2 - 1, kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KNN_CLOUDS)
+@pytest.mark.parametrize("n,k", [*KNN_SHAPES, (1024, 129), (4096, 200)])
+def test_knn_kernel_matches_twin_on_hard_clouds(dev, n, k, kind):
+    """Equal to knn_plain in order and to a second launch; on the
+    lane-adversarial clouds past 512 points, where the threshold is the
+    largest kept key (k = 32, 128), queries take the exact scan."""
+    gen = torch.Generator(device=dev).manual_seed(n + k)
+    b, g = 3, min(128, n)
+    xyz = _knn_cloud(gen, kind, b, n, dev)
+    start = torch.randint(0, n, (b,), generator=gen, device=dev, dtype=torch.int32)
+    centers = kfps.fps(xyz, g, start)[1]
+    over = torch.zeros(1, dtype=torch.int32, device=dev)
+    got = kknn.knn(k, xyz, centers, overflow=over)
+    assert torch.equal(got, kknn.knn_plain(k, xyz, centers))
+    assert torch.equal(got, kknn.knn(k, xyz, centers))
+    if kind == "lane" and n > 512 and k in (32, 128):
+        assert over.item() > 0
 
 
 @pytest.mark.cuda
@@ -879,24 +912,43 @@ def test_semseg_step_forced_on_card_matches_cpu(dev):
 
 
 # ---------------------------------------------------------------- K16, K14
-# K16 (fused FPS + kNN) equal to its twin and to K1 + K2 at ragged cloud
-# sizes, G = N and random starts; K14 (head-split attention) within
-# TOL of its twin at ragged G and M, every built width pair, and its
-# refusals (other widths, inputs that need a gradient).
+# K16 (fused FPS + kNN) equal to its twin, to K1 + K2 and to a second
+# launch at ragged cloud sizes, G = N and random starts, and on K2's
+# shapes and clouds (3 and 70 clouds a launch); K14 (head-split attention) within TOL of
+# its twin at ragged G and M, every built width pair, and its refusals
+# (other widths, inputs that need a gradient).
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,n,g,k", [(3, 1000, 128, 32), (2, 4096, 128, 32), (2, 300, 300, 7),
-                                     (1, 33, 16, 33)])
-def test_fps_knn_kernel_matches_twin_and_k1_k2(dev, b, n, g, k):
+@pytest.mark.parametrize("b,n,g,k,cloud", [
+    pytest.param(3, 1000, 128, 32, None, id="3-1000-128-32"),
+    pytest.param(2, 4096, 128, 32, None, id="2-4096-128-32"),
+    pytest.param(2, 300, 300, 7, None, id="2-300-300-7"),
+    pytest.param(1, 33, 16, 33, None, id="1-33-16-33"),
+    *[pytest.param(3, n, min(128, n), k, kind, id=f"{kind}-3-{n}-{min(128, n)}-{k}")
+      for n, k in KNN_SHAPES for kind in KNN_CLOUDS],
+    pytest.param(2, 1024, 1024, 32, "tied", id="tied-2-1024-1024-32"),
+    pytest.param(2, 1000, 1000, 33, "lane", id="lane-2-1000-1000-33"),
+    pytest.param(1, 64, 64, 4, "lane", id="lane-1-64-64-4"),
+    pytest.param(70, 1024, 128, 32, "tied", id="tied-70-1024-128-32"),
+    pytest.param(70, 2048, 128, 32, "lane", id="lane-70-2048-128-32"),
+])
+def test_fps_knn_kernel_matches_twin_and_k1_k2(dev, b, n, g, k, cloud):
     from vipformer_tpu_torch.ops.cuda import patchify as kpatch
 
     rng = np.random.default_rng(2)
-    xyz = _t(rng, (b, n, 3), dev)
-    start = torch.from_numpy(rng.integers(0, n, b).astype(np.int32)).to(dev)
+    if cloud is None:
+        xyz = _t(rng, (b, n, 3), dev)
+        start = torch.from_numpy(rng.integers(0, n, b).astype(np.int32)).to(dev)
+    else:
+        gen = torch.Generator(device=dev).manual_seed(n + g + k)
+        xyz = _knn_cloud(gen, cloud, b, n, dev)
+        start = torch.randint(0, n, (b,), generator=gen, device=dev, dtype=torch.int32)
     cidx, nidx = kpatch.fps_knn(xyz, g, k, start)
     want_c, want_n = kpatch.fps_knn_plain(xyz, g, k, start)
     assert torch.equal(cidx, want_c) and torch.equal(nidx, want_n)
+    again = kpatch.fps_knn(xyz, g, k, start)
+    assert torch.equal(cidx, again[0]) and torch.equal(nidx, again[1])
     idx, centers = kfps.fps(xyz, g, start)
     assert torch.equal(cidx, idx) and torch.equal(nidx, kknn.knn(k, xyz, centers))
     with pytest.raises(ValueError, match="fps_knn kernel"):

@@ -6,8 +6,10 @@ interpret mode as tests/test_pallas.py runs it, on the same numpy inputs.
 The CUDA kernels themselves run only on a card: tests/test_torch_port_cuda.py
 holds them against their twins there and skips elsewhere.
 
-Tolerances: FPS indices and centers exactly equal, kNN index sets equal
-(both sides select with the same f32 difference-of-squares keys); stem and
+Tolerances: FPS indices and centers exactly equal, kNN indices equal in
+their nearest-first order (both sides select with the same f32
+difference-of-squares keys, also on tied and lane-adversarial clouds);
+stem and
 attention in f32 within 1e-5 relative (summation order differs).
 """
 
@@ -17,6 +19,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from _knn_clouds import hard_cloud
 from vipformer_tpu.nn.pointnet import Group2Emb as JaxGroup2Emb
 from vipformer_tpu.ops import geometry as jgeo
 from vipformer_tpu.ops.pallas.attention import (
@@ -79,9 +82,33 @@ def test_fps_twin_matches_lax_loop_with_extra_channels(rng):
     np.testing.assert_array_equal(got_pts.numpy(), pts[np.arange(2)[:, None], got.numpy()])
 
 
-@pytest.mark.parametrize("b,n,s,k", [(2, 256, 16, 8), (2, 100, 12, 5)])
-def test_knn_twin_matches_pallas(rng, b, n, s, k):
-    pts, queries = _f32(rng, b, n, 3), _f32(rng, b, s, 3)
+def _hard_cloud(rng, kind, b, n):
+    """A [B, N, 3] f32 cloud of `kind` (tests/_knn_clouds.py): equal
+    distances at distinct indices, or one lane's nearest key setting the
+    kernel's threshold."""
+    return hard_cloud(rng.uniform(-1, 1, (b, n, 3)).astype(np.float32), kind)
+
+
+@pytest.mark.parametrize("b,n,s,k,cloud", [
+    pytest.param(2, 256, 16, 8, None, id="2-256-16-8"),
+    pytest.param(2, 100, 12, 5, None, id="2-100-12-5"),
+    pytest.param(2, 256, 16, 8, "tied", id="tied-2-256-16-8"),
+    pytest.param(2, 100, 12, 33, "tied", id="tied-2-100-12-33"),
+    pytest.param(2, 256, 16, 32, "lane", id="lane-2-256-16-32"),
+    pytest.param(1, 96, 8, 4, "lane", id="lane-1-96-8-4"),
+])
+def test_knn_twin_matches_pallas(rng, b, n, s, k, cloud):
+    """The twin equals the Pallas kernel in interpret mode, order included,
+    on normal clouds and on the tied and lane-adversarial clouds (the
+    queries there half points of the cloud, exact zero distances and ties,
+    half random)."""
+    if cloud is None:
+        pts, queries = _f32(rng, b, n, 3), _f32(rng, b, s, 3)
+    else:
+        pts = _hard_cloud(rng, cloud, b, n)
+        pick = rng.integers(0, n, (b, s // 2))
+        queries = np.concatenate([pts[np.arange(b)[:, None], pick],
+                                  rng.uniform(-1, 1, (b, s - s // 2, 3)).astype(np.float32)], 1)
     want = np.asarray(knn_pallas(k, jnp.asarray(pts), jnp.asarray(queries), interpret=True))
     got = kknn.knn(k, torch.from_numpy(pts), torch.from_numpy(queries)).numpy()
     assert got.dtype == np.int32 and got.shape == (b, s, k)

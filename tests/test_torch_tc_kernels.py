@@ -12,12 +12,15 @@ and is checked here: the route is a pure function of the dtype; K11's
 split of the rows covers every row once with no split empty and fills one
 wave of 132 SMs (two blocks an SM, no second wave) where R has the row
 steps; K5's shared memory fits one block at every (G, M) the gate admits,
-K6's two blocks an SM at every (G, Din) it admits.
+K6's two blocks an SM at every (G, Din) it admits. K2's one-pass
+threshold select is mirrored on the CPU and held against its twin on
+uniform, tied and lane-adversarial clouds.
 """
 
 import pytest
 import torch
 
+from _knn_clouds import KNN_CLOUDS, KNN_SHAPES, hard_cloud
 from vipformer_tpu_torch.ops import cuda as kcuda
 from vipformer_tpu_torch.ops.cuda import attention as kattn
 from vipformer_tpu_torch.ops.cuda import dense as kdense
@@ -1154,3 +1157,89 @@ def test_k1_two_redux_argmax_gives_the_twins_indices(n):
     npoint = 48
     want, _ = kfps.fps_plain(xyz, npoint, start)
     assert torch.equal(_fps_two_redux(xyz, npoint, start), want)
+
+
+# ---------------------------------------------------------------- K2
+# The selection's mirror at the card tests' (N, k) on their clouds
+# (tests/_knn_clouds.py)
+KNN_CAP = 512  # csrc/geometry.cuh KNN_CAP: candidate slots a warp
+
+
+def knn_cloud(gen, kind: str, b: int, n: int) -> torch.Tensor:
+    """A [B, N, 3] f32 cloud of `kind` (tests/_knn_clouds.py)."""
+    return hard_cloud(torch.rand((b, n, 3), generator=gen) * 2 - 1, kind)
+
+
+def _knn_threshold_select(k: int, points, queries):
+    """A CPU mirror of K2's selection (csrc/geometry.cuh knn_query): lane
+    l's key slots hold points l, l+32, ...; each lane keeps its M smallest
+    keys (M = 1 to k = 32, 4 to KNN_KMAX); tau is the k-th smallest kept
+    key (their maximum at k = 32 M); the keys <= tau are compacted slot by
+    slot, lane by lane; candidate c goes to lane c % 32, each lane sorts
+    its own, and k rounds take the least head. -> (indices [B, S, k], the
+    candidate count of each query [B, S], and how many queries would take
+    the exact scan for want of KNN_CAP slots)."""
+    from vipformer_tpu_torch.ops.cuda import knn as kknn
+
+    b, n, _ = points.shape
+    s = queries.shape[1]
+    d = torch.zeros((b, s, n))
+    for c in range(3):
+        delta = queries[:, :, None, c] - points[:, None, :, c]
+        d = d + delta * delta
+    mask = (1 << kknn.idx_bits_for(n)) - 1
+    keys = (d.view(torch.int32) & ~mask) | torch.arange(n, dtype=torch.int32)
+    none = 2 ** 31 - 1
+    nk = -(-n // 32)
+    slots = torch.full((b, s, nk * 32), none, dtype=torch.int32)
+    slots[..., :n] = keys
+    slots = slots.view(b, s, nk, 32)  # [.., slot j, lane l]: point 32 j + l
+    m = 1 if k <= 32 else 4
+    assert k <= kknn.THRESHOLD_KMAX
+    kept = slots.sort(dim=2).values[:, :, :m]  # each lane's M smallest
+    if k == 32 * m:
+        tau = kept[:, :, m - 1].amax(-1)
+    else:
+        tau = kept.flatten(2).sort(-1).values[..., k - 1]
+    take = slots <= tau[..., None, None]
+    count = take.sum((2, 3))
+    out = torch.empty((b, s, k), dtype=torch.int32)
+    for bi in range(b):
+        for si in range(s):
+            cand = slots[bi, si][take[bi, si]]  # slot-major, lane-minor: the ballot order
+            lanes = [sorted(cand[ln::32].tolist()) for ln in range(32)]
+            for r in range(k):
+                heads = [lst[0] if lst else none for lst in lanes]
+                key = min(heads)
+                lanes[heads.index(key)].pop(0)
+                out[bi, si, r] = key & mask
+    return out, count, int((count > KNN_CAP).sum())
+
+
+@pytest.mark.parametrize("kind", KNN_CLOUDS)
+@pytest.mark.parametrize("n,k", KNN_SHAPES)
+def test_k2_threshold_select_gives_the_twins_indices(n, k, kind):
+    """K2's one-pass threshold and compacted selection (`_knn_threshold_select`)
+    gives knn_plain's indices in its order, with at least k candidates a
+    query, on uniform, tied and lane-adversarial clouds; queries are points
+    of the cloud (as the FPS centers are) and random points. No query of
+    the uniform or tied clouds runs out of slots; on the lane-adversarial
+    clouds past KNN_CAP points, where tau is the largest kept key (k = 32
+    and 128), every query inside the cloud does, so the card runs the
+    exact scan on them."""
+    from vipformer_tpu_torch.ops.cuda import knn as kknn
+
+    gen = torch.Generator().manual_seed(n + k)
+    b, s = 2, 8
+    pts = knn_cloud(gen, kind, b, n)
+    pick = torch.randint(0, n, (b, s // 2), generator=gen)
+    queries = torch.cat([pts[torch.arange(b)[:, None], pick],
+                         torch.rand((b, s // 2, 3), generator=gen) * 2 - 1], 1)
+    got, count, overflow = _knn_threshold_select(k, pts, queries)
+    assert bool((count >= k).all())
+    assert torch.equal(got, kknn.knn_plain(k, pts, queries))
+    if kind != "lane":
+        assert overflow == 0, count.max()
+    elif n > KNN_CAP and k % 32 == 0:
+        inside = (queries[..., 0] < 2).sum().item()
+        assert overflow >= inside > 0, (overflow, inside)

@@ -10,7 +10,8 @@
 // Design: one block per cloud. The Pallas kernel kept a tile of clouds in
 // VMEM and walked the batch in grid order; here the cloud's xyz and its
 // running min-distance live in registers, PPL points a lane, in W =
-// ceil(N / (32 PPL)) warps. A step:
+// ceil(N / (32 PPL)) warps. A step (vpt::fps_step, geometry.cuh, which K16
+// runs too):
 //   * the centroid's xyz from a shared-memory copy of the cloud (a
 //     broadcast read; at most 96 KB at 8,192 points);
 //   * each lane's distances (vpt::sq_dist3, no FMA contraction, in the
@@ -20,8 +21,8 @@
 //   * the warp's argmax in two redux.sync: the distances are >= 0, so
 //     their f32 bits order as unsigned integers, and __reduce_max_sync
 //     over them gives the maximum; __reduce_min_sync over the indices of
-//     the lanes that hold it gives its first index, exactly as
-//     vpt::argmax_first (ties to the first index, fps.py:63-68);
+//     the lanes that hold it gives its first index (ties to the first
+//     index, fps.py:63-68);
 //   * with W > 1, each warp's winner goes to a shared slot indexed by the
 //     step's parity as one 64-bit key (the value's bits high, the index's
 //     complement low: the largest key is the largest value at its first
@@ -33,48 +34,30 @@
 // points set its time: PPL is 8 (4 warps at N = 1,024), since one warp of
 // 32 points a lane (no barrier) and 2 warps of 16 measured slower at 1,024
 // and at 4,096 points (PERF.md). Up to 256 points a cloud is one warp.
-// The indices and centers equal fps_plain's and K16's (patchify.cu, which
-// keeps vpt::block_argmax_first) bit for bit.
+// The indices and centers equal fps_plain's, and K16's by construction,
+// bit for bit.
 #include "geometry.cuh"
 
 namespace {
 
 constexpr int MAX_POINTS = 8 * 1024;  // ops/cuda/fps.py MAX_POINTS
-constexpr int PPL = 8;                // points a lane: ops/cuda/fps.py PPL
-constexpr int SEQ_WARPS = 4;          // up to this many warps each lane reads every key
-constexpr unsigned FULL = 0xffffffffu;
-constexpr unsigned NONE = 0xffffffffu;  // no candidate: above every index
-
-__device__ __forceinline__ unsigned long long key_of(unsigned v, unsigned i) {
-  return ((unsigned long long)v << 32) | (unsigned)~i;
-}
 
 // PPL points a lane, W = blockDim.x / 32 warps; ONE_WARP (W == 1) has no
 // barrier and no shared slots in its step loop.
 template <bool ONE_WARP>
-__global__ void __launch_bounds__(MAX_POINTS / PPL)
+__global__ void __launch_bounds__(MAX_POINTS / vpt::FPS_PPL)
 fps_kernel(const float* __restrict__ xyz, const int* __restrict__ start,
            int* __restrict__ idx_out, float* __restrict__ centers_out, int n, int npoint) {
   extern __shared__ float s_xyz[];  // the cloud [N, 3]
-  __shared__ unsigned long long s_key[2][MAX_POINTS / PPL / 32];
+  __shared__ unsigned long long s_key[2][vpt::FPS_MAX_WARPS];
   const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nw = blockDim.x >> 5;
   const float* cloud = xyz + (size_t)b * n * 3;
   for (int e = tid; e < 3 * n; e += blockDim.x) s_xyz[e] = cloud[e];
   __syncthreads();
 
-  // point k of a lane is (warp PPL + k) 32 + lane: increasing in k
-  float px[PPL], py[PPL], pz[PPL], dist[PPL];
-#pragma unroll
-  for (int k = 0; k < PPL; ++k) {
-    const int i = (warp * PPL + k) * 32 + lane;
-    const bool ok = i < n;
-    px[k] = ok ? s_xyz[3 * i + 0] : 0.f;
-    py[k] = ok ? s_xyz[3 * i + 1] : 0.f;
-    pz[k] = ok ? s_xyz[3 * i + 2] : 0.f;
-    dist[k] = ok ? 1e10f : -1.0f;  // -1: no point, below every distance, and fminf keeps it
-  }
-
+  vpt::FpsLane p;
+  vpt::fps_load(p, s_xyz, 3, warp, lane, n);
   int far = start[b];
   for (int it = 0; it < npoint; ++it) {
     const float cx = s_xyz[3 * far + 0], cy = s_xyz[3 * far + 1], cz = s_xyz[3 * far + 2];
@@ -85,48 +68,7 @@ fps_kernel(const float* __restrict__ xyz, const int* __restrict__ start,
       c[1] = cy;
       c[2] = cz;
     }
-    float bv[PPL];
-    int bk[PPL];
-#pragma unroll
-    for (int k = 0; k < PPL; ++k) {
-      dist[k] = fminf(dist[k], vpt::sq_dist3(px[k] - cx, py[k] - cy, pz[k] - cz));
-      bv[k] = dist[k];
-      bk[k] = k;
-    }
-    // the lane's best: a tree in which the later (larger-index) half wins
-    // only on a strictly larger value
-#pragma unroll
-    for (int s = 1; s < PPL; s <<= 1)
-#pragma unroll
-      for (int k = 0; k + s < PPL; k += 2 * s)
-        if (bv[k + s] > bv[k]) {
-          bv[k] = bv[k + s];
-          bk[k] = bk[k + s];
-        }
-    const bool has = bv[0] >= 0.f;
-    const unsigned v = has ? __float_as_uint(bv[0]) : 0u;
-    const unsigned i = has ? (unsigned)((warp * PPL + bk[0]) * 32 + lane) : NONE;
-    unsigned best = __reduce_max_sync(FULL, v);
-    unsigned first = __reduce_min_sync(FULL, v == best ? i : NONE);
-    if constexpr (!ONE_WARP) {
-      const int slot = it & 1;
-      if (lane == 0) s_key[slot][warp] = key_of(best, first);
-      __syncthreads();
-      if (nw <= SEQ_WARPS) {
-        unsigned long long key = s_key[slot][0];
-        for (int w = 1; w < nw; ++w) {
-          const unsigned long long o = s_key[slot][w];
-          key = o > key ? o : key;
-        }
-        first = ~(unsigned)key;
-      } else {
-        const unsigned long long key = lane < nw ? s_key[slot][lane] : 0ull;
-        const unsigned kv = (unsigned)(key >> 32), ki = ~(unsigned)key;
-        best = __reduce_max_sync(FULL, kv);
-        first = __reduce_min_sync(FULL, kv == best ? ki : NONE);
-      }
-    }
-    far = (int)first;
+    far = vpt::fps_step<ONE_WARP, true>(p, cx, cy, cz, it, warp, lane, nw, s_key);
   }
 }
 
@@ -137,7 +79,7 @@ fps_kernel(const float* __restrict__ xyz, const int* __restrict__ start,
 extern "C" int fps_f32(const void* xyz, const void* start, void* idx, void* centers, int b, int n,
                        int npoint, void* stream) {
   if (b < 1 || n < 1 || n > MAX_POINTS || npoint < 1) return (int)cudaErrorInvalidValue;
-  const int warps = (n + 32 * PPL - 1) / (32 * PPL);
+  const int warps = vpt::fps_warps(n);
   const size_t smem = sizeof(float) * 3 * (size_t)n;
   auto kernel = warps == 1 ? fps_kernel<true> : fps_kernel<false>;
   const cudaError_t attr =

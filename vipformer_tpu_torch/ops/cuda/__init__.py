@@ -50,9 +50,10 @@ _U = ctypes.c_uint
 # the stream as void*, sizes as int, scalars as float); all return int.
 SIGNATURES = {
     "fps_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "knn_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
-    # K16 (xyz, start, centers_idx, neighbor_idx, b, n, g, k, stream)
-    "fps_knn_f32": [_P] * 4 + [_I] * 4 + [_P],
+    # K2 (points, queries, out, b, n, s, k, overflow counter or null, stream)
+    "knn_f32": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # K16 (xyz, start, centers_idx, neighbor_idx, b, n, g, k, overflow, stream)
+    "fps_knn_f32": [_P] * 4 + [_I] * 4 + [_P, _P],
     # K3 (t1ext, idx, w2, b2, w3, b3, w4, b4, out, b, n, g, s, c1, d, stream):
     # f32 on the CUDA cores; bf16 on the tensor cores, with the x2 scratch
     # after out and the two passes' grids after d

@@ -21,7 +21,7 @@ from vipformer_tpu_torch.ops import cuda
 
 LAUNCHES = cuda.LaunchCounter()
 MAX_POINTS = 8 * 1024  # the cloud in shared memory (96 KB), 32 warps of 32 x 8 points
-PPL = 8  # points a lane (csrc/fps.cu PPL)
+PPL = 8  # points a lane (csrc/geometry.cuh FPS_PPL)
 
 
 def fps_warps(n: int) -> int:

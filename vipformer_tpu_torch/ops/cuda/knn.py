@@ -4,8 +4,15 @@ ops/pallas/knn.py).
 `knn` launches `csrc/knn.cu` on a CUDA tensor and runs its plain twin
 `knn_plain` on a CPU tensor. Distances are the kernel's f32 difference of
 squares summed over c = 0, 1, 2 in order — not `square_distance`'s matmul
-identity, which rounds differently — so the twin selects the same index
-sets as the kernel (and as the Pallas kernel).
+identity, which rounds differently — and every packed key is unique, so
+the twin gives the kernel's indices in the kernel's order (and the Pallas
+kernel's).
+
+The kernel selects in one pass to a threshold and one to compact the keys
+below it (`csrc/geometry.cuh` `knn_query`); a query with more candidates
+than its warp's slots takes the exact k-round scan, and so does every
+k above `THRESHOLD_KMAX`. `knn(..., overflow=t)` adds the count of such
+queries to the int32 card tensor `t`.
 """
 
 from __future__ import annotations
@@ -15,7 +22,8 @@ import torch
 from vipformer_tpu_torch.ops import cuda
 
 LAUNCHES = cuda.LaunchCounter()
-MAX_POINTS = 4096  # keys per lane held in registers (128 x 32 lanes)
+MAX_POINTS = 4096  # the cloud and the warps' candidate slots in shared memory
+THRESHOLD_KMAX = 128  # csrc/geometry.cuh KNN_KMAX: past it the exact scan
 
 
 def idx_bits_for(n: int) -> int:
@@ -39,9 +47,12 @@ def knn_plain(k: int, points: torch.Tensor, queries: torch.Tensor) -> torch.Tens
     return torch.sort(keys, dim=-1).values[..., :k] & mask
 
 
-def knn(k: int, points: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+def knn(k: int, points: torch.Tensor, queries: torch.Tensor,
+        overflow: torch.Tensor | None = None) -> torch.Tensor:
     """Indices of the k nearest `points` [B, N, >=3] for each of the
-    `queries` [B, S, >=3] (xyz read as f32) -> int32 [B, S, k]."""
+    `queries` [B, S, >=3] (xyz read as f32) -> int32 [B, S, k], nearest
+    first. `overflow`: an int32 [1] card tensor the kernel adds the count
+    of queries that took the exact scan to (the twin takes none)."""
     b, n, _ = points.shape
     s = queries.shape[1]
     points = points[..., :3].to(torch.float32).contiguous()
@@ -51,10 +62,12 @@ def knn(k: int, points: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
     if not (0 < k <= n <= MAX_POINTS):
         raise ValueError(f"knn kernel needs 0 < k <= N <= {MAX_POINTS}, got k={k}, N={n}")
     cuda.require(queries, "queries", torch.float32)
+    if overflow is not None:
+        cuda.require(overflow, "overflow", torch.int32, (1,))
     out = torch.empty((b, s, k), dtype=torch.int32, device=points.device)
     LAUNCHES.n += 1
     cuda.check(cuda.lib().knn_f32(
         points.data_ptr(), queries.data_ptr(), out.data_ptr(), b, n, s, k,
-        cuda.stream_ptr(),
+        None if overflow is None else overflow.data_ptr(), cuda.stream_ptr(),
     ), "knn_f32")
     return out

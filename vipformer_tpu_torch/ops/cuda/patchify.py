@@ -2,10 +2,11 @@
 (counterpart of ops/pallas/patchify.py:fps_knn_pallas).
 
 `fps_knn` launches `csrc/patchify.cu` on a CUDA tensor and runs its plain
-twin `fps_knn_plain` on a CPU tensor. The kernel does K1's and K2's
-arithmetic (the device functions of csrc/geometry.cuh), so its indices
-equal K1 followed by K2 on K1's centers bit for bit; the twin is that
-composition of the two twins.
+twin `fps_knn_plain` on a CPU tensor. The kernel runs K1's FPS step and
+K2's kNN selection (the device functions of csrc/geometry.cuh), its kNN
+warps selecting each center's neighbours while its FPS warps pick the next
+centers, so its indices equal K1 followed by K2 on K1's centers bit for
+bit; the twin is that composition of the two twins.
 
 The JAX package wires its kernel nowhere (ops/geometry.py:305-309: slower
 than FPS + kNN on its TPU). `USE_FPS_KNN` routes the port's FPS + kNN
@@ -24,7 +25,7 @@ from vipformer_tpu_torch.ops.cuda import knn as _knn
 
 LAUNCHES = cuda.LaunchCounter()
 USE_FPS_KNN: bool | None = None
-MAX_POINTS = _knn.MAX_POINTS  # K2's keys per lane in registers (128 x 32 lanes)
+MAX_POINTS = _knn.MAX_POINTS  # K2's limit: the cloud in shared memory
 
 
 def fps_knn_enabled() -> bool:
@@ -40,11 +41,11 @@ def fps_knn_plain(xyz: torch.Tensor, num_groups: int, group_size: int, start: to
 
 
 def fps_knn(xyz: torch.Tensor, num_groups: int, group_size: int,
-            start: torch.Tensor | None = None):
+            start: torch.Tensor | None = None, overflow: torch.Tensor | None = None):
     """FPS centers and their kNN over xyz [B, N, >=3] (the first three
     channels, read as f32). `start`: optional int [B] FPS start indices
     (default 0). -> (centers_idx int32 [B, G], neighbor_idx int32
-    [B, G, K], nearest first)."""
+    [B, G, K], nearest first). `overflow`: as `knn`'s, counting centers."""
     b, n, _ = xyz.shape
     xyz = xyz[..., :3].to(torch.float32).contiguous()
     if start is None:
@@ -55,11 +56,14 @@ def fps_knn(xyz: torch.Tensor, num_groups: int, group_size: int,
     if not (0 < group_size <= n <= MAX_POINTS and 0 < num_groups <= n):
         raise ValueError(f"fps_knn kernel needs 0 < K <= N <= {MAX_POINTS} and 0 < G <= N, "
                          f"got G={num_groups}, K={group_size}, N={n}")
+    if overflow is not None:
+        cuda.require(overflow, "overflow", torch.int32, (1,))
     cidx = torch.empty((b, num_groups), dtype=torch.int32, device=xyz.device)
     nidx = torch.empty((b, num_groups, group_size), dtype=torch.int32, device=xyz.device)
     LAUNCHES.n += 1
     cuda.check(cuda.lib().fps_knn_f32(
         xyz.data_ptr(), start.data_ptr(), cidx.data_ptr(), nidx.data_ptr(),
-        b, n, num_groups, group_size, cuda.stream_ptr(),
+        b, n, num_groups, group_size, None if overflow is None else overflow.data_ptr(),
+        cuda.stream_ptr(),
     ), "fps_knn_f32")
     return cidx, nidx
