@@ -50,13 +50,24 @@ goes on):
      twin's mask bit for bit, and K8 timed on device time beside SDPA's
      forward and forward + backward, the event times beside, its backward
      also at the ft_cls step's [330, 128, 256]; K7's bf16 forward and
-     backward (their LN-folded k|v projection, the backward's attention,
-     dx and dWk|dWv on the tensor cores) launched twice, bitwise equal,
-     the projection alone against `kv_project_plain`, and both timed
+     backward (the forward's LayerNorm pass and K4's tile kernel with the
+     dropout and the log-sum-exp, k|v on chip; the backward's LN-folded
+     k|v projection, attention, dx and dWk|dWv on the tensor cores)
+     launched twice, bitwise equal, the projection alone against
+     `kv_project_plain`, the forward bitwise equal to that projection
+     followed by K8's bf16 forward (split 2 and 3 ways: lse within 1e-5,
+     out within the bf16 bound), allocating no k or v, its dropped
+     elements read through its output (unsplit and split) equal to the
+     twin's mask, and both timed
      (events, device time beside) at the pretrain point shape and, with
      the backward held against its twin, at the ft_cls step's [330, 128]
      x [330, 1,024], with the profiler's time of each of its kernels and
-     no SIMT `gemm_kernel` among them; K9's bf16 forward and backward (the
+     no SIMT `gemm_kernel` among them (its forward's kernels are read from
+     torch.profiler at the start of the run: the LayerNorm pass and one
+     tile kernel, and past 128 query rows the projection and K8's
+     forward); K10 timed on device time (events beside) at the pretrain,
+     ft_cls and (phase 25) semseg points; K9's bf16
+     forward and backward (the
      tensor-core passes of csrc/g2e_train.cu tc) launched twice, bitwise
      equal, the profiler's kernels of each call (their launches, every
      pass present, no SIMT `gemm_kernel`), what each call allocates (no
@@ -244,14 +255,16 @@ times both in turns, PAIRS pairs (10 by default), each sample in its own
 process: the host time of a K5, K6, K8 forward and K11 wrapper call (with
 the card idle and busy; K6's and K8's device time beside), K8's backward
 at B = 96 and 330, K17's and K18's backward (device time), K7's forward
-and backward at the pretrain point shape (events; the backward's device
-time beside) and its backward at the ft_cls step's (events), K3 and K4
-at the serving shape B = 64 (device time; events beside), K1 and K2
+and backward at the pretrain point shape (events and device time) and at
+the ft_cls step's (the backward's events, the forward's device time), K10
+at the pretrain, ft_cls and semseg points (device time), K3 and K4 at
+the serving shape B = 64 (device time; events beside; K4 also at the
+ft_cls eval's B = 330), K1 and K2
 there, K16 at [64, 1,024], [160, 1,024] and [32, 4,096] and K15 at [64,
 512] x [64, 512, 256] (device time), the serving forward at
 B = 32 and 64, the Perceiver point features at 512 latents (B = 64,
 events), the ft_cls step and eval forward at B = 330,
-with their kernels' device time, the pretrain step, the partseg step, the
+with their kernels' device time, the pretrain step (with its kernels'), the partseg step, the
 semseg step with K17 and K18 forced, and one eval_zeroshot run (host
 clock).
 
@@ -670,6 +683,128 @@ def check_dropout_through_output(kf, seed, h: int, scale: float, rate: float) ->
     print(f"  {'attn_train_fwd':18s} bf16 dropout through the output: the kernel's dropped "
           f"elements equal the twin's mask bit for bit ([{b * h},{n},{n}], rate {rate}, "
           f"keep rate {keep.float().mean().item():.5f})")
+
+
+def check_k7_dropout_through_output(kf, seed, h: int, scale: float, rate: float) -> None:
+    """The bf16 K7 forward (the tile kernel) drops exactly the twin's
+    elements, unsplit and split in two. The tokens of one 64-token window
+    of M = 128 are one-hot rows x_p = e_(p - 64 w) over Din = 128 (the
+    others zero), so their normalised rows are a e_j - c (zero rows stay
+    zero) and, with wv[j, 64 h + j] = 1 and wv[64 + j, 64 h + j] = -1
+    (columns summing to 0), token p's v in every head is a e_(p - 64 w):
+    output column c of a row is its dropped p of key 64 w + c times a / l,
+    0 exactly where the key was dropped."""
+    b, n, din, dh = 4, 128, 128, 64
+    d, dev = h * dh, seed.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    q = torch.randn((b, n, d), generator=gen, device=dev).to(torch.bfloat16)
+    wk = (torch.randn((din, d), generator=gen, device=dev) * din ** -0.5).to(torch.bfloat16)
+    wv = torch.zeros((din, h, dh), device=dev)
+    wv[:dh], wv[dh:] = torch.eye(dh, device=dev)[:, None, :], -torch.eye(dh, device=dev)[:, None, :]
+    wv = wv.view(din, d).to(torch.bfloat16)
+    ones, zeros = torch.ones(din, device=dev), torch.zeros(din, device=dev)
+    keep = kf.keep_mask_plain(seed, b * h, n, n, rate)
+    for w in range(n // dh):
+        x = torch.zeros((b, n, din), device=dev)
+        x[:, w * dh:(w + 1) * dh, :dh] = torch.eye(dh, device=dev)
+        for nsplit in (1, 2):
+            out, _ = kf.attention_kv_fwd_kernel(q, x.to(torch.bfloat16), ones, zeros, wk, wv, seed,
+                                                h, scale, rate, nsplit=nsplit)
+            kept = (out.view(b, n, h, dh).transpose(1, 2).reshape(b * h, n, dh) != 0)
+            expect(torch.equal(kept, keep[..., w * dh:(w + 1) * dh]),
+                   f"K7 bf16 forward (split {nsplit}): keys {w * dh}-{(w + 1) * dh - 1} dropped "
+                   f"other elements than the twin's mask")
+    print(f"  {'attn_train_kv_fwd':18s} bf16 dropout through the output, unsplit and split in "
+          f"two: the kernel's dropped elements equal the twin's mask bit for bit "
+          f"([{b * h},{n},{n}], rate {rate})")
+
+
+def check_k7_forward(rec: Recorder, kf, args, seed, h: int, scale: float, rate: float,
+                     branch: str) -> None:
+    """K7's bf16 forward against K7's projection (`kv_project_kernel`)
+    followed by K8's bf16 forward on those k and v: unsplit (and past 128
+    query rows, where it runs just those) out and lse bitwise equal; split
+    2 and 3 ways (the merge pass writing lse) lse within 1e-5 of it and
+    out within the bf16 bound of the twin. Up to 128 query rows one call
+    allocates no k or v: its output, lse, xn and the row statistics."""
+    q, x = args[0], args[1]
+    b, g, d = q.shape
+    m, din = x.shape[1], x.shape[2]
+    k, v = kf.kv_project_kernel(*args[1:])
+    out_8, lse_8 = kf.attention_fwd_kernel(q, k, v, seed, h, scale, rate)
+    out_1, lse_1 = kf.attention_kv_fwd_kernel(*args, seed, h, scale, rate, nsplit=1)
+    expect(torch.equal(out_1, out_8) and torch.equal(lse_1, lse_8),
+           f"K7 bf16 forward {branch}: not K7's projection + K8's forward bit for bit")
+    print(f"  {'attn_train_kv_fwd':18s} {branch} bf16 p={rate}: unsplit, out and lse bitwise "
+          f"equal to kv_project_kernel + K8's bf16 forward")
+    del k, v, out_8, lse_8
+    if g > 128:
+        return
+    out_p = kf.attention_kv_fwd_plain(*args, seed, h, scale, rate)[0]
+    for nsplit in (2, 3):
+        out_s, lse_s = kf.attention_kv_fwd_kernel(*args, seed, h, scale, rate, nsplit=nsplit)
+        lse_rel = ((lse_s - lse_1).abs() / lse_1.abs().clamp_min(1.0)).max().item()
+        expect(lse_rel <= 1e-5, f"K7 bf16 forward {branch} split {nsplit}: lse {lse_rel:.3e} "
+                                f"from the unsplit one")
+        rec.check("attn_train_kv_fwd", f"{branch} bf16 split {nsplit} (lse {lse_rel:.1e})",
+                  *rel_err(out_s, out_p), KERNEL_TOL["bfloat16"])
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, lse = kf.attention_kv_fwd_kernel(*args, seed, h, scale, rate)
+    torch.cuda.synchronize()
+    grew = torch.cuda.max_memory_allocated() - before
+    own = nbytes(out, lse) + b * m * (din * x.element_size() + 8)  # + xn, the row statistics
+    kv_bytes = 2 * b * m * d * x.element_size()
+    print(f"  {'attn_train_kv_fwd':18s} {branch} bf16: one call allocates {grew} B (out, lse, xn "
+          f"and the row statistics {own} B; k and v would be {kv_bytes} B more)")
+    expect(grew < own + (1 << 20), f"K7 bf16 forward {branch} allocated {grew} B: more than "
+                                   f"out, lse, xn and the row statistics")
+    del out, lse, out_1, lse_1, out_p
+
+
+# K7's bf16 forward by torch.profiler's kernel names: the LayerNorm pass
+# and one tile-kernel launch up to 128 query rows; past them the
+# projection and K8's forward; never the CUDA-core K8 forward in bf16
+K7_FWD_LN = "vpt_flash::tc::ln_xn_kernel"
+K7_FWD_TILE = "attn_kv_ln_tile_kernel"
+K7_FWD_FAR = ("kv_proj_tc_kernel", "flash_fwd_tc_kernel")
+SIMT_FLASH_BF16 = "flash_fwd_kernel<__nv_bfloat16>"
+
+
+def check_k7_forward_kernels() -> None:
+    """torch.profiler's kernels of one bf16 K7 forward at the pretrain
+    point branch's q [96, 128, 256] x [96, 2,048, 256] (its planned split
+    is 1): K7's LayerNorm pass once and the tile kernel once, nothing else
+    (no kv_proj_tc_kernel, no K8 forward, no merge pass); and at 144 query
+    rows (past the tile kernel's 128) the LayerNorm pass, the projection
+    and K8's tensor-core forward; never the CUDA-core K8 forward. Run at
+    the start of the script, as check_k15_kernels."""
+    from vipformer_tpu_torch.ops.cuda import flash_train as kf
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    bf = dict(device="cuda", dtype=torch.bfloat16)
+    seed = torch.tensor([SEED + 7], dtype=torch.int32, device="cuda")
+    lnw, lnb = torch.ones(256, device="cuda"), torch.zeros(256, device="cuda")
+    for b, g, m in ((2 * PRETRAIN_BATCH, 128, 2048), (PRETRAIN_BATCH, 144, 144)):
+        q = torch.randn((b, g, 256), generator=gen, **bf)
+        x = torch.randn((b, m, 256), generator=gen, **bf)
+        wk, wv = (torch.randn((256, 256), generator=gen, **bf) * 0.0625 for _ in range(2))
+        kernels = device_kernels(
+            lambda: kf.attention_kv_fwd_kernel(q, x, lnw, lnb, wk, wv, seed, 4, 0.125, 0.1))
+        print(f"K7 bf16 forward at q[{b},{g}] x[{b},{m},256], kernels a call: " + ", ".join(
+            f"{k[:80]} {n:.0f}" for k, n in kernels.items()))
+        expect(not any(SIMT_FLASH_BF16 in k for k in kernels),
+               f"K7 bf16 forward: the CUDA-core K8 forward ran: {kernels}")
+        ln = [n for k, n in kernels.items() if K7_FWD_LN in k]
+        if g <= 128:
+            tile = [n for k, n in kernels.items() if K7_FWD_TILE in k]
+            expect(ln == [1] and tile == [1] and len(kernels) == 2,
+                   f"K7 bf16 forward: not the LayerNorm pass and one tile kernel: {kernels}")
+        else:
+            far = [sum(n for k, n in kernels.items() if w in k) for w in K7_FWD_FAR]
+            expect(ln == [1] and far == [1, 1] and len(kernels) == 3,
+                   f"K7 bf16 forward past 128 rows: not LN, projection, K8: {kernels}")
 
 
 def grads_of(models: dict) -> dict:
@@ -1322,6 +1457,11 @@ def time_flash_train_kv(rec: Recorder, kf, args, do, out_k, lse_k, lse_p, delta,
     print(f"  {'kv_project':18s} {shape:34s} device time {pj_ms:.4f} ms, bound "
           f"{pj_bnd['bound_ms']:.4f} ({pj_bnd['bound_by']}, {100.0 * pj_bnd['bound_ms'] / pj_ms:.1f}"
           f"% of it), LayerNorm + one cuBLAS product {pj_lib_ms:.4f} ms")
+    fsums = kernel_sums(fwd, 3, K7_FWD_LN, K7_FWD_TILE, "attn_kv_ln_stream_kernel",
+                        "attn_combine_kernel")
+    print(f"  {'attn_train_kv_fwd':18s} {shape}: {fsums[0]:.4f} ms of kernels a launch "
+          f"(torch.profiler): LayerNorm pass {fsums[1]:.4f}, tile kernel {fsums[2]:.4f}, stream "
+          f"kernel {fsums[3]:.4f}, merge pass {fsums[4]:.4f}")
     sums = kernel_sums(bwd, 3, *K7_TC_KERNELS, SIMT_GEMM)
     busy, parts, simt = sums[0], dict(zip(K7_TC_KERNELS, sums[1:-1])), sums[-1]
     print(f"  {'attn_train_kv_bwd':18s} {shape}: {busy:.4f} ms of kernels a launch "
@@ -1331,6 +1471,33 @@ def time_flash_train_kv(rec: Recorder, kf, args, do, out_k, lse_k, lse_p, delta,
     expect(simt == 0, f"K7 bf16 backward: the SIMT {SIMT_GEMM} ran ({simt:.4f} ms)")
     expect(all(parts[k] > 0 for k in K7_TC_KERNELS if k != "flash_bwd_dq_tc_kernel" or m > 128),
            f"K7 bf16 backward: a tensor-core kernel did not run: {parts}")
+
+
+def time_k10_device(kgather, pts, centers, idx, s: int, shape: str) -> None:
+    """K10's forward held bitwise against its twin and timed on device
+    time (events beside) at a path's shape, with its bound."""
+    out = kgather.gather_centered_kernel(pts, centers, idx, s)
+    expect(torch.equal(out, kgather.gather_centered_plain(pts, centers, idx, s)),
+           f"K10 at {shape} differs from its twin")
+    k10 = lambda: kgather.gather_centered_kernel(pts, centers, idx, s)  # noqa: E731
+    ms, bnd = queued_ms(k10, "K10"), bound(nbytes(pts, centers, idx, out), 3 * idx.numel(),
+                                           "bfloat16")
+    print(f"  {'gather_centered_fwd':18s} {shape:34s} (equal) device time {ms:.4f} ms, events "
+          f"{cuda_ms(k10):.4f}; bound {bnd['bound_ms']:.4f} ({bnd['bound_by']}, "
+          f"{100.0 * bnd['bound_ms'] / ms:.1f}% of it)")
+
+
+def time_k10_ft_cls(kfps, kknn, kgather, g: int, s: int) -> None:
+    """K10 at the ft_cls step's points [330, 1,024, 3], 128 groups of 32
+    (FPS centers, kNN neighbourhoods), bf16; the points from a generator
+    of their own, so that the phases after it see the data they did
+    before it ran."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    xyz = torch.randn((FT_BATCH, NUM_POINTS, 3), generator=gen, device="cuda")
+    _, centers = kfps.fps(xyz, g)
+    idx = kknn.knn(s, xyz, centers).reshape(FT_BATCH, -1)
+    time_k10_device(kgather, xyz.to(torch.bfloat16), centers, idx, s,
+                    f"points[{FT_BATCH},{NUM_POINTS},3] idx[{FT_BATCH},{g * s}] bf16")
 
 
 def check_training_kernels(rec: Recorder) -> None:
@@ -1410,6 +1577,7 @@ def check_training_kernels(rec: Recorder) -> None:
                                    cuda_ms(plain), bnd)
         if branch == "point":
             check_dropout_through_output(kf, seed, h, scale, rate)
+            check_k7_dropout_through_output(kf, seed, h, scale, rate)
             time_flash_bwd_ft_cls(kf, t, seed, n, d, h, scale, rate)
 
     # K7 at the point branch's cross-attention (128 latents over 2048
@@ -1451,6 +1619,7 @@ def check_training_kernels(rec: Recorder) -> None:
                       f"launches each bitwise equal")
                 del first
                 check_kv_projection(rec, kf, args, branch)
+                check_k7_forward(rec, kf, args, seed, h, scale, rate, branch)
             if branch == "point" and dt_name == "bfloat16":
                 time_flash_train_kv(rec, kf, args, do, out_k, lse_k, lse_p, delta, seed, h, scale,
                                     rate, f"q[{b},{gq},{d}] x[{b},{m},{d}] H={h} p={rate} bf16",
@@ -1494,11 +1663,17 @@ def check_training_kernels(rec: Recorder) -> None:
                       GRAD_TOL["float32"])
         if dt_name == "bfloat16":
             shape = f"points[{nb},{npts},3] idx[{nb},{g * s}] bf16"
-            rec.timing("gather_centered_fwd",
-                       cuda_ms(lambda: kgather.gather_centered_kernel(pts, centers, idx, s)),
+            # device time (the wrapper costs the host more than the kernel
+            # costs the card), the event time beside
+            k10 = lambda: kgather.gather_centered_kernel(pts, centers, idx, s)  # noqa: E731
+            rec.timing("gather_centered_fwd", queued_ms(k10, "K10"),
                        cuda_ms(lambda: kgather.gather_centered_plain(pts, centers, idx, s)),
                        bound(nbytes(pts, centers, idx, out_k), 3 * idx.numel(), dt_name),
                        shape=shape)
+            rec.r["gather_centered_fwd"]["host_ms"] = cuda_ms(k10)
+            print(f"  {'gather_centered_fwd':18s} {shape:34s} device time; events "
+                  f"{rec.r['gather_centered_fwd']['host_ms']:.4f} ms")
+            time_k10_ft_cls(kfps, kknn, kgather, g, s)
             dp, dc = kgather.scatter_centered_kernel(grad, idx, npts, g, s)
             rec.timing("gather_centered_bwd",
                        cuda_ms(lambda: kgather.scatter_centered_kernel(grad, idx, npts, g, s)),
@@ -3325,6 +3500,9 @@ def check_semseg_widths(rec: Recorder) -> None:
         expect(torch.equal(out_k, kgather.gather_centered_plain(pts.to(dt), centers, flat, s)),
                f"K10 at C={c} {dt_name} differs")
         rec.check("gather_centered_fwd", f"semseg C={c} {dt_name} (equal)", 0.0, 0.0, 0.0)
+        if dt_name == "bfloat16":
+            time_k10_device(kgather, pts.to(dt), centers, flat, s,
+                            f"semseg points[{b},{n},{c}] idx[{b},{flat.shape[1]}] bf16")
         # K9 at Cin = 6 on those patches
         rows = b * g * s
         x0 = out_k.reshape(rows, c)
@@ -4034,6 +4212,8 @@ def print_breakdown(prof, steps: int, ms: float, what: str) -> None:
           f"hand-written {ours:.3f} ms, library GEMMs {gemm:.3f} ms, other PyTorch kernels "
           f"{busy - ours - gemm:.3f} ms; launches per step "
           f"{sum(e.count for e in kernels) / steps:.0f}; top kernels:")
+    expect(not any(SIMT_FLASH_BF16 in k for k in per_step),
+           f"{what}: the CUDA-core {SIMT_FLASH_BF16} ran")
     counts = {e.key: e.count / steps for e in kernels}
     for k, v in sorted(per_step.items(), key=lambda kv: -kv[1])[:12]:
         print(f"  {v:9.3f} ms/step {counts[k]:6.0f}/step  {k[:110]}")
@@ -4190,12 +4370,14 @@ def time_tree(root: str) -> dict:
     there (its kernels built there): the host time of a K5, K6, K8 forward
     and K11 wrapper call (the card idle, and busy; K6's and K8's device
     time), K8's backward on device time at B = 96 and 330 ([B, 128, 256]),
-    K7's forward and backward at the pretrain point shape (events, the
-    backward's device time) and its backward at the ft_cls step's [330,
-    128] x [330, 1,024] (events), K18's backward at BN_SHAPES[0] and K17's
+    K7's forward and backward at the pretrain point shape (events and
+    device time) and at the ft_cls step's [330, 128] x [330, 1,024] (the
+    backward's events, the forward's device time), K10 at the pretrain,
+    ft_cls and semseg points (device time), K18's backward at BN_SHAPES[0] and K17's
     at LN_TIMED on device time, K9's bf16 forward and backward at the
     pretrain shape (x0 [96, 128, 32, 3], events), K3 and K4 at the serving
-    shape B = 64 (device time, events beside), K1 and K2 there, K2 at
+    shape B = 64 (device time, events beside; K4 also at the ft_cls
+    eval's B = 330), K1 and K2 there, K2 at
     semseg's [32, 4,096] (k = 32, k = 200 and the lane-adversarial cloud:
     device time) and its wrapper's host time there and at [48, 2,048], K16 at [64,
     1,024], [160, 1,024] and [32, 4,096] and K15 at the 512-latent
@@ -4203,7 +4385,7 @@ def time_tree(root: str) -> dict:
     serving forward at each of BATCHES (events, and its kernels' and K5's
     device time from torch.profiler), the Perceiver point feature forward
     at 512 latents, B = 64 (events), the ft_cls step (events over TIMED_STEPS steps, and
-    K11's and the attention backward kernels' device time a step), the
+    its kernels', K11's and the attention backward kernels' device time a step), the
     ft_cls eval forward at B = 330 (events, its kernels' and K6's device
     time), the pretrain step at B = 48 (with its kernels', K1's and K2's
     device time and the K2 wrapper's host time a call), the partseg step
@@ -4222,6 +4404,7 @@ def time_tree(root: str) -> dict:
     from vipformer_tpu_torch.ops.cuda import flash_train as kflash
     from vipformer_tpu_torch.ops.cuda import fps as kfps
     from vipformer_tpu_torch.ops.cuda import g2e_train as kg9
+    from vipformer_tpu_torch.ops.cuda import gather as kgather
     from vipformer_tpu_torch.ops.cuda import knn as kknn
     from vipformer_tpu_torch.ops.cuda import layernorm as kln
     from vipformer_tpu_torch.ops.cuda import patchify as kpatch
@@ -4272,8 +4455,10 @@ def time_tree(root: str) -> dict:
         o7, lse7 = kflash.attention_kv_fwd_kernel(q7, x7, *lnw, *w7, seed, 4, 0.125, 0.1)
         args = (q7, x7, *lnw, *w7, do7, lse7, kflash.attention_delta(do7, o7, 4), seed, 4, 0.125,
                 0.1)
-        out["K7 fwd ms"] = cuda_ms(
-            lambda: kflash.attention_kv_fwd_kernel(q7, x7, *lnw, *w7, seed, 4, 0.125, 0.1), iters=5)
+        k7 = lambda: kflash.attention_kv_fwd_kernel(q7, x7, *lnw, *w7, seed, 4, 0.125,  # noqa: E731
+                                                    0.1)
+        out["K7 fwd ms"] = cuda_ms(k7, iters=5)
+        out["K7 fwd device ms"] = queued_ms(k7, "K7 forward", iters=5)
         out["K7 bwd ms"] = cuda_ms(lambda: kflash.attention_kv_bwd_kernel(*args), iters=5)
         out["K7 bwd device ms"] = queued_ms(lambda: kflash.attention_kv_bwd_kernel(*args),
                                             "K7 backward", iters=5)
@@ -4286,6 +4471,17 @@ def time_tree(root: str) -> dict:
                 0.1)
         out[f"K7 bwd B={FT_BATCH} ms"] = cuda_ms(lambda: kflash.attention_kv_bwd_kernel(*args),
                                                  iters=5)
+        out[f"K7 fwd B={FT_BATCH} device ms"] = queued_ms(k7, "K7 forward", iters=5)
+        # K10 at the pretrain, ft_cls and semseg points (device time)
+        for b10, n10, c10 in ((2 * PRETRAIN_BATCH, 2048, 3), (FT_BATCH, NUM_POINTS, 3),
+                              (SEMSEG_BATCH, SEMSEG_POINTS, 6)):
+            p10 = torch.randn((b10, n10, c10), generator=gen, **bf)
+            c10_ = torch.randn((b10, 128, 3), generator=gen, device="cuda")
+            i10 = torch.randint(0, n10, (b10, 128 * 32), generator=gen, device="cuda",
+                                dtype=torch.int32)
+            out[f"K10 [{b10},{n10},{c10}] device ms"] = queued_ms(
+                lambda: kgather.gather_centered_kernel(p10, c10_, i10, 32), "K10")
+        del p10, c10_, i10
         # K18's backward at the semseg decode's widest BatchNorm (device time)
         r, c = BN_SHAPES[0]
         x18, dy18 = (torch.randn((r, c), generator=gen, **bf) for _ in range(2))
@@ -4326,6 +4522,9 @@ def time_tree(root: str) -> dict:
         k4 = lambda: kattn.fused_attention_packed_kv_ln(  # noqa: E731
             q4, x4, *ln, w[0], w[1], num_heads=4, scale=0.125)
         out["K4 B=64 device ms"], out["K4 B=64 ms"] = queued_ms(k4, "K4"), cuda_ms(k4)
+        q4 = torch.randn((FT_BATCH, 128, 256), generator=gen, **bf)
+        x4 = torch.randn((FT_BATCH, NUM_POINTS, 256), generator=gen, **bf)
+        out[f"K4 B={FT_BATCH} device ms"] = queued_ms(k4, "K4")
         del ops3, q4, x4
         # K1 at the serving shape, and K15 at the point features' 512-latent
         # self-attention (device time)
@@ -4399,6 +4598,7 @@ def time_tree(root: str) -> dict:
 
     run(2)
     out["ft_cls step ms"] = cuda_ms(lambda: run(1), iters=TIMED_STEPS, warmup=0)
+    out["ft_cls step kernels ms"] = kernel_sums(lambda: run(1), 2)[0]
     # K11 at its own sites: the bf16 K9's backward runs dW2 and dW1 on K11's kernel
     prof = _profile(lambda: run(1), 2)
     k11, flash = (sum(e.self_device_time_total for e in prof.key_averages()
@@ -4711,6 +4911,7 @@ def main() -> int:
         rec = Recorder()
         check_one_pass_launches()
         check_k15_kernels()
+        check_k7_forward_kernels()
         check_serving_kernels(rec)
         check_fps_widths(rec)
         check_knn_clouds(rec)

@@ -254,6 +254,95 @@ def test_flash_train_kv_kernel_matches_twin(dev, b, g, m, din, h, dt):
         _assert_grad_close(got, want, dt)
 
 
+# K7's forward (q [B, G, H*64] over x [B, M, Din]) at the driven paths'
+# shapes: pretrain's point branch, ft_cls, partseg (Din 384), and Din 512
+# with a token count off the 64-token tiles
+K7_FWD_SHAPES = [(96, 128, 2048, 256, 4), (330, 128, 1024, 256, 4), (96, 128, 1024, 384, 6),
+                 (8, 128, 1000, 512, 8)]
+
+
+def _k7_args(rng, dev, b, g, m, din, h, dt=torch.bfloat16):
+    d = 64 * h
+    return (_t(rng, (b, g, d), dev, dt), _t(rng, (b, m, din), dev, dt),
+            _t(rng, (din,), dev, scale=0.2) + 1.0, _t(rng, (din,), dev, scale=0.1),
+            _t(rng, (din, d), dev, dt, din ** -0.5), _t(rng, (din, d), dev, dt, din ** -0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,g,m,din,h", K7_FWD_SHAPES)
+def test_flash_train_kv_bf16_forward_matches_twin(dev, b, g, m, din, h, rate):
+    """K7's bf16 forward (the LayerNorm pass, then the tile kernel with the
+    dropout and the log-sum-exp) against the twin at its planned split:
+    out and lse within the bf16 bound (its LayerNorm sums the f32
+    statistics in another order than the twin's, so an element of xn, and
+    so of k, can round one bf16 ulp apart, which moves a logit, and lse,
+    by up to scale x |q| x that ulp; K8's f32 bound on lse holds where q
+    and k are given). Unsplit it is
+    bitwise equal to K7's projection (`kv_project_kernel`) followed by
+    K8's bf16 forward on those k and v; split 2 and 3 ways (the merge pass
+    writing lse) its lse within 1e-5 of the unsplit one, out within the
+    bf16 bound. Its lse fed to the backward gives gradients within the
+    bf16 GRAD_TOL of the twin's."""
+    from vipformer_tpu_torch.ops.cuda import flash_train as kf
+
+    rng = np.random.default_rng(7)
+    args = _k7_args(rng, dev, b, g, m, din, h)
+    seed = torch.tensor([2024], dtype=torch.int32, device=dev)
+    scale = 64 ** -0.5
+    out_k, lse_k = kf.attention_kv_fwd_kernel(*args, seed, h, scale, rate)
+    out_p, lse_p = kf.attention_kv_fwd_plain(*args, seed, h, scale, rate)
+    _assert_close(out_k, out_p, torch.bfloat16)
+    _assert_close(lse_k, lse_p, torch.bfloat16)
+    k, v = kf.kv_project_kernel(*args[1:])
+    out_8, lse_8 = kf.attention_fwd_kernel(args[0], k, v, seed, h, scale, rate)
+    out_1, lse_1 = kf.attention_kv_fwd_kernel(*args, seed, h, scale, rate, nsplit=1)
+    assert torch.equal(out_1, out_8) and torch.equal(lse_1, lse_8)
+    for nsplit in (2, 3):
+        out_s, lse_s = kf.attention_kv_fwd_kernel(*args, seed, h, scale, rate, nsplit=nsplit)
+        _assert_close(out_s, out_p, torch.bfloat16)
+        assert ((lse_s - lse_1).abs() <= 1e-5 * lse_1.abs().clamp_min(1.0)).all()
+    do = _t(rng, (b, g, 64 * h), dev, torch.bfloat16)
+    delta = kf.attention_delta(do, out_k, h)
+    for got, want in zip(kf.attention_kv_bwd_kernel(*args, do, lse_k, delta, seed, h, scale, rate),
+                         kf.attention_kv_bwd_plain(*args, do, lse_p, delta, seed, h, scale, rate)):
+        _assert_grad_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nsplit", [1, 2])
+@pytest.mark.parametrize("window", [0, 1])
+def test_flash_train_kv_bf16_forward_drops_the_twins_elements(dev, window, nsplit):
+    """K7's bf16 forward drops what `keep_mask_plain` drops. The tokens of
+    one 64-token window of 128 are one-hot rows x_p = e_(p - 64 w) over
+    Din = 128, the others zero, so their normalised rows are a e_j - c
+    (zero rows stay zero) and, with wv[j, 64 h + j] = 1 and wv[64 + j,
+    64 h + j] = -1 (columns summing to 0), token p's v in every head is
+    a e_(p - 64 w): output column c of a row is its dropped p of key 64 w +
+    c times a / l, zero exactly where the mask drops it; unsplit and split
+    in two (each split's p summed apart)."""
+    from vipformer_tpu_torch.ops.cuda import flash_train as kf
+
+    rng = np.random.default_rng(8)
+    b, g, m, din, h, rate = 2, 128, 128, 128, 3, 0.1
+    d = 64 * h
+    q = _t(rng, (b, g, d), dev, torch.bfloat16)
+    x = torch.zeros((b, m, din), device=dev)
+    x[:, 64 * window:64 * window + 64, :64] = torch.eye(64, device=dev)
+    wv = torch.zeros((din, h, 64), device=dev)
+    wv[:64] = torch.eye(64, device=dev)[:, None, :]
+    wv[64:] = -torch.eye(64, device=dev)[:, None, :]
+    wk = _t(rng, (din, d), dev, torch.bfloat16, din ** -0.5)
+    seed = torch.tensor([31], dtype=torch.int32, device=dev)
+    ones, zeros = torch.ones((din,), device=dev), torch.zeros((din,), device=dev)
+    out, _ = kf.attention_kv_fwd_kernel(q, x.to(torch.bfloat16), ones, zeros, wk,
+                                        wv.view(din, d).to(torch.bfloat16), seed, h, 0.125, rate,
+                                        nsplit=nsplit)
+    kept = out.view(b, g, h, 64).transpose(1, 2).reshape(b * h, g, 64) != 0
+    keep = kf.keep_mask_plain(seed, b * h, g, m, rate)
+    assert torch.equal(kept, keep[..., 64 * window:64 * window + 64])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("window", [0, 1])
 def test_flash_train_bf16_forward_drops_the_twins_elements(dev, window):
@@ -332,6 +421,30 @@ def test_gather_centered_kernel_matches_twin(dev, b, gnum, s, n, c, dt):
     for got, want in zip(kg.scatter_centered_kernel(grad, idx, n, gnum, s),
                          kg.scatter_centered_plain(grad, idx, n, gnum, s)):
         _assert_grad_close(got, want, torch.float32)
+
+
+# K10's forward at the driven paths' (B, N, C, groups, S): pretrain's 96
+# clouds of 2,048 points, ft_cls's 330 of 1,024, partseg's 96 of 1,024,
+# semseg's 32 of 4,096 xyz+rgb; then group sizes other than 32 and a row
+# count that is not a multiple of 32 (its runs' ragged 16-byte ends)
+K10_SHAPES = [(96, 2048, 3, 128, 32), (330, 1024, 3, 128, 32), (96, 1024, 3, 128, 32),
+              (32, 4096, 6, 128, 32), (3, 500, 3, 37, 24), (2, 300, 6, 5, 13), (1, 64, 128, 3, 7),
+              (2, 999, 5, 3, 200)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,c,gnum,s", K10_SHAPES)
+def test_gather_centered_kernel_bitwise_at_driven_shapes(dev, b, n, c, gnum, s, dt):
+    """K10's forward (one warp a run of groups, 16-byte stores) bitwise
+    equal to its twin, on points from kNN-like random indices."""
+    from vipformer_tpu_torch.ops.cuda import gather as kg
+
+    rng = np.random.default_rng(10)
+    pts, centers = _t(rng, (b, n, c), dev, dt), _t(rng, (b, gnum, 3), dev)
+    idx = torch.from_numpy(rng.integers(0, n, (b, gnum * s)).astype(np.int32)).to(dev)
+    assert torch.equal(kg.gather_centered_kernel(pts, centers, idx, s),
+                       kg.gather_centered_plain(pts, centers, idx, s))
 
 
 @pytest.mark.cuda

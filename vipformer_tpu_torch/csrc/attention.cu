@@ -43,8 +43,8 @@
 //
 // The dtype picks K4's kernels (ops/cuda/__init__.py `tc_route`): bf16
 // runs `tc::ln_xn_kernel` (the tokens normalised once, xn written), then
-// up to 128 query rows `tc::attn_kv_ln_tile_kernel` (Din <= 256; its
-// double-buffered instance up to 384) or `tc::attn_kv_ln_stream_kernel`
+// up to 128 query rows `attn_kv_ln_tile_kernel` (Din <= 256; its
+// double-buffered instance up to 384) or `attn_kv_ln_stream_kernel`
 // (Din > 384): xn's projection and K13's online softmax in one block per
 // (head, cloud, kv split); past 128 query rows the single-buffered tile
 // kernel (Din <= 256) or the stream kernel in their projection mode write
@@ -163,6 +163,7 @@
 // PV; f32 accumulation. The f32 routes of K4, K5, K6, K13 and K15 run
 // plain CUDA-core FMAs.
 #include "common.cuh"
+#include "kv_tile.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -453,30 +454,9 @@ attn_flash_kernel(const T* __restrict__ q, const T* __restrict__ x,
   }
 }
 
-// Merges the per-split online-softmax states of K4 when M was split over
-// blocks: out = sum_s acc_s e^(m_s - M) / sum_s l_s e^(m_s - M), M = max m_s.
-// One block per (cloud, query row), a thread per output column.
-template <typename T>
-__global__ void attn_combine_kernel(const float* __restrict__ part_acc,
-                                    const float* __restrict__ part_ml, T* __restrict__ out,
-                                    int g, int h, int nsplit) {
-  const int b = blockIdx.x / g, r = blockIdx.x % g;
-  const int d = h * DH;
-  for (int col = threadIdx.x; col < d; col += blockDim.x) {
-    const int head = col / DH, c = col - head * DH;
-    const size_t row0 = (((size_t)b * h + head) * nsplit) * g + r;
-    float mx = -CUDART_INF_F;
-    for (int sp = 0; sp < nsplit; ++sp) mx = fmaxf(mx, part_ml[2 * (row0 + (size_t)sp * g)]);
-    float l = 0.f, a = 0.f;
-    for (int sp = 0; sp < nsplit; ++sp) {
-      const size_t row = row0 + (size_t)sp * g;
-      const float w = expf(part_ml[2 * row] - mx);
-      l += part_ml[2 * row + 1] * w;
-      a += part_acc[row * DH + c] * w;
-    }
-    out[((size_t)b * g + r) * d + col] = vpt::from_f32<T>(a / l);
-  }
-}
+// The merge pass of the split states (K4, K13, K15) is kv_tile.cuh's
+// attn_combine_kernel.
+using vpt_kvln::attn_combine_kernel;
 
 // ------------------------------------------- K13, bf16, on the tensor cores
 namespace tc {
@@ -611,7 +591,7 @@ int launch_packed(const void* q, const void* k, const void* v, void* out, void* 
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     attn_combine_kernel<bf16><<<b * g, 256, 0, stream>>>(
-        (const float*)part_acc, (const float*)part_ml, (bf16*)out, g, h, nsplit);
+        (const float*)part_acc, (const float*)part_ml, (bf16*)out, g, h, nsplit, nullptr);
   }
   return (int)cudaGetLastError();
 }
@@ -1046,29 +1026,13 @@ int launch_small_qkv_ln(const void* x, const void* ln_w, const void* ln_b, const
 // mode (ATTEND false; single-buffered, two blocks an SM): one block per
 // (head, cloud, kv split) writes its tiles' k and v in bf16 to device
 // memory, once, and K13's attn_packed_tc_kernel attends over them.
-constexpr int KVLN_NW = 8, KVLN_THREADS = 32 * KVLN_NW;  // 16 query rows a warp
-constexpr int KVLN_LDW = 2 * DH + 8;  // padded row of this head's [wk|wv], and of a k|v tile
-constexpr int KVLN_TILE_DIN = 256;     // the widest Din of the two-blocks-an-SM tile kernel
-constexpr int KVLN_TILE_DB_DIN = 384;  // the widest Din of the double-buffered tile kernel
-// the tile kernel: the weights, one or two tiles of xn (then their k|v)
-__host__ __device__ constexpr size_t kvln_tile_smem(int tdin, bool db) {
-  return sizeof(bf16) * ((size_t)tdin * KVLN_LDW + (db ? 2 : 1) * KT * (tdin + 8));
-}
-// the stream kernel: a k|v tile and the ring of chunks
-constexpr int KVLN_KC = 64;            // Din columns a chunk
-constexpr int KVLN_STAGES = 3;         // chunks in the ring
-constexpr int KVLN_LDX = KVLN_KC + 8;  // padded row of a chunk of xn
-constexpr int KVLN_SLOT = KT * KVLN_LDX + KVLN_KC * KVLN_LDW;  // bf16 elements
-constexpr size_t KVLN_STREAM_SMEM =
-    sizeof(bf16) * (KT * KVLN_LDW + (size_t)KVLN_STAGES * KVLN_SLOT);
-static_assert(KVLN_NW * 16 == QT, "a warp's 16 query rows");
-static_assert(QT * LD <= KT * (KVLN_TILE_DIN + 8) &&
-                  QT * LD <= KT * KVLN_LDW + KVLN_STAGES * KVLN_SLOT,
-              "q is staged over a tile of xn, or over the k|v tile and the ring");
-static_assert(2 * (kvln_tile_smem(KVLN_TILE_DIN, false) + 1024) <= 233472 &&
-                  2 * (KVLN_STREAM_SMEM + 1024) <= 233472,
-              "two blocks an SM");
-static_assert(kvln_tile_smem(KVLN_TILE_DB_DIN, true) <= 232448, "one block an SM");
+// The tile and stream kernels, their helpers and the merge pass are
+// kv_tile.cuh's, shared with K7's bf16 forward (flash_train.cu).
+using vpt_kvln::KVLN_LDW;
+using vpt_kvln::KVLN_NW;
+using vpt_kvln::KVLN_THREADS;
+using vpt_kvln::kvln_split_ok;
+using vpt_kvln::kvln_pass;
 
 // xn = (x - mu) * (rs * w) + b of each of `rows` rows of x [rows, din], in
 // bf16, each step rounded as layer_norm_f32, with mu and rs = 1/std from
@@ -1116,318 +1080,6 @@ ln_xn_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_w,
   }
 }
 
-// The warp's k|v accumulators (tokens 32 rg.., columns 32 cg..) rounded to
-// bf16 into the k|v tile (rows KVLN_LDW apart): the Dense emit, no bias.
-__device__ __forceinline__ void kvln_store_kv(bf16* kv, const float (&acc)[2][4][4], int rg,
-                                              int cg, int lane) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-        *reinterpret_cast<uint32_t*>(
-            kv + (32 * rg + 16 * i + 8 * hh + (lane >> 2)) * KVLN_LDW + 32 * cg + 8 * j +
-            2 * (lane & 3)) = vpt::mma::pack_bf16x2(acc[i][j][2 * hh], acc[i][j][2 * hh + 1]);
-}
-
-// One 64-token tile of the online softmax of _packed_kv_ln_kernel, as K13
-// runs it, for a warp's 16 query rows: m_new, corr = exp(m - m_new), p =
-// exp(s - m_new) in f32, l summing the unrounded p, acc = acc * corr +
-// bf16(p) . v (exp as 2^ of log2 units, c = scale * log2 e); the tile's k
-// in columns 0.. of kv, v in DH.., tokens at or past m_end masked.
-__device__ __forceinline__ void kvln_attend(const uint32_t (&qa)[1][DH / 16][4], const bf16* kv,
-                                            float c, int t0, int m_end, float (&mx)[1][2],
-                                            float (&sum)[1][2], float (&o)[1][DH / 8][4],
-                                            int lane) {
-  namespace mm = vpt::mma;
-  float s[1][NT][4];
-  mm::warp_scores<DH, 1>(s, qa, kv, KVLN_LDW, lane);
-  mm::scale_and_mask(s[0], c, t0, m_end, lane);
-  mm::online_softmax_tile<1, DH>(s, mx, sum, o);
-  uint32_t pa[1][KT / 16][4];
-  mm::p_frags(pa[0], s[0]);
-  mm::warp_pv<DH, 1>(o, pa, kv + DH, KVLN_LDW, lane);
-}
-
-// The warp's 16 query rows from row0: divided by l into out, or with a
-// split the unnormalised state for attn_combine_kernel.
-__device__ __forceinline__ void kvln_store_out(bf16* out, float* part_acc, float* part_ml,
-                                               const float (&o)[1][DH / 8][4],
-                                               const float (&mx)[1][2], const float (&sum)[1][2],
-                                               int b, int g, int h, int head, int nsplit,
-                                               int split, int row0, int lane) {
-  namespace mm = vpt::mma;
-  const int d = h * DH, c0 = 2 * (lane & 3);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r + (lane >> 2);
-    const float l = mm::quad_sum(sum[0][r]);  // all lanes take part: before the row test
-    if (row >= g) continue;
-    if (nsplit == 1) {
-      bf16* orow = out + ((size_t)b * g + row) * d + head * DH + c0;
-#pragma unroll
-      for (int n = 0; n < DH / 8; ++n)
-        *reinterpret_cast<uint32_t*>(orow + 8 * n) =
-            mm::pack_bf16x2(o[0][n][2 * r] / l, o[0][n][2 * r + 1] / l);
-    } else {
-      const size_t prow = (((size_t)b * h + head) * nsplit + split) * g + row;
-      float* pacc = part_acc + prow * DH + c0;
-#pragma unroll
-      for (int n = 0; n < DH / 8; ++n)
-        *reinterpret_cast<float2*>(pacc + 8 * n) = make_float2(o[0][n][2 * r], o[0][n][2 * r + 1]);
-      if ((lane & 3) == 0) {
-        part_ml[2 * prow] = mx[0][r] * mm::LN2;  // the merge pass takes natural units
-        part_ml[2 * prow + 1] = l;
-      }
-    }
-  }
-}
-
-// In the projection mode, the warp's k|v accumulators (as kvln_store_kv
-// takes them) rounded to bf16 into k and v [B * M, H * 64] (v kv_rows
-// rows after k): tokens t0.. of the cloud whose first row is row0, those
-// at or past m_end left out.
-__device__ __forceinline__ void kvln_write_kv(bf16* kv, const float (&acc)[2][4][4], size_t row0,
-                                              int t0, int m_end, size_t kv_rows, int d, int head,
-                                              int rg, int cg, int lane) {
-  bf16* base = kv + (cg >= 2 ? kv_rows * d : 0) + head * DH + 32 * (cg & 1) + 2 * (lane & 3);
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int t = t0 + 32 * rg + 16 * i + 8 * hh + (lane >> 2);
-      if (t >= m_end) continue;
-      bf16* row = base + (row0 + t) * d;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        *reinterpret_cast<uint32_t*>(row + 8 * j) =
-            vpt::mma::pack_bf16x2(acc[i][j][2 * hh], acc[i][j][2 * hh + 1]);
-    }
-}
-
-// The tile kernel (Din <= TDIN): the head's weights resident, a whole
-// 64-token tile of xn a step. With DB (one block an SM; the attention
-// only) two tile buffers: the next tile's copy is in flight during a
-// tile's products; without it (two blocks an SM) one buffer, and the
-// other block's products overlap a block's copy. ATTEND: the attention
-// over the tiles into out [B, G, H*64] (or the merge pass's states); else
-// the projection alone into out = k, then v.
-template <int TDIN, bool DB, bool ATTEND>
-__global__ void __launch_bounds__(KVLN_THREADS, DB ? 1 : 2)
-attn_kv_ln_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ xn,
-                       const bf16* __restrict__ wk, const bf16* __restrict__ wv,
-                       bf16* __restrict__ out, float* __restrict__ part_acc,
-                       float* __restrict__ part_ml, int g, int m, int din, int h, int nsplit,
-                       int tps, float scale) {
-  static_assert(ATTEND || !DB, "the projection mode is single-buffered");
-  namespace mm = vpt::mma;
-  constexpr int LDT = TDIN + 8;  // padded row of a tile of xn
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* wres = reinterpret_cast<bf16*>(smem_raw);  // [TDIN][LDW]: this head's [wk|wv]
-  bf16* tiles = wres + TDIN * KVLN_LDW;            // [1 + DB][KT][LDT]: xn, then its k|v
-  const int b = blockIdx.y, head = blockIdx.x;
-  const int split = blockIdx.z % nsplit, q0 = (blockIdx.z / nsplit) * QT;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int nt = (m + KT - 1) / KT;
-  const int t_begin = split * tps, t_end = min(nt, t_begin + tps);
-  const int m_end = min(m, t_end * KT);  // a tile boundary but for the last split
-  const int d = h * DH, dp = (din + 15) & ~15;  // Din rounded up to the k steps
-  const int cpr = dp >> 3;                       // 16-byte chunks of a row of a tile
-  const bf16* xb = xn + (size_t)b * m * din;
-  auto load = [&](int t) {  // tile t's rows of xn, zero-filled past m_end and Din
-    bf16* xt = tiles + (DB ? ((t - t_begin) & 1) * KT * LDT : 0);
-    for (int e = tid; e < KT * cpr; e += KVLN_THREADS) {
-      const int r = e / cpr, c8 = e - r * cpr;
-      const bool ok = t * KT + r < m_end && 8 * c8 < din;
-      mm::cp_async16(xt + r * LDT + 8 * c8, ok ? xb + (size_t)(t * KT + r) * din + 8 * c8 : xb,
-                     ok);
-    }
-  };
-  // q, staged in the (last) tile buffer until each warp holds its A
-  // fragments, and the weights (rows past Din zero-filled)
-  bf16* qstage = tiles + (DB ? KT * LDT : 0);
-  if constexpr (ATTEND)
-    mm::cp_rows<DH, QT, KVLN_THREADS>(qstage, LD, q + (size_t)b * g * d + head * DH, d, q0, g,
-                                      tid);
-  for (int r0 = 0; r0 < dp; r0 += 32) {
-    mm::cp_rows<DH, 32, KVLN_THREADS>(wres + r0 * KVLN_LDW, KVLN_LDW, wk + head * DH, d, r0,
-                                      din, tid);
-    mm::cp_rows<DH, 32, KVLN_THREADS>(wres + r0 * KVLN_LDW + DH, KVLN_LDW, wv + head * DH, d,
-                                      r0, din, tid);
-  }
-  if (DB) load(t_begin);  // into the first buffer, beside q
-  mm::cp_async_commit();
-  mm::cp_async_wait<0>();
-  __syncthreads();
-  uint32_t qa[1][DH / 16][4];
-  if constexpr (ATTEND) mm::warp_a_frags<DH, 1>(qa, qstage, LD, 16 * warp, lane);
-  const int rg = warp >> 2, cg = warp & 3;  // the warp's tokens and k|v columns of a tile
-  const bool active = q0 + 16 * warp < g;
-  const float c = scale * mm::LOG2E;  // logits (and mx) in log2 units
-  float mx[1][2] = {{-CUDART_INF_F, -CUDART_INF_F}}, sum[1][2] = {{0.0f, 0.0f}};
-  float o[1][DH / 8][4];
-#pragma unroll
-  for (int n = 0; n < DH / 8; ++n) o[0][n][0] = o[0][n][1] = o[0][n][2] = o[0][n][3] = 0.0f;
-  for (int t = t_begin; t < t_end; ++t) {
-    bf16* xt = tiles + (DB ? ((t - t_begin) & 1) * KT * LDT : 0);
-    if (DB) {
-      mm::cp_async_wait<0>();  // tile t has landed (this thread's copies)
-      __syncthreads();         // ... everyone's; q and tile t - 1's k|v are read
-      if (t + 1 < t_end) load(t + 1);  // into the other buffer
-      mm::cp_async_commit();
-    } else {
-      __syncthreads();  // q, or the last tile, is read: tile t takes its place
-      load(t);
-      mm::cp_async_commit();
-      mm::cp_async_wait<0>();
-      __syncthreads();
-    }
-    float acc[2][4][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-    mm::warp_ab<2, 4>(acc, xt + 32 * rg * LDT, LDT, wres + 32 * cg, KVLN_LDW, dp, lane);
-    if constexpr (!ATTEND) {
-      kvln_write_kv(out, acc, (size_t)b * m, t * KT, m_end, (size_t)gridDim.y * m, d, head, rg,
-                    cg, lane);
-    } else {
-      __syncthreads();  // xn is read: the tile's k|v takes its place
-      kvln_store_kv(xt, acc, rg, cg, lane);
-      __syncthreads();
-      if (active) kvln_attend(qa, xt, c, t * KT, m_end, mx, sum, o, lane);
-    }
-  }
-  if (ATTEND && active)
-    kvln_store_out(out, part_acc, part_ml, o, mx, sum, b, g, h, head, nsplit, split,
-                   q0 + 16 * warp, lane);
-}
-
-// The stream kernel (any Din, a multiple of 8): chunk c of the split holds
-// columns k0.. of tile t's rows of xn (rows past m_end and columns past Din
-// zero-filled) and rows k0.. of this head's wk and wv columns (rows past
-// Din zero-filled). ATTEND as the tile kernel's.
-template <bool ATTEND>
-__global__ void __launch_bounds__(KVLN_THREADS, 2)
-attn_kv_ln_stream_kernel(const bf16* __restrict__ q, const bf16* __restrict__ xn,
-                         const bf16* __restrict__ wk, const bf16* __restrict__ wv,
-                         bf16* __restrict__ out, float* __restrict__ part_acc,
-                         float* __restrict__ part_ml, int g, int m, int din, int h, int nsplit,
-                         int tps, float scale) {
-  namespace mm = vpt::mma;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* kv = reinterpret_cast<bf16*>(smem_raw);  // [KT][LDW]: k | v of a tile
-  bf16* ring = kv + KT * KVLN_LDW;               // [STAGES][KT x LDX | KC x LDW]
-  const int b = blockIdx.y, head = blockIdx.x;
-  const int split = blockIdx.z % nsplit, q0 = (blockIdx.z / nsplit) * QT;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int nt = (m + KT - 1) / KT;
-  const int t_begin = split * tps, t_end = min(nt, t_begin + tps);
-  const int m_end = min(m, t_end * KT);
-  const int d = h * DH, nkc = (din + KVLN_KC - 1) / KVLN_KC;
-  const int nchunks = (t_end - t_begin) * nkc;
-  const bf16* xb = xn + (size_t)b * m * din;
-  auto load = [&](int ch) {
-    const int t = t_begin + ch / nkc, k0 = (ch % nkc) * KVLN_KC;
-    bf16* xs = ring + (ch % KVLN_STAGES) * KVLN_SLOT;
-    bf16* ws = xs + KT * KVLN_LDX;
-    mm::cp_rows<KVLN_KC, KT, KVLN_THREADS>(xs, KVLN_LDX, xb + k0, din, t * KT, m_end, tid,
-                                           din - k0);
-    mm::cp_rows<DH, KVLN_KC, KVLN_THREADS>(ws, KVLN_LDW, wk + (size_t)k0 * d + head * DH, d, 0,
-                                           din - k0, tid);
-    mm::cp_rows<DH, KVLN_KC, KVLN_THREADS>(ws + DH, KVLN_LDW, wv + (size_t)k0 * d + head * DH,
-                                           d, 0, din - k0, tid);
-  };
-  // q, staged over the k|v tile and the ring until each warp holds its A
-  // fragments; then the ring
-  uint32_t qa[1][DH / 16][4];
-  if constexpr (ATTEND) {
-    mm::cp_rows<DH, QT, KVLN_THREADS>(kv, LD, q + (size_t)b * g * d + head * DH, d, q0, g, tid);
-    mm::cp_async_commit();
-    mm::cp_async_wait<0>();
-    __syncthreads();
-    mm::warp_a_frags<DH, 1>(qa, kv, LD, 16 * warp, lane);
-    __syncthreads();
-  }
-#pragma unroll
-  for (int st = 0; st < KVLN_STAGES - 1; ++st) {
-    if (st < nchunks) load(st);
-    mm::cp_async_commit();
-  }
-  const int rg = warp >> 2, cg = warp & 3;
-  const bool active = q0 + 16 * warp < g;
-  const float c = scale * mm::LOG2E;
-  float mx[1][2] = {{-CUDART_INF_F, -CUDART_INF_F}}, sum[1][2] = {{0.0f, 0.0f}};
-  float o[1][DH / 8][4];
-#pragma unroll
-  for (int n = 0; n < DH / 8; ++n) o[0][n][0] = o[0][n][1] = o[0][n][2] = o[0][n][3] = 0.0f;
-  float acc[2][4][4];
-  for (int ci = 0; ci < nchunks; ++ci) {
-    const int kc = ci % nkc;
-    if (kc == 0)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-    mm::cp_async_wait<KVLN_STAGES - 2>();  // chunk ci has landed (this thread's copies)
-    __syncthreads();  // ... everyone's; chunk ci - 1 is consumed, the k|v tile read
-    if (ci + KVLN_STAGES - 1 < nchunks) load(ci + KVLN_STAGES - 1);
-    mm::cp_async_commit();
-    const bf16* xs = ring + (ci % KVLN_STAGES) * KVLN_SLOT;
-    mm::warp_ab<2, 4>(acc, xs + 32 * rg * KVLN_LDX, KVLN_LDX, xs + KT * KVLN_LDX + 32 * cg,
-                      KVLN_LDW, KVLN_KC, lane);
-    if (kc != nkc - 1) continue;
-    const int t0 = (t_begin + ci / nkc) * KT;
-    if constexpr (!ATTEND) {
-      kvln_write_kv(out, acc, (size_t)b * m, t0, m_end, (size_t)gridDim.y * m, d, head, rg, cg,
-                    lane);
-    } else {
-      kvln_store_kv(kv, acc, rg, cg, lane);
-      __syncthreads();  // the tile's k and v are complete
-      if (active) kvln_attend(qa, kv, c, t0, m_end, mx, sum, o, lane);
-    }
-  }
-  mm::cp_async_wait<0>();
-  if (ATTEND && active)
-    kvln_store_out(out, part_acc, part_ml, o, mx, sum, b, g, h, head, nsplit, split,
-                   q0 + 16 * warp, lane);
-}
-
-// nsplit splits of nt tiles, ceil(nt / nsplit) each, none empty
-inline bool kvln_split_ok(int nt, int nsplit) {
-  return nsplit >= 1 && nsplit <= nt && (nsplit - 1) * ((nt + nsplit - 1) / nsplit) < nt;
-}
-
-// One pass over xn [B*M, Din] in nsplit kv splits, the attention
-// (ATTEND) or the projection alone (out = k, then v): the tile kernel up
-// to Din = KVLN_TILE_DIN, the double-buffered one (the attention only) up
-// to KVLN_TILE_DB_DIN, else the stream kernel.
-template <bool ATTEND>
-cudaError_t kvln_pass(const void* q, const bf16* xn, const void* wk, const void* wv, void* out,
-                      void* part_acc, void* part_ml, int b, int g, int m, int din, int h,
-                      int nsplit, float scale, cudaStream_t stream) {
-  const int nt = (m + KT - 1) / KT, tps = (nt + nsplit - 1) / nsplit;
-  auto kernel = attn_kv_ln_stream_kernel<ATTEND>;
-  size_t smem = KVLN_STREAM_SMEM;
-  if (din <= KVLN_TILE_DIN) {
-    kernel = attn_kv_ln_tile_kernel<KVLN_TILE_DIN, false, ATTEND>;
-    smem = kvln_tile_smem(KVLN_TILE_DIN, false);
-  } else if constexpr (ATTEND) {
-    if (din <= KVLN_TILE_DB_DIN) {
-      kernel = attn_kv_ln_tile_kernel<KVLN_TILE_DB_DIN, true, true>;
-      smem = kvln_tile_smem(KVLN_TILE_DB_DIN, true);
-    }
-  }
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(h, b, (ATTEND ? (g + QT - 1) / QT : 1) * nsplit);
-  kernel<<<grid, KVLN_THREADS, smem, stream>>>(
-      (const bf16*)q, xn, (const bf16*)wk, (const bf16*)wv, (bf16*)out, (float*)part_acc,
-      (float*)part_ml, g, m, din, h, nsplit, tps, scale);
-  return cudaGetLastError();
-}
 
 // K4 and K15 in bf16. With `ln` (K4) the LayerNorm pass into xn
 // [B*M, Din] first, and the passes below read xn; without it (K15) they
@@ -1465,7 +1117,7 @@ int launch_kv(bool ln, const void* q, const void* x, const void* ln_w, const voi
                         stream);
   if (err != cudaSuccess || nsplit == 1) return (int)err;
   attn_combine_kernel<bf16><<<b * g, 256, 0, stream>>>(
-      (const float*)part_acc, (const float*)part_ml, (bf16*)out, g, h, nsplit);
+      (const float*)part_acc, (const float*)part_ml, (bf16*)out, g, h, nsplit, nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -1972,7 +1624,7 @@ int launch_flash(const void* q, const KvSource<T>& src, void* out, void* part_ac
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     attn_combine_kernel<T><<<b * g, 256, 0, stream>>>(
-        (const float*)part_acc, (const float*)part_ml, (T*)out, g, h, nsplit);
+        (const float*)part_acc, (const float*)part_ml, (T*)out, g, h, nsplit, nullptr);
   }
   return (int)cudaGetLastError();
 }

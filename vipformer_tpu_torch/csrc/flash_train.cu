@@ -20,7 +20,7 @@
 // (cloud b, head h) is a pure function of (seed, b*H + h, g, m):
 //   bits = mix(m + mix(g + mix(bh + mix(seed))))  (all mod 2^32),
 //   keep = bits >= thresh,  thresh = round(rate * 2^32),
-// with mix the 32-bit integer hash below. The backward regenerates the
+// with mix the 32-bit integer hash of kv_tile.cuh. The backward regenerates the
 // same bits; no mask is stored. The plain PyTorch twin computes the same
 // bits with int64 tensor ops (ops/cuda/flash_train.py), so the kernel and
 // the twin agree mask for mask.
@@ -30,10 +30,16 @@
 // of the scores, dV, dPd, dK in one kernel and scores, dPd, dQ in the
 // other); K7 adds the k/v projection of every kv token (M x Din x 2D MACs,
 // twice: forward and the backward's recompute) and its backward products.
-// The f32 kernels and K7's forward attention run on CUDA cores in f32 (67
-// TFLOP/s peak), so the bound that matters there is that rate, not the
-// 989 TFLOP/s of the tensor cores. K8's bf16 forward
-// (tc::flash_fwd_tc_kernel), the bf16 backward of K8 and of K7's attention
+// The f32 kernels run on CUDA cores in f32 (67 TFLOP/s peak), so the
+// bound that matters there is that rate, not the 989 TFLOP/s of the
+// tensor cores. K8's bf16 forward
+// (tc::flash_fwd_tc_kernel), K7's bf16 forward (tc::ln_xn_kernel, then
+// kv_tile.cuh's attn_kv_ln_tile_kernel with K7's dropout and
+// log-sum-exp: each 64-token tile of xn projected onto the head's k|v on
+// chip and attended there, K4's kernel body; 132.9 GFLOP at ft_cls's q
+// [330, 128, 256] x [330, 1,024, 256], H = 4, 0.134 ms at 989 TFLOP/s,
+// against 0.065 ms for its 217 MB of x, q, out and lse), the bf16 backward
+// of K8 and of K7's attention
 // (tc::flash_bwd_kv_tc_kernel, tc::flash_bwd_dq_tc_kernel) and K7's bf16
 // projections (tc::kv_proj_tc_kernel, tc::dxn_tc_kernel,
 // tc::dw_tc_kernel) run their products on the tensor cores; at the pretrain point branch's [96, 128,
@@ -59,33 +65,22 @@
 // the SIMT product of train_common.cuh; its weight gradients are split
 // over the token axis into partials summed in a fixed order. In bf16 its
 // products run on the tensor cores (namespace tc, the end of this file).
+#include "kv_tile.cuh"
 #include "mma.cuh"
 #include "train_common.cuh"
 
 namespace vpt_flash {
 
 using namespace vpt;
+using vpt_kvln::keep_bit;  // the dropout hash (kv_tile.cuh), shared with K7's tile kernel
+using vpt_kvln::mix32;
+using vpt_kvln::row_key;
 
 constexpr int DH = 64;       // head width of these kernels
 constexpr int BT = 64;       // rows per tile (queries or kv tokens)
 constexpr int LD = BT + 4;   // padded shared-memory row stride (floats)
 constexpr int THREADS = 256;
 constexpr int TILE = DH * LD;  // floats per [64][68] tile
-
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x045d9f3bu;
-  x ^= x >> 16;
-  x *= 0x045d9f3bu;
-  x ^= x >> 16;
-  return x;
-}
-__device__ __forceinline__ uint32_t row_key(uint32_t seed, uint32_t bh, uint32_t row) {
-  return mix32(row + mix32(bh + mix32(seed)));
-}
-__device__ __forceinline__ bool keep_bit(uint32_t rkey, uint32_t col, uint32_t thresh) {
-  return mix32(col + rkey) >= thresh;
-}
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -1083,10 +1078,13 @@ int attn_train_kv_bwd(const void* q, const void* x, const void* ln_w, const void
 //  (d) dw_tc_kernel: [dWk | dWv] = xn^T . [dk | dv] (both down the token
 //      rows, warp_atb), the rows cut into splits whose f32 partials a
 //      second pass sums in split order, as K11 (dense.cu).
-// K7's forward runs (a) and (b), its backward (a) and (b) again (the same
-// kernels on the same inputs: the same bits, so the forward's log-sum-exp
-// fits them), the attention backward, (c), the LayerNorm backward and its
-// column sums on the CUDA cores (ln_bwd_kernel, colsum2), then (d).
+// K7's forward runs (a), then kv_tile.cuh's tile kernel, which projects
+// xn on chip in (b)'s k16 steps (the same bits) and attends (up to 128
+// query rows; past them (a), (b) and K8's forward). Its backward runs (a)
+// and (b) (the same kernels on the same inputs: the same bits, so the
+// forward's log-sum-exp fits them), the attention backward, (c), the
+// LayerNorm backward and its column sums on the CUDA cores (ln_bwd_kernel,
+// colsum2), then (d).
 // Bound on the H100: operations. At the pretrain point branch (96 x 2,048
 // tokens, Din = 256, 2D = 512) each product is 51.5 GFLOP, 0.052 ms at
 // 989 TFLOP/s, against 100 MB of x and of xn.
@@ -1115,6 +1113,7 @@ constexpr size_t PJ_KV_SMEM = sizeof(bf16) * PJ_STAGES * (PJ_BM * PJ_LDK + PJ_KC
 constexpr size_t PJ_DX_SMEM = sizeof(bf16) * PJ_STAGES * (PJ_BM + PJ_BN) * PJ_LDK;
 constexpr size_t PJ_DW_SMEM = sizeof(bf16) * PJ_STAGES * PJ_KR * 2 * PJ_LDN;
 constexpr int LN_ROWS = 8;  // rows (warps) a block of ln_xn_kernel
+constexpr int KV_MAX_DIN = 1024;  // the widest Din K7's gate admits (flash_train_kv_enabled)
 
 // (a) xn [R, Din] bf16 and stats[r] = (mean, rstd), 8 columns a lane at a
 // time (Din a multiple of 8); the row is read twice (the second time from
@@ -1364,18 +1363,43 @@ int kv_project(const void* x, const void* ln_w, const void* ln_b, const void* wk
   return (int)cudaGetLastError();
 }
 
-// (a), (b), then the attention on the CUDA cores (flash_fwd<bf16>)
+// K7's bf16 forward. Up to 128 query rows (every driven path's G): (a)
+// into xn and rowstats, then one pass of kv_tile.cuh's tile kernel (the
+// stream kernel past Din = 384) in nsplit kv splits with K7's dropout and
+// log-sum-exp (TRAIN), which projects each 64-token tile of xn onto this
+// head's k|v on chip and attends over it; with nsplit > 1 the merge pass
+// also writes lse. No k or v reaches device memory (kbuf and vbuf unused).
+// Past 128 query rows (no driven training path has them): (a) and (b)
+// into kbuf and vbuf, then K8's bf16 forward (flash_fwd_tc_kernel) over
+// them. Din a multiple of 32 up to 1,024: the backward's kv_project takes
+// Din in 32-column stages, and its k|v must be the tile kernel's.
 int attn_train_kv_fwd(const void* q, const void* x, const void* ln_w, const void* ln_b,
                       const void* wk, const void* wv, const void* seed, void* out, void* lse,
-                      void* kbuf, void* vbuf, void* rowstats, void* xn, int B, int G, int M,
-                      int din, int H, float scale, float keep_p, unsigned thresh, int drop,
-                      cudaStream_t st) {
-  int e = kv_project(x, ln_w, ln_b, wk, wv, kbuf, vbuf, xn, rowstats, B * M, din, H * DH, st);
-  if (e != cudaSuccess) return e;
-  return vpt_flash::flash_fwd<bf16>(static_cast<const bf16*>(q), static_cast<const bf16*>(kbuf),
-                         static_cast<const bf16*>(vbuf), static_cast<const int*>(seed),
-                         static_cast<bf16*>(out), static_cast<float*>(lse), B, G, M, H, scale,
-                         keep_p, thresh, drop, st);
+                      void* kbuf, void* vbuf, void* rowstats, void* xn, void* part_acc,
+                      void* part_ml, int B, int G, int M, int din, int H, int nsplit, float scale,
+                      float keep_p, unsigned thresh, int drop, cudaStream_t st) {
+  const int rows = B * M, nt = (M + KT - 1) / KT;
+  if (B < 1 || G < 1 || M < 1 || H < 1 || din < PJ_KC || din % PJ_KC || din > KV_MAX_DIN)
+    return (int)cudaErrorInvalidValue;
+  if (G > vpt_kvln::QT) {
+    const int e = kv_project(x, ln_w, ln_b, wk, wv, kbuf, vbuf, xn, rowstats, rows, din, H * DH,
+                             st);
+    if (e != cudaSuccess) return e;
+    return flash_fwd(q, kbuf, vbuf, seed, out, lse, B, G, M, H, scale, keep_p, thresh, drop, st);
+  }
+  if (!vpt_kvln::kvln_split_ok(nt, nsplit)) return (int)cudaErrorInvalidValue;
+  ln_xn_kernel<<<(rows + LN_ROWS - 1) / LN_ROWS, 32 * LN_ROWS, 0, st>>>(
+      (const bf16*)x, (const float*)ln_w, (const float*)ln_b, rows, din, (bf16*)xn,
+      (float2*)rowstats);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const vpt_kvln::TrainArgs tr{(const int*)seed, (float*)lse, keep_p, thresh, drop};
+  e = vpt_kvln::kvln_pass<true, true>(q, (const bf16*)xn, wk, wv, out, part_acc, part_ml, B, G, M,
+                                      din, H, nsplit, scale, st, tr);
+  if (e != cudaSuccess || nsplit == 1) return (int)e;
+  vpt_kvln::attn_combine_kernel<bf16, true><<<B * G, 256, 0, st>>>(
+      (const float*)part_acc, (const float*)part_ml, (bf16*)out, G, H, nsplit, (float*)lse);
+  return (int)cudaGetLastError();
 }
 
 int attn_train_kv_bwd(const void* q, const void* x, const void* ln_w, const void* ln_b,
@@ -1471,16 +1495,21 @@ extern "C" int attn_train_bwd_tc_bf16(const void* q, const void* k, const void* 
       keep_p, thresh, drop, stream
 
 extern "C" int attn_train_kv_fwd_f32(KV_FWD_ARGS) { return attn_train_kv_fwd<float>(KV_FWD_PASS); }
-// bf16: the projection on the tensor cores, xn [B*M, Din] bf16 scratch
-// (pointers 16-byte aligned)
+// bf16 on the tensor cores (pointers 16-byte aligned): xn [B*M, Din] bf16
+// and rowstats f32 [B*M, 2] scratch; up to 128 query rows the tile kernel
+// in nsplit splits of the 64-token tiles (none empty), its split states in
+// part_acc f32 [B, H, nsplit, G, 64] and part_ml f32 [B, H, nsplit, G, 2]
+// (stubs at nsplit 1), kbuf and vbuf unused (null); past 128 k and v [B, M,
+// H*64] bf16 in kbuf and vbuf, nsplit unused
 extern "C" int attn_train_kv_fwd_tc_bf16(const void* q, const void* x, const void* ln_w,
                                          const void* ln_b, const void* wk, const void* wv,
                                          const void* seed, void* out, void* lse, void* kbuf,
-                                         void* vbuf, void* rowstats, void* xn, int b, int g, int m,
-                                         int din, int h, SEED_ARGS) {
+                                         void* vbuf, void* rowstats, void* xn, void* part_acc,
+                                         void* part_ml, int b, int g, int m, int din, int h,
+                                         int nsplit, SEED_ARGS) {
   return tc::attn_train_kv_fwd(q, x, ln_w, ln_b, wk, wv, seed, out, lse, kbuf, vbuf, rowstats, xn,
-                               b, g, m, din, h, scale, keep_p, thresh, drop,
-                               static_cast<cudaStream_t>(stream));
+                               part_acc, part_ml, b, g, m, din, h, nsplit, scale, keep_p, thresh,
+                               drop, static_cast<cudaStream_t>(stream));
 }
 
 #define KV_BWD_ARGS                                                                         \

@@ -74,11 +74,12 @@ SIGNATURES = {
     "attn_train_fwd_tc_bf16": [_P] * 6 + [_I] * 4 + [_F, _F, _U, _I, _P],
     "attn_train_bwd_f32": [_P] * 10 + [_I] * 4 + [_F, _F, _U, _I, _P],
     "attn_train_bwd_tc_bf16": [_P] * 10 + [_I] * 4 + [_F, _F, _U, _I, _P],
-    # K7: f32 on the CUDA cores; bf16 with its products on the tensor cores
-    # (one more scratch pointer each way, xn), and its projection alone
+    # K7: f32 on the CUDA cores; bf16 on the tensor cores (one more scratch
+    # pointer each way, xn; the forward's split states part_acc, part_ml
+    # and its kv split nsplit after the heads), and its projection alone
     # (x, ln_w, ln_b, wk, wv, k, v, xn, stats, rows, din, h, stream)
     "attn_train_kv_fwd_f32": [_P] * 12 + [_I] * 5 + [_F, _F, _U, _I, _P],
-    "attn_train_kv_fwd_tc_bf16": [_P] * 13 + [_I] * 5 + [_F, _F, _U, _I, _P],
+    "attn_train_kv_fwd_tc_bf16": [_P] * 15 + [_I] * 6 + [_F, _F, _U, _I, _P],
     "attn_train_kv_bwd_f32": [_P] * 23 + [_I] * 7 + [_F, _F, _U, _I, _P],
     "attn_train_kv_bwd_tc_bf16": [_P] * 24 + [_I] * 7 + [_F, _F, _U, _I, _P],
     "kv_project_tc_bf16": [_P] * 9 + [_I] * 3 + [_P],
@@ -90,8 +91,8 @@ SIGNATURES = {
     "g2e_bwd_f32": [_P] * 38 + [_I] * 6 + [_P],
     "g2e_bwd_tc_bf16": [_P] * 34 + [_I] * 10 + [_P],
     # K10
-    "gather_centered_f32": [_P] * 4 + [_I] * 6 + [_P],
-    "gather_centered_bf16": [_P] * 4 + [_I] * 6 + [_P],
+    "gather_centered_f32": [_P] * 4 + [_I] * 7 + [_P],
+    "gather_centered_bf16": [_P] * 4 + [_I] * 7 + [_P],
     "scatter_centered_f32": [_P] * 4 + [_I] * 6 + [_P],
     "scatter_centered_bf16": [_P] * 4 + [_I] * 6 + [_P],
     # K12

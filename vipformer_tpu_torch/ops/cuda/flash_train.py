@@ -14,11 +14,16 @@ logsumexp, the backward recomputes p and regenerates the dropout mask.
 
 K8's forward and backward and K7's forward and backward pick their
 kernels by dtype (`cuda.tc_route`): bf16 runs on the tensor cores
-(mma.sync, csrc/mma.cuh), f32 on the CUDA cores. In bf16, K7's LayerNorm-
-folded k|v projection (`kv_project_kernel` runs it alone), its backward's
-attention (K8's tensor-core backward, bf16 dk, dv), dx through the
-projections and the weight gradients run on the tensor cores; its forward
-attention, the LayerNorm backward and its column sums on the CUDA cores.
+(mma.sync, csrc/mma.cuh), f32 on the CUDA cores. In bf16, K7's forward is
+its LayerNorm pass into xn, then K4's tile kernel (csrc/kv_tile.cuh) with
+the dropout and the log-sum-exp added, which projects each 64-token tile
+of xn onto k|v on chip and attends there (kv splits as K4's planner
+plans them, `kv_fwd_plan`); its backward recomputes k|v with the
+LayerNorm-folded projection (`kv_project_kernel` runs it alone: the
+tile kernel's k|v bit for bit), then K8's tensor-core attention backward
+(bf16 dk, dv), dx through the projections and the weight gradients on
+the tensor cores, the LayerNorm backward and its column sums on the CUDA
+cores.
 
 Dropout: the keep bit of (cloud b, head h, query g, key m) is a pure
 function of (seed, b*H + h, g, m) through a 32-bit integer hash, and kept
@@ -34,7 +39,7 @@ import numpy as np
 import torch
 
 from vipformer_tpu_torch.ops import cuda
-from vipformer_tpu_torch.ops.cuda import dense
+from vipformer_tpu_torch.ops.cuda import attention, dense
 
 FWD_LAUNCHES = cuda.LaunchCounter()
 BWD_LAUNCHES = cuda.LaunchCounter()
@@ -46,6 +51,7 @@ COLSUM_BLOCKS = 256  # row blocks of the column-sum partials
 # K7's bf16 products (csrc/flash_train.cu tc) take the contraction in
 # stages of 32 columns (Din, 2D) or token rows (dW)
 KV_TC_STEP = 32
+KV_TC_MAX_DIN = 1024  # the widest Din of K7's bf16 forward (its gate's)
 _M32 = 0xFFFFFFFF
 _MIX = 0x045D9F3B
 
@@ -319,27 +325,69 @@ def kv_project_kernel(x, ln_w, ln_b, wk, wv):
     return k, v
 
 
+def kv_fwd_plan(dt: torch.dtype, b: int, g: int, m: int, din: int, d: int, num_heads: int,
+                sms: int, nsplit: int | None = None) -> tuple[str, int]:
+    """(entry point, kv split) of K7's forward for these shapes; raises,
+    before any launch, on what its kernels do not take: a head width other
+    than 64 and, in bf16, a Din that is not a whole number of 32-column
+    stages or is above KV_TC_MAX_DIN, and a split of the 64-token tiles
+    that leaves one empty (ceil(tiles / nsplit) a split; csrc/kv_tile.cuh
+    `kvln_split_ok`). Unless given, the split is the one K4's planner
+    gives its tile kernel at this Din (`attention.kv_ln_plan`: the same
+    kernels, the same blocks an SM) up to one query tile, and 1 past it
+    (the projection, then K8's forward, split nothing); f32: 1, unused."""
+    fn = cuda.tc_route("attn_train_kv_fwd", dt)
+    _check_heads(d, num_heads)
+    if dt != torch.bfloat16:
+        return fn, 1
+    _check_tc_din(din)
+    if din > KV_TC_MAX_DIN:
+        raise ValueError(f"K7's bf16 forward takes Din <= {KV_TC_MAX_DIN}, got {din}")
+    if nsplit is None:
+        nsplit = (1 if g > attention.TC_Q_TILE else
+                  attention.kv_ln_plan(dt, b, g, m, num_heads, din, sms)[0])
+    tiles = -(-m // attention.TC_TILE_TOKENS)
+    if not 1 <= nsplit <= tiles or (nsplit - 1) * -(-tiles // nsplit) >= tiles:
+        raise ValueError(f"K7's bf16 forward cannot split {tiles} tiles of tokens {nsplit} ways")
+    return fn, nsplit
+
+
 def attention_kv_fwd_kernel(q, x, ln_w, ln_b, wk, wv, seed, num_heads: int, scale: float,
-                            rate: float):
-    q, x, ln_w, ln_b, wk, wv = _kv_operands(q, x, ln_w, ln_b, wk, wv, num_heads)
+                            rate: float, nsplit: int | None = None):
+    """K7's forward on the card. In bf16 up to one query tile: the
+    LayerNorm pass into xn, then the tile kernel in `nsplit` kv splits
+    (`kv_fwd_plan`; with more than one, the merge pass writes out and
+    lse), no k or v allocated; past it the projection into k and v, then
+    K8's bf16 forward over them. f32 on the CUDA cores."""
     b, g, d = q.shape
     m, din = x.shape[1], x.shape[2]
     dt, dev = q.dtype, q.device
+    fn, nsplit = kv_fwd_plan(dt, b, g, m, din, d, num_heads,
+                             cuda.sm_count(dev.index or 0) if nsplit is None else 0, nsplit)
+    q, x, ln_w, ln_b, wk, wv = _kv_operands(q, x, ln_w, ln_b, wk, wv, num_heads)
     seed = _seed(seed, dev)
     out = torch.empty((b, g, d), dtype=dt, device=dev)
     lse = torch.empty((b, num_heads, g), dtype=torch.float32, device=dev)
-    kbuf = torch.empty((b, m, d), dtype=dt, device=dev)
-    vbuf = torch.empty_like(kbuf)
     rowstats = torch.empty((b * m, 2), dtype=torch.float32, device=dev)
-    # bf16: the normalised tokens, the projection's A operand
-    xn = [torch.empty((b * m, din), dtype=dt, device=dev).data_ptr()] \
-        if dt == torch.bfloat16 else []
-    fn = cuda.tc_route("attn_train_kv_fwd", dt)
+    # k and v [B, M, D] but in bf16 up to one query tile, where the tile
+    # kernel keeps them on chip (null pointers); there the split states
+    # (stubs unless split) and, in bf16, xn
+    tile = dt == torch.bfloat16 and g <= attention.TC_Q_TILE
+    kv = [0, 0] if tile else [torch.empty((b, m, d), dtype=dt, device=dev) for _ in "kv"]
+    splits, scratch = [], []
+    if dt == torch.bfloat16:
+        acc_shape, ml_shape = attention.split_scratch_shapes(b, g, num_heads,
+                                                             nsplit if tile else 1)
+        scratch = [torch.empty((b * m, din), dtype=dt, device=dev),
+                   torch.empty(acc_shape, dtype=torch.float32, device=dev),
+                   torch.empty(ml_shape, dtype=torch.float32, device=dev)]
+        splits = [nsplit]
     KV_FWD_LAUNCHES.n += 1
     cuda.check(getattr(cuda.lib(), fn)(
         q.data_ptr(), x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), wk.data_ptr(),
-        wv.data_ptr(), seed.data_ptr(), out.data_ptr(), lse.data_ptr(), kbuf.data_ptr(),
-        vbuf.data_ptr(), rowstats.data_ptr(), *xn, b, g, m, din, num_heads, float(scale),
+        wv.data_ptr(), seed.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        *(t if tile else t.data_ptr() for t in kv), rowstats.data_ptr(),
+        *(t.data_ptr() for t in scratch), b, g, m, din, num_heads, *splits, float(scale),
         *_dropout_args(rate), cuda.stream_ptr()), fn)
     return out, lse
 
@@ -472,8 +520,6 @@ def flash_train_enabled(num_heads: int, qk_ch: int, v_ch: int, training: bool,
     auto on the card. The kernel walks any G and M in tiles, so the TPU's
     VMEM conditions on them have no counterpart here; at a head width the
     kernel is not built for it raises (`_check_heads`)."""
-    from vipformer_tpu_torch.ops.cuda import attention
-
     if not training or qk_ch != v_ch or qk_ch % num_heads:
         return False
     if attention.USE_FUSED_ATTENTION is not None:

@@ -33,6 +33,8 @@ BWD_LAUNCHES = cuda.LaunchCounter()
 ROWS_FWD_LAUNCHES = cuda.LaunchCounter()
 ROWS_BWD_LAUNCHES = cuda.LaunchCounter()
 MAX_ROW_CHANNELS = 128  # the Pallas kernel's table row: one tile of lanes
+CENTERED_RUN_ROWS = 64  # K10's forward: the most rows of a warp's run (2 a lane)
+CENTERED_STAGE_BYTES = 4096  # ... and the most bytes of its staged output
 # None = auto (on the card where the JAX gate's shape conditions hold); a
 # bool forces it, as the JAX package's USE_MXU_GATHER (gather.py:38)
 USE_ROW_GATHER: bool | None = None
@@ -61,12 +63,30 @@ def scatter_centered_plain(g, idx, n: int, gnum: int, group_size: int):
     return dp, dc.to(g.dtype).float()
 
 
+def check_centered_sizes(b: int, n: int, c: int, k: int) -> None:
+    """What K10's forward kernel takes (csrc/gather.cu): C <= MAX_ROW_CHANNELS,
+    and B*N*C, B*K*C below 2^31 (32-bit offsets)."""
+    if c > MAX_ROW_CHANNELS:
+        raise ValueError(f"centered gather kernel takes C <= {MAX_ROW_CHANNELS} channels, got {c}")
+    if max(b * n * c, b * k * c) >= 2**31:
+        raise ValueError("centered gather kernel indexes B*N*C and B*K*C with 32-bit integers")
+
+
+def centered_run_rows(c: int, itemsize: int) -> int:
+    """Output rows a warp of K10's forward takes as one run (csrc/gather.cu):
+    at most CENTERED_RUN_ROWS, its C channels of `itemsize` bytes staged in
+    at most CENTERED_STAGE_BYTES, and a multiple of 8, so that every run
+    starts on a 16-byte boundary of the output."""
+    return min(CENTERED_RUN_ROWS, CENTERED_STAGE_BYTES // (c * itemsize) // 8 * 8)
+
+
 def gather_centered_kernel(points, centers, idx, group_size: int):
     b, n, c = points.shape
     gnum, k = centers.shape[1], idx.shape[1]
     dt = points.dtype
     if k != gnum * group_size:
         raise ValueError(f"idx has {k} rows, expected G*S = {gnum * group_size}")
+    check_centered_sizes(b, n, c, k)
     points = points.contiguous()
     cz = centers[..., :3].float().contiguous()
     idx = idx.to(torch.int32).contiguous()
@@ -78,7 +98,8 @@ def gather_centered_kernel(points, centers, idx, group_size: int):
     FWD_LAUNCHES.n += 1
     cuda.check(getattr(cuda.lib(), fn)(
         points.data_ptr(), cz.data_ptr(), idx.data_ptr(), out.data_ptr(),
-        b, n, c, gnum, k, group_size, cuda.stream_ptr()), fn)
+        b, n, c, gnum, k, group_size, centered_run_rows(c, points.element_size()),
+        cuda.stream_ptr()), fn)
     return out
 
 
