@@ -92,6 +92,23 @@ goes on):
      the IMID step's loss and every gradient leaf;
   8. the bf16 step time at B=48 (CUDA events over 5 steps after warm-up)
      and where it goes (kernel sums from torch.profiler);
+ 8a. the `--device_augs` chain (data/augment_device.py: both point views
+     and the image chain, 144 x 144 images and 137 x 137 resized) on the
+     card against the CPU at B=48, 2,048 points, from the same draws
+     (within 1e-5 of max(1, max|cpu|), 1e-4 with the resize; dropout
+     masks and flips equal),
+     and its time on the card;
+ 8b. three `make_pretrain_step` steps with `device_augs` at B=48, bf16,
+     on batches of `ShapeNetRender(raw_views=True)` from the pretrain
+     CLI's loader through `prefetch_to_device` (pinned buffers, a side
+     stream), PIL and h5py unimportable meanwhile: launch counts equal to
+     phase 6's, losses finite, every parameter moved;
+ 8c. the pretrain CLI's loop (`run_epoch`) over a 6-batch epoch at B=48,
+     host augmentation and `--device_augs`: clouds/s, the loader's host ms
+     a batch alone, the step's events, the device time, the busy share
+     and the memcpy HtoD ms a step (profiler), and the same steps with the
+     loader in series (no prefetcher), beside the card's name and power
+     limit;
   9. hold the finetune kernels against their twins: K11 (Dense weight
      gradients) at the ft_cls step's 42,240 rows and each of its five
      (Cin, Cout), and at an odd row count, in f32 and bf16 (the bf16
@@ -1675,10 +1692,14 @@ def check_training_kernels(rec: Recorder) -> None:
                   f"{rec.r['gather_centered_fwd']['host_ms']:.4f} ms")
             time_k10_ft_cls(kfps, kknn, kgather, g, s)
             dp, dc = kgather.scatter_centered_kernel(grad, idx, npts, g, s)
-            rec.timing("gather_centered_bwd",
-                       cuda_ms(lambda: kgather.scatter_centered_kernel(grad, idx, npts, g, s)),
+            # its VJP the same way: a host-bound call, so device time
+            k10b = lambda: kgather.scatter_centered_kernel(grad, idx, npts, g, s)  # noqa: E731
+            rec.timing("gather_centered_bwd", queued_ms(k10b, "K10's VJP"),
                        cuda_ms(lambda: kgather.scatter_centered_plain(grad, idx, npts, g, s)),
                        bound(nbytes(grad, idx, dp, dc), grad.numel(), dt_name), shape=shape)
+            rec.r["gather_centered_bwd"]["host_ms"] = cuda_ms(k10b)
+            print(f"  {'gather_centered_bwd':18s} {shape:34s} device time; events "
+                  f"{rec.r['gather_centered_bwd']['host_ms']:.4f} ms")
 
     # K9 on those patches: 96 clouds x 128 groups x 32 neighbours
     m = init_weights(Group2Emb(3, d), SEED)
@@ -1971,7 +1992,7 @@ def pretrain_batches(cfg, n: int, batch: int):
     from vipformer_tpu_torch.data.datasets import ShapeNetRender
     from vipformer_tpu_torch.data.pipeline import Loader, collate_pretrain
 
-    ds = ShapeNetRender(cfg.img_height, cfg.img_width, cfg.num_pt_points,
+    ds = ShapeNetRender(cfg.data_dir, cfg.img_height, cfg.img_width, cfg.num_pt_points,
                         synthetic_size=n * batch)
     return list(Loader(ds, batch, collate_pretrain, shuffle=True, seed=cfg.seed,
                        drop_last=True, num_workers=8))
@@ -2074,6 +2095,240 @@ def time_pretrain_step(batches) -> None:
 
     _timed_steps(run, f"pretrain step bf16 B={PRETRAIN_BATCH} ({2 * PRETRAIN_BATCH} clouds + "
                  f"{PRETRAIN_BATCH} images; samples = clouds)", 2 * PRETRAIN_BATCH)
+
+
+# ------------------------------------------- device augmentation, the loop
+
+AUG_TOL = 1e-5  # the chain on the card against the CPU, of max(1, max |cpu|)
+# with a resize in the chain (not on the step's path, which ships images at
+# their size): F.interpolate's antialiased bilinear weighs the taps in f32
+# on the card, 2.2e-5 of max |cpu| at 137 -> 144 (NVIDIA H100 80GB HBM3)
+AUG_RESIZE_TOL = 1e-4
+LOOP_BATCHES = 6  # batches of PRETRAIN_BATCH in the pretrain loop's timed epochs
+LOOP_PROFILED = 3  # batches in its profiled epoch (a trace's processing takes seconds)
+
+
+class _Blocked:
+    """Within the block, importing any of `names` raises ImportError (their
+    sys.modules entries set to None), whether or not they were imported
+    before; the entries are restored after."""
+
+    def __init__(self, *names):
+        self.names = names
+
+    def __enter__(self):
+        self.saved = {m: sys.modules[m] for m in list(sys.modules)
+                      if m.split(".")[0] in self.names}
+        for m in self.saved:
+            del sys.modules[m]
+        for name in self.names:
+            sys.modules[name] = None
+        return self
+
+    def __exit__(self, *exc):
+        for name in self.names:
+            del sys.modules[name]
+        sys.modules.update(self.saved)
+        return False
+
+
+def check_device_augs_chain() -> None:
+    """The `--device_augs` chain (data/augment_device.py) on the card
+    against the same functions on the CPU, at the flagship pretrain batch
+    (B = 48 clouds of 2,048 points, 144 x 144 uint8 images; and 137 x 137
+    images resized to 144 x 144 in the chain), the draws made once on the
+    CPU and moved: both views and the images within AUG_TOL of
+    max(1, max |cpu|) (the resized ones within AUG_RESIZE_TOL), the
+    dropout masks (from the draws, and read from
+    the outputs: the points equal to their cloud's first) and the flips
+    equal. Then the chain at that batch, drawn on the card: no
+    synchronising call (torch.cuda's sync debug mode), its device time and
+    launches (profiler) and its events."""
+    from vipformer_tpu_torch.data import augment_device as aug
+
+    cfg = config()
+    b, n = PRETRAIN_BATCH, cfg.num_pt_points
+    rng = np.random.default_rng(SEED + 21)
+    pts = torch.from_numpy((rng.standard_normal((b, n, 3))
+                            * rng.uniform(0.2, 3.0, (b, 1, 1))).astype(np.float32))
+    gen = torch.Generator().manual_seed(SEED + 22)
+    draws = [aug.draw_pretrain_view(b, n, gen), aug.draw_pretrain_view(b, n, gen)]
+    img_draws = aug.draw_image_chain(b, gen)
+    dev = torch.device("cuda")
+
+    def on(d):
+        return {k: v.to(dev) for k, v in d.items()}
+
+    def dropped(v):
+        return (v == v[:, :1]).all(-1)
+
+    print(f"device augmentation chain, card against CPU (B={b}, {n} points, same draws; "
+          f"bound {AUG_TOL:.0e} of max(1, max|cpu|)):")
+    for i, d in enumerate(draws):
+        cpu = aug.pretrain_view(pts, d)
+        card = aug.pretrain_view(pts.to(dev), on(d)).cpu()
+        err, rel = rel_err(card, cpu)
+        print(f"  point view {i + 1}: max_abs_err={err:.3e} rel={rel:.3e}")
+        expect(rel <= AUG_TOL, f"device augmentation: view {i + 1} off the CPU chain")
+        mask = aug.input_dropout_mask(d["ratio"], d["u"])
+        expect(torch.equal(aug.input_dropout_mask(d["ratio"].to(dev), d["u"].to(dev)).cpu(),
+                           mask), f"view {i + 1}: dropout masks differ")
+        expect(torch.equal(dropped(card), dropped(cpu))
+               and torch.equal(dropped(cpu)[:, 1:], mask[:, 1:]),
+               f"view {i + 1}: the dropped points differ")
+        print(f"    dropout masks equal; {float(mask.float().mean()):.3f} of the points dropped")
+    imgs = {hw: torch.from_numpy(rng.integers(0, 256, (b, *hw, 3)).astype(np.uint8))
+            for hw in ((cfg.img_height, cfg.img_width), (137, 137))}
+    for hw, x in imgs.items():
+        tol = AUG_TOL if hw == (cfg.img_height, cfg.img_width) else AUG_RESIZE_TOL
+        cpu = aug.image_pretrain_chain(x, img_draws, cfg.img_height, cfg.img_width)
+        card = aug.image_pretrain_chain(x.to(dev), on(img_draws), cfg.img_height,
+                                        cfg.img_width).cpu()
+        err, rel = rel_err(card, cpu)
+        print(f"  images {hw[0]}x{hw[1]} -> {cfg.img_height}x{cfg.img_width}: "
+              f"max_abs_err={err:.3e} rel={rel:.3e} (bound {tol:.0e}); flips equal "
+              f"({int(img_draws['flip'].sum())} of {b})")
+        expect(rel <= tol, f"device augmentation: images {hw} off the CPU chain")
+        expect(torch.equal(on(img_draws)["flip"].cpu(), img_draws["flip"]), "flips differ")
+    gen_d = torch.Generator(device=dev).manual_seed(SEED)
+    raw, u8 = pts.to(dev), imgs[(cfg.img_height, cfg.img_width)].to(dev)
+    chains = {"two point views": lambda: aug.pretrain_two_views(raw, gen_d),
+              "image chain": lambda: aug.random_image_chain(u8, gen_d)}
+    for what, fn in chains.items():
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")  # a synchronising call raises
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        ev = _device_events(fn, 3)
+        dev_ms = sum(e.self_device_time_total for e in ev) / 1e3 / 3
+        launches = sum(e.count for e in ev) / 3
+        print(f"  {what} on the card, draws included, a batch of {b}: device time "
+              f"{dev_ms:.4f} ms ({launches:.0f} launches, profiler), events "
+              f"{cuda_ms(fn):.4f} ms; no synchronising call")
+
+
+def drive_device_augs_path(counts_out: dict, host_counts: dict) -> None:
+    """Three `make_pretrain_step` steps with `device_augs` (B = 48, bf16):
+    batches from `ShapeNetRender(raw_views=True)` through the pretrain
+    CLI's loader and `prefetch_to_device`, with PIL and h5py unimportable
+    meanwhile; every launch count equal to the host-augmented path's
+    (phase 6), the losses finite and every parameter moved."""
+    from vipformer_tpu_torch.cli.pretrain import train_loader
+    from vipformer_tpu_torch.data.pipeline import prefetch_to_device
+    from vipformer_tpu_torch.train.trainer import create_state, make_pretrain_step
+
+    cfg = config(device_augs=True, synthetic_size=STEPS * PRETRAIN_BATCH)
+    with _Blocked("PIL", "h5py"):
+        loader = train_loader(cfg)
+        models = pretrain_models(cfg, "cuda")
+        state = create_state(cfg, models)
+        step = make_pretrain_step(cfg, models["pc"], models["img"])
+        before = [p.detach().clone() for p in state.parameters()]
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        metrics = []
+
+        def run():
+            for batch in prefetch_to_device(iter(loader), "cuda"):
+                expect(batch["pc_raw"].is_cuda and batch["imgs"].dtype == torch.uint8,
+                       "device_augs: the batch is not raw clouds and uint8 images on the card")
+                metrics.append(step(state, batch, cfg.lr, gen)[1])
+
+        counts = _counted(f"device_augs pretrain path: {STEPS} steps", run)
+    counts_out.update(counts)
+    expect(len(metrics) == STEPS, f"device_augs: {len(metrics)} steps, expected {STEPS}")
+    _expect_counts("device_augs pretrain", counts, host_counts)
+    _moved_and_finite("device_augs pretrain", None, state, before, metrics)
+    print("  PIL and h5py unimportable throughout; counts equal to the host-augmented path's")
+
+
+def time_pretrain_loop() -> None:
+    """The pretrain CLI's loop (`cli.pretrain.run_epoch`: the loader through
+    `prefetch_to_device`, one step a batch) over an epoch of LOOP_BATCHES
+    batches of B = 48, bf16, the CLI's default loader (no thread pool),
+    with host augmentation and with `--device_augs`: the loader's host ms a
+    batch alone; the epoch's clouds/s and the step's events a step from
+    the end of its first step (the first step and the prefetcher's start
+    left out), in two epochs around one with the loader iterated in series
+    (no prefetcher) as the reference; a profiled epoch of LOOP_PROFILED
+    batches: the device time a step (kernels and copies), the busy share
+    (that over the step's events) and the host-to-device copies' device
+    time a step (memcpy HtoD)."""
+    from vipformer_tpu_torch.cli.pretrain import run_epoch, train_loader
+    from vipformer_tpu_torch.train.trainer import create_state, make_pretrain_step
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    print(f"pretrain loop (cli.pretrain.run_epoch, prefetch_to_device), {LOOP_BATCHES} batches "
+          f"of {PRETRAIN_BATCH}, bf16, on {smi}:")
+    models = pretrain_models(config(), "cuda")
+    state = create_state(config(), models)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for device_augs in (False, True):
+        cfg = config(device_augs=device_augs, synthetic_size=LOOP_BATCHES * PRETRAIN_BATCH)
+        what = f"{'device' if device_augs else 'host'} augmentation"
+        loader = train_loader(cfg)
+        t0 = time.perf_counter()
+        n_alone = sum(1 for _ in loader)
+        loader_ms = (time.perf_counter() - t0) * 1e3 / n_alone
+        step = make_pretrain_step(cfg, models["pc"], models["img"])
+        marks = []
+
+        def mark(i, metrics):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((time.perf_counter(), ev))
+
+        def steady(n):
+            """(clouds/s, host ms a step, events ms a step) from the end of
+            the first step to the end of the last."""
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - marks[0][0]
+            return (2 * (n - 1) * PRETRAIN_BATCH / wall, wall * 1e3 / (n - 1),
+                    marks[0][1].elapsed_time(end) / (n - 1))
+
+        def prefetched(epoch):
+            marks.clear()
+            loader.set_epoch(epoch)
+            sums, n = run_epoch(step, state, loader, cfg.lr, gen, "cuda", mark, 1)
+            expect(n == LOOP_BATCHES and np.isfinite(float(sums["loss"])),
+                   f"pretrain loop, {what}: {n} steps, loss {float(sums['loss'])}")
+            return steady(n)
+
+        def in_series(epoch):
+            marks.clear()
+            loader.set_epoch(epoch)
+            for i, batch in enumerate(loader):
+                step(state, batch, cfg.lr, gen)
+                mark(i, None)
+            return steady(LOOP_BATCHES)
+
+        runs = [prefetched(1), in_series(2), prefetched(3)]
+        short = train_loader(cfg.replace(synthetic_size=LOOP_PROFILED * PRETRAIN_BATCH))
+        ev = _device_events(lambda: run_epoch(step, state, short, cfg.lr, gen, "cuda"), 1)
+        expect(bool(ev), f"pretrain loop, {what}: the trace has no device activity")
+        busy = sum(e.self_device_time_total for e in ev) / 1e3 / LOOP_PROFILED
+        htod = sum(e.self_device_time_total for e in ev
+                   if "Memcpy HtoD" in e.key) / 1e3 / LOOP_PROFILED
+        htod_n = sum(e.count for e in ev if "Memcpy HtoD" in e.key) / LOOP_PROFILED
+        htod_kinds = ", ".join(sorted({e.key for e in ev if "Memcpy HtoD" in e.key}))
+        ms = (runs[0][2] + runs[2][2]) / 2
+        print(f"  {what}: " + " and ".join(f"{r[0]:.1f}" for r in runs[::2])
+              + " clouds/s (host clock; " + " and ".join(f"{r[1]:.3f}" for r in runs[::2])
+              + f" ms a step; step events {runs[0][2]:.3f} and {runs[2][2]:.3f} ms); no "
+              f"prefetcher (the loader in series, between them): {runs[1][0]:.1f} clouds/s, "
+              f"{runs[1][1]:.3f} ms a step; loader alone {loader_ms:.3f} ms a batch (host); "
+              f"device time {busy:.3f} ms a step, {100.0 * busy / ms:.1f}% busy over the "
+              f"prefetched steps' events; memcpy HtoD {htod:.4f} ms a step ({htod_n:.0f} "
+              f"copies: {htod_kinds})")
+        del loader, step
+    del models, state
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------ ft_cls
@@ -2194,7 +2449,7 @@ def ft_batches(cfg, split: str):
     from vipformer_tpu_torch.data.datasets import ModelNet40SVM
     from vipformer_tpu_torch.data.pipeline import Loader, collate_cls, pad_batch
 
-    ds = ModelNet40SVM(split, cfg.num_ft_points)
+    ds = ModelNet40SVM(cfg.data_dir, split, cfg.num_ft_points)
     if split == "train":
         return list(Loader(ds, cfg.batch_size, collate_cls, shuffle=True, seed=cfg.seed,
                            drop_last=True))
@@ -2568,7 +2823,7 @@ def partseg_batches(cfg, split: str):
     from vipformer_tpu_torch.data.datasets import ShapeNetPart
     from vipformer_tpu_torch.data.pipeline import Loader, collate_partseg, pad_batch
 
-    ds = ShapeNetPart(split, cfg.num_ft_points)
+    ds = ShapeNetPart(cfg.data_dir, split, cfg.num_ft_points)
     if split == "trainval":
         return list(Loader(ds, cfg.batch_size, collate_partseg, shuffle=True, seed=cfg.seed,
                            drop_last=True, num_workers=8))
@@ -3589,7 +3844,7 @@ def semseg_batches(cfg, split: str):
     from vipformer_tpu_torch.data.datasets import S3DIS
     from vipformer_tpu_torch.data.pipeline import Loader, collate_semseg, pad_batch
 
-    ds = _SliceChannels(S3DIS("data", split, cfg.test_area), cfg.point_channels)
+    ds = _SliceChannels(S3DIS(cfg.data_dir, split, cfg.test_area), cfg.point_channels)
     if split == "train":
         return list(Loader(ds, cfg.batch_size, collate_semseg, shuffle=True, seed=cfg.seed,
                            drop_last=True, num_workers=8))
@@ -4094,7 +4349,7 @@ def compare_eval_with_cpu() -> None:
     from vipformer_tpu_torch.train.trainer import make_feats_fn
 
     cfg = config(compute_dtype="float32", num_test_points=NUM_POINTS)
-    splits = [ModelNet40SVM(s, NUM_POINTS) for s in ("train", "test")]
+    splits = [ModelNet40SVM(cfg.data_dir, s, NUM_POINTS) for s in ("train", "test")]
     feats = {}
     for d in ("cuda", "cpu"):
         t0 = time.perf_counter()
@@ -4932,6 +5187,14 @@ def main() -> int:
         time_pretrain_step(batches)
         del batches
         torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        check_device_augs_chain()
+        device_augs_counts: dict = {}
+        drive_device_augs_path(device_augs_counts, pretrain_counts)
+        time_pretrain_loop()
+        torch.cuda.empty_cache()
+        print(f"phases 8a-8c (device augmentation, the pretrain loop) took "
+              f"{time.perf_counter() - t0:.1f} s")
         route_ms: dict = {}
         check_ft_cls_kernels(rec, route_ms)
         torch.cuda.empty_cache()
@@ -5011,7 +5274,8 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi)
-    counts = {"serve": serve_counts, "pretrain": pretrain_counts, "ft_cls": ft_counts,
+    counts = {"serve": serve_counts, "pretrain": pretrain_counts,
+              "pretrain device_augs": device_augs_counts, "ft_cls": ft_counts,
               "ft_cls eval": ft_eval_counts, **partseg_counts, **perceiver_counts,
               **semseg_counts, **eval_counts}
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -197,7 +197,7 @@ def test_datasets_and_padding_match_jax(tmp_path, name):
 
     for split in ("train", "test"):
         want = getattr(jds, name)(str(tmp_path), split, 100)
-        got = getattr(tds, name)(split, 100)
+        got = getattr(tds, name)(str(tmp_path), split, 100)
         assert len(got) == len(want) and got.num_classes == want.num_classes
         idx = [0, 3, len(want) - 1]
         samples_t, samples_j = [got.get(i) for i in idx], [want.get(i) for i in idx]

@@ -292,7 +292,7 @@ def test_shapenetpart_and_collate_match_jax(tmp_path, class_choice):
     sample's generator), and collate_partseg / pad_batch batch it alike."""
     for split in ("trainval", "test"):
         want = jds.ShapeNetPart(str(tmp_path), split, 100, class_choice)
-        got = tds.ShapeNetPart(split, 100, class_choice)
+        got = tds.ShapeNetPart(str(tmp_path), split, 100, class_choice)
         assert len(got) == len(want) and got.seg_num_all == want.seg_num_all
         assert got.seg_start_index == want.seg_start_index
         idx = [0, 1, len(want) - 1]

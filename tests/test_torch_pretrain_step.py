@@ -197,10 +197,12 @@ def test_builders_default_to_the_card():
 
 def test_port_and_chip_smoke_import_no_jax():
     """Importing every module of vipformer_tpu_torch (the ft_cls slice's
-    cli.ft_cls, ops.cuda.dense and losses.classification among them), and
+    cli.ft_cls, ops.cuda.dense and losses.classification, and the data
+    layer's augment_device, ply, pipeline and datasets among them), and
     chip_smoke.py as a module, loads nothing of jax, flax, optax or
-    vipformer_tpu (run in a subprocess: this process has them loaded
-    already)."""
+    vipformer_tpu, and neither PIL nor h5py, which the readers import only
+    where they need them (run in a subprocess: this process has them
+    loaded already)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import vipformer_tpu_torch\n"
@@ -212,9 +214,11 @@ def test_port_and_chip_smoke_import_no_jax():
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'vipformer_tpu'))\n"
         "assert not bad, bad\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in ('PIL', 'h5py')]\n"
         "assert len(names) >= 20, names\n"
         "for name in ('cli.ft_cls', 'cli.common', 'ops.cuda.dense', 'losses.classification',\n"
-        "             'train.meters'):\n"
+        "             'train.meters', 'data.augment_device', 'data.ply', 'data.pipeline',\n"
+        "             'data.datasets'):\n"
         "    assert 'vipformer_tpu_torch.' + name in names, name\n"
         "print('ok', len(names))\n"
     )

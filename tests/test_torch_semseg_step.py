@@ -218,13 +218,17 @@ def test_synthetic_s3dis_and_miou_match_jax():
 
 
 def test_s3dis_hdf5_reader_is_refused(tmp_path):
-    """Where the real blocks' listing exists the port raises (the HDF5
-    reader is not ported) rather than train on the stand-in."""
+    """Where the real blocks' listing exists the port reads the files it
+    lists and never falls back to the stand-in: a listed file that is
+    missing is refused with an error (as the JAX reader's), not replaced
+    by synthetic blocks."""
     root = tmp_path / "indoor3d_sem_seg_hdf5_data"
     root.mkdir()
     (root / "all_files.txt").write_text("ply_data_all_0.h5\n")
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tdatasets.S3DIS(str(tmp_path), "train")
+    (root / "room_filelist.txt").write_text("Area_1_office_1\n")
+    for reader in (tdatasets.S3DIS, jdatasets.S3DIS):
+        with pytest.raises(OSError):
+            reader(str(tmp_path), "train")
 
 
 def test_ft_semseg_cli_runs_on_the_cpu(tmp_path, monkeypatch):
@@ -261,7 +265,6 @@ def test_ft_semseg_cli_runs_on_the_cpu(tmp_path, monkeypatch):
         "'seg_head']" in log
     meta = load_metadata(str(root / "models" / "model_best.ckpt"))
     assert meta["kind"] == "ft_semseg" and meta["epoch"] == out["best_epoch"]
-    for extra in (["--resume_training", "true"], ["--synthetic_data", "false"],
-                  ["--num_devices", "2"]):
+    for extra in (["--resume_training", "true"], ["--num_devices", "2"]):
         with pytest.raises(NotImplementedError, match="ported"):
             ft_semseg.main(*ft_semseg.parse_args(argv + extra))

@@ -62,13 +62,9 @@ def warn_patch_compat(ckpt_path: str, cfg: Config, log) -> None:
             f"{str(bool(want)).lower()} to match its stem (see ops/geometry.py:divide_patches)")
 
 
-def require_synthetic_single_card(cfg: Config) -> None:
-    """ft_cls and the eval CLIs read the synthetic ModelNet40 /
-    ScanObjectNN stand-ins only and run on one card (the HDF5 readers and
-    multi-card runs are ROADMAP Queue 1 items)."""
-    if not cfg.synthetic_data:
-        raise NotImplementedError("only --synthetic_data true is ported: the HDF5 readers of "
-                                  "ModelNet40 / ScanObjectNN come with a later slice (ROADMAP)")
+def require_single_card(cfg: Config) -> None:
+    """The port runs on one card (multi-card runs are ROADMAP Queue 1,
+    item 16)."""
     if cfg.num_devices > 1:
         raise NotImplementedError("multi-card runs are not ported yet (ROADMAP Queue 1, "
                                   "item 16): the port runs on one card")

@@ -12,7 +12,8 @@ Restores the point model (`--fewshot_model pretrain`, the pretrain CLI's
 `model_best`) from `--pc_model_file` (`cli/common.py:restore_eval_model`;
 a missing file leaves the random init with a WARNING), extracts the
 backbone features of the whole `ft_dataset` train split (ModelNet40 or
-ScanObjectNN, the synthetic stand-ins) once, batch by batch at
+ScanObjectNN: the HDF5 split under `--data_dir`, else the synthetic
+stand-in) once, batch by batch at
 `test_batch_size`, then runs `n_runs` K-way N-shot episodes, each a
 linear probe on standardised support features scored on its queries
 (`evaluation/fewshot.py`), and logs "acc: <mean> +/- <std> over <n_runs>
@@ -27,7 +28,7 @@ import argparse
 from vipformer_tpu_torch.cli.common import (
     Run,
     extract_features,
-    require_synthetic_single_card,
+    require_single_card,
     restore_eval_model,
 )
 from vipformer_tpu_torch.config import Config, add_config_args, config_from_namespace
@@ -40,11 +41,11 @@ DATASETS = {"ModelNet40": ModelNet40SVM, "ScanObjectNN": ScanObjectNNSVM}
 
 
 def main(cfg: Config, device: str = "cuda") -> dict:
-    require_synthetic_single_card(cfg)
+    require_single_card(cfg)
     run = Run(cfg)
     run.write(f"fewshot eval on {cfg.ft_dataset}: n_runs={cfg.n_runs} k_way={cfg.k_way} "
               f"n_shot={cfg.n_shot} n_query={cfg.n_query}")
-    pool = DATASETS[cfg.ft_dataset]("train", cfg.num_test_points)
+    pool = DATASETS[cfg.ft_dataset](cfg.data_dir, "train", cfg.num_test_points)
     if cfg.fewshot_model == "ft":
         model = build_ft_cls(cfg, device=device)  # the finetuned model's backbone features
     else:

@@ -12,7 +12,8 @@ logs its complexity (parameters, and the FLOPs of one forward at
 `test_batch_size` clouds of `num_test_points`: `evaluation/flops.py`,
 which counts the matmul family where the JAX CLI reports XLA's cost
 model), extracts the backbone features of the `pt_dataset` train and test
-splits (the synthetic stand-ins), then fits the reference protocol's three
+splits (the HDF5 splits under `--data_dir`, else the synthetic
+stand-ins), then fits the reference protocol's three
 probes on the train features and scores them on the test features: the
 linear SVM (C = `svm_coff`), the RBF SVM and the {linear, rbf} x C grid
 search with 3-fold cross-validation (`evaluation/svm.py`), each logged
@@ -30,7 +31,7 @@ import torch
 from vipformer_tpu_torch.cli.common import (
     Run,
     extract_features,
-    require_synthetic_single_card,
+    require_single_card,
     restore_eval_model,
 )
 from vipformer_tpu_torch.cli.eval_fewshot import DATASETS
@@ -42,10 +43,11 @@ from vipformer_tpu_torch.train.trainer import make_feats_fn
 
 
 def main(cfg: Config, device: str = "cuda") -> dict:
-    require_synthetic_single_card(cfg)
+    require_single_card(cfg)
     run = Run(cfg)
     ds = DATASETS[cfg.pt_dataset]
-    train_set, test_set = ds("train", cfg.num_test_points), ds("test", cfg.num_test_points)
+    train_set = ds(cfg.data_dir, "train", cfg.num_test_points)
+    test_set = ds(cfg.data_dir, "test", cfg.num_test_points)
     model = build_pc_model(cfg, device=device)
     restore_eval_model(model, cfg, run)
 

@@ -14,16 +14,16 @@ decoder). With `--resume true` the backbone (stem and encoder, as the JAX
 CLI lists them: a Perceiver's encoder, its input adapter stays fresh)
 comes from the pretrain checkpoint that `cli.pretrain` writes (`train/checkpoint.py:
 restore_backbone` logs what it took and what stayed fresh). Each epoch runs
-`make_cls_step` over the shuffled synthetic training split at the epoch's
+`make_cls_step` over the shuffled training split (the HDF5 split
+under `--data_dir`, else the synthetic stand-in) at the epoch's
 learning rate, evaluates the test split at `test_batch_size` (the last
 batch padded, its padding masked out), writes one line to
 `<run_dir>/<proj_name>/<exp_name>/metrics.jsonl` and saves
 `models/model_best.ckpt` on a new best test accuracy. `--eval_only` loads
 `model_best` and reports its test accuracy.
 
-Not ported yet (each raises or is logged): the HDF5 readers of the real
-ModelNet40 / ScanObjectNN (only `--synthetic_data true`),
-`--resume_training`, `--dump_feats`, wandb and multi-card runs.
+Not ported yet (each raises or is logged): `--resume_training`,
+`--dump_feats`, wandb and multi-card runs.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ import time
 
 import torch
 
-from vipformer_tpu_torch.cli.common import Run, require_synthetic_single_card
+from vipformer_tpu_torch.cli.common import Run, require_single_card
 from vipformer_tpu_torch.config import Config, add_config_args, config_from_namespace
 from vipformer_tpu_torch.data.datasets import ModelNet40SVM, ScanObjectNNSVM
 from vipformer_tpu_torch.data.pipeline import Loader, collate_cls, pad_batch
@@ -51,7 +51,7 @@ from vipformer_tpu_torch.train.trainer import create_state, make_cls_eval, make_
 
 def datasets(cfg: Config):
     ds = {"ModelNet40": ModelNet40SVM, "ScanObjectNN": ScanObjectNNSVM}[cfg.ft_dataset]
-    return ds("train", cfg.num_ft_points), ds("test", cfg.num_ft_points)
+    return ds(cfg.data_dir, "train", cfg.num_ft_points), ds(cfg.data_dir, "test", cfg.num_ft_points)
 
 
 def evaluate(eval_step, test_set, batch_size: int) -> float:
@@ -67,7 +67,7 @@ def evaluate(eval_step, test_set, batch_size: int) -> float:
 
 
 def _not_ported(cfg: Config) -> None:
-    require_synthetic_single_card(cfg)
+    require_single_card(cfg)
     for flag in ("resume_training", "dump_feats"):
         if getattr(cfg, flag):
             raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP Queue 1)")
@@ -90,7 +90,7 @@ def main(cfg: Config, device: str = "cuda") -> dict:
     state = create_state(cfg, {"pc": model})
     step = make_cls_step(cfg, model)
     eval_step = make_cls_eval(model)
-    run.write(f"ft_cls on {device}: {cfg.ft_dataset} (synthetic) {len(train_set)} train / "
+    run.write(f"ft_cls on {device}: {cfg.ft_dataset} {len(train_set)} train / "
               f"{len(test_set)} test clouds of {cfg.num_ft_points} points, {len(train_loader)} "
               f"batches of {cfg.batch_size}, {cfg.compute_dtype}")
 

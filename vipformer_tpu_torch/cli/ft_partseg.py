@@ -17,14 +17,14 @@ global norm 10 unless `--grad_clip_norm` says otherwise (reference
 ft_partseg.py:175). With `--resume true` the stem and the encoder come
 from the pretrain checkpoint that `cli.pretrain` writes, and a WARNING is
 logged when its recorded `patch_compat` differs from the flag. Each epoch
-runs `make_partseg_step` over the shuffled synthetic trainval split,
+runs `make_partseg_step` over the shuffled trainval split (the HDF5
+files under `--data_dir`, else the synthetic stand-in),
 evaluates the test split at `test_batch_size` (the last batch padded, its
 padding masked out of the metrics), writes one line to
 `<run_dir>/<proj_name>/<exp_name>/metrics.jsonl` and saves
 `models/model_best.ckpt` on a new best mean category IoU.
 
-Not ported yet (each raises or is logged): the HDF5 reader of the real
-ShapeNetPart (only `--synthetic_data true`), `--resume_training`, wandb
+Not ported yet (each raises or is logged): `--resume_training`, wandb
 and multi-card runs.
 """
 
@@ -65,9 +65,6 @@ def evaluate(eval_step, test_set, batch_size: int) -> dict:
 
 
 def _not_ported(cfg: Config) -> None:
-    if not cfg.synthetic_data:
-        raise NotImplementedError("only --synthetic_data true is ported: the HDF5 reader of "
-                                  "ShapeNetPart comes with a later slice (ROADMAP)")
     if cfg.resume_training:
         raise NotImplementedError("--resume_training is not ported yet (ROADMAP Queue 1)")
     if cfg.num_devices > 1:
@@ -82,8 +79,8 @@ def main(cfg: Config, device: str = "cuda") -> dict:
     run = Run(cfg)
     if cfg.wandb:
         run.write("wandb is not ported: metrics.jsonl is the only metrics channel")
-    train_set = ShapeNetPart("trainval", cfg.num_ft_points, cfg.class_choice)
-    test_set = ShapeNetPart("test", cfg.num_ft_points, cfg.class_choice)
+    train_set = ShapeNetPart(cfg.data_dir, "trainval", cfg.num_ft_points, cfg.class_choice)
+    test_set = ShapeNetPart(cfg.data_dir, "test", cfg.num_ft_points, cfg.class_choice)
     train_loader = Loader(train_set, cfg.batch_size, collate_partseg, shuffle=True,
                           seed=cfg.seed, drop_last=True, num_workers=cfg.num_workers)
     model = build_ft_partseg(cfg, device=device)
@@ -96,7 +93,7 @@ def main(cfg: Config, device: str = "cuda") -> dict:
     state = create_state(cfg, {"pc": model})
     step = make_partseg_step(cfg, model)
     eval_step = make_partseg_eval(model)
-    run.write(f"ft_partseg on {device}: ShapeNetPart (synthetic) {len(train_set)} trainval / "
+    run.write(f"ft_partseg on {device}: ShapeNetPart {len(train_set)} trainval / "
               f"{len(test_set)} test clouds of {cfg.num_ft_points} points, {len(train_loader)} "
               f"batches of {cfg.batch_size}, {cfg.compute_dtype}, patch_compat "
               f"{cfg.patch_compat}, grad clip {cfg.grad_clip_norm}")

@@ -17,13 +17,14 @@ vipformer_tpu/cli/ft_semseg.py), on the card by default.
 `--resume true` the encoder comes from the pretrain checkpoint that
 `cli.pretrain` writes (the stem stays fresh: the pretrain stem takes 3
 channels, semseg's 6), as JAX ft_semseg.py:66-75 restores it. Each epoch
-runs `make_semseg_step` over the shuffled synthetic train split, evaluates
+runs `make_semseg_step` over the shuffled train split (the HDF5 blocks
+under `--data_dir` with Area `test_area` held out, else the synthetic
+stand-in), evaluates
 the test split at `test_batch_size` (the last batch padded, its padding
 masked out), writes one line to `<run_dir>/<proj_name>/<exp_name>/
 metrics.jsonl` and saves `models/model_best.ckpt` on a new best mIoU.
 
-Not ported yet (each raises or is logged): the HDF5 reader of the real
-S3DIS blocks (only `--synthetic_data true`), `--resume_training`, wandb and
+Not ported yet (each raises or is logged): `--resume_training`, wandb and
 multi-card runs.
 """
 
@@ -79,9 +80,6 @@ def evaluate(eval_step, test_set, batch_size: int) -> dict:
 
 
 def _not_ported(cfg: Config) -> None:
-    if not cfg.synthetic_data:
-        raise NotImplementedError("only --synthetic_data true is ported: the HDF5 reader of "
-                                  "S3DIS comes with a later slice (ROADMAP Queue 1, item 18)")
     if cfg.resume_training:
         raise NotImplementedError("--resume_training is not ported yet (ROADMAP Queue 1)")
     if cfg.num_devices > 1:
@@ -109,7 +107,7 @@ def main(cfg: Config, device: str = "cuda") -> dict:
     state = create_state(cfg, {"pc": model})
     step = make_semseg_step(cfg, model)
     eval_step = make_semseg_eval(model)
-    run.write(f"ft_semseg on {device}: S3DIS (synthetic) {len(train_set)} train / "
+    run.write(f"ft_semseg on {device}: S3DIS {len(train_set)} train / "
               f"{len(test_set)} test blocks of 4096 points x {pc} channels, "
               f"{len(train_loader)} batches of {cfg.batch_size}, {cfg.compute_dtype}")
 

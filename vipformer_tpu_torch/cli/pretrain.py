@@ -10,19 +10,25 @@ vipformer_tpu/cli/pretrain.py), on the card by default.
 The flags are the JAX package's (`vipformer_tpu_torch.config`), plus
 `--device`; `--mp false` trains the generic Perceiver family (the point
 branch over the per-point adapter, the image branch over the Fourier pixel
-adapter, `--num_frequency_bands`). Each epoch runs `make_pretrain_step`
-over the shuffled synthetic ShapeNetRender set, then the linear SVM probe
-(JAX cli/pretrain.py:183-202): the point branch's eval features of the
-`pt_dataset` probe's train and test splits (synthetic ModelNet40 or
-ScanObjectNN, `num_test_points` points, batches of `test_batch_size`), an
-SVM fitted on the train split (`fit_svm`, C = `svm_coff`) and scored on
-the test split. On a new best test accuracy it saves
+adapter, `--num_frequency_bands`). The sets come from `--data_dir` where
+their files are (ShapeNet PLY clouds and PNG renderings; the probe's HDF5
+splits), else from the synthetic stand-ins. Each epoch runs
+`make_pretrain_step` over the shuffled ShapeNetRender set through
+`prefetch_to_device` (batches assembled ahead, copied from pinned buffers
+on a side stream); with `--device_augs true` the loader ships the raw
+clouds and uint8 images and the step augments them on the card
+(`data/augment_device.py`). Then the linear SVM probe (JAX
+cli/pretrain.py:183-202): the point branch's eval features of the
+`pt_dataset` probe's train and test splits (ModelNet40 or ScanObjectNN,
+`num_test_points` points, batches of `test_batch_size`), an SVM fitted on
+the train split (`fit_svm`, C = `svm_coff`) and scored on the test
+split. On a new best test accuracy it saves
 `models/pc_model_best.ckpt` and `models/img_model_best.ckpt`
 (train/checkpoint.py) with {"epoch", "svm_test_acc", "kind"}. Each epoch
 writes one JSON line to `<run_dir>/<proj_name>/<exp_name>/metrics.jsonl`
 (losses, svm_test_acc, svm_best_acc, times) beside a log file and the
-resolved `config.json`. Not ported yet: the real ShapeNet reader,
-`--resume`, `--device_augs`, wandb and multi-card runs.
+resolved `config.json`. Not ported yet: `--resume`, wandb and multi-card
+runs.
 """
 
 from __future__ import annotations
@@ -35,7 +41,12 @@ import torch
 from vipformer_tpu_torch.cli.common import Run, extract_features
 from vipformer_tpu_torch.config import Config, add_config_args, config_from_namespace
 from vipformer_tpu_torch.data.datasets import ModelNet40SVM, ScanObjectNNSVM, ShapeNetRender
-from vipformer_tpu_torch.data.pipeline import Loader, collate_pretrain
+from vipformer_tpu_torch.data.pipeline import (
+    Loader,
+    collate_pretrain,
+    collate_pretrain_raw,
+    prefetch_to_device,
+)
 from vipformer_tpu_torch.evaluation.svm import fit_svm
 from vipformer_tpu_torch.models.factory import build_img_model, build_pc_model
 from vipformer_tpu_torch.train.checkpoint import save_checkpoint
@@ -47,13 +58,40 @@ def probe_sets(cfg: Config):
     """The SVM probe's (train, test) splits of `pt_dataset` (JAX
     cli/pretrain.py:49-55)."""
     ds_cls = {"ModelNet40": ModelNet40SVM, "ScanObjectNN": ScanObjectNNSVM}[cfg.pt_dataset]
-    return ds_cls("train", cfg.num_test_points), ds_cls("test", cfg.num_test_points)
+    return (ds_cls(cfg.data_dir, "train", cfg.num_test_points),
+            ds_cls(cfg.data_dir, "test", cfg.num_test_points))
+
+
+def train_loader(cfg: Config) -> Loader:
+    """The shuffled ShapeNetRender batches of the pretrain loop (JAX
+    cli/pretrain.py:62-72): raw clouds and uint8 images with
+    `device_augs`, host-augmented views otherwise."""
+    train_set = ShapeNetRender(cfg.data_dir, cfg.img_height, cfg.img_width, cfg.num_pt_points,
+                               synthetic_size=cfg.synthetic_size, raw_views=cfg.device_augs)
+    return Loader(train_set, cfg.batch_size,
+                  collate_pretrain_raw if cfg.device_augs else collate_pretrain, shuffle=True,
+                  seed=cfg.seed, drop_last=True, num_workers=cfg.num_workers)
+
+
+def run_epoch(step, state, loader: Loader, lr: float, generator, device, log=None,
+              print_freq: int = 0) -> tuple[dict, int]:
+    """One epoch of the pretrain loop: every batch of `loader`, through
+    `prefetch_to_device`, one step each. Returns (the metrics' sums, on the
+    device; the number of steps). `log(i, metrics)` runs every
+    `print_freq` steps."""
+    sums = {k: torch.zeros((), device=device) for k in ("loss", "loss_imid", "loss_cmid")}
+    n = 0
+    for i, batch in enumerate(prefetch_to_device(iter(loader), device)):
+        state, metrics = step(state, batch, lr, generator)
+        for k in sums:
+            sums[k] += metrics[k]
+        n += 1
+        if log is not None and print_freq and i % print_freq == 0:
+            log(i, metrics)
+    return sums, n
 
 
 def main(cfg: Config, device: str = "cuda") -> dict:
-    if not cfg.synthetic_data:
-        raise NotImplementedError("only --synthetic_data true is ported: the real ShapeNet "
-                                  "reader comes with a later slice (ROADMAP Queue 1)")
     if cfg.resume:
         raise NotImplementedError("--resume is not ported yet (ROADMAP Queue 1)")
     if cfg.num_devices > 1:
@@ -64,10 +102,8 @@ def main(cfg: Config, device: str = "cuda") -> dict:
     run = Run(cfg)
     if cfg.wandb:
         run.write("wandb is not ported: metrics.jsonl is the only metrics channel")
-    train_set = ShapeNetRender(cfg.img_height, cfg.img_width, cfg.num_pt_points,
-                               synthetic_size=cfg.synthetic_size)
-    loader = Loader(train_set, cfg.batch_size, collate_pretrain, shuffle=True, seed=cfg.seed,
-                    drop_last=True, num_workers=cfg.num_workers)
+    loader = train_loader(cfg)
+    train_set = loader.dataset
     probe_train, probe_test = probe_sets(cfg)
     models = {"pc": build_pc_model(cfg, device=device)}
     if cfg.modality != "imc-only":
@@ -77,27 +113,25 @@ def main(cfg: Config, device: str = "cuda") -> dict:
     feats_fn = make_feats_fn(models["pc"])
     schedule = Schedule(cfg)
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
-    run.write(f"pretrain on {device}: {len(train_set)} synthetic samples, {len(loader)} "
-              f"batches of {cfg.batch_size}, modality {cfg.modality}, {cfg.compute_dtype}; "
-              f"probe: {cfg.pt_dataset} (synthetic) {len(probe_train)}/{len(probe_test)}")
+    kind = "synthetic" if train_set.synthetic else "real"
+    run.write(f"pretrain on {device}: {len(train_set)} {kind} samples, {len(loader)} "
+              f"batches of {cfg.batch_size}, modality {cfg.modality}, {cfg.compute_dtype}, "
+              f"{'device' if cfg.device_augs else 'host'} augmentation; "
+              f"probe: {cfg.pt_dataset} {len(probe_train)}/{len(probe_test)}")
 
     best_acc, best_epoch, epoch_loss = 0.0, -1, None
     for epoch in range(cfg.epochs):
         lr = schedule.lr(epoch, epoch_loss)
         loader.set_epoch(epoch)
-        sums = {k: torch.zeros((), device=device) for k in ("loss", "loss_imid", "loss_cmid")}
         t0 = time.perf_counter()
-        n = 0
-        for i, batch in enumerate(loader):
-            state, metrics = step(state, batch, lr, generator)
-            for k in sums:
-                sums[k] += metrics[k]
-            n += 1
-            if i % cfg.print_freq == 0:
-                run.write(f"epoch {epoch}/{cfg.epochs} batch {i}/{len(loader)} <{cfg.modality}> "
-                          f"imid {float(metrics['loss_imid']):.4f} "
-                          f"cmid {float(metrics['loss_cmid']):.4f} "
-                          f"total {float(metrics['loss']):.4f}")
+
+        def log(i, metrics, epoch=epoch):
+            run.write(f"epoch {epoch}/{cfg.epochs} batch {i}/{len(loader)} <{cfg.modality}> "
+                      f"imid {float(metrics['loss_imid']):.4f} "
+                      f"cmid {float(metrics['loss_cmid']):.4f} "
+                      f"total {float(metrics['loss']):.4f}")
+
+        sums, n = run_epoch(step, state, loader, lr, generator, device, log, cfg.print_freq)
         means = {k: float(v) / max(n, 1) for k, v in sums.items()}  # waits for the card
         train_time = time.perf_counter() - t0
         epoch_loss = means["loss"]

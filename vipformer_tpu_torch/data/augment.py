@@ -6,6 +6,9 @@ is replayable from its seed.
 
 from __future__ import annotations
 
+import functools
+import math
+
 import numpy as np
 
 
@@ -132,6 +135,62 @@ def pretrain_transform(
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
+
+_PRECISION_BITS = 22  # PIL's fixed point for 8-bit images (32 - 8 - 2)
+
+
+@functools.lru_cache(maxsize=64)
+def _bilinear_taps(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarray]:
+    """PIL's BILINEAR coefficients along one axis (Resample.c
+    `precompute_coeffs`, then `normalize_coeffs_8bpc`): output pixel i
+    reads inputs idx[i, j] with integer weights w[i, j] (fixed point,
+    2^22 = 1). The triangle's support widens by the scale where it
+    shrinks; each row's weights are normalised to 1 before rounding."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = filterscale  # the triangle's support is 1
+    ksize = int(math.ceil(support)) * 2 + 1
+    idx = np.zeros((out_size, ksize), dtype=np.int64)
+    w = np.zeros((out_size, ksize), dtype=np.int32)
+    for i in range(out_size):
+        center = (i + 0.5) * scale
+        lo = max(int(center - support + 0.5), 0)
+        hi = min(int(center + support + 0.5), in_size)
+        x = np.arange(lo, hi)
+        k = np.maximum(1.0 - np.abs((x - center + 0.5) / filterscale), 0.0)
+        if k.sum() != 0.0:
+            k = k / k.sum()
+        idx[i, :len(x)] = x
+        w[i, :len(x)] = np.trunc(np.where(k < 0, -0.5, 0.5) + k * (1 << _PRECISION_BITS))
+    keep = (w != 0).any(axis=0)  # a tap no output pixel weighs (where it grows)
+    return idx[:, keep], w[:, keep]
+
+
+def _resample_rows(x: np.ndarray, out_size: int) -> np.ndarray:
+    """One 8-bit pass of PIL's separable resampling along the rows of x
+    [in, M] uint8 -> [out_size, M] uint8: a sum of integer products (int32,
+    as PIL's) from a half, shifted down and clipped to [0, 255]."""
+    idx, w = _bilinear_taps(x.shape[0], out_size)
+    acc = np.full((out_size, x.shape[1]), 1 << (_PRECISION_BITS - 1), dtype=np.int32)
+    for j in range(idx.shape[1]):
+        acc += x[idx[:, j]] * w[:, j, None]
+    return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+
+
+def resize_bilinear_u8(img: np.ndarray, height: int, width: int) -> np.ndarray:
+    """[H, W, C] uint8 -> [height, width, C] uint8 as PIL's
+    `Image.resize((width, height), Image.BILINEAR)` computes it, without
+    PIL: the width pass first into an 8-bit image, then the height pass,
+    each skipped where that side keeps its size."""
+    img = np.asarray(img, dtype=np.uint8)
+    h, w, c = img.shape
+    if w != width:
+        cols = _resample_rows(np.ascontiguousarray(img.transpose(1, 0, 2)).reshape(w, h * c),
+                              width)
+        img = cols.reshape(width, h, c).transpose(1, 0, 2)
+    if h != height:
+        img = _resample_rows(np.ascontiguousarray(img).reshape(h, -1), height)
+    return np.ascontiguousarray(img).reshape(height, width, c)
 
 
 def _resize_bilinear(img: np.ndarray, h: int, w: int) -> np.ndarray:

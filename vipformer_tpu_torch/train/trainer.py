@@ -27,6 +27,10 @@ import torch
 from torch import nn
 
 from vipformer_tpu_torch.config import Config
+from vipformer_tpu_torch.data.augment_device import (
+    pretrain_two_views,
+    random_image_chain,
+)
 from vipformer_tpu_torch.data.synthetic import INDEX_START, SEG_NUM
 from vipformer_tpu_torch.losses.classification import smoothed_cross_entropy
 from vipformer_tpu_torch.losses.contrastive import nt_xent_grouped
@@ -81,16 +85,18 @@ def make_pretrain_step(cfg: Config, pc_model: nn.Module, img_model: nn.Module | 
     """Returns step(state, batch, lr, generator=None) -> (state, metrics).
 
     batch: {"pc_t1", "pc_t2": [B, N, 3], "imgs": [B, H, W, 3]} as numpy
-    arrays or tensors (moved to the point branch's device). `generator`
-    draws FPS's random starts and every dropout / DropPath mask; without
-    one FPS starts at 0 and every dropout rate must be 0. Metrics (loss,
+    arrays or tensors (moved to the point branch's device). With
+    `cfg.device_augs` (JAX trainer.py:143-157) it is {"pc_raw": [B, N, 3],
+    "imgs": [B, H, W, 3] uint8}: both point views come from
+    `pretrain_two_views` on the device and, where the images have an
+    integer dtype, the image chain runs there too, in f32 (the model casts
+    after), their draws taken from `generator` before the model's.
+    `generator` draws FPS's random starts and every dropout / DropPath
+    mask; without one FPS starts at 0 and every dropout rate must be 0
+    (and `device_augs`, which draws from it, raises). Metrics (loss,
     loss_imid, loss_cmid) stay on the device, so the step does not wait
     for the card.
     """
-    if cfg.device_augs:
-        raise NotImplementedError(
-            "--device_augs (on-device augmentation, data/augment_device.py) is not "
-            "ported yet (ROADMAP Queue 1)")
     modality = cfg.modality
     groups = 1 if cfg.global_negatives else neg_groups
     use_img = modality != "imc-only"
@@ -99,8 +105,23 @@ def make_pretrain_step(cfg: Config, pc_model: nn.Module, img_model: nn.Module | 
     models = [pc_model] + ([img_model] if use_img else [])
     device = next(pc_model.parameters()).device
 
+    def views(batch, generator):
+        """(view 1, view 2) on the device in f32, and the images (the
+        chain's f32 output where it runs, else as the batch holds them)."""
+        imgs = batch.get("imgs")
+        if not cfg.device_augs:
+            return _on(batch["pc_t1"], device), _on(batch["pc_t2"], device), imgs
+        if generator is None:
+            raise ValueError("--device_augs draws the augmentations from the step's generator")
+        t1, t2 = pretrain_two_views(_on(batch["pc_raw"], device), generator)
+        if imgs is not None:
+            imgs = torch.as_tensor(imgs, device=device)
+            if not imgs.is_floating_point():
+                imgs = random_image_chain(imgs, generator)
+        return t1, t2, imgs
+
     def loss_fn(batch, generator):
-        t1, t2 = _on(batch["pc_t1"], device), _on(batch["pc_t2"], device)
+        t1, t2, imgs = views(batch, generator)
         b = t1.shape[0]
         pc_proj, _ = pc_model(torch.cat([t1, t2], dim=0), generator)
         z1, z2 = pc_proj[:b], pc_proj[b:]
@@ -108,7 +129,7 @@ def make_pretrain_step(cfg: Config, pc_model: nn.Module, img_model: nn.Module | 
         loss_imid = nt_xent_grouped(z1, z2, groups) if modality != "cmc-only" else zero
         loss_cmid = zero
         if use_img:
-            img_proj, _ = img_model(_on(batch["imgs"], device), generator)
+            img_proj, _ = img_model(_on(imgs, device), generator)
             loss_cmid = nt_xent_grouped((z1 + z2) / 2.0, img_proj, groups)
         total = loss_imid + cfg.cmid_weight * loss_cmid
         return total, {"loss": total, "loss_imid": loss_imid, "loss_cmid": loss_cmid}
