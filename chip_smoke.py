@@ -200,9 +200,11 @@ goes on):
      semseg's four decode shapes [131,072, 1536 / 1024 / 512 / 256] and
      partseg's [98,304, 1536], and K17 (LayerNorm forward and backward) at
      [4,096, 384], [131,072, 64] and the Fourier tokens' [995,328, 261],
-     against their twins (column sums against their channel's sum of
-     magnitudes, K18's statistics and gradient reduces and K17's backward
-     bitwise equal between two runs), K18 timed at every one of those
+     and K17's forward at LN_EDGE_SHAPES (row counts off a block's rows,
+     vector-1 widths beside vector-8 ones), against their twins (column
+     sums against their channel's sum of magnitudes, K18's statistics and
+     gradient reduces and K17's forward and backward bitwise equal between
+     two runs), K18 timed at every one of those
      shapes and K17 at each, on device time beside var_mean,
      native_batch_norm_backward and F.layer_norm forward and backward, the
      event times beside;
@@ -271,7 +273,9 @@ with `git archive` into a directory that .gitignore lists):
 times both in turns, PAIRS pairs (10 by default), each sample in its own
 process: the host time of a K5, K6, K8 forward and K11 wrapper call (with
 the card idle and busy; K6's and K8's device time beside), K8's backward
-at B = 96 and 330, K17's and K18's backward (device time), K7's forward
+at B = 96 and 330, K17's and K18's backward (device time), K17's forward
+at LN_SHAPES and K12's forward at the compat stem's gather (device
+time), K7's forward
 and backward at the pretrain point shape (events and device time) and at
 the ft_cls step's (the backward's events, the forward's device time), K10
 at the pretrain, ft_cls and semseg points (device time), K3 and K4 at
@@ -282,8 +286,8 @@ there, K16 at [64, 1,024], [160, 1,024] and [32, 4,096] and K15 at [64,
 B = 32 and 64, the Perceiver point features at 512 latents (B = 64,
 events), the ft_cls step and eval forward at B = 330,
 with their kernels' device time, the pretrain step (with its kernels'), the partseg step, the
-semseg step with K17 and K18 forced, and one eval_zeroshot run (host
-clock).
+semseg step with K17 and K18 forced (with its kernels' device time), and
+one eval_zeroshot run (host clock).
 
 The bf16 K9's backward against its twin run in f32 and in f64 between the
 bf16 rounding points, at the card tests' shapes and data (three seeds
@@ -345,8 +349,9 @@ PARTSEG_DENSE_SITES = {(3, 64): 1, (64, 384): 1, (1024, 512): 1, (512, 256): 1, 
 PERCEIVER_FEATS_BATCH = 64
 PERCEIVER_WIDE_LATENTS = 512
 PERCEIVER_DENSE_PER_STEP = 40
-# K12 beside the compat stem's gather: a K off 128-row tiles, and C=128
-GATHER_CASES = ((8, 1024, 128, 1000), (3, 300, 5, 77))
+# K12 beside the compat stem's gather: K off 128-row tiles and off a
+# warp's run (a short last run), and C=128 (runs of 8 rows in f32)
+GATHER_CASES = ((8, 1024, 128, 1000), (3, 300, 5, 77), (5, 700, 16, 300))
 # semantic segmentation (scripts/finetune/ft-semseg.sh): B=32 clouds of
 # 4,096 xyz+rgb points, so the decode runs over 131,072 point rows
 SEMSEG_BATCH = 32
@@ -364,6 +369,11 @@ LN_SHAPES = ((SEMSEG_BATCH * 128, 384, ("float32", "bfloat16")),
              (SEMSEG_ROWS, 64, ("float32", "bfloat16")),
              (48 * 144 * 144, 261, ("bfloat16",)))
 LN_TIMED = (SEMSEG_BATCH * 128, 384)  # the JSON line's K17 times: the latents' LayerNorms
+# K17's forward off the driven shapes: row counts that are not a multiple
+# of a block's rows (16 at D = 384 bf16, 32 at 64), an odd width (one
+# column a vector) beside 384 (eight), the JAX gate's widest bf16 and the
+# kernel's widest
+LN_EDGE_SHAPES = ((4097, 384), (4097, 383), (131075, 64), (1000, 1638), (7, 2048))
 # K11's sites in one semseg step at B=32 (131,072 point rows): the input
 # adapter's 6->64 and 64->384, SegHead's 1024->512 (its per-point segment),
 # 512->256 and 256->13; the latent Denses (4,096 rows), FeaturePropagation
@@ -3566,10 +3576,12 @@ def check_norm_kernels(rec: Recorder) -> None:
     """K18's statistics and gradient reduces and K17's forward and backward
     against their twins on the card, each timed with CUDA events beside
     its twin, its bound and one PyTorch call (torch.var_mean,
-    native_batch_norm_backward, F.layer_norm forward and backward). Column
-    sums within COLSUM_TOL of their channel's sum of magnitudes; y and dx
-    within KERNEL_TOL of the twin's own max; K18's statistics bitwise equal
-    between two runs."""
+    native_batch_norm_backward, F.layer_norm forward and backward), K17's
+    forward also beside a copy of its input's bytes. Column sums within
+    COLSUM_TOL of their channel's sum of magnitudes; y, mu, rsig and dx
+    within KERNEL_TOL of the twin's own max; K18's statistics and K17's
+    forward bitwise equal between two runs; K17's forward also at
+    LN_EDGE_SHAPES."""
     import torch.nn.functional as F
 
     from vipformer_tpu_torch.ops import cuda as kcuda
@@ -3635,14 +3647,7 @@ def check_norm_kernels(rec: Recorder) -> None:
             x, dy = t((r, d), dt, 2.0, 0.5), t((r, d), dt)
             s, b = t((d,), scale_=0.2, shift=1.0), t((d,), scale_=0.1)
             what = f"[{r},{d}] {dt_name}"
-            y_k, mu_k, rs_k = kln.ln_fwd(x, s, b)
-            y_p, mu_p, rs_p = kln.ln_fwd_plain(x, s, b)
-            rec.check("layernorm_fwd", what + " y", *rel_err(y_k, y_p, OWN_SCALE),
-                      KERNEL_TOL[dt_name])
-            rec.check("layernorm_fwd", what + " mu", *rel_err(mu_k, mu_p, OWN_SCALE),
-                      KERNEL_TOL["float32"])
-            rec.check("layernorm_fwd", what + " rsig", *rel_err(rs_k, rs_p, OWN_SCALE),
-                      KERNEL_TOL["float32"])
+            (y_k, mu_k, rs_k), (_, mu_p, rs_p) = check_ln_fwd(rec, kln, x, s, b, what)
             dx_k, ds_k, db_k = kln.ln_bwd(x, dy, mu_p, rs_p, s)
             dx_p, ds_p, db_p = kln.ln_bwd_plain(x, dy, mu_p, rs_p, s)
             again = kln.ln_bwd(x, dy, mu_p, rs_p, s)
@@ -3678,9 +3683,36 @@ def check_norm_kernels(rec: Recorder) -> None:
                 for way, call in calls.items():
                     _device_timing(rec, f"layernorm_{way}", shape, *call,
                                    keep=(r, d) == LN_TIMED)
-                del xg, yl
-            del x, dy, y_k, y_p, dx_k, dx_p
+                # the floor at this size: a copy of the same bytes
+                yc = torch.empty_like(x)
+                print(f"  {'layernorm_fwd':18s} {shape:34s} the same bytes copied (yc.copy_(x)): "
+                      f"device time {queued_ms(lambda: yc.copy_(x), 'copy'):.4f} ms")
+                del xg, yl, yc
+            del x, dy, y_k, dx_k, dx_p
         torch.cuda.empty_cache()
+    for r, d in LN_EDGE_SHAPES:
+        for dt_name in ("float32", "bfloat16"):
+            x = t((r, d), getattr(torch, dt_name), 2.0, 0.5)
+            s, b = t((d,), scale_=0.2, shift=1.0), t((d,), scale_=0.1)
+            lanes, vec, nv, rows, staged = kln.fwd_plan(d, x.element_size(), x.data_ptr())
+            check_ln_fwd(rec, kln, x, s, b, f"[{r},{d}] {dt_name} ({'staged, ' * staged}"
+                         f"{lanes} lanes x {nv} vectors of {vec}, {rows} rows a block)")
+            del x
+
+
+def check_ln_fwd(rec: Recorder, kln, x, s, b, what: str):
+    """K17's forward against its twin (y, mu, rsig within KERNEL_TOL of the
+    twin's own max) and bitwise equal between two runs; returns the
+    kernel's (y, mu, rsig) and the twin's."""
+    got = kln.ln_fwd(x, s, b)
+    want = kln.ln_fwd_plain(x, s, b)
+    expect(all(torch.equal(a, c) for a, c in zip(got, kln.ln_fwd(x, s, b))),
+           f"K17 forward {what}: two runs differ")
+    for name, k, p, tol in zip(("y", "mu", "rsig"), got, want,
+                               (KERNEL_TOL[str(x.dtype).removeprefix("torch.")],
+                                KERNEL_TOL["float32"], KERNEL_TOL["float32"])):
+        rec.check("layernorm_fwd", f"{what} {name}", *rel_err(k, p, OWN_SCALE), tol)
+    return got, want
 
 
 def semseg_config(**over):
@@ -4645,7 +4677,9 @@ def time_tree(root: str) -> dict:
     time), the pretrain step at B = 48 (with its kernels', K1's and K2's
     device time and the K2 wrapper's host time a call), the partseg step
     at B = 96, the semseg step at B = 32 with K17 and K18 forced (events
-    over TIMED_STEPS steps; the K2 wrapper's host time) and one
+    over TIMED_STEPS steps; the K2 wrapper's host time; its kernels' and
+    K17's forward's device time a step), K17's forward at LN_SHAPES and
+    K12's forward at the compat stem's gather (device time), and one
     eval_zeroshot run."""
     sys.path.insert(0, root)
     from vipformer_tpu_torch.models.crossformer import init_weights
@@ -4751,6 +4785,19 @@ def time_tree(root: str) -> dict:
         _, mu17, rs17 = kln.ln_fwd(x17, s17, torch.zeros(d, device="cuda"))
         out["K17 bwd device ms"] = queued_ms(lambda: kln.ln_bwd(x17, dy17, mu17, rs17, s17),
                                              "K17 backward")
+        # K17's forward at each of LN_SHAPES, bf16
+        for r, d, _ in LN_SHAPES:
+            xf = torch.randn((r, d), generator=gen, **bf)
+            sf, bf_ = torch.ones(d, device="cuda"), torch.zeros(d, device="cuda")
+            out[f"K17 fwd [{r},{d}] device ms"] = queued_ms(lambda: kln.ln_fwd(xf, sf, bf_),
+                                                            "K17 forward")
+            del xf
+        # K12's forward at the compat stem's gather, [96, 1,024, 3] x 4,096, bf16
+        p12 = torch.randn((PARTSEG_BATCH, NUM_POINTS, 3), generator=gen, **bf)
+        i12 = torch.randint(0, NUM_POINTS, (PARTSEG_BATCH, 128 * 32), generator=gen,
+                            device="cuda", dtype=torch.int32)
+        out["K12 fwd device ms"] = queued_ms(lambda: kgather.gather_rows_kernel(p12, i12), "K12")
+        del p12, i12
         # K9's bf16 forward and backward at the pretrain shape (events)
         r9 = 2 * PRETRAIN_BATCH * 128 * 32
         x9 = torch.randn((r9, 3), generator=gen, **bf)
@@ -4903,6 +4950,8 @@ def time_tree(root: str) -> dict:
         run(2)
         out["semseg forced step ms"] = cuda_ms(lambda: run(1), iters=TIMED_STEPS, warmup=0)
         out["semseg knn wrapper us"] = wrapper_us_in(kknn, "knn", lambda: run(1), TIMED_STEPS)
+        (out["semseg forced step kernels ms"], out["semseg forced K17 fwd ms"]) = kernel_sums(
+            lambda: run(1), 2, "ln_fwd_kernel")
     finally:
         _restore_norms(saved)
     del model, state, step, batches

@@ -723,15 +723,17 @@ def test_cls_step_on_card_matches_cpu(dev):
 
 
 # -------------------------------------------------------------- K12, partseg
-# K12 at the compat stem's shape, at a K off 128-row tiles with C=128, and
-# at one row; the gather equal to the twin, the scatter's f32 sums within
+# K12 at the compat stem's shape, at a K off 128-row tiles with C=128, at
+# short last runs (B K off the run length; C = 128 and 16), and at one
+# row; the gather equal to the twin, the scatter's f32 sums within
 # 1e-4 (atomics add in another order); a small partseg step on the card
 # against the CPU with patch_compat on, so K12 runs on the card's path.
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,n,c,k", [(2, 1024, 3, 4096), (3, 300, 128, 1000), (1, 5, 7, 1)])
+@pytest.mark.parametrize("b,n,c,k", [(2, 1024, 3, 4096), (3, 300, 128, 1000), (1, 5, 7, 1),
+                                     (3, 300, 128, 77), (5, 700, 16, 300)])
 def test_gather_rows_kernel_matches_twin(dev, b, n, c, k, dt):
     from vipformer_tpu_torch.ops.cuda import gather as kg
 
@@ -908,13 +910,17 @@ def test_batchnorm_reduces_match_twins(dev, r, c, dt):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("r,d", [(4096, 384), (1000, 261), (3, 33), (256, 2048), (5000, 64),
-                                 (300, 1024), (517, 1638)])
+                                 (300, 1024), (517, 1638), (131072, 64), (995328, 261),
+                                 (4097, 384), (4097, 383)])
 def test_layernorm_kernels_match_twins(dev, r, d, dt):
-    """K17's forward (y, mu, rsig) and backward (dx; dscale and dbias as
-    column sums, the same bits on a second run) at the semseg latents'
-    width, the Fourier tokens' odd width, the input adapter's 64, a few
-    rows, and widths that share a row between 2 and 4 warps (1024, the
-    JAX gate's widest bf16 1638, 2048)."""
+    """K17's forward (y, mu, rsig, the same bits on a second run) and
+    backward (dx; dscale and dbias as column sums, the same bits on a
+    second run) at the three driven shapes (the semseg latents' [4,096,
+    384], the input adapter's [131,072, 64], the Fourier tokens' [995,328,
+    261]), the odd width at fewer rows, a few rows, widths that share a row
+    between 2 and 4 warps in the backward (1024, the JAX gate's widest bf16
+    1638, 2048), rows off the forward's block of rows (4,097), and a width
+    of one column a vector (383) beside one of eight (384)."""
     from vipformer_tpu_torch.ops.cuda import layernorm as kln
 
     rng = np.random.default_rng(12)
@@ -923,6 +929,7 @@ def test_layernorm_kernels_match_twins(dev, r, d, dt):
     y, mu, rsig = kln.ln_fwd(x, s, b)
     py, pmu, prsig = kln.ln_fwd_plain(x, s, b)
     assert y.dtype == dt
+    assert all(torch.equal(a, b) for a, b in zip((y, mu, rsig), kln.ln_fwd(x, s, b)))
     for got, want, tol in ((y, py, TOL[dt]), (mu, pmu, 2e-5), (rsig, prsig, 2e-5)):
         err = (got.float() - want.float()).abs().max().item()
         assert err <= tol * want.float().abs().max().item(), err
@@ -934,6 +941,31 @@ def test_layernorm_kernels_match_twins(dev, r, d, dt):
     _colsum_ok(ds, pds, (dy.float() * xhat).abs().sum(0))
     _colsum_ok(db, pdb, dy.float().abs().sum(0))
     assert all(torch.equal(a, b) for a, b in zip((dx, ds, db), kln.ln_bwd(x, dy, pmu, prsig, s)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_layernorm_forward_takes_unaligned_rows(dev, dt):
+    """K17's forward on x that starts one element past a vector boundary
+    (a view into a larger buffer): the wrapper narrows the vectors
+    (`fwd_plan`); mu and rsig within 2e-5 of the aligned run's, y within
+    the dtype's tolerance (the lanes' partial sums group the columns
+    otherwise)."""
+    from vipformer_tpu_torch.ops.cuda import layernorm as kln
+
+    rng = np.random.default_rng(14)
+    r, d = 1000, 384
+    x = _t(rng, (r, d), dev, dt, 2.0) + 0.5
+    s, b = _t(rng, (d,), dev, scale=0.2) + 1.0, _t(rng, (d,), dev, scale=0.1)
+    step = 2 // x.element_size() or 1
+    buf = torch.empty(r * d + step, dtype=dt, device=dev)
+    xo = buf[step:].view(r, d)
+    xo.copy_(x)
+    item = x.element_size()
+    assert kln.fwd_plan(d, item, xo.data_ptr())[1] < kln.fwd_plan(d, item, x.data_ptr())[1]
+    got, want = kln.ln_fwd(xo, s, b), kln.ln_fwd(x, s, b)
+    for g, w, tol in zip(got, want, (TOL[dt], 2e-5, 2e-5)):
+        assert (g.float() - w.float()).abs().max().item() <= tol * w.float().abs().max().item()
 
 
 @pytest.mark.cuda

@@ -14,9 +14,12 @@ wave of 132 SMs (two blocks an SM, no second wave) where R has the row
 steps; K5's shared memory fits one block at every (G, M) the gate admits,
 K6's two blocks an SM at every (G, Din) it admits. K2's one-pass
 threshold select is mirrored on the CPU and held against its twin on
-uniform, tied and lane-adversarial clouds.
+uniform, tied and lane-adversarial clouds. K17's forward plan (lanes a
+row, vector, vectors a lane) covers every width the JAX gate admits, and
+a CPU mirror of its lane-group sums is held against its twin.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -240,6 +243,165 @@ def test_layernorm_bwd_vector_width(d, itemsize, want):
 
     assert kln.vec_for(d, itemsize, 0, 256) == want
     assert kln.vec_for(d, itemsize, itemsize) == 1
+
+
+# K17's forward at the driven shapes (chip_smoke.py LN_SHAPES): (D,
+# itemsize) -> (lanes a row, columns a vector, vectors a lane, rows a
+# block, staged)
+LN_FWD_DRIVEN = [((384, 2), (16, 8, 3, 16, False)), ((64, 2), (8, 8, 1, 32, False)),
+                 ((261, 2), (4, 2, 33, 64, True)), ((384, 4), (32, 4, 3, 8, False)),
+                 ((64, 4), (16, 4, 1, 16, False)), ((261, 4), (8, 1, 33, 32, True))]
+SM_SHARED_BYTES = 232448  # the shared memory one block can use
+
+
+def _fwd_lane_cols(d: int, plan, p: int = 0) -> list[list[int]]:
+    """The columns each lane place g of a row's group holds in K17's
+    forward (csrc/layernorm.cu), in the order it sums them. ln_fwd_kernel:
+    vector slot j holds the row's vector j lanes + g, where that is a
+    vector of the row. The staged kernel, row p of a warp's tile (its
+    first element e0 = p D of the tile): in f32 columns g, g + lanes, ...;
+    in bf16 (vec 2) the row's whole 32-bit words g, g + lanes, ... of the
+    tile (word w: columns 2w - e0 and 2w - e0 + 1), then, where the row
+    starts (ends) mid-word, its first (last) lane's lone column 0 (D -
+    1)."""
+    lanes, vec, nv, _, staged = plan
+    if staged and vec == 1:
+        return [list(range(g, d, lanes)) for g in range(lanes)]
+    if staged:
+        e0 = p * d
+        return [[c for w in range((e0 + 1) // 2 + g, (e0 + d) // 2, lanes)
+                 for c in (2 * w - e0, 2 * w - e0 + 1)]
+                + [0] * (g == 0 and e0 % 2) + [d - 1] * (g == lanes - 1 and (e0 + d) % 2)
+                for g in range(lanes)]
+    return [[(j * lanes + g) * vec + i for j in range(nv) if j * lanes + g < d // vec
+             for i in range(vec)] for g in range(lanes)]
+
+
+@pytest.mark.parametrize("d,itemsize,want", [(*a, w) for a, w in LN_FWD_DRIVEN])
+def test_layernorm_fwd_plan_at_the_driven_shapes(d, itemsize, want):
+    """K17's forward plan at the semseg latents' 384, the input adapter's
+    64 and the Fourier tokens' 261: at 384 and 64 ln_fwd_kernel's 16-byte
+    vectors, a row to a group of lanes it fills (2 rows a warp at 384 bf16,
+    4 at 64 bf16), 8 warps a block; at 261 the staged kernel's tiles of 8
+    bf16 rows, 4 lanes a row reading 33 words of two columns (f32: 4 rows,
+    8 lanes of 33 columns), 8 warps a block. A pointer off the 16-byte
+    boundary takes ln_fwd_kernel with the vector its alignment allows."""
+    from vipformer_tpu_torch.ops.cuda import layernorm as kln
+
+    assert kln.fwd_plan(d, itemsize) == want
+    assert kln.fwd_plan(d, itemsize, 0, 256) == want
+    lanes, vec, nv, rows, staged = want
+    per_warp = kln.staged_tile_rows(d, itemsize) if staged else 32 // lanes
+    assert rows == kln.FWD_WARPS * per_warp
+    narrow = kln.fwd_plan(d, itemsize, itemsize)
+    assert not narrow[4] and narrow[1] == 1
+    half = kln.fwd_plan(d, itemsize, 8)  # 8 bytes past a 16-byte boundary
+    assert not half[4] and half[1] == kln.vec_for(d, itemsize, 8, lane_vectors=1) <= 8 // itemsize
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_layernorm_fwd_plan_covers_every_gated_width(itemsize):
+    """At every width the JAX gate admits (D <= 1,638 in bf16, 1,170 in
+    f32) and on to the kernels' 2,048, aligned: the group is a power of two
+    from 2 to 32 lanes; its lanes' vectors cover the row's columns exactly
+    once, with no lane slot past the last round, at most FWD_LANE_COLS
+    columns a lane. ln_fwd_kernel where a row's bytes are a multiple of
+    16: 16-byte vectors that divide D, FWD_WARPS warps a block of 32 /
+    lanes rows each; else the staged kernel: a warp's tile the fewest rows
+    whose bytes are a multiple of 16, all its rows at once (32 / tile lanes
+    a row), two columns a word in bf16 and one in f32, at every row of the
+    tile (a bf16 row may start mid-word), 1 to FWD_WARPS warps a block
+    whose shared memory fits a block. Past 2,048 the plan raises before any
+    launch."""
+    from vipformer_tpu_torch.ops.cuda import layernorm as kln
+
+    gated = max(d for d in range(1, kln.FWD_MAX_D + 1)
+                if kln._pick_block_rows(256, d, itemsize))
+    assert gated == {2: 1638, 4: 1170}[itemsize]
+    for d in range(1, kln.FWD_MAX_D + 1):
+        plan = kln.fwd_plan(d, itemsize)
+        lanes, vec, nv, rows, staged = plan
+        assert lanes in kln.FWD_LANES
+        assert staged == bool((d * itemsize) % kln.VEC_BYTES)
+        tile = kln.staged_tile_rows(d, itemsize) if staged else 1
+        if staged:
+            assert lanes * tile == 32 and vec == (2 if itemsize == 2 else 1)
+            per_row = d // 2 + 1 if itemsize == 2 else d  # words (columns) a row at most
+            assert lanes * (nv - 1) < per_row <= lanes * nv
+            assert (tile * d * itemsize) % 16 == 0 and (tile // 2 * d * itemsize) % 16
+            assert rows % tile == 0 and 1 <= rows // tile <= kln.FWD_WARPS
+            smem = kln.staged_smem_bytes(d, itemsize, rows)
+            assert smem <= max(kln.STAGED_SMEM_BYTES, kln.staged_head_bytes(d)
+                               + 2 * tile * d * itemsize) <= SM_SHARED_BYTES
+        else:
+            assert vec * itemsize == kln.VEC_BYTES and d % vec == 0
+            assert lanes * (nv - 1) * vec < d <= lanes * nv * vec
+            assert nv * vec <= kln.FWD_LANE_COLS
+            assert rows == kln.FWD_WARPS * (32 // lanes)
+        for p in range(tile):
+            cols = np.sort(np.concatenate([np.asarray(c, dtype=np.int64)
+                                           for c in _fwd_lane_cols(d, plan, p)]))
+            assert np.array_equal(cols, np.arange(d)), (d, p)
+    for bad in (0, kln.FWD_MAX_D + 1, 4096):
+        with pytest.raises(NotImplementedError, match="D <= 2048"):
+            kln.fwd_plan(bad, itemsize)
+    assert kcuda._lib is None
+
+
+def _f32_fma(a, b, c):
+    """fmaf in numpy: the product exact in f64, one rounding to f32 (within
+    a double rounding of the card's single one)."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r,d", [(37, 384), (70, 64), (9, 261), (5, 2048), (3, 7), (83, 1638)])
+def test_layernorm_fwd_lane_groups_compute_the_twin(r, d, dt):
+    """K17's forward in its kernels' order on the CPU (ln_fwd_kernel at
+    384, 64 and 2,048, the staged kernel at 261, 7 and 1,638, its bf16
+    rows starting mid-word at odd rows of a tile): each lane sums its
+    columns (in order, f32, the squares by fma), the group's lanes
+    exchange sums by xor shuffles from lanes / 2 down to 1, and every lane
+    of a row ends with the same mu and rsig bits; y, mu and rsig within
+    1e-5 of the twin's (y in bf16 2e-2: one rounding) over max(1, max
+    |twin|). R is off a block's rows."""
+    from vipformer_tpu_torch.ops.cuda import layernorm as kln
+
+    rng = np.random.default_rng(17)
+    x = torch.from_numpy((rng.standard_normal((r, d)) * 2.0 + 0.5).astype(np.float32)).to(dt)
+    s = torch.from_numpy((rng.standard_normal(d) * 0.2 + 1.0).astype(np.float32))
+    b = torch.from_numpy((rng.standard_normal(d) * 0.1).astype(np.float32))
+    plan = kln.fwd_plan(d, x.element_size())
+    lanes, rows = plan[0], plan[3]
+    tile = kln.staged_tile_rows(d, x.element_size()) if plan[4] else 1
+    assert r % rows
+    xf = x.float().numpy()
+    sums = np.zeros((lanes, r), np.float32)
+    sqs = np.zeros((lanes, r), np.float32)
+    for p in range(tile):  # a tile's row p: its lanes' columns
+        at = np.arange(p, r, tile)
+        for g, cols in enumerate(_fwd_lane_cols(d, plan, p)):
+            for c in cols:
+                sums[g, at] = sums[g, at] + xf[at, c]
+                sqs[g, at] = _f32_fma(xf[at, c], xf[at, c], sqs[g, at])
+    o = lanes // 2
+    while o:
+        partner = np.arange(lanes) ^ o
+        sums, sqs = sums + sums[partner], sqs + sqs[partner]
+        o //= 2
+    assert (sums == sums[0]).all() and (sqs == sqs[0]).all()  # every lane, the same bits
+    mu = sums[0] / np.float32(d)
+    mu2 = sqs[0] / np.float32(d)
+    rsig = (1.0 / np.sqrt(np.maximum(np.float32(0), mu2 - mu * mu) + np.float32(kcuda.LN_EPS),
+                          dtype=np.float32)).astype(np.float32)
+    y = (xf - mu[:, None]) * (rsig[:, None] * s.numpy()) + b.numpy()
+    y_p, mu_p, rs_p = kln.ln_fwd_plain(x, s, b)
+    y_tol = 2e-2 if dt == torch.bfloat16 else 1e-5
+    for got, want, tol in ((torch.from_numpy(y).to(dt), y_p, y_tol), (mu, mu_p, 1e-5),
+                           (rsig, rs_p, 1e-5)):
+        got = np.asarray(got.float() if isinstance(got, torch.Tensor) else got, np.float64)
+        want = want.float().numpy().astype(np.float64)
+        assert np.abs(got - want).max() <= tol * max(1.0, np.abs(want).max())
 
 
 # ----------------------------------------------- K7's bf16 products, K18

@@ -15,7 +15,9 @@ refusals are checked as the wrapper computes them.
 K10's forward gives a warp a run of consecutive output rows, lane = row;
 the mirror stages each run's rows and stores its 16-byte pieces and the
 last run's ragged end as the kernel does, so every output element is
-written once, with the twin's value.
+written once, with the twin's value. K12's forward is the same kernel
+with the centering compiled out: its runs are checked at the compat
+stem's gather and at chip_smoke.py's GATHER_CASES.
 """
 
 import math
@@ -314,3 +316,47 @@ def test_k10_refuses_what_its_kernel_does_not_take(b, n, c, match):
     for shape in ((96, 2048, 3, 4096), (330, 1024, 3, 4096), (32, 4096, 6, 4096)):
         kg.check_centered_sizes(*shape)
     assert kcuda._lib is None
+
+
+# ------------------------------------------------------------------ K12
+# (B, N, C, K): the compat stem's neighbour gather (partseg B = 96, 1,024
+# points, 128 groups of 32) and chip_smoke.py's GATHER_CASES
+K12_CASES = [(96, 1024, 3, 4096), (8, 1024, 128, 1000), (3, 300, 5, 77), (5, 700, 16, 300)]
+K12_SHORT_LAST_RUN = {(3, 300, 5, 77), (5, 700, 16, 300)}  # B K off the run length
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,c,k", K12_CASES)
+def test_k12_warp_runs_copy_every_row_once(b, n, c, k, dt):
+    """K12's forward on K10's run kernel without the centering: runs of
+    `centered_run_rows` rows (at most 64, 2 a lane; 8 at C = 128 in f32),
+    each starting on a 16-byte boundary of the output and staged in at
+    most 4 KB; runs cross cloud boundaries (row = b K + k) and the last is
+    short where B K is off the run; the runs' 16-byte pieces and ragged
+    end write every output element once, and the gathered rows (32-bit
+    offsets (row // K * N + idx) * C) are the twin's, bit for bit."""
+    rng = np.random.default_rng(12)
+    points = _t(rng, (b, n, c), dt)
+    idx = torch.from_numpy(rng.integers(0, n, (b, k)).astype(np.int32))
+    size = points.element_size()
+    u, total = 16 // size, b * k
+    run = kg.centered_run_rows(c, size)
+    assert run % 8 == 0 and 8 <= run <= 32 * GC_ROWS and run * c * size <= 4096
+    assert (c, size) != (128, 4) or run == 8
+    assert GC_WARPS * _slot_bytes(run, c, 1, size) <= 48 * 1024
+    writes = np.zeros(total * c, np.int64)
+    for row0 in range(0, total, run):
+        rows = min(run, total - row0)
+        assert (row0 * c * size) % 16 == 0
+        e0, nel = row0 * c, rows * c
+        pieces = nel // u
+        writes[e0:e0 + pieces * u] += 1  # lane q % 32 stores piece q
+        writes[e0 + pieces * u:e0 + nel] += 1  # the ragged end, element by element
+    assert (writes == 1).all()
+    assert bool(total % run) == ((b, n, c, k) in K12_SHORT_LAST_RUN)
+    rows_ = np.arange(total)
+    ofs = (rows_ // k * n + idx.reshape(-1).numpy().astype(np.int64)) * c
+    assert ofs.max() + c <= b * n * c < 2 ** 31
+    got = points.reshape(-1)[torch.from_numpy(ofs[:, None] + np.arange(c))].view(b, k, c)
+    assert torch.equal(got, kg.gather_rows_plain(points, idx))
+    kg.check_centered_sizes(b, n, c, k)

@@ -42,17 +42,24 @@
 // table [B, N, C <= 128] in f32 or bf16. The TPU built a one-hot matrix
 // for its matrix unit and contracted it at HIGHEST precision to copy rows
 // bit for bit; here a row is copied with plain loads, so the output IS the
-// table's values. One thread per output element: neighbouring threads
-// write neighbouring addresses, and the reads of one row (C values) are
-// contiguous.
+// table's values.
 //
-// Bound on the H100: bytes (B*K*(C*2 + 1) elements moved, no arithmetic).
+// Bound on the H100: bytes (B*K*(C*2 + 1) elements moved, no arithmetic);
+// as in K10, what takes the time is the idx -> point -> store chain of
+// each row. Design: K10's forward kernel with the centering compiled out
+// (gather_centered_kernel<T, CHUNK, false>: no centers, no shared memory
+// for them, the staged rows a plain copy of the points' elements): a warp
+// a run of up to 64 output rows (lane = row), idx read coalesced, every
+// point load in flight before any store, the run written as 16-byte
+// stores; runs cross cloud boundaries (row = b K + k) at any K.
 //
 // Backward: d_points[b, idx[b, k]] += g[b, k], with f32 atomicAdd into a
 // zeroed f32 buffer, one thread per element of g; the wrapper rounds the
 // f32 sums once to the table's dtype (the Pallas kernel rounded the bf16
 // table's sums per grid block, gather.py:98). The sum's order, and so its
 // last f32 bits, vary from run to run.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace vpt_gather {
@@ -63,29 +70,41 @@ constexpr int GC_WARPS = 8;  // warps a block of gather_centered_kernel
 constexpr int GC_ROWS = 2;  // output rows a lane gathers together: a run holds 64 at most
 
 // A warp's shared memory: its run's output (rows x C of T, padded to 16
-// bytes), then its groups' centers (3 floats each, at most run / S + 2).
+// bytes), then, where it centers, its groups' centers (3 floats each, at
+// most run / S + 2).
 __host__ __device__ inline int gc_stage_bytes(int run, int C, int size) {
   return (run * C * size + 15) & ~15;
 }
-__host__ __device__ inline int gc_slot_bytes(int run, int C, int S, int size) {
-  return gc_stage_bytes(run, C, size) + ((12 * (run / S + 2) + 15) & ~15);
+__host__ __device__ inline int gc_slot_bytes(int run, int C, int S, int size, bool center) {
+  return gc_stage_bytes(run, C, size) + (center ? (12 * (run / S + 2) + 15) & ~15 : 0);
+}
+
+// A gathered element as the kernel holds it: f32 where it is centered,
+// else the point's own bits.
+template <typename V, typename T>
+__device__ __forceinline__ V held(T v) {
+  if constexpr (std::is_same<V, T>::value) return v;
+  else return to_f32(v);
 }
 
 // Rows [row0, row0 + rows) of the output [B K, C] (row = b K + r) are a
 // warp's run; a lane gathers CHUNK channels of its rows at a time (4 up
 // to C = 4, so that xyz needs no more registers than it uses, else 8).
-template <typename T, int CHUNK>
+// CENTER subtracts the centers (K10); without it the rows are a copy
+// (K12, S unused).
+template <typename T, int CHUNK, bool CENTER>
 __global__ void __launch_bounds__(32 * GC_WARPS)
     gather_centered_kernel(const T* __restrict__ points, const float* __restrict__ centers,
                            const int* __restrict__ idx, T* __restrict__ out, int N, int C, int K,
                            int S, int total_rows, int run) {
   constexpr int U = 16 / sizeof(T);  // elements of a 16-byte store
+  using V = typename std::conditional<CENTER, float, T>::type;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row0 = (blockIdx.x * GC_WARPS + warp) * run;
   if (row0 >= total_rows) return;
   const int rows = min(run, total_rows - row0);
-  unsigned char* slot = smem_raw + warp * gc_slot_bytes(run, C, S, sizeof(T));
+  unsigned char* slot = smem_raw + warp * gc_slot_bytes(run, C, S, sizeof(T), CENTER);
   T* stage = reinterpret_cast<T*>(slot);
   float* cen = reinterpret_cast<float*>(slot + gc_stage_bytes(run, C, sizeof(T)));
   // the lane's rows' idx (lane = row, 32 rows apart), coalesced, all in
@@ -96,32 +115,38 @@ __global__ void __launch_bounds__(32 * GC_WARPS)
     const int r = lane + 32 * i;
     pofs[i] = r < rows ? idx[row0 + r] : 0;
   }
-  const int g_lo = row0 / S, ng = (row0 + rows - 1) / S - g_lo + 1;
-  for (int e = lane; e < 3 * ng; e += 32) cen[e] = round_to<T>(centers[3 * g_lo + e]);
+  const int g_lo = CENTER ? row0 / S : 0;
+  if constexpr (CENTER) {
+    const int ng = (row0 + rows - 1) / S - g_lo + 1;
+    for (int e = lane; e < 3 * ng; e += 32) cen[e] = round_to<T>(centers[3 * g_lo + e]);
+  }
 #pragma unroll
   for (int i = 0; i < GC_ROWS; ++i) {
     const int row = row0 + lane + 32 * i;
-    pofs[i] = (row / K * N + pofs[i]) * C;  // the point's first element (32-bit)
-    cj[i] = 3 * (row / S - g_lo);            // its group's center in cen
+    pofs[i] = (row / K * N + pofs[i]) * C;   // the point's first element (32-bit)
+    cj[i] = CENTER ? 3 * (row / S - g_lo) : 0;  // its group's center in cen
   }
   __syncwarp();
   // CHUNK channels of the lane's GC_ROWS rows a step, their loads in
-  // flight before any store: the difference in f32, rounded once to T,
-  // into the staged output
+  // flight before any store: centered, the difference in f32, rounded
+  // once to T, into the staged output; else the elements as they are
   for (int c0 = 0; c0 < C; c0 += CHUNK) {
-    float v[GC_ROWS][CHUNK];
+    V v[GC_ROWS][CHUNK];
 #pragma unroll
     for (int i = 0; i < GC_ROWS; ++i)
 #pragma unroll
       for (int k = 0; k < CHUNK; ++k)
-        v[i][k] = lane + 32 * i < rows && c0 + k < C ? to_f32(points[pofs[i] + c0 + k]) : 0.f;
+        if (lane + 32 * i < rows && c0 + k < C) v[i][k] = held<V>(points[pofs[i] + c0 + k]);
 #pragma unroll
     for (int i = 0; i < GC_ROWS; ++i)
 #pragma unroll
       for (int k = 0; k < CHUNK; ++k) {
         const int r = lane + 32 * i, c = c0 + k;
-        if (r < rows && c < C)
+        if (r >= rows || c >= C) continue;
+        if constexpr (CENTER)
           stage[r * C + c] = from_f32<T>(c < 3 ? v[i][k] - cen[cj[i] + c] : v[i][k]);
+        else
+          stage[r * C + c] = v[i][k];
       }
   }
   __syncwarp();
@@ -163,21 +188,32 @@ __global__ void center_grad_kernel(const T* __restrict__ g, float* __restrict__ 
 
 // `run` rows a warp (ops/cuda/gather.py `centered_run_rows`): a multiple
 // of 8 (so a run's bytes are a multiple of 16) up to 32 GC_ROWS, whose
-// staged output takes at most 4 KB; K = G S; the wrapper bounds B N C and
-// B K C below 2^31.
-template <typename T>
-int gather_centered(const void* points, const void* centers, const void* idx, void* out, int B,
-                    int N, int C, int G, int K, int S, int run, void* stream) {
-  if (B < 1 || G < 1 || S < 1 || K != G * S || C < 1 || run < 8 || run % 8 ||
-      run > 32 * GC_ROWS || run * C * (int)sizeof(T) > 4096)
+// staged output takes at most 4 KB; the wrapper bounds B N C and B K C
+// below 2^31.
+template <typename T, bool CENTER>
+int launch_runs(const void* points, const void* centers, const void* idx, void* out, int B, int N,
+                int C, int K, int S, int run, void* stream) {
+  if (B < 0 || K < 0 || N < 1 || S < 1 || C < 1 || run < 8 || run % 8 || run > 32 * GC_ROWS ||
+      run * C * (int)sizeof(T) > 4096)
     return (int)cudaErrorInvalidValue;
   const int total = B * K, warps = (total + run - 1) / run;
-  auto kernel = C <= 4 ? gather_centered_kernel<T, 4> : gather_centered_kernel<T, 8>;
+  if (total == 0) return cudaSuccess;
+  auto kernel =
+      C <= 4 ? gather_centered_kernel<T, 4, CENTER> : gather_centered_kernel<T, 8, CENTER>;
   kernel<<<(warps + GC_WARPS - 1) / GC_WARPS, 32 * GC_WARPS,
-           GC_WARPS * gc_slot_bytes(run, C, S, sizeof(T)), static_cast<cudaStream_t>(stream)>>>(
+           GC_WARPS * gc_slot_bytes(run, C, S, sizeof(T), CENTER),
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(points), static_cast<const float*>(centers),
       static_cast<const int*>(idx), static_cast<T*>(out), N, C, K, S, total, run);
   return cudaGetLastError();
+}
+
+// K10: K = G S.
+template <typename T>
+int gather_centered(const void* points, const void* centers, const void* idx, void* out, int B,
+                    int N, int C, int G, int K, int S, int run, void* stream) {
+  if (B < 1 || G < 1 || K != G * S) return (int)cudaErrorInvalidValue;
+  return launch_runs<T, true>(points, centers, idx, out, B, N, C, K, S, run, stream);
 }
 
 template <typename T>
@@ -194,16 +230,7 @@ int scatter_centered(const void* g, const void* idx, void* dpoints, void* dcente
 }
 
 // 32-bit index arithmetic (the wrapper bounds B*K*C below 2^31): 64-bit
-// division by C and K would cost more than the copy.
-template <typename T>
-__global__ void gather_rows_kernel(const T* __restrict__ points, const int* __restrict__ idx,
-                                   T* __restrict__ out, int N, int C, int K, int total) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int row = i / C;  // b * K + k
-  out[i] = points[((size_t)(row / K) * N + idx[row]) * C + (i - row * C)];
-}
-
+// division by C and K would cost more than the atomic add.
 template <typename T>
 __global__ void scatter_rows_kernel(const T* __restrict__ g, const int* __restrict__ idx,
                                     float* __restrict__ dpoints, int N, int C, int K,
@@ -212,17 +239,6 @@ __global__ void scatter_rows_kernel(const T* __restrict__ g, const int* __restri
   if (i >= total) return;
   const int row = i / C;
   atomicAdd(dpoints + ((size_t)(row / K) * N + idx[row]) * C + (i - row * C), to_f32(g[i]));
-}
-
-template <typename T>
-int gather_rows(const void* points, const void* idx, void* out, int B, int N, int C, int K,
-                void* stream) {
-  const int total = B * K * C;
-  if (total == 0) return cudaSuccess;
-  gather_rows_kernel<T><<<(total + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(points), static_cast<const int*>(idx), static_cast<T*>(out), N, C,
-      K, total);
-  return cudaGetLastError();
 }
 
 template <typename T>
@@ -263,12 +279,13 @@ extern "C" int scatter_centered_bf16(const void* grad, const void* idx, void* dp
                                          stream);
 }
 extern "C" int gather_rows_f32(const void* points, const void* idx, void* out, int b, int n,
-                               int c, int k, void* stream) {
-  return gather_rows<float>(points, idx, out, b, n, c, k, stream);
+                               int c, int k, int run, void* stream) {
+  return launch_runs<float, false>(points, nullptr, idx, out, b, n, c, k, 1, run, stream);
 }
 extern "C" int gather_rows_bf16(const void* points, const void* idx, void* out, int b, int n,
-                                int c, int k, void* stream) {
-  return gather_rows<__nv_bfloat16>(points, idx, out, b, n, c, k, stream);
+                                int c, int k, int run, void* stream) {
+  return launch_runs<__nv_bfloat16, false>(points, nullptr, idx, out, b, n, c, k, 1, run,
+                                           stream);
 }
 extern "C" int scatter_rows_f32(const void* grad, const void* idx, void* dpoints, int b, int n,
                                 int c, int k, void* stream) {

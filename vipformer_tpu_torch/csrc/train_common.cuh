@@ -238,14 +238,20 @@ template <> struct Raw<4> { using type = unsigned int; };
 template <> struct Raw<8> { using type = uint2; };
 template <> struct Raw<16> { using type = uint4; };
 
-// VEC adjacent elements as one load / store (p aligned to their size)
+// VEC adjacent elements as one load / store (p aligned to their size);
+// unpack_vec converts a vector already in registers
 template <typename T, int VEC>
-__device__ __forceinline__ void load_vec(const T* __restrict__ p, float (&out)[VEC]) {
-  using R = typename Raw<VEC * sizeof(T)>::type;
-  const R raw = *reinterpret_cast<const R*>(p);
+__device__ __forceinline__ void unpack_vec(const typename Raw<VEC * sizeof(T)>::type& raw,
+                                           float (&out)[VEC]) {
   const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
   for (int i = 0; i < VEC; ++i) out[i] = to_f32(e[i]);
+}
+template <typename T, int VEC>
+__device__ __forceinline__ void load_vec(const T* __restrict__ p, float (&out)[VEC]) {
+  using R = typename Raw<VEC * sizeof(T)>::type;
+  const R raw = *reinterpret_cast<const R*>(p);  // one load, into registers
+  unpack_vec<T, VEC>(raw, out);
 }
 template <typename T, int VEC>
 __device__ __forceinline__ void store_vec(T* __restrict__ p, const float (&v)[VEC]) {

@@ -95,9 +95,10 @@ SIGNATURES = {
     "gather_centered_bf16": [_P] * 4 + [_I] * 7 + [_P],
     "scatter_centered_f32": [_P] * 4 + [_I] * 6 + [_P],
     "scatter_centered_bf16": [_P] * 4 + [_I] * 6 + [_P],
-    # K12
-    "gather_rows_f32": [_P] * 3 + [_I] * 4 + [_P],
-    "gather_rows_bf16": [_P] * 3 + [_I] * 4 + [_P],
+    # K12 (points, idx, out, b, n, c, k, run, stream); (grad, idx, dpoints,
+    # b, n, c, k, stream)
+    "gather_rows_f32": [_P] * 3 + [_I] * 5 + [_P],
+    "gather_rows_bf16": [_P] * 3 + [_I] * 5 + [_P],
     "scatter_rows_f32": [_P] * 3 + [_I] * 4 + [_P],
     "scatter_rows_bf16": [_P] * 3 + [_I] * 4 + [_P],
     # K11 (x, dy, dw, db, wpart, bpart, r, cin, cout, splits, stream): as K5
@@ -125,10 +126,11 @@ SIGNATURES = {
     "bn_stats_bf16": [_P] * 4 + [_I] * 3 + [_P],
     "bn_grad_reduces_f32": [_P] * 8 + [_I] * 5 + [_P],
     "bn_grad_reduces_bf16": [_P] * 8 + [_I] * 5 + [_P],
-    # K17 (x, s, b, y, mu, rsig, r, d, stream); (x, dy, mu, rsig, s, dx,
-    # dscale, dbias, part, arrive, r, d, per, group, vec, wpr, stream)
-    "ln_fwd_f32": [_P] * 6 + [_I] * 2 + [_P],
-    "ln_fwd_bf16": [_P] * 6 + [_I] * 2 + [_P],
+    # K17 (x, s, b, y, mu, rsig, r, d, lanes, vec, nv, rows_block, staged,
+    # sms, stream); (x, dy, mu, rsig, s, dx, dscale, dbias, part, arrive, r,
+    # d, per, group, vec, wpr, stream)
+    "ln_fwd_f32": [_P] * 6 + [_I] * 8 + [_P],
+    "ln_fwd_bf16": [_P] * 6 + [_I] * 8 + [_P],
     "ln_bwd_f32": [_P] * 10 + [_I] * 6 + [_P],
     "ln_bwd_bf16": [_P] * 10 + [_I] * 6 + [_P],
 }

@@ -16,7 +16,8 @@ K12: the plain row gather (counterpart of `gather_rows_pallas`,
 ops/pallas/gather.py:180).
 
 `gather_rows(points, idx)`: points [B, N, C <= 128], idx int [B, K] ->
-[B, K, C] = points[b, idx[b, k]], a copy (bit-exact, any K). Its backward
+[B, K, C] = points[b, idx[b, k]], a copy (bit-exact, any K), on K10's
+forward kernel with the centering compiled out. Its backward
 scatter-adds the gradient into an f32 table, rounded once to the points'
 dtype. `row_gather_enabled` is the port's copy of the JAX package's gate
 (`mxu_gather_enabled`, gather.py:434-444), which `index_points` consults.
@@ -185,15 +186,20 @@ def _rows_operands(t, idx, name: str):
 
 
 def gather_rows_kernel(points, idx):
+    """K12's forward: K10's warp-run kernel with the centering compiled out
+    (csrc/gather.cu), runs of `centered_run_rows` rows; B*N*C and B*K*C
+    below 2^31, as K10's."""
     points, idx = _rows_operands(points, idx, "points")
     b, n, c = points.shape
     k = idx.shape[1]
+    check_centered_sizes(b, n, c, k)
     dt = points.dtype
     fn = cuda.entry_point("gather_rows", dt)
     out = torch.empty((b, k, c), dtype=dt, device=points.device)
     ROWS_FWD_LAUNCHES.n += 1
     cuda.check(getattr(cuda.lib(), fn)(
-        points.data_ptr(), idx.data_ptr(), out.data_ptr(), b, n, c, k, cuda.stream_ptr()), fn)
+        points.data_ptr(), idx.data_ptr(), out.data_ptr(), b, n, c, k,
+        centered_run_rows(c, points.element_size()), cuda.stream_ptr()), fn)
     return out
 
 

@@ -28,9 +28,19 @@ BWD_LAUNCHES = cuda.LaunchCounter()
 # None = auto (off, as in JAX layernorm.py:44,177), a bool forces it
 USE_LAYERNORM: bool | None = None
 _VMEM_BUDGET = 8 * 1024 * 1024  # the JAX kernel's row-block budget (:47)
-# the backward kernel (csrc/layernorm.cu ln_bwd_kernel): warps a block,
-# columns a lane holds in registers (a warp covers 512 of a row), the
-# widest vector a lane loads (bytes)
+# the forward kernels (csrc/layernorm.cu ln_fwd_kernel, ln_fwd_staged_kernel):
+# warps a block (at most), the most columns a lane holds (so D <= 2,048),
+# ln_fwd_kernel's lane-group sizes (the staged kernel's is a warp), and the
+# shared memory a staged block aims at (two tile buffers a warp; two
+# blocks or more an SM)
+FWD_WARPS = 8
+FWD_LANE_COLS = 64
+FWD_MAX_D = 32 * FWD_LANE_COLS
+FWD_LANES = (32, 16, 8, 4, 2)
+STAGED_SMEM_BYTES = 100 * 1024
+# the backward kernel (ln_bwd_kernel): warps a block, columns a lane holds
+# in registers (a warp covers 512 of a row); the widest vector a lane of
+# either kernel loads (bytes)
 BWD_WARPS = 16
 LANE_COLS = 16
 VEC_BYTES = 16
@@ -82,6 +92,63 @@ def _f32(t, name, shape):
     return t
 
 
+def staged_head_bytes(d: int) -> int:
+    """The staged kernel's scale and bias in shared memory: (scale[k],
+    bias[k], scale[k + 1], bias[k + 1]) a column (csrc/layernorm.cu
+    staged_head_bytes)."""
+    return 16 * d
+
+
+def staged_tile_rows(d: int, itemsize: int) -> int:
+    """Rows of a warp's tile in the staged kernel: the fewest whose bytes
+    are a multiple of 16 (8 at an odd bf16 width, 4 at an odd f32 one)."""
+    return VEC_BYTES // math.gcd(d * itemsize, VEC_BYTES)
+
+
+def staged_smem_bytes(d: int, itemsize: int, rows_block: int) -> int:
+    """A staged block's shared memory: scale and bias, then two tile
+    buffers for each of its warps (rows_block / tile rows)."""
+    return staged_head_bytes(d) + 2 * rows_block * d * itemsize
+
+
+def fwd_plan(d: int, itemsize: int, *ptrs: int) -> tuple[int, int, int, int, bool]:
+    """(lanes a row, columns a vector, vectors a lane, rows a block, staged)
+    of the forward (csrc/layernorm.cu), D <= FWD_MAX_D as the backward.
+
+    Where a row's bytes are a multiple of 16, or a pointer is off a 16-byte
+    boundary, ln_fwd_kernel: the row's D / vec vectors go to a group of
+    `lanes` lanes, nv each; of the group sizes that give a lane at most
+    max(4, ceil(vectors / 32)) vectors, the one that leaves the fewest
+    slots empty, the larger on a tie (D = 384 bf16: 16 lanes of 3 vectors,
+    2 rows a warp; D = 64 bf16: 8 lanes of 1, 4 rows a warp), FWD_WARPS
+    warps a block. Elsewhere (D = 261) the staged kernel: a warp's tile of
+    `staged_tile_rows` rows moves in 16-byte vectors through shared memory,
+    where 32 / tile rows lanes a row read it two columns a word in bf16
+    (one in f32), nv words a lane at most (D = 261 bf16: 8 rows, 4 lanes
+    of 33 words); as many warps a block (up to FWD_WARPS) as fit two tile
+    buffers each in STAGED_SMEM_BYTES."""
+    if not 1 <= d <= FWD_MAX_D:
+        raise NotImplementedError(f"K17's forward takes 1 <= D <= {FWD_MAX_D}, got {d}")
+    if (d * itemsize) % VEC_BYTES and not any(p % VEC_BYTES for p in ptrs):
+        tile_rows = staged_tile_rows(d, itemsize)
+        lanes = 32 // tile_rows
+        # a row's words: D / 2, or one more where it starts or ends mid-word
+        vec, per_row = (2, d // 2 + 1) if itemsize == 2 else (1, d)
+        warps = (STAGED_SMEM_BYTES - staged_head_bytes(d)) // (2 * tile_rows * d * itemsize)
+        return (lanes, vec, -(-per_row // lanes), max(1, min(FWD_WARPS, warps)) * tile_rows,
+                True)
+    vec = vec_for(d, itemsize, *ptrs, lane_vectors=1)
+    nvec = d // vec
+    limit = max(4, -(-nvec // 32))
+    best = None
+    for lanes in FWD_LANES:
+        nv = -(-nvec // lanes)
+        if nv <= limit and (best is None or lanes * nv - nvec < best[0]):
+            best = (lanes * nv - nvec, lanes, nv)
+    _, lanes, nv = best
+    return lanes, vec, nv, FWD_WARPS * (32 // lanes), False
+
+
 def ln_fwd(x2d, scale, bias):
     """K17's forward kernel on a CUDA tensor, the twin on a CPU tensor."""
     if not x2d.is_cuda:
@@ -91,13 +158,19 @@ def ln_fwd(x2d, scale, bias):
     fn = cuda.entry_point("ln_fwd", dt)
     x2d = x2d.contiguous()
     cuda.require(x2d, "x", dt, (r, d))
-    scale, bias = _f32(scale, "scale", (d,)), _f32(bias, "bias", (d,))
+    # ln_fwd_kernel loads scale and bias in 16-byte vectors: a view off
+    # that boundary is copied
+    scale, bias = (t if t.data_ptr() % VEC_BYTES == 0 else t.clone()
+                   for t in (_f32(scale, "scale", (d,)), _f32(bias, "bias", (d,))))
     y = torch.empty_like(x2d)
+    plan = fwd_plan(d, x2d.element_size(), x2d.data_ptr(), y.data_ptr())
     mu = torch.empty((r,), dtype=torch.float32, device=x2d.device)
     rsig = torch.empty_like(mu)
     FWD_LAUNCHES.n += 1
     cuda.check(getattr(cuda.lib(), fn)(x2d.data_ptr(), scale.data_ptr(), bias.data_ptr(),
                                        y.data_ptr(), mu.data_ptr(), rsig.data_ptr(), r, d,
+                                       *plan[:4], int(plan[4]),
+                                       cuda.sm_count(x2d.device.index or 0),
                                        cuda.stream_ptr()), fn)
     return y, mu, rsig
 
@@ -113,12 +186,15 @@ def warps_per_row(d: int) -> int:
     return wpr
 
 
-def vec_for(d: int, itemsize: int, *ptrs: int) -> int:
-    """Columns a vector in the backward: the widest power of two of at most
-    VEC_BYTES that divides D and every pointer's alignment and leaves at
-    least one vector a lane (D = 384 bf16: 8; D = 64 bf16: 2; D = 261: 1)."""
+def vec_for(d: int, itemsize: int, *ptrs: int, lane_vectors: int = 32) -> int:
+    """Columns a vector: the widest power of two of at most VEC_BYTES that
+    divides D and every pointer's alignment and leaves at least
+    `lane_vectors` vectors a row. The backward asks 32, one a lane (D =
+    384 bf16: 8; D = 64 bf16: 2; D = 261: 1); the forward 1 (D = 64 bf16:
+    8)."""
     v = VEC_BYTES // itemsize
-    while v > 1 and (d % v or d // v < 32 or any(p % (v * itemsize) for p in ptrs)):
+    while v > 1 and (d % v or d // v < lane_vectors
+                     or any(p % (v * itemsize) for p in ptrs)):
         v //= 2
     return v
 
