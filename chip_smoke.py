@@ -12,7 +12,9 @@ goes on):
      source, all started together, sm_90a), and read from torch.profiler
      that K18's backward is one launch of one kernel in both dtypes, and
      that the bf16 K15 at [64, 512] x [64, 512, 256] is one launch of its
-     cluster kernel (no attn_flash_kernel);
+     cluster kernel (no attn_flash_kernel), and that K10's and K12's VJPs
+     are one launch of scatter_sorted_kernel a call at every case their
+     phases (5 and 13) run;
   2. turn TF32 off for matmuls and cuDNN;
   3. hold each serving kernel K1-K5 against its plain PyTorch twin on the
      card at the flagship serving shapes (B = 32 and 64; K1/K2 on f32
@@ -66,7 +68,13 @@ goes on):
      torch.profiler at the start of the run: the LayerNorm pass and one
      tile kernel, and past 128 query rows the projection and K8's
      forward); K10 timed on device time (events beside) at the pretrain,
-     ft_cls and (phase 25) semseg points; K9's bf16
+     ft_cls and (phase 25) semseg points; K10's VJP (one launch of
+     csrc/gather.cu scatter_sorted_kernel) at the pretrain, ft_cls and
+     semseg points (FPS centers, kNN neighbourhoods; again with 64 rows of
+     each cloud on one point) in bf16, and in f32 at the pretrain shape:
+     d_points and d_centers within GRAD_TOL of the twin, two launches
+     bitwise equal, each shape timed on device time beside its events,
+     the twin, the bound and index_add_; K9's bf16
      forward and backward (the
      tensor-core passes of csrc/g2e_train.cu tc) launched twice, bitwise
      equal, the profiler's kernels of each call (their launches, every
@@ -142,9 +150,11 @@ goes on):
      time from torch.profiler);
  13. hold K12 (the row gather of `index_points` and its scatter-add
      backward) against its twin at the compat stem's [96, 1024, 3] x 4096
-     neighbour gather, at an odd K and at C=128, in f32 and bf16 (the
-     gather equal, the scatter within GRAD_TOL), timed beside torch.gather
-     and index_add_;
+     neighbour gather, at an odd K and at C=128 (8 rows of each cloud on
+     one point), in f32 and bf16 (the gather equal; the scatter, one
+     launch of K10's VJP kernel without the centers, within GRAD_TOL, two
+     launches bitwise equal), timed beside torch.gather and index_add_
+     (device time, events beside);
  14. hold the earlier kernels against their twins once at part
      segmentation's widths (D=384, 6 heads): K3, K4, K5, K7 and K8 forward
      and backward, K9 at D=384, and K11 at its five partseg sites (98,304
@@ -250,7 +260,12 @@ goes on):
      forward with num_cross_attention_v_channels = 128 (K14 once) and a
      PerceiverEncoder with num_self_attention_v_channels = 128 (K14 at its
      6 self-attention layers), exact launch counts, each forward timed
-     with its profiler breakdown.
+     with its profiler breakdown;
+ 34. crash-resume on the card: the ft_cls CLI at tiny widths (bf16,
+     `--save_freq 1`) for two epochs, then `--resume_training` to four:
+     metrics.jsonl reads epochs 0-3, the best never falls, and the rolling
+     snapshot restored into a fresh state puts every optimizer moment on
+     the card, bitwise equal to the saved one.
 
 Prints the script's total seconds, the card's name and power limit, one
 JSON line of per-kernel results (time, twin's time, bound, launches on the
@@ -1384,13 +1399,57 @@ def time_forward() -> None:
 # ----------------------------------------------------------- K7-K10
 
 
-def check_bwd_bitwise(kf, bwd_args, what: str) -> None:
-    """The bf16 tensor-core K8 backward gives the same bits on two launches
-    (no atomics: every sum runs in a fixed order)."""
-    first, again = kf.attention_bwd_kernel(*bwd_args), kf.attention_bwd_kernel(*bwd_args)
+def check_bwd_bitwise(bwd, bwd_args, name: str, what: str) -> None:
+    """A backward kernel (K8's bf16 tensor-core backward, K10's and K12's
+    VJPs) gives the same bits on two launches: no floating-point atomics,
+    every sum runs in a fixed order."""
+    first, again = bwd(*bwd_args), bwd(*bwd_args)
+    if isinstance(first, torch.Tensor):
+        first, again = (first,), (again,)
     expect(all(torch.equal(a, b) for a, b in zip(first, again)),
-           f"K8 backward {what}: two launches differ")
-    print(f"  {'attn_train_bwd':18s} {what}: two launches bitwise equal")
+           f"{name} {what}: two launches differ")
+    print(f"  {name:18s} {what}: two launches bitwise equal")
+
+
+def check_vjp_launches() -> None:
+    """K10's and K12's VJPs are one device kernel a call (one launch of
+    csrc/gather.cu scatter_sorted_kernel; no zeroing, no cast), read from
+    torch.profiler at every case their phases run (K10_VJP_SHAPES in bf16,
+    the pretrain shape in f32 too; K12's compat stem gather and
+    GATHER_CASES in both dtypes), on random indices with 8 rows of each
+    cloud on one point. Run early: mid-run, traces of these calls have come
+    back with one launch in three, as late traces of other kernels have
+    come back empty (check_one_pass_launches)."""
+    from vipformer_tpu_torch.ops.cuda import gather as kgather
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 29)
+
+    def case(b, n, k, c, dt):
+        idx = torch.randint(0, n, (b, k), generator=gen, device="cuda", dtype=torch.int32)
+        idx[:, :8] = idx[:, :1]
+        return torch.randn((b, k, c), generator=gen, device="cuda").to(dt), idx
+
+    calls = []
+    for b, n, c in K10_VJP_SHAPES:
+        first = b == K10_VJP_SHAPES[0][0]
+        for dt in (torch.float32, torch.bfloat16) if first else (torch.bfloat16,):
+            grad, idx = case(b, n, 128 * 32, c, dt)
+            calls.append((f"K10's VJP [{b},{n},{c}] {dt}", kgather.scatter_centered_kernel,
+                          (grad, idx, n, 128, 32)))
+    for b, n, c, k in ((PARTSEG_BATCH, NUM_POINTS, 3, 128 * 32),) + GATHER_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            grad, idx = case(b, n, k, c, dt)
+            calls.append((f"K12's VJP [{b},{n},{c}] K={k} {dt}", kgather.scatter_rows_kernel,
+                          (grad, idx, n)))
+    for what, fn, args in calls:
+        fn(*args)  # a warm call, outside the trace
+        kernels = device_kernels(lambda: fn(*args))
+        expect(len(kernels) == 1 and "scatter_sorted_kernel" in next(iter(kernels)) and
+               list(kernels.values()) == [1.0],
+               f"{what}: launches {kernels}, want one scatter_sorted_kernel a call")
+        print(f"  {what}: one device kernel a call (torch.profiler)")
+    print(f"  (the VJPs' launch checks took {time.perf_counter() - t0:.1f} s)")
 
 
 def time_flash_bwd_ft_cls(kf, t, seed, n: int, d: int, h: int, scale: float,
@@ -1527,6 +1586,84 @@ def time_k10_ft_cls(kfps, kknn, kgather, g: int, s: int) -> None:
                     f"points[{FT_BATCH},{NUM_POINTS},3] idx[{FT_BATCH},{g * s}] bf16")
 
 
+# K10's VJP at each path's points: pretrain (both views), ft_cls, semseg
+# (xyz + rgb), 128 groups of 32 each
+K10_VJP_SHAPES = ((2 * PRETRAIN_BATCH, 2048, 3), (FT_BATCH, NUM_POINTS, 3),
+                  (SEMSEG_BATCH, SEMSEG_POINTS, 6))
+
+
+def index_add_call(grad, idx, n: int):
+    """One PyTorch call of d_points alone (K10's and K12's scatter-add):
+    index_add_ of the rows of grad [B, K, C] into a zeroed [B N, C] table."""
+    b, _, c = grad.shape
+    flat = (idx.long() + n * torch.arange(b, device=grad.device)[:, None]).reshape(-1)
+    rows = grad.reshape(-1, c)
+    return lambda: torch.zeros((b * n, c), dtype=grad.dtype,
+                               device=grad.device).index_add_(0, flat, rows)
+
+
+def time_scatter(rec, name: str, kern, plain, library, bnd, shape: str, record: bool) -> None:
+    """A VJP's device time (calls queued behind a spin kernel: the wrapper
+    costs the host more than the kernel the card), its events, the twin's
+    time, the bound and index_add_'s device time; `record` puts them in
+    the JSON line."""
+    ms, ev, lib = queued_ms(kern, name), cuda_ms(kern), device_ms(library)
+    plain_ms = cuda_ms(plain)
+    print(f"  {name:18s} {shape:34s} device time {ms:.4f} ms, events {ev:.4f}, twin "
+          f"{plain_ms:.4f}; bound {bnd['bound_ms']:.4f} ({bnd['bound_by']}, "
+          f"{100.0 * bnd['bound_ms'] / ms:.1f}% of it); index_add_ device time "
+          + (f"{lib:.4f} ms" if lib is not None else "not measured"))
+    if record:
+        rec.timing(name, ms, plain_ms, bnd, shape=shape)
+        rec.r[name].update(host_ms=ev, index_add_ms=lib)
+
+
+def check_k10_vjp(rec: Recorder, kfps, kknn, kgather, g: int, s: int) -> None:
+    """K10's VJP (one launch of csrc/gather.cu scatter_sorted_kernel) at
+    each path's points, K10_VJP_SHAPES (FPS centers and kNN neighbourhoods
+    of random clouds: a point sits in several groups; then again with the
+    first 64 rows of every cloud on one point), bf16, and f32 at the
+    pretrain shape: d_points and d_centers within GRAD_TOL of the twin,
+    bitwise equal between two launches (one device kernel a call:
+    check_vjp_launches, early in the run); timed at each shape (device
+    time, events, bound, index_add_), the pretrain shape's in the JSON
+    line."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    print("K10's VJP (deterministic sorted scatter, one launch) at the paths' points:")
+    for b, n, c in K10_VJP_SHAPES:
+        xyz = torch.randn((b, n, 3), generator=gen, device="cuda")
+        _, centers = kfps.fps(xyz, g)
+        knn_idx = kknn.knn(s, xyz, centers).reshape(b, g * s)
+        heavy = knn_idx.clone()
+        heavy[:, :64] = heavy[:, :1]
+        first = b == K10_VJP_SHAPES[0][0]
+        for dt_name in ("float32", "bfloat16") if first else ("bfloat16",):
+            dt = getattr(torch, dt_name)
+            grad = torch.randn((b, g * s, c), generator=gen, device="cuda").to(dt)
+            for kind, idx in (("kNN", knn_idx), ("64 rows on one point", heavy)):
+                what = f"[{b},{n},{c}] {dt_name} {kind}"
+                args = (grad, idx, n, g, s)
+                dp, dc = kgather.scatter_centered_kernel(*args)
+                expect(dp.dtype == dt and dc.dtype == torch.float32,
+                       f"K10's VJP {what}: outputs {dp.dtype}, {dc.dtype}")
+                for gname, gk, gp in zip(("d_points", "d_centers"), (dp, dc),
+                                         kgather.scatter_centered_plain(*args)):
+                    rec.check("gather_centered_bwd", f"{what} {gname}", *rel_err(gk, gp),
+                              GRAD_TOL[dt_name])
+                check_bwd_bitwise(kgather.scatter_centered_kernel, args, "gather_centered_bwd",
+                                  what)
+            if dt_name == "bfloat16":
+                shape = f"points[{b},{n},{c}] idx[{b},{g * s}] bf16"
+                time_scatter(rec, "gather_centered_bwd",
+                             lambda: kgather.scatter_centered_kernel(grad, knn_idx, n, g, s),
+                             lambda: kgather.scatter_centered_plain(grad, knn_idx, n, g, s),
+                             index_add_call(grad, knn_idx, n),
+                             bound(nbytes(grad, knn_idx, dp, dc), grad.numel(), dt_name), shape,
+                             record=first)
+    print(f"  (K10's VJP phase took {time.perf_counter() - t0:.1f} s)")
+
+
 def check_training_kernels(rec: Recorder) -> None:
     from vipformer_tpu_torch.models.crossformer import init_weights
     from vipformer_tpu_torch.nn.pointnet import Group2Emb
@@ -1582,7 +1719,8 @@ def check_training_kernels(rec: Recorder) -> None:
                        f"K8 forward {branch} bf16: two launches differ")
                 print(f"  {'attn_train_fwd':18s} {branch} bf16 p={rate}: two launches bitwise "
                       f"equal")
-                check_bwd_bitwise(kf, bwd_args, f"{branch} bf16 p={rate}")
+                check_bwd_bitwise(kf.attention_bwd_kernel, bwd_args, "attn_train_bwd",
+                                  f"{branch} bf16 p={rate}")
             if branch == "point" and dt_name == "bfloat16":
                 shape = f"[{b},{n},{d}] H={h} p={rate} bf16"
                 ops = 4 * b * n * n * d
@@ -1687,7 +1825,7 @@ def check_training_kernels(rec: Recorder) -> None:
                                  kgather.scatter_centered_kernel(grad, idx, npts, g, s),
                                  kgather.scatter_centered_plain(grad, idx, npts, g, s)):
             rec.check("gather_centered_bwd", f"{dt_name} {gname}", *rel_err(gk, gp),
-                      GRAD_TOL["float32"])
+                      GRAD_TOL[dt_name])
         if dt_name == "bfloat16":
             shape = f"points[{nb},{npts},3] idx[{nb},{g * s}] bf16"
             # device time (the wrapper costs the host more than the kernel
@@ -1701,15 +1839,7 @@ def check_training_kernels(rec: Recorder) -> None:
             print(f"  {'gather_centered_fwd':18s} {shape:34s} device time; events "
                   f"{rec.r['gather_centered_fwd']['host_ms']:.4f} ms")
             time_k10_ft_cls(kfps, kknn, kgather, g, s)
-            dp, dc = kgather.scatter_centered_kernel(grad, idx, npts, g, s)
-            # its VJP the same way: a host-bound call, so device time
-            k10b = lambda: kgather.scatter_centered_kernel(grad, idx, npts, g, s)  # noqa: E731
-            rec.timing("gather_centered_bwd", queued_ms(k10b, "K10's VJP"),
-                       cuda_ms(lambda: kgather.scatter_centered_plain(grad, idx, npts, g, s)),
-                       bound(nbytes(grad, idx, dp, dc), grad.numel(), dt_name), shape=shape)
-            rec.r["gather_centered_bwd"]["host_ms"] = cuda_ms(k10b)
-            print(f"  {'gather_centered_bwd':18s} {shape:34s} device time; events "
-                  f"{rec.r['gather_centered_bwd']['host_ms']:.4f} ms")
+    check_k10_vjp(rec, kfps, kknn, kgather, g, s)
 
     # K9 on those patches: 96 clouds x 128 groups x 32 neighbours
     m = init_weights(Group2Emb(3, d), SEED)
@@ -2631,12 +2761,17 @@ def time_ft_cls(batches, test_batches, route_ms: dict) -> None:
 def check_gather_rows(rec: Recorder) -> None:
     """K12 against its twin: the compat stem's neighbour gather (FPS
     centers and kNN indices of random clouds, [96, 1024, 3] x 4096) in f32
-    and bf16, then GATHER_CASES; the gather equal, the scatter's f32 sums
-    within GRAD_TOL["float32"] (atomics add in another order)."""
+    and bf16, then GATHER_CASES (their first 8 rows of each cloud on one
+    point); the gather equal; its VJP (one launch of scatter_sorted_kernel,
+    d_points in the table's dtype) within GRAD_TOL of the twin, bitwise
+    equal between two launches (one device kernel a call:
+    check_vjp_launches, early in the run); both timed at the compat stem's
+    gather beside torch.gather and index_add_."""
     from vipformer_tpu_torch.ops.cuda import fps as kfps
     from vipformer_tpu_torch.ops.cuda import gather as kgather
     from vipformer_tpu_torch.ops.cuda import knn as kknn
 
+    t0 = time.perf_counter()
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED + 6)
     b, n, g, s = PARTSEG_BATCH, NUM_POINTS, 128, 32
@@ -2647,8 +2782,10 @@ def check_gather_rows(rec: Recorder) -> None:
           f"[{b},{n},3] x {g * s} and {GATHER_CASES}:")
     cases = [(xyz, stem_idx)]
     for cb, cn, cc, ck in GATHER_CASES:
-        cases.append((torch.from_numpy(rng.standard_normal((cb, cn, cc)).astype(np.float32)).to(dev),
-                      torch.from_numpy(rng.integers(0, cn, (cb, ck)).astype(np.int32)).to(dev)))
+        pts32 = torch.from_numpy(rng.standard_normal((cb, cn, cc)).astype(np.float32)).to(dev)
+        idx = rng.integers(0, cn, (cb, ck)).astype(np.int32)
+        idx[:, :8] = idx[:, :1]
+        cases.append((pts32, torch.from_numpy(idx).to(dev)))
     for pts32, idx in cases:
         cb, cn, cc = pts32.shape
         ck = idx.shape[1]
@@ -2661,34 +2798,35 @@ def check_gather_rows(rec: Recorder) -> None:
             rec.check("gather_rows_fwd", f"{what} (equal)", 0.0, 0.0, 0.0)
             grad = torch.from_numpy(rng.standard_normal((cb, ck, cc)).astype(np.float32)).to(dev, dt)
             dp_k = kgather.scatter_rows_kernel(grad, idx, cn)
+            expect(dp_k.dtype == dt, f"K12's VJP {what}: d_points {dp_k.dtype}")
             dp_p = kgather.scatter_rows_plain(grad, idx, cn)
             rec.check("gather_rows_bwd", f"{what} d_points", *rel_err(dp_k, dp_p),
-                      GRAD_TOL["float32"])
+                      GRAD_TOL[dt_name])
+            check_bwd_bitwise(kgather.scatter_rows_kernel, (grad, idx, cn), "gather_rows_bwd",
+                              what)
             if pts32 is not xyz or dt_name != "bfloat16":
                 continue
             shape = f"points[{cb},{cn},{cc}] idx[{cb},{ck}] bf16"
             idx64 = idx.long()[..., None].expand(-1, -1, cc)
-            flat = (idx.long() + cn * torch.arange(cb, device=dev)[:, None]).reshape(-1)
-            g2d = grad.reshape(-1, cc)
-            fns = {"gather_rows_fwd": (lambda: kgather.gather_rows_kernel(pts, idx),
-                                       lambda: kgather.gather_rows_plain(pts, idx),
-                                       lambda: torch.gather(pts, 1, idx64),
-                                       bound(nbytes(pts, idx, out_k), 0, dt_name)),
-                   "gather_rows_bwd": (lambda: kgather.scatter_rows_kernel(grad, idx, cn),
-                                       lambda: kgather.scatter_rows_plain(grad, idx, cn),
-                                       lambda: torch.zeros((cb * cn, cc), dtype=dt, device=dev)
-                                       .index_add_(0, flat, g2d),
-                                       bound(nbytes(grad, idx, dp_k), grad.numel(), "float32"))}
-            for name, (kern, plain, lib, bnd) in fns.items():
-                # at this size a call costs the host more than the card: the
-                # device times of the three calls stand beside the events'
-                rec.timing(name, cuda_ms(kern), cuda_ms(plain), bnd, cuda_ms(lib), shape=shape)
-                dev_ms = {k: device_ms(f) for k, f in (("ms", kern), ("plain_ms", plain),
-                                                      ("library_ms", lib))}
-                rec.r[name]["device_ms"] = dev_ms
-                print(f"  {name:18s} device time per call (queued behind a spin kernel): "
-                      + ", ".join(f"{k} {v:.4f} ms" if v is not None else f"{k} not measured"
-                                  for k, v in dev_ms.items()))
+            kern, plain = (lambda: kgather.gather_rows_kernel(pts, idx),
+                           lambda: kgather.gather_rows_plain(pts, idx))
+            lib = lambda: torch.gather(pts, 1, idx64)  # noqa: E731
+            # at this size a call costs the host more than the card: the
+            # device times of the three calls stand beside the events'
+            rec.timing("gather_rows_fwd", cuda_ms(kern), cuda_ms(plain),
+                       bound(nbytes(pts, idx, out_k), 0, dt_name), cuda_ms(lib), shape=shape)
+            dev_ms = {k: device_ms(f) for k, f in (("ms", kern), ("plain_ms", plain),
+                                                  ("library_ms", lib))}
+            rec.r["gather_rows_fwd"]["device_ms"] = dev_ms
+            print(f"  {'gather_rows_fwd':18s} device time per call (queued behind a spin kernel): "
+                  + ", ".join(f"{k} {v:.4f} ms" if v is not None else f"{k} not measured"
+                              for k, v in dev_ms.items()))
+            time_scatter(rec, "gather_rows_bwd", lambda: kgather.scatter_rows_kernel(grad, idx, cn),
+                         lambda: kgather.scatter_rows_plain(grad, idx, cn),
+                         index_add_call(grad, idx, cn),
+                         bound(nbytes(grad, idx, dp_k), grad.numel(), dt_name), shape, record=True)
+            rec.r["gather_rows_bwd"]["library_ms"] = rec.r["gather_rows_bwd"]["index_add_ms"]
+    print(f"  (K12's phase took {time.perf_counter() - t0:.1f} s)")
 
 
 def partseg_config(**over):
@@ -3087,7 +3225,7 @@ def check_perceiver_kernels(rec: Recorder) -> None:
             rec.check("attn_train_bwd", f"{what} {gname}", *rel_err(gk, gp, OWN_SCALE),
                       GRAD_TOL[dt_name])
         if dt_name == "bfloat16":
-            check_bwd_bitwise(kf, bwd_args, what)
+            check_bwd_bitwise(kf.attention_bwd_kernel, bwd_args, "attn_train_bwd", what)
             ms_f = cuda_ms(lambda: kf.attention_fwd_kernel(q, k, v, seed, h, scale, rate), iters=5)
             ms_b = cuda_ms(lambda: kf.attention_bwd_kernel(*bwd_args), iters=5)
             print(f"  K8 at q[{b},{g},{d}] kv[{b},{m_img},{d}] bf16 p={rate}: forward "
@@ -4560,6 +4698,58 @@ def kernel_line(rec: Recorder, counts: dict) -> list:
     return out
 
 
+# ------------------------------------------------------------ resume
+RESUME_ARGV = ["--synthetic_data", "true", "--arch", "E1CL1SL-H2D128-L16-MR2", "--group_size",
+               "8", "--num_ft_points", "128", "--batch_size", "64", "--test_batch_size", "100",
+               "--compute_dtype", "bfloat16", "--save_freq", "1", "--exp_name", "resume"]
+
+
+def check_resume_on_card() -> None:
+    """The ft_cls CLI on the card at tiny widths (E1CL1SL-H2D128, 128
+    points, bf16) with save_freq 1: two epochs, then, as after a kill,
+    `--resume_training` to four. metrics.jsonl must read epochs 0, 1, 2, 3
+    (none run twice) with a best that never falls, and the rolling
+    snapshot put back into a fresh state on the card must hold its
+    optimizer moments there, equal to the saved ones bit for bit."""
+    import tempfile
+
+    from vipformer_tpu_torch.cli import ft_cls
+    from vipformer_tpu_torch.models.factory import build_ft_cls
+    from vipformer_tpu_torch.train.checkpoint import load_checkpoint, restore_state
+    from vipformer_tpu_torch.train.trainer import create_state
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = RESUME_ARGV + ["--run_dir", tmp, "--data_dir", os.path.join(tmp, "data")]
+        cfg, dev = ft_cls.parse_args(argv + ["--epochs", "2"])
+        expect(dev == "cuda", f"resume: the CLI runs on {dev}")
+        ft_cls.main(cfg, dev)
+        cfg, dev = ft_cls.parse_args(argv + ["--epochs", "4", "--resume_training", "true"])
+        out = ft_cls.main(cfg, dev)
+        root = os.path.join(tmp, cfg.proj_name, "resume")
+        with open(os.path.join(root, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        steps, bests = [r["step"] for r in rows], [r["best_acc"] for r in rows]
+        expect(steps == [0, 1, 2, 3], f"resume: metrics.jsonl epochs {steps}")
+        expect(bests == sorted(bests) and out["best_acc"] == bests[-1],
+               f"resume: best trackers {bests}, returned {out}")
+        path = os.path.join(root, "models", "model_last.ckpt")
+        state = create_state(cfg, {"pc": build_ft_cls(cfg, device=dev, seed=SEED + 1)})
+        meta = restore_state(path, state)
+        saved = load_checkpoint(path)["optimizer"]["state"]
+        moments = [(i, k, v) for i, e in state.optimizer.state_dict()["state"].items()
+                   for k, v in e.items() if k != "step"]
+        where = sorted({str(v.device) for _, _, v in moments})
+        expect(meta["epoch"] == 3 and moments and all(v.is_cuda for _, _, v in moments),
+               f"resume: epoch {meta['epoch']}, moments on {where}")
+        expect(all(torch.equal(v.cpu(), saved[i][k]) for i, k, v in moments),
+               "resume: the restored moments differ from the saved ones")
+        expect(all(p.is_cuda for p in state.parameters()), "resume: parameters left the card")
+    print(f"resume on the card: ft_cls epochs {steps} (killed after 1, resumed to 3), best "
+          f"{bests}; {len(moments)} moment tensors restored onto {dev}, bitwise equal to the "
+          f"snapshot ({time.perf_counter() - t0:.1f} s)")
+
+
 # ------------------------------------------------------------ A/B mode
 AB_ITERS = 20  # serving forwards a sample
 AB_HOST_CALLS = 200  # wrapper calls whose host time is averaged
@@ -5214,6 +5404,7 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
         rec = Recorder()
         check_one_pass_launches()
+        check_vjp_launches()
         check_k15_kernels()
         check_k7_forward_kernels()
         check_serving_kernels(rec)
@@ -5309,6 +5500,7 @@ def main() -> int:
         time_eval_forward()
         compare_eval_with_cpu()
         drive_perceiver_head_split(eval_counts)
+        check_resume_on_card()
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -261,7 +261,8 @@ def test_ft_cls_cli_runs_on_the_cpu(tmp_path):
     """`cli.pretrain` writes a pc checkpoint; `cli.ft_cls --resume true`
     bootstraps from it, trains two epochs on synthetic ModelNet40 (one
     metrics line each, model_best saved), and `--eval_only` reproduces the
-    best test accuracy from model_best."""
+    best test accuracy from model_best; `--resume_training` then continues
+    at epoch 2 and `--dump_feats` writes the test features."""
     from vipformer_tpu_torch.cli import ft_cls, pretrain
 
     arch = ["--arch", "E1CL1SL-H2D128-L16-MR2", "--group_size", "8", "--compute_dtype",
@@ -275,7 +276,7 @@ def test_ft_cls_cli_runs_on_the_cpu(tmp_path):
     ft_argv = ["--synthetic_data", "true", "--batch_size", "100", "--test_batch_size", "128",
                "--num_ft_points", "64", "--optim", "adamw", "--exp_name", "ft"] + arch
     cfg, dev = ft_cls.parse_args(ft_argv + ["--epochs", "2", "--resume", "true",
-                                            "--pc_model_file", str(ckpt)])
+                                            "--pc_model_file", str(ckpt), "--save_freq", "1"])
     assert cfg.ft_dataset == "ModelNet40" and cfg.resume and dev == "cpu"
     out = ft_cls.main(cfg, dev)
     root = tmp_path / cfg.proj_name / "ft"
@@ -290,7 +291,15 @@ def test_ft_cls_cli_runs_on_the_cpu(tmp_path):
     assert (root / "models" / "model_best.ckpt").exists()
     cfg, dev = ft_cls.parse_args(ft_argv + ["--eval_only", "true"])
     assert ft_cls.main(cfg, dev) == {"best_acc": out["best_acc"], "best_epoch": -1}
-    for flag in ("--resume_training", "--dump_feats"):
-        cfg, dev = ft_cls.parse_args(ft_argv + [flag, "true"])
-        with pytest.raises(NotImplementedError, match="not ported"):
-            ft_cls.main(cfg, dev)
+    # --resume_training continues from the rolling model_last at epoch 2;
+    # --dump_feats writes the test split's features
+    cfg, dev = ft_cls.parse_args(ft_argv + ["--epochs", "3", "--resume_training", "true",
+                                            "--dump_feats", "true"])
+    resumed = ft_cls.main(cfg, dev)
+    lines = [json.loads(line) for line in (root / "metrics.jsonl").read_text().splitlines()]
+    assert [m["step"] for m in lines] == [0, 1, 2]
+    assert resumed["best_acc"] >= out["best_acc"]
+    assert "resumed training from" in "".join(p.read_text() for p in root.glob("*.log"))
+    blob = np.load(root / "files" / "ft_test_feats_labels.npz")
+    assert blob["feats"].shape == (200, 2 * cfg.num_latent_channels)
+    assert blob["labels"].shape == (200,)

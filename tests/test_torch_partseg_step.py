@@ -231,7 +231,7 @@ def test_ft_partseg_cli_runs_on_the_cpu(tmp_path):
             "--num_ft_points", "128", "--layer_idx", "1", "2", "--exp_name", "seg"] + arch
     cfg, dev = ft_partseg.parse_args(argv + ["--epochs", "2", "--resume", "true",
                                              "--pc_model_file", str(ckpt), "--patch_compat",
-                                             "true"])
+                                             "true", "--save_freq", "1"])
     assert cfg.ft_dataset == "ShapeNetPart" and cfg.num_sa_layers == 2 and cfg.max_dpr == 0.1
     assert cfg.layer_idx == (1, 2) and cfg.patch_compat and cfg.grad_clip_norm is None
     out = ft_partseg.main(cfg, dev)
@@ -248,9 +248,14 @@ def test_ft_partseg_cli_runs_on_the_cpu(tmp_path):
     assert "WARNING: checkpoint" in log and "patch_compat=False" in log
     assert "grad clip 10.0" in log
     assert (root / "models" / "model_best.ckpt").exists()
-    cfg, dev = ft_partseg.parse_args(argv + ["--resume_training", "true"])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ft_partseg.main(cfg, dev)
+    # --resume_training continues from the rolling model_last at epoch 2
+    cfg, dev = ft_partseg.parse_args(argv + ["--epochs", "3", "--patch_compat", "true",
+                                             "--resume_training", "true"])
+    resumed = ft_partseg.main(cfg, dev)
+    lines = [json.loads(line) for line in (root / "metrics.jsonl").read_text().splitlines()]
+    assert [m["step"] for m in lines] == [0, 1, 2]
+    assert resumed["best"]["mean_category_iou"] >= out["best"]["mean_category_iou"]
+    assert "resumed training from" in "".join(p.read_text() for p in root.glob("*.log"))
 
 
 def test_unreached_layers_decay_as_in_jax():

@@ -235,7 +235,7 @@ def test_pretrain_cli_runs_on_the_cpu(tmp_path):
     synthetic set: two epochs of the tiny model write one metrics line each
     and the best checkpoints of both branches, which load back."""
     from vipformer_tpu_torch.cli import pretrain as cli
-    from vipformer_tpu_torch.train.checkpoint import load_checkpoint, load_metadata
+    from vipformer_tpu_torch.train.checkpoint import branch_state, load_checkpoint, load_metadata
 
     argv = ["--synthetic_data", "true", "--synthetic_size", "8", "--epochs", "2",
             "--batch_size", "4", "--arch", "E1CL1SL-H2D128-L16-MR2", "--group_size", "8",
@@ -253,7 +253,7 @@ def test_pretrain_cli_runs_on_the_cpu(tmp_path):
     for name in ("pc", "img"):
         path = str(root / "models" / f"{name}_model_best.ckpt")
         assert load_metadata(path)["epoch"] == out["best_epoch"]
-        assert set(load_checkpoint(path)["model"]) == set(
+        assert set(branch_state(load_checkpoint(path), name)) == set(
             (tfactory.build_pc_model if name == "pc" else tfactory.build_img_model)(
                 cfg, device="cpu").state_dict())
 

@@ -249,7 +249,7 @@ def test_ft_semseg_cli_runs_on_the_cpu(tmp_path, monkeypatch):
     argv = ["--synthetic_data", "true", "--batch_size", "4", "--test_batch_size", "4",
             "--layer_idx", "1", "2", "--exp_name", "sem"] + arch
     cfg, dev = ft_semseg.parse_args(argv + ["--epochs", "2", "--resume", "true",
-                                            "--pc_model_file", str(ckpt)])
+                                            "--pc_model_file", str(ckpt), "--save_freq", "1"])
     assert (cfg.ft_dataset, cfg.point_channels, cfg.num_obj_classes) == ("S3DIS", 6, 13)
     assert cfg.num_sa_layers == 2 and cfg.max_dpr == 0.1 and cfg.layer_idx == (1, 2)
     out = ft_semseg.main(cfg, dev)
@@ -265,6 +265,12 @@ def test_ft_semseg_cli_runs_on_the_cpu(tmp_path, monkeypatch):
         "'seg_head']" in log
     meta = load_metadata(str(root / "models" / "model_best.ckpt"))
     assert meta["kind"] == "ft_semseg" and meta["epoch"] == out["best_epoch"]
-    for extra in (["--resume_training", "true"], ["--num_devices", "2"]):
-        with pytest.raises(NotImplementedError, match="ported"):
-            ft_semseg.main(*ft_semseg.parse_args(argv + extra))
+    # --resume_training continues from the rolling model_last at epoch 2
+    resumed = ft_semseg.main(*ft_semseg.parse_args(argv + ["--epochs", "3",
+                                                           "--resume_training", "true"]))
+    lines = [json.loads(line) for line in (root / "metrics.jsonl").read_text().splitlines()]
+    assert [m["step"] for m in lines] == [0, 1, 2]
+    assert resumed["best"]["miou"] >= out["best"]["miou"]
+    assert "resumed training from" in "".join(p.read_text() for p in root.glob("*.log"))
+    with pytest.raises(NotImplementedError, match="ported"):
+        ft_semseg.main(*ft_semseg.parse_args(argv + ["--num_devices", "2"]))

@@ -360,3 +360,180 @@ def test_k12_warp_runs_copy_every_row_once(b, n, c, k, dt):
     got = points.reshape(-1)[torch.from_numpy(ofs[:, None] + np.arange(c))].view(b, k, c)
     assert torch.equal(got, kg.gather_rows_plain(points, idx))
     kg.check_centered_sizes(b, n, c, k)
+
+
+# ------------------------------------------------------ K10's and K12's VJPs
+# (B, N, K, C, G): K10's paths (pretrain's 96 clouds of 2,048 points,
+# ft_cls's 330 of 1,024, semseg's 32 of 4,096 xyz+rgb; 128 groups of 32),
+# then K12's (the compat stem's gather and chip_smoke.py's GATHER_CASES;
+# G = 0: no centers)
+SCATTER_CASES = [(96, 2048, 4096, 3, 128), (330, 1024, 4096, 3, 128),
+                 (32, 4096, 4096, 6, 128), (96, 1024, 4096, 3, 0), (8, 1024, 1000, 128, 0),
+                 (3, 300, 77, 5, 0), (5, 700, 300, 16, 0)]
+SC_WARPS = 16  # csrc/gather.cu: warps a block of scatter_sorted_kernel
+
+
+def _scatter_smem(np_, k, c, size, stage):
+    """csrc/gather.cu sc_smem_bytes: the scan's warp totals, the segment
+    ends and the placed row ids (ints), then from a 16-byte boundary the
+    cloud's g where it is staged."""
+    return ((4 * (SC_WARPS + np_ + k) + 15) & ~15) + (k * c * size if stage else 0)
+
+
+@pytest.mark.parametrize("size", [4, 2])
+@pytest.mark.parametrize("b,n,k,c,g", SCATTER_CASES)
+def test_scatter_plan_covers_every_point_once(b, n, k, c, g, size):
+    """`scatter_plan` cuts each cloud's points into ceil(N / np) slices, a
+    block each: every point in one slice, none empty, at most 4,096 points
+    a slice and at least 32; all blocks in one wave of 3 an SM unless the
+    clouds alone fill more, the K10 groups split the same way; a group of
+    `lanes` lanes (a power of two, 4 channels a lane) covers a row's C
+    channels, a warp at C = 128; a cloud's g of at most 64 KB is staged
+    in shared memory (every bf16 path shape); three blocks' shared memory
+    fits an SM."""
+    np_, lanes, stage = kg.scatter_plan(b, n, k, c, size, SMS)
+    parts = -(-n // np_)
+    starts = np.arange(parts) * np_
+    assert (starts < n).all() and np_ <= kg.SCATTER_MAX_PART
+    owned = np.zeros(n, np.int64)
+    for p0 in starts:
+        owned[p0:min(n, p0 + np_)] += 1
+    assert (owned == 1).all()
+    assert b * parts <= kg.SCATTER_BLOCKS_PER_SM * SMS or parts == 1
+    assert np_ >= min(n, kg.SCATTER_MIN_PART)
+    assert lanes & (lanes - 1) == 0 and 4 * lanes >= c and (lanes == 1 or 2 * lanes < c)
+    assert (lanes == 32) == (c == 128)
+    if g:
+        gpp = -(-g // parts)
+        assert sum(max(0, min(g, j * gpp + gpp) - j * gpp) for j in range(parts)) == g
+    assert stage == (k * c * size <= 65536)
+    assert stage or size == 4 or c > 8
+    assert 3 * (_scatter_smem(np_, k, c, size, stage) + BLOCK_RESERVED_BYTES) <= SM_SHARED_BYTES
+    assert kcuda._lib is None
+
+
+@pytest.mark.parametrize("c,k,match", [(129, 64, "C <= 128"), (3, 16385, "K <= 16384")])
+def test_scatter_refuses_what_its_kernel_does_not_take(c, k, match):
+    """Before any launch, the VJPs' plan refuses more than 128 channels and
+    more than 16,384 rows a cloud (their ids in shared memory), with the
+    limit in the message."""
+    with pytest.raises(ValueError, match=match):
+        kg.scatter_plan(4, 1024, k, c, 2, SMS)
+    assert kcuda._lib is None
+
+
+def _in_row_order(seg):
+    """A segment's row ids as the kernel sorts them, in place, a thread a
+    point: insertion sort."""
+    seg = list(seg)
+    for i in range(1, len(seg)):
+        x, j = seg[i], i - 1
+        while j >= 0 and seg[j] > x:
+            seg[j + 1] = seg[j]
+            j -= 1
+        seg[j + 1] = x
+    return seg
+
+
+@pytest.mark.parametrize("length", [0, 1, 2, 7, 8, 16, 17, 40])
+def test_rows_walk_in_row_order(length):
+    """Whatever order the atomics placed a point's rows in, the kernel's
+    insertion sort gives them in row order: random permutations, the
+    reversed order, and the nearly sorted order the placement gives (one
+    pair swapped)."""
+    rng = np.random.default_rng(length)
+    for _ in range(20):
+        seg = rng.permutation(1000)[:length]
+        assert _in_row_order(seg) == sorted(seg)
+    ordered = sorted(rng.permutation(1000)[:length])
+    assert _in_row_order(ordered[::-1]) == ordered
+    if length > 1:
+        near = list(ordered)
+        near[0], near[1] = near[1], near[0]
+        assert _in_row_order(near) == ordered
+
+
+def _sorted_scatter(g, idx, n: int, gnum: int, s: int, arrival):
+    """The VJPs' kernel (csrc/gather.cu scatter_sorted_kernel) block by
+    block: the slice's histogram, its exclusive scan into segment starts,
+    the row ids placed in the order `arrival(rows)` gives (the integer
+    atomics' order is not fixed), each segment sorted by insertion
+    (`_in_row_order`), summed in f32 and rounded once; with gnum, each of
+    the slice's groups' S rows summed in row order, negated, rounded to
+    the dtype. -> (d_points [B, N, C] in g's dtype, d_centers f32 or None,
+    the writes of each point row)."""
+    b, k, c = g.shape
+    gf = g.float().numpy()
+    np_ = kg.scatter_plan(b, n, k, c, g.element_size(), SMS)[0]
+    parts = -(-n // np_)
+    acc = np.zeros((b, n, c), np.float32)
+    writes = np.zeros((b, n), np.int64)
+    dc = np.zeros((b, max(gnum, 1), 3), np.float32)
+    for bi in range(b):
+        ids = idx[bi].numpy().astype(np.int64)
+        for part in range(parts):
+            p0 = part * np_
+            npart = min(np_, n - p0)
+            local = ids - p0
+            mine = np.flatnonzero((local >= 0) & (local < npart))
+            cnt = np.bincount(local[mine], minlength=npart)
+            end = np.cumsum(cnt) - cnt  # segment starts, then cursors
+            seg = np.empty(len(mine), np.int64)
+            for r in arrival(mine):
+                seg[end[local[r]]] = r
+                end[local[r]] += 1
+            starts = end - cnt
+            for p in range(npart):
+                total = np.zeros(c, np.float32)
+                for r in _in_row_order(seg[starts[p]:end[p]]):
+                    total = (total + gf[bi, r]).astype(np.float32)
+                acc[bi, p0 + p] = total
+                writes[bi, p0 + p] += 1
+            if gnum:
+                gpp = -(-gnum // parts)
+                for grp in range(part * gpp, min(gnum, part * gpp + gpp)):
+                    total = np.zeros(3, np.float32)
+                    for r in range(grp * s, grp * s + s):
+                        total = (total + gf[bi, r, :3]).astype(np.float32)
+                    dc[bi, grp] = -total
+    dp = torch.from_numpy(acc).to(g.dtype)
+    cen = torch.from_numpy(dc).to(g.dtype).float() if gnum else None
+    return dp, cen, writes
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,k,c,gnum,s", [(2, 300, 256, 3, 8, 32), (3, 700, 300, 16, 0, 0),
+                                            (2, 256, 512, 6, 16, 32), (1, 130, 77, 128, 0, 0)])
+def test_sorted_scatter_is_deterministic_and_the_twins(b, n, k, c, gnum, s, dt):
+    """The kernel's sorted scatter, mirrored: with the row ids placed in
+    two different arrival orders (forward, and a random permutation: the
+    atomics' order is free), d_points and d_centers come out bit for bit
+    the same, equal to each point's f32 sum in row order (np.add.at, one
+    add at a time in row order) rounded once to the dtype, which on the
+    CPU is the twins' f32 sum too; every point row is written once, zeros
+    where no row picks it. Rows on one point: 20 a cloud at its start,
+    and points no row picks."""
+    rng = np.random.default_rng(20)
+    ids = rng.integers(0, n // 2, (b, k)).astype(np.int32)  # half the points unpicked
+    ids[:, :20] = ids[:, :1]
+    assert np.bincount(ids[0]).max() > 16  # a long segment
+    idx = torch.from_numpy(ids)
+    g = _t(rng, (b, k, c), dt)
+    shuffle = np.random.default_rng(21)
+    first = _sorted_scatter(g, idx, n, gnum, s, lambda rows: rows)
+    again = _sorted_scatter(g, idx, n, gnum, s, lambda rows: shuffle.permutation(rows))
+    assert torch.equal(first[0], again[0])
+    assert (first[2] == 1).all()
+    ref = np.zeros((b, n, c), np.float32)
+    for bi in range(b):
+        np.add.at(ref[bi], ids[bi].astype(np.int64), g[bi].float().numpy())
+    assert torch.equal(first[0], torch.from_numpy(ref).to(dt))
+    assert not first[0][:, n // 2:].any()
+    if gnum:
+        dp_t, dc_t = kg.scatter_centered_plain(g, idx, n, gnum, s)
+        assert torch.equal(first[1], again[1])
+        torch.testing.assert_close(first[1], dc_t, rtol=1e-6, atol=1e-6 if dt == torch.float32
+                                   else 2 ** -8 * dc_t.abs().max().item())
+    else:
+        dp_t = kg.scatter_rows_plain(g, idx, n)
+    assert torch.equal(torch.from_numpy(ref), dp_t)  # the CPU twin adds in row order too

@@ -1,8 +1,9 @@
 """Shared CLI plumbing (counterpart of vipformer_tpu/cli/common.py: `setup`,
-`warn_patch_compat` and `extract_features`): the run directory, its log and
+`warn_patch_compat`, `extract_features`, `dump_feats_artifact`,
+`resume_training_state` and `save_rolling`): the run directory, its log and
 its metrics stream, the stem-mode check of a restored checkpoint, the eval
-CLIs' checkpoint restore, and the batched feature extraction of the SVM
-probes. The port runs on one card, so there is no mesh and the batch
+CLIs' checkpoint restore, the batched feature extraction of the SVM
+probes, the `--dump_feats` artifact, and the finetunes' crash-resume. The port runs on one card, so there is no mesh and the batch
 needs no rounding."""
 
 from __future__ import annotations
@@ -17,7 +18,13 @@ import torch
 
 from vipformer_tpu_torch.config import Config
 from vipformer_tpu_torch.data.pipeline import Loader, collate_cls, pad_batch
-from vipformer_tpu_torch.train.checkpoint import branch_state, load_checkpoint, load_metadata
+from vipformer_tpu_torch.train.checkpoint import (
+    branch_state,
+    load_checkpoint,
+    load_metadata,
+    restore_state,
+    save_state,
+)
 
 
 class Run:
@@ -100,3 +107,45 @@ def extract_features(feats_fn, dataset, batch_size: int):
         feats.append(out[torch.as_tensor(mask, device=out.device)])
         labels.append(batch["labels"][mask])
     return torch.cat(feats), np.concatenate(labels)
+
+
+def dump_feats_artifact(run: Run, tag: str, feats, labels) -> str:
+    """`--dump_feats` (JAX cli/common.py:131-151): the test split's backbone
+    features [N, 2D] (f32) and labels [N] as
+    `<run>/files/<tag>_test_feats_labels.npz` (keys `feats`, `labels`),
+    which `tools/visualization/show_feats.py --feats_file` renders.
+    Returns the path."""
+    path = os.path.join(run.root, "files", f"{tag}_test_feats_labels.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    labels = np.asarray(labels)
+    np.savez(path, feats=torch.as_tensor(feats).float().cpu().numpy(), labels=labels)
+    run.write(f"dumped {len(labels)} test feature vectors -> {path}")
+    return path
+
+
+def resume_training_state(run: Run, state, cfg: Config) -> tuple[int, dict]:
+    """Crash-resume of the finetune loops (JAX cli/common.py:160-188): with
+    `--resume_training`, put the rolling `model_last` snapshot back into
+    `state` (train/checkpoint.py:restore_state: weights, BatchNorm
+    statistics, the optimizer's moments and step counts) and return (the
+    epoch after its own, its metadata). Without the flag, or where no
+    snapshot was written yet (a run killed before its first save), (0, {})
+    and a fresh start."""
+    if not cfg.resume_training:
+        return 0, {}
+    path = run.model_path("model_last")
+    if not os.path.exists(path):
+        run.write(f"resume_training requested but {path} missing: fresh start")
+        return 0, {}
+    meta = restore_state(path, state)
+    start = meta.get("epoch", -1) + 1
+    run.write(f"resumed training from {path} at epoch {start}")
+    return start, meta
+
+
+def save_rolling(run: Run, state, epoch: int, cfg: Config, extra: dict) -> None:
+    """The rolling `model_last` snapshot every `save_freq` epochs (JAX
+    cli/common.py:191-201), with {"epoch": epoch, **extra}; the write is
+    atomic, so a kill during it leaves the previous snapshot."""
+    if cfg.save_freq and (epoch + 1) % cfg.save_freq == 0:
+        save_state(run.model_path("model_last"), state, {"epoch": epoch, **extra})

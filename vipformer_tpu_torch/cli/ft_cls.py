@@ -19,11 +19,17 @@ under `--data_dir`, else the synthetic stand-in) at the epoch's
 learning rate, evaluates the test split at `test_batch_size` (the last
 batch padded, its padding masked out), writes one line to
 `<run_dir>/<proj_name>/<exp_name>/metrics.jsonl` and saves
-`models/model_best.ckpt` on a new best test accuracy. `--eval_only` loads
-`model_best` and reports its test accuracy.
+`models/model_best.ckpt` on a new best test accuracy, and every
+`save_freq` epochs the rolling `model_last` (weights, the optimizer's
+moments and the step count, with {"epoch", "test_acc", "best_acc",
+"best_epoch", "kind"}). `--resume_training true` continues a killed run
+from `model_last` at the epoch after its own, the best tracker restored
+(`cli/common.py:resume_training_state`; no snapshot: a fresh start).
+`--eval_only` loads `model_best` and reports its test accuracy.
+`--dump_feats true` writes the trained backbone's test-split features to
+`files/ft_test_feats_labels.npz` (`cli/common.py:dump_feats_artifact`).
 
-Not ported yet (each raises or is logged): `--resume_training`,
-`--dump_feats`, wandb and multi-card runs.
+Not ported yet (each raises or is logged): wandb and multi-card runs.
 """
 
 from __future__ import annotations
@@ -33,7 +39,14 @@ import time
 
 import torch
 
-from vipformer_tpu_torch.cli.common import Run, require_single_card
+from vipformer_tpu_torch.cli.common import (
+    Run,
+    dump_feats_artifact,
+    extract_features,
+    require_single_card,
+    resume_training_state,
+    save_rolling,
+)
 from vipformer_tpu_torch.config import Config, add_config_args, config_from_namespace
 from vipformer_tpu_torch.data.datasets import ModelNet40SVM, ScanObjectNNSVM
 from vipformer_tpu_torch.data.pipeline import Loader, collate_cls, pad_batch
@@ -46,7 +59,12 @@ from vipformer_tpu_torch.train.checkpoint import (
 )
 from vipformer_tpu_torch.train.meters import AverageMeter
 from vipformer_tpu_torch.train.schedules import Schedule
-from vipformer_tpu_torch.train.trainer import create_state, make_cls_eval, make_cls_step
+from vipformer_tpu_torch.train.trainer import (
+    create_state,
+    make_cls_eval,
+    make_cls_step,
+    make_feats_fn,
+)
 
 
 def datasets(cfg: Config):
@@ -66,15 +84,8 @@ def evaluate(eval_step, test_set, batch_size: int) -> float:
     return correct / max(total, 1)
 
 
-def _not_ported(cfg: Config) -> None:
-    require_single_card(cfg)
-    for flag in ("resume_training", "dump_feats"):
-        if getattr(cfg, flag):
-            raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP Queue 1)")
-
-
 def main(cfg: Config, device: str = "cuda") -> dict:
-    _not_ported(cfg)
+    require_single_card(cfg)
     run = Run(cfg)
     if cfg.wandb:
         run.write("wandb is not ported: metrics.jsonl is the only metrics channel")
@@ -88,6 +99,7 @@ def main(cfg: Config, device: str = "cuda") -> dict:
         restore_backbone(model, branch_state(load_checkpoint(path)), ("stem", "encoder"),
                          log=run.write)
     state = create_state(cfg, {"pc": model})
+    start_epoch, last_meta = resume_training_state(run, state, cfg)
     step = make_cls_step(cfg, model)
     eval_step = make_cls_eval(model)
     run.write(f"ft_cls on {device}: {cfg.ft_dataset} {len(train_set)} train / "
@@ -102,8 +114,9 @@ def main(cfg: Config, device: str = "cuda") -> dict:
 
     schedule = Schedule(cfg)
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
-    best_acc, best_epoch, epoch_metric = 0.0, -1, None
-    for epoch in range(cfg.epochs):
+    best_acc, best_epoch = last_meta.get("best_acc", 0.0), last_meta.get("best_epoch", -1)
+    epoch_metric = None  # the plateau schedule's metric: none before an epoch of this run
+    for epoch in range(start_epoch, cfg.epochs):
         # the plateau schedule reads last epoch's mean train loss
         lr = schedule.lr(epoch, epoch_metric)
         train_loader.set_epoch(epoch)
@@ -126,7 +139,12 @@ def main(cfg: Config, device: str = "cuda") -> dict:
         run.metrics(epoch, lr=lr, train_loss=loss_m.avg, train_acc=acc_m.avg, test_acc=test_acc,
                     best_acc=best_acc, train_time=train_time,
                     clouds_per_s=len(metrics) * cfg.batch_size / train_time)
+        save_rolling(run, state, epoch, cfg, {"test_acc": test_acc, "best_acc": best_acc,
+                                              "best_epoch": best_epoch, "kind": "ft_cls"})
     run.write(f"final best test acc {best_acc:.4f} at epoch {best_epoch}")
+    if cfg.dump_feats:
+        feats, labels = extract_features(make_feats_fn(model), test_set, cfg.test_batch_size)
+        dump_feats_artifact(run, "ft", feats, labels)
     return {"best_acc": best_acc, "best_epoch": best_epoch}
 
 

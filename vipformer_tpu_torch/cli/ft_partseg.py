@@ -22,10 +22,14 @@ files under `--data_dir`, else the synthetic stand-in),
 evaluates the test split at `test_batch_size` (the last batch padded, its
 padding masked out of the metrics), writes one line to
 `<run_dir>/<proj_name>/<exp_name>/metrics.jsonl` and saves
-`models/model_best.ckpt` on a new best mean category IoU.
+`models/model_best.ckpt` on a new best mean category IoU, and every
+`save_freq` epochs the rolling `model_last` (weights, the optimizer's
+moments and the step count, with {"epoch", "best", "best_epoch",
+"kind"}). `--resume_training true` continues a killed run from
+`model_last` at the epoch after its own, the best tracker restored
+(`cli/common.py:resume_training_state`; no snapshot: a fresh start).
 
-Not ported yet (each raises or is logged): `--resume_training`, wandb
-and multi-card runs.
+Not ported yet (each raises or is logged): wandb and multi-card runs.
 """
 
 from __future__ import annotations
@@ -36,7 +40,13 @@ import time
 import numpy as np
 import torch
 
-from vipformer_tpu_torch.cli.common import Run, warn_patch_compat
+from vipformer_tpu_torch.cli.common import (
+    Run,
+    require_single_card,
+    resume_training_state,
+    save_rolling,
+    warn_patch_compat,
+)
 from vipformer_tpu_torch.config import Config, add_config_args, config_from_namespace
 from vipformer_tpu_torch.data.datasets import ShapeNetPart
 from vipformer_tpu_torch.data.pipeline import Loader, collate_partseg, pad_batch
@@ -64,16 +74,8 @@ def evaluate(eval_step, test_set, batch_size: int) -> dict:
     return metrics.results()
 
 
-def _not_ported(cfg: Config) -> None:
-    if cfg.resume_training:
-        raise NotImplementedError("--resume_training is not ported yet (ROADMAP Queue 1)")
-    if cfg.num_devices > 1:
-        raise NotImplementedError("multi-card runs are not ported yet (ROADMAP Queue 1, "
-                                  "item 16): the port trains on one card")
-
-
 def main(cfg: Config, device: str = "cuda") -> dict:
-    _not_ported(cfg)
+    require_single_card(cfg)
     if cfg.grad_clip_norm is None:
         cfg = cfg.replace(grad_clip_norm=10.0)  # reference ft_partseg.py:175
     run = Run(cfg)
@@ -91,6 +93,7 @@ def main(cfg: Config, device: str = "cuda") -> dict:
         restore_backbone(model, branch_state(load_checkpoint(path)), ("stem", "encoder"),
                          log=run.write)
     state = create_state(cfg, {"pc": model})
+    start_epoch, last_meta = resume_training_state(run, state, cfg)
     step = make_partseg_step(cfg, model)
     eval_step = make_partseg_eval(model)
     run.write(f"ft_partseg on {device}: ShapeNetPart {len(train_set)} trainval / "
@@ -100,8 +103,10 @@ def main(cfg: Config, device: str = "cuda") -> dict:
 
     schedule = Schedule(cfg)
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
-    best, best_epoch, epoch_metric = {"mean_category_iou": 0.0}, -1, None
-    for epoch in range(cfg.epochs):
+    best = last_meta.get("best", {"mean_category_iou": 0.0})
+    best_epoch = last_meta.get("best_epoch", -1)
+    epoch_metric = None  # the plateau schedule's metric: none before an epoch of this run
+    for epoch in range(start_epoch, cfg.epochs):
         # the plateau schedule reads last epoch's mean train loss
         lr = schedule.lr(epoch, epoch_metric)
         train_loader.set_epoch(epoch)
@@ -127,6 +132,8 @@ def main(cfg: Config, device: str = "cuda") -> dict:
                     train_time=train_time,
                     clouds_per_s=len(metrics) * cfg.batch_size / max(train_time, 1e-9),
                     **results)
+        save_rolling(run, state, epoch, cfg,
+                     {"best": best, "best_epoch": best_epoch, "kind": "ft_partseg"})
     run.write(f"final best mean-category IoU {best['mean_category_iou']:.4f} at epoch "
               f"{best_epoch}")
     return {"best": best, "best_epoch": best_epoch}

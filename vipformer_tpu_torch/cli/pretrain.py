@@ -23,22 +23,34 @@ cli/pretrain.py:183-202): the point branch's eval features of the
 `num_test_points` points, batches of `test_batch_size`), an SVM fitted on
 the train split (`fit_svm`, C = `svm_coff`) and scored on the test
 split. On a new best test accuracy it saves
-`models/pc_model_best.ckpt` and `models/img_model_best.ckpt`
-(train/checkpoint.py) with {"epoch", "svm_test_acc", "kind"}. Each epoch
-writes one JSON line to `<run_dir>/<proj_name>/<exp_name>/metrics.jsonl`
-(losses, svm_test_acc, svm_best_acc, times) beside a log file and the
-resolved `config.json`. Not ported yet: `--resume`, wandb and multi-card
-runs.
+`models/pc_model_best.ckpt` (every branch, the optimizer's moments and
+the step count: train/checkpoint.py `save_state`) and
+`models/img_model_best.ckpt` (the image branch alone) with {"epoch",
+"svm_test_acc", "kind", "patch_compat"}; every `save_freq` epochs it saves
+`pc_model_epoch{N}` and the rolling `pc_model_last` the same way, with
+{"epoch", "svm_test_acc", "best_acc", "best_epoch", "kind"}. `--resume
+true` continues a killed run (JAX cli/pretrain.py:102-141): from
+`pc_model_last` where `--pc_model_file` is `pc_model_best` and it exists,
+else from the named snapshot under the run's models/, at the epoch after
+its own, with the best-probe tracker restored (from `pc_model_best`'s
+metadata where an older snapshot lacks it); no snapshot means a fresh
+start. `--dump_feats true` writes the last probe epoch's test features
+to `files/pt_test_feats_labels.npz` (`cli/common.py:dump_feats_artifact`).
+Each epoch writes one JSON line to
+`<run_dir>/<proj_name>/<exp_name>/metrics.jsonl` (losses, svm_test_acc,
+svm_best_acc, times) beside a log file and the resolved `config.json`.
+Not ported yet: wandb and multi-card runs.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
 
-from vipformer_tpu_torch.cli.common import Run, extract_features
+from vipformer_tpu_torch.cli.common import Run, dump_feats_artifact, extract_features
 from vipformer_tpu_torch.config import Config, add_config_args, config_from_namespace
 from vipformer_tpu_torch.data.datasets import ModelNet40SVM, ScanObjectNNSVM, ShapeNetRender
 from vipformer_tpu_torch.data.pipeline import (
@@ -49,7 +61,12 @@ from vipformer_tpu_torch.data.pipeline import (
 )
 from vipformer_tpu_torch.evaluation.svm import fit_svm
 from vipformer_tpu_torch.models.factory import build_img_model, build_pc_model
-from vipformer_tpu_torch.train.checkpoint import save_checkpoint
+from vipformer_tpu_torch.train.checkpoint import (
+    load_metadata,
+    restore_state,
+    save_checkpoint,
+    save_state,
+)
 from vipformer_tpu_torch.train.schedules import Schedule
 from vipformer_tpu_torch.train.trainer import create_state, make_feats_fn, make_pretrain_step
 
@@ -91,9 +108,32 @@ def run_epoch(step, state, loader: Loader, lr: float, generator, device, log=Non
     return sums, n
 
 
+def resume(run: Run, state, cfg: Config) -> tuple[int, float, int]:
+    """`--resume` (JAX cli/pretrain.py:102-141): the snapshot to continue
+    from is `pc_model_last` where `pc_model_file` is `pc_model_best` and
+    the rolling one exists, else the named one; it is put back into
+    `state`. Returns (start epoch, best probe accuracy, its epoch): the
+    tracker from the snapshot's metadata, or, for an older snapshot
+    without it, from `pc_model_best`'s; (0, 0.0, -1) without a snapshot."""
+    path = run.model_path(cfg.pc_model_file)
+    last = run.model_path("pc_model_last")
+    if cfg.pc_model_file == "pc_model_best" and os.path.exists(last):
+        path = last
+    if not os.path.exists(path):
+        run.write(f"resume requested but {path} missing: fresh start")
+        return 0, 0.0, -1
+    meta = restore_state(path, state)
+    start = meta.get("epoch", -1) + 1
+    best_acc, best_epoch = float(meta.get("best_acc", 0.0)), int(meta.get("best_epoch", -1))
+    best_path = run.model_path("pc_model_best")
+    if best_epoch < 0 and os.path.exists(best_path):
+        best = load_metadata(best_path)
+        best_acc, best_epoch = float(best.get("svm_test_acc", 0.0)), int(best.get("epoch", -1))
+    run.write(f"resumed from {path} at epoch {start} (best probe {best_acc:.4f}@{best_epoch})")
+    return start, best_acc, best_epoch
+
+
 def main(cfg: Config, device: str = "cuda") -> dict:
-    if cfg.resume:
-        raise NotImplementedError("--resume is not ported yet (ROADMAP Queue 1)")
     if cfg.num_devices > 1:
         # JAX trains per-device NT-Xent groups (neg_groups = the data axis
         # size); one card with neg_groups=1 would train another loss
@@ -119,8 +159,9 @@ def main(cfg: Config, device: str = "cuda") -> dict:
               f"{'device' if cfg.device_augs else 'host'} augmentation; "
               f"probe: {cfg.pt_dataset} {len(probe_train)}/{len(probe_test)}")
 
-    best_acc, best_epoch, epoch_loss = 0.0, -1, None
-    for epoch in range(cfg.epochs):
+    start_epoch, best_acc, best_epoch = resume(run, state, cfg) if cfg.resume else (0, 0.0, -1)
+    epoch_loss = None  # the plateau schedule's metric: none before an epoch of this run
+    for epoch in range(start_epoch, cfg.epochs):
         lr = schedule.lr(epoch, epoch_loss)
         loader.set_epoch(epoch)
         t0 = time.perf_counter()
@@ -147,8 +188,15 @@ def main(cfg: Config, device: str = "cuda") -> dict:
             run.write(f"new best probe acc {best_acc:.4f} at epoch {epoch}; saving")
             meta = {"epoch": epoch, "svm_test_acc": test_acc, "kind": "pretrain",
                     "patch_compat": cfg.patch_compat}
-            for name, m in models.items():
-                save_checkpoint(run.model_path(f"{name}_model_best"), m, meta)
+            save_state(run.model_path("pc_model_best"), state, meta)
+            if "img" in models:
+                save_checkpoint(run.model_path("img_model_best"), models["img"], meta)
+        if cfg.save_freq and (epoch + 1) % cfg.save_freq == 0:
+            # the rolling snapshot --resume continues from (atomic writes)
+            meta = {"epoch": epoch, "svm_test_acc": test_acc, "best_acc": best_acc,
+                    "best_epoch": best_epoch, "kind": "pretrain"}
+            save_state(run.model_path(f"pc_model_epoch{epoch}"), state, meta)
+            save_state(run.model_path("pc_model_last"), state, meta)
         run.write(f"epoch {epoch}: loss {epoch_loss:.4f} probe acc {test_acc:.4f} (best "
                   f"{best_acc:.4f}@{best_epoch}) lr {lr:.5f} train {train_time:.1f}s probe "
                   f"{test_time:.1f}s")
@@ -157,6 +205,9 @@ def main(cfg: Config, device: str = "cuda") -> dict:
                     train_time=train_time, test_time=test_time,
                     clouds_per_s=2 * n * cfg.batch_size / train_time)
     run.write(f"final best probe acc {best_acc:.4f} at epoch {best_epoch}")
+    if cfg.dump_feats and cfg.epochs > start_epoch:
+        # the last probe epoch's test-split features
+        dump_feats_artifact(run, "pt", te_feats, te_labels)
     return {"best_acc": best_acc, "best_epoch": best_epoch}
 
 

@@ -90,17 +90,19 @@ SIGNATURES = {
     "g2e_fwd_tc_bf16": [_P] * 18 + [_I] * 7 + [_P],
     "g2e_bwd_f32": [_P] * 38 + [_I] * 6 + [_P],
     "g2e_bwd_tc_bf16": [_P] * 34 + [_I] * 10 + [_P],
-    # K10
+    # K10 (points, centers, idx, out, b, n, c, g, k, s, run, stream); its
+    # VJP (grad, idx, dpoints, dcenters, b, n, c, g, k, s, np, lanes, vec,
+    # stage, stream)
     "gather_centered_f32": [_P] * 4 + [_I] * 7 + [_P],
     "gather_centered_bf16": [_P] * 4 + [_I] * 7 + [_P],
-    "scatter_centered_f32": [_P] * 4 + [_I] * 6 + [_P],
-    "scatter_centered_bf16": [_P] * 4 + [_I] * 6 + [_P],
+    "scatter_centered_f32": [_P] * 4 + [_I] * 10 + [_P],
+    "scatter_centered_bf16": [_P] * 4 + [_I] * 10 + [_P],
     # K12 (points, idx, out, b, n, c, k, run, stream); (grad, idx, dpoints,
-    # b, n, c, k, stream)
+    # b, n, c, k, np, lanes, vec, stage, stream)
     "gather_rows_f32": [_P] * 3 + [_I] * 5 + [_P],
     "gather_rows_bf16": [_P] * 3 + [_I] * 5 + [_P],
-    "scatter_rows_f32": [_P] * 3 + [_I] * 4 + [_P],
-    "scatter_rows_bf16": [_P] * 3 + [_I] * 4 + [_P],
+    "scatter_rows_f32": [_P] * 3 + [_I] * 8 + [_P],
+    "scatter_rows_bf16": [_P] * 3 + [_I] * 8 + [_P],
     # K11 (x, dy, dw, db, wpart, bpart, r, cin, cout, splits, stream): as K5
     "dense_grads_f32": [_P] * 6 + [_I] * 4 + [_P],
     "dense_grads_tc_bf16": [_P] * 6 + [_I] * 4 + [_P],

@@ -10,16 +10,20 @@ in f32 and rounded once. Extra channels ride along uncentered.
 A `torch.autograd.Function` launches `csrc/gather.cu` on CUDA tensors and
 runs the plain twins below on CPU tensors. The backward scatter-adds the
 gradient into the points (several groups may pick one point) and sums it,
-negated, over each group's rows into its center.
+negated, over each group's rows into its center: on the card one launch
+of `scatter_sorted_kernel` (`scatter_plan` cuts each cloud's points into
+slices, a block each), which sorts each cloud's rows by point and sums
+each point's rows in row order, so d_points comes out in the points'
+dtype with the same bits in every run.
 
 K12: the plain row gather (counterpart of `gather_rows_pallas`,
 ops/pallas/gather.py:180).
 
 `gather_rows(points, idx)`: points [B, N, C <= 128], idx int [B, K] ->
 [B, K, C] = points[b, idx[b, k]], a copy (bit-exact, any K), on K10's
-forward kernel with the centering compiled out. Its backward
-scatter-adds the gradient into an f32 table, rounded once to the points'
-dtype. `row_gather_enabled` is the port's copy of the JAX package's gate
+forward kernel with the centering compiled out. Its backward is K10's
+VJP kernel without the centers: each point's rows summed in row order in
+f32, rounded once to the points' dtype, deterministic. `row_gather_enabled` is the port's copy of the JAX package's gate
 (`mxu_gather_enabled`, gather.py:434-444), which `index_points` consults.
 """
 
@@ -36,6 +40,13 @@ ROWS_BWD_LAUNCHES = cuda.LaunchCounter()
 MAX_ROW_CHANNELS = 128  # the Pallas kernel's table row: one tile of lanes
 CENTERED_RUN_ROWS = 64  # K10's forward: the most rows of a warp's run (2 a lane)
 CENTERED_STAGE_BYTES = 4096  # ... and the most bytes of its staged output
+# the VJPs' kernel (csrc/gather.cu scatter_sorted_kernel): a block a slice
+# of one cloud's points, the cloud's row ids in its shared memory
+SCATTER_MAX_ROWS = 16384  # K: a cloud's rows
+SCATTER_MAX_PART = 4096  # the most points a block owns
+SCATTER_MIN_PART = 32  # ... and the fewest, where slices are cut to fill the card
+SCATTER_BLOCKS_PER_SM = 3  # blocks of 512 threads an SM holds (40 registers a thread)
+SCATTER_STAGE_BYTES = 65536  # a cloud's g in at most 64 KB is staged in shared memory
 # None = auto (on the card where the JAX gate's shape conditions hold); a
 # bool forces it, as the JAX package's USE_MXU_GATHER (gather.py:38)
 USE_ROW_GATHER: bool | None = None
@@ -81,6 +92,40 @@ def centered_run_rows(c: int, itemsize: int) -> int:
     return min(CENTERED_RUN_ROWS, CENTERED_STAGE_BYTES // (c * itemsize) // 8 * 8)
 
 
+def scatter_plan(b: int, n: int, k: int, c: int, itemsize: int,
+                 sms: int) -> tuple[int, int, bool]:
+    """(np, lanes, stage) of the VJPs' kernel (csrc/gather.cu
+    scatter_sorted_kernel) for B clouds of N points, K rows a cloud and C
+    channels of `itemsize` bytes on `sms` SMs: each cloud's points cut
+    into slices of np (ceil(N / np) blocks a cloud), as many as one wave
+    of SCATTER_BLOCKS_PER_SM blocks an SM holds where slices of
+    SCATTER_MIN_PART points allow (one a cloud where B alone fills the
+    wave), none above SCATTER_MAX_PART; a group of `lanes` lanes a point
+    (a power of two, 4 channels a lane); `stage`: the cloud's g copied
+    into shared memory first (where its K C elements take at most 64 KB).
+    Raises at a shape the kernel is not built for."""
+    if c > MAX_ROW_CHANNELS:
+        raise ValueError(f"scatter kernel takes C <= {MAX_ROW_CHANNELS} channels, got {c}")
+    if k > SCATTER_MAX_ROWS:
+        raise ValueError(f"scatter kernel takes K <= {SCATTER_MAX_ROWS} rows a cloud (their ids "
+                         f"in shared memory), got {k}")
+    fit = max(1, SCATTER_BLOCKS_PER_SM * sms // max(b, 1))
+    parts = max(-(-n // SCATTER_MAX_PART), min(fit, max(1, n // SCATTER_MIN_PART)))
+    lanes = 1
+    while 4 * lanes < c:
+        lanes *= 2
+    stage = k * c * itemsize <= SCATTER_STAGE_BYTES
+    return -(-n // parts), lanes, stage
+
+
+def _scatter_args(g, n: int) -> tuple:
+    """(np, lanes, vec, stage) for a launch on g [B, K, C]: vec where C is a
+    multiple of 4 and g starts on 16 bytes (4 channels a load)."""
+    b, k, c = g.shape
+    np_, lanes, stage = scatter_plan(b, n, k, c, g.element_size(), cuda.sm_count(g.device.index))
+    return np_, lanes, int(c % 4 == 0 and g.data_ptr() % 16 == 0), int(stage)
+
+
 def gather_centered_kernel(points, centers, idx, group_size: int):
     b, n, c = points.shape
     gnum, k = centers.shape[1], idx.shape[1]
@@ -105,19 +150,24 @@ def gather_centered_kernel(points, centers, idx, group_size: int):
 
 
 def scatter_centered_kernel(g, idx, n: int, gnum: int, group_size: int):
+    """K10's VJP, one launch: (d_points [B, N, C] in g's dtype, d_centers
+    f32 [B, G, 3] rounded to g's dtype), the same bits in every run."""
     b, k, c = g.shape
     dt = g.dtype
+    if k != gnum * group_size:
+        raise ValueError(f"grad has {k} rows, expected G*S = {gnum * group_size}")
     g = g.contiguous()
     idx = idx.to(torch.int32).contiguous()
     cuda.require(g, "grad", dt, (b, k, c))
     cuda.require(idx, "idx", torch.int32, (b, k))
-    dp = torch.zeros((b, n, c), dtype=torch.float32, device=g.device)
+    np_, lanes, vec, stage = _scatter_args(g, n)
+    dp = torch.empty((b, n, c), dtype=dt, device=g.device)
     dc = torch.empty((b, gnum, 3), dtype=torch.float32, device=g.device)
     fn = cuda.entry_point("scatter_centered", dt)
     BWD_LAUNCHES.n += 1
     cuda.check(getattr(cuda.lib(), fn)(
         g.data_ptr(), idx.data_ptr(), dp.data_ptr(), dc.data_ptr(),
-        b, n, c, gnum, k, group_size, cuda.stream_ptr()), fn)
+        b, n, c, gnum, k, group_size, np_, lanes, vec, stage, cuda.stream_ptr()), fn)
     return dp, dc
 
 
@@ -204,13 +254,17 @@ def gather_rows_kernel(points, idx):
 
 
 def scatter_rows_kernel(g, idx, n: int):
+    """K12's VJP, one launch: d_points [B, N, C] in g's dtype, the same bits
+    in every run (K10's VJP kernel without the centers)."""
     g, idx = _rows_operands(g, idx, "grad")
     b, k, c = g.shape
+    np_, lanes, vec, stage = _scatter_args(g, n)
     fn = cuda.entry_point("scatter_rows", g.dtype)
-    dp = torch.zeros((b, n, c), dtype=torch.float32, device=g.device)
+    dp = torch.empty((b, n, c), dtype=g.dtype, device=g.device)
     ROWS_BWD_LAUNCHES.n += 1
     cuda.check(getattr(cuda.lib(), fn)(
-        g.data_ptr(), idx.data_ptr(), dp.data_ptr(), b, n, c, k, cuda.stream_ptr()), fn)
+        g.data_ptr(), idx.data_ptr(), dp.data_ptr(), b, n, c, k, np_, lanes, vec, stage,
+        cuda.stream_ptr()), fn)
     return dp
 
 
