@@ -285,3 +285,71 @@ def test_unreached_layers_decay_as_in_jax():
     for k, v in before.items():
         assert torch.equal(after[k], v) == (not v.any()), k  # zeros (LN biases) stay zero
         _close(after[k], want[k], 1e-7, k)
+
+
+@pytest.mark.parametrize("cli", ["ft_partseg", "ft_cls"])
+def test_finetune_restore_matches_the_jax_cli(tmp_path, cli):
+    """`--resume` of the two finetunes that restore the stem, from one
+    seed-made pretrain checkpoint whose BatchNorm statistics are far from
+    their init: JAX through its own trees, as its CLIs do (ft_partseg
+    restores `params` alone, vipformer_tpu/cli/ft_partseg.py:82-85; ft_cls
+    also the statistics, ft_cls.py:83-91), the port through the bridged
+    weights and each CLI's `restore_backbone_from`, which its `--resume`
+    calls.
+    Afterwards every stem and encoder tensor, parameters and statistics
+    alike, equals JAX's: ft_partseg's stem statistics keep their init (0
+    and 1), ft_cls's come from the checkpoint."""
+    from vipformer_tpu.cli import common as jcommon
+    from vipformer_tpu.train.checkpoint import restore_backbone as jrestore
+
+    from vipformer_tpu_torch.cli import ft_cls, ft_partseg
+    from vipformer_tpu_torch.train.checkpoint import save_checkpoint
+
+    cfg_j = jconfig.Config(**TINY)
+    cfg = tconfig.Config(**TINY).replace(pc_model_file=str(tmp_path / "pc_model_best.ckpt"))
+    batch = _batch()
+    pts = jnp.asarray(batch["points"][:2])
+    rng = np.random.default_rng(5)
+    # the pretrain point branch, its statistics drawn away from 0 and 1
+    pre_params, pre_stats = jtrainer.init_variables(jfactory.build_pc_model(cfg_j), (pts,), 7)
+    pre_stats = jax.tree_util.tree_map(
+        lambda x: np.asarray(rng.uniform(0.5, 1.5, x.shape), np.float32), pre_stats)
+    raw = {"params": jax.tree_util.tree_map(np.asarray, pre_params), "batch_stats": pre_stats}
+    pc = tfactory.build_pc_model(cfg, device="cpu")
+    pc.load_state_dict(from_jax_variables(raw), strict=True)
+    save_checkpoint(cfg.pc_model_file, pc, {"epoch": 0, "patch_compat": False})
+    # the finetune model's fresh init, the same on both sides
+    if cli == "ft_partseg":
+        model_j = jfactory.build_ft_partseg(cfg_j)
+        args = (pts, jax.nn.one_hot(jnp.asarray(batch["obj_labels"][:2]), 16))
+        model = tfactory.build_ft_partseg(cfg, device="cpu")
+    else:
+        model_j = jfactory.build_ft_cls(cfg_j)
+        args = (pts,)
+        model = tfactory.build_ft_cls(cfg, device="cpu")
+    params, stats = jtrainer.init_variables(model_j, args, 3)
+    model.load_state_dict(from_jax_variables({"params": params, "batch_stats": stats}),
+                          strict=True)
+    # JAX's CLI restore
+    pre_p, pre_s = jcommon.pc_checkpoint_trees(raw)
+    params = jrestore(params, pre_p, ("stem", "encoder"))
+    if cli == "ft_cls" and pre_s:
+        stats = jrestore(stats, pre_s, ("stem", "encoder"))
+    want = from_jax_variables({"params": params, "batch_stats": stats})
+    # the port's CLI restore
+    log = []
+    {"ft_partseg": ft_partseg, "ft_cls": ft_cls}[cli].restore_backbone_from(model, cfg,
+                                                                            log.append)
+    assert log and log[-1].startswith("backbone restore: ")
+    got = model.state_dict()
+    stem_stats = [k for k in got if k.startswith("stem.") and "running_" in k]
+    assert stem_stats
+    for k in got:
+        if k.split(".")[0] in ("stem", "encoder"):
+            assert torch.equal(got[k], want[k]), k
+    for k in stem_stats:
+        init = 0.0 if k.endswith("running_mean") else 1.0
+        if cli == "ft_partseg":
+            assert torch.all(got[k] == init), k
+        else:
+            assert not torch.all(got[k] == init), k

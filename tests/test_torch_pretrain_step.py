@@ -257,15 +257,3 @@ def test_pretrain_cli_runs_on_the_cpu(tmp_path):
             (tfactory.build_pc_model if name == "pc" else tfactory.build_img_model)(
                 cfg, device="cpu").state_dict())
 
-
-def test_pretrain_cli_refuses_multi_card_runs(tmp_path):
-    """`--num_devices 2` raises before anything is built: JAX trains one
-    NT-Xent group per device there (vipformer_tpu/cli/pretrain.py:145,
-    neg_groups=data_axis_size(mesh)), which one card cannot reproduce."""
-    from vipformer_tpu_torch.cli import pretrain as cli
-
-    cfg, device = cli.parse_args(["--synthetic_data", "true", "--num_devices", "2",
-                                  "--run_dir", str(tmp_path), "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="multi-card runs are not ported"):
-        cli.main(cfg, device)
-    assert not any(tmp_path.iterdir())  # refused before the run directory was made

@@ -272,5 +272,3 @@ def test_ft_semseg_cli_runs_on_the_cpu(tmp_path, monkeypatch):
     assert [m["step"] for m in lines] == [0, 1, 2]
     assert resumed["best"]["miou"] >= out["best"]["miou"]
     assert "resumed training from" in "".join(p.read_text() for p in root.glob("*.log"))
-    with pytest.raises(NotImplementedError, match="ported"):
-        ft_semseg.main(*ft_semseg.parse_args(argv + ["--num_devices", "2"]))

@@ -1,10 +1,19 @@
 """Shared CLI plumbing (counterpart of vipformer_tpu/cli/common.py: `setup`,
-`warn_patch_compat`, `extract_features`, `dump_feats_artifact`,
-`resume_training_state` and `save_rolling`): the run directory, its log and
-its metrics stream, the stem-mode check of a restored checkpoint, the eval
-CLIs' checkpoint restore, the batched feature extraction of the SVM
-probes, the `--dump_feats` artifact, and the finetunes' crash-resume. The port runs on one card, so there is no mesh and the batch
-needs no rounding."""
+`warn_patch_compat`, `round_up_batch`, `extract_features`,
+`dump_feats_artifact`, `resume_training_state` and `save_rolling`): the
+run directory, its log and its metrics stream, the stem-mode check of a
+restored checkpoint, the finetunes' and the eval CLIs' checkpoint
+restores, the batched feature extraction of the SVM probes, the
+`--dump_feats` artifact, and the finetunes' crash-resume.
+
+Under data parallelism (`parallel/`, `--num_devices N`) every CLI's body
+runs on each rank: the run's files (config.json, the log, metrics.jsonl,
+snapshots, `--dump_feats`) are written by the chief alone, the other ranks
+waiting at a barrier after each snapshot; each evaluation batch is split
+over the ranks and the results gathered (`gather_ranks`), and decisions
+(best epochs, saves) come from values the chief broadcasts, so that every
+rank takes the same branches. The batches must split evenly over the
+ranks (`check_batches`)."""
 
 from __future__ import annotations
 
@@ -18,10 +27,13 @@ import torch
 
 from vipformer_tpu_torch.config import Config
 from vipformer_tpu_torch.data.pipeline import Loader, collate_cls, pad_batch
+from vipformer_tpu_torch.parallel.mesh import all_gather_rows, data_axis_size, is_chief
+from vipformer_tpu_torch.parallel.sharding import round_up_batch, shard_batch
 from vipformer_tpu_torch.train.checkpoint import (
     branch_state,
     load_checkpoint,
     load_metadata,
+    restore_backbone,
     restore_state,
     save_state,
 )
@@ -29,20 +41,26 @@ from vipformer_tpu_torch.train.checkpoint import (
 
 class Run:
     """The run directory `<run_dir>/<proj_name>/<exp_name>` with the resolved
-    `config.json`, a log file beside stdout, and metrics.jsonl."""
+    `config.json`, a log file beside stdout, and metrics.jsonl; on a rank
+    other than the chief it writes nothing."""
 
     def __init__(self, cfg: Config):
         self.root = os.path.join(cfg.run_dir, cfg.proj_name, cfg.exp_name)
-        os.makedirs(os.path.join(self.root, "models"), exist_ok=True)
+        self.chief = is_chief()
         stamp = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
-        self.log_path = os.path.join(self.root, f"{stamp}.log") if cfg.log_to_file else None
-        with open(os.path.join(self.root, "config.json"), "w") as f:
-            json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)
+        self.log_path = (os.path.join(self.root, f"{stamp}.log")
+                         if cfg.log_to_file and self.chief else None)
+        if self.chief:
+            os.makedirs(os.path.join(self.root, "models"), exist_ok=True)
+            with open(os.path.join(self.root, "config.json"), "w") as f:
+                json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)
 
     def model_path(self, name: str) -> str:
         return os.path.join(self.root, "models", name + ".ckpt")
 
     def write(self, msg: str) -> None:
+        if not self.chief:
+            return
         line = f"{datetime.datetime.now():%Y-%m-%d %H:%M:%S} {msg}"
         print(line, flush=True)
         if self.log_path:
@@ -50,6 +68,8 @@ class Run:
                 f.write(line + "\n")
 
     def metrics(self, step: int, **kv) -> None:
+        if not self.chief:
+            return
         with open(os.path.join(self.root, "metrics.jsonl"), "a") as f:
             f.write(json.dumps({"step": step, **kv}) + "\n")
 
@@ -69,12 +89,43 @@ def warn_patch_compat(ckpt_path: str, cfg: Config, log) -> None:
             f"{str(bool(want)).lower()} to match its stem (see ops/geometry.py:divide_patches)")
 
 
-def require_single_card(cfg: Config) -> None:
-    """The port runs on one card (multi-card runs are ROADMAP Queue 1,
-    item 16)."""
-    if cfg.num_devices > 1:
-        raise NotImplementedError("multi-card runs are not ported yet (ROADMAP Queue 1, "
-                                  "item 16): the port runs on one card")
+def check_batches(cfg: Config, names=("batch_size", "test_batch_size")) -> None:
+    """The named batch sizes must split evenly over the ranks (JAX
+    cli/common.py:95-103 round_up_batch): raises otherwise."""
+    for name in names:
+        round_up_batch(getattr(cfg, name), data_axis_size(), name)
+
+
+def gather_ranks(t: torch.Tensor) -> torch.Tensor:
+    """The ranks' rows of an evaluation output stacked in rank order (t
+    itself with one rank)."""
+    with torch.no_grad():
+        return all_gather_rows(t)
+
+
+def eval_batches(dataset, batch_size: int, collate):
+    """The evaluation batches of `dataset`: (the global batch, padded to
+    `batch_size` by repeating its last sample, its valid mask, this rank's
+    contiguous slice of it). A rank evaluates its slice and `gather_ranks`
+    stacks the ranks' outputs into the global batch's order."""
+    for batch in Loader(dataset, batch_size, collate, shuffle=False):
+        batch, mask = pad_batch(batch, batch_size)
+        yield batch, mask, shard_batch(batch)
+
+
+def restore_pretrained(model, cfg: Config, log, submodules=("stem", "encoder"),
+                       buffers: bool = True) -> str:
+    """The finetune CLIs' `--resume` (JAX cli/ft_cls.py:75-91,
+    ft_partseg.py:77-85, ft_semseg.py:66-75): the named submodules of the
+    point branch of `pc_model_file` (a path, or a name under the run's
+    models/) into `model`, after the stem-mode check. `buffers` False keeps
+    the BatchNorm statistics at their init, as JAX's ft_partseg restores
+    its parameters alone. Returns restore_backbone's message."""
+    path = cfg.pc_model_file if "/" in cfg.pc_model_file else os.path.join(
+        cfg.run_dir, cfg.proj_name, cfg.exp_name, "models", cfg.pc_model_file + ".ckpt")
+    warn_patch_compat(path, cfg, log)
+    return restore_backbone(model, branch_state(load_checkpoint(path)), submodules, log=log,
+                            buffers=buffers)
 
 
 def restore_eval_model(model, cfg: Config, run: Run) -> str:
@@ -98,12 +149,13 @@ def extract_features(feats_fn, dataset, batch_size: int):
     """Backbone features of a (points, label) dataset, batch by batch (JAX
     cli/common.py:106-128; its `collate_points_labels`, :154-157, is the
     port's `collate_cls`): every batch has `batch_size` samples (the last
-    one padded) and the padding is masked out. -> (features [N, 2D] on the
-    device feats_fn returns them on, labels numpy [N])."""
+    one padded) and the padding is masked out; under data parallelism each
+    batch is split over the ranks and the features gathered, so every rank
+    returns them all, in order. -> (features [N, 2D] on the device feats_fn
+    returns them on, labels numpy [N])."""
     feats, labels = [], []
-    for batch in Loader(dataset, batch_size, collate_cls, shuffle=False):
-        batch, mask = pad_batch(batch, batch_size)
-        out = feats_fn(batch["points"])
+    for batch, mask, local in eval_batches(dataset, batch_size, collate_cls):
+        out = gather_ranks(feats_fn(local["points"]))
         feats.append(out[torch.as_tensor(mask, device=out.device)])
         labels.append(batch["labels"][mask])
     return torch.cat(feats), np.concatenate(labels)
@@ -116,6 +168,8 @@ def dump_feats_artifact(run: Run, tag: str, feats, labels) -> str:
     which `tools/visualization/show_feats.py --feats_file` renders.
     Returns the path."""
     path = os.path.join(run.root, "files", f"{tag}_test_feats_labels.npz")
+    if not run.chief:
+        return path
     os.makedirs(os.path.dirname(path), exist_ok=True)
     labels = np.asarray(labels)
     np.savez(path, feats=torch.as_tensor(feats).float().cpu().numpy(), labels=labels)
@@ -130,7 +184,7 @@ def resume_training_state(run: Run, state, cfg: Config) -> tuple[int, dict]:
     statistics, the optimizer's moments and step counts) and return (the
     epoch after its own, its metadata). Without the flag, or where no
     snapshot was written yet (a run killed before its first save), (0, {})
-    and a fresh start."""
+    and a fresh start. Every rank restores from the same file."""
     if not cfg.resume_training:
         return 0, {}
     path = run.model_path("model_last")

@@ -18,30 +18,34 @@ stand-in) once, batch by batch at
 linear probe on standardised support features scored on its queries
 (`evaluation/fewshot.py`), and logs "acc: <mean> +/- <std> over <n_runs>
 runs". The synthetic ModelNet40 train split has about 20 clouds a class,
-so an episode that needs 30 raises, as in JAX.
+so an episode that needs 30 raises, as in JAX. `--num_devices N` splits
+each feature batch over N ranks (`parallel/`) and gathers the features;
+the chief runs the episodes and writes the log.
 """
 
 from __future__ import annotations
 
 import argparse
 
-from vipformer_tpu_torch.cli.common import (
-    Run,
-    extract_features,
-    require_single_card,
-    restore_eval_model,
-)
+from vipformer_tpu_torch.cli.common import Run, check_batches, extract_features, restore_eval_model
 from vipformer_tpu_torch.config import Config, add_config_args, config_from_namespace
 from vipformer_tpu_torch.data.datasets import ModelNet40SVM, ScanObjectNNSVM
 from vipformer_tpu_torch.evaluation.fewshot import fewshot_eval
 from vipformer_tpu_torch.models.factory import build_ft_cls, build_pc_model
+from vipformer_tpu_torch.parallel import is_chief, run_ranks
 from vipformer_tpu_torch.train.trainer import make_feats_fn
 
 DATASETS = {"ModelNet40": ModelNet40SVM, "ScanObjectNN": ScanObjectNNSVM}
 
 
 def main(cfg: Config, device: str = "cuda") -> dict:
-    require_single_card(cfg)
+    """The evaluation on every rank of `--num_devices` (parallel.run_ranks);
+    returns the chief's results."""
+    return run_ranks(evaluate, cfg, device)
+
+
+def evaluate(cfg: Config, device: str) -> dict | None:
+    check_batches(cfg, ("test_batch_size",))
     run = Run(cfg)
     run.write(f"fewshot eval on {cfg.ft_dataset}: n_runs={cfg.n_runs} k_way={cfg.k_way} "
               f"n_shot={cfg.n_shot} n_query={cfg.n_query}")
@@ -52,6 +56,8 @@ def main(cfg: Config, device: str = "cuda") -> dict:
         model = build_pc_model(cfg, device=device)
     restore_eval_model(model, cfg, run)
     feats, labels = extract_features(make_feats_fn(model), pool, cfg.test_batch_size)
+    if not is_chief():
+        return None
     mean, std, accs = fewshot_eval(feats, labels, cfg.k_way, cfg.n_shot, cfg.n_query,
                                    cfg.n_runs, c=cfg.svm_coff, seed=cfg.seed)
     run.write(f"acc: {mean:.2f} +/- {std:.2f} over {cfg.n_runs} runs")

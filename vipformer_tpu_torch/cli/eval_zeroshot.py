@@ -18,7 +18,9 @@ probes on the train features and scores them on the test features: the
 linear SVM (C = `svm_coff`), the RBF SVM and the {linear, rbf} x C grid
 search with 3-fold cross-validation (`evaluation/svm.py`), each logged
 with its seconds. Returns linear_acc, rbf_acc, grid_acc, grid_best,
-params and flops_per_batch.
+params and flops_per_batch. `--num_devices N` splits each feature batch
+over N ranks (`parallel/`) and gathers the features; the chief fits the
+probes and writes the log.
 """
 
 from __future__ import annotations
@@ -28,22 +30,24 @@ import time
 
 import torch
 
-from vipformer_tpu_torch.cli.common import (
-    Run,
-    extract_features,
-    require_single_card,
-    restore_eval_model,
-)
+from vipformer_tpu_torch.cli.common import Run, check_batches, extract_features, restore_eval_model
 from vipformer_tpu_torch.cli.eval_fewshot import DATASETS
 from vipformer_tpu_torch.config import Config, add_config_args, config_from_namespace
 from vipformer_tpu_torch.evaluation.flops import complexity_report
 from vipformer_tpu_torch.evaluation.svm import fit_rbf_svm, fit_svm, grid_search_svm
 from vipformer_tpu_torch.models.factory import build_pc_model
+from vipformer_tpu_torch.parallel import is_chief, run_ranks
 from vipformer_tpu_torch.train.trainer import make_feats_fn
 
 
 def main(cfg: Config, device: str = "cuda") -> dict:
-    require_single_card(cfg)
+    """The evaluation on every rank of `--num_devices` (parallel.run_ranks);
+    returns the chief's results."""
+    return run_ranks(evaluate, cfg, device)
+
+
+def evaluate(cfg: Config, device: str) -> dict | None:
+    check_batches(cfg, ("test_batch_size",))
     run = Run(cfg)
     ds = DATASETS[cfg.pt_dataset]
     train_set = ds(cfg.data_dir, "train", cfg.num_test_points)
@@ -59,6 +63,8 @@ def main(cfg: Config, device: str = "cuda") -> dict:
     feats_fn = make_feats_fn(model)
     tr_feats, tr_labels = extract_features(feats_fn, train_set, cfg.test_batch_size)
     te_feats, te_labels = extract_features(feats_fn, test_set, cfg.test_batch_size)
+    if not is_chief():
+        return None
 
     t0 = time.time()
     linear_acc = fit_svm(tr_feats, tr_labels, c=cfg.svm_coff).score(te_feats, te_labels)

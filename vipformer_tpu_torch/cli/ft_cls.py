@@ -29,7 +29,11 @@ from `model_last` at the epoch after its own, the best tracker restored
 `--dump_feats true` writes the trained backbone's test-split features to
 `files/ft_test_feats_labels.npz` (`cli/common.py:dump_feats_artifact`).
 
-Not ported yet (each raises or is logged): wandb and multi-card runs.
+`--num_devices N` (0: every visible card) trains data-parallel over N
+ranks (`parallel/`; `cli/common.py` says what each rank does): each
+evaluation batch is split over the ranks and the predictions gathered.
+
+Not ported yet (logged): wandb.
 """
 
 from __future__ import annotations
@@ -41,22 +45,28 @@ import torch
 
 from vipformer_tpu_torch.cli.common import (
     Run,
+    check_batches,
     dump_feats_artifact,
+    eval_batches,
     extract_features,
-    require_single_card,
+    gather_ranks,
+    restore_pretrained,
     resume_training_state,
     save_rolling,
 )
 from vipformer_tpu_torch.config import Config, add_config_args, config_from_namespace
 from vipformer_tpu_torch.data.datasets import ModelNet40SVM, ScanObjectNNSVM
-from vipformer_tpu_torch.data.pipeline import Loader, collate_cls, pad_batch
+from vipformer_tpu_torch.data.pipeline import Loader, collate_cls
 from vipformer_tpu_torch.models.factory import build_ft_cls
-from vipformer_tpu_torch.train.checkpoint import (
-    branch_state,
-    load_checkpoint,
-    restore_backbone,
-    save_checkpoint,
+from vipformer_tpu_torch.parallel import (
+    broadcast_object,
+    data_axis_size,
+    place_state,
+    rank,
+    rank_seed,
+    run_ranks,
 )
+from vipformer_tpu_torch.train.checkpoint import branch_state, load_checkpoint, save_checkpoint
 from vipformer_tpu_torch.train.meters import AverageMeter
 from vipformer_tpu_torch.train.schedules import Schedule
 from vipformer_tpu_torch.train.trainer import (
@@ -74,35 +84,47 @@ def datasets(cfg: Config):
 
 def evaluate(eval_step, test_set, batch_size: int) -> float:
     """Test accuracy over the whole split; every batch has `batch_size`
-    clouds (the last one padded, its padding not counted)."""
+    clouds (the last one padded, its padding not counted), split over the
+    ranks; the chief's accuracy."""
     correct = total = 0
-    for batch in Loader(test_set, batch_size, collate_cls, shuffle=False):
-        batch, mask = pad_batch(batch, batch_size)
-        pred = eval_step(batch["points"]).cpu().numpy()
+    for batch, mask, local in eval_batches(test_set, batch_size, collate_cls):
+        pred = gather_ranks(eval_step(local["points"])).cpu().numpy()
         correct += int((pred[mask] == batch["labels"][mask]).sum())
         total += int(mask.sum())
-    return correct / max(total, 1)
+    return broadcast_object(correct / max(total, 1))
+
+
+def restore_backbone_from(model, cfg: Config, log) -> str:
+    """`--resume`: the stem's and the encoder's parameters and BatchNorm
+    statistics from the pretrain checkpoint `pc_model_file`, as JAX's
+    restores both trees (cli/ft_cls.py:83-91)."""
+    return restore_pretrained(model, cfg, log, ("stem", "encoder"))
 
 
 def main(cfg: Config, device: str = "cuda") -> dict:
-    require_single_card(cfg)
+    """The finetune on every rank of `--num_devices` (parallel.run_ranks);
+    returns the chief's {"best_acc", "best_epoch"}."""
+    return run_ranks(train, cfg, device)
+
+
+def train(cfg: Config, device: str) -> dict:
+    check_batches(cfg)
     run = Run(cfg)
     if cfg.wandb:
         run.write("wandb is not ported: metrics.jsonl is the only metrics channel")
     train_set, test_set = datasets(cfg)
     train_loader = Loader(train_set, cfg.batch_size, collate_cls, shuffle=True, seed=cfg.seed,
-                          drop_last=True, num_workers=cfg.num_workers)
+                          drop_last=True, num_workers=cfg.num_workers, rank=rank(),
+                          world=data_axis_size())
     model = build_ft_cls(cfg, device=device)
     if cfg.resume:
-        path = (cfg.pc_model_file if "/" in cfg.pc_model_file
-                else run.model_path(cfg.pc_model_file))
-        restore_backbone(model, branch_state(load_checkpoint(path)), ("stem", "encoder"),
-                         log=run.write)
+        restore_backbone_from(model, cfg, run.write)
     state = create_state(cfg, {"pc": model})
     start_epoch, last_meta = resume_training_state(run, state, cfg)
+    place_state(state)
     step = make_cls_step(cfg, model)
     eval_step = make_cls_eval(model)
-    run.write(f"ft_cls on {device}: {cfg.ft_dataset} {len(train_set)} train / "
+    run.write(f"ft_cls on {device} x {data_axis_size()}: {cfg.ft_dataset} {len(train_set)} train / "
               f"{len(test_set)} test clouds of {cfg.num_ft_points} points, {len(train_loader)} "
               f"batches of {cfg.batch_size}, {cfg.compute_dtype}")
 
@@ -113,7 +135,7 @@ def main(cfg: Config, device: str = "cuda") -> dict:
         return {"best_acc": acc, "best_epoch": -1}
 
     schedule = Schedule(cfg)
-    generator = torch.Generator(device=device).manual_seed(cfg.seed)
+    generator = torch.Generator(device=device).manual_seed(rank_seed(cfg.seed))
     best_acc, best_epoch = last_meta.get("best_acc", 0.0), last_meta.get("best_epoch", -1)
     epoch_metric = None  # the plateau schedule's metric: none before an epoch of this run
     for epoch in range(start_epoch, cfg.epochs):

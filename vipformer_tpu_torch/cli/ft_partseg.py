@@ -29,7 +29,11 @@ moments and the step count, with {"epoch", "best", "best_epoch",
 `model_last` at the epoch after its own, the best tracker restored
 (`cli/common.py:resume_training_state`; no snapshot: a fresh start).
 
-Not ported yet (each raises or is logged): wandb and multi-card runs.
+`--num_devices N` (0: every visible card) trains data-parallel over N
+ranks (`parallel/`; `cli/common.py` says what each rank does): each
+evaluation batch is split over the ranks and the predictions gathered.
+
+Not ported yet (logged): wandb.
 """
 
 from __future__ import annotations
@@ -37,27 +41,31 @@ from __future__ import annotations
 import argparse
 import time
 
-import numpy as np
 import torch
 
 from vipformer_tpu_torch.cli.common import (
     Run,
-    require_single_card,
+    check_batches,
+    eval_batches,
+    gather_ranks,
+    restore_pretrained,
     resume_training_state,
     save_rolling,
-    warn_patch_compat,
 )
 from vipformer_tpu_torch.config import Config, add_config_args, config_from_namespace
 from vipformer_tpu_torch.data.datasets import ShapeNetPart
-from vipformer_tpu_torch.data.pipeline import Loader, collate_partseg, pad_batch
+from vipformer_tpu_torch.data.pipeline import Loader, collate_partseg
 from vipformer_tpu_torch.evaluation.iou import PartSegMetrics
 from vipformer_tpu_torch.models.factory import build_ft_partseg
-from vipformer_tpu_torch.train.checkpoint import (
-    branch_state,
-    load_checkpoint,
-    restore_backbone,
-    save_checkpoint,
+from vipformer_tpu_torch.parallel import (
+    broadcast_object,
+    data_axis_size,
+    place_state,
+    rank,
+    rank_seed,
+    run_ranks,
 )
+from vipformer_tpu_torch.train.checkpoint import save_checkpoint
 from vipformer_tpu_torch.train.meters import AverageMeter
 from vipformer_tpu_torch.train.schedules import Schedule
 from vipformer_tpu_torch.train.trainer import create_state, make_partseg_eval, make_partseg_step
@@ -65,17 +73,30 @@ from vipformer_tpu_torch.train.trainer import create_state, make_partseg_eval, m
 
 def evaluate(eval_step, test_set, batch_size: int) -> dict:
     """The IoU suite over the whole test split; every batch has
-    `batch_size` clouds (the last one padded, its padding not counted)."""
+    `batch_size` clouds (the last one padded, its padding not counted),
+    split over the ranks; the chief's results."""
     metrics = PartSegMetrics()
-    for batch in Loader(test_set, batch_size, collate_partseg, shuffle=False):
-        batch, mask = pad_batch(batch, batch_size)
-        _, refined = eval_step(batch["points"], batch["obj_labels"])
+    for batch, mask, local in eval_batches(test_set, batch_size, collate_partseg):
+        refined = gather_ranks(eval_step(local["points"], local["obj_labels"])[1])
         metrics.update(refined.cpu().numpy(), batch["seg"], batch["obj_labels"], valid=mask)
-    return metrics.results()
+    return broadcast_object(metrics.results())
+
+
+def restore_backbone_from(model, cfg: Config, log) -> str:
+    """`--resume`: the stem's and the encoder's parameters from the pretrain
+    checkpoint `pc_model_file`; the stem's BatchNorm statistics keep their
+    init, as JAX's restores `params` alone (cli/ft_partseg.py:82-85)."""
+    return restore_pretrained(model, cfg, log, ("stem", "encoder"), buffers=False)
 
 
 def main(cfg: Config, device: str = "cuda") -> dict:
-    require_single_card(cfg)
+    """The finetune on every rank of `--num_devices` (parallel.run_ranks);
+    returns the chief's {"best", "best_epoch"}."""
+    return run_ranks(train, cfg, device)
+
+
+def train(cfg: Config, device: str) -> dict:
+    check_batches(cfg)
     if cfg.grad_clip_norm is None:
         cfg = cfg.replace(grad_clip_norm=10.0)  # reference ft_partseg.py:175
     run = Run(cfg)
@@ -84,25 +105,24 @@ def main(cfg: Config, device: str = "cuda") -> dict:
     train_set = ShapeNetPart(cfg.data_dir, "trainval", cfg.num_ft_points, cfg.class_choice)
     test_set = ShapeNetPart(cfg.data_dir, "test", cfg.num_ft_points, cfg.class_choice)
     train_loader = Loader(train_set, cfg.batch_size, collate_partseg, shuffle=True,
-                          seed=cfg.seed, drop_last=True, num_workers=cfg.num_workers)
+                          seed=cfg.seed, drop_last=True, num_workers=cfg.num_workers,
+                          rank=rank(), world=data_axis_size())
     model = build_ft_partseg(cfg, device=device)
     if cfg.resume:
-        path = (cfg.pc_model_file if "/" in cfg.pc_model_file
-                else run.model_path(cfg.pc_model_file))
-        warn_patch_compat(path, cfg, run.write)
-        restore_backbone(model, branch_state(load_checkpoint(path)), ("stem", "encoder"),
-                         log=run.write)
+        restore_backbone_from(model, cfg, run.write)
     state = create_state(cfg, {"pc": model})
     start_epoch, last_meta = resume_training_state(run, state, cfg)
+    place_state(state)
     step = make_partseg_step(cfg, model)
     eval_step = make_partseg_eval(model)
-    run.write(f"ft_partseg on {device}: ShapeNetPart {len(train_set)} trainval / "
+    run.write(f"ft_partseg on {device} x {data_axis_size()}: ShapeNetPart {len(train_set)} "
+              f"trainval / "
               f"{len(test_set)} test clouds of {cfg.num_ft_points} points, {len(train_loader)} "
               f"batches of {cfg.batch_size}, {cfg.compute_dtype}, patch_compat "
               f"{cfg.patch_compat}, grad clip {cfg.grad_clip_norm}")
 
     schedule = Schedule(cfg)
-    generator = torch.Generator(device=device).manual_seed(cfg.seed)
+    generator = torch.Generator(device=device).manual_seed(rank_seed(cfg.seed))
     best = last_meta.get("best", {"mean_category_iou": 0.0})
     best_epoch = last_meta.get("best_epoch", -1)
     epoch_metric = None  # the plateau schedule's metric: none before an epoch of this run

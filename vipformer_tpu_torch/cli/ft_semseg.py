@@ -29,7 +29,11 @@ optimizer's moments and the step count, with {"epoch", "best",
 from `model_last` at the epoch after its own, the best tracker restored
 (`cli/common.py:resume_training_state`; no snapshot: a fresh start).
 
-Not ported yet (each raises or is logged): wandb and multi-card runs.
+`--num_devices N` (0: every visible card) trains data-parallel over N
+ranks (`parallel/`; `cli/common.py` says what each rank does): each
+evaluation batch is split over the ranks and the predictions gathered.
+
+Not ported yet (logged): wandb.
 """
 
 from __future__ import annotations
@@ -42,22 +46,27 @@ import torch
 
 from vipformer_tpu_torch.cli.common import (
     Run,
-    require_single_card,
+    check_batches,
+    eval_batches,
+    gather_ranks,
+    restore_pretrained,
     resume_training_state,
     save_rolling,
-    warn_patch_compat,
 )
 from vipformer_tpu_torch.config import Config, add_config_args, config_from_namespace
 from vipformer_tpu_torch.data.datasets import S3DIS
-from vipformer_tpu_torch.data.pipeline import Loader, collate_semseg, pad_batch
+from vipformer_tpu_torch.data.pipeline import Loader, collate_semseg
 from vipformer_tpu_torch.evaluation.iou import semseg_miou
 from vipformer_tpu_torch.models.factory import build_ft_semseg
-from vipformer_tpu_torch.train.checkpoint import (
-    branch_state,
-    load_checkpoint,
-    restore_backbone,
-    save_checkpoint,
+from vipformer_tpu_torch.parallel import (
+    broadcast_object,
+    data_axis_size,
+    place_state,
+    rank,
+    rank_seed,
+    run_ranks,
 )
+from vipformer_tpu_torch.train.checkpoint import save_checkpoint
 from vipformer_tpu_torch.train.meters import AverageMeter
 from vipformer_tpu_torch.train.schedules import Schedule
 from vipformer_tpu_torch.train.trainer import create_state, make_semseg_eval, make_semseg_step
@@ -80,17 +89,30 @@ class _SliceChannels:
 
 def evaluate(eval_step, test_set, batch_size: int) -> dict:
     """Point accuracy and mIoU over the whole test split; every batch has
-    `batch_size` blocks (the last one padded, its padding not counted)."""
+    `batch_size` blocks (the last one padded, its padding not counted),
+    split over the ranks; the chief's results."""
     preds, segs = [], []
-    for batch in Loader(test_set, batch_size, collate_semseg, shuffle=False):
-        batch, mask = pad_batch(batch, batch_size)
-        preds.append(eval_step(batch["points"]).cpu().numpy()[mask])
+    for batch, mask, local in eval_batches(test_set, batch_size, collate_semseg):
+        preds.append(gather_ranks(eval_step(local["points"])).cpu().numpy()[mask])
         segs.append(batch["seg"][mask])
-    return semseg_miou(np.concatenate(preds), np.concatenate(segs))
+    return broadcast_object(semseg_miou(np.concatenate(preds), np.concatenate(segs)))
+
+
+def restore_backbone_from(model, cfg: Config, log) -> str:
+    """`--resume`: the encoder from the pretrain checkpoint `pc_model_file`
+    (the 6-channel stem stays fresh: the pretrain stem takes 3 channels), as
+    JAX's (cli/ft_semseg.py:66-75)."""
+    return restore_pretrained(model, cfg, log, ("encoder",))
 
 
 def main(cfg: Config, device: str = "cuda") -> dict:
-    require_single_card(cfg)
+    """The finetune on every rank of `--num_devices` (parallel.run_ranks);
+    returns the chief's {"best", "best_epoch"}."""
+    return run_ranks(train, cfg, device)
+
+
+def train(cfg: Config, device: str) -> dict:
+    check_batches(cfg)
     run = Run(cfg)
     if cfg.wandb:
         run.write("wandb is not ported: metrics.jsonl is the only metrics channel")
@@ -98,24 +120,22 @@ def main(cfg: Config, device: str = "cuda") -> dict:
     train_set = _SliceChannels(S3DIS(cfg.data_dir, "train", cfg.test_area), pc)
     test_set = _SliceChannels(S3DIS(cfg.data_dir, "test", cfg.test_area), pc)
     train_loader = Loader(train_set, cfg.batch_size, collate_semseg, shuffle=True,
-                          seed=cfg.seed, drop_last=True, num_workers=cfg.num_workers)
+                          seed=cfg.seed, drop_last=True, num_workers=cfg.num_workers,
+                          rank=rank(), world=data_axis_size())
     model = build_ft_semseg(cfg, device=device)
     if cfg.resume:
-        path = (cfg.pc_model_file if "/" in cfg.pc_model_file
-                else run.model_path(cfg.pc_model_file))
-        warn_patch_compat(path, cfg, run.write)
-        restore_backbone(model, branch_state(load_checkpoint(path)), ("encoder",),
-                         log=run.write)
+        restore_backbone_from(model, cfg, run.write)
     state = create_state(cfg, {"pc": model})
     start_epoch, last_meta = resume_training_state(run, state, cfg)
+    place_state(state)
     step = make_semseg_step(cfg, model)
     eval_step = make_semseg_eval(model)
-    run.write(f"ft_semseg on {device}: S3DIS {len(train_set)} train / "
+    run.write(f"ft_semseg on {device} x {data_axis_size()}: S3DIS {len(train_set)} train / "
               f"{len(test_set)} test blocks of 4096 points x {pc} channels, "
               f"{len(train_loader)} batches of {cfg.batch_size}, {cfg.compute_dtype}")
 
     schedule = Schedule(cfg)
-    generator = torch.Generator(device=device).manual_seed(cfg.seed)
+    generator = torch.Generator(device=device).manual_seed(rank_seed(cfg.seed))
     best = last_meta.get("best", {"miou": 0.0})
     best_epoch = last_meta.get("best_epoch", -1)
     epoch_metric = None  # the plateau schedule's metric: none before an epoch of this run

@@ -39,7 +39,14 @@ to `files/pt_test_feats_labels.npz` (`cli/common.py:dump_feats_artifact`).
 Each epoch writes one JSON line to
 `<run_dir>/<proj_name>/<exp_name>/metrics.jsonl` (losses, svm_test_acc,
 svm_best_acc, times) beside a log file and the resolved `config.json`.
-Not ported yet: wandb and multi-card runs.
+`--num_devices N` (0: every visible card) trains data-parallel over N
+ranks (`parallel/`: spawned here, or joined from torchrun's environment):
+each takes its contiguous slice of the global `--batch_size`, its own
+NT-Xent group (JAX's per-device groups; one over the global batch with
+`--global_negatives`), sync-BN, and the ranks' gradients averaged; the
+probe's features are split over the ranks and gathered, the SVM fitted on
+the chief and its accuracy broadcast; the chief writes the files.
+Not ported yet: wandb.
 """
 
 from __future__ import annotations
@@ -50,7 +57,12 @@ import time
 
 import torch
 
-from vipformer_tpu_torch.cli.common import Run, dump_feats_artifact, extract_features
+from vipformer_tpu_torch.cli.common import (
+    Run,
+    check_batches,
+    dump_feats_artifact,
+    extract_features,
+)
 from vipformer_tpu_torch.config import Config, add_config_args, config_from_namespace
 from vipformer_tpu_torch.data.datasets import ModelNet40SVM, ScanObjectNNSVM, ShapeNetRender
 from vipformer_tpu_torch.data.pipeline import (
@@ -61,6 +73,15 @@ from vipformer_tpu_torch.data.pipeline import (
 )
 from vipformer_tpu_torch.evaluation.svm import fit_svm
 from vipformer_tpu_torch.models.factory import build_img_model, build_pc_model
+from vipformer_tpu_torch.parallel import (
+    broadcast_object,
+    data_axis_size,
+    is_chief,
+    place_state,
+    rank,
+    rank_seed,
+    run_ranks,
+)
 from vipformer_tpu_torch.train.checkpoint import (
     load_metadata,
     restore_state,
@@ -82,12 +103,14 @@ def probe_sets(cfg: Config):
 def train_loader(cfg: Config) -> Loader:
     """The shuffled ShapeNetRender batches of the pretrain loop (JAX
     cli/pretrain.py:62-72): raw clouds and uint8 images with
-    `device_augs`, host-augmented views otherwise."""
+    `device_augs`, host-augmented views otherwise; each rank's slice of
+    every global batch."""
     train_set = ShapeNetRender(cfg.data_dir, cfg.img_height, cfg.img_width, cfg.num_pt_points,
                                synthetic_size=cfg.synthetic_size, raw_views=cfg.device_augs)
     return Loader(train_set, cfg.batch_size,
                   collate_pretrain_raw if cfg.device_augs else collate_pretrain, shuffle=True,
-                  seed=cfg.seed, drop_last=True, num_workers=cfg.num_workers)
+                  seed=cfg.seed, drop_last=True, num_workers=cfg.num_workers, rank=rank(),
+                  world=data_axis_size())
 
 
 def run_epoch(step, state, loader: Loader, lr: float, generator, device, log=None,
@@ -134,11 +157,13 @@ def resume(run: Run, state, cfg: Config) -> tuple[int, float, int]:
 
 
 def main(cfg: Config, device: str = "cuda") -> dict:
-    if cfg.num_devices > 1:
-        # JAX trains per-device NT-Xent groups (neg_groups = the data axis
-        # size); one card with neg_groups=1 would train another loss
-        raise NotImplementedError("multi-card runs are not ported yet (ROADMAP Queue 1, "
-                                  "item 16): the port runs on one card")
+    """The pretrain loop on every rank of `--num_devices` (parallel.run_ranks);
+    returns the chief's {"best_acc", "best_epoch"}."""
+    return run_ranks(train, cfg, device)
+
+
+def train(cfg: Config, device: str) -> dict:
+    check_batches(cfg)
     run = Run(cfg)
     if cfg.wandb:
         run.write("wandb is not ported: metrics.jsonl is the only metrics channel")
@@ -149,17 +174,19 @@ def main(cfg: Config, device: str = "cuda") -> dict:
     if cfg.modality != "imc-only":
         models["img"] = build_img_model(cfg, device=device)
     state = create_state(cfg, models)
-    step = make_pretrain_step(cfg, models["pc"], models.get("img"))
+    world = data_axis_size()
+    step = make_pretrain_step(cfg, models["pc"], models.get("img"), neg_groups=world)
     feats_fn = make_feats_fn(models["pc"])
     schedule = Schedule(cfg)
-    generator = torch.Generator(device=device).manual_seed(cfg.seed)
+    generator = torch.Generator(device=device).manual_seed(rank_seed(cfg.seed))
     kind = "synthetic" if train_set.synthetic else "real"
-    run.write(f"pretrain on {device}: {len(train_set)} {kind} samples, {len(loader)} "
+    run.write(f"pretrain on {device} x {world}: {len(train_set)} {kind} samples, {len(loader)} "
               f"batches of {cfg.batch_size}, modality {cfg.modality}, {cfg.compute_dtype}, "
               f"{'device' if cfg.device_augs else 'host'} augmentation; "
               f"probe: {cfg.pt_dataset} {len(probe_train)}/{len(probe_test)}")
 
     start_epoch, best_acc, best_epoch = resume(run, state, cfg) if cfg.resume else (0, 0.0, -1)
+    place_state(state)
     epoch_loss = None  # the plateau schedule's metric: none before an epoch of this run
     for epoch in range(start_epoch, cfg.epochs):
         lr = schedule.lr(epoch, epoch_loss)
@@ -181,7 +208,10 @@ def main(cfg: Config, device: str = "cuda") -> dict:
         t0 = time.perf_counter()
         tr_feats, tr_labels = extract_features(feats_fn, probe_train, cfg.test_batch_size)
         te_feats, te_labels = extract_features(feats_fn, probe_test, cfg.test_batch_size)
-        test_acc = fit_svm(tr_feats, tr_labels, c=cfg.svm_coff).score(te_feats, te_labels)
+        test_acc = None
+        if is_chief():
+            test_acc = fit_svm(tr_feats, tr_labels, c=cfg.svm_coff).score(te_feats, te_labels)
+        test_acc = broadcast_object(test_acc)
         test_time = time.perf_counter() - t0
         if test_acc > best_acc:
             best_acc, best_epoch = test_acc, epoch
@@ -203,7 +233,7 @@ def main(cfg: Config, device: str = "cuda") -> dict:
         run.metrics(epoch, lr=lr, pretrain_loss=epoch_loss, imid_loss=means["loss_imid"],
                     cmid_loss=means["loss_cmid"], svm_test_acc=test_acc, svm_best_acc=best_acc,
                     train_time=train_time, test_time=test_time,
-                    clouds_per_s=2 * n * cfg.batch_size / train_time)
+                    clouds_per_s=2 * n * cfg.batch_size / train_time, ranks=world)
     run.write(f"final best probe acc {best_acc:.4f} at epoch {best_epoch}")
     if cfg.dump_feats and cfg.epochs > start_epoch:
         # the last probe epoch's test-split features

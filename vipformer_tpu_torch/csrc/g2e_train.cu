@@ -324,6 +324,29 @@ __global__ void gmax_bwd_kernel(const float* __restrict__ dxc, const T* __restri
 
 unsigned blocks_for(size_t n) { return (unsigned)((n + 255) / 256); }
 
+// The BatchNorm seams of a pass split over data-parallel ranks. `stage` 0
+// runs a pass whole in one call (one rank); stages 1, 2 and 3 run it in
+// three calls, ending at each of its two seams, where the wrapper
+// all-reduces the raw column sums `sums` [2][C] over the ranks
+// (ops/cuda/g2e_train.py) and passes them, with the global row count n, to
+// the next stage (JAX g2e_train.py:409-411, :448-450, :536-543, :602-608).
+// The forward's seam sums the partials part[nblk][2][C] into sums, in the
+// order bn_finish_kernel sums them; a stage after a seam finishes the
+// statistics from the reduced sums as one partial.
+int seam(int nblk, int C, const float* part, float* sums, cudaStream_t st) {
+  sum_parts(nblk, C, part, sums, sums + C, st);
+  return (int)cudaGetLastError();
+}
+
+void finish_stats(int stage, const float* part, int nblk, const float* sums, int C, float n,
+                  const float* gamma, const float* beta, float* stats, int base,
+                  cudaStream_t st) {
+  if (stage == 0)
+    bn_finish_kernel<<<1, C3, 0, st>>>(part, nblk, C, n, gamma, beta, stats, base);
+  else
+    bn_finish_kernel<<<1, C3, 0, st>>>(sums, 1, C, n, gamma, beta, stats, base);
+}
+
 template <typename T>
 void recompute_h2(Chain<T> ch, const T* w1, const T* b1, T* h2, T* gmax, int R, int S,
                   cudaStream_t st) {
@@ -337,29 +360,37 @@ int g2e_fwd(const void* x0, const void* w0, const void* b0, const void* g0, cons
             const void* w1, const void* b1, const void* w2, const void* b2, const void* g1,
             const void* be1, const void* w3, const void* b3, void* out, void* amax, void* h3p,
             void* stats, void* h2, void* gmax, void* h4, void* part, int R, int S, int cin, int D,
-            int nblk, void* stream) {
+            int nblk, void* sums, float n, int stage, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* stats_ = static_cast<float*>(stats);
   float* part_ = static_cast<float*>(part);
+  float* sums_ = static_cast<float*>(sums);
   T* h2_ = static_cast<T*>(h2);
   T* gmax_ = static_cast<T*>(gmax);
   T* h3p_ = static_cast<T*>(h3p);
   T* h4_ = static_cast<T*>(h4);
-  const float n = (float)R;
   Chain<T> ch{static_cast<const T*>(x0), static_cast<const T*>(w0), static_cast<const T*>(b0),
               stats_, h3p_, cin};
   // F1: BatchNorm_0 statistics of h1p
-  colsum2(R, C1, nblk, L0Sq<T>{ch}, part_, st);
-  bn_finish_kernel<<<1, C3, 0, st>>>(part_, nblk, C1, n, static_cast<const float*>(g0),
-                                     static_cast<const float*>(be0), stats_, MU0);
-  // F2: h2, its group maxima, h3p (cached) and BatchNorm_1 statistics
-  recompute_h2<T>(ch, static_cast<const T*>(w1), static_cast<const T*>(b1), h2_, gmax_, R, S, st);
-  gemm<true, true>(R, C3, C3, 1, XCA<T>{XC<T>{gmax_, h2_, S}},
-                   RowMajor<T>{static_cast<const T*>(w2), C3},
-                   StoreDense<T>{h3p_, static_cast<const T*>(b2), C3}, st);
-  colsum2(R, C3, nblk, RowSq<T>{h3p_, C3}, part_, st);
-  bn_finish_kernel<<<1, C3, 0, st>>>(part_, nblk, C3, n, static_cast<const float*>(g1),
-                                     static_cast<const float*>(be1), stats_, MU1);
+  if (stage <= 1) {
+    colsum2(R, C1, nblk, L0Sq<T>{ch}, part_, st);
+    if (stage == 1) return seam(nblk, C1, part_, sums_, st);
+  }
+  // F2: BatchNorm_0 statistics; h2, its group maxima, h3p (cached) and
+  // BatchNorm_1 statistics
+  if (stage <= 2) {
+    finish_stats(stage, part_, nblk, sums_, C1, n, static_cast<const float*>(g0),
+                 static_cast<const float*>(be0), stats_, MU0, st);
+    recompute_h2<T>(ch, static_cast<const T*>(w1), static_cast<const T*>(b1), h2_, gmax_, R, S,
+                    st);
+    gemm<true, true>(R, C3, C3, 1, XCA<T>{XC<T>{gmax_, h2_, S}},
+                     RowMajor<T>{static_cast<const T*>(w2), C3},
+                     StoreDense<T>{h3p_, static_cast<const T*>(b2), C3}, st);
+    colsum2(R, C3, nblk, RowSq<T>{h3p_, C3}, part_, st);
+    if (stage == 2) return seam(nblk, C3, part_, sums_, st);
+  }
+  finish_stats(stage, part_, nblk, sums_, C3, n, static_cast<const float*>(g1),
+               static_cast<const float*>(be1), stats_, MU1, st);
   // F3: h4, its group maxima and first argmax
   gemm<true, true>(R, D, C3, 1, X3A<T>{ch}, RowMajor<T>{static_cast<const T*>(w3), D},
                    StoreDense<T>{h4_, static_cast<const T*>(b3), D}, st);
@@ -376,9 +407,9 @@ int g2e_bwd(const void* x0, const void* w0, const void* b0, const void* g0, cons
             void* db2, void* dg1, void* dbe1, void* dw3, void* db3, void* dh4, void* dy3,
             void* h2, void* gmax, void* dh3p, void* dxc, void* dh2, void* dy1, void* dh1p,
             void* part, void* wpart, int R, int S, int cin, int D, int nblk, int splits,
-            void* stream) {
+            void* sums, float n, int stage, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float n = (float)R;
+  const float* sums_ = static_cast<const float*>(sums);
   const float* stats_ = static_cast<const float*>(stats);
   float* part_ = static_cast<float*>(part);
   float* wpart_ = static_cast<float*>(wpart);
@@ -403,45 +434,54 @@ int g2e_bwd(const void* x0, const void* w0, const void* b0, const void* g0, cons
               static_cast<const T*>(h3p), cin};
 
   // P1: dh4 at the argmax rows; dW3, db3; dy3 = relu'(x3) * dh4 W3^T; BN1 sums
-  scatter_argmax_kernel<T><<<blocks_for((size_t)R * D), 256, 0, st>>>(
-      static_cast<const T*>(dy), static_cast<const int*>(amax), R, S, D, dh4_);
-  gemm<false, true>(C3, D, R, splits, X3T<T>{ch}, RowMajor<T>{dh4_, D},
-                    StoreSplit{wpart_, C3, D}, st);
-  sum_splits(splits, C3 * D, wpart_, static_cast<float*>(dw3), st);
-  colsum2(R, D, nblk, Col<T>{dh4_, D}, part_, st);
-  sum_parts(nblk, D, part_, static_cast<float*>(db3), nullptr, st);
-  gemm<true, false>(R, C3, D, 1, RowMajor<T>{dh4_, D}, Transposed<T>{w3_, D},
-                    StoreRelu3<T>{ch, dy3_}, st);
-  colsum2(R, C3, nblk, Bn1Grad<T>{ch, dy3_}, part_, st);
-  sum_parts(nblk, C3, part_, dbe1_, dg1_, st);
+  // (this rank's: dbe1, dg1; the seam's reduced sums feed dh3p)
+  if (stage <= 1) {
+    scatter_argmax_kernel<T><<<blocks_for((size_t)R * D), 256, 0, st>>>(
+        static_cast<const T*>(dy), static_cast<const int*>(amax), R, S, D, dh4_);
+    gemm<false, true>(C3, D, R, splits, X3T<T>{ch}, RowMajor<T>{dh4_, D},
+                      StoreSplit{wpart_, C3, D}, st);
+    sum_splits(splits, C3 * D, wpart_, static_cast<float*>(dw3), st);
+    colsum2(R, D, nblk, Col<T>{dh4_, D}, part_, st);
+    sum_parts(nblk, D, part_, static_cast<float*>(db3), nullptr, st);
+    gemm<true, false>(R, C3, D, 1, RowMajor<T>{dh4_, D}, Transposed<T>{w3_, D},
+                      StoreRelu3<T>{ch, dy3_}, st);
+    colsum2(R, C3, nblk, Bn1Grad<T>{ch, dy3_}, part_, st);
+    sum_parts(nblk, C3, part_, dbe1_, dg1_, st);
+    if (stage == 1) return cudaGetLastError();
+  }
 
   // P2: dh3p; dW2, db2; dxc = dh3p W2^T; the pool's tie split; dW1, db1;
   // dy1 = relu'(x1) * dh2 W1^T; BN0 sums
-  bn_bwd_kernel<T, C3, true><<<blocks_for((size_t)R * C3), 256, 0, st>>>(
-      ch, dy3_, dbe1_, dg1_, static_cast<const float*>(g1), R, n, dh3p_);
-  recompute_h2<T>(ch, w1_, static_cast<const T*>(b1), h2_, gmax_, R, S, st);
-  gemm<false, true>(C3, C3, R, splits, XCT<T>{XC<T>{gmax_, h2_, S}}, RowMajor<T>{dh3p_, C3},
-                    StoreSplit{wpart_, C3, C3}, st);
-  sum_splits(splits, C3 * C3, wpart_, static_cast<float*>(dw2), st);
-  colsum2(R, C3, nblk, Col<T>{dh3p_, C3}, part_, st);
-  sum_parts(nblk, C3, part_, static_cast<float*>(db2), nullptr, st);
-  gemm<true, false>(R, C3, C3, 1, RowMajor<T>{dh3p_, C3}, Transposed<T>{w2_, C3},
-                    StoreF32{dxc_, C3}, st);
-  gmax_bwd_kernel<T><<<blocks_for((size_t)(R / S) * C2), 256, 0, st>>>(dxc_, h2_, gmax_, R / S,
-                                                                      S, dh2_);
-  gemm<false, true>(C1, C2, R, splits, X1T<T>{ch}, RowMajor<T>{dh2_, C2},
-                    StoreSplit{wpart_, C1, C2}, st);
-  sum_splits(splits, C1 * C2, wpart_, static_cast<float*>(dw1), st);
-  colsum2(R, C2, nblk, Col<T>{dh2_, C2}, part_, st);
-  sum_parts(nblk, C2, part_, static_cast<float*>(db1), nullptr, st);
-  gemm<true, false>(R, C1, C2, 1, RowMajor<T>{dh2_, C2}, Transposed<T>{w1_, C2},
-                    StoreRelu1<T>{ch, dy1_}, st);
-  colsum2(R, C1, nblk, Bn0Grad<T>{ch, dy1_}, part_, st);
-  sum_parts(nblk, C1, part_, dbe0_, dg0_, st);
+  if (stage == 0 || stage == 2) {
+    bn_bwd_kernel<T, C3, true><<<blocks_for((size_t)R * C3), 256, 0, st>>>(
+        ch, dy3_, stage == 0 ? dbe1_ : sums_, stage == 0 ? dg1_ : sums_ + C3,
+        static_cast<const float*>(g1), R, n, dh3p_);
+    recompute_h2<T>(ch, w1_, static_cast<const T*>(b1), h2_, gmax_, R, S, st);
+    gemm<false, true>(C3, C3, R, splits, XCT<T>{XC<T>{gmax_, h2_, S}}, RowMajor<T>{dh3p_, C3},
+                      StoreSplit{wpart_, C3, C3}, st);
+    sum_splits(splits, C3 * C3, wpart_, static_cast<float*>(dw2), st);
+    colsum2(R, C3, nblk, Col<T>{dh3p_, C3}, part_, st);
+    sum_parts(nblk, C3, part_, static_cast<float*>(db2), nullptr, st);
+    gemm<true, false>(R, C3, C3, 1, RowMajor<T>{dh3p_, C3}, Transposed<T>{w2_, C3},
+                      StoreF32{dxc_, C3}, st);
+    gmax_bwd_kernel<T><<<blocks_for((size_t)(R / S) * C2), 256, 0, st>>>(dxc_, h2_, gmax_, R / S,
+                                                                        S, dh2_);
+    gemm<false, true>(C1, C2, R, splits, X1T<T>{ch}, RowMajor<T>{dh2_, C2},
+                      StoreSplit{wpart_, C1, C2}, st);
+    sum_splits(splits, C1 * C2, wpart_, static_cast<float*>(dw1), st);
+    colsum2(R, C2, nblk, Col<T>{dh2_, C2}, part_, st);
+    sum_parts(nblk, C2, part_, static_cast<float*>(db1), nullptr, st);
+    gemm<true, false>(R, C1, C2, 1, RowMajor<T>{dh2_, C2}, Transposed<T>{w1_, C2},
+                      StoreRelu1<T>{ch, dy1_}, st);
+    colsum2(R, C1, nblk, Bn0Grad<T>{ch, dy1_}, part_, st);
+    sum_parts(nblk, C1, part_, dbe0_, dg0_, st);
+    if (stage == 2) return cudaGetLastError();
+  }
 
   // P3: dh1p; dW0, db0; dx0 = dh1p W0^T
   bn_bwd_kernel<T, C1, false><<<blocks_for((size_t)R * C1), 256, 0, st>>>(
-      ch, dy1_, dbe0_, dg0_, static_cast<const float*>(g0), R, n, dh1p_);
+      ch, dy1_, stage == 0 ? dbe0_ : sums_, stage == 0 ? dg0_ : sums_ + C1,
+      static_cast<const float*>(g0), R, n, dh1p_);
   gemm<false, true>(cin, C1, R, splits, Transposed<T>{static_cast<const T*>(x0), cin},
                     RowMajor<T>{dh1p_, C1}, StoreSplit{wpart_, cin, C1}, st);
   sum_splits(splits, cin * C1, wpart_, static_cast<float*>(dw0), st);
@@ -1209,17 +1249,23 @@ int fwd(const bf16* x0, const bf16* w0, const bf16* b0, const float* g0, const f
         const bf16* w1, const bf16* b1, const bf16* w2, const bf16* b2, const float* g1,
         const float* be1, const bf16* w3, const bf16* b3, bf16* out, int* amax, bf16* h3p,
         float* stats, float* part, int R, int S, int cin, int D, int nblk, int gmid, int gout,
-        cudaStream_t st) {
-  const float n = (float)R;
-  Chain<bf16> ch{x0, w0, b0, stats, h3p, cin};
-  colsum2(R, C1, nblk, L0Sq<bf16>{ch}, part, st);
-  bn_finish_kernel<<<1, C3, 0, st>>>(part, nblk, C1, n, g0, be0, stats, MU0);
-  cudaError_t e = allow_smem(fwd_mid_kernel, MID_FWD_SMEM);
-  if (e != cudaSuccess) return e;
-  fwd_mid_kernel<<<gmid, THREADS, MID_FWD_SMEM, st>>>(x0, w0, b0, stats, w1, b1, w2, b2, h3p,
-                                                      part, R, S, cin);
-  bn_finish_kernel<<<1, C3, 0, st>>>(part, gmid, C3, n, g1, be1, stats, MU1);
+        float* sums, float n, int stage, cudaStream_t st) {
   if (D % 64 != 0) return (int)cudaErrorInvalidValue;
+  Chain<bf16> ch{x0, w0, b0, stats, h3p, cin};
+  cudaError_t e;
+  if (stage <= 1) {
+    colsum2(R, C1, nblk, L0Sq<bf16>{ch}, part, st);
+    if (stage == 1) return seam(nblk, C1, part, sums, st);
+  }
+  if (stage <= 2) {
+    finish_stats(stage, part, nblk, sums, C1, n, g0, be0, stats, MU0, st);
+    e = allow_smem(fwd_mid_kernel, MID_FWD_SMEM);
+    if (e != cudaSuccess) return e;
+    fwd_mid_kernel<<<gmid, THREADS, MID_FWD_SMEM, st>>>(x0, w0, b0, stats, w1, b1, w2, b2, h3p,
+                                                        part, R, S, cin);
+    if (stage == 2) return seam(gmid, C3, part, sums, st);
+  }
+  finish_stats(stage, part, gmid, sums, C3, n, g1, be1, stats, MU1, st);
   switch (out_cols(D)) {
     case 64: e = launch_out<64>(gout, h3p, stats, w3, b3, out, amax, R, S, D, st); break;
     case 128: e = launch_out<128>(gout, h3p, stats, w3, b3, out, amax, R, S, D, st); break;
@@ -1242,27 +1288,36 @@ int bwd(const bf16* x0, const bf16* w0, const bf16* b0, const float* g0, const b
         float* dg0, float* dbe0, float* dw1, float* db1, float* dw2, float* db2, float* dg1,
         float* dbe1, float* dw3, float* db3, bf16* x1, bf16* xc, bf16* dh3p, bf16* dh2,
         bf16* dy1, float* gsum, float* part, float* wpart, int R, int S, int cin, int D, int nblk,
-        int gmid, int gdy3, int splits3, int splits2, int splits1, cudaStream_t st) {
+        int gmid, int gdy3, int splits3, int splits2, int splits1, const float* sums, float n,
+        int stage, cudaStream_t st) {
   if (D % 64 != 0) return (int)cudaErrorInvalidValue;
-  const float n = (float)R;
   double* partd = reinterpret_cast<double*>(part);
-  cudaError_t e = launch_dy3<false>(gdy3, h3p, amax, dy, stats, w3, g1, dbe1, dg1, n, dh3p,
-                                    gsum, partd, R, S, D, st);
-  if (e != cudaSuccess) return (int)e;
-  sum_parts(gdy3 / 2, C3, partd, dbe1, dg1, st);
-  e = launch_dy3<true>(gdy3, h3p, amax, dy, stats, w3, g1, dbe1, dg1, n, dh3p, gsum, partd, R, S,
-                       D, st);
-  if (e != cudaSuccess) return (int)e;
-  sum_parts(gdy3 / 2, C3, partd, db2, nullptr, st);
-  e = allow_smem(bwd_mid_kernel, MID_BWD_SMEM);
-  if (e != cudaSuccess) return (int)e;
-  float* bpart = reinterpret_cast<float*>(partd + (size_t)gmid * 2 * C1);
-  bwd_mid_kernel<<<gmid, THREADS, MID_BWD_SMEM, st>>>(x0, w0, b0, stats, w1, b1, w2, dh3p, gsum,
-                                                      x1, xc, dh2, dy1, partd, bpart, R, S, cin);
-  sum_parts(gmid, C1, partd, dbe0, dg0, st);
-  sum_splits(gmid, C2, bpart, db1, st);
-  const int per = (R + nblk - 1) / nblk;
-  bwd_in_kernel<<<nblk, 32 * IN_WARPS, 0, st>>>(x0, w0, b0, stats, g0, dbe0, dg0, n, dy1, R, cin,
+  cudaError_t e;
+  if (stage <= 1) {  // P1: this rank's BN1 sums (dbe1, dg1)
+    e = launch_dy3<false>(gdy3, h3p, amax, dy, stats, w3, g1, dbe1, dg1, n, dh3p, gsum, partd, R,
+                          S, D, st);
+    if (e != cudaSuccess) return (int)e;
+    sum_parts(gdy3 / 2, C3, partd, dbe1, dg1, st);
+    if (stage == 1) return (int)cudaGetLastError();
+  }
+  if (stage == 0 || stage == 2) {  // P2, from the reduced BN1 sums; this rank's BN0 sums
+    e = launch_dy3<true>(gdy3, h3p, amax, dy, stats, w3, g1, stage == 0 ? dbe1 : sums,
+                         stage == 0 ? dg1 : sums + C3, n, dh3p, gsum, partd, R, S, D, st);
+    if (e != cudaSuccess) return (int)e;
+    sum_parts(gdy3 / 2, C3, partd, db2, nullptr, st);
+    e = allow_smem(bwd_mid_kernel, MID_BWD_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    float* bpart = reinterpret_cast<float*>(partd + (size_t)gmid * 2 * C1);
+    bwd_mid_kernel<<<gmid, THREADS, MID_BWD_SMEM, st>>>(x0, w0, b0, stats, w1, b1, w2, dh3p,
+                                                        gsum, x1, xc, dh2, dy1, partd, bpart, R,
+                                                        S, cin);
+    sum_parts(gmid, C1, partd, dbe0, dg0, st);
+    sum_splits(gmid, C2, bpart, db1, st);
+    if (stage == 2) return (int)cudaGetLastError();
+  }
+  const int per = (R + nblk - 1) / nblk;  // P3, from the reduced BN0 sums
+  bwd_in_kernel<<<nblk, 32 * IN_WARPS, 0, st>>>(x0, w0, b0, stats, g0, stage == 0 ? dbe0 : sums,
+                                                stage == 0 ? dg0 : sums + C1, n, dy1, R, cin,
                                                 per, dx0, wpart, wpart + (size_t)nblk * cin * C1);
   sum_splits(nblk, cin * C1, wpart, dw0, st);
   sum_splits(nblk, C1, wpart + (size_t)nblk * cin * C1, db0, st);
@@ -1293,10 +1348,10 @@ using namespace vpt_g2e;
       const void *w1, const void *b1, const void *w2, const void *b2, const void *g1,       \
       const void *be1, const void *w3, const void *b3, void *out, void *amax, void *h3p,    \
       void *stats, void *h2, void *gmax, void *h4, void *part, int r, int s, int cin, int d, \
-      int nblk, void *stream
+      int nblk, void *sums, float n, int stage, void *stream
 #define G2E_FWD_PASS                                                                          \
   x0, w0, b0, g0, be0, w1, b1, w2, b2, g1, be1, w3, b3, out, amax, h3p, stats, h2, gmax, h4, \
-      part, r, s, cin, d, nblk, stream
+      part, r, s, cin, d, nblk, sums, n, stage, stream
 
 extern "C" int g2e_fwd_f32(G2E_FWD_ARGS) { return g2e_fwd<float>(G2E_FWD_PASS); }
 
@@ -1307,13 +1362,14 @@ extern "C" int g2e_fwd_tc_bf16(const void* x0, const void* w0, const void* b0, c
                                const void* b2, const void* g1, const void* be1, const void* w3,
                                const void* b3, void* out, void* amax, void* h3p, void* stats,
                                void* part, int r, int s, int cin, int d, int nblk, int gmid,
-                               int gout, void* stream) {
+                               int gout, void* sums, float n, int stage, void* stream) {
   using tc::bf16;
   return tc::fwd((const bf16*)x0, (const bf16*)w0, (const bf16*)b0, (const float*)g0,
                  (const float*)be0, (const bf16*)w1, (const bf16*)b1, (const bf16*)w2,
                  (const bf16*)b2, (const float*)g1, (const float*)be1, (const bf16*)w3,
                  (const bf16*)b3, (bf16*)out, (int*)amax, (bf16*)h3p, (float*)stats,
-                 (float*)part, r, s, cin, d, nblk, gmid, gout, (cudaStream_t)stream);
+                 (float*)part, r, s, cin, d, nblk, gmid, gout, (float*)sums, n, stage,
+                 (cudaStream_t)stream);
 }
 
 #define G2E_BWD_ARGS                                                                         \
@@ -1324,11 +1380,11 @@ extern "C" int g2e_fwd_tc_bf16(const void* x0, const void* w0, const void* b0, c
       void *db2, void *dg1, void *dbe1, void *dw3, void *db3, void *dh4, void *dy3,          \
       void *h2, void *gmax, void *dh3p, void *dxc, void *dh2, void *dy1, void *dh1p,         \
       void *part, void *wpart, int r, int s, int cin, int d, int nblk, int splits,           \
-      void *stream
+      void *sums, float n, int stage, void *stream
 #define G2E_BWD_PASS                                                                          \
   x0, w0, b0, g0, w1, b1, w2, b2, g1, w3, h3p, amax, stats, dy, dx0, dw0, db0, dg0, dbe0,    \
       dw1, db1, dw2, db2, dg1, dbe1, dw3, db3, dh4, dy3, h2, gmax, dh3p, dxc, dh2, dy1, dh1p, \
-      part, wpart, r, s, cin, d, nblk, splits, stream
+      part, wpart, r, s, cin, d, nblk, splits, sums, n, stage, stream
 
 extern "C" int g2e_bwd_f32(G2E_BWD_ARGS) { return g2e_bwd<float>(G2E_BWD_PASS); }
 
@@ -1348,7 +1404,8 @@ extern "C" int g2e_bwd_tc_bf16(const void* x0, const void* w0, const void* b0, c
                                void* dh3p, void* dh2, void* dy1, void* gsum, void* part,
                                void* wpart, int r,
                                int s, int cin, int d, int nblk, int gmid, int gdy3, int splits3,
-                               int splits2, int splits1, void* stream) {
+                               int splits2, int splits1, const void* sums, float n, int stage,
+                               void* stream) {
   using tc::bf16;
   return tc::bwd((const bf16*)x0, (const bf16*)w0, (const bf16*)b0, (const float*)g0,
                  (const bf16*)w1, (const bf16*)b1, (const bf16*)w2, (const float*)g1,
@@ -1357,6 +1414,6 @@ extern "C" int g2e_bwd_tc_bf16(const void* x0, const void* w0, const void* b0, c
                  (float*)dbe0, (float*)dw1, (float*)db1, (float*)dw2, (float*)db2, (float*)dg1,
                  (float*)dbe1, (float*)dw3, (float*)db3, (bf16*)x1, (bf16*)xc, (bf16*)dh3p,
                  (bf16*)dh2, (bf16*)dy1, (float*)gsum, (float*)part, (float*)wpart, r, s, cin, d,
-                 nblk, gmid,
-                 gdy3, splits3, splits2, splits1, (cudaStream_t)stream);
+                 nblk, gmid, gdy3, splits3, splits2, splits1, (const float*)sums, n, stage,
+                 (cudaStream_t)stream);
 }

@@ -18,11 +18,21 @@ import torch
 class Loader:
     """Deterministic batch loader over a dataset with `__len__` and
     `get(i, rng)`; epoch e shuffles with seed + e (`set_epoch`), and each
-    sample gets its own child generator."""
+    sample gets its own child generator. With `world` > 1 ranks, every rank
+    draws the global order and the global batch's per-sample seeds, and
+    builds only its own contiguous slice of `batch_size` / `world` samples
+    (rows [rank B / W, (rank + 1) B / W)): the ranks' batches stacked in
+    rank order are the one-process batch, bit for bit."""
 
     def __init__(self, dataset, batch_size: int, collate: Callable, shuffle: bool = False,
-                 seed: int = 0, drop_last: bool = False, num_workers: int = 0):
+                 seed: int = 0, drop_last: bool = False, num_workers: int = 0, rank: int = 0,
+                 world: int = 1):
+        if batch_size % world:
+            raise ValueError(f"batch_size {batch_size} not divisible by data-axis size {world}")
+        if world > 1 and not drop_last:
+            raise ValueError("a rank's slices need full global batches (drop_last)")
         self.dataset = dataset
+        self.rank, self.world = rank, world
         self.batch_size = batch_size
         self.collate = collate
         self.shuffle = shuffle
@@ -56,6 +66,9 @@ class Loader:
                     return self.dataset.get(int(t[0]), np.random.default_rng(int(t[1])))
 
                 pairs = list(zip(idx, seeds))
+                if self.world > 1:
+                    per = self.batch_size // self.world
+                    pairs = pairs[self.rank * per:(self.rank + 1) * per]
                 samples = list(pool.map(get, pairs)) if pool else [get(t) for t in pairs]
                 yield self.collate(samples)
         finally:

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from vipformer_tpu_torch.parallel.mesh import all_gather_rows, data_axis_size
+
 
 def nt_xent_loss(z0: torch.Tensor, z1: torch.Tensor, temperature: float = 0.1) -> torch.Tensor:
     """Mean NT-Xent over the 2B anchors of the paired views z0, z1 [B, D]."""
@@ -38,3 +40,24 @@ def nt_xent_grouped(z0: torch.Tensor, z1: torch.Tensor, num_groups: int,
     losses = [nt_xent_loss(z0[i * g:(i + 1) * g], z1[i * g:(i + 1) * g], temperature)
               for i in range(num_groups)]
     return torch.stack(losses).mean()
+
+
+def nt_xent_data_parallel(z0: torch.Tensor, z1: torch.Tensor, num_groups: int,
+                          temperature: float = 0.1) -> torch.Tensor:
+    """NT-Xent of a global batch split contiguously over the ranks, each
+    rank holding its rows of z0, z1: `num_groups` groups over the global
+    batch, as JAX's `nt_xent_grouped` (losses/contrastive.py:51-76). With
+    one group (`--global_negatives`) every rank gathers the ranks'
+    projections (`all_gather_rows`, whose gradient sums the ranks') and
+    computes the one global loss; otherwise the groups fall within the
+    ranks (num_groups a multiple of W) and each rank computes its own,
+    with nothing exchanged. Returns this rank's loss: the step's mean over
+    the ranks is the global one."""
+    world = data_axis_size()
+    if world == 1:
+        return nt_xent_grouped(z0, z1, num_groups, temperature)
+    if num_groups <= 1:
+        return nt_xent_loss(all_gather_rows(z0), all_gather_rows(z1), temperature)
+    if num_groups % world:
+        raise ValueError(f"{num_groups} NT-Xent groups do not split over {world} ranks")
+    return nt_xent_grouped(z0, z1, num_groups // world, temperature)

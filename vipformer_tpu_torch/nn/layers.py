@@ -50,6 +50,7 @@ from vipformer_tpu_torch.ops.cuda import dense as kdense
 from vipformer_tpu_torch.ops.cuda import flash_train as kflash
 from vipformer_tpu_torch.ops.cuda import layernorm as kln
 from vipformer_tpu_torch.ops.cuda.stem import BN_EPS
+from vipformer_tpu_torch.parallel.mesh import all_reduce_sum, data_axis_size
 
 BN_MOMENTUM = 0.9  # flax's; torch momentum 0.1
 
@@ -184,7 +185,13 @@ class BatchNorm(nn.Module):
     Where K18's gate holds in train mode (only when
     `ops.cuda.batchnorm.USE_BN_TRAIN` forces it, as JAX layers.py:346-377
     and :320-325) the statistics and the backward's column sums come from
-    K18 (`bn_train_apply`), its output in x's dtype and then cast."""
+    K18 (`bn_train_apply`), its output in x's dtype and then cast.
+    Under data parallelism (a process group of W > 1 ranks) it is sync-BN,
+    as JAX's over its data axis (layers.py:346-377): the batch statistics
+    are over every rank's rows, from the all-reduced [sum x, sum x^2] and
+    the global row count, in f32 and through autograd (the backward's
+    column sums are all-reduced the same way), so the running statistics
+    come out equal on every rank."""
 
     def __init__(self, features: int, dtype=None):
         super().__init__()
@@ -204,9 +211,18 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if self.training:
             axes = tuple(range(x.ndim - 1))
-            mean = xf.mean(dim=axes)
-            var = torch.clamp_min((xf * xf).mean(dim=axes) - mean * mean, 0.0)
-            self.update_running(mean, var)
+            if data_axis_size() > 1:
+                count = torch.full((1,), x.numel() // x.shape[-1], dtype=torch.float32,
+                                   device=x.device)
+                sums = all_reduce_sum(torch.cat([xf.sum(dim=axes), (xf * xf).sum(dim=axes),
+                                                 count]))
+                c = x.shape[-1]
+                mean = sums[:c] / sums[-1]
+                var = torch.clamp_min(sums[c:2 * c] / sums[-1] - mean * mean, 0.0)
+            else:
+                mean = xf.mean(dim=axes)
+                var = torch.clamp_min((xf * xf).mean(dim=axes) - mean * mean, 0.0)
+            self.update_running(mean.detach(), var.detach())
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + BN_EPS) * self.weight

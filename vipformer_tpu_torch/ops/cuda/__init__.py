@@ -8,9 +8,10 @@ in .gitignore), keyed by a hash of the sources and the flags, so a changed
 source rebuilds and an unchanged one loads the cached library.
 
 Every C entry point takes raw device pointers plus the launch stream and
-returns `cudaGetLastError()` after its launch; `check()` raises when that
-is not cudaSuccess (a refused launch never runs, and a later synchronize
-would not report it).
+returns `cudaGetLastError()` after its launch; `launch()` calls it on the
+operands' card and its current stream, and raises (`check()`) when that is
+not cudaSuccess (a refused launch never runs, and a later synchronize would
+not report it).
 """
 
 from __future__ import annotations
@@ -86,10 +87,10 @@ SIGNATURES = {
     "dropout_mask_u8": [_P, _I, _I, _I, _U, _P, _P],
     # K9: f32 on the CUDA cores; bf16 on the tensor cores, with no h4 or
     # dh4 scratch and the persistent grids and weight-gradient splits
-    "g2e_fwd_f32": [_P] * 21 + [_I] * 5 + [_P],
-    "g2e_fwd_tc_bf16": [_P] * 18 + [_I] * 7 + [_P],
-    "g2e_bwd_f32": [_P] * 38 + [_I] * 6 + [_P],
-    "g2e_bwd_tc_bf16": [_P] * 34 + [_I] * 10 + [_P],
+    "g2e_fwd_f32": [_P] * 21 + [_I] * 5 + [_P, _F, _I, _P],
+    "g2e_fwd_tc_bf16": [_P] * 18 + [_I] * 7 + [_P, _F, _I, _P],
+    "g2e_bwd_f32": [_P] * 38 + [_I] * 6 + [_P, _F, _I, _P],
+    "g2e_bwd_tc_bf16": [_P] * 34 + [_I] * 10 + [_P, _F, _I, _P],
     # K10 (points, centers, idx, out, b, n, c, g, k, s, run, stream); its
     # VJP (grad, idx, dpoints, dcenters, b, n, c, g, k, s, np, lanes, vec,
     # stage, stream)
@@ -272,8 +273,15 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError_t {err}")
 
 
-def stream_ptr() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def launch(name: str, device, *args) -> None:
+    """Call entry point `name` with `args` and the current stream of
+    `device`, the operands' card (not the current device's), made the
+    current device for the call: the runtime launches on the current
+    device, so on rank 1 of a two-card job, or with the current device set
+    elsewhere, a launch would otherwise go to another card with this
+    card's pointers. Raises if the entry point returns an error."""
+    with torch.cuda.device(device):
+        check(getattr(lib(), name)(*args, torch.cuda.current_stream(device).cuda_stream), name)
 
 
 def require(t: torch.Tensor, name: str, dtype, shape=None) -> None:

@@ -222,10 +222,8 @@ def fused_attention_packed_kv_ln(q, x_kv, ln_w, ln_b, wk, wv, *, num_heads: int,
         scratch += [xn.data_ptr(), kv.data_ptr()]
         splits.append(psplit)
     KV_LN_LAUNCHES.n += 1
-    cuda.check(getattr(cuda.lib(), fn)(
-        *ptrs.values(), out.data_ptr(), *scratch, b, g, m, din, num_heads, *splits, float(scale),
-        cuda.stream_ptr(),
-    ), fn)
+    cuda.launch(fn, q.device, *ptrs.values(), out.data_ptr(), *scratch, b, g, m, din, num_heads,
+                *splits, float(scale))
     return out
 
 
@@ -410,10 +408,7 @@ def fused_attention_packed_small(q, k, v, *, num_heads: int, scale: float) -> to
     cuda.require_aligned(fn, q=qp, k=kp, v=vp)
     out = torch.empty((b, g, d), dtype=dt, device=q.device)
     SMALL_LAUNCHES.n += 1
-    cuda.check(getattr(cuda.lib(), fn)(
-        qp, kp, vp, out.data_ptr(),
-        b, g, m, num_heads, float(scale), cuda.stream_ptr(),
-    ), fn)
+    cuda.launch(fn, q.device, qp, kp, vp, out.data_ptr(), b, g, m, num_heads, float(scale))
     return out
 
 
@@ -494,9 +489,7 @@ def fused_attention_packed_small_qkv_ln(x, ln_w, ln_b, wq, wk, wv, *, num_heads:
     cuda.require_aligned(fn, **ptrs)
     out = torch.empty((b, g, d), dtype=dt, device=x.device)
     SMALL_QKV_LN_LAUNCHES.n += 1
-    cuda.check(getattr(cuda.lib(), fn)(
-        *ptrs.values(), out.data_ptr(), b, g, din, num_heads, float(scale), cuda.stream_ptr(),
-    ), fn)
+    cuda.launch(fn, x.device, *ptrs.values(), out.data_ptr(), b, g, din, num_heads, float(scale))
     return out
 
 
@@ -552,10 +545,8 @@ def fused_attention_packed_split(q, k, v, *, num_heads: int, scale: float,
     out = torch.empty((b, g, d), dtype=dt, device=q.device)
     nsplit, part_acc, part_ml = _split_scratch(q, b, g, m, num_heads, nsplit)
     PACKED_LAUNCHES.n += 1
-    cuda.check(getattr(cuda.lib(), fn)(
-        qp, kp, vp, out.data_ptr(), part_acc.data_ptr(),
-        part_ml.data_ptr(), b, g, m, num_heads, nsplit, float(scale), cuda.stream_ptr(),
-    ), fn)
+    cuda.launch(fn, q.device, qp, kp, vp, out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+                b, g, m, num_heads, nsplit, float(scale))
     return out
 
 
@@ -588,9 +579,7 @@ def fused_attention_packed_kv(q, x_kv, wk, wv, *, num_heads: int, scale: float) 
         scratch.append(kv.data_ptr())
         sizes = [b, g, m, din, num_heads, cluster, nsplit, psplit]
     PACKED_KV_LAUNCHES.n += 1
-    cuda.check(getattr(cuda.lib(), fn)(
-        *ptrs.values(), out.data_ptr(), *scratch, *sizes, float(scale), cuda.stream_ptr(),
-    ), fn)
+    cuda.launch(fn, q.device, *ptrs.values(), out.data_ptr(), *scratch, *sizes, float(scale))
     return out
 
 
@@ -634,10 +623,7 @@ def fused_attention(q, k, v, *, scale: float) -> torch.Tensor:
     cuda.require_aligned(fn, q=qp, k=kp, v=vp)
     out = torch.empty((b, h, g, dv), dtype=dt, device=q.device)
     HEAD_SPLIT_LAUNCHES.n += 1
-    cuda.check(getattr(cuda.lib(), fn)(
-        qp, kp, vp, out.data_ptr(), b * h, g, m, dh, dv,
-        float(scale), cuda.stream_ptr(),
-    ), fn)
+    cuda.launch(fn, q.device, qp, kp, vp, out.data_ptr(), b * h, g, m, dh, dv, float(scale))
     return out
 
 

@@ -16,7 +16,13 @@ ops/pallas/batchnorm.py).
 * `bn_train_apply`: the train-mode BatchNorm core as a
   `torch.autograd.Function` (JAX `bn_train_apply`, :178-295): statistics
   from K18, the normalize and dx as plain elementwise tensor code, as the
-  JAX package leaves them to XLA.
+  JAX package leaves them to XLA. Under data parallelism (W > 1 ranks) it
+  is sync-BN, as JAX's psums over its data axis (:199-215, :247-260):
+  K18's raw sums and the row count are all-reduced before the normalise,
+  and its (dscale, dbias) before dx, which needs the global sums; the
+  gradients returned for scale and bias stay this rank's sums, since the
+  step sums the ranks' gradients afterwards (reducing them here too would
+  count them W times). One launch of each kernel a call at any W.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import torch
 
 from vipformer_tpu_torch.ops import cuda
 from vipformer_tpu_torch.ops.cuda.layernorm import vec_for
+from vipformer_tpu_torch.parallel.mesh import data_axis_size
 
 STATS_LAUNCHES = cuda.LaunchCounter()
 GRAD_LAUNCHES = cuda.LaunchCounter()
@@ -113,8 +120,8 @@ def bn_stats(x2d: torch.Tensor):
     x2d = _operand(x2d, "x", dt, (r, c))
     splits, s, ss, part = _scratch(r, c, x2d.device)
     STATS_LAUNCHES.n += 1
-    cuda.check(getattr(cuda.lib(), fn)(x2d.data_ptr(), s.data_ptr(), ss.data_ptr(),
-                                       part.data_ptr(), r, c, splits, cuda.stream_ptr()), fn)
+    cuda.launch(fn, x2d.device, x2d.data_ptr(), s.data_ptr(), ss.data_ptr(), part.data_ptr(), r, c,
+                splits)
     return s, ss
 
 
@@ -137,10 +144,9 @@ def bn_grad_reduces(x2d, dy2d, mean, rstd):
     part = torch.empty((splits + -(-splits // group), 2, c), **f32)
     vec = vec_for(c, x2d.element_size(), x2d.data_ptr(), dy2d.data_ptr())
     GRAD_LAUNCHES.n += 1
-    cuda.check(getattr(cuda.lib(), fn)(x2d.data_ptr(), dy2d.data_ptr(), mean.data_ptr(),
-                                       rstd.data_ptr(), ds.data_ptr(), db.data_ptr(),
-                                       part.data_ptr(), cuda.arrive_counters("bn_grad", dev),
-                                       r, c, per, group, vec, cuda.stream_ptr()), fn)
+    cuda.launch(fn, dev, x2d.data_ptr(), dy2d.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                ds.data_ptr(), db.data_ptr(), part.data_ptr(),
+                cuda.arrive_counters("bn_grad", dev), r, c, per, group, vec)
     return ds, db
 
 
@@ -151,6 +157,10 @@ class _BnTrainApply(torch.autograd.Function):
         x2 = x.reshape(-1, c)
         r = x2.shape[0]
         s, ss = bn_stats(x2)
+        if data_axis_size() > 1:  # the seam: the global sums and row count
+            s, ss, r = _all_reduce(s, ss, torch.full((1,), float(r), device=s.device))
+            r = r[0]
+        ctx.rows = r
         mean = s / r
         var = torch.clamp_min(ss / r - mean * mean, 0.0)  # the fast variance
         rstd = torch.rsqrt(var + eps)
@@ -165,16 +175,22 @@ class _BnTrainApply(torch.autograd.Function):
         x, scale, mean, rstd = ctx.saved_tensors
         c = x.shape[-1]
         x2 = x.reshape(-1, c)
-        r = x2.shape[0]
+        r = ctx.rows
         if dy is None:
             dy = torch.zeros_like(x)
         dscale, dbias = bn_grad_reduces(x2, dy.reshape(-1, c).to(x.dtype), mean, rstd)
+        gscale, gbias = dscale, dbias
+        if data_axis_size() > 1:  # the seam: dx needs every rank's sums
+            zero = torch.zeros_like(dscale)
+            gscale, gbias, dmean, dvar = _all_reduce(
+                dscale, dbias, zero if dmean is None else dmean.float(),
+                zero if dvar is None else dvar.float())
         xc = x.float() - mean
         xhat = xc * rstd
         # the standard BN dx: the per-channel sums factor scale out
         # (JAX batchnorm.py:268-281)
-        dx = dy.float() - dbias / r
-        dx -= xhat * (dscale / r)
+        dx = dy.float() - gbias / r
+        dx -= xhat * (gscale / r)
         dx *= scale.float() * rstd
         # the mean/var outputs' cotangents (none in the train steps, where
         # they feed only the running update), exactly as JAX :282-288
@@ -183,6 +199,13 @@ class _BnTrainApply(torch.autograd.Function):
         if dvar is not None:
             dx += dvar.float() * 2.0 * xc / r
         return dx.to(x.dtype), dscale.to(scale.dtype), dbias.to(scale.dtype), None
+
+
+def _all_reduce(*ts: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The ranks' sums of 1-D f32 tensors, in one all-reduce."""
+    flat = torch.cat(ts)
+    torch.distributed.all_reduce(flat)
+    return tuple(flat.split([t.numel() for t in ts]))
 
 
 def bn_train_apply(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float):

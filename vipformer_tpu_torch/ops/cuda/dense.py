@@ -113,9 +113,8 @@ def dense_grads(x2d: torch.Tensor, dy2d: torch.Tensor):
     wpart = part.data_ptr()
     bpart = wpart + 4 * splits * cin * cout
     LAUNCHES.n += 1
-    cuda.check(getattr(cuda.lib(), fn)(
-        xp, dyp, dw.data_ptr(), db.data_ptr(), wpart, bpart, r, cin, cout, splits,
-        cuda.stream_ptr()), fn)
+    cuda.launch(fn, x2d.device, xp, dyp, dw.data_ptr(), db.data_ptr(), wpart, bpart, r, cin, cout,
+                splits)
     return dw, db
 
 

@@ -227,10 +227,8 @@ def attention_fwd_kernel(q, k, v, seed, num_heads: int, scale: float, rate: floa
     out = torch.empty((b, g, d), dtype=dt, device=q.device)
     lse = torch.empty((b, num_heads, g), dtype=torch.float32, device=q.device)
     FWD_LAUNCHES.n += 1
-    cuda.check(getattr(cuda.lib(), fn)(
-        qp, kp, vp, seed.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), b, g, m, num_heads, float(scale), *_dropout_args(rate),
-        cuda.stream_ptr()), fn)
+    cuda.launch(fn, q.device, qp, kp, vp, seed.data_ptr(), out.data_ptr(), lse.data_ptr(), b, g, m,
+                num_heads, float(scale), *_dropout_args(rate))
     return out, lse
 
 
@@ -254,10 +252,9 @@ def attention_bwd_kernel(q, k, v, dout, lse, delta, seed, num_heads: int, scale:
     dq = torch.empty_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     BWD_LAUNCHES.n += 1
-    cuda.check(getattr(cuda.lib(), fn)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), seed.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, g, m, num_heads, float(scale), *_dropout_args(rate), cuda.stream_ptr()), fn)
+    cuda.launch(fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), seed.data_ptr(),
+                dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), b, g, m, num_heads, float(scale), *_dropout_args(rate))
     return dq, dk, dv
 
 
@@ -318,10 +315,9 @@ def kv_project_kernel(x, ln_w, ln_b, wk, wv):
     k, v = (torch.empty((b, m, d), dtype=torch.bfloat16, device=dev) for _ in range(2))
     xn = torch.empty((b * m, din), dtype=torch.bfloat16, device=dev)
     stats = torch.empty((b * m, 2), dtype=torch.float32, device=dev)
-    cuda.check(getattr(cuda.lib(), fn)(
-        x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), wk.data_ptr(), wv.data_ptr(),
-        k.data_ptr(), v.data_ptr(), xn.data_ptr(), stats.data_ptr(), b * m, din,
-        d // KERNEL_HEAD_DIM, cuda.stream_ptr()), fn)
+    cuda.launch(fn, dev, x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), wk.data_ptr(),
+                wv.data_ptr(), k.data_ptr(), v.data_ptr(), xn.data_ptr(), stats.data_ptr(), b * m,
+                din, d // KERNEL_HEAD_DIM)
     return k, v
 
 
@@ -383,12 +379,11 @@ def attention_kv_fwd_kernel(q, x, ln_w, ln_b, wk, wv, seed, num_heads: int, scal
                    torch.empty(ml_shape, dtype=torch.float32, device=dev)]
         splits = [nsplit]
     KV_FWD_LAUNCHES.n += 1
-    cuda.check(getattr(cuda.lib(), fn)(
-        q.data_ptr(), x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), wk.data_ptr(),
-        wv.data_ptr(), seed.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        *(t if tile else t.data_ptr() for t in kv), rowstats.data_ptr(),
-        *(t.data_ptr() for t in scratch), b, g, m, din, num_heads, *splits, float(scale),
-        *_dropout_args(rate), cuda.stream_ptr()), fn)
+    cuda.launch(fn, dev, q.data_ptr(), x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
+                wk.data_ptr(), wv.data_ptr(), seed.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                *(t if tile else t.data_ptr() for t in kv), rowstats.data_ptr(),
+                *(t.data_ptr() for t in scratch), b, g, m, din, num_heads, *splits, float(scale),
+                *_dropout_args(rate))
     return out, lse
 
 
@@ -425,13 +420,12 @@ def attention_kv_bwd_kernel(q, x, ln_w, ln_b, wk, wv, dout, lse, delta, seed, nu
         scratch = (torch.empty((b, m, d), **f32), torch.empty((b, m, d), **f32), dxn, part,
                    torch.empty((splits, din, 2 * d), **f32))
     KV_BWD_LAUNCHES.n += 1
-    cuda.check(getattr(cuda.lib(), fn)(
-        q.data_ptr(), x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), wk.data_ptr(),
-        wv.data_ptr(), seed.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), dx.data_ptr(), dw.data_ptr(), dln_w.data_ptr(), dln_b.data_ptr(),
-        kbuf.data_ptr(), vbuf.data_ptr(), rowstats.data_ptr(), *(t.data_ptr() for t in scratch),
-        b, g, m, din, num_heads, splits, COLSUM_BLOCKS, float(scale),
-        *_dropout_args(rate), cuda.stream_ptr()), fn)
+    cuda.launch(fn, dev, q.data_ptr(), x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
+                wk.data_ptr(), wv.data_ptr(), seed.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), dq.data_ptr(), dx.data_ptr(), dw.data_ptr(), dln_w.data_ptr(),
+                dln_b.data_ptr(), kbuf.data_ptr(), vbuf.data_ptr(), rowstats.data_ptr(),
+                *(t.data_ptr() for t in scratch), b, g, m, din, num_heads, splits, COLSUM_BLOCKS,
+                float(scale), *_dropout_args(rate))
     return dq, dx, dln_w, dln_b, dw[:, :d].to(wk.dtype), dw[:, d:].to(wv.dtype)
 
 
@@ -439,8 +433,8 @@ def dropout_mask_kernel(seed: torch.Tensor, bh: int, g: int, m: int, rate: float
     """The kernels' keep bits as bool [bh, g, m] (for checking the twin)."""
     seed = _seed(seed, seed.device)
     out = torch.empty((bh, g, m), dtype=torch.uint8, device=seed.device)
-    cuda.check(cuda.lib().dropout_mask_u8(seed.data_ptr(), bh, g, m, dropout_threshold(rate),
-                                          out.data_ptr(), cuda.stream_ptr()), "dropout_mask_u8")
+    cuda.launch("dropout_mask_u8", seed.device, seed.data_ptr(), bh, g, m, dropout_threshold(rate),
+                out.data_ptr())
     return out.bool()
 
 

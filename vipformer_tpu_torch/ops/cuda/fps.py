@@ -71,8 +71,6 @@ def fps(xyz: torch.Tensor, npoint: int, start: torch.Tensor | None = None):
     idx = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
     centers = torch.empty((b, npoint, 3), dtype=torch.float32, device=xyz.device)
     LAUNCHES.n += 1
-    cuda.check(cuda.lib().fps_f32(
-        xyz.data_ptr(), start.data_ptr(), idx.data_ptr(), centers.data_ptr(),
-        b, n, npoint, cuda.stream_ptr(),
-    ), "fps_f32")
+    cuda.launch("fps_f32", xyz.device, xyz.data_ptr(), start.data_ptr(), idx.data_ptr(),
+                centers.data_ptr(), b, n, npoint)
     return idx, centers

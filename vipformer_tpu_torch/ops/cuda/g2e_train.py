@@ -23,6 +23,19 @@ h4, dh4 or f32 [R, .] array in device memory (`bwd_workspace`), at any D:
 the final Dense's columns are padded with zeros to a multiple of 64
 (`tc_width`), which changes no output; f32 runs the CUDA-core kernels,
 since a tensor-core f32 product is TF32.
+
+Under data parallelism (a process group of W > 1 ranks, `parallel/`) it is
+sync-BN, as the JAX kernel psums over its data axis (g2e_train.py:409-411,
+:448-450, :536-543, :602-608): the forward's two BatchNorms take their
+statistics from the ranks' all-reduced column sums over the global row
+count, and the backward's two BatchNorm backwards take the all-reduced
+(sum dy, sum dy xhat) for dh; the gradients returned for the BatchNorm
+scales and shifts stay this rank's sums, since the step sums the ranks'
+gradients afterwards. The kernels and the twins split at the same seams:
+a kernel call then runs in three launches of its entry point (`stage` 1-3,
+csrc/g2e_train.cu `seam`), with an all-reduce between them; at W = 1 one
+launch (`stage` 0) runs the whole pass as before. A call counts one launch
+in either case.
 """
 
 from __future__ import annotations
@@ -31,6 +44,7 @@ import torch
 
 from vipformer_tpu_torch.ops import cuda
 from vipformer_tpu_torch.ops.cuda import dense as kdense
+from vipformer_tpu_torch.parallel.mesh import data_axis_size
 
 FWD_LAUNCHES = cuda.LaunchCounter()
 BWD_LAUNCHES = cuda.LaunchCounter()
@@ -142,10 +156,27 @@ def _dense(x, w, b, dt):
     return (x.float() @ w.to(dt).float()).to(dt) + b.to(dt)
 
 
+def _global_rows(r: int) -> float:
+    """The rows of every rank's call: the ranks hold equal shards of the
+    global batch (parallel/sharding.py), so W r."""
+    return float(r * data_axis_size())
+
+
+def _seam(*ts: torch.Tensor) -> torch.Tensor:
+    """The BatchNorm seam: the ranks' sums of the column sums `ts`, stacked
+    [len(ts), C], in one all-reduce (their stack itself at W = 1)."""
+    out = torch.stack(ts)
+    if data_axis_size() > 1:
+        torch.distributed.all_reduce(out)
+    return out
+
+
 def _bn_stats(h: torch.Tensor, gamma, beta, n: float):
-    """(mean, var, rstd, a, c) of f32 rows h, fast variance clipped at 0."""
-    mu = h.sum(0) / n
-    var = torch.clamp_min((h * h).sum(0) / n - mu * mu, 0.0)
+    """(mean, var, rstd, a, c) of f32 rows h, fast variance clipped at 0,
+    over the n rows of every rank (the sums all-reduced at the seam)."""
+    s, ss = _seam(h.sum(0), (h * h).sum(0))
+    mu = s / n
+    var = torch.clamp_min(ss / n - mu * mu, 0.0)
     rstd = torch.rsqrt(var + BN_EPS)
     a = gamma.float() * rstd
     return mu, var, rstd, a, beta.float() - mu * a
@@ -183,7 +214,7 @@ def g2e_fwd_plain(x0f, wb, s: int):
     _, _, g0, be0, _, _, w2, b2, g1, be1, w3, b3 = wb
     dt = x0f.dtype
     r = x0f.shape[0]
-    n = float(r)
+    n = _global_rows(r)
     h1p = _dense(x0f, wb[0], wb[1], dt)
     bn0 = _bn_stats(h1p.float(), g0, be0, n)
     table = _stats_table(bn0, [torch.zeros(C3, device=x0f.device)] * 5)
@@ -210,7 +241,7 @@ def g2e_bwd_plain(x0f, wb, h3p, amax, stats, dy, s: int, acc: torch.dtype = torc
     w0, _, g0, _, w1, _, w2, _, g1, _, w3, _ = wb
     dt = x0f.dtype
     r = x0f.shape[0]
-    n = float(r)
+    n = _global_rows(r)
     ng, d = dy.shape
     h1p, x1, h2, gmax, xc = _recompute(x0f, wb, stats, s)
     x3 = _affine_relu(h3p, stats[A1], stats[SH1], dt)
@@ -222,8 +253,9 @@ def g2e_bwd_plain(x0f, wb, h3p, amax, stats, dy, s: int, acc: torch.dtype = torc
     dw3, db3 = x3.to(acc).t() @ dh4, dh4.sum(0)
     dy3 = torch.where(x3 > 0, dh4 @ w3.to(dt).to(acc).t(), 0.0)
     xhat3 = (h3p.to(acc) - st[MU1]) * st[RSTD1]
-    s1b, s2b = dy3.sum(0), (dy3 * xhat3).sum(0)
-    dh3p = (g1.to(acc) * st[RSTD1] * ((dy3 - s1b / n) - xhat3 * (s2b / n))).to(dt).to(acc)
+    s1b, s2b = dy3.sum(0), (dy3 * xhat3).sum(0)  # this rank's; the seam's for dh3p
+    t1b, t2b = _seam(s1b, s2b)
+    dh3p = (g1.to(acc) * st[RSTD1] * ((dy3 - t1b / n) - xhat3 * (t2b / n))).to(dt).to(acc)
     dw2, db2 = xc.to(acc).t() @ dh3p, dh3p.sum(0)
     dxc = dh3p @ w2.to(dt).to(acc).t()
     eq = (h2 == gmax.repeat_interleave(s, dim=0)).to(acc)
@@ -234,8 +266,9 @@ def g2e_bwd_plain(x0f, wb, h3p, amax, stats, dy, s: int, acc: torch.dtype = torc
     dy1 = torch.where(x1 > 0, dh2 @ w1.to(dt).to(acc).t(), 0.0)
     xhat1 = (h1p.to(acc) - st[MU0, :C1]) * st[RSTD0, :C1]
     s1a, s2a = dy1.sum(0), (dy1 * xhat1).sum(0)
+    t1a, t2a = _seam(s1a, s2a)
     dh1p = (g0.to(acc) * st[RSTD0, :C1]
-            * ((dy1.to(dt).to(acc) - s1a / n) - xhat1 * (s2a / n))).to(dt).to(acc)
+            * ((dy1.to(dt).to(acc) - t1a / n) - xhat1 * (t2a / n))).to(dt).to(acc)
     dw0, db0 = x0f.to(acc).t() @ dh1p, dh1p.sum(0)
     dx0 = (dh1p @ w0.to(dt).to(acc).t()).to(dt)
     grads = (dw0, db0, s2a, s1a, dw1, db1, dw2, db2, s2b, s1b, dw3, db3)
@@ -333,9 +366,19 @@ def g2e_fwd_kernel(x0f, wb, s: int):
         args = (out, amax, h3p, stats, h2, gmax, h4, part)
         sizes = (r, s, cin, d, COLSUM_BLOCKS)
     FWD_LAUNCHES.n += 1
-    cuda.check(getattr(cuda.lib(), fn)(
-        x0f.data_ptr(), *(t.data_ptr() for t in w), *(t.data_ptr() for t in args), *sizes,
-        cuda.stream_ptr()), fn)
+    ptrs = (x0f.data_ptr(), *(t.data_ptr() for t in w), *(t.data_ptr() for t in args), *sizes)
+    if data_axis_size() == 1:
+        cuda.launch(fn, dev, *ptrs, None, float(r), 0)
+    else:  # three launches, the seams' sums all-reduced between them
+        # stage 1 writes BN0's sums [2, 64]; stage 2 reads them (its first
+        # launch) and writes BN1's [2, 256] over them; stage 3 reads those
+        n = _global_rows(r)
+        sums = torch.empty((2 * C3,), dtype=torch.float32, device=dev)
+        cuda.launch(fn, dev, *ptrs, sums.data_ptr(), n, 1)
+        torch.distributed.all_reduce(sums[:2 * C1])
+        cuda.launch(fn, dev, *ptrs, sums.data_ptr(), n, 2)
+        torch.distributed.all_reduce(sums)
+        cuda.launch(fn, dev, *ptrs, sums.data_ptr(), n, 3)
     if dk != d:
         out, amax = out[:, :d].contiguous(), amax[:, :d].contiguous()
     return out, h3p, amax, stats
@@ -374,10 +417,18 @@ def g2e_bwd_kernel(x0f, wb, h3p, amax, stats, dy, s: int, work: dict | None = No
         weights = (w0, b0, g0, w1, b1, w2, b2, g1, w3)
         sizes = (r, s, cin, d, COLSUM_BLOCKS, WGRAD_SPLITS)
     BWD_LAUNCHES.n += 1
-    cuda.check(getattr(cuda.lib(), fn)(
-        x0f.data_ptr(), *(t.data_ptr() for t in weights), h3p.data_ptr(), amax.data_ptr(),
-        stats.data_ptr(), dy.data_ptr(), dx0.data_ptr(), *(t.data_ptr() for t in grads),
-        *(t.data_ptr() for t in work.values()), *sizes, cuda.stream_ptr()), fn)
+    ptrs = (x0f.data_ptr(), *(t.data_ptr() for t in weights), h3p.data_ptr(), amax.data_ptr(),
+            stats.data_ptr(), dy.data_ptr(), dx0.data_ptr(), *(t.data_ptr() for t in grads),
+            *(t.data_ptr() for t in work.values()), *sizes)
+    if data_axis_size() == 1:
+        cuda.launch(fn, dev, *ptrs, None, float(r), 0)
+    else:  # three launches; dh takes the seams' all-reduced (sum dy, sum dy xhat)
+        n = _global_rows(r)
+        cuda.launch(fn, dev, *ptrs, None, n, 1)  # this rank's dbeta1, dgamma1
+        sums = _seam(grads[9], grads[8])
+        cuda.launch(fn, dev, *ptrs, sums.data_ptr(), n, 2)  # this rank's dbeta0, dgamma0
+        sums = _seam(grads[3], grads[2])
+        cuda.launch(fn, dev, *ptrs, sums.data_ptr(), n, 3)
     if dk != d:
         grads[10], grads[11] = grads[10][:, :d].contiguous(), grads[11][:d].contiguous()
     return dx0, tuple(grads)

@@ -142,10 +142,9 @@ def gather_centered_kernel(points, centers, idx, group_size: int):
     out = torch.empty((b, k, c), dtype=dt, device=points.device)
     fn = cuda.entry_point("gather_centered", dt)
     FWD_LAUNCHES.n += 1
-    cuda.check(getattr(cuda.lib(), fn)(
-        points.data_ptr(), cz.data_ptr(), idx.data_ptr(), out.data_ptr(),
-        b, n, c, gnum, k, group_size, centered_run_rows(c, points.element_size()),
-        cuda.stream_ptr()), fn)
+    cuda.launch(fn, points.device, points.data_ptr(), cz.data_ptr(), idx.data_ptr(),
+                out.data_ptr(), b, n, c, gnum, k, group_size,
+                centered_run_rows(c, points.element_size()))
     return out
 
 
@@ -165,9 +164,8 @@ def scatter_centered_kernel(g, idx, n: int, gnum: int, group_size: int):
     dc = torch.empty((b, gnum, 3), dtype=torch.float32, device=g.device)
     fn = cuda.entry_point("scatter_centered", dt)
     BWD_LAUNCHES.n += 1
-    cuda.check(getattr(cuda.lib(), fn)(
-        g.data_ptr(), idx.data_ptr(), dp.data_ptr(), dc.data_ptr(),
-        b, n, c, gnum, k, group_size, np_, lanes, vec, stage, cuda.stream_ptr()), fn)
+    cuda.launch(fn, g.device, g.data_ptr(), idx.data_ptr(), dp.data_ptr(), dc.data_ptr(), b, n, c,
+                gnum, k, group_size, np_, lanes, vec, stage)
     return dp, dc
 
 
@@ -247,9 +245,8 @@ def gather_rows_kernel(points, idx):
     fn = cuda.entry_point("gather_rows", dt)
     out = torch.empty((b, k, c), dtype=dt, device=points.device)
     ROWS_FWD_LAUNCHES.n += 1
-    cuda.check(getattr(cuda.lib(), fn)(
-        points.data_ptr(), idx.data_ptr(), out.data_ptr(), b, n, c, k,
-        centered_run_rows(c, points.element_size()), cuda.stream_ptr()), fn)
+    cuda.launch(fn, points.device, points.data_ptr(), idx.data_ptr(), out.data_ptr(), b, n, c, k,
+                centered_run_rows(c, points.element_size()))
     return out
 
 
@@ -262,9 +259,8 @@ def scatter_rows_kernel(g, idx, n: int):
     fn = cuda.entry_point("scatter_rows", g.dtype)
     dp = torch.empty((b, n, c), dtype=g.dtype, device=g.device)
     ROWS_BWD_LAUNCHES.n += 1
-    cuda.check(getattr(cuda.lib(), fn)(
-        g.data_ptr(), idx.data_ptr(), dp.data_ptr(), b, n, c, k, np_, lanes, vec, stage,
-        cuda.stream_ptr()), fn)
+    cuda.launch(fn, g.device, g.data_ptr(), idx.data_ptr(), dp.data_ptr(), b, n, c, k, np_, lanes,
+                vec, stage)
     return dp
 
 

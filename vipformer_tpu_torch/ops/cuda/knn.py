@@ -66,8 +66,6 @@ def knn(k: int, points: torch.Tensor, queries: torch.Tensor,
         cuda.require(overflow, "overflow", torch.int32, (1,))
     out = torch.empty((b, s, k), dtype=torch.int32, device=points.device)
     LAUNCHES.n += 1
-    cuda.check(cuda.lib().knn_f32(
-        points.data_ptr(), queries.data_ptr(), out.data_ptr(), b, n, s, k,
-        None if overflow is None else overflow.data_ptr(), cuda.stream_ptr(),
-    ), "knn_f32")
+    cuda.launch("knn_f32", points.device, points.data_ptr(), queries.data_ptr(), out.data_ptr(), b,
+                n, s, k, None if overflow is None else overflow.data_ptr())
     return out

@@ -167,11 +167,9 @@ def ln_fwd(x2d, scale, bias):
     mu = torch.empty((r,), dtype=torch.float32, device=x2d.device)
     rsig = torch.empty_like(mu)
     FWD_LAUNCHES.n += 1
-    cuda.check(getattr(cuda.lib(), fn)(x2d.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                                       y.data_ptr(), mu.data_ptr(), rsig.data_ptr(), r, d,
-                                       *plan[:4], int(plan[4]),
-                                       cuda.sm_count(x2d.device.index or 0),
-                                       cuda.stream_ptr()), fn)
+    cuda.launch(fn, x2d.device, x2d.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
+                mu.data_ptr(), rsig.data_ptr(), r, d, *plan[:4], int(plan[4]),
+                cuda.sm_count(x2d.device.index or 0))
     return y, mu, rsig
 
 
@@ -236,11 +234,9 @@ def ln_bwd(x2d, dy2d, mu, rsig, scale):
     part = torch.empty((splits + -(-splits // group), 2, d), **f32)
     vec = vec_for(d, x2d.element_size(), x2d.data_ptr(), dy2d.data_ptr(), dx.data_ptr())
     BWD_LAUNCHES.n += 1
-    cuda.check(getattr(cuda.lib(), fn)(x2d.data_ptr(), dy2d.data_ptr(), mu.data_ptr(),
-                                       rsig.data_ptr(), scale.data_ptr(), dx.data_ptr(),
-                                       ds.data_ptr(), db.data_ptr(), part.data_ptr(),
-                                       cuda.arrive_counters("ln_bwd", dev), r, d, per, group, vec,
-                                       warps_per_row(d), cuda.stream_ptr()), fn)
+    cuda.launch(fn, dev, x2d.data_ptr(), dy2d.data_ptr(), mu.data_ptr(), rsig.data_ptr(),
+                scale.data_ptr(), dx.data_ptr(), ds.data_ptr(), db.data_ptr(), part.data_ptr(),
+                cuda.arrive_counters("ln_bwd", dev), r, d, per, group, vec, warps_per_row(d))
     return dx, ds, db
 
 

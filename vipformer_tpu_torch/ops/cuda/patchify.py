@@ -61,9 +61,7 @@ def fps_knn(xyz: torch.Tensor, num_groups: int, group_size: int,
     cidx = torch.empty((b, num_groups), dtype=torch.int32, device=xyz.device)
     nidx = torch.empty((b, num_groups, group_size), dtype=torch.int32, device=xyz.device)
     LAUNCHES.n += 1
-    cuda.check(cuda.lib().fps_knn_f32(
-        xyz.data_ptr(), start.data_ptr(), cidx.data_ptr(), nidx.data_ptr(),
-        b, n, num_groups, group_size, None if overflow is None else overflow.data_ptr(),
-        cuda.stream_ptr(),
-    ), "fps_knn_f32")
+    cuda.launch("fps_knn_f32", xyz.device, xyz.data_ptr(), start.data_ptr(), cidx.data_ptr(),
+                nidx.data_ptr(), b, n, num_groups, group_size,
+                None if overflow is None else overflow.data_ptr())
     return cidx, nidx

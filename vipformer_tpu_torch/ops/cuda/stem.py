@@ -163,11 +163,9 @@ def stem_kernel(t1ext, idx, w2, b2, w3, b3, w4, b4, n: int, g: int, s: int):
         out = torch.empty((bsz, g, d), dtype=dt, device=t1ext.device)
         extra, sizes = (), (d,)
     LAUNCHES.n += 1
-    cuda.check(getattr(cuda.lib(), fn)(
-        t1ext.data_ptr(), idx.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        w3.data_ptr(), b3.data_ptr(), w4.data_ptr(), b4.data_ptr(), out.data_ptr(), *extra,
-        bsz, n, g, s, c1, *sizes, cuda.stream_ptr(),
-    ), fn)
+    cuda.launch(fn, t1ext.device, t1ext.data_ptr(), idx.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                w3.data_ptr(), b3.data_ptr(), w4.data_ptr(), b4.data_ptr(), out.data_ptr(), *extra,
+                bsz, n, g, s, c1, *sizes)
     return out[..., :d].contiguous() if out.shape[-1] != d else out
 
 

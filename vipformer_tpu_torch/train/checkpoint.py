@@ -9,7 +9,11 @@ the parameters' device. Every reader of a branch (`branch_state`) takes
 both layouts.
 `restore_backbone` is the explicit backbone restore of the finetune entry
 points: it reports which tensors came from the checkpoint and which kept
-their fresh init, instead of a silent `load_state_dict(strict=False)`."""
+their fresh init, instead of a silent `load_state_dict(strict=False)`.
+Under data parallelism only the chief writes (JAX checkpoint.py:49), and
+every rank waits for the write at a barrier; a snapshot holds the
+modules themselves (the step averages gradients without wrapping them),
+so a multi-card checkpoint is a single-card one."""
 
 from __future__ import annotations
 
@@ -18,6 +22,8 @@ import os
 
 import torch
 from torch import nn
+
+from vipformer_tpu_torch.parallel.mesh import barrier, is_chief
 
 
 def _cpu(tree):
@@ -34,18 +40,21 @@ def _cpu(tree):
 def save_checkpoint(path: str, models: dict[str, nn.Module] | nn.Module,
                     metadata: dict | None = None, extra: dict | None = None) -> None:
     """Save `models` ({name: module}, or one module) as CPU state dicts, and
-    the entries of `extra` beside them (tensors moved to the CPU)."""
-    if isinstance(models, nn.Module):
-        models = {"model": models}
-    state = {name: _cpu(m.state_dict()) for name, m in models.items()}
-    state.update(_cpu(extra or {}))
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    tmp = path + ".tmp"
-    torch.save(state, tmp)
-    os.replace(tmp, path)
-    if metadata is not None:
-        with open(path + ".json", "w") as f:
-            json.dump(metadata, f, indent=2, default=str)
+    the entries of `extra` beside them (tensors moved to the CPU). Every
+    rank calls it; the chief writes, the others wait for it."""
+    if is_chief():
+        if isinstance(models, nn.Module):
+            models = {"model": models}
+        state = {name: _cpu(m.state_dict()) for name, m in models.items()}
+        state.update(_cpu(extra or {}))
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        tmp = path + ".tmp"
+        torch.save(state, tmp)
+        os.replace(tmp, path)
+        if metadata is not None:
+            with open(path + ".json", "w") as f:
+                json.dump(metadata, f, indent=2, default=str)
+    barrier()
 
 
 def load_checkpoint(path: str) -> dict[str, dict[str, torch.Tensor]]:
@@ -94,18 +103,24 @@ def branch_state(ckpt: dict, name: str = "pc") -> dict[str, torch.Tensor]:
 
 
 def restore_backbone(model: nn.Module, pretrained: dict[str, torch.Tensor],
-                     submodules=("stem", "encoder"), log=None) -> str:
+                     submodules=("stem", "encoder"), log=None, buffers: bool = True) -> str:
     """Copy the tensors of the named top-level submodules from a pretrain
     state dict into `model`, key by key (JAX checkpoint.py:113-147): keys
     present in both with equal shapes are taken; the model's other tensors
     keep their fresh init (the finetune head, layers deeper than the
-    pretrain); a shape mismatch is kept fresh and reported. Returns (and
-    hands `log`) the message "backbone restore: N tensors from checkpoint;
-    fresh init for [...]"; N counts parameters and BatchNorm statistics."""
+    pretrain); a shape mismatch is kept fresh and reported. With `buffers`
+    False only parameters are taken and the BatchNorm statistics keep their
+    init (0 and 1), as the JAX ft_partseg restores `params` alone
+    (cli/ft_partseg.py:82-85); ft_cls restores both (cli/ft_cls.py:83-91).
+    Returns (and hands `log`) the message "backbone restore: N tensors from
+    checkpoint; fresh init for [...]"; N counts the tensors taken."""
     state = model.state_dict()
+    skip = set() if buffers else {k for k, _ in model.named_buffers()}
     have = {k.split(".", 1)[0] for k in pretrained}
     new, restored, fresh, mismatched = dict(state), [], [], []
     for key, value in state.items():
+        if key in skip:
+            continue
         top = key.split(".", 1)[0]
         if top not in submodules or top not in have:
             if top not in fresh:

@@ -16,6 +16,16 @@ runs label-smoothed cross-entropy (0.2) on the finetune model's logits,
 the part- and semantic-segmentation steps the same over every point's
 logits (B*N rows). The state is updated in place and returned, so a loop
 reads like the JAX one.
+
+Data parallelism (`parallel/`, a process group of W > 1 ranks): each rank
+runs the step on its contiguous slice of the global batch; BatchNorm is
+sync-BN over the ranks (nn/layers.py, K9, K18); after the backward and the
+zero-gradient rule, the gradients of every parameter of the state are
+averaged over the ranks in one all-reduce of their flattened
+concatenation, before the global-norm clip, so every rank applies the same
+update; the metrics are means over the ranks. A rank's loss is the mean
+over its rows, so the average is the gradient of the global batch's mean
+loss (its sync-BN backward sums every rank's rows).
 """
 
 from __future__ import annotations
@@ -33,7 +43,8 @@ from vipformer_tpu_torch.data.augment_device import (
 )
 from vipformer_tpu_torch.data.synthetic import INDEX_START, SEG_NUM
 from vipformer_tpu_torch.losses.classification import smoothed_cross_entropy
-from vipformer_tpu_torch.losses.contrastive import nt_xent_grouped
+from vipformer_tpu_torch.losses.contrastive import nt_xent_data_parallel
+from vipformer_tpu_torch.parallel.mesh import data_axis_size
 from vipformer_tpu_torch.train.optim import build_optimizer, clip_grad_global_norm, set_learning_rate
 
 
@@ -95,7 +106,11 @@ def make_pretrain_step(cfg: Config, pc_model: nn.Module, img_model: nn.Module | 
     mask; without one FPS starts at 0 and every dropout rate must be 0
     (and `device_augs`, which draws from it, raises). Metrics (loss,
     loss_imid, loss_cmid) stay on the device, so the step does not wait
-    for the card.
+    for the card. `neg_groups` counts the NT-Xent groups over the global
+    batch (the CLI passes the data-axis size W, JAX's per-device groups);
+    under data parallelism each rank holds the rows of its own groups
+    (`nt_xent_data_parallel`), and `cfg.global_negatives` takes one group
+    over the whole global batch.
     """
     modality = cfg.modality
     groups = 1 if cfg.global_negatives else neg_groups
@@ -126,11 +141,11 @@ def make_pretrain_step(cfg: Config, pc_model: nn.Module, img_model: nn.Module | 
         pc_proj, _ = pc_model(torch.cat([t1, t2], dim=0), generator)
         z1, z2 = pc_proj[:b], pc_proj[b:]
         zero = torch.zeros((), device=device)
-        loss_imid = nt_xent_grouped(z1, z2, groups) if modality != "cmc-only" else zero
+        loss_imid = nt_xent_data_parallel(z1, z2, groups) if modality != "cmc-only" else zero
         loss_cmid = zero
         if use_img:
             img_proj, _ = img_model(_on(imgs, device), generator)
-            loss_cmid = nt_xent_grouped((z1 + z2) / 2.0, img_proj, groups)
+            loss_cmid = nt_xent_data_parallel((z1 + z2) / 2.0, img_proj, groups)
         total = loss_imid + cfg.cmid_weight * loss_cmid
         return total, {"loss": total, "loss_imid": loss_imid, "loss_cmid": loss_cmid}
 
@@ -140,8 +155,9 @@ def make_pretrain_step(cfg: Config, pc_model: nn.Module, img_model: nn.Module | 
 def _make_step(cfg: Config, models: list[nn.Module], loss_fn):
     """step(state, batch, lr, generator=None) -> (state, metrics) around
     loss_fn(batch, generator) -> (loss, metrics): train mode, the lr, one
-    backward, the optional global-norm clip, one optimizer update of every
-    parameter of the state."""
+    backward, the gradients averaged over the ranks (with W > 1), the
+    optional global-norm clip, one optimizer update of every parameter of
+    the state; metrics averaged over the ranks."""
 
     def step(state: TrainState, batch, lr: float, generator: torch.Generator | None = None):
         for m in models:
@@ -158,13 +174,31 @@ def _make_step(cfg: Config, models: list[nn.Module], loss_fn):
             # a parameter whose gradient is None
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        world = data_axis_size()
+        if world > 1:
+            _average_over_ranks([p.grad for p in state.parameters()], world)
         if cfg.grad_clip_norm is not None:
             clip_grad_global_norm(state.parameters(), cfg.grad_clip_norm)
         opt.step()
         state.step += 1
-        return state, {k: v.detach() for k, v in metrics.items()}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if world > 1:
+            vals = [v.float().reshape(1) for v in metrics.values()]
+            _average_over_ranks(vals, world)
+            metrics = dict(zip(metrics, (v[0] for v in vals)))
+        return state, metrics
 
     return step
+
+
+def _average_over_ranks(tensors: list[torch.Tensor], world: int) -> None:
+    """Each tensor (same device and dtype) replaced in place by its mean
+    over the ranks: one all-reduce of their flattened concatenation."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    torch.distributed.all_reduce(flat)
+    flat /= world
+    for t, v in zip(tensors, flat.split([t.numel() for t in tensors])):
+        t.copy_(v.view_as(t))
 
 
 def make_cls_step(cfg: Config, model: nn.Module):
