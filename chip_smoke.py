@@ -265,7 +265,19 @@ goes on):
      `--save_freq 1`) for two epochs, then `--resume_training` to four:
      metrics.jsonl reads epochs 0-3, the best never falls, and the rolling
      snapshot restored into a fresh state puts every optimizer moment on
-     the card, bitwise equal to the saved one.
+     the card, bitwise equal to the saved one;
+ 35. data parallelism (`check_data_parallel`): the f32 and bf16 pretrain
+     and ft_cls steps and a partseg step with K18 forced on two ranks
+     against one process, K9's and K18's launches a rank one process's;
+ 36. tensor parallelism (`check_tensor_parallel`, `--model_axis 2`): the
+     f32 pretrain and ft_cls steps on two model ranks (2 of the 4 heads
+     each; both on card 0 over gloo with one card) against one process,
+     the shards gathered; the bf16 ft_cls eval forward (K4, K6 on each
+     rank's heads) against one process's logits; 5 bf16 steps of each:
+     the replicated parameters bitwise equal on the ranks, each rank's
+     launches (K4, K6, K7, K8, K11 among them) one process's; ms a step
+     at T = 1 and 2; the f32 ft_cls step on 2 data x 2 model ranks
+     against one process.
 
 Prints the script's total seconds, the card's name and power limit, one
 JSON line of per-kernel results (time, twin's time, bound, launches on the
@@ -4800,11 +4812,12 @@ def dp_config(kind: str, dt: str):
 
 def dp_build(kind: str, cfg, states=None):
     """(models, TrainState, step) of `kind` on the card, the models loaded
-    from `states` where given, placed from rank 0 (`place_state`); the
-    pretrain step with DP_WORLD NT-Xent groups over the global batch (one
-    a rank), so one process trains the same loss."""
+    from `states` where given, then sharded over the model axis (a no-op
+    at model_axis 1), placed from rank 0 (`place_state`); the pretrain step
+    with DP_WORLD NT-Xent groups over the global batch (one a rank of the
+    data-parallel phase), so one process trains the same loss."""
     from vipformer_tpu_torch.models.factory import build_ft_cls, build_ft_partseg
-    from vipformer_tpu_torch.parallel import place_state
+    from vipformer_tpu_torch.parallel import place_state, shard_model
     from vipformer_tpu_torch.train.trainer import (create_state, make_cls_step,
                                                    make_partseg_step, make_pretrain_step)
 
@@ -4813,8 +4826,10 @@ def dp_build(kind: str, cfg, states=None):
     else:
         models = {"pc": (build_ft_cls if kind == "ft_cls" else build_ft_partseg)(cfg,
                                                                                   device="cuda")}
-    for name, m in (states or {}).items():
-        models[name].load_state_dict(states[name])
+    for name, m in models.items():
+        if states:
+            m.load_state_dict(states[name])
+        shard_model(m, print)
     state = create_state(cfg, models)
     place_state(state)
     if kind == "pretrain":
@@ -5126,6 +5141,286 @@ def check_data_parallel(main_counts: dict) -> None:
               f"({backend}, {cards} card(s)) " + ", ".join(f"{m:.2f}" for m in ms2)
               + f" ms (ranks' host clock, {smi})")
     print(f"phase data parallel took {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------- tensor parallelism
+TP_AXIS = 2  # model ranks of the tensor-parallel phase: 2 of the flagship's 4 heads each
+TP_WIDE = 4  # ranks of its 2 data x 2 model f32 ft_cls check
+TP_STEPS = 5  # bf16 steps a configuration on each rank (the first counted, the rest timed)
+# the counters each rank must launch, on the ft_cls step and its eval: K4,
+# K6 (eval), K7, K8 (forward and backward) and K11
+TP_LAUNCHED = ("attn_kv_ln", "attn_small_qkv_ln", "attn_train_kv_fwd", "attn_train_kv_bwd",
+               "attn_train_fwd", "attn_train_bwd", "dense_grads")
+# 3 heads of 64, which do not divide TP_AXIS: every attention stays whole
+# on each model rank (K8 on all 3 heads, the same dropout draws), its MLPs
+# shard
+TP_WHOLE_ARCH = "E1CL1SL-H3D192-L128-MR2"
+
+
+def tp_run(inp: dict, who: str, wide: bool = False) -> dict:
+    """The TP phase's work in one process, or on a rank on its heads (and
+    its rows of every global batch): the f32 step of each DP_KINDS from the
+    given weights (metrics, the full tensors gathered over the model
+    group); unless `wide`, for each kind in bf16 from the seed's weights:
+    the ft_cls eval forward's logits at B = FT_BATCH with its launch counts
+    first, then TP_STEPS steps, the first counted and the ms a step of the
+    others (host clock around synchronised steps, ranks aligned by
+    barriers), the metrics finite, the parameters finite and moved, the
+    replicated ones on the host."""
+    from vipformer_tpu_torch.parallel import barrier, full_state_dict, rank_seed, shard_batch
+    from vipformer_tpu_torch.parallel.sharding import sharded
+
+    out: dict = {}
+    for kind in ("ft_cls",) if wide else DP_KINDS:
+        cfg = dp_config(kind, "float32")
+        models, state, step = dp_build(kind, cfg, inp["states"][kind])
+        _, metrics = step(state, shard_batch(inp["batches"][kind]), cfg.lr)
+        out[f"{kind} f32"] = dict(metrics={k: float(v) for k, v in metrics.items()},
+                                  tensors={f"{n}.{k}": v.detach().cpu() for n, m in models.items()
+                                           for k, v in full_state_dict(m).items()})
+        del models, state, step
+        torch.cuda.empty_cache()
+    if wide:
+        return out
+    for kind in DP_KINDS:
+        cfg = dp_config(kind, "bfloat16")
+        models, state, step = dp_build(kind, cfg)
+        row: dict = {}
+        if kind == "ft_cls":
+            model = models["pc"].eval()
+            pts = torch.as_tensor(inp["batches"]["ft_cls eval"]["points"], device="cuda")
+            logits = []
+
+            def forward():
+                with torch.inference_mode():
+                    logits.append(model(pts)[0].float().cpu())
+
+            row["eval_counts"] = _counted(f"  {who}: ft_cls bf16 eval forward", forward)
+            row["logits"] = logits[0]
+        batch = shard_batch(inp["batches"][kind + " bf16"])
+        gen = torch.Generator(device="cuda").manual_seed(rank_seed(SEED))
+        before = [p.detach().clone() for p in state.parameters()]
+        metrics = []
+        row["counts"] = _counted(f"  {who}: {kind} bf16 step", lambda: metrics.append(
+            step(state, batch, cfg.lr, gen)[1]))
+        barrier()
+        t0 = time.perf_counter()
+        metrics += [step(state, batch, cfg.lr, gen)[1] for _ in range(TP_STEPS - 1)]
+        torch.cuda.synchronize()
+        barrier()
+        row["ms"] = (time.perf_counter() - t0) * 1e3 / (TP_STEPS - 1)
+        _moved_and_finite(f"{who}: {kind} bf16", None, state, before, metrics)
+        row["replicated"] = {f"{n}.{k}": p.detach().cpu() for n, m in models.items()
+                             for k, p in m.named_parameters() if not sharded(p)}
+        out[f"{kind} bf16"] = row
+        del models, state, step, before
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_whole(inp: dict, who: str) -> dict:
+    """Two bf16 ft_cls steps of TP_WHOLE_ARCH with attention dropout,
+    residual dropout and DropPath on, over this rank's rows of the ft_cls
+    batch: the launch counts, the heads of each attention and whether it
+    is sharded, and the replicated parameters on the host."""
+    from vipformer_tpu_torch.config import decode_arch_name
+    from vipformer_tpu_torch.nn.layers import MultiHeadAttention
+    from vipformer_tpu_torch.parallel import rank_seed, shard_batch
+    from vipformer_tpu_torch.parallel.sharding import sharded
+
+    cfg = ft_config(**decode_arch_name(TP_WHOLE_ARCH), atten_drop=0.1, mlp_drop=0.1,
+                    max_dpr=0.1)
+    models, state, step = dp_build("ft_cls", cfg)
+    batch = shard_batch(inp["batches"]["ft_cls bf16"])
+    gen = torch.Generator(device="cuda").manual_seed(rank_seed(SEED))
+    before = [p.detach().clone() for p in state.parameters()]
+    metrics: list = []
+    counts = _counted(f"  {who}: {TP_WHOLE_ARCH} bf16 ft_cls, 2 steps with dropout", lambda: [
+        metrics.append(step(state, batch, cfg.lr, gen)[1]) for _ in range(2)])
+    _moved_and_finite(f"{who}: {TP_WHOLE_ARCH}", None, state, before, metrics)
+    model = models["pc"]
+    out = {"counts": counts,
+           "heads": [(m.num_heads, m.model_axis) for m in model.modules()
+                     if isinstance(m, MultiHeadAttention)],
+           "replicated": {k: p.detach().cpu() for k, p in model.named_parameters()
+                          if not sharded(p)},
+           "shards": sum(sharded(p) for p in model.parameters())}
+    del models, state, step, before
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank(d: str) -> None:
+    """One rank of the TP phase: tp_run on its heads and rows (the ft_cls
+    f32 step alone on the TP_WIDE ranks), saved to d/rank{r}.pt with the
+    group's backend, layout and card."""
+    import torch.distributed as dist
+
+    from vipformer_tpu_torch.parallel import data_axis_size, model_axis_size, rank, world_size
+
+    inp = torch.load(os.path.join(d, "inputs.pt"), weights_only=False)
+    out = tp_run(inp, f"rank {rank()}", wide=world_size() == TP_WIDE)
+    if world_size() != TP_WIDE:
+        out["whole"] = tp_whole(inp, f"rank {rank()}")
+    out.update(backend=dist.get_backend(), layout=(data_axis_size(), model_axis_size()),
+               card=torch.cuda.current_device())
+    torch.save(out, os.path.join(d, f"rank{rank()}.pt"))
+
+
+def _tp_spawn(inp: dict, world: int) -> tuple[list, str, float]:
+    """tp_rank on `world` ranks at model_axis TP_AXIS, NCCL a card a rank
+    where there are `world` cards, else all on card 0 over gloo: (the
+    ranks' results, the backend, the seconds with the spawn)."""
+    import shutil
+    import tempfile
+
+    from vipformer_tpu_torch.parallel import mesh
+
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    d = tempfile.mkdtemp(prefix="vpt_tp_")
+    try:
+        torch.save(inp, os.path.join(d, "inputs.pt"))
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        print(f"  {world} ranks ({world // TP_AXIS} data x {TP_AXIS} model) over {backend} "
+              "(the ranks' own lines below):", flush=True)
+        mesh.spawn(tp_rank, world, "cuda", (d,), backend=backend, model_axis=TP_AXIS)
+        ranks = [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
+                 for r in range(world)]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    for r, got in enumerate(ranks):
+        expect(got["backend"] == backend and got["layout"] == (world // TP_AXIS, TP_AXIS),
+               f"TP rank {r}: backend {got['backend']}, layout {got['layout']}")
+    return ranks, backend, time.perf_counter() - t0
+
+
+def _tp_f32_against_one(kind: str, one: dict, ranks: list, what: str) -> None:
+    """Every rank's f32 step of `kind` against one process: the metrics
+    within STEP_TOL, the gathered tensors within the DP phase's bounds
+    (STEP_HEAD_TOL, Group2Emb's STEP_G2E_TOL, STATS_TOL)."""
+    want = one[f"{kind} f32"]
+    for k, v in want["metrics"].items():
+        errs = [abs(g[f"{kind} f32"]["metrics"][k] - v) for g in ranks]
+        print(f"  {what} {kind} f32 {k}: one process {v:.6f}, ranks' abs err "
+              + ", ".join(f"{e:.3e}" for e in errs) + f" (bound {STEP_TOL:.0e} relative)")
+        expect(max(errs) <= STEP_TOL * max(1.0, abs(v)), f"TP {what} {kind} f32 {k} off one "
+                                                         "process")
+    worst: dict = {}
+    for key, w in want["tensors"].items():
+        stat = "running_" in key
+        bnd = STATS_TOL if stat else (STEP_G2E_TOL if ".group2emb." in key else STEP_HEAD_TOL)
+        cls = "statistics" if stat else "parameters"
+        for g in ranks:
+            rel = rel_err(g[f"{kind} f32"]["tensors"][key], w)[1] / bnd
+            if rel >= worst.get(cls, (0.0, ""))[0]:
+                worst[cls] = (rel, key)
+    print(f"  {what} {kind} f32, {len(want['tensors'])} tensors (shards gathered) after one SGD "
+          "step (lr 1): worst error / bound "
+          + "; ".join(f"{c} {r:.3f} ({k})" for c, (r, k) in worst.items()))
+    expect(all(r <= 1.0 for r, _ in worst.values()), f"TP {what} {kind} f32 off one process")
+
+
+def check_tensor_parallel() -> None:
+    """Tensor parallelism at full width (parallel/, `--model_axis`): the
+    flagship's heads and MLP hidden units over TP_AXIS model ranks (NCCL
+    over two cards where there are two, else both on card 0 over gloo).
+    The f32 pretrain (B = 48) and ft_cls (B = 330) steps against one
+    process on this card (the DP phase's bounds, the shards gathered);
+    in bf16 the ft_cls eval forward (K4, K6 on each rank's 2 heads) against
+    one process's logits within MODEL_TOL, then TP_STEPS steps of each:
+    finite, every parameter moved, the replicated ones bitwise equal on
+    the ranks, each rank's launches of every counter equal to one
+    process's (the gates read the same shapes) and K4, K6, K7, K8 and K11
+    launched; ms a step at T = 1 and 2; two bf16 steps with dropout of
+    TP_WHOLE_ARCH, whose 3 heads stay whole on each rank (K8 on all of
+    them): its replicated parameters bitwise equal on the ranks. Last, the
+    f32 ft_cls step on TP_WIDE ranks, 2 data x 2 model, against one
+    process."""
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"tensor parallel: model_axis {TP_AXIS}, {cards} card(s) ({smi})")
+    torch.cuda.empty_cache()
+    inp: dict = {"states": {}, "batches": {}}
+    rng = np.random.default_rng(SEED + 43)
+    for kind in DP_KINDS:
+        cfg = dp_config(kind, "float32")
+        batch = (pretrain_batches(cfg, 1, PRETRAIN_BATCH) if kind == "pretrain"
+                 else ft_batches(cfg, "train"))[0]
+        models, state, step = dp_build(kind, cfg)
+        inp["states"][kind] = {n: {k: v.detach().cpu() for k, v in m.state_dict().items()}
+                               for n, m in models.items()}
+        inp["batches"][kind + " bf16"] = batch
+        if kind == "pretrain":  # the renders' colour offsets, as the DP phase's
+            batch = dict(batch, imgs=(batch["imgs"] + 2.0 * rng.standard_normal(
+                (len(batch["imgs"]), 1, 1, 3))).astype(np.float32))
+        inp["batches"][kind] = batch
+        del models, state, step
+    inp["batches"]["ft_cls eval"] = ft_batches(ft_config(), "test")[0][0]  # (batch, mask)
+    print("  one process (T = 1):")
+    one = tp_run(inp, "one process")
+    ranks, backend, spawn_s = _tp_spawn(inp, TP_AXIS)
+    print(f"  ranks on cards {[g['card'] for g in ranks]}, {spawn_s:.1f} s with their spawn "
+          f"({time.perf_counter() - t_phase:.1f} s into the phase)")
+    for kind in DP_KINDS:
+        _tp_f32_against_one(kind, one, ranks, f"T = {TP_AXIS}")
+    err = max(rel_err(g["ft_cls bf16"]["logits"], one["ft_cls bf16"]["logits"])[1]
+              for g in ranks)
+    print(f"  ft_cls bf16 eval logits [{FT_BATCH}, classes] on {TP_AXIS} model ranks against one "
+          f"process: {err:.3e} (bound {MODEL_TOL['bfloat16']:.0e} relative)")
+    expect(err <= MODEL_TOL["bfloat16"], "TP ft_cls bf16 eval logits off one process")
+    for kind in DP_KINDS:
+        w1 = one[f"{kind} bf16"]
+        for r, g in enumerate(ranks):
+            got = g[f"{kind} bf16"]
+            pairs = [("step", got["counts"], w1["counts"])]
+            if kind == "ft_cls":
+                pairs.append(("eval", got["eval_counts"], w1["eval_counts"]))
+            for what, c, want in pairs:
+                for name, n in want.items():
+                    expect(c[name] == n, f"TP {kind} {what} rank {r}: {name} launched {c[name]} "
+                                         f"times, one process {n}")
+            if kind == "ft_cls":
+                launched = {**got["counts"], **{k: v for k, v in got["eval_counts"].items() if v}}
+                expect(all(launched[n] > 0 for n in TP_LAUNCHED),
+                       f"TP rank {r}: not every one of {TP_LAUNCHED} launched: {launched}")
+        rep = [g[f"{kind} bf16"]["replicated"] for g in ranks]
+        differ = [k for k, v in rep[0].items() if not torch.equal(v, rep[1][k])]
+        print(f"  {kind} bf16, {TP_STEPS} steps: launches a rank "
+              + ", ".join(f"{n} {ranks[0][f'{kind} bf16']['counts'][n]}" for n in TP_LAUNCHED
+                          if n in w1["counts"])
+              + (", eval " + ", ".join(f"{n} {ranks[0]['ft_cls bf16']['eval_counts'][n]}"
+                                       for n in ("attn_kv_ln", "attn_small_qkv_ln"))
+                 if kind == "ft_cls" else "")
+              + f" (one process the same); {len(rep[0])} replicated parameter tensors, "
+              f"{len(differ)} differ between the ranks")
+        expect(not differ, f"TP {kind} bf16: replicated parameters differ between the ranks: "
+                           f"{differ[:5]}")
+    whole = [g["whole"] for g in ranks]
+    differ = [k for k, v in whole[0]["replicated"].items()
+              if not torch.equal(v, whole[1]["replicated"][k])]
+    print(f"  {TP_WHOLE_ARCH} (heads do not divide {TP_AXIS}), 2 bf16 steps with dropout: "
+          f"attentions (heads, model axis) {sorted(set(whole[0]['heads']))}, "
+          f"{whole[0]['shards']} sharded tensors a rank; K8 launches a rank "
+          + ", ".join(str(w["counts"]["attn_train_fwd"]) for w in whole)
+          + f"; {len(whole[0]['replicated'])} replicated parameter tensors, {len(differ)} "
+          "differ between the ranks")
+    expect(all(set(w["heads"]) == {(3, 1)} and w["shards"] > 0 for w in whole),
+           f"TP {TP_WHOLE_ARCH}: attentions not whole or MLPs not sharded")
+    expect(all(w["counts"]["attn_train_fwd"] > 0 and w["counts"]["attn_train_bwd"] > 0
+               for w in whole), f"TP {TP_WHOLE_ARCH}: K8 not launched on the whole attentions")
+    expect(not differ, f"TP {TP_WHOLE_ARCH}: replicated parameters differ between the ranks: "
+                       f"{differ[:5]}")
+    for kind in DP_KINDS:
+        ms1, ms2 = one[f"{kind} bf16"]["ms"], [g[f"{kind} bf16"]["ms"] for g in ranks]
+        print(f"  {kind} bf16 step: T = 1 {ms1:.2f} ms; T = {TP_AXIS} ({backend}, {cards} "
+              "card(s)) " + ", ".join(f"{m:.2f}" for m in ms2) + f" ms (ranks' host clock, {smi})")
+    wide, backend, spawn_s = _tp_spawn(inp, TP_WIDE)
+    print(f"  ranks on cards {[g['card'] for g in wide]}, {spawn_s:.1f} s with their spawn")
+    _tp_f32_against_one("ft_cls", one, wide, f"W = {TP_WIDE} ({TP_WIDE // TP_AXIS} x {TP_AXIS})")
+    print(f"phase tensor parallel took {time.perf_counter() - t_phase:.1f} s")
 
 
 # ------------------------------------------------------------ A/B mode
@@ -5973,6 +6268,7 @@ def main() -> int:
         drive_perceiver_head_split(eval_counts)
         check_resume_on_card()
         check_data_parallel({"pretrain": (STEPS, pretrain_counts), "ft_cls": (FT_STEPS, ft_counts)})
+        check_tensor_parallel()
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

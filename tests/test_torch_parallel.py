@@ -384,16 +384,17 @@ def test_pretrain_cli_on_two_ranks_and_resume(dp):
 
 @pytest.mark.parametrize("cli", ["pretrain", "ft_cls", "ft_partseg", "ft_semseg",
                                  "eval_zeroshot", "eval_fewshot"])
-def test_model_axis_is_refused(tmp_path, cli):
-    """--model_axis 2 raises, naming the tensor-parallel part of ROADMAP
-    item 16, before a run directory is made."""
+def test_model_axis_must_divide_the_ranks(tmp_path, cli):
+    """--num_devices 3 --model_axis 2 raises JAX's "not divisible by
+    model_axis" (parallel/mesh.py:70-71 there) before a run directory is
+    made; --model_axis itself runs (tests/test_torch_tensor_parallel.py)."""
     import importlib
 
     mod = importlib.import_module(f"vipformer_tpu_torch.cli.{cli}")
-    cfg, device = mod.parse_args(["--synthetic_data", "true", "--num_devices", "2",
+    cfg, device = mod.parse_args(["--synthetic_data", "true", "--num_devices", "3",
                                   "--model_axis", "2", "--run_dir", str(tmp_path),
                                   "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 16, its TP part"):
+    with pytest.raises(ValueError, match="3 devices not divisible by model_axis=2"):
         mod.main(cfg, device)
     assert not any(tmp_path.iterdir())
 

@@ -218,7 +218,7 @@ def test_port_and_chip_smoke_import_no_jax():
         "assert len(names) >= 20, names\n"
         "for name in ('cli.ft_cls', 'cli.common', 'ops.cuda.dense', 'losses.classification',\n"
         "             'train.meters', 'data.augment_device', 'data.ply', 'data.pipeline',\n"
-        "             'data.datasets'):\n"
+        "             'data.datasets', 'parallel.mesh', 'parallel.sharding', 'parallel.tp'):\n"
         "    assert 'vipformer_tpu_torch.' + name in names, name\n"
         "print('ok', len(names))\n"
     )

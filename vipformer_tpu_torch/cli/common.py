@@ -13,7 +13,13 @@ waiting at a barrier after each snapshot; each evaluation batch is split
 over the ranks and the results gathered (`gather_ranks`), and decisions
 (best epochs, saves) come from values the chief broadcasts, so that every
 rank takes the same branches. The batches must split evenly over the
-ranks (`check_batches`)."""
+ranks (`check_batches`).
+
+Under tensor parallelism (`--model_axis T`) the batches split over the
+data axis (W / T ranks) and the model ranks of one data index see the
+same rows; each CLI builds its model whole, restores into it, then
+shards it (`parallel.shard_model`) before the optimizer exists, and its
+run log names the layout (`layout`)."""
 
 from __future__ import annotations
 
@@ -27,7 +33,14 @@ import torch
 
 from vipformer_tpu_torch.config import Config
 from vipformer_tpu_torch.data.pipeline import Loader, collate_cls, pad_batch
-from vipformer_tpu_torch.parallel.mesh import all_gather_rows, data_axis_size, is_chief
+from vipformer_tpu_torch.parallel.mesh import (
+    all_gather_rows,
+    data_axis_size,
+    is_chief,
+    model_axis_size,
+    world_size,
+)
+from vipformer_tpu_torch.parallel.sharding import load_full_state
 from vipformer_tpu_torch.parallel.sharding import round_up_batch, shard_batch
 from vipformer_tpu_torch.train.checkpoint import (
     branch_state,
@@ -96,9 +109,15 @@ def check_batches(cfg: Config, names=("batch_size", "test_batch_size")) -> None:
         round_up_batch(getattr(cfg, name), data_axis_size(), name)
 
 
+def layout() -> str:
+    """The run's ranks as the log names them: "W = D x T (data x model)"."""
+    return (f"W = {world_size()} = {data_axis_size()} x {model_axis_size()} "
+            "(data x model)")
+
+
 def gather_ranks(t: torch.Tensor) -> torch.Tensor:
-    """The ranks' rows of an evaluation output stacked in rank order (t
-    itself with one rank)."""
+    """The data group's rows of an evaluation output stacked in data-index
+    order (t itself with one rank)."""
     with torch.no_grad():
         return all_gather_rows(t)
 
@@ -140,7 +159,7 @@ def restore_eval_model(model, cfg: Config, run: Run) -> str:
     if not os.path.exists(path):
         run.write(f"WARNING: no checkpoint at {path}; evaluating raw init")
         return path
-    model.load_state_dict(branch_state(load_checkpoint(path)))
+    load_full_state(model, branch_state(load_checkpoint(path)))
     run.write(f"loaded pretrained model from {path}")
     return path
 

@@ -32,7 +32,7 @@ from vipformer_tpu_torch.config import Config, add_config_args, config_from_name
 from vipformer_tpu_torch.data.datasets import ModelNet40SVM, ScanObjectNNSVM
 from vipformer_tpu_torch.evaluation.fewshot import fewshot_eval
 from vipformer_tpu_torch.models.factory import build_ft_cls, build_pc_model
-from vipformer_tpu_torch.parallel import is_chief, run_ranks
+from vipformer_tpu_torch.parallel import is_chief, run_ranks, shard_model
 from vipformer_tpu_torch.train.trainer import make_feats_fn
 
 DATASETS = {"ModelNet40": ModelNet40SVM, "ScanObjectNN": ScanObjectNNSVM}
@@ -55,6 +55,7 @@ def evaluate(cfg: Config, device: str) -> dict | None:
     else:
         model = build_pc_model(cfg, device=device)
     restore_eval_model(model, cfg, run)
+    shard_model(model, run.write)
     feats, labels = extract_features(make_feats_fn(model), pool, cfg.test_batch_size)
     if not is_chief():
         return None

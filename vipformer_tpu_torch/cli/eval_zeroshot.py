@@ -36,7 +36,7 @@ from vipformer_tpu_torch.config import Config, add_config_args, config_from_name
 from vipformer_tpu_torch.evaluation.flops import complexity_report
 from vipformer_tpu_torch.evaluation.svm import fit_rbf_svm, fit_svm, grid_search_svm
 from vipformer_tpu_torch.models.factory import build_pc_model
-from vipformer_tpu_torch.parallel import is_chief, run_ranks
+from vipformer_tpu_torch.parallel import is_chief, run_ranks, shard_model
 from vipformer_tpu_torch.train.trainer import make_feats_fn
 
 
@@ -59,6 +59,7 @@ def evaluate(cfg: Config, device: str) -> dict | None:
     report = complexity_report(model, torch.zeros((cfg.test_batch_size, cfg.num_test_points, 3)))
     run.write(f"total parameters: {report['params']:,}; FLOPs per {cfg.test_batch_size}-batch: "
               f"{report['flops_per_batch']:,.0f}")
+    shard_model(model, run.write)  # after the counts, which are the whole model's
 
     feats_fn = make_feats_fn(model)
     tr_feats, tr_labels = extract_features(feats_fn, train_set, cfg.test_batch_size)

@@ -50,6 +50,7 @@ from vipformer_tpu_torch.cli.common import (
     eval_batches,
     extract_features,
     gather_ranks,
+    layout,
     restore_pretrained,
     resume_training_state,
     save_rolling,
@@ -61,10 +62,13 @@ from vipformer_tpu_torch.models.factory import build_ft_cls
 from vipformer_tpu_torch.parallel import (
     broadcast_object,
     data_axis_size,
+    data_index,
+    load_full_state,
     place_state,
-    rank,
     rank_seed,
     run_ranks,
+    shard_model,
+    world_size,
 )
 from vipformer_tpu_torch.train.checkpoint import branch_state, load_checkpoint, save_checkpoint
 from vipformer_tpu_torch.train.meters import AverageMeter
@@ -114,22 +118,23 @@ def train(cfg: Config, device: str) -> dict:
         run.write("wandb is not ported: metrics.jsonl is the only metrics channel")
     train_set, test_set = datasets(cfg)
     train_loader = Loader(train_set, cfg.batch_size, collate_cls, shuffle=True, seed=cfg.seed,
-                          drop_last=True, num_workers=cfg.num_workers, rank=rank(),
+                          drop_last=True, num_workers=cfg.num_workers, rank=data_index(),
                           world=data_axis_size())
     model = build_ft_cls(cfg, device=device)
     if cfg.resume:
         restore_backbone_from(model, cfg, run.write)
+    shard_model(model, run.write)
     state = create_state(cfg, {"pc": model})
     start_epoch, last_meta = resume_training_state(run, state, cfg)
     place_state(state)
     step = make_cls_step(cfg, model)
     eval_step = make_cls_eval(model)
-    run.write(f"ft_cls on {device} x {data_axis_size()}: {cfg.ft_dataset} {len(train_set)} train / "
+    run.write(f"ft_cls on {device} x {world_size()}: {cfg.ft_dataset} {len(train_set)} train / "
               f"{len(test_set)} test clouds of {cfg.num_ft_points} points, {len(train_loader)} "
-              f"batches of {cfg.batch_size}, {cfg.compute_dtype}")
+              f"batches of {cfg.batch_size}, {cfg.compute_dtype}; {layout()}")
 
     if cfg.eval_only:
-        model.load_state_dict(branch_state(load_checkpoint(run.model_path("model_best"))))
+        load_full_state(model, branch_state(load_checkpoint(run.model_path("model_best"))))
         acc = evaluate(eval_step, test_set, cfg.test_batch_size)
         run.write(f"eval-only: test acc {acc:.4f}")
         return {"best_acc": acc, "best_epoch": -1}

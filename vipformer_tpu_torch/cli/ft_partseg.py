@@ -48,6 +48,7 @@ from vipformer_tpu_torch.cli.common import (
     check_batches,
     eval_batches,
     gather_ranks,
+    layout,
     restore_pretrained,
     resume_training_state,
     save_rolling,
@@ -60,10 +61,12 @@ from vipformer_tpu_torch.models.factory import build_ft_partseg
 from vipformer_tpu_torch.parallel import (
     broadcast_object,
     data_axis_size,
+    data_index,
     place_state,
-    rank,
     rank_seed,
     run_ranks,
+    shard_model,
+    world_size,
 )
 from vipformer_tpu_torch.train.checkpoint import save_checkpoint
 from vipformer_tpu_torch.train.meters import AverageMeter
@@ -106,20 +109,21 @@ def train(cfg: Config, device: str) -> dict:
     test_set = ShapeNetPart(cfg.data_dir, "test", cfg.num_ft_points, cfg.class_choice)
     train_loader = Loader(train_set, cfg.batch_size, collate_partseg, shuffle=True,
                           seed=cfg.seed, drop_last=True, num_workers=cfg.num_workers,
-                          rank=rank(), world=data_axis_size())
+                          rank=data_index(), world=data_axis_size())
     model = build_ft_partseg(cfg, device=device)
     if cfg.resume:
         restore_backbone_from(model, cfg, run.write)
+    shard_model(model, run.write)
     state = create_state(cfg, {"pc": model})
     start_epoch, last_meta = resume_training_state(run, state, cfg)
     place_state(state)
     step = make_partseg_step(cfg, model)
     eval_step = make_partseg_eval(model)
-    run.write(f"ft_partseg on {device} x {data_axis_size()}: ShapeNetPart {len(train_set)} "
+    run.write(f"ft_partseg on {device} x {world_size()}: ShapeNetPart {len(train_set)} "
               f"trainval / "
               f"{len(test_set)} test clouds of {cfg.num_ft_points} points, {len(train_loader)} "
               f"batches of {cfg.batch_size}, {cfg.compute_dtype}, patch_compat "
-              f"{cfg.patch_compat}, grad clip {cfg.grad_clip_norm}")
+              f"{cfg.patch_compat}, grad clip {cfg.grad_clip_norm}; {layout()}")
 
     schedule = Schedule(cfg)
     generator = torch.Generator(device=device).manual_seed(rank_seed(cfg.seed))

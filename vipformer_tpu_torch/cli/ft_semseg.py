@@ -49,6 +49,7 @@ from vipformer_tpu_torch.cli.common import (
     check_batches,
     eval_batches,
     gather_ranks,
+    layout,
     restore_pretrained,
     resume_training_state,
     save_rolling,
@@ -61,10 +62,12 @@ from vipformer_tpu_torch.models.factory import build_ft_semseg
 from vipformer_tpu_torch.parallel import (
     broadcast_object,
     data_axis_size,
+    data_index,
     place_state,
-    rank,
     rank_seed,
     run_ranks,
+    shard_model,
+    world_size,
 )
 from vipformer_tpu_torch.train.checkpoint import save_checkpoint
 from vipformer_tpu_torch.train.meters import AverageMeter
@@ -121,18 +124,19 @@ def train(cfg: Config, device: str) -> dict:
     test_set = _SliceChannels(S3DIS(cfg.data_dir, "test", cfg.test_area), pc)
     train_loader = Loader(train_set, cfg.batch_size, collate_semseg, shuffle=True,
                           seed=cfg.seed, drop_last=True, num_workers=cfg.num_workers,
-                          rank=rank(), world=data_axis_size())
+                          rank=data_index(), world=data_axis_size())
     model = build_ft_semseg(cfg, device=device)
     if cfg.resume:
         restore_backbone_from(model, cfg, run.write)
+    shard_model(model, run.write)
     state = create_state(cfg, {"pc": model})
     start_epoch, last_meta = resume_training_state(run, state, cfg)
     place_state(state)
     step = make_semseg_step(cfg, model)
     eval_step = make_semseg_eval(model)
-    run.write(f"ft_semseg on {device} x {data_axis_size()}: S3DIS {len(train_set)} train / "
+    run.write(f"ft_semseg on {device} x {world_size()}: S3DIS {len(train_set)} train / "
               f"{len(test_set)} test blocks of 4096 points x {pc} channels, "
-              f"{len(train_loader)} batches of {cfg.batch_size}, {cfg.compute_dtype}")
+              f"{len(train_loader)} batches of {cfg.batch_size}, {cfg.compute_dtype}; {layout()}")
 
     schedule = Schedule(cfg)
     generator = torch.Generator(device=device).manual_seed(rank_seed(cfg.seed))

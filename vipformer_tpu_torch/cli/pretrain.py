@@ -62,6 +62,7 @@ from vipformer_tpu_torch.cli.common import (
     check_batches,
     dump_feats_artifact,
     extract_features,
+    layout,
 )
 from vipformer_tpu_torch.config import Config, add_config_args, config_from_namespace
 from vipformer_tpu_torch.data.datasets import ModelNet40SVM, ScanObjectNNSVM, ShapeNetRender
@@ -76,11 +77,14 @@ from vipformer_tpu_torch.models.factory import build_img_model, build_pc_model
 from vipformer_tpu_torch.parallel import (
     broadcast_object,
     data_axis_size,
+    data_index,
     is_chief,
+    model_axis_size,
     place_state,
-    rank,
     rank_seed,
     run_ranks,
+    shard_model,
+    world_size,
 )
 from vipformer_tpu_torch.train.checkpoint import (
     load_metadata,
@@ -109,7 +113,7 @@ def train_loader(cfg: Config) -> Loader:
                                synthetic_size=cfg.synthetic_size, raw_views=cfg.device_augs)
     return Loader(train_set, cfg.batch_size,
                   collate_pretrain_raw if cfg.device_augs else collate_pretrain, shuffle=True,
-                  seed=cfg.seed, drop_last=True, num_workers=cfg.num_workers, rank=rank(),
+                  seed=cfg.seed, drop_last=True, num_workers=cfg.num_workers, rank=data_index(),
                   world=data_axis_size())
 
 
@@ -173,6 +177,8 @@ def train(cfg: Config, device: str) -> dict:
     models = {"pc": build_pc_model(cfg, device=device)}
     if cfg.modality != "imc-only":
         models["img"] = build_img_model(cfg, device=device)
+    for m in models.values():
+        shard_model(m, run.write)
     state = create_state(cfg, models)
     world = data_axis_size()
     step = make_pretrain_step(cfg, models["pc"], models.get("img"), neg_groups=world)
@@ -180,10 +186,10 @@ def train(cfg: Config, device: str) -> dict:
     schedule = Schedule(cfg)
     generator = torch.Generator(device=device).manual_seed(rank_seed(cfg.seed))
     kind = "synthetic" if train_set.synthetic else "real"
-    run.write(f"pretrain on {device} x {world}: {len(train_set)} {kind} samples, {len(loader)} "
-              f"batches of {cfg.batch_size}, modality {cfg.modality}, {cfg.compute_dtype}, "
-              f"{'device' if cfg.device_augs else 'host'} augmentation; "
-              f"probe: {cfg.pt_dataset} {len(probe_train)}/{len(probe_test)}")
+    run.write(f"pretrain on {device} x {world_size()}: {len(train_set)} {kind} samples, "
+              f"{len(loader)} batches of {cfg.batch_size}, modality {cfg.modality}, "
+              f"{cfg.compute_dtype}, {'device' if cfg.device_augs else 'host'} augmentation; "
+              f"probe: {cfg.pt_dataset} {len(probe_train)}/{len(probe_test)}; {layout()}")
 
     start_epoch, best_acc, best_epoch = resume(run, state, cfg) if cfg.resume else (0, 0.0, -1)
     place_state(state)
@@ -233,7 +239,8 @@ def train(cfg: Config, device: str) -> dict:
         run.metrics(epoch, lr=lr, pretrain_loss=epoch_loss, imid_loss=means["loss_imid"],
                     cmid_loss=means["loss_cmid"], svm_test_acc=test_acc, svm_best_acc=best_acc,
                     train_time=train_time, test_time=test_time,
-                    clouds_per_s=2 * n * cfg.batch_size / train_time, ranks=world)
+                    clouds_per_s=2 * n * cfg.batch_size / train_time, ranks=world_size(),
+                    model_axis=model_axis_size())
     run.write(f"final best probe acc {best_acc:.4f} at epoch {best_epoch}")
     if cfg.dump_feats and cfg.epochs > start_epoch:
         # the last probe epoch's test-split features

@@ -15,6 +15,9 @@ map as
 so `model.load_state_dict(from_jax_variables(variables), strict=True)`
 loads a flax checkpoint of the same architecture. Reference `.pth` files
 reach the port through `tools/convert_torch_ckpt.py` and then this bridge.
+A model sharded over a model axis (`parallel.shard_model`) takes
+`jax_state_for(model, variables)`: the same state dict, each sharded
+tensor sliced to this rank's part of JAX's global array.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ from typing import Mapping
 
 import numpy as np
 import torch
+
+from vipformer_tpu_torch.parallel.sharding import shard_state_dict
 
 _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias",
                  "position_emb": "position_emb", "latent": "latent",
@@ -60,3 +65,9 @@ def grads_from_jax(grads: Mapping) -> dict[str, torch.Tensor]:
     """A JAX gradient tree over `params` (nested dicts of arrays) -> the
     same gradients under the port's parameter names and layouts."""
     return from_jax_variables({"params": grads})
+
+
+def jax_state_for(model: torch.nn.Module, variables: Mapping) -> dict[str, torch.Tensor]:
+    """`from_jax_variables(variables)` sliced for this rank's shards of
+    `model` (the whole state dict at model_axis 1)."""
+    return shard_state_dict(model, from_jax_variables(variables))

@@ -44,13 +44,15 @@ def nt_xent_grouped(z0: torch.Tensor, z1: torch.Tensor, num_groups: int,
 
 def nt_xent_data_parallel(z0: torch.Tensor, z1: torch.Tensor, num_groups: int,
                           temperature: float = 0.1) -> torch.Tensor:
-    """NT-Xent of a global batch split contiguously over the ranks, each
-    rank holding its rows of z0, z1: `num_groups` groups over the global
-    batch, as JAX's `nt_xent_grouped` (losses/contrastive.py:51-76). With
+    """NT-Xent of a global batch split contiguously over the data axis
+    (the data group's D ranks; the model ranks of one data index compute
+    the same loss), each rank holding its rows of z0, z1: `num_groups`
+    groups over the global batch, as JAX's `nt_xent_grouped`
+    (losses/contrastive.py:51-76). With
     one group (`--global_negatives`) every rank gathers the ranks'
     projections (`all_gather_rows`, whose gradient sums the ranks') and
     computes the one global loss; otherwise the groups fall within the
-    ranks (num_groups a multiple of W) and each rank computes its own,
+    ranks (num_groups a multiple of D) and each rank computes its own,
     with nothing exchanged. Returns this rank's loss: the step's mean over
     the ranks is the global one."""
     world = data_axis_size()

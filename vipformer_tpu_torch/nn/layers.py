@@ -51,6 +51,7 @@ from vipformer_tpu_torch.ops.cuda import flash_train as kflash
 from vipformer_tpu_torch.ops.cuda import layernorm as kln
 from vipformer_tpu_torch.ops.cuda.stem import BN_EPS
 from vipformer_tpu_torch.parallel.mesh import all_reduce_sum, data_axis_size
+from vipformer_tpu_torch.parallel.tp import copy_to_model, reduce_from_model
 
 BN_MOMENTUM = 0.9  # flax's; torch momentum 0.1
 
@@ -82,17 +83,40 @@ class Dense(nn.Module):
     post-free segment with the most rows (else is added to the sum), and
     each segment takes K11 on its own row count; segments broadcast
     against each other, so a [B, 1, C] segment is multiplied once per
-    cloud."""
+    cloud.
+
+    Tensor parallelism (`shard`, parallel/sharding.py): a "col" Dense
+    holds its rank's rows of the output features (and of the bias), a
+    "row" Dense the matching columns of the input features, its partial
+    products summed over the model group (`reduce_from_model`) before the
+    whole bias is added, JAX's cast-then-bias order. K11 then sees the
+    local operands, as JAX's (dense.py:222-252): a col Dense's dW from its
+    local dy, a row Dense's from its local x, with no model reduction."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True, dtype=None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(features, in_features))
         self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
         self.dtype = dtype
+        self.tp_role: str | None = None  # "col", "row" or None (replicated)
         bound = 1.0 / math.sqrt(in_features)  # torch nn.Linear default init
         nn.init.uniform_(self.weight, -bound, bound)
         if self.bias is not None:
             nn.init.uniform_(self.bias, -bound, bound)
+
+    @torch.no_grad()
+    def shard(self, role: str, t: int, i: int) -> None:
+        """Keep model rank i's slice of T: the output rows ("col", with the
+        bias's) or the input columns ("row"); each kept parameter is marked
+        with the torch axis it is split on (`tp_dim`)."""
+        dim = 0 if role == "col" else 1
+        n = self.weight.shape[dim] // t
+        self.weight = nn.Parameter(self.weight.narrow(dim, i * n, n).clone())
+        self.weight.tp_dim = dim
+        if role == "col" and self.bias is not None:
+            self.bias = nn.Parameter(self.bias[i * n:(i + 1) * n].clone())
+            self.bias.tp_dim = 0
+        self.tp_role = role
 
     def kernel(self, dt) -> torch.Tensor:
         """The weight as the flax kernel [in, out] in dtype `dt`."""
@@ -116,6 +140,11 @@ class Dense(nn.Module):
                 dt = torch.promote_types(dt, s.dtype)
         w = self.kernel(dt)
         bias = self.bias.to(dt) if self.bias is not None else None
+        if self.tp_role == "row":
+            if len(segs) > 1 or segs[0][1] is not None:
+                raise ValueError("a row-sharded Dense takes one plain input")
+            y = reduce_from_model(self._product(segs[0][0].to(dt), w, None))
+            return y + bias if bias is not None else y
         free = [i for i, (_, post) in enumerate(segs) if post is None]
         bias_seg = max(free, key=lambda i: segs[i][0].numel() // segs[i][0].shape[-1],
                        default=None)
@@ -238,7 +267,10 @@ class BatchNorm(nn.Module):
 
 
 class MLP(nn.Module):
-    """LN -> Dense(widen*D) -> GELU(exact) -> Dense(D)."""
+    """LN -> Dense(widen*D) -> GELU(exact) -> Dense(D). Under tensor
+    parallelism Dense_0 is column- and Dense_1 row-sharded: each model
+    rank computes its slice of the hidden units, and the normalised input
+    passes `copy_to_model` first."""
 
     def __init__(self, d: int, widening_factor: int, dtype=None):
         super().__init__()
@@ -247,7 +279,10 @@ class MLP(nn.Module):
         self.Dense_1 = Dense(widening_factor * d, d, dtype=dtype)
 
     def forward(self, x):
-        return self.Dense_1(gelu_exact(self.Dense_0(self.LayerNorm_0(x))))
+        h = self.LayerNorm_0(x)
+        if self.Dense_0.tp_role == "col":
+            h = copy_to_model(h)
+        return self.Dense_1(gelu_exact(self.Dense_0(h)))
 
 
 class MultiHeadAttention(nn.Module):
@@ -261,7 +296,15 @@ class MultiHeadAttention(nn.Module):
     projections) the training kernel K8 in train mode, the streamed packed
     kernel K13, the small-M kernel K5, and last the head-split attention:
     K14 where its gate holds (the only kernel that takes v != qk), else the
-    plain attention with its dropout."""
+    plain attention with its dropout.
+
+    Tensor parallelism (`shard_heads`, from parallel/sharding.py
+    `shard_model`): model rank i of T runs heads [i H/T, (i+1) H/T), its
+    q/k/v projections column- and o_proj row-sharded, so `num_heads`,
+    `qk_channels` and `v_channels` are the rank's own and every route
+    above (K5, K8, K13, K14, K15 and the plain one) runs on them; the
+    inputs pass `copy_to_model` first. The plain route's dropout draws
+    the mask of all H heads and keeps this rank's, the one-process mask."""
 
     def __init__(self, d: int, num_heads: int, dtype=None, dropout: float = 0.0, *,
                  kv_in: int | None = None, qk_channels: int | None = None,
@@ -274,6 +317,7 @@ class MultiHeadAttention(nn.Module):
         kv_in = kv_in or d
         self.num_heads = num_heads
         self.qk_channels, self.v_channels = qk, v
+        self.model_axis, self.head_offset = 1, 0
         self.dropout = dropout
         self.scale = (qk // num_heads) ** -0.5
         self.q_proj = Dense(d, qk, use_bias=False, dtype=dtype)
@@ -281,7 +325,19 @@ class MultiHeadAttention(nn.Module):
         self.v_proj = Dense(kv_in, v, use_bias=False, dtype=dtype)
         self.o_proj = Dense(v, out_channels or d, dtype=dtype)
 
+    def shard_heads(self, t: int, i: int) -> None:
+        """Run model rank i's H / T heads (its Denses are sliced by
+        `shard_model` after this, by their paths' roles)."""
+        self.num_heads //= t
+        self.qk_channels //= t
+        self.v_channels //= t
+        self.model_axis, self.head_offset = t, i * self.num_heads
+
     def forward(self, x_q, x_kv, generator=None):
+        if self.model_axis > 1:
+            same = x_kv is x_q
+            x_q = copy_to_model(x_q)
+            x_kv = x_q if same else copy_to_model(x_kv)
         h, qk, vc = self.num_heads, self.qk_channels, self.v_channels
         g, m = x_q.shape[1], x_kv.shape[1]
         on_card = x_q.is_cuda
@@ -301,7 +357,8 @@ class MultiHeadAttention(nn.Module):
             # scores and the mask never exist in memory; the backward
             # regenerates the mask from the seed
             seed = kflash.draw_seed(generator, self.dropout, q.device)
-            o = kflash.flash_attention_train(q, k, v, seed, h, self.scale, self.dropout)
+            o = kflash.flash_attention_train(q, k, v, seed, h, self.scale, self.dropout,
+                                             sharded=self.model_axis > 1)
             return self.o_proj(o)
         if kattn.packed_attention_enabled(h, qk, vc, m, self.dropout, self.training, on_card):
             o = kattn.fused_attention_packed(q, k, v, num_heads=h, scale=self.scale)  # K13
@@ -319,7 +376,8 @@ class MultiHeadAttention(nn.Module):
         else:
             rate = self.dropout if self.training else 0.0
             o = dot_product_attention(split(q), split(k), split(v), scale=self.scale,
-                                      dropout_rate=rate, generator=generator)
+                                      dropout_rate=rate, generator=generator,
+                                      heads=(self.head_offset, h * self.model_axis))
         b, _, n, c = o.shape
         return self.o_proj(o.transpose(1, 2).reshape(b, n, h * c))
 
@@ -333,7 +391,11 @@ class CrossAttention(nn.Module):
     the weights) in train mode, K4 in eval; the q/o projections are the
     Dense modules. Elsewhere (raw tokens whose width is not a multiple of
     128, as the Fourier image tokens; M < 512 in eval) both norms run here
-    and the MultiHeadAttention routes the rest."""
+    and the MultiHeadAttention routes the rest. Under tensor parallelism
+    K7 and K4 run on this model rank's heads and its column slices of wk
+    and wv; the normalised queries pass `copy_to_model` before q_proj and
+    the raw kv tokens before K7, whose dx is then summed over the model
+    group by the copy's backward (JAX flash_train.py:821-830)."""
 
     def __init__(self, d: int, num_heads: int, dtype=None, dropout: float = 0.0, *,
                  kv_in: int | None = None, qk_channels: int | None = None,
@@ -350,14 +412,17 @@ class CrossAttention(nn.Module):
         h, qk, vc = att.num_heads, att.qk_channels, att.v_channels
         m, din = x_kv.shape[1], x_kv.shape[-1]
         on_card = x_q.is_cuda
+        sharded = att.model_axis > 1
         if kflash.flash_train_kv_enabled(h, qk, vc, din, self.training, on_card):
-            q = att.q_proj(self.q_norm(x_q))
+            xq = self.q_norm(x_q)
+            q = att.q_proj(copy_to_model(xq) if sharded else xq)
             dt = q.dtype
+            xkv = copy_to_model(x_kv.to(dt)) if sharded else x_kv.to(dt)
             seed = kflash.draw_seed(generator, att.dropout, q.device)
             o = kflash.flash_attention_train_kv(
-                q, x_kv.to(dt), self.kv_norm.weight, self.kv_norm.bias,
+                q, xkv, self.kv_norm.weight, self.kv_norm.bias,
                 att.k_proj.kernel(dt), att.v_proj.kernel(dt), seed,
-                h, att.scale, att.dropout,
+                h, att.scale, att.dropout, sharded=sharded,
             )
             return att.o_proj(o)
         if kattn.packed_attention_kv_enabled(h, qk, vc, m, din, att.dropout, self.training,
@@ -377,7 +442,11 @@ class SelfAttention(nn.Module):
     and the q/k/v projections run inside K6 and only o_proj stays a Dense
     (JAX layers.py:725-758); elsewhere the MultiHeadAttention routes (K15
     at 512 latents, where K6's tiles do not fit; K14 at unequal q/k and v
-    widths, which no packed kernel takes)."""
+    widths, which no packed kernel takes). Under tensor parallelism K6
+    runs on this model rank's heads with its column slices of wq|wk|wv,
+    then the row-sharded o_proj (JAX turns K6 off on any mesh of more
+    than one device, attention.py:807-812, for want of a shard_map
+    wrapper; the result is the same, ops/cuda/attention.py)."""
 
     def __init__(self, d: int, num_heads: int, dtype=None, dropout: float = 0.0, *,
                  qk_channels: int | None = None, v_channels: int | None = None):

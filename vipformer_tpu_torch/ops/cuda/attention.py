@@ -438,7 +438,10 @@ def packed_small_qkv_ln_enabled(num_heads: int, qk_ch: int, v_ch: int, b: int, g
     pad mask, equal q/k/v widths divisible by the heads, G <= 512, Din a
     multiple of 128 and <= 1024; auto only on the card and at
     b >= SA_QKV_LN_MIN_BATCH), with the kernel's shared memory in place of
-    the TPU's VMEM budget."""
+    the TPU's VMEM budget. JAX turns it off on any mesh of more than one
+    device (attention.py:807-812); the port runs it on each rank's heads
+    and its slices of wq|wk|wv (the comment above the gates), b being the
+    rank's rows."""
     if USE_SA_QKV_LN is not None:
         if not USE_SA_QKV_LN:
             return False
@@ -632,8 +635,10 @@ def fused_attention_enabled(dropout_rate: float, training: bool) -> bool:
     (attention.py:104-122): no dropout in train mode, then
     USE_FUSED_ATTENTION where it is forced, else False (its auto policy,
     measured a tie on the TPU; the port keeps it, on the card too). Its
-    other conditions have no counterpart here: the port runs on one card
-    and its attention sites take no padding mask."""
+    other conditions have no counterpart here: its attention sites take no
+    padding mask, and where JAX turns it off on any mesh of more than one
+    device (attention.py:107-109) the port runs it on each rank's own
+    heads (the comment above the gates)."""
     if dropout_rate > 0.0 and training:
         return False
     if USE_FUSED_ATTENTION is not None:
@@ -642,6 +647,25 @@ def fused_attention_enabled(dropout_rate: float, training: bool) -> bool:
 
 
 # -------------------------------------------------------------- gates
+# Tensor parallelism (parallel/): every gate below is called with the heads
+# and widths the calling layer holds, H / T heads and their slices of the
+# weights on a model rank where `tp_heads_shardable` let the layer shard
+# (JAX runs the same kernels on local heads under shard_map, shard.py:
+# 143-216), all H where it did not (JAX falls back to XLA's attention
+# there; the port keeps the kernel on whole heads, the same result). JAX
+# turns K6 and K14 off on any mesh of more than one device, for want of a
+# shard_map wrapper (attention.py:807-812 and :104-109), not of math; the
+# port keeps both live on each rank's heads (and, as on the data axis, no
+# gate reads the world size). tests/test_torch_tensor_parallel.py holds the
+# routes' results against the one-process forward.
+
+
+def tp_heads_shardable(num_heads: int, packed_dim: int, t: int) -> bool:
+    """Whether a packed [B, N, H*dh] attention splits over a model axis of
+    T as whole heads (JAX shard.py:143-151): H and the packed width
+    divide T."""
+    return t == 1 or (num_heads % t == 0 and packed_dim % t == 0)
+
 def small_smem_bytes(g: int, m: int) -> int:
     """The f32 K5's shared memory: q/k/v rows of 65 f32 and the [G, M+1]
     scores. The gate holds both routes to it, and the bf16 kernel takes
@@ -655,7 +679,9 @@ def packed_attention_enabled(num_heads: int, qk_ch: int, v_ch: int, m: int,
     dropout in train mode, equal q/k and v widths divisible by the heads;
     auto on the card at M >= 512 whose TPU chunk (`_kv_chunk_for`) is at
     least 256 tokens. No condition on the head width: the kernel raises at
-    one it is not built for (`require_head_width`)."""
+    one it is not built for (`require_head_width`). Under tensor
+    parallelism the heads and widths are the rank's own (as JAX's
+    `attention_sharded_call`; the comment above the gates)."""
     if dropout_rate > 0.0 and training:
         return False
     if qk_ch != v_ch or qk_ch % num_heads:
@@ -671,7 +697,9 @@ def packed_attention_kv_enabled(num_heads: int, qk_ch: int, v_ch: int, m: int, d
     (JAX attention.py:515-543): K4 at a CrossAttention, K15 at a
     MultiHeadAttention. K13's gate, eval only, and raw tokens Din a
     multiple of 128 and at most KV_MAX_DIN (the kernels keep a chunk of
-    them in shared memory)."""
+    them in shared memory). Under tensor parallelism the heads, widths
+    and wk / wv columns are the rank's own (JAX's
+    `kv_attention_sharded_call`)."""
     if training:
         return False
     if not packed_attention_enabled(num_heads, qk_ch, v_ch, m, dropout_rate, training, on_card):
@@ -684,7 +712,8 @@ def packed_small_attention_enabled(num_heads: int, qk_ch: int, v_ch: int, g: int
     """Whether an eval attention runs K5 (JAX attention.py:826-855): eval,
     equal q/k and v widths divisible by the heads; auto on the card at
     M < 512 and G <= 512, with its tiles in shared memory (in place of the
-    TPU's VMEM budget); none on the head width, as for K13."""
+    TPU's VMEM budget); none on the head width, as for K13. Under tensor
+    parallelism the heads and widths are the rank's own."""
     if training or qk_ch != v_ch or qk_ch % num_heads:
         return False
     if USE_FUSED_ATTENTION is not None:

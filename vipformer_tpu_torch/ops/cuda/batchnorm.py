@@ -22,7 +22,9 @@ ops/pallas/batchnorm.py).
   and its (dscale, dbias) before dx, which needs the global sums; the
   gradients returned for scale and bias stay this rank's sums, since the
   step sums the ranks' gradients afterwards (reducing them here too would
-  count them W times). One launch of each kernel a call at any W.
+  count them W times). One launch of each kernel a call at any W. Under
+  tensor parallelism the sums go over the data group (the ranks of one
+  model index), whose D = W / T ranks hold disjoint rows.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ import torch
 
 from vipformer_tpu_torch.ops import cuda
 from vipformer_tpu_torch.ops.cuda.layernorm import vec_for
-from vipformer_tpu_torch.parallel.mesh import data_axis_size
+from vipformer_tpu_torch.parallel.mesh import all_reduce_, data_axis_size
 
 STATS_LAUNCHES = cuda.LaunchCounter()
 GRAD_LAUNCHES = cuda.LaunchCounter()
@@ -202,9 +204,8 @@ class _BnTrainApply(torch.autograd.Function):
 
 
 def _all_reduce(*ts: torch.Tensor) -> tuple[torch.Tensor, ...]:
-    """The ranks' sums of 1-D f32 tensors, in one all-reduce."""
-    flat = torch.cat(ts)
-    torch.distributed.all_reduce(flat)
+    """The data group's sums of 1-D f32 tensors, in one all-reduce."""
+    flat = all_reduce_(torch.cat(ts))
     return tuple(flat.split([t.numel() for t in ts]))
 
 

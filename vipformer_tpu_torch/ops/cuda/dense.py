@@ -11,7 +11,11 @@ ops/pallas/dense.py).
   the f32 gradient bound. `plan_splits` / `split_rows` split the rows
   over blocks for either.
 * `dense_grad_enabled`: the port's copy of the JAX package's gate
-  (dense.py:127-186), so both packages route the same Dense layers.
+  (dense.py:127-186), so both packages route the same Dense layers. Under
+  tensor parallelism a sharded Dense calls it with its local widths (Cout
+  / T for a column-, Cin / T for a row-sharded one), as JAX's gate divides
+  them (dense.py:145-159), and K11 takes the local operands: dW comes out
+  as the rank's slice, with no model reduction (dense.py:222-252).
 * `dense_apply`: the Dense product as a `torch.autograd.Function` whose
   backward takes dW and db from K11, rounded to the compute dtype as the
   JAX custom VJP does (dense.py:259-260); dx stays a plain matmul.

@@ -31,6 +31,21 @@ values are scaled by 1/(1-rate). `keep_mask_plain` computes the same bits
 with int64 tensor ops, so the kernel and the twin drop the same elements.
 The seed is an int32 tensor [1] on the operands' device, so drawing it
 from a generator needs no host synchronisation.
+
+Under data and tensor parallelism (parallel/) each rank runs K7 and K8 on
+its own rows and, where the calling attention is sharded (`sharded=True`,
+decided by the layer: its heads divide the model axis), its own H / T
+heads (and K7 on its column slices of wk and wv); the wrappers then
+offset the seed by (data index x T + model index), as JAX's `seed_fn`
+(flash_train.py:333-360, 810-845), so that the model ranks of one data
+index, which draw the same seed, drop different elements; the forward and
+the backward take the same offset. K7's LayerNorm gradients are then
+partial sums over this rank's heads: its backward sums them over the
+model group. Its dx is partial too; the caller's `copy_to_model` in front
+of the kv tokens sums it. An attention kept whole runs all its heads on
+every model rank, with the seed offset by the data index alone and no
+model-group sum, so that its replicated activations and gradients stay
+the same on each.
 """
 
 from __future__ import annotations
@@ -40,6 +55,8 @@ import torch
 
 from vipformer_tpu_torch.ops import cuda
 from vipformer_tpu_torch.ops.cuda import attention, dense
+from vipformer_tpu_torch.parallel.mesh import data_index, model_axis_size, model_index
+from vipformer_tpu_torch.parallel.tp import sum_over_model
 
 FWD_LAUNCHES = cuda.LaunchCounter()
 BWD_LAUNCHES = cuda.LaunchCounter()
@@ -462,35 +479,57 @@ class _FlashTrain(torch.autograd.Function):
 
 class _FlashTrainKV(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, x, ln_w, ln_b, wk, wv, seed, num_heads, scale, rate):
+    def forward(ctx, q, x, ln_w, ln_b, wk, wv, seed, num_heads, scale, rate, sharded):
         fwd = attention_kv_fwd_kernel if q.is_cuda else attention_kv_fwd_plain
         out, lse = fwd(q, x, ln_w, ln_b, wk, wv, seed, num_heads, scale, rate)
         ctx.save_for_backward(q, x, ln_w, ln_b, wk, wv, out, lse, seed)
-        ctx.cfg = (num_heads, scale, rate)
+        ctx.cfg = (num_heads, scale, rate, sharded)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, x, ln_w, ln_b, wk, wv, out, lse, seed = ctx.saved_tensors
-        num_heads, scale, rate = ctx.cfg
+        num_heads, scale, rate, sharded = ctx.cfg
         delta = attention_delta(dout, out, num_heads)
         bwd = attention_kv_bwd_kernel if q.is_cuda else attention_kv_bwd_plain
         dq, dx, dln_w, dln_b, dwk, dwv = bwd(q, x, ln_w, ln_b, wk, wv, dout, lse, delta, seed,
                                              num_heads, scale, rate)
+        if sharded:  # this rank's heads' share of the LayerNorm's gradients
+            dln_w, dln_b = sum_over_model(torch.stack([dln_w, dln_b])).unbind(0)
         return (dq, dx, dln_w.to(ln_w.dtype), dln_b.to(ln_b.dtype), dwk, dwv,
-                None, None, None, None)
+                None, None, None, None, None)
 
 
-def flash_attention_train(q, k, v, seed, num_heads: int, scale: float, rate: float):
-    """Differentiable training attention with dropout `rate` (K8)."""
-    return _FlashTrain.apply(q, k, v, seed, num_heads, scale, rate)
+def shard_seed(seed: torch.Tensor, sharded: bool) -> torch.Tensor:
+    """The dropout seed of this rank's part of an attention, wrapped into
+    [0, 2^31): seed + data index x T + model index (JAX's seed_fn) where the
+    attention's heads are split over the model group, seed + data index
+    where every model rank runs all of them (the same draws on each, as
+    their activations are replicated); the seed itself on one rank."""
+    off = data_index() * model_axis_size() + model_index() if sharded else data_index()
+    if off == 0:
+        return seed
+    return ((seed.to(torch.int64) + off) % 2**31).to(torch.int32)
+
+
+def flash_attention_train(q, k, v, seed, num_heads: int, scale: float, rate: float,
+                          sharded: bool = False):
+    """Differentiable training attention with dropout `rate` (K8), on the
+    heads in q, k and v: this model rank's where `sharded` (the calling
+    attention's heads split over the model group), else all of them."""
+    return _FlashTrain.apply(q, k, v, shard_seed(seed, sharded), num_heads, scale, rate)
 
 
 def flash_attention_train_kv(q, x_kv, ln_w, ln_b, wk, wv, seed, num_heads: int, scale: float,
-                             rate: float):
+                             rate: float, sharded: bool = False):
     """Training cross-attention with the kv LN and k/v projections folded
-    in (K7); gradients flow to q, x_kv, ln_w, ln_b, wk and wv."""
-    return _FlashTrainKV.apply(q, x_kv, ln_w, ln_b, wk, wv, seed, num_heads, scale, rate)
+    in (K7); gradients flow to q, x_kv, ln_w, ln_b, wk and wv. Where
+    `sharded` (the calling attention's heads split over the model group),
+    q, wk and wv hold this model rank's heads, ln_w and ln_b get the model
+    group's summed gradients and x_kv this rank's share; else every model
+    rank runs all the heads and keeps its own (whole) gradients."""
+    return _FlashTrainKV.apply(q, x_kv, ln_w, ln_b, wk, wv, shard_seed(seed, sharded), num_heads,
+                               scale, rate, sharded)
 
 
 def draw_seed(generator: torch.Generator | None, rate: float, device) -> torch.Tensor:

@@ -35,7 +35,9 @@ gradients afterwards. The kernels and the twins split at the same seams:
 a kernel call then runs in three launches of its entry point (`stage` 1-3,
 csrc/g2e_train.cu `seam`), with an all-reduce between them; at W = 1 one
 launch (`stage` 0) runs the whole pass as before. A call counts one launch
-in either case.
+in either case. Under tensor parallelism the seams go over the data group
+(the D = W / T ranks of one model index); the stem is replicated on the
+model ranks of a data index, which run it on the same rows.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ import torch
 
 from vipformer_tpu_torch.ops import cuda
 from vipformer_tpu_torch.ops.cuda import dense as kdense
-from vipformer_tpu_torch.parallel.mesh import data_axis_size
+from vipformer_tpu_torch.parallel.mesh import all_reduce_, data_axis_size
 
 FWD_LAUNCHES = cuda.LaunchCounter()
 BWD_LAUNCHES = cuda.LaunchCounter()
@@ -157,17 +159,18 @@ def _dense(x, w, b, dt):
 
 
 def _global_rows(r: int) -> float:
-    """The rows of every rank's call: the ranks hold equal shards of the
-    global batch (parallel/sharding.py), so W r."""
+    """The rows of every rank's call over the data group: its ranks hold
+    equal shards of the global batch (parallel/sharding.py), so D r (the
+    model ranks of one data index hold the same rows, not more)."""
     return float(r * data_axis_size())
 
 
 def _seam(*ts: torch.Tensor) -> torch.Tensor:
-    """The BatchNorm seam: the ranks' sums of the column sums `ts`, stacked
-    [len(ts), C], in one all-reduce (their stack itself at W = 1)."""
+    """The BatchNorm seam: the data group's sums of the column sums `ts`,
+    stacked [len(ts), C], in one all-reduce (their stack itself at D = 1)."""
     out = torch.stack(ts)
     if data_axis_size() > 1:
-        torch.distributed.all_reduce(out)
+        all_reduce_(out)
     return out
 
 
@@ -375,9 +378,9 @@ def g2e_fwd_kernel(x0f, wb, s: int):
         n = _global_rows(r)
         sums = torch.empty((2 * C3,), dtype=torch.float32, device=dev)
         cuda.launch(fn, dev, *ptrs, sums.data_ptr(), n, 1)
-        torch.distributed.all_reduce(sums[:2 * C1])
+        all_reduce_(sums[:2 * C1])
         cuda.launch(fn, dev, *ptrs, sums.data_ptr(), n, 2)
-        torch.distributed.all_reduce(sums)
+        all_reduce_(sums)
         cuda.launch(fn, dev, *ptrs, sums.data_ptr(), n, 3)
     if dk != d:
         out, amax = out[:, :d].contiguous(), amax[:, :d].contiguous()

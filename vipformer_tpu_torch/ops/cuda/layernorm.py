@@ -61,7 +61,12 @@ def _pick_block_rows(r: int, d: int, itemsize: int) -> int:
 def layernorm_enabled(rows: int, d: int, itemsize: int) -> bool:
     """Whether a LayerNorm over `rows` rows of width d takes K17: only when
     USE_LAYERNORM forces it, and then where the JAX row blocking is
-    feasible."""
+    feasible. JAX turns it off at a model axis T > 1 (layernorm.py:154-158:
+    its wiring has no story for rows replicated over the model axis); the
+    port keeps it, forced, on the replicated rows of every model rank (a
+    LayerNorm's parameters are replicated and its input and output whole
+    on each rank, so the rows are the one-process rows of its data index;
+    the difference is recorded in ROADMAP Queue 3)."""
     if USE_LAYERNORM is not None:
         return USE_LAYERNORM and _pick_block_rows(rows, d, itemsize) > 0
     return False

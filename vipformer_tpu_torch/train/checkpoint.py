@@ -13,7 +13,11 @@ their fresh init, instead of a silent `load_state_dict(strict=False)`.
 Under data parallelism only the chief writes (JAX checkpoint.py:49), and
 every rank waits for the write at a barrier; a snapshot holds the
 modules themselves (the step averages gradients without wrapping them),
-so a multi-card checkpoint is a single-card one."""
+so a multi-card checkpoint is a single-card one. Under tensor parallelism
+every rank gathers the shards of each sharded tensor and of its optimizer
+moments over its model group first (`parallel/sharding.py`), so the file
+has the one-rank layout; a restore slices it for the rank's shards, and a
+file written at one model axis resumes at another."""
 
 from __future__ import annotations
 
@@ -23,7 +27,14 @@ import os
 import torch
 from torch import nn
 
-from vipformer_tpu_torch.parallel.mesh import barrier, is_chief
+from vipformer_tpu_torch.parallel.mesh import barrier, is_chief, model_axis_size
+from vipformer_tpu_torch.parallel.sharding import (
+    full_optimizer_state,
+    full_state_dict,
+    load_full_state,
+    shard_optimizer_state,
+    shard_state_dict,
+)
 
 
 def _cpu(tree):
@@ -40,12 +51,16 @@ def _cpu(tree):
 def save_checkpoint(path: str, models: dict[str, nn.Module] | nn.Module,
                     metadata: dict | None = None, extra: dict | None = None) -> None:
     """Save `models` ({name: module}, or one module) as CPU state dicts, and
-    the entries of `extra` beside them (tensors moved to the CPU). Every
-    rank calls it; the chief writes, the others wait for it."""
+    the entries of `extra` beside them (tensors moved to the CPU), sharded
+    tensors gathered whole. Every rank calls it; the chief writes, the
+    others wait for it."""
+    if isinstance(models, nn.Module):
+        models = {"model": models}
+    if model_axis_size() > 1:  # every rank takes part in the gathers
+        full = {name: full_state_dict(m) for name, m in models.items()}
     if is_chief():
-        if isinstance(models, nn.Module):
-            models = {"model": models}
-        state = {name: _cpu(m.state_dict()) for name, m in models.items()}
+        state = {name: _cpu(full[name] if model_axis_size() > 1 else m.state_dict())
+                 for name, m in models.items()}
         state.update(_cpu(extra or {}))
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         tmp = path + ".tmp"
@@ -72,22 +87,22 @@ def save_state(path: str, state, metadata: dict) -> None:
     checkpoint.py:43-61): every branch of `state` (a train.trainer
     TrainState), the optimizer's state dict and the step count."""
     save_checkpoint(path, state.models, metadata,
-                    {"optimizer": state.optimizer.state_dict(), "step": state.step})
+                    {"optimizer": full_optimizer_state(state.optimizer), "step": state.step})
 
 
 def restore_state(path: str, state) -> dict:
     """Put a `save_state` snapshot back into `state`, in place: each
     branch's tensors (parameters and BatchNorm statistics, strictly), the
     optimizer's moments and step counts (`Optimizer.load_state_dict` moves
-    them onto the parameters' device) and the step count. Returns the
-    snapshot's metadata."""
+    them onto the parameters' device) and the step count, each sharded
+    tensor sliced for this rank. Returns the snapshot's metadata."""
     ckpt = load_checkpoint(path)
     if "optimizer" not in ckpt:
         raise ValueError(f"{path} holds no optimizer state: it is not a snapshot a run "
                          "resumes from")
     for name, m in state.models.items():
-        m.load_state_dict(ckpt[name])
-    state.optimizer.load_state_dict(ckpt["optimizer"])
+        load_full_state(m, ckpt[name])
+    state.optimizer.load_state_dict(shard_optimizer_state(state.optimizer, ckpt["optimizer"]))
     state.step = int(ckpt["step"])
     return load_metadata(path)
 
@@ -113,7 +128,9 @@ def restore_backbone(model: nn.Module, pretrained: dict[str, torch.Tensor],
     init (0 and 1), as the JAX ft_partseg restores `params` alone
     (cli/ft_partseg.py:82-85); ft_cls restores both (cli/ft_cls.py:83-91).
     Returns (and hands `log`) the message "backbone restore: N tensors from
-    checkpoint; fresh init for [...]"; N counts the tensors taken."""
+    checkpoint; fresh init for [...]"; N counts the tensors taken. A
+    sharded model takes its slices of the full tensors."""
+    pretrained = shard_state_dict(model, pretrained)
     state = model.state_dict()
     skip = set() if buffers else {k for k, _ in model.named_buffers()}
     have = {k.split(".", 1)[0] for k in pretrained}

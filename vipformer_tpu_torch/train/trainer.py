@@ -26,6 +26,15 @@ concatenation, before the global-norm clip, so every rank applies the same
 update; the metrics are means over the ranks. A rank's loss is the mean
 over its rows, so the average is the gradient of the global batch's mean
 loss (its sync-BN backward sums every rank's rows).
+
+Tensor parallelism (a model axis T > 1, parallel/sharding.py): the
+averages above run over the data group (the W / T ranks of one model
+index, which hold disjoint rows); a rank's gradients of its shards are
+those of its slices, complete after the model group's exchanges
+(parallel/tp.py), and its replicated parameters' gradients equal the
+other model ranks', so every model rank of a data index applies the same
+update to its replicated parameters. The clip takes the norm of the full
+parameters (train/optim.py).
 """
 
 from __future__ import annotations
@@ -44,7 +53,7 @@ from vipformer_tpu_torch.data.augment_device import (
 from vipformer_tpu_torch.data.synthetic import INDEX_START, SEG_NUM
 from vipformer_tpu_torch.losses.classification import smoothed_cross_entropy
 from vipformer_tpu_torch.losses.contrastive import nt_xent_data_parallel
-from vipformer_tpu_torch.parallel.mesh import data_axis_size
+from vipformer_tpu_torch.parallel.mesh import all_reduce_, data_axis_size
 from vipformer_tpu_torch.train.optim import build_optimizer, clip_grad_global_norm, set_learning_rate
 
 
@@ -193,9 +202,9 @@ def _make_step(cfg: Config, models: list[nn.Module], loss_fn):
 
 def _average_over_ranks(tensors: list[torch.Tensor], world: int) -> None:
     """Each tensor (same device and dtype) replaced in place by its mean
-    over the ranks: one all-reduce of their flattened concatenation."""
-    flat = torch.cat([t.reshape(-1) for t in tensors])
-    torch.distributed.all_reduce(flat)
+    over the data group's `world` ranks: one all-reduce of their flattened
+    concatenation."""
+    flat = all_reduce_(torch.cat([t.reshape(-1) for t in tensors]))
     flat /= world
     for t, v in zip(tensors, flat.split([t.numel() for t in tensors])):
         t.copy_(v.view_as(t))
